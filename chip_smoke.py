@@ -5,15 +5,19 @@
    (one nvcc per source, in parallel).
 2. Drives the batched decode service
    (nhwcodec_tpu_torch.parallel.device_pipeline.decode_batch_device) on
-   host-encoded streams and the batched encode service (encode_batch_device)
-   on fixture and random images, checks every image and stream byte for
-   byte against the host decoder and encoder, and checks that every
-   kernel of each path was launched on that path (launch counts set to 0
-   just before the path and read just after); profiles each path and
-   splits its wall time over the host steps.
-3. Holds each of the six kernels to its torch twin on the card, at the
-   shapes the decode and encode paths give them at batch 16, and times
-   both (CUDA events around the wrapper call; torch.profiler device time).
+   host-encoded streams (q20 and a mixed q4/14/19/21 batch; q23 and q22
+   with the HQ residue and a mixed q20/22/23/21 batch; the sequential
+   mark-scan fallback, forced, at q20 and q23) and the batched encode
+   service (encode_batch_device) on fixture and random images, checks
+   every image and stream byte for byte against the host decoder and
+   encoder, and checks that every kernel of each path was launched on
+   that path (launch counts set to 0 just before the path and read just
+   after); profiles each service and splits its wall time over the host
+   steps.
+3. Holds each of the nine kernels and the mark scan to its torch twin on
+   the card, at the shapes the decode and encode paths give them at
+   batch 16, and times both (CUDA events around the wrapper call;
+   torch.profiler device time).
 4. Sweeps the decode colorspace over all 2^24 (y, u, v) triples in all
    four modes against the host decoder, and the encode colorspace over
    all 2^24 RGB triples (K6's per-pixel entry at q >= NORM, the on-card
@@ -51,8 +55,18 @@ KERNELS = {
                      "nhwcodec_tpu/ops/pallas_dwt.py:533"),
     "colorspace_down420": (CSRC + "colorspace.cu",
                            "nhwcodec_tpu/ops/pallas_colorspace.py:83"),
+    "synth_unnorm_rows_t": (CSRC + "dwt.cu",
+                            "nhwcodec_tpu/ops/pallas_dwt.py:298"),
+    "synth_norm_rows_clip_waves": (CSRC + "dwt.cu",
+                                   "nhwcodec_tpu/ops/pallas_dwt.py:586"),
+    "synth_norm_rows_clip": (CSRC + "dwt.cu",
+                             "nhwcodec_tpu/ops/pallas_dwt.py:325"),
+    "smooth_marks_seq": (CSRC + "dwt.cu",
+                         "nhwcodec_tpu/models/device_decode.py:126-148"),
 }
 DECODE_KERNELS = ("synth_level", "y_stage2_full", "uv_synth")
+HQ_KERNELS = ("synth_unnorm_rows_t", "synth_norm_rows_clip_waves")
+FALLBACK_KERNELS = ("synth_norm_rows_clip", "smooth_marks_seq")
 ENCODE_KERNELS = ("analysis_level_jp", "requant_tail", "colorspace_down420")
 
 
@@ -253,6 +267,22 @@ def mark_lists(rng, b, run=6):
     return out
 
 
+def out_of_order_marks(rng, b):
+    """Dering mark lists whose same-row runs of adjacent columns come in
+    descending column order (the depth planes refuse them; the scan's
+    live reads chain through each run), cols 1..254, of varied length."""
+    out = []
+    for n in range(b):
+        ms = []
+        for r in sorted(rng.choice(np.arange(1, 255), 40 - n, replace=False)):
+            c0 = int(rng.integers(1, 248))
+            cs = sorted(set(rng.integers(1, 255, 3).tolist()
+                            + list(range(c0, c0 + 6))), reverse=True)
+            ms.extend((int(r) << 8) | c for c in cs)
+        out.append(ms)
+    return out
+
+
 def sentinel_planes(rng, b):
     """Chroma coefficient planes with residue sentinels 5003..5006 in all
     three bands."""
@@ -308,6 +338,43 @@ def kernel_phase(dev) -> dict:
     check(torch.equal(dwt.y_stage2_full(et, edt, 1),
                       dwt.y_stage2_full_ref(et, edt, 1)),
           "y_stage2_full differs from its twin at the residue bound")
+
+    # K7-K9 at the HQ and fallback paths' shapes; K8 on the transposed
+    # near-flat planes with the depth planes above, so its waves fire
+    t = dwt.unnorm_rows_t_ref(jp).contiguous()
+    y9 = torch.from_numpy(planes(rng, B, 512, -20000, 20000)).to(dev)
+    cases = [
+        ("synth_unnorm_rows_t", f"({B},512,512) int16",
+         lambda: dwt.synth_unnorm_rows_t(y512),
+         lambda: dwt.unnorm_rows_t_ref(y512).contiguous()),
+        ("synth_norm_rows_clip_waves",
+         f"({B},512,512) int16 + depth, n_waves={n_waves}",
+         lambda: dwt.synth_norm_rows_clip_waves(t, dp, n_waves),
+         lambda: dwt.synth_norm_rows_clip_waves_ref(t, dp, n_waves)),
+        ("synth_norm_rows_clip", f"({B},512,512) int16",
+         lambda: dwt.synth_norm_rows_clip(y9),
+         lambda: dwt.synth_norm_rows_clip_ref(y9)),
+    ]
+    out.update({name: compare_and_time(name, shape, kern, twin)
+                for name, shape, kern, twin in cases})
+    fewer = dwt.synth_norm_rows_clip_waves(t, dp, n_waves - 1)
+    check(bool((fewer != dwt.synth_norm_rows_clip_waves_ref(t, dp, n_waves))
+               .any()), "K8's dering waves had no effect on the test planes")
+    # the mark scan works in place: each call takes its own clone of the
+    # plane, made before any timing
+    recs, valid = (torch.from_numpy(a).to(dev) for a in
+                   tdd.pad_marks(out_of_order_marks(rng, B)))
+    check(not tdd.mark_depth_planes(out_of_order_marks(
+        np.random.default_rng(SEED), 1))[2], "scan marks are in order")
+    x = torch.from_numpy(planes(rng, B, 512, -12, 13)).to(dev)
+    k_in = fresh_inputs([x], 4 + RUNS + PROFILE_TRIES * 10)
+    t_in = fresh_inputs([x], 4 + RUNS + PROFILE_TRIES)
+    out["smooth_marks_seq"] = compare_and_time(
+        "smooth_marks_seq",
+        f"({B},512,512) int16, {int(valid.sum())} out-of-order marks",
+        lambda: dwt.smooth_marks_seq(*k_in(), recs, valid),
+        lambda: dwt.smooth_marks_seq_ref(*t_in(), recs, valid),
+        twin_calls=1)   # one step of ~12 launches per record index
     return out
 
 
@@ -340,10 +407,8 @@ def colorspace_phase(dev) -> None:
 
 def decode_phase(dev) -> dict:
     from nhwcodec_tpu.models import decoder, encoder
-    from nhwcodec_tpu.ops import dc_plane, entropy
     from nhwcodec_tpu.utils import fixtures
     from nhwcodec_tpu_torch.kernels import build
-    from nhwcodec_tpu_torch.models import device_decode as tdd
     from nhwcodec_tpu_torch.parallel import device_pipeline as tdp
 
     gens = list(fixtures.GENERATORS.values()) + list(
@@ -400,18 +465,130 @@ def decode_phase(dev) -> dict:
         tdp.decode_batch_device(q20, workers=1, chunk=B, device=dev)
 
     print_profile(f"decode, batch {B} q20 in one chunk", one_chunk)
-    targets = [(tdd, "parse_nhw", "host front"),
-               (dc_plane, "decode_dc_planes", "host front"),
-               (decoder, "decode_y_front", "host front"),
-               (entropy, "decode_uv", "host front"),
-               (decoder, "decode_uv_front", "host front"),
-               (decoder, "_dering_mark_y", "host dering"),
-               (tdd, "mark_depth_planes", "host depth planes"),
-               (decoder, "decode_uv_back", "host uv back"),
-               (tdd, "front_to_torch", "front_to_torch copies")]
     print_breakdown(f"decode breakdown, batch {B} q20 in one chunk",
-                    *host_breakdown(one_chunk, targets))
+                    *host_breakdown(one_chunk, decode_targets()))
     return launches
+
+
+def decode_targets():
+    """The host steps of the decode, grouped for ``host_breakdown``."""
+    from nhwcodec_tpu.models import decoder
+    from nhwcodec_tpu.ops import dc_plane, entropy
+    from nhwcodec_tpu_torch.models import device_decode as tdd
+
+    return [(tdd, "parse_nhw", "host front"),
+            (dc_plane, "decode_dc_planes", "host front"),
+            (decoder, "decode_y_front", "host front"),
+            (entropy, "decode_uv", "host front"),
+            (decoder, "decode_uv_front", "host front"),
+            (decoder, "_dering_mark_y", "host dering"),
+            (tdd, "mark_depth_planes", "host depth planes"),
+            (decoder, "decode_uv_back", "host uv back"),
+            (tdd, "front_to_torch", "front_to_torch copies")]
+
+
+def decode_checked(what: str, datas, want, kernels, absent=(), **kw):
+    """Decode ``datas`` through the pipeline with the launch counts set to
+    0 just before; check every image against ``want``, that each of
+    ``kernels`` was launched and none of ``absent``.  Returns (images,
+    seconds, launches of ``kernels``)."""
+    from nhwcodec_tpu_torch.kernels import build
+    from nhwcodec_tpu_torch.parallel import device_pipeline as tdp
+
+    build.reset_launches()
+    t0 = time.perf_counter()
+    out, m = tdp.decode_batch_device(datas, workers=1, **kw)
+    sec = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    check(m.failures == 0, f"{what}: {m.failures} decode failures")
+    for i, (w, g) in enumerate(zip(want, out)):
+        check(g is not None and g.shape == (512, 512, 3)
+              and g.dtype == np.uint8, f"{what}, image {i}: bad output")
+        check(np.array_equal(w, g),
+              f"{what}, image {i} differs from decoder.decode")
+    got = {k: launches[k] for k in kernels}
+    print(f"decode {what}: {len(out)} images byte-identical to "
+          f"decoder.decode; launches {got}"
+          + "".join(f", {k} {launches[k]}" for k in absent), flush=True)
+    check(all(v > 0 for v in got.values()),
+          f"{what}: a kernel of the path was not launched: {got}")
+    check(not any(launches[k] for k in absent),
+          f"{what}: launched {[k for k in absent if launches[k]]}")
+    return out, sec, got
+
+
+def hq_decode_phase(dev) -> dict:
+    """q23 and q22 batches of 16 and a mixed q20/22/23/21 batch, each in
+    one chunk: the HQ branch (K7, the scatter, K8), not K2."""
+    from nhwcodec_tpu.models import decoder, encoder
+    from nhwcodec_tpu.utils import fixtures
+    from nhwcodec_tpu_torch.parallel import device_pipeline as tdp
+
+    gens = list(fixtures.GENERATORS.values()) + list(
+        fixtures.EXTREME_GENERATORS.values())
+    t0 = time.perf_counter()
+    batches = {q: [encoder.encode(gens[i % len(gens)](), q)
+                   for i in range(B)] for q in (23, 22)}
+    batches["mixed q20/22/23/21"] = [encoder.encode(gens[i](), q)
+                                     for i, q in enumerate((20, 22, 23, 21))]
+    want = {k: [decoder.decode(d) for d in v] for k, v in batches.items()}
+    print(f"host: encoded and decoded the HQ batches in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    launches = {}
+    for what, datas in batches.items():
+        name = f"q{what}" if isinstance(what, int) else what
+        out, sec, got = decode_checked(
+            f"{name}, batch {len(datas)} in one chunk", datas, want[what],
+            ("synth_level", "uv_synth") + HQ_KERNELS,
+            absent=("y_stage2_full",),
+            chunk=len(datas), device=dev)
+        if what == 23:
+            launches = {k: got[k] for k in HQ_KERNELS}
+            t0 = time.perf_counter()
+            again, _ = tdp.decode_batch_device(datas, workers=1, chunk=B,
+                                               device=dev)
+            t_again = time.perf_counter() - t0
+            check(all(np.array_equal(a, b) for a, b in zip(again, out)),
+                  "second q23 decode run differs")
+            print(f"decode end to end, batch {B} q23 in one chunk: first "
+                  f"run {1e3 * sec / B:.2f} ms/img, second run "
+                  f"{1e3 * t_again / B:.2f} ms/img", flush=True)
+
+    def one_chunk():
+        tdp.decode_batch_device(batches[23], workers=1, chunk=B, device=dev)
+
+    print_profile(f"decode, batch {B} q23 in one chunk", one_chunk)
+    print_breakdown(f"decode breakdown, batch {B} q23 in one chunk",
+                    *host_breakdown(one_chunk, decode_targets()))
+    return launches
+
+
+def fallback_phase(dev) -> dict:
+    """The sequential mark-scan fallback, forced by refusing the depth
+    planes: 4 q20 and 4 q23 streams, chunks of 4 (K7, the scatter, the
+    scan, K9)."""
+    from nhwcodec_tpu.models import decoder, encoder
+    from nhwcodec_tpu.utils import fixtures
+    from nhwcodec_tpu_torch.models import device_decode as tdd
+
+    gens = list(fixtures.GENERATORS.values())
+    datas = [encoder.encode(gens[i % len(gens)](), q)
+             for q in (20, 23) for i in range(4)]
+    want = [decoder.decode(d) for d in datas]
+    depth_planes = tdd.mark_depth_planes
+    tdd.mark_depth_planes = lambda marks: (None, 0, False)
+    try:
+        _, sec, got = decode_checked(
+            "sequential fallback (depth planes refused), q20 x4 + q23 x4 in "
+            "chunks of 4", datas, want,
+            ("synth_level", "synth_unnorm_rows_t") + FALLBACK_KERNELS,
+            absent=("y_stage2_full", "synth_norm_rows_clip_waves"),
+            chunk=4, device=dev)
+    finally:
+        tdd.mark_depth_planes = depth_planes
+    print(f"decode end to end, sequential fallback: "
+          f"{1e3 * sec / len(datas):.2f} ms/img (first run)", flush=True)
+    return {k: got[k] for k in FALLBACK_KERNELS}
 
 
 def encode_images(rng) -> np.ndarray:
@@ -640,6 +817,8 @@ def main() -> int:
     # twin's) can leave later windows incomplete
     images = encode_images(np.random.default_rng(SEED))
     launches = decode_phase(dev)
+    launches.update(hq_decode_phase(dev))
+    launches.update(fallback_phase(dev))
     launches.update(encode_phase(dev, images))
     timings = kernel_phase(dev)
     timings.update(encode_kernel_phase(dev, images))

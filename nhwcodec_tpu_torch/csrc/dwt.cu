@@ -13,6 +13,20 @@
 //    row pass, clip to uint8, on (B, 512, 512).
 // K3 nhw_uv_synth replaces pallas_dwt.py uv_synth_pallas
 //    (_uv_synth_kernel): the whole chroma synthesis on (B, 256, 256).
+// K7 nhw_synth_unnorm_rows_t replaces pallas_dwt.py
+//    synth_unnorm_rows_t_pallas: K1's launch A alone, the un-normalised row
+//    pass stored transposed, on (B, n, n) with n in {128, 256, 512}.
+// K8 nhw_synth_norm_rows_clip_waves replaces pallas_dwt.py
+//    synth_norm_rows_clip_waves_pallas: K2's launch B alone, on a
+//    (B, 512, 512) transposed plane that the caller has scattered the HQ
+//    residue into.
+// K9 nhw_synth_norm_rows_clip replaces pallas_dwt.py
+//    synth_norm_rows_clip_pallas: the normalised row pass and the clip,
+//    K1's launch B with a uint8 store.
+// nhw_smooth_marks_seq replaces the sequential mark scan of
+//    nhwcodec_tpu/models/device_decode.py y_stage2_device (a lax.scan,
+//    :126-148; host form native/hotpass.c nhw_smooth_marks), the decode's
+//    fallback when same-row dering marks come out of column order.
 //
 // Bound.  Every kernel is integer stencil work of a few operations per
 // byte, so it is bound by memory traffic and launch latency, not by
@@ -37,9 +51,15 @@
 // as a read phase, a barrier and a masked write of row j.  Rows without
 // marks skip the waves.  Row and column neighbours wrap modulo 512 like
 // the reference's rolls (the depth plane is 0 on the borders anyway).
+// The HQ scatter does not move marks, so the same argument holds for K8.
 // K3 chooses the multi-launch form: K1 on the 128x128 LL, one
 // elementwise launch for the residue sentinel deltas, band clears and
 // the LL transpose-back, and K1 on the 256x256 plane.
+//
+// The mark scan is a chain of dependent reads and writes in emission
+// order, so one thread walks one image's list, in place, reading each
+// neighbour back from memory after the previous mark's write (bound by
+// L2 latency, one round trip per mark).
 //
 // The transposed stores of launch A are 2-byte scattered writes that the
 // L2 absorbs; tiling that transpose through shared memory is later work.
@@ -81,10 +101,28 @@ __global__ void unnorm_rows_t(const int16_t* __restrict__ x,
   dst[static_cast<size_t>(2 * k + 1) * n + r] = static_cast<int16_t>(odd);
 }
 
+__device__ __forceinline__ uint8_t clip_u8(int v) {
+  return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
+}
+
+// The normalised value of an un-normalised one, stored as int16 (a
+// synthesis level) or clipped to uint8 (the last pass of the Y decode).
+template <typename T>
+__device__ __forceinline__ T norm_out(int t);
+template <>
+__device__ __forceinline__ int16_t norm_out<int16_t>(int t) {
+  return static_cast<int16_t>(nhw::norm_value(t));
+}
+template <>
+__device__ __forceinline__ uint8_t norm_out<uint8_t>(int t) {
+  return clip_u8(nhw::norm_value(t));
+}
+
 // Launch B: normalised synthesis of row r of the contiguous (B, n, n)
 // plane t into out.  grid (n, B), block n/2.
-__global__ void norm_rows(const int16_t* __restrict__ t,
-                          int16_t* __restrict__ out, int n) {
+template <typename T>
+__global__ void norm_rows(const int16_t* __restrict__ t, T* __restrict__ out,
+                          int n) {
   __shared__ int16_t row[kMaxN];
   const int m = n >> 1;
   const int k = threadIdx.x;
@@ -94,12 +132,8 @@ __global__ void norm_rows(const int16_t* __restrict__ t,
   __syncthreads();
   int even, odd;
   nhw::unnorm_pair(row, row + m, m, k, even, odd);
-  out[base + 2 * k] = static_cast<int16_t>(nhw::norm_value(even));
-  out[base + 2 * k + 1] = static_cast<int16_t>(nhw::norm_value(odd));
-}
-
-__device__ __forceinline__ uint8_t clip_u8(int v) {
-  return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
+  out[base + 2 * k] = norm_out<T>(even);
+  out[base + 2 * k + 1] = norm_out<T>(odd);
 }
 
 // One dering wave at column c of the middle staged row: the smoothed
@@ -158,8 +192,40 @@ __global__ void waves_norm_clip(const int16_t* __restrict__ t,
   }
   int even, odd;
   nhw::unnorm_pair(rows[1], rows[1] + kY / 2, kY / 2, k, even, odd);
-  out[row_j + c0] = clip_u8(nhw::norm_value(even));
-  out[row_j + c1] = clip_u8(nhw::norm_value(odd));
+  out[row_j + c0] = norm_out<uint8_t>(even);
+  out[row_j + c1] = norm_out<uint8_t>(odd);
+}
+
+// The sequential mark scan: thread b walks image b's records in order,
+// in place on the transposed plane x (B, 512, 512).  A record is
+// row << 8 | col of the 256x256 LL block, at x[2 row][col]; its
+// neighbours are read flat (x[.][col - 1] at col 0 is the previous row's
+// last cell), as the C pass reads them.  Records with valid 0 write
+// nothing; so do rows outside 1..255, whose stencil would leave the
+// plane.  grid ceil(B / 32), block 32.
+__global__ void smooth_marks_seq(int16_t* x, const int32_t* __restrict__ recs,
+                                 const uint8_t* __restrict__ valid, int k_max,
+                                 int batch) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= batch) return;
+  int16_t* p = x + static_cast<size_t>(b) * kY * kY;
+  const int32_t* rec = recs + static_cast<size_t>(b) * k_max;
+  const uint8_t* ok = valid + static_cast<size_t>(b) * k_max;
+  for (int k = 0; k < k_max; ++k) {
+    const int r = rec[k];
+    if (!ok[k] || r < 256 || r >= 65536) continue;
+    const int scan = ((r >> 8) << 10) + (r & 255);
+    const int c = p[scan];
+    const int le = p[scan - 1];
+    const int ri = p[scan + 1];
+    const int up = p[scan - kY];
+    const int dn = p[scan + kY];
+    const int res = c * 8 - le - ri - up - dn - p[scan - kY - 1] -
+                    p[scan + kY - 1] - p[scan - kY + 1] - p[scan + kY + 1];
+    if ((res < 0 ? -res : res) < 116)
+      p[scan] = static_cast<int16_t>(
+          nhw::wrap16(nhw::asr(c * 4 + le + ri + up + dn + 4, 3)));
+  }
 }
 
 // Residue sentinels 5003..5006 (decoder/nhw_decoder.c:991-1069): the
@@ -213,9 +279,11 @@ cudaError_t synth_level(const int16_t* x, size_t plane_stride, int row_stride,
   unnorm_rows_t<<<grid, n / 2, 0, s>>>(x, plane_stride, row_stride, scratch, n);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  norm_rows<<<grid, n / 2, 0, s>>>(scratch, out, n);
+  norm_rows<int16_t><<<grid, n / 2, 0, s>>>(scratch, out, n);
   return cudaGetLastError();
 }
+
+bool bad_n(int n) { return n != 128 && n != 256 && n != 512; }
 
 bool bad_batch(int batch) { return batch < 1 || batch > 65535; }
 
@@ -231,8 +299,7 @@ const char* nhw_error_string(int code) {
 // scratch, out: contiguous (B, n, n) int16.
 int nhw_synth_level(const void* x, int plane_stride, int row_stride,
                     void* scratch, void* out, int batch, int n, void* stream) {
-  if ((n != 128 && n != 256 && n != 512) || bad_batch(batch))
-    return cudaErrorInvalidValue;
+  if (bad_n(n) || bad_batch(batch)) return cudaErrorInvalidValue;
   return synth_level(static_cast<const int16_t*>(x), plane_stride, row_stride,
                      static_cast<int16_t*>(scratch), static_cast<int16_t*>(out),
                      batch, n, static_cast<cudaStream_t>(stream));
@@ -274,6 +341,52 @@ int nhw_uv_synth(const void* x, void* s128, void* ll1, void* jp, void* s256,
   if (e != cudaSuccess) return e;
   return synth_level(jpp, plane, kUV, static_cast<int16_t*>(s256),
                      static_cast<int16_t*>(out), batch, kUV, s);
+}
+
+// K7.  x: (B, n, n) int16 with the given plane and row strides (elements);
+// out: contiguous (B, n, n) int16, out[b] = int16(unnorm_rows(x[b]))^T.
+int nhw_synth_unnorm_rows_t(const void* x, int plane_stride, int row_stride,
+                            void* out, int batch, int n, void* stream) {
+  if (bad_n(n) || bad_batch(batch)) return cudaErrorInvalidValue;
+  unnorm_rows_t<<<dim3(n, batch), n / 2, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int16_t*>(x), plane_stride, row_stride,
+      static_cast<int16_t*>(out), n);
+  return cudaGetLastError();
+}
+
+// K8.  t: (B, 512, 512) int16 transposed plane, depth: (B, 512, 512) uint8
+// (non-zero only on even rows), out: (B, 512, 512) uint8.
+int nhw_synth_norm_rows_clip_waves(const void* t, const void* depth, void* out,
+                                   int batch, int n_waves, void* stream) {
+  if (bad_batch(batch)) return cudaErrorInvalidValue;
+  waves_norm_clip<<<dim3(kY, batch), kY / 2, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int16_t*>(t), static_cast<const uint8_t*>(depth),
+      static_cast<uint8_t*>(out), n_waves);
+  return cudaGetLastError();
+}
+
+// K9.  t: contiguous (B, n, n) int16, out: (B, n, n) uint8.
+int nhw_synth_norm_rows_clip(const void* t, void* out, int batch, int n,
+                             void* stream) {
+  if (bad_n(n) || bad_batch(batch)) return cudaErrorInvalidValue;
+  norm_rows<uint8_t><<<dim3(n, batch), n / 2, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int16_t*>(t), static_cast<uint8_t*>(out), n);
+  return cudaGetLastError();
+}
+
+// The mark scan.  x: (B, 512, 512) int16, updated in place; recs: (B, K)
+// int32 records; valid: (B, K) uint8 (0 = padding).
+int nhw_smooth_marks_seq(void* x, const void* recs, const void* valid, int k,
+                         int batch, void* stream) {
+  if (batch < 1 || k < 0) return cudaErrorInvalidValue;
+  if (k == 0) return cudaSuccess;
+  smooth_marks_seq<<<(batch + 31) / 32, 32, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int16_t*>(x), static_cast<const int32_t*>(recs),
+      static_cast<const uint8_t*>(valid), k, batch);
+  return cudaGetLastError();
 }
 
 }  // extern "C"

@@ -53,11 +53,21 @@ SIGNATURES = {
     "nhw_colorspace_down420": [_P, _P, _P, _P, _I, _P],
     # (rgb, y, u, v, n_pixels, stream)
     "nhw_rgb_to_yuv_full": [_P, _P, _P, _P, _I, _P],
+    # (x, plane_stride, row_stride, out, batch, n, stream)
+    "nhw_synth_unnorm_rows_t": [_P, _I, _I, _P, _I, _I, _P],
+    # (t, depth, out, batch, n_waves, stream)
+    "nhw_synth_norm_rows_clip_waves": [_P, _P, _P, _I, _I, _P],
+    # (t, out, batch, n, stream)
+    "nhw_synth_norm_rows_clip": [_P, _P, _I, _I, _P],
+    # (x, recs, valid, k, batch, stream)
+    "nhw_smooth_marks_seq": [_P, _P, _P, _I, _I, _P],
 }
 
 LAUNCHES = {"synth_level": 0, "y_stage2_full": 0, "uv_synth": 0,
             "analysis_level_jp": 0, "requant_tail": 0,
-            "colorspace_down420": 0, "rgb_to_yuv_full": 0}
+            "colorspace_down420": 0, "rgb_to_yuv_full": 0,
+            "synth_unnorm_rows_t": 0, "synth_norm_rows_clip_waves": 0,
+            "synth_norm_rows_clip": 0, "smooth_marks_seq": 0}
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()

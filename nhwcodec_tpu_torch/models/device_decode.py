@@ -9,14 +9,12 @@ split:
 - device 1:    Y level-2 synthesis (K1) + transform-domain residue
                scatter-add; full UV synthesis (K3)
 - host:        Y dering mark pass, UV sharpen + clip + upsample
-- device 2:    Y stage 2 (K2): level-1 row pass, dense dering waves,
-               final row pass, clip
+- device 2:    Y stage 2: level-1 row pass, HQ residue scatter (q >
+               HIGH1), dense dering waves, final row pass, clip -- K2
+               for a batch without HQ entries, K7 + scatter + K8 for one
+               with them; when same-row marks come out of column order,
+               K7 + scatter + the sequential mark scan + K9
 - device 3:    exact YUV -> RGB per quality group (ops.colorspace)
-
-Outside this slice, each raising ``NotImplementedError``: streams with
-q > HIGH1 (the HQ residue scatter, ROADMAP Queue 1 item 9) and the
-sequential mark-scan fallback for out-of-order marks (same item; never
-observed).
 """
 
 from __future__ import annotations
@@ -24,7 +22,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from nhwcodec_tpu import tables as T
 from nhwcodec_tpu.models import decoder as dec
 from nhwcodec_tpu.ops import dc_plane, entropy
 from nhwcodec_tpu.utils.container import parse_nhw
@@ -65,13 +62,51 @@ def y_stage1(jpeg: torch.Tensor, idx: torch.Tensor,
     return wrap16(buf[:, :, :D]).to(torch.int16)
 
 
-def y_stage2_dense(jpeg: torch.Tensor, post_ll1: torch.Tensor,
-                   depth: torch.Tensor, n_waves: int) -> torch.Tensor:
-    """No-HQ Y stage 2: transpose the post-dering LL1 back into the
-    coefficient plane, then K2 -> (B,512,512) uint8 Y planes."""
+def hq_scatter_t(t: torch.Tensor, idx: torch.Tensor,
+                 delta: torch.Tensor) -> torch.Tensor:
+    """The HQ residue scatter-add on the transposed level-1 plane: t
+    (B,512,512) int16 from K7, padded pairs idx (B,K) int32 in [0, 2^18)
+    (``pad_hq`` checks that on the host) and delta (B,K) int16.  Index i
+    of the untransposed plane lands at ((i & 511) << 9) | (i >> 9); the
+    padding pair (0, 0) adds nothing.  Duplicates accumulate, summed in
+    int32 and wrapped once, as the host's int16 ``np.add.at``."""
+    b = t.shape[0]
+    idx_t = ((idx & (N - 1)) << 9) | (idx >> 9)
+    flat = t.reshape(b, N * N).to(torch.int32)
+    flat.scatter_add_(1, idx_t.to(torch.int64), delta.to(torch.int32))
+    return wrap16(flat).to(torch.int16).view(b, N, N)
+
+
+def _jp(jpeg: torch.Tensor, post_ll1: torch.Tensor) -> torch.Tensor:
+    """The coefficient plane with the post-dering LL1 transposed back."""
     jp = jpeg.clone()
     jp[:, :D, :D] = post_ll1.transpose(1, 2)
-    return dwt.y_stage2_full(jp, depth, n_waves)
+    return jp
+
+
+def y_stage2_dense(jpeg: torch.Tensor, post_ll1: torch.Tensor,
+                   depth: torch.Tensor, n_waves: int,
+                   hq_idx: torch.Tensor | None = None,
+                   hq_delta: torch.Tensor | None = None) -> torch.Tensor:
+    """Y stage 2 with the dering marks as depth waves -> (B,512,512)
+    uint8 Y planes: K2 without HQ pairs, else K7, the HQ scatter and
+    K8."""
+    jp = _jp(jpeg, post_ll1)
+    if hq_idx is None:
+        return dwt.y_stage2_full(jp, depth, n_waves)
+    t = hq_scatter_t(dwt.synth_unnorm_rows_t(jp), hq_idx, hq_delta)
+    return dwt.synth_norm_rows_clip_waves(t, depth, n_waves)
+
+
+def y_stage2_seq(jpeg: torch.Tensor, post_ll1: torch.Tensor,
+                 hq_idx: torch.Tensor, hq_delta: torch.Tensor,
+                 recs: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Y stage 2 with the sequential mark scan, for marks that
+    ``mark_depth_planes`` cannot make into waves: K7, the HQ scatter, the
+    scan, K9 (device_decode.py y_stage2_device)."""
+    t = hq_scatter_t(dwt.synth_unnorm_rows_t(_jp(jpeg, post_ll1)), hq_idx,
+                     hq_delta)
+    return dwt.synth_norm_rows_clip(dwt.smooth_marks_seq(t, recs, valid))
 
 
 # ---------------------------------------------------------------------------
@@ -96,6 +131,28 @@ def pad_scatter(pairs) -> tuple[np.ndarray, np.ndarray]:
         idx[n, : len(i)] = i
         dl[n, : len(i)] = d
     return idx, dl
+
+
+def pad_hq(hqs) -> tuple[np.ndarray, np.ndarray]:
+    """``pad_scatter`` of the HQ pairs, which must index the (512*512,)
+    plane: raises ValueError on the host for any index outside [0, 2^18),
+    where the transposed remap would be wrong."""
+    for n, (i, _) in enumerate(hqs):
+        if len(i) and (int(np.min(i)) < 0 or int(np.max(i)) >= N * N):
+            raise ValueError(f"image {n}: HQ index outside [0, {N * N})")
+    return pad_scatter(hqs)
+
+
+def pad_marks(marks_list) -> tuple[np.ndarray, np.ndarray]:
+    """Per-image mark record lists -> ((B, K) int32 recs, (B, K) bool)."""
+    k = _bucket(max((len(m) for m in marks_list), default=0))
+    b = len(marks_list)
+    recs = np.full((b, k), (1 << 8) | 1, np.int32)
+    valid = np.zeros((b, k), bool)
+    for n, m in enumerate(marks_list):
+        recs[n, : len(m)] = m
+        valid[n, : len(m)] = True
+    return recs, valid
 
 
 def mark_depth_planes(marks_list):
@@ -139,19 +196,16 @@ def decode_batch_device(datas, device="cuda") -> list[np.ndarray]:
     b = len(datas)
     parsed = [parse_nhw(data) for data in datas]
     quals = [s.quality for s in parsed]
-    if any(q > T.HIGH1 for q in quals):
-        raise NotImplementedError(
-            "q > HIGH1 streams need the HQ residue scatter, not ported yet "
-            "(ROADMAP Queue 1 item 9)")
 
-    ys, scats, us, vs = [], [], [], []
+    ys, scats, hqs, us, vs = [], [], [], [], []
     for s in parsed:
         res_comp = dc_plane.decode_dc_planes(
             s.res_ch, s.highres_comp, s.res_U_64, s.res_V_64,
             s.quality, s.res_high)
-        jpeg, scat, _ = dec.decode_y_front(s, res_comp)
+        jpeg, scat, hq = dec.decode_y_front(s, res_comp)
         ys.append(jpeg.reshape(N, N))
         scats.append(scat)
+        hqs.append(hq)
         sym_uv = entropy.decode_uv(s.packet2, s.tree2, s.tree_end)
         exw1 = dec._y_exw_end(s)
         ju, exw1 = dec.decode_uv_front(s, res_comp, sym_uv, 0, exw1 + 2)
@@ -174,13 +228,18 @@ def decode_batch_device(datas, device="cuda") -> list[np.ndarray]:
         p512.reshape(N, N)[:D, :D] = proc_ll1[i]
         marks_list.append(dec._dering_mark_y(p512))
         post[i] = p512.reshape(N, N)[:D, :D]
+    # the HQ pairs go to the device only when some image has one (a q > 21
+    # stream of a flat image has none); the K2 branch needs none
+    hq_idx, hq_dl = pad_hq(hqs)
+    has_hq = any(len(i) for i, _ in hqs)
     dp, n_waves, ok = mark_depth_planes(marks_list)
-    if not ok:
-        raise NotImplementedError(
-            "same-row dering marks out of column order need the sequential "
-            "mark-scan fallback, not ported yet (ROADMAP Queue 1 item 9)")
-    post_d, dp_d = front_to_torch(dev, post, dp)
-    y_planes = y_stage2_dense(jpeg_d, post_d, dp_d, n_waves)
+    if ok:
+        post_d, dp_d = front_to_torch(dev, post, dp)
+        hq_d = front_to_torch(dev, hq_idx, hq_dl) if has_hq else (None, None)
+        y_planes = y_stage2_dense(jpeg_d, post_d, dp_d, n_waves, *hq_d)
+    else:  # same-row marks out of column order: the sequential scan
+        y_planes = y_stage2_seq(jpeg_d, *front_to_torch(
+            dev, post, hq_idx, hq_dl, *pad_marks(marks_list)))
 
     # host: UV sharpen (sequential) + clip + upsample
     pre_uv = pre_uv_d.cpu().numpy()

@@ -3,8 +3,13 @@
 Port of ``nhwcodec_tpu.ops.pallas_dwt``: ``synth_level`` (K1,
 ``synth_level_pallas``), ``y_stage2_full`` (K2, ``y_stage2_full_pallas``),
 ``uv_synth`` (K3, ``uv_synth_pallas``), ``analysis_level_jp`` (K4,
-``analysis_level_pallas_jp``) and ``requant_tail`` (K5,
-``requant_tail_pallas``).  Each wrapper launches its CUDA kernel
+``analysis_level_pallas_jp``), ``requant_tail`` (K5,
+``requant_tail_pallas``), ``synth_unnorm_rows_t`` (K7,
+``synth_unnorm_rows_t_pallas``), ``synth_norm_rows_clip_waves`` (K8,
+``synth_norm_rows_clip_waves_pallas``) and ``synth_norm_rows_clip`` (K9,
+``synth_norm_rows_clip_pallas``); and ``smooth_marks_seq``, the
+sequential dering mark scan of the decode's fallback (a ``lax.scan`` in
+``models.device_decode.y_stage2_device``).  Each wrapper launches its CUDA kernel
 (``csrc/*.cu``) for a CUDA tensor and raises if that fails; it takes its
 plain torch twin (``*_ref``) only for a tensor on the CPU.  The twins
 follow the kernels' decomposition (row pass stored transposed, second
@@ -66,11 +71,52 @@ def dering_waves_ref(t: torch.Tensor, depth: torch.Tensor,
     return x.to(torch.int16)
 
 
+def synth_norm_rows_clip_ref(t: torch.Tensor) -> torch.Tensor:
+    """Normalised row pass + clip: (B, n, n) int16 -> uint8."""
+    return norm_rows_ref(t).clamp(0, 255).to(torch.uint8)
+
+
+def synth_norm_rows_clip_waves_ref(t: torch.Tensor, depth: torch.Tensor,
+                                   n_waves: int) -> torch.Tensor:
+    """Waves, norm row pass, clip on the transposed plane -> u8."""
+    return synth_norm_rows_clip_ref(dering_waves_ref(t, depth, n_waves))
+
+
 def y_stage2_full_ref(jp: torch.Tensor, depth: torch.Tensor,
                       n_waves: int) -> torch.Tensor:
     """Un-norm row pass + transpose, waves, norm row pass, clip -> u8."""
-    t = dering_waves_ref(unnorm_rows_t_ref(jp), depth, n_waves)
-    return norm_rows_ref(t).clamp(0, 255).to(torch.uint8)
+    return synth_norm_rows_clip_waves_ref(unnorm_rows_t_ref(jp), depth,
+                                          n_waves)
+
+
+# the 3x3 stencil of the mark scan as flat offsets in a 512-wide plane:
+# centre, left, right, up, down, then the four diagonals
+_STENCIL = (0, -1, 1, -512, 512, -513, 511, -511, 513)
+
+
+def smooth_marks_seq_ref(x: torch.Tensor, recs: torch.Tensor,
+                         valid: torch.Tensor) -> torch.Tensor:
+    """The sequential mark scan (device_decode.py y_stage2_device,
+    :126-148), in place on the contiguous (B, 512, 512) int16 transposed
+    plane ``x``: record k of image b (row << 8 | col of the LL block)
+    smooths x[b][2 row][col] with live, flat reads.  One step per record
+    index, over all images at once; records with ``valid`` False or a
+    row outside 1..255 write nothing.  Returns ``x``."""
+    b = x.shape[0]
+    flat = x.view(b, -1)
+    img = torch.arange(b, device=x.device)
+    offs = torch.tensor(_STENCIL, device=x.device)
+    rec = recs.to(torch.int64)
+    scan = ((rec >> 8) << 10) + (rec & 255)
+    live = valid & (rec >= 256) & (rec < 65536)
+    scan = torch.where(live, scan, 1024)
+    for k in range(recs.shape[1]):
+        g = flat[img[:, None], scan[:, k, None] + offs].to(torch.int32)
+        res = g[:, 0] * 8 - g[:, 1:].sum(1)
+        new = (g[:, 0] * 4 + g[:, 1:5].sum(1) + 4) >> 3
+        take = live[:, k] & (res.abs() < 116)
+        flat[img, scan[:, k]] = torch.where(take, new, g[:, 0]).to(torch.int16)
+    return x
 
 
 def _sentinel_deltas(v: torch.Tensor):
@@ -336,3 +382,101 @@ def requant_tail(jpeg: torch.Tensor, process: torch.Tensor,
                 res_clean.data_ptr(), scratch.data_ptr(), b, stream))
         build.count("requant_tail")
     return jpeg, process, res_clean
+
+
+def synth_unnorm_rows_t(x: torch.Tensor) -> torch.Tensor:
+    """K7: the un-normalised row pass stored transposed, (B, n, n) int16
+    with n in {128, 256, 512} -> contiguous int16(unnorm_rows(x))^T.  A
+    view whose rows are contiguous is taken without a copy."""
+    _check(x, "synth_unnorm_rows_t", torch.int16, (None, None, None))
+    b, n, n2 = x.shape
+    if n != n2 or n not in (128, 256, 512):
+        raise ValueError(
+            f"synth_unnorm_rows_t: unsupported block {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return unnorm_rows_t_ref(x).contiguous()
+    if x.stride(2) != 1:
+        raise ValueError("synth_unnorm_rows_t: rows must be contiguous")
+    lib, stream = _cuda_args(x)
+    out = torch.empty((b, n, n), dtype=torch.int16, device=x.device)
+    if b:
+        with torch.cuda.device(x.device):
+            build.check("nhw_synth_unnorm_rows_t", lib.nhw_synth_unnorm_rows_t(
+                x.data_ptr(), x.stride(0), x.stride(1), out.data_ptr(), b, n,
+                stream))
+        build.count("synth_unnorm_rows_t")
+    return out
+
+
+def synth_norm_rows_clip_waves(t: torch.Tensor, depth: torch.Tensor,
+                               n_waves: int) -> torch.Tensor:
+    """K8: dering waves, normalised row pass and clip on the transposed
+    (B, 512, 512) int16 plane (after the HQ scatter); depth: (B, 512,
+    512) uint8 run positions, non-zero on even rows only, as
+    ``mark_depth_planes`` makes them.  -> uint8."""
+    _check(t, "synth_norm_rows_clip_waves t", torch.int16, (None, 512, 512))
+    _check(depth, "synth_norm_rows_clip_waves depth", torch.uint8,
+           tuple(t.shape))
+    n_waves = int(n_waves)
+    if t.device.type == "cpu" and depth.device.type == "cpu":
+        return synth_norm_rows_clip_waves_ref(t, depth, n_waves)
+    if not (t.is_contiguous() and depth.is_contiguous()):
+        raise ValueError("synth_norm_rows_clip_waves: inputs must be "
+                         "contiguous")
+    lib, stream = _cuda_args(t, depth)
+    b = t.shape[0]
+    out = torch.empty(t.shape, dtype=torch.uint8, device=t.device)
+    if b:
+        with torch.cuda.device(t.device):
+            build.check("nhw_synth_norm_rows_clip_waves",
+                        lib.nhw_synth_norm_rows_clip_waves(
+                            t.data_ptr(), depth.data_ptr(), out.data_ptr(), b,
+                            n_waves, stream))
+        build.count("synth_norm_rows_clip_waves")
+    return out
+
+
+def synth_norm_rows_clip(t: torch.Tensor) -> torch.Tensor:
+    """K9: the normalised row pass and the clip, (B, n, n) int16 with n
+    in {128, 256, 512} -> uint8."""
+    _check(t, "synth_norm_rows_clip", torch.int16, (None, None, None))
+    b, n, n2 = t.shape
+    if n != n2 or n not in (128, 256, 512):
+        raise ValueError(
+            f"synth_norm_rows_clip: unsupported block {tuple(t.shape)}")
+    if t.device.type == "cpu":
+        return synth_norm_rows_clip_ref(t)
+    if not t.is_contiguous():
+        raise ValueError("synth_norm_rows_clip: input must be contiguous")
+    lib, stream = _cuda_args(t)
+    out = torch.empty(t.shape, dtype=torch.uint8, device=t.device)
+    if b:
+        with torch.cuda.device(t.device):
+            build.check("nhw_synth_norm_rows_clip", lib.nhw_synth_norm_rows_clip(
+                t.data_ptr(), out.data_ptr(), b, n, stream))
+        build.count("synth_norm_rows_clip")
+    return out
+
+
+def smooth_marks_seq(x: torch.Tensor, recs: torch.Tensor,
+                     valid: torch.Tensor) -> torch.Tensor:
+    """The sequential dering mark scan, in place on the contiguous
+    (B, 512, 512) int16 transposed plane ``x`` (see
+    ``smooth_marks_seq_ref``); recs: (B, K) int32, valid: (B, K) bool, as
+    ``models.device_decode.pad_marks`` makes them.  Returns ``x``."""
+    _check(x, "smooth_marks_seq x", torch.int16, (None, 512, 512))
+    _check(recs, "smooth_marks_seq recs", torch.int32, (x.shape[0], None))
+    _check(valid, "smooth_marks_seq valid", torch.bool, tuple(recs.shape))
+    if not all(a.is_contiguous() for a in (x, recs, valid)):
+        raise ValueError("smooth_marks_seq: inputs must be contiguous")
+    if all(a.device.type == "cpu" for a in (x, recs, valid)):
+        return smooth_marks_seq_ref(x, recs, valid)
+    lib, stream = _cuda_args(x, recs, valid)
+    b, k = recs.shape
+    if b and k:
+        with torch.cuda.device(x.device):
+            build.check("nhw_smooth_marks_seq", lib.nhw_smooth_marks_seq(
+                x.data_ptr(), recs.data_ptr(), valid.data_ptr(), k, b,
+                stream))
+        build.count("smooth_marks_seq")
+    return x

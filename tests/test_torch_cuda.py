@@ -167,3 +167,93 @@ def test_encode_batch_on_the_card(cuda):
     assert got == [nhwcodec_tpu.encode(im, 20) for im in imgs]
     assert all(build.LAUNCHES[k] > 0 for k in
                ("analysis_level_jp", "requant_tail", "colorspace_down420"))
+
+
+# ---------------------------------------------------------------------------
+# the HQ decode and the sequential fallback: K7, K8, K9 and the mark scan
+
+
+@pytest.mark.parametrize("n", [256, 512])
+def test_synth_unnorm_rows_t_kernel(cuda, n):
+    x = torch.from_numpy(_planes(np.random.default_rng(n + 1), 3, n, -2000,
+                                 2000)).to(cuda)
+    before = build.LAUNCHES["synth_unnorm_rows_t"]
+    got = dwt.synth_unnorm_rows_t(x)
+    assert build.LAUNCHES["synth_unnorm_rows_t"] == before + 1
+    assert got.is_contiguous()
+    torch.testing.assert_close(got, dwt.unnorm_rows_t_ref(x), rtol=0, atol=0)
+    view = x[:, : n // 2, : n // 2]
+    torch.testing.assert_close(dwt.synth_unnorm_rows_t(view),
+                               dwt.unnorm_rows_t_ref(view), rtol=0, atol=0)
+
+
+def test_synth_norm_rows_clip_waves_kernel(cuda):
+    from chip_smoke import mark_lists
+
+    rng = np.random.default_rng(8)
+    jp = torch.from_numpy(_planes(rng, 2, 512, -2, 3)).to(cuda)
+    t = dwt.unnorm_rows_t_ref(jp).contiguous()
+    dp_np, n_waves, ok = tdd.mark_depth_planes(mark_lists(rng, 2))
+    assert ok and n_waves >= 6
+    dp = torch.from_numpy(dp_np).to(cuda)
+    for w in (0, 1, n_waves):
+        before = build.LAUNCHES["synth_norm_rows_clip_waves"]
+        got = dwt.synth_norm_rows_clip_waves(t, dp, w)
+        assert build.LAUNCHES["synth_norm_rows_clip_waves"] == before + 1
+        torch.testing.assert_close(
+            got, dwt.synth_norm_rows_clip_waves_ref(t, dp, w), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n", [256, 512])
+def test_synth_norm_rows_clip_kernel(cuda, n):
+    x = torch.from_numpy(_planes(np.random.default_rng(n + 2), 3, n, -20000,
+                                 20000)).to(cuda)
+    before = build.LAUNCHES["synth_norm_rows_clip"]
+    got = dwt.synth_norm_rows_clip(x)
+    assert build.LAUNCHES["synth_norm_rows_clip"] == before + 1
+    torch.testing.assert_close(got, dwt.synth_norm_rows_clip_ref(x), rtol=0,
+                               atol=0)
+
+
+def test_smooth_marks_seq_kernel(cuda):
+    from chip_smoke import out_of_order_marks
+
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy(_planes(rng, 3, 512, -12, 13)).to(cuda)
+    recs, valid = (torch.from_numpy(a).to(cuda) for a in
+                   tdd.pad_marks(out_of_order_marks(rng, 3)))
+    want = dwt.smooth_marks_seq_ref(x.clone(), recs, valid)
+    assert (want != x).any()
+    before = build.LAUNCHES["smooth_marks_seq"]
+    got = dwt.smooth_marks_seq(x.clone(), recs, valid)
+    assert build.LAUNCHES["smooth_marks_seq"] == before + 1
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def _hq_streams():
+    gens = list(fixtures.GENERATORS.values())
+    return [encoder.encode(gens[i % len(gens)](), q)
+            for i, q in enumerate((23, 23, 22, 20))]
+
+
+def test_hq_decode_on_the_card(cuda):
+    datas = _hq_streams()
+    build.reset_launches()
+    got = tdd.decode_batch_device(datas, device=cuda)
+    assert build.LAUNCHES["synth_unnorm_rows_t"] == 1
+    assert build.LAUNCHES["synth_norm_rows_clip_waves"] == 1
+    assert build.LAUNCHES["y_stage2_full"] == 0
+    for d, g in zip(datas, got):
+        np.testing.assert_array_equal(g, decoder.decode(d))
+
+
+def test_fallback_decode_on_the_card(cuda, monkeypatch):
+    datas = _hq_streams()
+    monkeypatch.setattr(tdd, "mark_depth_planes",
+                        lambda marks: (None, 0, False))
+    build.reset_launches()
+    got = tdd.decode_batch_device(datas, device=cuda)
+    assert build.LAUNCHES["smooth_marks_seq"] == 1
+    assert build.LAUNCHES["synth_norm_rows_clip"] == 1
+    for d, g in zip(datas, got):
+        np.testing.assert_array_equal(g, decoder.decode(d))

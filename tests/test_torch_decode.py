@@ -21,8 +21,10 @@ def _streams(qs):
             for i, q in enumerate(qs)]
 
 
-@pytest.mark.parametrize("qs", [[20, 20], [4, 14, 19, 21], [1, 1], [16, 16]],
-                         ids=["q20", "mixed", "q1", "q16"])
+@pytest.mark.parametrize("qs", [[20, 20], [4, 14, 19, 21], [1, 1], [16, 16],
+                                [22, 22], [23, 23], [20, 22, 23, 21]],
+                         ids=["q20", "mixed", "q1", "q16", "q22", "q23",
+                              "mixed-hq"])
 def test_decode_batch_matches_jax_and_host(qs):
     datas = _streams(qs)
     got = tdd.decode_batch_device(datas, device="cpu")
@@ -52,14 +54,33 @@ def test_decode_pipeline_failure_isolation():
     np.testing.assert_array_equal(out[2], decoder.decode(datas[1]))
 
 
-def test_hq_stream_is_outside_the_slice():
-    datas = _streams([22])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tdd.decode_batch_device(datas, device="cpu")
-    # the pipeline isolates it as one failure
-    out, m = tdp.decode_batch_device(datas + _streams([20]), chunk=2,
-                                     device="cpu")
-    assert m.failures == 1 and out[0] is None and out[1] is not None
+def test_decode_pipeline_with_an_hq_stream():
+    # the q22 stream shares its chunk of 2 with a q3 one
+    datas = _streams([20, 3, 22, 20, 15])
+    out, m = tdp.decode_batch_device(datas, workers=2, chunk=2, device="cpu")
+    assert m.failures == 0 and m.images == 5
+    for d, rgb in zip(datas, out):
+        np.testing.assert_array_equal(rgb, decoder.decode(d))
+
+
+@pytest.mark.parametrize("q", [20, 23])
+def test_decode_sequential_fallback(q, monkeypatch):
+    # depth planes refused, as for same-row marks out of column order: the
+    # decode takes the sequential mark scan and stays byte-identical
+    from nhwcodec_tpu_torch.kernels import build
+
+    datas = _streams([q, q])
+    monkeypatch.setattr(tdd, "mark_depth_planes",
+                        lambda marks: (None, 0, False))
+    seen = []
+    scan = tdd.dwt.smooth_marks_seq
+    monkeypatch.setattr(tdd.dwt, "smooth_marks_seq",
+                        lambda *a: seen.append(1) or scan(*a))
+    before = dict(build.LAUNCHES)
+    got = tdd.decode_batch_device(datas, device="cpu")
+    assert seen and build.LAUNCHES == before
+    for d, g in zip(datas, got):
+        np.testing.assert_array_equal(g, decoder.decode(d))
 
 
 def test_cuda_without_a_card_raises():

@@ -1,8 +1,9 @@
-"""nhwcodec_tpu_torch.ops.dwt: the torch twins of the three synthesis
+"""nhwcodec_tpu_torch.ops.dwt: the torch twins of the decode's synthesis
 kernels equal the JAX reference on the same numpy-seeded inputs.
 
 The JAX side runs through its plain XLA reference (``fused=False``),
-the way tests/test_device_decode.py holds the Pallas kernels.  The
+the way tests/test_device_decode.py holds the Pallas kernels, and for
+K7-K9 also through the Pallas kernels in interpret mode.  The
 tolerance is 0: the codec is integer-exact.  The kernels themselves
 are held to these twins on the card (tests/test_torch_cuda.py,
 chip_smoke.py).
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 from nhwcodec_tpu.models import device_decode as jdd
+from nhwcodec_tpu.ops import pallas_dwt
 from nhwcodec_tpu_torch.kernels import build
 from nhwcodec_tpu_torch.models import device_decode as tdd
 from nhwcodec_tpu_torch.ops import dwt
@@ -139,6 +141,60 @@ def test_uv_synth_ref_matches_jax():
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("n", [256, 512])
+def test_synth_unnorm_rows_t_matches_pallas(n):
+    x = _planes(np.random.default_rng(20 + n), 2, n)
+    want = np.asarray(pallas_dwt.synth_unnorm_rows_t_pallas(
+        jnp.asarray(x), interpret=True))
+    before = dict(build.LAUNCHES)
+    got = dwt.synth_unnorm_rows_t(torch.from_numpy(x))
+    assert build.LAUNCHES == before and got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_synth_norm_rows_clip_matches_pallas():
+    # moderate planes reach both ends of the clip, full-range ones wrap
+    x = _planes(np.random.default_rng(31), 2, 512, -20000, 20000)
+    want = np.asarray(pallas_dwt.synth_norm_rows_clip_pallas(
+        jnp.asarray(x), interpret=True))
+    assert (want == 0).any() and (want == 255).any()
+    got = dwt.synth_norm_rows_clip(torch.from_numpy(x))
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_synth_norm_rows_clip_waves_matches_pallas_and_jax():
+    rng = np.random.default_rng(41)
+    b = 2
+    # near-flat planes, so the waves fire (see test_y_stage2_full_ref)
+    jp = _planes(rng, b, 512, -2, 3)
+    proc = (jp[:, :256, :256] >> 1).astype(np.int16)
+    dp, n_waves, ok = tdd.mark_depth_planes(_random_marks(rng, b))
+    assert ok and n_waves >= 6
+    idx = rng.integers(0, 512 * 512, (b, 64)).astype(np.int32)
+    dl = rng.integers(-60, 61, (b, 64)).astype(np.int16)
+    want = np.asarray(jdd.y_stage2_dense_device(
+        jnp.asarray(jp), jnp.asarray(proc), jnp.asarray(idx),
+        jnp.asarray(dl), jnp.asarray(dp), n_waves, fused=False))
+    got = tdd.y_stage2_dense(*tdd.front_to_torch("cpu", jp, proc, dp),
+                             n_waves, *tdd.front_to_torch("cpu", idx, dl))
+    np.testing.assert_array_equal(got.numpy(), want)
+    # K8's twin alone on the post-scatter plane, against the Pallas kernel
+    jp_t = jp.copy()
+    jp_t[:, :256, :256] = proc.transpose(0, 2, 1)
+    t = tdd.hq_scatter_t(dwt.synth_unnorm_rows_t(torch.from_numpy(jp_t)),
+                         torch.from_numpy(idx), torch.from_numpy(dl))
+    dpt = torch.from_numpy(dp)
+    pal = np.asarray(pallas_dwt.synth_norm_rows_clip_waves_pallas(
+        jnp.asarray(t.numpy()), jnp.asarray(dp), n_waves, interpret=True))
+    np.testing.assert_array_equal(
+        dwt.synth_norm_rows_clip_waves(t, dpt, n_waves).numpy(), pal)
+    np.testing.assert_array_equal(pal, want)
+    # the waves did work: one wave fewer gives another image
+    fewer = dwt.synth_norm_rows_clip_waves(t, dpt, n_waves - 1).numpy()
+    assert (fewer != want).any()
+
+
 @pytest.mark.parametrize("call", [
     lambda: dwt.synth_level(torch.zeros((1, 256, 256), dtype=torch.int32)),
     lambda: dwt.synth_level(torch.zeros((1, 200, 200), dtype=torch.int16)),
@@ -146,6 +202,16 @@ def test_uv_synth_ref_matches_jax():
     lambda: dwt.y_stage2_full(torch.zeros((1, 512, 512), dtype=torch.int16),
                               torch.zeros((1, 512, 512), dtype=torch.int16),
                               1),
+    lambda: dwt.synth_unnorm_rows_t(torch.zeros((1, 64, 64),
+                                                dtype=torch.int16)),
+    lambda: dwt.synth_norm_rows_clip(torch.zeros((1, 256, 128),
+                                                 dtype=torch.int16)),
+    lambda: dwt.synth_norm_rows_clip_waves(
+        torch.zeros((1, 256, 256), dtype=torch.int16),
+        torch.zeros((1, 256, 256), dtype=torch.uint8), 1),
+    lambda: dwt.smooth_marks_seq(torch.zeros((1, 512, 512), dtype=torch.int16),
+                                 torch.zeros((1, 8), dtype=torch.int64),
+                                 torch.zeros((1, 8), dtype=torch.bool)),
 ])
 def test_wrappers_reject_bad_inputs(call):
     with pytest.raises((TypeError, ValueError)):
