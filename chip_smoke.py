@@ -26,8 +26,13 @@
    the card, at the shapes its path gives it (batch 16 for the decode
    and encode services, the transform's four K10 shapes at batch 16),
    and times both (CUDA events around the wrapper call; torch.profiler
-   device time) beside the least time the card could take for the same
-   bytes and operations.
+   device time; for K2-K4 and K6 also CUDA events around a CUDA graph
+   of back-to-back calls) beside the least time the card could take for
+   the same bytes and operations.  The cluster kernels K2 and K3 are
+   also held to their twins at batch 1, 3 and 16 on random, near-flat,
+   residue-bound and cluster-edge inputs, print what the card allows
+   for them (registers, shared memory per CTA, resident clusters), and
+   K2 is timed beside K7 + K8, its two-launch form, on the same inputs.
 5. Sweeps the decode colorspace over all 2^24 (y, u, v) triples in all
    four modes against the host decoder, and the encode colorspace over
    all 2^24 RGB triples (K6's per-pixel entry at q >= NORM, the on-card
@@ -237,6 +242,41 @@ def median_ms(fn, runs: int = RUNS, warm: int = 3) -> float:
     return float(np.median(times))
 
 
+GRAPH_CALLS = 20
+
+
+def graph_ms(fn, calls: int = GRAPH_CALLS, runs: int = 10) -> float:
+    """Device ms per call of ``fn`` from CUDA events around replays of a
+    CUDA graph of ``calls`` back-to-back calls (median of ``runs``): a
+    chain of launches without the host's launch cost between them, the
+    device time where a profiler window stays incomplete.  For calls
+    that only allocate and launch kernels, with no host synchronisation
+    and no in-place update."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()    # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
+
+
 # runtime calls that each leave one device record (a kernel, a copy, a set)
 LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                "cudaMemcpyAsync", "cudaMemsetAsync")
@@ -344,7 +384,8 @@ def print_profile(what: str, fn) -> None:
 
 
 def compare_and_time(name: str, shape: str, kern, twin, timed: bool = True,
-                     twin_calls: int = 10, bound: dict | None = None):
+                     twin_calls: int = 10, bound: dict | None = None,
+                     graph: bool = False):
     """Run ``kern`` and ``twin`` (each returns a tensor or a tuple of
     tensors) on the card, check dtype, shape and max_abs_err 0, and time
     both (the twin's profiler window over ``twin_calls`` calls).  When
@@ -353,7 +394,7 @@ def compare_and_time(name: str, shape: str, kern, twin, timed: bool = True,
     ``bound`` (``work(...)`` of these inputs), bound_us, bound_share (the
     bound over the device time) and library_ms (None: no single torch
     call computes these integer passes, the exact colorspace or the
-    scan)."""
+    scan); with ``graph``, also graph_ms (``graph_ms``)."""
     import torch
 
     got, want = kern(), twin()
@@ -378,18 +419,25 @@ def compare_and_time(name: str, shape: str, kern, twin, timed: bool = True,
     _, k_dev, k_top = device_profile(kern, calls=10)
     t_dev = device_profile(twin, calls=twin_calls)[1]
     share = bound["bound_ms"] / k_dev if k_dev else None
+    g_ms = graph_ms(kern) if graph else None
     print(f"kernel {name} {shape}: max_abs_err {err} vs torch twin; "
           f"wrapper call {ms:.4f} ms, twin {plain_ms:.4f} ms (median of "
           f"{RUNS}, CUDA events); device time per call (profiler): "
-          f"kernel {k_dev} ms, twin {t_dev} ms; bound "
+          f"kernel {k_dev} ms, twin {t_dev} ms; "
+          + ("" if g_ms is None else f"graph of {GRAPH_CALLS} calls (CUDA "
+             f"events): {g_ms:.4f} ms per call; ")
+          + "bound "
           f"{1e3 * bound['bound_ms']:.3f} us ({bound['bound_by']}), "
           f"{'not measured' if share is None else f'{share:.2%}'} of the "
           "kernel's device time; its launches (ms per call): "
           + "; ".join(f"{k[:50]} {v:.4f}" for k, v in k_top), flush=True)
     check(err == 0, f"{name} disagrees with its torch twin on {shape}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "device_ms": k_dev, **bound, "bound_us": 1e3 * bound["bound_ms"],
-            "bound_share": share, "library_ms": None}
+    out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "device_ms": k_dev, **bound, "bound_us": 1e3 * bound["bound_ms"],
+           "bound_share": share, "library_ms": None}
+    if graph:
+        out["graph_ms"] = g_ms
+    return out
 
 
 def fresh_inputs(args, n: int):
@@ -450,6 +498,102 @@ def sentinel_planes(rng, b):
     return x
 
 
+# LL rows of dering marks whose transposed rows (j = 2 row) sit at the
+# edges of K2's CTAs (j = 64c - 2 and 64c), row 0 (its row j - 1 wraps to
+# 511) and row 255 (j = 510); columns 0 and 255 and runs of 3 and 6
+EDGE_MARK_ROWS = (0, 31, 32, 63, 64, 95, 96, 127, 128, 159, 160, 191, 192,
+                  223, 224, 255)
+EDGE_MARK_COLS = (0, 1, 2, 100, 101, 102, 103, 104, 105, 253, 254, 255)
+# band rows and columns of residue sentinels at K3's CTA edges (rows
+# 32c - 1 and 32c of the LL level, plane rows 63/64 and 127/128), in
+# columns 0 and 127 (whose pair delta is the dropped column-128 spill)
+EDGE_BAND_ROWS = (0, 31, 32, 63, 64, 95, 96, 127)
+EDGE_BAND_COLS = (0, 1, 63, 64, 126, 127)
+
+
+def edge_marks(b):
+    """``b`` dering mark lists, in the C emission order, with a mark at
+    every (EDGE_MARK_ROWS, EDGE_MARK_COLS) cell."""
+    ms = sorted(((r << 8) | c for r in EDGE_MARK_ROWS
+                 for c in EDGE_MARK_COLS), key=lambda m: ((m & 255), (m >> 8)))
+    return [list(ms) for _ in range(b)]
+
+
+def dense_marks(b):
+    """``b`` dering mark lists (C emission order) whose marked rows carry
+    more marks than a warp has lanes: runs of 7 columns with a gap of
+    one over columns 0..199 of four LL rows, two of them at a CTA edge."""
+    ms = sorted(((r << 8) | c for r in (10, 31, 32, 100) for c in range(200)
+                 if c % 8 != 7), key=lambda m: ((m & 255), (m >> 8)))
+    return [list(ms) for _ in range(b)]
+
+
+def edge_sentinel_planes(rng, b):
+    """Chroma coefficient planes in [-300, 300) with a residue sentinel
+    5003..5006 at every (EDGE_BAND_ROWS, EDGE_BAND_COLS) cell of each of
+    the three bands."""
+    x = rng.integers(-300, 300, (b, 256, 256)).astype(np.int16)
+    for r0, c0 in ((0, 128), (128, 0), (128, 128)):
+        for r in EDGE_BAND_ROWS:
+            for c in EDGE_BAND_COLS:
+                x[:, r0 + r, c0 + c] = rng.integers(5003, 5007, b)
+    return x
+
+
+def residue_bound_plane(b):
+    """``b`` copies of the residue-bound case and its depth planes: res =
+    116 at transposed cell (40, 10) keeps it, res = 112 at (80, 100)
+    smooths it (tests/test_torch_dwt.py)."""
+    from nhwcodec_tpu_torch.models import device_decode as tdd
+
+    jp = np.zeros((b, 512, 512), np.int16)
+    jp[:, 10, 19:22] = (685, 100, 686)
+    jp[:, 100, 39:42] = (686, 100, 686)
+    dp, n_waves, _ = tdd.mark_depth_planes([[(20 << 8) | 10,
+                                             (40 << 8) | 100]] * b)
+    return jp, dp, n_waves
+
+
+def cluster_edge_phase(dev) -> None:
+    """K2 and K3 against their twins at batch 1, 3 and 16 (grids of 1, 3
+    and 16 clusters) on random, near-flat (the waves fire), residue-bound
+    and CTA-edge inputs, and K2 on rows with more marks than a warp has
+    lanes."""
+    import torch
+
+    from nhwcodec_tpu_torch.models import device_decode as tdd
+    from nhwcodec_tpu_torch.ops import dwt
+
+    rng = np.random.default_rng(SEED + 3)
+    for b in (1, 3, B):
+        cases = []
+        for what, jp, marks in (
+                ("random", planes(rng, b, 512, -32768, 32768),
+                 mark_lists(rng, b)),
+                ("near-flat", planes(rng, b, 512, -2, 3), mark_lists(rng, b)),
+                ("near-flat, CTA-edge marks", planes(rng, b, 512, -2, 3),
+                 edge_marks(b)),
+                ("near-flat, dense marked rows", planes(rng, b, 512, -2, 3),
+                 dense_marks(b))):
+            dp, n_waves, ok = tdd.mark_depth_planes(marks)
+            check(ok, f"{what} marks are in order")
+            cases.append((what, jp, dp, n_waves))
+        cases.append(("residue bound", *residue_bound_plane(b)))
+        for what, jp, dp, n_waves in cases:
+            jt, dt = (torch.from_numpy(a).to(dev) for a in (jp, dp))
+            compare_and_time(
+                "y_stage2_full", f"({b},512,512) {what}, n_waves={n_waves}",
+                lambda: dwt.y_stage2_full(jt, dt, n_waves),
+                lambda: dwt.y_stage2_full_ref(jt, dt, n_waves), timed=False)
+        for what, x in (("random", planes(rng, b, 256, -2000, 2000)),
+                        ("sentinels", sentinel_planes(rng, b)),
+                        ("CTA-edge sentinels", edge_sentinel_planes(rng, b))):
+            xt = torch.from_numpy(x).to(dev)
+            compare_and_time("uv_synth", f"({b},256,256) {what}",
+                             lambda: dwt.uv_synth(xt),
+                             lambda: dwt.uv_synth_ref(xt), timed=False)
+
+
 def kernel_phase(dev) -> dict:
     import torch
 
@@ -480,24 +624,39 @@ def kernel_phase(dev) -> dict:
          lambda: dwt.uv_synth(uv), lambda: dwt.uv_synth_ref(uv),
          work(8 * px256, OPS["uv_synth"] * 2 * px256)),
     ]
-    out = {name: compare_and_time(name, shape, kern, twin, bound=bound)
+    out = {name: compare_and_time(name, shape, kern, twin, bound=bound,
+                                  graph=name != "synth_level")
            for name, shape, kern, twin, bound in cases}
     # the waves did work on these inputs: one wave fewer changes pixels
     fewer = dwt.y_stage2_full(jp, dp, n_waves - 1)
     check(bool((fewer != dwt.y_stage2_full_ref(jp, dp, n_waves)).any()),
           "dering waves had no effect on the test planes")
-    # the residue bound is strict: res = 116 at (40, 10) keeps the cell,
-    # res = 112 at (80, 100) smooths it (tests/test_torch_dwt.py)
-    edge = np.zeros((1, 512, 512), np.int16)
-    edge[0, 10, 19:22] = (685, 100, 686)
-    edge[0, 100, 39:42] = (686, 100, 686)
-    edge_dp, _, _ = tdd.mark_depth_planes([[(20 << 8) | 10,
-                                            (40 << 8) | 100]])
-    et = torch.from_numpy(edge).to(dev)
-    edt = torch.from_numpy(edge_dp).to(dev)
-    check(torch.equal(dwt.y_stage2_full(et, edt, 1),
-                      dwt.y_stage2_full_ref(et, edt, 1)),
-          "y_stage2_full differs from its twin at the residue bound")
+    for name in dwt.CLUSTER_KERNELS:
+        info = dwt.cluster_info(name, dev)
+        print(f"kernel {name}: one cluster launch; {info['registers']} "
+              f"registers per thread, {info['shared_bytes']} bytes of "
+              f"shared memory per CTA, at most "
+              f"{info['max_active_clusters']} clusters resident", flush=True)
+        out[name].update(info)
+    # K2's two-launch form before the clusters (K7 + K8) on the same inputs
+    two = compare_and_time(
+        "synth_unnorm_rows_t + synth_norm_rows_clip_waves (K2 as two "
+        "launches)", f"({B},512,512) int16 + depth, n_waves={n_waves}",
+        lambda: dwt.synth_norm_rows_clip_waves(dwt.synth_unnorm_rows_t(jp),
+                                               dp, n_waves),
+        lambda: dwt.y_stage2_full_ref(jp, dp, n_waves),
+        bound=cases[1][4], graph=True)
+    k2 = out["y_stage2_full"]
+    print("kernel y_stage2_full against K7 + K8 on the same inputs: device "
+          "time (profiler) "
+          + (f"{k2['device_ms'] / two['device_ms']:.4f}"
+             if k2["device_ms"] and two["device_ms"] else "not measured")
+          + f", graph of {GRAPH_CALLS} calls "
+          f"{k2['graph_ms'] / two['graph_ms']:.4f}, wrapper call "
+          f"{k2['ms'] / two['ms']:.4f} of K7 + K8", flush=True)
+    k2["two_launch_device_ms"] = two["device_ms"]
+    k2["two_launch_graph_ms"] = two["graph_ms"]
+    cluster_edge_phase(dev)
 
     # K7-K9 at the HQ and fallback paths' shapes; K8 on the transposed
     # near-flat planes with the depth planes above, so its waves fire
@@ -819,7 +978,7 @@ def encode_kernel_phase(dev, images: np.ndarray) -> dict:
                 lambda: dwt.analysis_level_jp(x),
                 lambda: dwt.analysis_level_jp_ref(x), timed=lo == -32768,
                 bound=work(6 * b * n * n,
-                           OPS["analysis_level_jp"] * b * n * n))
+                           OPS["analysis_level_jp"] * b * n * n), graph=True)
             if n == 512 and res is not None:
                 out["analysis_level_jp"] = res
     rgb = torch.from_numpy(images).to(dev)
@@ -828,7 +987,7 @@ def encode_kernel_phase(dev, images: np.ndarray) -> dict:
         lambda: colorspace.rgb_to_yuv420(rgb, 20),
         lambda: colorspace.rgb_to_yuv420_ref(rgb, 20),
         bound=work(B * (512 * 512 * (3 + 2) + 2 * 256 * 256),
-                   OPS["colorspace_down420"] * B * 512 * 512))
+                   OPS["colorspace_down420"] * B * 512 * 512), graph=True)
     # K5 on real q20 encode states and on dense chain planes.  K5 and its
     # twin update jpeg and process in place, as the encode path runs
     # them, so each call takes its own clone of the inputs, made before

@@ -1,5 +1,5 @@
-// Hand-written Hopper (sm_90a) kernels for the three synthesis kernels of
-// the batched decode path.  Plain C interface, bound with ctypes by
+// Hand-written Hopper (sm_90a) kernels for the synthesis kernels of the
+// batched decode path.  Plain C interface, bound with ctypes by
 // nhwcodec_tpu_torch/kernels/build.py; wrappers and torch twins live in
 // nhwcodec_tpu_torch/ops/dwt.py.
 //
@@ -10,15 +10,16 @@
 // K2 nhw_y_stage2_full replaces pallas_dwt.py y_stage2_full_pallas
 //    (_y_stage2_full_kernel): decode Y stage 2 without an HQ scatter -
 //    un-normalised row pass + transpose, n_waves dering waves, normalised
-//    row pass, clip to uint8, on (B, 512, 512).
+//    row pass, clip to uint8, on (B, 512, 512).  One cluster launch.
 // K3 nhw_uv_synth replaces pallas_dwt.py uv_synth_pallas
 //    (_uv_synth_kernel): the whole chroma synthesis on (B, 256, 256).
+//    One cluster launch.
 // K7 nhw_synth_unnorm_rows_t replaces pallas_dwt.py
 //    synth_unnorm_rows_t_pallas: K1's launch A alone, the un-normalised row
 //    pass stored transposed, on (B, n, n) with n in {128, 256, 512}.
 // K8 nhw_synth_norm_rows_clip_waves replaces pallas_dwt.py
-//    synth_norm_rows_clip_waves_pallas: K2's launch B alone, on a
-//    (B, 512, 512) transposed plane that the caller has scattered the HQ
+//    synth_norm_rows_clip_waves_pallas: K2's waves, normalised row pass
+//    and clip alone, on a (B, 512, 512) transposed plane that the caller has scattered the HQ
 //    residue into.
 // K9 nhw_synth_norm_rows_clip replaces pallas_dwt.py
 //    synth_norm_rows_clip_pallas: the normalised row pass and the clip,
@@ -28,23 +29,23 @@
 //    :126-148; host form native/hotpass.c nhw_smooth_marks), the decode's
 //    fallback when same-row dering marks come out of column order.
 //
-// Bound.  Every kernel is integer stencil work of a few operations per
-// byte, so it is bound by memory traffic and launch latency, not by
-// arithmetic.  Each plane is read and written about twice: once by the
-// row pass that stores its result transposed, once by the second pass.
-// At the decode pipeline's batch of 16 the planes are 2 MiB (K1, K3 per
-// plane set) and 8 MiB (K2): all of it stays in the 50 MB L2.
+// Bound.  Every kernel here is integer stencil work, 12-48 int32
+// operations per element on 3-4 bytes moved: at the int32 issue rate
+// (132 SMs x 64 lanes x 1.98 GHz) the operations bound K1-K3, K8 and K9
+// and the bytes bound K7 (chip_smoke.py computes both for each call).
+// What the row-per-block kernels lose to is neither: the transposed
+// stores.  A block stages one row and each thread stores its two results
+// in transposed position, 2-byte writes 1 KiB apart, so a warp's 32
+// stores hit 32 sectors; the launch that does this is 62-87% of the
+// device time of every kernel that begins with it.
 //
-// Design.  The TPU kernels hold a whole plane in VMEM; a 512x512 int16
-// plane (512 KiB) does not fit in one block's 227 KB of shared memory,
-// and one block per image would leave most of the 132 SMs idle at batch
-// 16.  So each level is two launches through global memory (L2), with
-// one block per (image, row) and one thread per output pair k:
+// Row-per-block kernels (K1, K7, K8, K9).  Two launches through global
+// memory (L2), one block per (image, row), one thread per output pair k:
 //   launch A (unnorm_rows_t): stage a row in shared memory, compute the
 //     un-normalised pair (2k, 2k+1), store int16 TRANSPOSED to scratch;
 //   launch B (norm_rows / waves_norm_clip): stage one scratch row,
 //     compute the normalised pair, store the output row.
-// K2's launch B runs the dering waves first.  Marks lie only on even
+// K8's launch B runs the dering waves first.  Marks lie only on even
 // rows of the transposed plane, and a mark's stencil reads rows j-1 and
 // j+1, which are odd and never written, so one block finishes row j on
 // its own: it stages rows j-1, j, j+1 (3 x 512 int16) and runs each wave
@@ -52,18 +53,62 @@
 // marks skip the waves.  Row and column neighbours wrap modulo 512 like
 // the reference's rolls (the depth plane is 0 on the borders anyway).
 // The HQ scatter does not move marks, so the same argument holds for K8.
-// K3 chooses the multi-launch form: K1 on the 128x128 LL, one
-// elementwise launch for the residue sentinel deltas, band clears and
-// the LL transpose-back, and K1 on the 256x256 plane.
+//
+// Cluster kernels (K2, K3): one launch, the plane in distributed shared
+// memory (DSM).  A 512x512 int16 plane (512 KiB) does not fit one
+// block's 227 KB, but a thread-block cluster of 8 CTAs holds it, 64 KiB
+// of transposed rows each; K3's 256 plane is spread over 4 CTAs, because
+// one CTA per plane would leave three quarters of the SMs idle at the
+// pipeline's 32 chroma planes.  CTA c of an image's cluster stages its
+// input rows in shared memory (cp.async, 16 bytes a copy), and a row pass
+// stores each value through DSM (cluster.map_shared_rank) straight into
+// the CTA that owns its transposed row: the transpose never reaches
+// global memory, so only the input and the final plane cross HBM, and
+// the launch count drops to one.  rows_to_peers_t gives each warp 16
+// pairs k of two neighbouring source rows: a thread packs the two rows'
+// values of one transposed row into one 32-bit store, the warp's 32
+// stores all go to one CTA, and with a row pitch that is odd in 32-bit
+// words they land on 32 distinct banks.  cluster.sync() separates the
+// passes (and at the start, makes sure every peer runs before anyone
+// writes to it).  Both kernels stay near 100 KB of shared memory and 64
+// registers a thread, so two CTAs fit an SM: with one CTA an SM an H100
+// holds only 15 clusters of 8, and a batch of 16 images would take two
+// waves.
+//   K2 stages its 64 input rows in four quarters through two buffers,
+//   each quarter's row pass overlapping the next one's copies.  Then each
+//   warp finishes two even and two odd transposed rows: it reads a row's
+//   depth (16-byte loads, the next row's while this one is worked on) and
+//   skips the waves where it is all zero (the odd rows and most even
+//   ones).  A marked row's cells are compacted onto the lanes (a prefix
+//   sum over the lanes' counts), so with up to 32 marks a wave is one
+//   stencil a lane, __syncwarp() and a masked store; longer rows take 32
+//   cells a pass.  Within a wave every read precedes every write, as in
+//   K8.  Row j-1 of the CTA's first row lies in the previous CTA (row 511
+//   for row 0: the ranks wrap like the reference's rolls) and is read
+//   there.  The normalised pass and the clip fill a per-warp 512-byte row
+//   that leaves as 16-byte stores.  A last cluster.sync() keeps every
+//   CTA's rows alive until no peer reads them.
+//   K3 runs the pattern three times: the 128 LL level's row pass (CTA c
+//   stages LL rows 32c..32c+31); its normalised pass plus the sentinel
+//   deltas (summed while the rows load), stored transposed into the LL
+//   block of the 256 plane's rows (the transpose-back), beside the other
+//   quadrants with their sentinels cleared, which each CTA loaded for its
+//   own 64 rows; the 256 level's row pass.  Its normalised pass writes
+//   the int16 rows.
+// What is left is the DSM stores (4-byte stores to 32 rows a warp;
+// tools/cluster_probe.py times them against stores to the CTA itself)
+// and the row passes' integer work with 16 warps an SM.
+// Each entry point sets the dynamic shared memory limit and asks
+// cudaOccupancyMaxActiveClusters once; if no cluster fits it returns
+// cudaErrorLaunchOutOfResources, and nothing falls back to other launches.
 //
 // The mark scan is a chain of dependent reads and writes in emission
 // order, so one thread walks one image's list, in place, reading each
 // neighbour back from memory after the previous mark's write (bound by
 // L2 latency, one round trip per mark).
-//
-// The transposed stores of launch A are 2-byte scattered writes that the
-// L2 absorbs; tiling that transpose through shared memory is later work.
 
+#include <cooperative_groups.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -72,6 +117,8 @@
 #include "lifting.cuh"
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kMaxN = 512;
 constexpr int kY = 512;     // decode Y plane side
@@ -237,39 +284,438 @@ __device__ __forceinline__ int single_delta(int v) {
   return v == 5003 ? -6 : (v == 5004 ? 6 : 0);
 }
 
-// K3 middle launch: jp[i][j] = proc[j][i] in the LL block, where
-// proc = wrap16(ll1 + sentinel deltas of the three bands), and the
-// coefficient plane with its sentinels cleared elsewhere
-// (pallas_dwt.py:353-372).  grid (256, B), block 256.
-__global__ void uv_assemble(const int16_t* __restrict__ x,
-                            const int16_t* __restrict__ ll1,
-                            int16_t* __restrict__ jp) {
-  const int i = blockIdx.x;
-  const int j = threadIdx.x;
-  const size_t b = blockIdx.y;
-  const int16_t* X = x + b * kUV * kUV;
-  int val;
-  if (i < kLL && j < kLL) {
-    const int r = j;
-    const int c = i;
-    const int ur = X[r * kUV + kLL + c];
-    const int lo_l = X[(kLL + r) * kUV + c];
-    const int lo_r = X[(kLL + r) * kUV + kLL + c];
-    int v = ll1[b * kLL * kLL + r * kLL + c]
-            + pair_delta(ur) + single_delta(ur)
-            + pair_delta(lo_l) + single_delta(lo_l)
-            + pair_delta(lo_r) + single_delta(lo_r);
-    if (c > 0) {
-      v += pair_delta(X[r * kUV + kLL + c - 1])
-           + pair_delta(X[(kLL + r) * kUV + c - 1])
-           + pair_delta(X[(kLL + r) * kUV + kLL + c - 1]);
-    }
-    val = nhw::wrap16(v);
-  } else {
-    const int v = X[i * kUV + j];
-    val = (v >= 5003 && v <= 5006) ? 0 : v;
+__device__ __forceinline__ int clear_sentinel(int v) {
+  return v >= 5003 && v <= 5006 ? 0 : v;
+}
+
+__device__ __forceinline__ uint32_t pack16(int lo, int hi) {
+  return static_cast<uint32_t>(static_cast<uint16_t>(lo)) |
+         (static_cast<uint32_t>(static_cast<uint16_t>(hi)) << 16);
+}
+
+__device__ __forceinline__ uint32_t clear_pair(uint32_t w) {
+  return pack16(clear_sentinel(static_cast<int16_t>(w & 0xffffu)),
+                clear_sentinel(static_cast<int16_t>(w >> 16)));
+}
+
+// One row pass of a cluster kernel, stored transposed through DSM.  The
+// calling CTA holds kRows source rows of length 2 kM, rows row0 onwards
+// (row0 even) of its plane; pair(r, k, even, odd) gives the values of
+// pair k of its local row r.  Value (2k, row) goes to transposed row 2k,
+// (2k + 1, row) to row 2k + 1; transposed row j lies in the CTA of rank
+// j / kDstRows, at local row j % kDstRows of `dst` (pitch kDstPitch
+// int16, odd in 32-bit words).  A warp takes 16 consecutive k (one
+// destination CTA) of two neighbouring rows, so each thread stores the
+// two rows' values of a transposed row as one 32-bit word, and the warp's
+// 32 words fall on 32 banks.
+template <int kRows, int kM, int kDstRows, int kDstPitch, int kThreads,
+          typename Pair>
+__device__ __forceinline__ void rows_to_peers_t(const cg::cluster_group& cluster,
+                                                int row0, int16_t* dst,
+                                                Pair pair) {
+  static_assert(kM % 16 == 0 && kRows % 2 == 0 && kDstPitch % 4 == 2 &&
+                    (kRows / 2 * kM) % kThreads == 0,
+                "16 k per half-warp, row pairs, odd word pitch, whole tasks");
+  constexpr int kKBlocks = kM / 16;
+#pragma unroll 2
+  for (int it = 0; it < kRows / 2 * kM / kThreads; ++it) {
+    const int g = threadIdx.x + it * kThreads;
+    const int w = g >> 5;
+    const int k = (w % kKBlocks) * 16 + (g & 15);
+    const int rp = (w / kKBlocks) * 2 + ((g >> 4) & 1);
+    int e0, o0, e1, o1;
+    pair(2 * rp, k, e0, o0);
+    pair(2 * rp + 1, k, e1, o1);
+    int16_t* peer = cluster.map_shared_rank(dst, (2 * k) / kDstRows);
+    uint32_t* word = reinterpret_cast<uint32_t*>(
+        peer + ((2 * k) % kDstRows) * kDstPitch) + row0 / 2 + rp;
+    word[0] = pack16(e0, e1);
+    word[kDstPitch / 2] = pack16(o0, o1);
   }
-  jp[b * kUV * kUV + i * kUV + j] = static_cast<int16_t>(val);
+}
+
+// Issue the 16-byte copies of `rows` rows of kRowLen int16 (global, row
+// pitch kSrcPitch) into shared memory (pitch kDstPitch) by kThreads
+// threads, without waiting: cp.async, one commit group.
+template <int kRowLen, int kSrcPitch, int kDstPitch, int kThreads>
+__device__ __forceinline__ void stage_rows_async(int16_t* dst,
+                                                 const int16_t* src,
+                                                 int rows) {
+  constexpr int kVecs = kRowLen / 8;
+  for (int i = threadIdx.x; i < rows * kVecs; i += kThreads)
+    __pipeline_memcpy_async(dst + (i / kVecs) * kDstPitch + (i % kVecs) * 8,
+                            src + (i / kVecs) * kSrcPitch + (i % kVecs) * 8,
+                            16);
+  __pipeline_commit();
+}
+
+// K2 as one cluster launch: grid (8, B), cluster (8, 1, 1), one cluster
+// per image; CTA c owns rows 64c..64c+63 of the transposed plane.
+constexpr int kY2Cluster = 8;
+constexpr int kY2Rows = kY / kY2Cluster;
+constexpr int kY2Threads = 512;
+constexpr int kY2Warps = kY2Threads / 32;
+constexpr int kY2Quarter = kY2Rows / 4;
+constexpr int kY2InPitch = kY + 32;  // 272 words: rows r, r+1 16 banks apart
+constexpr int kY2TPitch = kY + 2;    // 257 words: odd
+constexpr int kY2Smem = 2 * (kY2Rows * kY2TPitch + 2 * kY2Quarter * kY2InPitch);
+// after the row pass the staging buffers give each warp a depth or output
+// row, or the list of a row's marked cells (4 bytes each)
+constexpr int kY2WarpBytes = 2 * kY2Quarter * kY2InPitch * 2 / kY2Warps;
+static_assert(kY2WarpBytes >= 4 * kY && kY2WarpBytes % 16 == 0,
+              "a list of a whole row's cells per warp, 16-byte aligned");
+
+__global__ void __launch_bounds__(kY2Threads, 2)
+y_stage2_cluster(const int16_t* __restrict__ jp,
+                 const uint8_t* __restrict__ depth, uint8_t* __restrict__ out,
+                 int n_waves) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int16_t* t = reinterpret_cast<int16_t*>(smem);
+  int16_t* in = t + kY2Rows * kY2TPitch;        // two quarter buffers
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int c = static_cast<int>(cluster.block_rank());
+  const size_t b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int16_t* src = jp + (b * kY + static_cast<size_t>(kY2Rows) * c) * kY;
+
+  // 1-2. the un-normalised row pass over the CTA's 64 rows, quarter by
+  // quarter, stored transposed into the owners
+  for (int q = 0; q < 2; ++q)
+    stage_rows_async<kY, kY, kY2InPitch, kY2Threads>(
+        in + q * kY2Quarter * kY2InPitch, src + q * kY2Quarter * kY, kY2Quarter);
+  cluster.sync();   // every peer runs before anyone writes to it
+  for (int q = 0; q < 4; ++q) {
+    if (q < 3) __pipeline_wait_prior(1); else __pipeline_wait_prior(0);
+    __syncthreads();   // quarter q is in, from every thread's copies
+    const int16_t* buf = in + (q & 1) * kY2Quarter * kY2InPitch;
+    rows_to_peers_t<kY2Quarter, kY / 2, kY2Rows, kY2TPitch, kY2Threads>(
+        cluster, kY2Rows * c + kY2Quarter * q, t,
+        [&](int r, int k, int& even, int& odd) {
+          const int16_t* row = buf + r * kY2InPitch;
+          nhw::unnorm_pair(row, row + kY / 2, kY / 2, k, even, odd);
+        });
+    __syncthreads();   // every read of the buffer before it is refilled
+    if (q < 2)
+      stage_rows_async<kY, kY, kY2InPitch, kY2Threads>(
+          in + (q & 1) * kY2Quarter * kY2InPitch,
+          src + (q + 2) * kY2Quarter * kY, kY2Quarter);
+  }
+  // 3-5. one warp per transposed row (two even and two odd rows each):
+  // the depth row, the dering waves, the normalised row pass and the
+  // clip, 16-byte stores.  The first row's depth is read before the
+  // barrier, each next one while the current one is worked on.
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int lr0 = warp * (kY2Rows / kY2Warps);
+  const uint8_t* depth_rows = depth + (b * kY + kY2Rows * c + lr0) * kY;
+  uint4 next = __ldg(reinterpret_cast<const uint4*>(depth_rows) + lane);
+  cluster.sync();
+  const int16_t* up_peer = cluster.map_shared_rank(
+      t + (kY2Rows - 1) * kY2TPitch, (c + kY2Cluster - 1) % kY2Cluster);
+  const int16_t* dn_peer = cluster.map_shared_rank(t, (c + 1) % kY2Cluster);
+  uint8_t* staged = reinterpret_cast<uint8_t*>(in) + warp * kY2WarpBytes;
+  uint32_t* cells = reinterpret_cast<uint32_t*>(staged);
+  for (int i = 0; i < kY2Rows / kY2Warps; ++i) {
+    const int lr = lr0 + i;
+    int16_t* mid = t + lr * kY2TPitch;
+    const int16_t* up = lr == 0 ? up_peer : mid - kY2TPitch;
+    const int16_t* dn = lr == kY2Rows - 1 ? dn_peer : mid + kY2TPitch;
+    reinterpret_cast<uint4*>(staged)[lane] = next;
+    if (i + 1 < kY2Rows / kY2Warps)
+      next = __ldg(reinterpret_cast<const uint4*>(depth_rows + (i + 1) * kY) +
+                   lane);
+    __syncwarp();
+    // the lane's cells: 64 s + 2 lane + {0, 1}, s < 8
+    uint32_t d[8];
+    int row_depth = 0;
+    int marked = 0;
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      d[s] = reinterpret_cast<const uint16_t*>(staged)[32 * s + lane];
+      row_depth = max(row_depth, static_cast<int>(max(d[s] & 255u, d[s] >> 8)));
+      marked += ((d[s] & 255u) != 0) + ((d[s] >> 8) != 0);
+    }
+    row_depth = __reduce_max_sync(0xffffffffu, row_depth);
+    const int last = n_waves < row_depth ? n_waves : row_depth;
+    if (last > 0) {
+      // the row's marked cells as a list, col | depth << 16, over the
+      // depth bytes: lane l's cells after those of lanes 0..l-1
+      int pos = marked;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int below = __shfl_up_sync(0xffffffffu, pos, o);
+        if (lane >= o) pos += below;
+      }
+      const int n = __shfl_sync(0xffffffffu, pos, 31);
+      pos -= marked;
+      __syncwarp();   // every lane's depth reads before the list
+#pragma unroll
+      for (int q = 0; q < 16; ++q) {
+        const uint32_t dq = (q & 1) ? d[q >> 1] >> 8 : d[q >> 1] & 255u;
+        if (dq != 0) cells[pos++] = (64 * (q >> 1) + 2 * lane + (q & 1)) | (dq << 16);
+      }
+      __syncwarp();
+      if (n <= 32) {
+        // one cell a lane: a wave is one stencil and a masked store
+        const uint32_t cell = lane < n ? cells[lane] : 0;
+        const int col = static_cast<int>(cell & 0xffffu);
+        for (int r = 1; r <= last; ++r) {
+          int val = 0;
+          const bool take = static_cast<int>(cell >> 16) == r &&
+                            wave_cell(up, mid, dn, col, val);
+          __syncwarp();   // every read of this wave before any write
+          if (take) mid[col] = static_cast<int16_t>(val);
+          __syncwarp();
+        }
+      } else {
+        // 32 cells a pass, up to 16 passes a wave
+        for (int r = 1; r <= last; ++r) {
+          int v[kY / 32];
+          unsigned take = 0;
+#pragma unroll
+          for (int j = 0; j < kY / 32; ++j) {
+            if (32 * j < n) {
+              const uint32_t cell =
+                  32 * j + lane < n ? cells[32 * j + lane] : 0;
+              int val = 0;
+              if (static_cast<int>(cell >> 16) == r &&
+                  wave_cell(up, mid, dn, static_cast<int>(cell & 0xffffu),
+                            val))
+                take |= 1u << j;
+              v[j] = val;
+            }
+          }
+          __syncwarp();
+#pragma unroll
+          for (int j = 0; j < kY / 32; ++j)
+            if ((take >> j) & 1u)
+              mid[cells[32 * j + lane] & 0xffffu] = static_cast<int16_t>(v[j]);
+          __syncwarp();
+        }
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < kY / 64; ++s) {
+      const int k = lane + 32 * s;
+      int even, odd;
+      nhw::unnorm_pair(mid, mid + kY / 2, kY / 2, k, even, odd);
+      reinterpret_cast<uint16_t*>(staged)[k] = static_cast<uint16_t>(
+          norm_out<uint8_t>(even) | (norm_out<uint8_t>(odd) << 8));
+    }
+    __syncwarp();
+    reinterpret_cast<uint4*>(out + (b * kY + kY2Rows * c + lr) * kY)[lane] =
+        reinterpret_cast<const uint4*>(staged)[lane];
+    __syncwarp();
+  }
+  cluster.sync();   // no peer reads this CTA's rows after it exits
+}
+
+// K3 as one cluster launch: grid (4, B), cluster (4, 1, 1), one cluster
+// per chroma plane; CTA c owns LL rows 32c..32c+31 for the 128 level and
+// rows 64c..64c+63 of the 256 plane.  The sentinel deltas of its LL rows
+// are summed while the rows load, so the transpose-back reads them from
+// shared memory.
+constexpr int kUVCluster = 4;
+constexpr int kUVRows = kUV / kUVCluster;
+constexpr int kLLRows = kLL / kUVCluster;
+constexpr int kUVThreads = 512;
+constexpr int kXllPitch = kLL + 32;  // 80 words: rows r, r+1 16 banks apart
+constexpr int kT1Pitch = kLL + 34;   // 81 words: odd, rows 17 banks apart
+constexpr int kJpPitch = kUV + 34;   // 145 words: the same
+constexpr int kT2Pitch = kUV + 2;    // 129 words: odd
+constexpr int kUVSmem = 2 * (kLLRows * (kXllPitch + kT1Pitch) +
+                             kUVRows * (kJpPitch + kT2Pitch)) +
+                        kLLRows * kLL;   // int8 deltas
+static_assert(kLLRows * kLL / 8 == kUVThreads, "one delta task per thread");
+
+__global__ void __launch_bounds__(kUVThreads, 2)
+uv_synth_cluster(const int16_t* __restrict__ x, int16_t* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int16_t* xll = reinterpret_cast<int16_t*>(smem);   // LL rows, 128 level
+  int16_t* t1 = xll + kLLRows * kXllPitch;           // its transposed rows
+  int16_t* jp = t1 + kLLRows * kT1Pitch;             // rows of the 256 plane
+  int16_t* t2 = jp + kUVRows * kJpPitch;             // its transposed rows
+  int8_t* delta = reinterpret_cast<int8_t*>(t2 + kUVRows * kT2Pitch);
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int c = static_cast<int>(cluster.block_rank());
+  const size_t b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int16_t* X = x + b * kUV * kUV;
+
+  stage_rows_async<kLL, kUV, kXllPitch, kUVThreads>(
+      xll, X + kLLRows * c * kUV, kLLRows);
+  // the 256 plane's rows outside the LL block, sentinels cleared (the LL
+  // block comes from the transpose-back below)
+  constexpr int kVecs = kUVRows * kUV / 8 / kUVThreads;
+  uint4 v[kVecs];
+#pragma unroll
+  for (int it = 0; it < kVecs; ++it) {
+    const int i = tid + it * kUVThreads;
+    v[it] = __ldg(reinterpret_cast<const uint4*>(X + kUVRows * c * kUV) + i);
+  }
+  // the sentinel deltas that land on LL row R = 32c + tid / 16, columns
+  // 8 (tid % 16) onwards: the three bands' own values there and their
+  // pair deltas from one column to the left; column 127's pair delta
+  // would land on column 128, outside the block, and is dropped
+  // (pallas_dwt.py:353-364)
+  {
+    const int R = kLLRows * c + tid / 16;
+    const int C = 8 * (tid % 16);
+    const int16_t* band[3] = {X + R * kUV + kLL + C, X + (kLL + R) * kUV + C,
+                              X + (kLL + R) * kUV + kLL + C};
+    uint4 own[3];
+    int left = 0;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      own[i] = __ldg(reinterpret_cast<const uint4*>(band[i]));
+      if (C > 0) left += pair_delta(__ldg(band[i] - 1));
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      int d = left;
+      left = 0;
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        const uint32_t w = j < 2 ? own[i].x : j < 4 ? own[i].y
+                         : j < 6 ? own[i].z : own[i].w;
+        const int e = static_cast<int16_t>((j & 1) ? w >> 16 : w & 0xffffu);
+        d += pair_delta(e) + single_delta(e);
+        left += pair_delta(e);
+      }
+      delta[(tid / 16) * kLL + C + j] = static_cast<int8_t>(d);
+    }
+  }
+#pragma unroll
+  for (int it = 0; it < kVecs; ++it) {
+    const int i = tid + it * kUVThreads;
+    const int r = i / (kUV / 8);
+    const int q = i % (kUV / 8);
+    if (kUVRows * c + r < kLL && q < kLL / 8) continue;
+    uint32_t* d = reinterpret_cast<uint32_t*>(jp + r * kJpPitch + 8 * q);
+    d[0] = clear_pair(v[it].x);
+    d[1] = clear_pair(v[it].y);
+    d[2] = clear_pair(v[it].z);
+    d[3] = clear_pair(v[it].w);
+  }
+  __pipeline_wait_prior(0);
+  cluster.sync();
+
+  // the 128 level's un-normalised row pass
+  rows_to_peers_t<kLLRows, kLL / 2, kLLRows, kT1Pitch, kUVThreads>(
+      cluster, kLLRows * c, t1, [&](int r, int k, int& even, int& odd) {
+        const int16_t* row = xll + r * kXllPitch;
+        nhw::unnorm_pair(row, row + kLL / 2, kLL / 2, k, even, odd);
+      });
+  cluster.sync();
+
+  // its normalised pass (LL row R = 32c + r) plus the sentinel deltas,
+  // transposed back into the 256 plane: proc[R][C] -> row C, column R
+  rows_to_peers_t<kLLRows, kLL / 2, kUVRows, kJpPitch, kUVThreads>(
+      cluster, kLLRows * c, jp, [&](int r, int k, int& even, int& odd) {
+        const int16_t* row = t1 + r * kT1Pitch;
+        int ue, uo;
+        nhw::unnorm_pair(row, row + kLL / 2, kLL / 2, k, ue, uo);
+        even = nhw::wrap16(nhw::norm_value(ue) + delta[r * kLL + 2 * k]);
+        odd = nhw::wrap16(nhw::norm_value(uo) + delta[r * kLL + 2 * k + 1]);
+      });
+  cluster.sync();
+
+  // the 256 level's un-normalised row pass
+  rows_to_peers_t<kUVRows, kUV / 2, kUVRows, kT2Pitch, kUVThreads>(
+      cluster, kUVRows * c, t2, [&](int r, int k, int& even, int& odd) {
+        const int16_t* row = jp + r * kJpPitch;
+        nhw::unnorm_pair(row, row + kUV / 2, kUV / 2, k, even, odd);
+      });
+  cluster.sync();   // also the last access to any peer
+
+  // its normalised pass: int16 rows 64c.. of out, 32-bit stores
+  uint32_t* o32 = reinterpret_cast<uint32_t*>(
+      out + (b * kUV + static_cast<size_t>(kUVRows) * c) * kUV);
+#pragma unroll 4
+  for (int it = 0; it < kUVRows * kUV / 2 / kUVThreads; ++it) {
+    const int g = tid + it * kUVThreads;
+    const int16_t* row = t2 + (g / (kUV / 2)) * kT2Pitch;
+    int even, odd;
+    nhw::unnorm_pair(row, row + kUV / 2, kUV / 2, g % (kUV / 2), even, odd);
+    o32[g] = pack16(nhw::norm_value(even), nhw::norm_value(odd));
+  }
+}
+
+cudaLaunchAttribute cluster_dims(int cluster) {
+  cudaLaunchAttribute a;
+  a.id = cudaLaunchAttributeClusterDimension;
+  a.val.clusterDim.x = cluster;
+  a.val.clusterDim.y = 1;
+  a.val.clusterDim.z = 1;
+  return a;
+}
+
+// A cluster kernel's launch shape and what the card allows for it, found
+// once per process: registers per thread, shared memory per CTA and the
+// most clusters that can be resident at once.
+struct ClusterKernel {
+  int cluster, threads, dyn_smem;
+  cudaError_t err;
+  int regs, smem, clusters;
+};
+
+template <typename Kernel>
+ClusterKernel cluster_setup(Kernel* kernel, int cluster, int threads,
+                            int smem) {
+  ClusterKernel k{cluster, threads, smem, cudaSuccess, 0, 0, 0};
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  k.err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaFuncAttributes attrs;
+  if (k.err == cudaSuccess) k.err = cudaFuncGetAttributes(&attrs, fn);
+  if (k.err == cudaSuccess) {
+    k.regs = attrs.numRegs;
+    k.smem = smem + static_cast<int>(attrs.sharedSizeBytes);
+    cudaLaunchAttribute dims = cluster_dims(cluster);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(cluster, 1, 1);
+    cfg.blockDim = dim3(threads, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.attrs = &dims;
+    cfg.numAttrs = 1;
+    k.err = cudaOccupancyMaxActiveClusters(&k.clusters, fn, &cfg);
+  }
+  if (k.err == cudaSuccess && k.clusters < 1)
+    k.err = cudaErrorLaunchOutOfResources;
+  return k;
+}
+
+const ClusterKernel& y2_kernel() {
+  static const ClusterKernel k =
+      cluster_setup(y_stage2_cluster, kY2Cluster, kY2Threads, kY2Smem);
+  return k;
+}
+
+const ClusterKernel& uv_kernel() {
+  static const ClusterKernel k =
+      cluster_setup(uv_synth_cluster, kUVCluster, kUVThreads, kUVSmem);
+  return k;
+}
+
+// One cluster per image: grid (cluster, batch).
+template <typename Kernel, typename... Args>
+cudaError_t launch_cluster(const ClusterKernel& k, Kernel* kernel, int batch,
+                           cudaStream_t stream, Args... args) {
+  if (k.err != cudaSuccess) return k.err;
+  cudaLaunchAttribute dims = cluster_dims(k.cluster);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(k.cluster, batch, 1);
+  cfg.blockDim = dim3(k.threads, 1, 1);
+  cfg.dynamicSmemBytes = k.dyn_smem;
+  cfg.stream = stream;
+  cfg.attrs = &dims;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+bool misaligned(const void* p, uintptr_t to) {
+  return reinterpret_cast<uintptr_t>(p) % to != 0;
 }
 
 cudaError_t synth_level(const int16_t* x, size_t plane_stride, int row_stride,
@@ -305,42 +751,45 @@ int nhw_synth_level(const void* x, int plane_stride, int row_stride,
                      batch, n, static_cast<cudaStream_t>(stream));
 }
 
-// K2.  jp: (B, 512, 512) int16, depth: (B, 512, 512) uint8 (non-zero only
-// on even rows), scratch: (B, 512, 512) int16, out: (B, 512, 512) uint8.
-int nhw_y_stage2_full(const void* jp, const void* depth, void* scratch,
-                      void* out, int batch, int n_waves, void* stream) {
+// K2.  jp: (B, 512, 512) int16, 16-byte aligned; depth: (B, 512, 512)
+// uint8 (non-zero only on even rows), 2-byte aligned; out: (B, 512, 512)
+// uint8, 16-byte aligned.
+int nhw_y_stage2_full(const void* jp, const void* depth, void* out, int batch,
+                      int n_waves, void* stream) {
   if (bad_batch(batch)) return cudaErrorInvalidValue;
-  const auto s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(kY, batch);
-  unnorm_rows_t<<<grid, kY / 2, 0, s>>>(static_cast<const int16_t*>(jp),
-                                        static_cast<size_t>(kY) * kY, kY,
-                                        static_cast<int16_t*>(scratch), kY);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  waves_norm_clip<<<grid, kY / 2, 0, s>>>(
-      static_cast<const int16_t*>(scratch), static_cast<const uint8_t*>(depth),
-      static_cast<uint8_t*>(out), n_waves);
-  return cudaGetLastError();
+  if (misaligned(jp, 16) || misaligned(depth, 2) || misaligned(out, 16))
+    return cudaErrorMisalignedAddress;
+  return launch_cluster(y2_kernel(), y_stage2_cluster, batch,
+                        static_cast<cudaStream_t>(stream),
+                        static_cast<const int16_t*>(jp),
+                        static_cast<const uint8_t*>(depth),
+                        static_cast<uint8_t*>(out), n_waves);
 }
 
-// K3.  x: (B, 256, 256) int16; s128, ll1: (B, 128, 128) int16 scratch;
-// jp, s256: (B, 256, 256) int16 scratch; out: (B, 256, 256) int16.
-int nhw_uv_synth(const void* x, void* s128, void* ll1, void* jp, void* s256,
-                 void* out, int batch, void* stream) {
+// K3.  x: (B, 256, 256) int16, 16-byte aligned; out: (B, 256, 256) int16,
+// 4-byte aligned.
+int nhw_uv_synth(const void* x, void* out, int batch, void* stream) {
   if (bad_batch(batch)) return cudaErrorInvalidValue;
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto* xin = static_cast<const int16_t*>(x);
-  auto* jpp = static_cast<int16_t*>(jp);
-  auto* ll = static_cast<int16_t*>(ll1);
-  const size_t plane = static_cast<size_t>(kUV) * kUV;
-  cudaError_t e = synth_level(xin, plane, kUV, static_cast<int16_t*>(s128), ll,
-                              batch, kLL, s);
-  if (e != cudaSuccess) return e;
-  uv_assemble<<<dim3(kUV, batch), kUV, 0, s>>>(xin, ll, jpp);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  return synth_level(jpp, plane, kUV, static_cast<int16_t*>(s256),
-                     static_cast<int16_t*>(out), batch, kUV, s);
+  if (misaligned(x, 16) || misaligned(out, 4))
+    return cudaErrorMisalignedAddress;
+  return launch_cluster(uv_kernel(), uv_synth_cluster, batch,
+                        static_cast<cudaStream_t>(stream),
+                        static_cast<const int16_t*>(x),
+                        static_cast<int16_t*>(out));
+}
+
+// What the card allows for cluster kernel `kernel` (0: K2, 1: K3), as
+// its entry point found it: info[0] registers per thread, info[1] shared
+// memory per CTA (bytes), info[2] the most clusters resident at once.
+int nhw_cluster_info(int kernel, void* info) {
+  if (kernel != 0 && kernel != 1) return cudaErrorInvalidValue;
+  const ClusterKernel& k = kernel == 0 ? y2_kernel() : uv_kernel();
+  if (k.err != cudaSuccess) return k.err;
+  int* out = static_cast<int*>(info);
+  out[0] = k.regs;
+  out[1] = k.smem;
+  out[2] = k.clusters;
+  return cudaSuccess;
 }
 
 // K7.  x: (B, n, n) int16 with the given plane and row strides (elements);

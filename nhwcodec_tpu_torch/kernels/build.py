@@ -39,10 +39,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     # (x, plane_stride, row_stride, scratch, out, batch, n, stream)
     "nhw_synth_level": [_P, _I, _I, _P, _P, _I, _I, _P],
-    # (jp, depth, scratch, out, batch, n_waves, stream)
-    "nhw_y_stage2_full": [_P, _P, _P, _P, _I, _I, _P],
-    # (x, s128, ll1, jp, s256, out, batch, stream)
-    "nhw_uv_synth": [_P, _P, _P, _P, _P, _P, _I, _P],
+    # (jp, depth, out, batch, n_waves, stream)
+    "nhw_y_stage2_full": [_P, _P, _P, _I, _I, _P],
+    # (x, out, batch, stream)
+    "nhw_uv_synth": [_P, _P, _I, _P],
+    # (kernel: 0 K2, 1 K3; int32[3] out: registers, shared bytes per CTA,
+    #  most resident clusters)
+    "nhw_cluster_info": [_I, _P],
     # (x, x_plane, x_row, j, j_plane, j_row, p, p_plane, p_row, batch, n,
     #  stream)
     "nhw_analysis_level_jp": [_P, _I, _I, _P, _I, _I, _P, _I, _I, _I, _I,

@@ -21,6 +21,8 @@ counted in ``kernels.build.LAUNCHES``.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from nhwcodec_tpu_torch.kernels import build
@@ -293,7 +295,8 @@ def y_stage2_full(jp: torch.Tensor, depth: torch.Tensor,
     """K2: decode Y stage 2 without an HQ scatter.  jp: (B, 512, 512)
     int16 with the post-dering LL1 transposed in; depth: (B, 512, 512)
     uint8 run positions (0 = no mark; the kernel requires marks on even
-    rows only, which ``mark_depth_planes`` guarantees).  -> uint8."""
+    rows only, which ``mark_depth_planes`` guarantees).  -> uint8.  On
+    the card one launch, a cluster of 8 CTAs per image."""
     _check(jp, "y_stage2_full jp", torch.int16, (None, 512, 512))
     _check(depth, "y_stage2_full depth", torch.uint8, tuple(jp.shape))
     n_waves = int(n_waves)
@@ -303,20 +306,20 @@ def y_stage2_full(jp: torch.Tensor, depth: torch.Tensor,
         raise ValueError("y_stage2_full: inputs must be contiguous")
     lib, stream = _cuda_args(jp, depth)
     b = jp.shape[0]
-    scratch = torch.empty_like(jp)
     out = torch.empty(jp.shape, dtype=torch.uint8, device=jp.device)
     if b:
         with torch.cuda.device(jp.device):
             build.check("nhw_y_stage2_full", lib.nhw_y_stage2_full(
-                jp.data_ptr(), depth.data_ptr(), scratch.data_ptr(),
-                out.data_ptr(), b, n_waves, stream))
+                jp.data_ptr(), depth.data_ptr(), out.data_ptr(), b, n_waves,
+                stream))
         build.count("y_stage2_full")
     return out
 
 
 def uv_synth(x: torch.Tensor) -> torch.Tensor:
     """K3: (B, 256, 256) int16 chroma coefficient planes -> (B, 256, 256)
-    int16 pre-sharpen planes."""
+    int16 pre-sharpen planes.  On the card one launch, a cluster of 4
+    CTAs per plane."""
     _check(x, "uv_synth", torch.int16, (None, 256, 256))
     if x.device.type == "cpu":
         return uv_synth_ref(x)
@@ -324,19 +327,29 @@ def uv_synth(x: torch.Tensor) -> torch.Tensor:
         raise ValueError("uv_synth: input must be contiguous")
     lib, stream = _cuda_args(x)
     b = x.shape[0]
-    ll_scratch = torch.empty((2, b, 128, 128), dtype=torch.int16,
-                             device=x.device)
-    plane_scratch = torch.empty((2, b, 256, 256), dtype=torch.int16,
-                                device=x.device)
     out = torch.empty_like(x)
     if b:
         with torch.cuda.device(x.device):
             build.check("nhw_uv_synth", lib.nhw_uv_synth(
-                x.data_ptr(), ll_scratch[0].data_ptr(),
-                ll_scratch[1].data_ptr(), plane_scratch[0].data_ptr(),
-                plane_scratch[1].data_ptr(), out.data_ptr(), b, stream))
+                x.data_ptr(), out.data_ptr(), b, stream))
         build.count("uv_synth")
     return out
+
+
+CLUSTER_KERNELS = ("y_stage2_full", "uv_synth")
+
+
+def cluster_info(name: str, device=None) -> dict:
+    """What the card allows for the cluster kernel ``name`` (K2 or K3),
+    as its C entry point found it: registers per thread, shared memory
+    per CTA in bytes, and the most clusters resident at once.  Raises
+    where the card holds no cluster of the kernel."""
+    info = (ctypes.c_int * 3)()
+    with torch.cuda.device(device):
+        build.check("nhw_cluster_info", build.load().nhw_cluster_info(
+            CLUSTER_KERNELS.index(name), ctypes.addressof(info)))
+    return {"registers": info[0], "shared_bytes": info[1],
+            "max_active_clusters": info[2]}
 
 
 def analysis_level_jp(x: torch.Tensor):

@@ -88,6 +88,63 @@ def test_uv_synth_kernel(cuda):
                                rtol=0, atol=0)
 
 
+# ---------------------------------------------------------------------------
+# the cluster kernels K2 and K3 at batch 1, 3 and 16, on the CTA edges
+
+
+def _k2_case(kind, b):
+    from chip_smoke import (dense_marks, edge_marks, mark_lists,
+                            residue_bound_plane)
+
+    rng = np.random.default_rng(60 + b)
+    if kind == "residue bound":
+        return residue_bound_plane(b)
+    lo, hi = (-32768, 32768) if kind == "random" else (-2, 3)
+    marks = {"CTA edges": edge_marks, "dense rows": dense_marks}.get(
+        kind, lambda b: mark_lists(rng, b))(b)
+    dp, n_waves, ok = tdd.mark_depth_planes(marks)
+    assert ok
+    return _planes(rng, b, 512, lo, hi), dp, n_waves
+
+
+@pytest.mark.parametrize("b", [1, 3, 16])
+@pytest.mark.parametrize("kind", ["random", "near-flat", "residue bound",
+                                  "CTA edges", "dense rows"])
+def test_y_stage2_full_cluster_kernel(cuda, kind, b):
+    jp, dp, n_waves = _k2_case(kind, b)
+    jp, dp = (torch.from_numpy(a).to(cuda) for a in (jp, dp))
+    for w in (0, 1, n_waves):
+        before = build.LAUNCHES["y_stage2_full"]
+        got = dwt.y_stage2_full(jp, dp, w)
+        assert build.LAUNCHES["y_stage2_full"] == before + 1
+        torch.testing.assert_close(got, dwt.y_stage2_full_ref(jp, dp, w),
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("b", [1, 3, 16])
+@pytest.mark.parametrize("kind", ["random", "sentinels", "CTA edges"])
+def test_uv_synth_cluster_kernel(cuda, kind, b):
+    from chip_smoke import edge_sentinel_planes, sentinel_planes
+
+    rng = np.random.default_rng(70 + b)
+    x = {"random": lambda: _planes(rng, b, 256, -2000, 2000),
+         "sentinels": lambda: sentinel_planes(rng, b),
+         "CTA edges": lambda: edge_sentinel_planes(rng, b)}[kind]()
+    xt = torch.from_numpy(x).to(cuda)
+    before = build.LAUNCHES["uv_synth"]
+    got = dwt.uv_synth(xt)
+    assert build.LAUNCHES["uv_synth"] == before + 1
+    torch.testing.assert_close(got, dwt.uv_synth_ref(xt), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name", ["y_stage2_full", "uv_synth"])
+def test_cluster_kernels_fit_the_card(cuda, name):
+    info = dwt.cluster_info(name, cuda)
+    assert info["max_active_clusters"] >= 1
+    assert 0 < info["shared_bytes"] <= 232448
+    assert 0 < info["registers"] <= 128
+
+
 def test_colorspace_on_the_card(cuda):
     rng = np.random.default_rng(1)
     y, u, v = rng.integers(0, 256, (3, 512, 512)).astype(np.uint8)
