@@ -26,13 +26,19 @@
    the card, at the shapes its path gives it (batch 16 for the decode
    and encode services, the transform's four K10 shapes at batch 16),
    and times both (CUDA events around the wrapper call; torch.profiler
-   device time; for K2-K4 and K6 also CUDA events around a CUDA graph
-   of back-to-back calls) beside the least time the card could take for
-   the same bytes and operations.  The cluster kernels K2 and K3 are
-   also held to their twins at batch 1, 3 and 16 on random, near-flat,
-   residue-bound and cluster-edge inputs, print what the card allows
-   for them (registers, shared memory per CTA, resident clusters), and
-   K2 is timed beside K7 + K8, its two-launch form, on the same inputs.
+   device time; for K2-K4, K6 and K10 also CUDA events around a CUDA
+   graph of back-to-back calls) beside the least time the card could
+   take for the same bytes and operations.  K4 and K10 are timed at all
+   four of their path's shapes, each call shown by the profiler to be one
+   launch of one kernel; K5 is split into its three stages (K1, the
+   unmark + ladder launch, K4).  The cluster kernels (K2, K3, K4, K10)
+   print what the card allows for them (registers, shared memory per
+   CTA, resident clusters); K2 and K3 are held to their twins at batch
+   1, 3 and 16 on random, near-flat, residue-bound and cluster-edge
+   inputs, K4 and K10 at batch 1, 3 and 16 at their four shapes on
+   full-range, +-1800 and edge inputs (ANALYSIS_EDGE_INPUTS) and in
+   place on the LL corners, and K2 is timed beside K7 + K8, its
+   two-launch form, on the same inputs.
 5. Sweeps the decode colorspace over all 2^24 (y, u, v) triples in all
    four modes against the host decoder, and the encode colorspace over
    all 2^24 RGB triples (K6's per-pixel entry at q >= NORM, the on-card
@@ -288,12 +294,14 @@ def device_profile(fn, calls: int = 1, tries: int = PROFILE_TRIES):
     per call, device ms per call, [(name, ms per call)] of the device
     entries by total time); device ms is None when the profiler's window
     is not complete.  On an H100 the profiler dropped device records now
-    and then: none, or one of ten, of a kernel's records in some windows,
-    and up to 1 in 5,000 in a window of 20,000 launches.  So a window
-    counts only when its device records fall short of the host's launch
-    and copy calls by at most 1% (one record for a small window), which
-    bounds the error of the device time to about that share, and is run
-    again otherwise, up to ``tries`` times."""
+    and then: none, or one of ten, of a kernel's records in some windows
+    (one or two of ten cluster launches in most), and up to 1 in 5,000 in a
+    window of 20,000 launches.  So an entry's ms per call is its mean
+    time per record times its launches per call (its records over
+    ``calls``, rounded), which a dropped record does not lower; and a
+    window counts only when its device records fall short of the host's
+    launch and copy calls by at most 1% (one record for a small window),
+    and is run again otherwise, up to ``tries`` times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -309,8 +317,9 @@ def device_profile(fn, calls: int = 1, tries: int = PROFILE_TRIES):
             wall = (time.perf_counter() - t0) * 1e3 / calls
         rows = prof.key_averages()
         entries = [e for e in rows if e.device_type == DeviceType.CUDA]
-        dev = sorted(((e.key, e.self_device_time_total / 1e3 / calls)
-                      for e in entries), key=lambda t: -t[1])
+        dev = sorted(((e.key, e.self_device_time_total / 1e3 / e.count
+                       * max(1, round(e.count / calls)))
+                      for e in entries if e.count), key=lambda t: -t[1])
         total = sum(ms for _, ms in dev)
         api = sum(e.count for e in rows if e.device_type == DeviceType.CPU
                   and e.key in LAUNCH_APIS)
@@ -320,6 +329,30 @@ def device_profile(fn, calls: int = 1, tries: int = PROFILE_TRIES):
         print(f"  (profiler window incomplete: {records} device records for "
               f"{api} host launch and copy calls)", flush=True)
     return wall, None, dev
+
+
+def launches_per_call(fn, calls: int = 10) -> tuple[float, float, list]:
+    """Run ``fn`` ``calls`` times under torch.profiler: the host's kernel
+    launch calls per call, the device's kernel records per call, and the
+    names of the device kernels.  A wrapper that is one kernel launch on
+    the card gives 1, at most 1 (the profiler drops one or two of ten
+    cluster launches' records) and one name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    host = sum(e.count for e in rows if e.device_type == DeviceType.CPU
+               and e.key in LAUNCH_APIS[:3])
+    dev = [e for e in rows if e.device_type == DeviceType.CUDA]
+    return (host / calls, sum(e.count for e in dev) / calls,
+            sorted(e.key for e in dev))
 
 
 def host_breakdown(fn, targets) -> tuple[float, dict]:
@@ -554,6 +587,104 @@ def residue_bound_plane(b):
     return jp, dp, n_waves
 
 
+# K4's and K10's launch shapes (csrc/analysis.cu kShapes): n -> (CTAs a
+# cluster, threads a CTA); CTA c owns rows [cR, (c + 1)R) of the
+# transposed plane j and of x, R = n / cluster
+ANALYSIS_SHAPES = {512: (8, 512), 256: (8, 256), 128: (4, 256)}
+INT16_EXTREMES = (-32768, -32767, -1, 0, 1, 32766, 32767)
+
+
+def analysis_path_shapes(b: int) -> tuple:
+    """K4's and K10's (batch, n) on their paths for a batch of b images:
+    Y levels 1 and 2, U+V levels 1 and 2."""
+    return ((b, 512), (b, 256), (2 * b, 256), (2 * b, 128))
+
+
+ANALYSIS_PATH_SHAPES = analysis_path_shapes(B)
+
+
+def analysis_cta_edges(n: int) -> list:
+    """The rows at which a CTA of K4/K10 at size ``n`` starts (c > 0)."""
+    cluster = ANALYSIS_SHAPES[n][0]
+    return [c * n // cluster for c in range(1, cluster)]
+
+
+def extreme_planes(rng, b, n):
+    """Planes of int16 extremes: all -32768, all 32767, a -32768/32767
+    checkerboard, alternating rows, and INT16_EXTREMES at random, image
+    by image in that order."""
+    r, c = np.indices((n, n))
+    pats = [np.full((n, n), -32768), np.full((n, n), 32767),
+            np.where((r + c) % 2, 32767, -32768), np.where(r % 2, 32767, -32768)]
+    x = np.empty((b, n, n), np.int16)
+    for i in range(b):
+        x[i] = (pats[i] if i < len(pats)
+                else rng.choice(INT16_EXTREMES, (n, n)))
+    return x
+
+
+def parity_chain_planes(rng, b, n):
+    """Planes whose transposed rows carry odd pair sums at every second
+    row, across every CTA edge: the high_adj parity carry fires at every
+    odd pair t < n/2 - 1.  Even columns are even, except on rows r = 2
+    mod 4, where column 2i takes parity bit E[i]: (i >> 1) & 1 on even
+    images (every low moment 1..n/2-2 odd there: the VI rows of j), i & 1
+    on odd images (every high moment but the last: the 53 rows)."""
+    x = 2 * rng.integers(-4000, 4000, (b, n, n))
+    x[:, :, 1::2] = rng.integers(-8000, 8000, (b, n, n // 2))
+    i = np.arange(n // 2)
+    for im in range(b):
+        x[im, 2::4, 0::2] += (i >> 1) & 1 if im % 2 == 0 else i & 1
+    return x.astype(np.int16)
+
+
+# amplitudes a with |a| & 63 in {31, 32, 33}, the dither's boundaries
+DITHER_AMPLITUDES = (31, -32, 33, -31, 32, -33, 95, -96, 97, -95, 96, -97)
+
+
+def dither_edge_planes(rng, b, n):
+    """Zero planes with single values a (DITHER_AMPLITUDES) at even rows
+    beside every CTA edge of K4/K10 (rows e - 2, e, e + 2) and at row 2,
+    in even columns 2k0 beside the edges in moment space (k0 = e - 1, e
+    for e an edge or n/2 - 1; every 8th pair besides).  An impulse a at
+    (2 t0, 2 k0) makes the raw IV moments -a in rows k0 - 1 and k0 + 1 of
+    j, whose column pass sees raw moments a at pairs t0 - 1 and t0 + 1:
+    the dither of a feeds the next slot."""
+    m = n // 2
+    edges = analysis_cta_edges(n)
+    rows = sorted({2} | {e + d for e in edges for d in (-2, 0, 2)})
+    ks = sorted({k for e in edges + [m - 1, m // 2] for k in (e - 1, e)
+                 if 1 <= k < m - 1} | set(range(4, m - 1, 8)))
+    x = np.zeros((b, n, n), np.int16)
+    for im in range(b):
+        for ir, r in enumerate(rows):
+            for ik, k in enumerate(ks):
+                a = DITHER_AMPLITUDES[(ir + ik + im) % len(DITHER_AMPLITUDES)]
+                x[im, r, 2 * k] = a
+    return x
+
+
+def switch_edge_planes(rng, b, n):
+    """Planes in [-1800, 1800) with int16 extremes on the rows and columns
+    that hold the last pair (n - 4 .. n - 1), the first (0 .. 2) and the
+    middle (n/2 - 2 .. n/2 + 1): the last pair's edge terms in both
+    passes, and the low moment n/2 - 1 and high moment 0 of every row,
+    rows n/2 - 1 and n/2 of j, where VI switches to 53 on a CTA edge."""
+    m = n // 2
+    x = rng.integers(-1800, 1800, (b, n, n)).astype(np.int16)
+    lines = [0, 1, 2, m - 2, m - 1, m, m + 1, n - 4, n - 3, n - 2, n - 1]
+    for ln in lines:
+        x[:, ln, :] = rng.choice(INT16_EXTREMES, (b, n))
+        x[:, :, ln] = rng.choice(INT16_EXTREMES, (b, n))
+    return x
+
+
+ANALYSIS_EDGE_INPUTS = {"int16 extremes": extreme_planes,
+                        "parity chains": parity_chain_planes,
+                        "dither boundaries": dither_edge_planes,
+                        "last pair, VI/53 switch": switch_edge_planes}
+
+
 def cluster_edge_phase(dev) -> None:
     """K2 and K3 against their twins at batch 1, 3 and 16 (grids of 1, 3
     and 16 clusters) on random, near-flat (the waves fire), residue-bound
@@ -631,13 +762,6 @@ def kernel_phase(dev) -> dict:
     fewer = dwt.y_stage2_full(jp, dp, n_waves - 1)
     check(bool((fewer != dwt.y_stage2_full_ref(jp, dp, n_waves)).any()),
           "dering waves had no effect on the test planes")
-    for name in dwt.CLUSTER_KERNELS:
-        info = dwt.cluster_info(name, dev)
-        print(f"kernel {name}: one cluster launch; {info['registers']} "
-              f"registers per thread, {info['shared_bytes']} bytes of "
-              f"shared memory per CTA, at most "
-              f"{info['max_active_clusters']} clusters resident", flush=True)
-        out[name].update(info)
     # K2's two-launch form before the clusters (K7 + K8) on the same inputs
     two = compare_and_time(
         "synth_unnorm_rows_t + synth_norm_rows_clip_waves (K2 as two "
@@ -969,7 +1093,8 @@ def encode_kernel_phase(dev, images: np.ndarray) -> dict:
     rng = np.random.default_rng(SEED + 1)
     out = {}
     # K4 at the encode path's shapes: Y levels 1 and 2, U+V levels 1 and 2
-    for b, n in ((B, 512), (B, 256), (2 * B, 256), (2 * B, 128)):
+    shapes = {}
+    for b, n in ANALYSIS_PATH_SHAPES:
         for lo, hi in ((-32768, 32768), (-1800, 1800)):
             x = torch.from_numpy(rng.integers(lo, hi, (b, n, n)).astype(
                 np.int16)).to(dev)
@@ -979,8 +1104,11 @@ def encode_kernel_phase(dev, images: np.ndarray) -> dict:
                 lambda: dwt.analysis_level_jp_ref(x), timed=lo == -32768,
                 bound=work(6 * b * n * n,
                            OPS["analysis_level_jp"] * b * n * n), graph=True)
-            if n == 512 and res is not None:
-                out["analysis_level_jp"] = res
+            if res is not None:
+                shapes[f"({b},{n},{n})"] = res
+                check_one_launch("analysis_level_jp", f"({b},{n},{n})",
+                                 lambda: dwt.analysis_level_jp(x))
+    out["analysis_level_jp"] = four_shapes("analysis_level_jp", shapes)
     rgb = torch.from_numpy(images).to(dev)
     out["colorspace_down420"] = compare_and_time(
         "colorspace_down420", f"({B},512,512,3) uint8, q20",
@@ -1009,7 +1137,52 @@ def encode_kernel_phase(dev, images: np.ndarray) -> dict:
             bound=work(12 * B * 256 * 256,
                        OPS["requant_tail"] * B * 256 * 256))
         out.setdefault("requant_tail", res)
+    out["requant_tail"]["stages"] = requant_stages(
+        dev, [torch.from_numpy(a).to(dev)
+              for a in requant_states(images, 20)])
     return out
+
+
+def requant_stages(dev, args) -> dict:
+    """K5's device time split into its three stages on the real q20
+    states: the profiler's device entries of 10 calls grouped by kernel
+    (K1's two launches, unmark_ladder, K4's cluster kernel); and CUDA
+    graphs of 20 calls of the whole tail (in place on one copy of the
+    inputs: every stage's work is the same for any values), of K1 on the
+    jpeg LL corner and of K4 on a (B,256,256) plane, the ladder by
+    difference."""
+    import torch
+
+    from nhwcodec_tpu_torch.ops import dwt
+
+    k_in = fresh_inputs(args, 10 * PROFILE_TRIES)
+    _, dev_ms, top = device_profile(lambda: dwt.requant_tail(*k_in()),
+                                    calls=10)
+    groups = {"synth (K1)": ("unnorm_rows_t", "norm_rows"),
+              "unmark_ladder": ("unmark_ladder",),
+              "re-analysis (K4)": ("analysis_cluster",)}
+    prof = {g: sum(ms for key, ms in top if any(n in key for n in names))
+            for g, names in groups.items()}
+    once = [a.clone() for a in args]
+    ll = torch.from_numpy(np.random.default_rng(SEED + 5).integers(
+        -300, 300, (args[0].shape[0], 256, 256)).astype(np.int16)).to(dev)
+    graph = {"all": graph_ms(lambda: dwt.requant_tail(*once)),
+             "synth (K1)": graph_ms(
+                 lambda: dwt.synth_level(args[0][:, :256, :256])),
+             "re-analysis (K4)": graph_ms(lambda: dwt.analysis_level_jp(ll))}
+    graph["unmark_ladder"] = (graph["all"] - graph["synth (K1)"]
+                              - graph["re-analysis (K4)"])
+    print("kernel requant_tail by stage, q20 states: device ms per call "
+          "(profiler, mean per record) "
+          + "; ".join(f"{g} {v:.4f}" for g, v in prof.items())
+          + (f" of {dev_ms:.4f}" if dev_ms else " (window incomplete)")
+          + "; graphs of 20 calls (CUDA events): whole tail "
+          f"{graph['all']:.4f}, K1 on the corner {graph['synth (K1)']:.4f}, "
+          f"K4 on a (B,256,256) plane {graph['re-analysis (K4)']:.4f}, "
+          f"unmark_ladder by difference {graph['unmark_ladder']:.4f}",
+          flush=True)
+    return {"profiler_ms": prof, "profiler_window_complete": bool(dev_ms),
+            "graph_ms": graph}
 
 
 def encode_colorspace_phase(dev, images: np.ndarray) -> None:
@@ -1201,6 +1374,106 @@ def transform_phase(dev) -> dict:
     return launches
 
 
+def check_one_launch(name: str, shape: str, fn) -> None:
+    """Check under torch.profiler that a call of ``fn`` is one launch of
+    one device kernel, the cluster kernel analysis_cluster."""
+    host, records, names = launches_per_call(fn)
+    print(f"kernel {name} {shape}: {host:g} kernel launch calls per call "
+          f"on the host, {records:g} device kernel records per call "
+          f"(profiler), kernels {sorted(set(n[:60] for n in names))}",
+          flush=True)
+    # the host's count is exact; the profiler drops device records of
+    # cluster launches now and then (device_profile)
+    check(host == 1 and len(set(names)) == 1
+          and "analysis_cluster" in names[0] and 0 < records <= 1,
+          f"{name} {shape} is not one launch of analysis_cluster")
+
+
+def four_shapes(name: str, shapes: dict) -> dict:
+    """Print and return the sums over the four path shapes of ``name``'s
+    timed results ``shapes`` (shape -> compare_and_time's entry): the
+    (B,512,512) entry, with device_ms, graph_ms and bound of each shape and
+    of the four."""
+    dev = [r["device_ms"] for r in shapes.values()]
+    total = None if None in dev else sum(dev)
+    graph = sum(r["graph_ms"] for r in shapes.values())
+    bound = sum(r["bound_ms"] for r in shapes.values())
+    print(f"kernel {name}: the four shapes at batch {B}: bound "
+          f"{1e3 * bound:.3f} us, device time (profiler) "
+          + ("not measured" if total is None else
+             f"{total:.4f} ms ({bound / total:.2%})")
+          + f", graph of {GRAPH_CALLS} calls {graph:.4f} ms "
+          f"({bound / graph:.2%})", flush=True)
+    out = dict(shapes[f"({B},512,512)"])
+    out["shapes"] = {s: {k: r[k] for k in ("device_ms", "graph_ms",
+                                           "bound_ms", "ms")}
+                     for s, r in shapes.items()}
+    out["four_shapes"] = {"device_ms": total, "graph_ms": graph,
+                          "bound_ms": bound}
+    return out
+
+
+def analysis_edge_phase(dev) -> None:
+    """K4 and K10 against their twins at batch 1, 3 and 16 (grids of
+    1-128 clusters) at the four path shapes on full-range, +-1800 and the
+    edge inputs (ANALYSIS_EDGE_INPUTS), and K10 in place on the LL corners
+    of its 512 and 256 outputs."""
+    import torch
+
+    from nhwcodec_tpu_torch.ops import dwt
+
+    def err(got, want):
+        return int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+
+    rng = np.random.default_rng(SEED + 4)
+    kinds = {"full range": lambda b, n: rng.integers(
+                 -32768, 32768, (b, n, n)).astype(np.int16),
+             "+-1800": lambda b, n: rng.integers(
+                 -1800, 1800, (b, n, n)).astype(np.int16),
+             **{k: (lambda b, n, g=g: g(rng, b, n))
+                for k, g in ANALYSIS_EDGE_INPUTS.items()}}
+    for b in (1, 3, B):
+        for what, gen in kinds.items():
+            worst = 0
+            for bb, n in analysis_path_shapes(b):
+                x = torch.from_numpy(gen(bb, n)).to(dev)
+                j, p = dwt.analysis_level_jp(x)
+                wj, wp = dwt.analysis_level_jp_ref(x)
+                out = dwt.analysis_level(x)
+                worst = max(worst, err(j, wj), err(p, wp),
+                            err(out, dwt.analysis_level_ref(x)))
+                if n >= 256:
+                    h = n // 2
+                    want = out.clone()
+                    want[:, :h, :h] = dwt.analysis_level_ref(out[:, :h, :h])
+                    corner = out[:, :h, :h]
+                    dwt.analysis_level(corner, out=corner)
+                    worst = max(worst, err(out, want))
+            torch.cuda.synchronize()
+            print(f"kernels analysis_level_jp and analysis_level at batch "
+                  f"{b}, {what}: the four shapes and K10 in place on the LL "
+                  f"corners, max_abs_err {worst} vs torch twins", flush=True)
+            check(worst == 0, f"K4/K10 at batch {b} differ on {what}")
+
+
+def cluster_info_phase(dev, timings: dict) -> None:
+    """Print what the card allows for each cluster kernel and add it to
+    the kernel's entry (K4 and K10 under "clusters", by n)."""
+    from nhwcodec_tpu_torch.ops import dwt
+
+    for name in dwt.CLUSTER_KERNELS:
+        info = dwt.cluster_info(name, dev)
+        kernel, _, n = name.partition("/")
+        print(f"kernel {name}: one cluster launch; {info['registers']} "
+              f"registers per thread, {info['shared_bytes']} bytes of "
+              f"shared memory per CTA, at most "
+              f"{info['max_active_clusters']} clusters resident", flush=True)
+        if n:
+            timings[kernel].setdefault("clusters", {})[n] = info
+        else:
+            timings[kernel].update(info)
+
+
 def transform_kernel_phase(dev) -> dict:
     """K10 against its twin at the transform's four shapes at batch 16,
     in the full int16 range (timed) and the range of real planes, and in
@@ -1210,9 +1483,8 @@ def transform_kernel_phase(dev) -> dict:
     from nhwcodec_tpu_torch.ops import dwt
 
     rng = np.random.default_rng(SEED + 2)
-    out = {}
-    total, bound = 0.0, 0.0
-    for b, n in ((B, 512), (B, 256), (2 * B, 256), (2 * B, 128)):
+    shapes = {}
+    for b, n in ANALYSIS_PATH_SHAPES:
         for lo, hi in ((-32767, 32768), (-1800, 1800)):
             x = torch.from_numpy(rng.integers(lo, hi, (b, n, n)).astype(
                 np.int16)).to(dev)
@@ -1220,16 +1492,13 @@ def transform_kernel_phase(dev) -> dict:
                 "analysis_level", f"({b},{n},{n}) int16 in [{lo},{hi})",
                 lambda: dwt.analysis_level(x),
                 lambda: dwt.analysis_level_ref(x), timed=lo < -2000,
-                bound=work(4 * b * n * n, OPS["analysis_level"] * b * n * n))
+                bound=work(4 * b * n * n, OPS["analysis_level"] * b * n * n),
+                graph=True)
             if res is not None:
-                total = (total + res["device_ms"] if total is not None
-                         and res["device_ms"] else None)
-                bound += res["bound_ms"]
-                out.setdefault("analysis_level", res)
-    print(f"kernel analysis_level: the four shapes of encode_transform at "
-          f"batch {B}: bound {1e3 * bound:.3f} us, device time "
-          + ("not measured" if total is None else
-             f"{total:.4f} ms ({bound / total:.2%})"), flush=True)
+                shapes[f"({b},{n},{n})"] = res
+                check_one_launch("analysis_level", f"({b},{n},{n})",
+                                 lambda: dwt.analysis_level(x))
+    out = {"analysis_level": four_shapes("analysis_level", shapes)}
     for b, n in ((B, 512), (2 * B, 256)):
         h = n // 2
         l1 = dwt.analysis_level(torch.from_numpy(rng.integers(
@@ -1290,6 +1559,8 @@ def main() -> int:
     timings = transform_kernel_phase(dev)
     timings.update(kernel_phase(dev))
     timings.update(encode_kernel_phase(dev, images))
+    cluster_info_phase(dev, timings)
+    analysis_edge_phase(dev)
     colorspace_phase(dev)
     encode_colorspace_phase(dev, images)
     check(not any(m.split(".")[0] in ("jax", "nhwcodec_tpu")

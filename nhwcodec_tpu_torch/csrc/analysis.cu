@@ -18,54 +18,111 @@
 // (_analysis_level_kernel), the level of the transform entry
 // (models/transform.encode_transform_pallas): K4's p with its LL quadrant
 // transposed back, out = p except out[:n/2, :n/2] = p[:n/2, :n/2]^T, and
-// no j output.  It is K4's two launches; j goes to a scratch plane the
-// wrapper allocates, and launch 2 stores the low half of each VI row
-// (k < n/2) transposed: element t of row k goes to out[t][k].  That store
-// is the whole transpose-back: no third launch, no copy.  x is read only
-// by launch 1 and out written only by launch 2, so out may alias x: the
-// transform's second level runs in place on the LL corner of the
-// level-1 plane (the port's form of l1.at[:D, :D].set(l2),
-// nhwcodec_tpu/models/transform.py:180-182).  The TPU kernel's m = 64
-// duplicate-filter-and-select branch is a Mosaic workaround and has no
-// counterpart here.
+// no j output.  out may be x itself: the transform's second level runs in
+// place on the LL corner of the level-1 plane (the port's form of
+// l1.at[:D, :D].set(l2), nhwcodec_tpu/models/transform.py:180-182).  The
+// TPU kernel's m = 64 duplicate-filter-and-select branch is a Mosaic
+// workaround and has no counterpart here.
 //
-// Bound.  A few integer operations per element: memory traffic and
-// launch latency bound both.  Each plane is read twice and written twice
-// (x -> j, j -> p or out); at the encode path's batch of 16 the largest
-// call, (16, 512, 512), moves 32 MiB, which the 50 MB L2 mostly holds.
+// Bound.  About 30 int32 operations per element on 6 bytes moved (K4: x
+// read once, j and p written once) or 4 (K10): the operations bound both
+// at the int32 issue rate (chip_smoke.py computes both for each call).
 //
-// Design.  A 512x512 int16 plane (512 KiB) does not fit in one block's
-// 227 KB of shared memory, and one block per image would idle most of the
-// 132 SMs at batch 16, so the level is two launches through L2, one block
-// per (image, row) and one thread per output pair k, like K1:
-//   launch 1 stages input row r in shared memory and writes its low and
-//     high moments as column r of j (transposed, scattered 2-byte stores
-//     that L2 absorbs);
-//   launch 2 stages row k of j, applies VI or 53 (uniform per block) and
-//     writes row k of p contiguously (K10: the VI rows' low halves as
-//     column k, scattered 2-byte stores again).
-// Every moment reads only its own pair's neighbours: the VI dither of
-// slot k-1 and the 53/VI parity of pair k-1 are recomputed locally, not
-// carried, so each thread is independent.  Every array takes a plane and
-// a row stride, so the requant tail (requant.cu) runs K4 on the LL corner
-// of its 512-stride planes, and the transform runs K10 on the LL corner
-// of its level-1 planes, in place.
+// Design: each call is one launch on thread-block clusters, one cluster
+// per plane, with j in the cluster's distributed shared memory (DSM), as
+// K2 in dwt.cu (the helpers are in cluster.cuh).  A 512x512 int16 plane
+// is 512 KiB; a cluster of 8 CTAs holds it as 64 rows of j each.  The
+// cluster sizes (kShapes) keep more CTAs than SMs at the encode path's
+// batches: (16, 512), (16, 256) and (32, 256) planes of n in clusters of
+// 8, (32, 128) in clusters of 4.  CTA c owns rows [cR, (c+1)R) of j (R =
+// n / cluster), 16-byte aligned in shared memory with a word pitch of 4
+// modulo 32.  Four phases:
+//   1. Row pass.  CTA c stages its R rows of x by quarters through two
+//      cp.async buffers, each quarter's pass overlapping the next one's
+//      copies, and computes each row's raw IV moments; rows_to_peers_t
+//      stores low moment k of row r into column r of row k of j and high
+//      moment k into row k + n/2, straight into the CTA that owns the row:
+//      a warp takes 8 consecutive k of 8 neighbouring rows, packs two
+//      rows into a 32-bit store, and its 32 stores fall on 32 banks, 16
+//      contiguous bytes to each of 8 rows of one CTA.  A cluster.sync()
+//      ends the phase: every row of j is complete, and every read of x
+//      is done (the last quarter waits with __pipeline_wait_prior(0)), so
+//      from here on the cluster may write the plane it read.
+//   2. Column pass.  One warp per row k of j, a lane per 32nd pair t: VI
+//      for k < n/2, plain 53 otherwise.  R divides n/2, so the switch
+//      falls on a CTA edge and the branch is uniform per CTA.  The
+//      previous slot's dither and the previous pair's parity are
+//      recomputed from the row, not carried, so the lanes are
+//      independent; the last pair takes its edge terms; each value wraps
+//      to int16 where the C code stores to short.  The warp keeps the
+//      row's results in registers and writes them over the row.
+//   3. K4: row k of j leaves before the pass and row k of p after it, as
+//      16-byte stores: x is read once and j and p written once.
+//   4. K10: the rows k >= n/2 and the high halves of the VI rows leave as
+//      16-byte stores.  The low half of VI row k is the LL transpose-back:
+//      element t goes to out[t][k].  A second rows_to_peers_t sends it
+//      into row t of the CTA that owns out row t (the staging buffers,
+//      free since phase 1), then a cluster.sync() and 16-byte stores of
+//      the LL rows.  No j output and no scratch plane: x read once, out
+//      written once.
+// One cluster covers a whole plane, and no global store precedes the end
+// of phase 1, so K10 runs in place.  Every array takes a plane and a row
+// stride (multiples of 8 elements, 16-byte aligned bases), so the requant
+// tail (requant.cu) runs K4 from its 256-stride scratch into the LL
+// corners of its 512-stride planes.  The shared memory stays near 100 KB
+// at n = 512 (about 25 and 13 KB below) and the registers at 64 a thread,
+// so two CTAs fit an SM.  Each entry point sets the shared memory limit
+// and asks cudaOccupancyMaxActiveClusters once per n; if no cluster fits
+// it returns cudaErrorLaunchOutOfResources, and nothing falls back to
+// other launches.
 //
 // Exactness: int32 arithmetic with the int16 wrap at each C store, the
 // sign-symmetric rounding written as the C pattern (not a shift of a
 // negative), an arithmetic shift that does not rely on
 // implementation-defined >>, and the last pair's edge terms.
 
+#include <cooperative_groups.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
 
+#include "cluster.cuh"
 #include "lifting.cuh"
 
 namespace {
 
-constexpr int kMaxN = 512;
+namespace cg = cooperative_groups;
+
+// The launch shape for each n: {n, CTAs a cluster, threads a CTA}.  The
+// numpy emulation of the kernel's maps (tests/test_torch_analysis_cluster.py)
+// reads this table.
+constexpr int kShapes[3][3] = {{512, 8, 512}, {256, 8, 256}, {128, 4, 256}};
+
+constexpr int shape_of(int n, int i) {
+  return n == kShapes[0][0] ? kShapes[0][i]
+         : n == kShapes[1][0] ? kShapes[1][i] : kShapes[2][i];
+}
+
+template <int kN>
+struct Layout {
+  static constexpr int kM = kN / 2;
+  static constexpr int kCluster = shape_of(kN, 1);
+  static constexpr int kThreads = shape_of(kN, 2);
+  static constexpr int kRows = kN / kCluster;   // rows of j and of x a CTA
+  static constexpr int kQuarter = kRows / 4;    // rows of x staged at a time
+  static constexpr int kPitch = kN + 8;         // int16: word pitch 4 mod 32
+  static constexpr int kLLPitch = kM + 8;       // the same
+  static constexpr int kStage = 2 * kQuarter * kPitch;
+  static constexpr int kRecv = kRows * kLLPitch;   // K10's received LL rows
+  static constexpr int kSmem =
+      2 * (kRows * kPitch + (kStage > kRecv ? kStage : kRecv));
+  static constexpr int kWarpRows = kRows * 32 / kThreads;
+  static_assert(shape_of(kN, 0) == kN && kM % kRows == 0 && kM % 32 == 0 &&
+                    kWarpRows * kThreads == kRows * 32,
+                "a known n, the VI/53 switch on a CTA edge, whole warps");
+};
 
 // Un-normalised lowpass moment k of a row of length 2m
 // (encoder/filters.c:367-384).
@@ -99,68 +156,192 @@ __device__ __forceinline__ int dither(int r) {
   return r >= 0 ? mag : -mag;
 }
 
-// Launch 1: raw IV moments of row r of image b, written as column r of j.
-// grid (n, B), block n/2.
-__global__ void iv_rows_t(const int16_t* __restrict__ x, size_t x_plane,
-                          int x_row, int16_t* __restrict__ j, size_t j_plane,
-                          int j_row, int n) {
-  __shared__ int16_t row[kMaxN];
-  const int m = n >> 1;
-  const int r = blockIdx.x;
-  const int k = threadIdx.x;
-  const size_t b = blockIdx.y;
-  const int16_t* src = x + b * x_plane + static_cast<size_t>(r) * x_row;
-  row[k] = src[k];
-  row[k + m] = src[k + m];
-  __syncthreads();
-  const int lo = low_raw(row, m, k);
-  const int hi = k < m - 1 ? 2 * row[2 * k + 1] - (row[2 * k] + row[2 * k + 2])
-                           : 2 * (row[n - 1] - row[n - 2]);
-  int16_t* dst = j + b * j_plane;
-  dst[static_cast<size_t>(k) * j_row + r] = static_cast<int16_t>(nhw::wrap16(lo));
-  dst[static_cast<size_t>(k + m) * j_row + r] =
-      static_cast<int16_t>(nhw::wrap16(hi));
-}
-
-// Launch 2: row k of j through VI (k < n/2) or plain 53, written as row
-// k of p = [low | high]; with kLLBack the low half of a VI row goes to
-// column k instead (the LL transpose-back).  grid (n, B), block n/2.
-template <bool kLLBack>
-__global__ void vi53_rows(const int16_t* __restrict__ j, size_t j_plane,
-                          int j_row, int16_t* __restrict__ p, size_t p_plane,
-                          int p_row, int n) {
-  __shared__ int16_t row[kMaxN];
-  const int m = n >> 1;
-  const int k = blockIdx.x;
-  const int t = threadIdx.x;
-  const size_t b = blockIdx.y;
-  const int16_t* src = j + b * j_plane + static_cast<size_t>(k) * j_row;
-  row[t] = src[t];
-  row[t + m] = src[t + m];
-  __syncthreads();
-  const int raw = low_raw(row, m, t);
-  const int edge = row[n - 1] - row[n - 2];
-  int lo, hi;
-  if (k < m) {  // VI: /64 low after the previous slot's dither, /8 high
-    const int d_prev = t > 0 ? dither(low_raw(row, m, t - 1)) : 0;
-    lo = round_pos(nhw::wrap16(raw + d_prev), 32, 6);
-    hi = t < m - 1 ? round_pos(high_adj(row, t), 4, 3)
-                   : nhw::asr(nhw::wrap16(edge), 3);
-  } else {      // plain 53: /16 low, /2 high with positive-biased rounding
-    lo = round_pos(raw, 8, 4);
-    if (t < m - 1) {
-      const int h = high_adj(row, t);
-      hi = h > 0 ? (h + 1) >> 1 : nhw::asr(h, 1);
-    } else {
-      hi = nhw::asr(edge + 1, 1);
+// The column pass of one row of j (length 2 kM, shared memory) for the
+// lane's pairs t = lane + 32 s: VI (kVI) or plain 53, lo[s] and hi[s]
+// before the int16 wrap.
+template <int kM, bool kVI>
+__device__ __forceinline__ void column_pass(const int16_t* row, int lane,
+                                            int (&lo)[kM / 32],
+                                            int (&hi)[kM / 32]) {
+  const int edge = row[2 * kM - 1] - row[2 * kM - 2];
+#pragma unroll
+  for (int s = 0; s < kM / 32; ++s) {
+    const int t = lane + 32 * s;
+    const int raw = low_raw(row, kM, t);
+    if (kVI) {   // /64 low after the previous slot's dither, /8 high
+      const int d_prev = t > 0 ? dither(low_raw(row, kM, t - 1)) : 0;
+      lo[s] = round_pos(nhw::wrap16(raw + d_prev), 32, 6);
+      hi[s] = t < kM - 1 ? round_pos(high_adj(row, t), 4, 3)
+                         : nhw::asr(nhw::wrap16(edge), 3);
+    } else {     // /16 low, /2 high with positive-biased rounding
+      lo[s] = round_pos(raw, 8, 4);
+      if (t < kM - 1) {
+        const int h = high_adj(row, t);
+        hi[s] = h > 0 ? (h + 1) >> 1 : nhw::asr(h, 1);
+      } else {
+        hi[s] = nhw::asr(edge + 1, 1);
+      }
     }
   }
-  int16_t* dst = p + b * p_plane;
-  const size_t at = static_cast<size_t>(k) * p_row + t;
-  const size_t lo_at =
-      kLLBack && k < m ? static_cast<size_t>(t) * p_row + k : at;
-  dst[lo_at] = static_cast<int16_t>(nhw::wrap16(lo));
-  dst[at + m] = static_cast<int16_t>(nhw::wrap16(hi));
+}
+
+// kLen int16 from shared src to global dst by one warp, 16 bytes a lane.
+template <int kLen>
+__device__ __forceinline__ void store_row(int16_t* dst, const int16_t* src,
+                                          int lane) {
+  static_assert(kLen % 8 == 0, "whole 16-byte vectors");
+#pragma unroll
+  for (int i = lane; i < kLen / 8; i += 32)
+    reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(src)[i];
+}
+
+// One analysis level of plane blockIdx.y: grid (cluster, B), clusters of
+// Layout<kN>::kCluster CTAs.  K4 (kLLBack false) writes j and p; K10 writes
+// out (passed as p, j unused), which may be x.
+template <int kN, bool kLLBack>
+__global__ void __launch_bounds__(Layout<kN>::kThreads, 2)
+analysis_cluster(const int16_t* x, size_t x_plane, int x_row, int16_t* j,
+                 size_t j_plane, int j_row, int16_t* p, size_t p_plane,
+                 int p_row) {
+  using L = Layout<kN>;
+  constexpr int kM = L::kM;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int16_t* js = reinterpret_cast<int16_t*>(smem);   // the CTA's rows of j
+  int16_t* in = js + L::kRows * L::kPitch;   // quarter buffers; K10's LL rows
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int c = static_cast<int>(cluster.block_rank());
+  const size_t b = blockIdx.y;
+  const int16_t* src =
+      x + b * x_plane + static_cast<size_t>(L::kRows) * c * x_row;
+
+  // 1. the raw IV row pass over the CTA's rows of x, quarter by quarter,
+  // stored transposed into the owners of the rows of j
+  for (int q = 0; q < 2; ++q)
+    nhw::stage_rows_async<kN, L::kPitch, L::kThreads>(
+        in + q * L::kQuarter * L::kPitch,
+        src + static_cast<size_t>(q) * L::kQuarter * x_row, x_row,
+        L::kQuarter);
+  cluster.sync();   // every peer runs before anyone writes to it
+  for (int q = 0; q < 4; ++q) {
+    if (q < 3) __pipeline_wait_prior(1); else __pipeline_wait_prior(0);
+    __syncthreads();   // quarter q is in, from every thread's copies
+    const int16_t* buf = in + (q & 1) * L::kQuarter * L::kPitch;
+    nhw::rows_to_peers_t<L::kQuarter, kM, L::kRows, L::kPitch, L::kThreads, 1,
+                         kM, 4>(
+        cluster, L::kRows * c + L::kQuarter * q, js,
+        [&](int r, int k, int& lo, int& hi) {
+          const int16_t* row = buf + r * L::kPitch;
+          lo = low_raw(row, kM, k);
+          hi = k < kM - 1 ? 2 * row[2 * k + 1] - (row[2 * k] + row[2 * k + 2])
+                          : 2 * (row[kN - 1] - row[kN - 2]);
+        });
+    __syncthreads();   // every read of the buffer before it is refilled
+    if (q < 2)
+      nhw::stage_rows_async<kN, L::kPitch, L::kThreads>(
+          in + (q & 1) * L::kQuarter * L::kPitch,
+          src + static_cast<size_t>(q + 2) * L::kQuarter * x_row, x_row,
+          L::kQuarter);
+  }
+  cluster.sync();   // j is complete, and no CTA reads x any more
+
+  // 2-3. one warp per row k of j: K4 stores it, then the column pass
+  // replaces it by row k of p, which leaves (K10: all of it below the VI
+  // rows, the high half of a VI row)
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const bool vi = c < L::kCluster / 2;   // rows k < kM
+  for (int i = 0; i < L::kWarpRows; ++i) {
+    const int lr = warp * L::kWarpRows + i;
+    const size_t k = static_cast<size_t>(L::kRows) * c + lr;
+    int16_t* row = js + lr * L::kPitch;
+    if constexpr (!kLLBack)
+      store_row<kN>(j + b * j_plane + k * j_row, row, lane);
+    int lo[kM / 32], hi[kM / 32];
+    if (vi)
+      column_pass<kM, true>(row, lane, lo, hi);
+    else
+      column_pass<kM, false>(row, lane, lo, hi);
+    __syncwarp();   // every read of the row before it is overwritten
+#pragma unroll
+    for (int s = 0; s < kM / 32; ++s) {
+      row[lane + 32 * s] = static_cast<int16_t>(nhw::wrap16(lo[s]));
+      row[kM + lane + 32 * s] = static_cast<int16_t>(nhw::wrap16(hi[s]));
+    }
+    __syncwarp();
+    int16_t* dst = p + b * p_plane + k * p_row;
+    if (kLLBack && vi)
+      store_row<kM>(dst + kM, row + kM, lane);
+    else
+      store_row<kN>(dst, row, lane);
+  }
+
+  if constexpr (kLLBack) {
+    // 4. the LL transpose-back: element t of VI row k to column k of row t
+    // in the CTA that owns out row t, then the LL rows leave
+    __syncthreads();   // every row of p is in js
+    if (vi)
+      nhw::rows_to_peers_t<L::kRows, kM, L::kRows, L::kLLPitch, L::kThreads,
+                           1, 0, 4>(
+          cluster, L::kRows * c, in, [&](int r, int t, int& v, int& none) {
+            v = js[r * L::kPitch + t];
+            none = 0;
+          });
+    cluster.sync();   // every LL row is in; the last access to any peer
+    if (vi)
+      for (int i = 0; i < L::kWarpRows; ++i) {
+        const int lr = warp * L::kWarpRows + i;
+        store_row<kM>(
+            p + b * p_plane + (static_cast<size_t>(L::kRows) * c + lr) * p_row,
+            in + lr * L::kLLPitch, lane);
+      }
+  }
+}
+
+template <int kN, bool kLLBack>
+const nhw::ClusterKernel& level_kernel() {
+  static const nhw::ClusterKernel k = nhw::cluster_setup(
+      analysis_cluster<kN, kLLBack>, Layout<kN>::kCluster,
+      Layout<kN>::kThreads, Layout<kN>::kSmem);
+  return k;
+}
+
+template <bool kLLBack>
+const nhw::ClusterKernel& level_kernel_n(int n) {
+  return n == 512   ? level_kernel<512, kLLBack>()
+         : n == 256 ? level_kernel<256, kLLBack>()
+                    : level_kernel<128, kLLBack>();
+}
+
+template <bool kLLBack>
+cudaError_t launch_level(int n, int batch, void* stream, const void* x,
+                         int x_plane, int x_row, void* j, int j_plane,
+                         int j_row, void* p, int p_plane, int p_row) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* xs = static_cast<const int16_t*>(x);
+  auto* js = static_cast<int16_t*>(j);
+  auto* ps = static_cast<int16_t*>(p);
+  const size_t xp = x_plane, jp = j_plane, pp = p_plane;
+  if (n == 512)
+    return nhw::launch_cluster(level_kernel<512, kLLBack>(),
+                               analysis_cluster<512, kLLBack>, batch, s, xs,
+                               xp, x_row, js, jp, j_row, ps, pp, p_row);
+  if (n == 256)
+    return nhw::launch_cluster(level_kernel<256, kLLBack>(),
+                               analysis_cluster<256, kLLBack>, batch, s, xs,
+                               xp, x_row, js, jp, j_row, ps, pp, p_row);
+  return nhw::launch_cluster(level_kernel<128, kLLBack>(),
+                             analysis_cluster<128, kLLBack>, batch, s, xs, xp,
+                             x_row, js, jp, j_row, ps, pp, p_row);
+}
+
+bool bad_args(int n, int batch) {
+  return (n != 128 && n != 256 && n != 512) || batch < 1 || batch > 65535;
+}
+
+// 16-byte copies need a 16-byte base and strides of whole 16-byte vectors.
+bool unaligned(const void* ptr, int plane, int row, int batch) {
+  return nhw::misaligned(ptr, 16) || row % 8 != 0 ||
+         (batch > 1 && plane % 8 != 0);
 }
 
 }  // namespace
@@ -168,45 +349,41 @@ __global__ void vi53_rows(const int16_t* __restrict__ j, size_t j_plane,
 extern "C" {
 
 // K4.  x, j, p: (B, n, n) int16, each with its plane and row strides
-// (elements); n in {128, 256, 512}.  x must not overlap j or p.
+// (elements, multiples of 8; 16-byte aligned bases); n in {128, 256,
+// 512}.  x must not overlap j or p.
 int nhw_analysis_level_jp(const void* x, int x_plane, int x_row, void* j,
                           int j_plane, int j_row, void* p, int p_plane,
                           int p_row, int batch, int n, void* stream) {
-  if ((n != 128 && n != 256 && n != 512) || batch < 1 || batch > 65535)
-    return cudaErrorInvalidValue;
-  const auto s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(n, batch);
-  iv_rows_t<<<grid, n / 2, 0, s>>>(static_cast<const int16_t*>(x), x_plane,
-                                   x_row, static_cast<int16_t*>(j), j_plane,
-                                   j_row, n);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  vi53_rows<false><<<grid, n / 2, 0, s>>>(static_cast<const int16_t*>(j),
-                                          j_plane, j_row,
-                                          static_cast<int16_t*>(p), p_plane,
-                                          p_row, n);
-  return cudaGetLastError();
+  if (bad_args(n, batch)) return cudaErrorInvalidValue;
+  if (unaligned(x, x_plane, x_row, batch) ||
+      unaligned(j, j_plane, j_row, batch) ||
+      unaligned(p, p_plane, p_row, batch))
+    return cudaErrorMisalignedAddress;
+  return launch_level<false>(n, batch, stream, x, x_plane, x_row, j, j_plane,
+                             j_row, p, p_plane, p_row);
 }
 
 // K10.  x, out: (B, n, n) int16 with their plane and row strides
-// (elements); scratch: contiguous (B, n, n) int16; n in {128, 256, 512}.
-// out may be x itself (in place); neither may overlap scratch.
-int nhw_analysis_level(const void* x, int x_plane, int x_row, void* scratch,
-                       void* out, int out_plane, int out_row, int batch,
-                       int n, void* stream) {
-  if ((n != 128 && n != 256 && n != 512) || batch < 1 || batch > 65535)
-    return cudaErrorInvalidValue;
-  const auto s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(n, batch);
-  iv_rows_t<<<grid, n / 2, 0, s>>>(static_cast<const int16_t*>(x), x_plane,
-                                   x_row, static_cast<int16_t*>(scratch),
-                                   static_cast<size_t>(n) * n, n, n);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  vi53_rows<true><<<grid, n / 2, 0, s>>>(
-      static_cast<const int16_t*>(scratch), static_cast<size_t>(n) * n, n,
-      static_cast<int16_t*>(out), out_plane, out_row, n);
-  return cudaGetLastError();
+// (elements, multiples of 8; 16-byte aligned bases); n in {128, 256,
+// 512}.  out may be x itself (in place), or else must not overlap it.
+int nhw_analysis_level(const void* x, int x_plane, int x_row, void* out,
+                       int out_plane, int out_row, int batch, int n,
+                       void* stream) {
+  if (bad_args(n, batch)) return cudaErrorInvalidValue;
+  if (unaligned(x, x_plane, x_row, batch) ||
+      unaligned(out, out_plane, out_row, batch))
+    return cudaErrorMisalignedAddress;
+  return launch_level<true>(n, batch, stream, x, x_plane, x_row, nullptr, 0,
+                            0, out, out_plane, out_row);
+}
+
+// What the card allows for K4 (kernel 0-2) and K10 (3-5) at n = 512, 256,
+// 128 (nhw_cluster_info, dwt.cu, reports it).
+int nhw_analysis_cluster_info(int kernel, void* info) {
+  if (kernel < 0 || kernel > 5) return cudaErrorInvalidValue;
+  const int n = 512 >> (kernel % 3);
+  return nhw::cluster_info(
+      kernel < 3 ? level_kernel_n<false>(n) : level_kernel_n<true>(n), info);
 }
 
 }  // extern "C"

@@ -55,8 +55,8 @@
 // The HQ scatter does not move marks, so the same argument holds for K8.
 //
 // Cluster kernels (K2, K3): one launch, the plane in distributed shared
-// memory (DSM).  A 512x512 int16 plane (512 KiB) does not fit one
-// block's 227 KB, but a thread-block cluster of 8 CTAs holds it, 64 KiB
+// memory (DSM; the helpers are in cluster.cuh).  A 512x512 int16 plane
+// (512 KiB) does not fit one block's 227 KB, but a thread-block cluster of 8 CTAs holds it, 64 KiB
 // of transposed rows each; K3's 256 plane is spread over 4 CTAs, because
 // one CTA per plane would leave three quarters of the SMs idle at the
 // pipeline's 32 chroma planes.  CTA c of an image's cluster stages its
@@ -96,7 +96,7 @@
 //   own 64 rows; the 256 level's row pass.  Its normalised pass writes
 //   the int16 rows.
 // What is left is the DSM stores (4-byte stores to 32 rows a warp;
-// tools/cluster_probe.py times them against stores to the CTA itself)
+// kernels/cluster_probe.py times them against stores to the CTA itself)
 // and the row passes' integer work with 16 warps an SM.
 // Each entry point sets the dynamic shared memory limit and asks
 // cudaOccupancyMaxActiveClusters once; if no cluster fits it returns
@@ -114,11 +114,19 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "cluster.cuh"
 #include "lifting.cuh"
 
 namespace {
 
 namespace cg = cooperative_groups;
+using nhw::ClusterKernel;
+using nhw::cluster_setup;
+using nhw::launch_cluster;
+using nhw::misaligned;
+using nhw::pack16;
+using nhw::rows_to_peers_t;
+using nhw::stage_rows_async;
 
 constexpr int kMaxN = 512;
 constexpr int kY = 512;     // decode Y plane side
@@ -288,65 +296,9 @@ __device__ __forceinline__ int clear_sentinel(int v) {
   return v >= 5003 && v <= 5006 ? 0 : v;
 }
 
-__device__ __forceinline__ uint32_t pack16(int lo, int hi) {
-  return static_cast<uint32_t>(static_cast<uint16_t>(lo)) |
-         (static_cast<uint32_t>(static_cast<uint16_t>(hi)) << 16);
-}
-
 __device__ __forceinline__ uint32_t clear_pair(uint32_t w) {
   return pack16(clear_sentinel(static_cast<int16_t>(w & 0xffffu)),
                 clear_sentinel(static_cast<int16_t>(w >> 16)));
-}
-
-// One row pass of a cluster kernel, stored transposed through DSM.  The
-// calling CTA holds kRows source rows of length 2 kM, rows row0 onwards
-// (row0 even) of its plane; pair(r, k, even, odd) gives the values of
-// pair k of its local row r.  Value (2k, row) goes to transposed row 2k,
-// (2k + 1, row) to row 2k + 1; transposed row j lies in the CTA of rank
-// j / kDstRows, at local row j % kDstRows of `dst` (pitch kDstPitch
-// int16, odd in 32-bit words).  A warp takes 16 consecutive k (one
-// destination CTA) of two neighbouring rows, so each thread stores the
-// two rows' values of a transposed row as one 32-bit word, and the warp's
-// 32 words fall on 32 banks.
-template <int kRows, int kM, int kDstRows, int kDstPitch, int kThreads,
-          typename Pair>
-__device__ __forceinline__ void rows_to_peers_t(const cg::cluster_group& cluster,
-                                                int row0, int16_t* dst,
-                                                Pair pair) {
-  static_assert(kM % 16 == 0 && kRows % 2 == 0 && kDstPitch % 4 == 2 &&
-                    (kRows / 2 * kM) % kThreads == 0,
-                "16 k per half-warp, row pairs, odd word pitch, whole tasks");
-  constexpr int kKBlocks = kM / 16;
-#pragma unroll 2
-  for (int it = 0; it < kRows / 2 * kM / kThreads; ++it) {
-    const int g = threadIdx.x + it * kThreads;
-    const int w = g >> 5;
-    const int k = (w % kKBlocks) * 16 + (g & 15);
-    const int rp = (w / kKBlocks) * 2 + ((g >> 4) & 1);
-    int e0, o0, e1, o1;
-    pair(2 * rp, k, e0, o0);
-    pair(2 * rp + 1, k, e1, o1);
-    int16_t* peer = cluster.map_shared_rank(dst, (2 * k) / kDstRows);
-    uint32_t* word = reinterpret_cast<uint32_t*>(
-        peer + ((2 * k) % kDstRows) * kDstPitch) + row0 / 2 + rp;
-    word[0] = pack16(e0, e1);
-    word[kDstPitch / 2] = pack16(o0, o1);
-  }
-}
-
-// Issue the 16-byte copies of `rows` rows of kRowLen int16 (global, row
-// pitch kSrcPitch) into shared memory (pitch kDstPitch) by kThreads
-// threads, without waiting: cp.async, one commit group.
-template <int kRowLen, int kSrcPitch, int kDstPitch, int kThreads>
-__device__ __forceinline__ void stage_rows_async(int16_t* dst,
-                                                 const int16_t* src,
-                                                 int rows) {
-  constexpr int kVecs = kRowLen / 8;
-  for (int i = threadIdx.x; i < rows * kVecs; i += kThreads)
-    __pipeline_memcpy_async(dst + (i / kVecs) * kDstPitch + (i % kVecs) * 8,
-                            src + (i / kVecs) * kSrcPitch + (i % kVecs) * 8,
-                            16);
-  __pipeline_commit();
 }
 
 // K2 as one cluster launch: grid (8, B), cluster (8, 1, 1), one cluster
@@ -381,14 +333,16 @@ y_stage2_cluster(const int16_t* __restrict__ jp,
   // 1-2. the un-normalised row pass over the CTA's 64 rows, quarter by
   // quarter, stored transposed into the owners
   for (int q = 0; q < 2; ++q)
-    stage_rows_async<kY, kY, kY2InPitch, kY2Threads>(
-        in + q * kY2Quarter * kY2InPitch, src + q * kY2Quarter * kY, kY2Quarter);
+    stage_rows_async<kY, kY2InPitch, kY2Threads>(
+        in + q * kY2Quarter * kY2InPitch, src + q * kY2Quarter * kY, kY,
+        kY2Quarter);
   cluster.sync();   // every peer runs before anyone writes to it
   for (int q = 0; q < 4; ++q) {
     if (q < 3) __pipeline_wait_prior(1); else __pipeline_wait_prior(0);
     __syncthreads();   // quarter q is in, from every thread's copies
     const int16_t* buf = in + (q & 1) * kY2Quarter * kY2InPitch;
-    rows_to_peers_t<kY2Quarter, kY / 2, kY2Rows, kY2TPitch, kY2Threads>(
+    rows_to_peers_t<kY2Quarter, kY / 2, kY2Rows, kY2TPitch, kY2Threads, 2, 1,
+                    2>(
         cluster, kY2Rows * c + kY2Quarter * q, t,
         [&](int r, int k, int& even, int& odd) {
           const int16_t* row = buf + r * kY2InPitch;
@@ -396,9 +350,9 @@ y_stage2_cluster(const int16_t* __restrict__ jp,
         });
     __syncthreads();   // every read of the buffer before it is refilled
     if (q < 2)
-      stage_rows_async<kY, kY, kY2InPitch, kY2Threads>(
+      stage_rows_async<kY, kY2InPitch, kY2Threads>(
           in + (q & 1) * kY2Quarter * kY2InPitch,
-          src + (q + 2) * kY2Quarter * kY, kY2Quarter);
+          src + (q + 2) * kY2Quarter * kY, kY, kY2Quarter);
   }
   // 3-5. one warp per transposed row (two even and two odd rows each):
   // the depth row, the dering waves, the normalised row pass and the
@@ -542,8 +496,8 @@ uv_synth_cluster(const int16_t* __restrict__ x, int16_t* __restrict__ out) {
   const int tid = threadIdx.x;
   const int16_t* X = x + b * kUV * kUV;
 
-  stage_rows_async<kLL, kUV, kXllPitch, kUVThreads>(
-      xll, X + kLLRows * c * kUV, kLLRows);
+  stage_rows_async<kLL, kXllPitch, kUVThreads>(
+      xll, X + kLLRows * c * kUV, kUV, kLLRows);
   // the 256 plane's rows outside the LL block, sentinels cleared (the LL
   // block comes from the transpose-back below)
   constexpr int kVecs = kUVRows * kUV / 8 / kUVThreads;
@@ -601,7 +555,7 @@ uv_synth_cluster(const int16_t* __restrict__ x, int16_t* __restrict__ out) {
   cluster.sync();
 
   // the 128 level's un-normalised row pass
-  rows_to_peers_t<kLLRows, kLL / 2, kLLRows, kT1Pitch, kUVThreads>(
+  rows_to_peers_t<kLLRows, kLL / 2, kLLRows, kT1Pitch, kUVThreads, 2, 1, 2>(
       cluster, kLLRows * c, t1, [&](int r, int k, int& even, int& odd) {
         const int16_t* row = xll + r * kXllPitch;
         nhw::unnorm_pair(row, row + kLL / 2, kLL / 2, k, even, odd);
@@ -610,7 +564,7 @@ uv_synth_cluster(const int16_t* __restrict__ x, int16_t* __restrict__ out) {
 
   // its normalised pass (LL row R = 32c + r) plus the sentinel deltas,
   // transposed back into the 256 plane: proc[R][C] -> row C, column R
-  rows_to_peers_t<kLLRows, kLL / 2, kUVRows, kJpPitch, kUVThreads>(
+  rows_to_peers_t<kLLRows, kLL / 2, kUVRows, kJpPitch, kUVThreads, 2, 1, 2>(
       cluster, kLLRows * c, jp, [&](int r, int k, int& even, int& odd) {
         const int16_t* row = t1 + r * kT1Pitch;
         int ue, uo;
@@ -621,7 +575,7 @@ uv_synth_cluster(const int16_t* __restrict__ x, int16_t* __restrict__ out) {
   cluster.sync();
 
   // the 256 level's un-normalised row pass
-  rows_to_peers_t<kUVRows, kUV / 2, kUVRows, kT2Pitch, kUVThreads>(
+  rows_to_peers_t<kUVRows, kUV / 2, kUVRows, kT2Pitch, kUVThreads, 2, 1, 2>(
       cluster, kUVRows * c, t2, [&](int r, int k, int& even, int& odd) {
         const int16_t* row = jp + r * kJpPitch;
         nhw::unnorm_pair(row, row + kUV / 2, kUV / 2, k, even, odd);
@@ -641,50 +595,6 @@ uv_synth_cluster(const int16_t* __restrict__ x, int16_t* __restrict__ out) {
   }
 }
 
-cudaLaunchAttribute cluster_dims(int cluster) {
-  cudaLaunchAttribute a;
-  a.id = cudaLaunchAttributeClusterDimension;
-  a.val.clusterDim.x = cluster;
-  a.val.clusterDim.y = 1;
-  a.val.clusterDim.z = 1;
-  return a;
-}
-
-// A cluster kernel's launch shape and what the card allows for it, found
-// once per process: registers per thread, shared memory per CTA and the
-// most clusters that can be resident at once.
-struct ClusterKernel {
-  int cluster, threads, dyn_smem;
-  cudaError_t err;
-  int regs, smem, clusters;
-};
-
-template <typename Kernel>
-ClusterKernel cluster_setup(Kernel* kernel, int cluster, int threads,
-                            int smem) {
-  ClusterKernel k{cluster, threads, smem, cudaSuccess, 0, 0, 0};
-  const void* fn = reinterpret_cast<const void*>(kernel);
-  k.err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  cudaFuncAttributes attrs;
-  if (k.err == cudaSuccess) k.err = cudaFuncGetAttributes(&attrs, fn);
-  if (k.err == cudaSuccess) {
-    k.regs = attrs.numRegs;
-    k.smem = smem + static_cast<int>(attrs.sharedSizeBytes);
-    cudaLaunchAttribute dims = cluster_dims(cluster);
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(cluster, 1, 1);
-    cfg.blockDim = dim3(threads, 1, 1);
-    cfg.dynamicSmemBytes = smem;
-    cfg.attrs = &dims;
-    cfg.numAttrs = 1;
-    k.err = cudaOccupancyMaxActiveClusters(&k.clusters, fn, &cfg);
-  }
-  if (k.err == cudaSuccess && k.clusters < 1)
-    k.err = cudaErrorLaunchOutOfResources;
-  return k;
-}
-
 const ClusterKernel& y2_kernel() {
   static const ClusterKernel k =
       cluster_setup(y_stage2_cluster, kY2Cluster, kY2Threads, kY2Smem);
@@ -695,27 +605,6 @@ const ClusterKernel& uv_kernel() {
   static const ClusterKernel k =
       cluster_setup(uv_synth_cluster, kUVCluster, kUVThreads, kUVSmem);
   return k;
-}
-
-// One cluster per image: grid (cluster, batch).
-template <typename Kernel, typename... Args>
-cudaError_t launch_cluster(const ClusterKernel& k, Kernel* kernel, int batch,
-                           cudaStream_t stream, Args... args) {
-  if (k.err != cudaSuccess) return k.err;
-  cudaLaunchAttribute dims = cluster_dims(k.cluster);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(k.cluster, batch, 1);
-  cfg.blockDim = dim3(k.threads, 1, 1);
-  cfg.dynamicSmemBytes = k.dyn_smem;
-  cfg.stream = stream;
-  cfg.attrs = &dims;
-  cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
-  return e != cudaSuccess ? e : cudaGetLastError();
-}
-
-bool misaligned(const void* p, uintptr_t to) {
-  return reinterpret_cast<uintptr_t>(p) % to != 0;
 }
 
 cudaError_t synth_level(const int16_t* x, size_t plane_stride, int row_stride,
@@ -736,6 +625,8 @@ bool bad_batch(int batch) { return batch < 1 || batch > 65535; }
 }  // namespace
 
 extern "C" {
+
+int nhw_analysis_cluster_info(int kernel, void* info);
 
 const char* nhw_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -778,18 +669,14 @@ int nhw_uv_synth(const void* x, void* out, int batch, void* stream) {
                         static_cast<int16_t*>(out));
 }
 
-// What the card allows for cluster kernel `kernel` (0: K2, 1: K3), as
-// its entry point found it: info[0] registers per thread, info[1] shared
-// memory per CTA (bytes), info[2] the most clusters resident at once.
+// What the card allows for cluster kernel `kernel` (0: K2, 1: K3, 2-7:
+// K4 and K10 at n = 512, 256, 128, analysis.cu), as its entry point found
+// it: info[0] registers per thread, info[1] shared memory per CTA
+// (bytes), info[2] the most clusters resident at once.
 int nhw_cluster_info(int kernel, void* info) {
+  if (kernel >= 2) return nhw_analysis_cluster_info(kernel - 2, info);
   if (kernel != 0 && kernel != 1) return cudaErrorInvalidValue;
-  const ClusterKernel& k = kernel == 0 ? y2_kernel() : uv_kernel();
-  if (k.err != cudaSuccess) return k.err;
-  int* out = static_cast<int*>(info);
-  out[0] = k.regs;
-  out[1] = k.smem;
-  out[2] = k.clusters;
-  return cudaSuccess;
+  return nhw::cluster_info(kernel == 0 ? y2_kernel() : uv_kernel(), info);
 }
 
 // K7.  x: (B, n, n) int16 with the given plane and row strides (elements);

@@ -31,7 +31,7 @@
 //      coalesced loads (the row pitch of 258 int16 keeps the walkers'
 //      column reads on distinct banks), one warp walks, and all threads
 //      store the new jpeg LL rows and res_clean;
-//   3. the re-analysis: K4's two launches (nhw_analysis_level_jp,
+//   3. the re-analysis: K4's cluster launch (nhw_analysis_level_jp,
 //      analysis.cu) from scratch into the jpeg and process LL corners
 //      through their 512 row stride.
 // The TPU kernel's dead ll_f (the post-ladder process LL, overwritten by

@@ -43,16 +43,16 @@ SIGNATURES = {
     "nhw_y_stage2_full": [_P, _P, _P, _I, _I, _P],
     # (x, out, batch, stream)
     "nhw_uv_synth": [_P, _P, _I, _P],
-    # (kernel: 0 K2, 1 K3; int32[3] out: registers, shared bytes per CTA,
-    #  most resident clusters)
+    # (kernel: 0 K2, 1 K3, 2-4 K4 and 5-7 K10 at n = 512, 256, 128;
+    #  int32[3] out: registers, shared bytes per CTA, most resident
+    #  clusters)
     "nhw_cluster_info": [_I, _P],
     # (x, x_plane, x_row, j, j_plane, j_row, p, p_plane, p_row, batch, n,
     #  stream)
     "nhw_analysis_level_jp": [_P, _I, _I, _P, _I, _I, _P, _I, _I, _I, _I,
                               _P],
-    # (x, x_plane, x_row, scratch, out, out_plane, out_row, batch, n,
-    #  stream)
-    "nhw_analysis_level": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _P],
+    # (x, x_plane, x_row, out, out_plane, out_row, batch, n, stream)
+    "nhw_analysis_level": [_P, _I, _I, _P, _I, _I, _I, _I, _P],
     # (jpeg, process, res256, res_clean, scratch, batch, stream)
     "nhw_requant_tail": [_P, _P, _P, _P, _P, _I, _P],
     # (rgb, y, u, v, batch, stream)

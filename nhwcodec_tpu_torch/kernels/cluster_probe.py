@@ -24,23 +24,29 @@ import torch
 
 from nhwcodec_tpu_torch.kernels import build
 
-# the DSM store of rows_to_peers_t, and its local stand-in
-_PEER = "int16_t* peer = cluster.map_shared_rank(dst, (2 * k) / kDstRows);"
+# the DSM store of rows_to_peers_t (cluster.cuh), and its local stand-in
+_PEER = "int16_t* peer = cluster.map_shared_rank(dst, d0 / kDstRows);"
 _SELF = ("int16_t* peer = cluster.map_shared_rank("
          "dst, static_cast<int>(cluster.block_rank()));")
 
 
 def _self_store_library():
-    """dwt.cu built with the row passes' DSM stores sent to the CTA itself."""
-    src = (build.CSRC / "dwt.cu").read_text()
+    """dwt.cu built with the row passes' DSM stores sent to the CTA itself:
+    a patched copy of cluster.cuh beside a copy of dwt.cu, which includes
+    it from its own directory first."""
+    src = (build.CSRC / "cluster.cuh").read_text()
     if src.count(_PEER) != 1:
-        raise RuntimeError("dwt.cu: the row pass's DSM store line changed")
+        raise RuntimeError("cluster.cuh: the row pass's DSM store line "
+                           "changed")
     out = build.BUILD_DIR / "probe"
     out.mkdir(parents=True, exist_ok=True)
-    (out / "dwt_self.cu").write_text(src.replace(_PEER, _SELF))
+    (out / "cluster.cuh").write_text(src.replace(_PEER, _SELF))
+    (out / "dwt_self.cu").write_text((build.CSRC / "dwt.cu").read_text())
     so = out / "libdwt_self.so"
+    # analysis.cu, unpatched, holds nhw_cluster_info's K4/K10 half
     subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-shared", "-I",
-                    str(build.CSRC), "-o", str(so), str(out / "dwt_self.cu")],
+                    str(build.CSRC), "-o", str(so), str(out / "dwt_self.cu"),
+                    str(build.CSRC / "analysis.cu")],
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(so))
     for name in ("nhw_y_stage2_full", "nhw_uv_synth"):

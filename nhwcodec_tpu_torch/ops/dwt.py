@@ -336,14 +336,20 @@ def uv_synth(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-CLUSTER_KERNELS = ("y_stage2_full", "uv_synth")
+# the cluster kernels, in the order of nhw_cluster_info (dwt.cu): K2, K3,
+# then K4 and K10 at each n, one cluster shape per n
+CLUSTER_KERNELS = ("y_stage2_full", "uv_synth") + tuple(
+    f"{name}/{n}" for name in ("analysis_level_jp", "analysis_level")
+    for n in (512, 256, 128))
 
 
 def cluster_info(name: str, device=None) -> dict:
-    """What the card allows for the cluster kernel ``name`` (K2 or K3),
-    as its C entry point found it: registers per thread, shared memory
-    per CTA in bytes, and the most clusters resident at once.  Raises
-    where the card holds no cluster of the kernel."""
+    """What the card allows for the cluster kernel ``name`` (an entry of
+    ``CLUSTER_KERNELS``: K2, K3, or K4 / K10 at one n, as
+    ``"analysis_level/256"``), as its C entry point found it: registers
+    per thread, shared memory per CTA in bytes, and the most clusters
+    resident at once.  Raises where the card holds no cluster of the
+    kernel."""
     info = (ctypes.c_int * 3)()
     with torch.cuda.device(device):
         build.check("nhw_cluster_info", build.load().nhw_cluster_info(
@@ -356,7 +362,10 @@ def analysis_level_jp(x: torch.Tensor):
     """K4: one analysis level on (B, n, n) int16, n in {128, 256, 512}
     -> (j, p), contiguous (B, n, n) int16 each (see
     ``analysis_level_jp_ref``).  A view whose rows are contiguous (e.g.
-    the LL corner of a larger plane) is taken without a copy."""
+    the LL corner of a larger plane) is taken without a copy; on the card
+    its base must be 16-byte aligned and its strides multiples of 8, or
+    the kernel refuses it and this raises.  On the card one launch, a
+    cluster of CTAs per plane."""
     _check(x, "analysis_level_jp", torch.int16, (None, None, None))
     b, n, n2 = x.shape
     if n != n2 or n not in (128, 256, 512):
@@ -385,7 +394,9 @@ def analysis_level(x: torch.Tensor,
     into ``out`` (default: a new contiguous tensor), which is returned.
     Views whose rows are contiguous are taken without a copy, and ``out``
     may be ``x`` itself: the level then runs in place (e.g. on the LL
-    corner of a level-1 plane)."""
+    corner of a level-1 plane).  On the card both need 16-byte aligned
+    bases and strides that are multiples of 8, or this raises; one
+    launch, a cluster of CTAs per plane."""
     _check(x, "analysis_level", torch.int16, (None, None, None))
     b, n, n2 = x.shape
     if n != n2 or n not in (128, 256, 512):
@@ -398,12 +409,11 @@ def analysis_level(x: torch.Tensor,
     if x.stride(2) != 1 or out.stride(2) != 1:
         raise ValueError("analysis_level: rows must be contiguous")
     lib, stream = _cuda_args(x, out)
-    scratch = torch.empty((b, n, n), dtype=torch.int16, device=x.device)
     if b:
         with torch.cuda.device(x.device):
             build.check("nhw_analysis_level", lib.nhw_analysis_level(
-                x.data_ptr(), x.stride(0), x.stride(1), scratch.data_ptr(),
-                out.data_ptr(), out.stride(0), out.stride(1), b, n, stream))
+                x.data_ptr(), x.stride(0), x.stride(1), out.data_ptr(),
+                out.stride(0), out.stride(1), b, n, stream))
         build.count("analysis_level")
     return out
 

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import ANALYSIS_EDGE_INPUTS, analysis_path_shapes
 from nhwcodec_tpu.models import decoder, encoder
 from nhwcodec_tpu.utils import fixtures
 from nhwcodec_tpu_torch.kernels import build
@@ -137,7 +138,7 @@ def test_uv_synth_cluster_kernel(cuda, kind, b):
     torch.testing.assert_close(got, dwt.uv_synth_ref(xt), rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("name", ["y_stage2_full", "uv_synth"])
+@pytest.mark.parametrize("name", dwt.CLUSTER_KERNELS)
 def test_cluster_kernels_fit_the_card(cuda, name):
     info = dwt.cluster_info(name, cuda)
     assert info["max_active_clusters"] >= 1
@@ -168,20 +169,65 @@ def test_decode_batch_on_the_card(cuda):
 # the encode slice: K4, K5, K6
 
 
-@pytest.mark.parametrize("b,n", [(2, 512), (2, 256), (4, 128)])
-def test_analysis_level_jp_kernel(cuda, b, n):
-    x = torch.from_numpy(_planes(np.random.default_rng(n), b, n, -1800,
-                                 1800)).to(cuda)
-    before = build.LAUNCHES["analysis_level_jp"]
-    got = dwt.analysis_level_jp(x)
-    assert build.LAUNCHES["analysis_level_jp"] == before + 1
-    for g, w in zip(got, dwt.analysis_level_jp_ref(x)):
-        torch.testing.assert_close(g, w, rtol=0, atol=0)
-    if n > 128:
-        view = x[:, : n // 2, : n // 2]
-        for g, w in zip(dwt.analysis_level_jp(view),
-                        dwt.analysis_level_jp_ref(view)):
+def _analysis_planes(kind, rng, b, n):
+    if kind in ANALYSIS_EDGE_INPUTS:
+        return ANALYSIS_EDGE_INPUTS[kind](rng, b, n)
+    lo, hi = (-32768, 32768) if kind == "random" else (-1800, 1800)
+    return rng.integers(lo, hi, (b, n, n)).astype(np.int16)
+
+
+# K4 and K10 are one cluster launch each: the encode path's four shapes at
+# batch 1, 3 and 16, full-range, +-1800 and edge inputs
+ANALYSIS_KINDS = ["random", "1800", *ANALYSIS_EDGE_INPUTS]
+
+
+@pytest.mark.parametrize("b", [1, 3, 16])
+@pytest.mark.parametrize("kind", ANALYSIS_KINDS)
+def test_analysis_level_jp_kernel(cuda, kind, b):
+    rng = np.random.default_rng(80 + b)
+    for bb, n in analysis_path_shapes(b):
+        x = torch.from_numpy(_analysis_planes(kind, rng, bb, n)).to(cuda)
+        before = build.LAUNCHES["analysis_level_jp"]
+        got = dwt.analysis_level_jp(x)
+        assert build.LAUNCHES["analysis_level_jp"] == before + 1
+        for g, w in zip(got, dwt.analysis_level_jp_ref(x)):
             torch.testing.assert_close(g, w, rtol=0, atol=0)
+        if n > 128:
+            view = x[:, : n // 2, : n // 2]
+            for g, w in zip(dwt.analysis_level_jp(view),
+                            dwt.analysis_level_jp_ref(view)):
+                torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_analysis_level_jp_through_corner_views(cuda):
+    # K5's call: from its 256-stride scratch into the 512-stride LL
+    # corners of jpeg and process
+    rng = np.random.default_rng(90)
+    x = torch.from_numpy(_analysis_planes("random", rng, 16, 256)).to(cuda)
+    jpeg = torch.full((16, 512, 512), 7, dtype=torch.int16, device=cuda)
+    process = torch.full_like(jpeg, -7)
+    build.check("nhw_analysis_level_jp", build.load().nhw_analysis_level_jp(
+        x.data_ptr(), 256 * 256, 256, jpeg.data_ptr(), 512 * 512, 512,
+        process.data_ptr(), 512 * 512, 512, 16, 256,
+        torch.cuda.current_stream(cuda).cuda_stream))
+    want_j, want_p = dwt.analysis_level_jp_ref(x)
+    torch.testing.assert_close(jpeg[:, :256, :256], want_j, rtol=0, atol=0)
+    torch.testing.assert_close(process[:, :256, :256], want_p, rtol=0, atol=0)
+    assert (jpeg[:, 256:] == 7).all() and (jpeg[:, :, 256:] == 7).all()
+    assert (process[:, 256:] == -7).all() and (process[:, :, 256:] == -7).all()
+
+
+def test_analysis_misaligned_view_raises(cuda):
+    # a base 8 bytes past a 16-byte boundary; a row stride of 260
+    views = (torch.zeros((2, 256, 264), dtype=torch.int16,
+                         device=cuda)[..., 4:260],
+             torch.zeros((2, 256, 260), dtype=torch.int16,
+                         device=cuda)[..., :256])
+    for view in views:
+        with pytest.raises(RuntimeError, match="misaligned"):
+            dwt.analysis_level_jp(view)
+        with pytest.raises(RuntimeError, match="misaligned"):
+            dwt.analysis_level(view)
 
 
 def test_requant_tail_kernel(cuda):
@@ -320,24 +366,25 @@ def test_fallback_decode_on_the_card(cuda, monkeypatch):
 # the transform path: K10, and K1/K7/K9 in decode_transform
 
 
-@pytest.mark.parametrize("b,n", [(16, 512), (16, 256), (32, 256),
-                                 (32, 128)])
-def test_analysis_level_kernel(cuda, b, n):
-    x = torch.from_numpy(_planes(np.random.default_rng(n + 3), b, n, -1800,
-                                 1800)).to(cuda)
-    before = build.LAUNCHES["analysis_level"]
-    got = dwt.analysis_level(x)
-    assert build.LAUNCHES["analysis_level"] == before + 1
-    torch.testing.assert_close(got, dwt.analysis_level_ref(x), rtol=0,
-                               atol=0)
-    # in place on the LL corner of the level-1 plane
-    h = n // 2
-    if h >= 128:
-        want = got.clone()
-        want[:, :h, :h] = dwt.analysis_level_ref(got[:, :h, :h])
-        corner = got[:, :h, :h]
-        assert dwt.analysis_level(corner, out=corner) is corner
-        torch.testing.assert_close(got, want, rtol=0, atol=0)
+@pytest.mark.parametrize("b", [1, 3, 16])
+@pytest.mark.parametrize("kind", ANALYSIS_KINDS)
+def test_analysis_level_kernel(cuda, kind, b):
+    rng = np.random.default_rng(90 + b)
+    for bb, n in analysis_path_shapes(b):
+        x = torch.from_numpy(_analysis_planes(kind, rng, bb, n)).to(cuda)
+        before = build.LAUNCHES["analysis_level"]
+        got = dwt.analysis_level(x)
+        assert build.LAUNCHES["analysis_level"] == before + 1
+        torch.testing.assert_close(got, dwt.analysis_level_ref(x), rtol=0,
+                                   atol=0)
+        # in place on the LL corner of the level-1 plane
+        h = n // 2
+        if h >= 128:
+            want = got.clone()
+            want[:, :h, :h] = dwt.analysis_level_ref(got[:, :h, :h])
+            corner = got[:, :h, :h]
+            assert dwt.analysis_level(corner, out=corner) is corner
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 def test_transform_step_on_the_card(cuda):
