@@ -26,14 +26,17 @@
    the card, at the shapes its path gives it (batch 16 for the decode
    and encode services, the transform's four K10 shapes at batch 16),
    and times both (CUDA events around the wrapper call; torch.profiler
-   device time; for K2-K4, K6 and K10 also CUDA events around a CUDA
+   device time; for K1-K4, K6 and K10 also CUDA events around a CUDA
    graph of back-to-back calls) beside the least time the card could
-   take for the same bytes and operations.  K4 and K10 are timed at all
-   four of their path's shapes, each call shown by the profiler to be one
-   launch of one kernel; K5 is split into its three stages (K1, the
-   unmark + ladder launch, K4).  The cluster kernels (K2, K3, K4, K10)
-   print what the card allows for them (registers, shared memory per
-   CTA, resident clusters); K2 and K3 are held to their twins at batch
+   take for the same bytes and operations.  K1 (at its three path
+   shapes), K4 and K10 (at their four) are timed at every shape, each
+   call shown by the profiler to be one launch of one kernel; K5 is
+   split into its three stages (K1, the unmark + ladder table walk, K4)
+   and timed as a graph on restored inputs, and held to its twin at
+   batch 1, 3 and 16 on real states, chain planes and row-crossing
+   reads.  The cluster kernels (K1, K2, K3, K4, K10) print what the card
+   allows for them (registers, shared memory per CTA, resident
+   clusters); K2 and K3 are held to their twins at batch
    1, 3 and 16 on random, near-flat, residue-bound and cluster-edge
    inputs, K4 and K10 at batch 1, 3 and 16 at their four shapes on
    full-range, +-1800 and edge inputs (ANALYSIS_EDGE_INPUTS) and in
@@ -679,6 +682,36 @@ def switch_edge_planes(rng, b, n):
     return x
 
 
+# K1's launch shapes (csrc/dwt.cu kSynthShapes): n -> (CTAs a cluster,
+# threads a CTA); CTA c owns rows [cR, (c + 1)R) of x and of the
+# transposed plane, R = n / cluster
+SYNTH_SHAPES = {512: (8, 512), 256: (8, 256), 128: (4, 256)}
+
+
+def synth_path_shapes(b: int, entry: int = 8) -> tuple:
+    """K1's (batch, n, side of the plane it is the corner of) on its
+    paths: the decode's Y stage 1 and K5's synthesis at batch b, the
+    transform's Y and U+V at its entry batch."""
+    return ((b, 256, 512), (entry, 256, 512), (2 * entry, 128, 256))
+
+
+def synth_edge_planes(rng, b, n):
+    """Planes in [-2000, 2000) with int16 extremes on the rows at every
+    CTA edge of K1 (cR - 1, cR) and rows 0 and n - 1, and on the columns
+    of the first and last pairs and of the low/high boundary (0, 1,
+    n/2 - 1, n/2, n/2 + 1, n - 1): a transposed row's first and last
+    pairs, and every CTA's first and last source rows."""
+    m, cluster = n // 2, SYNTH_SHAPES[n][0]
+    x = rng.integers(-2000, 2000, (b, n, n)).astype(np.int16)
+    rows = {0, n - 1} | {c * n // cluster + d for c in range(1, cluster)
+                         for d in (-1, 0)}
+    for ln in sorted(rows):
+        x[:, ln, :] = rng.choice(INT16_EXTREMES, (b, n))
+    for ln in (0, 1, m - 1, m, m + 1, n - 1):
+        x[:, :, ln] = rng.choice(INT16_EXTREMES, (b, n))
+    return x
+
+
 ANALYSIS_EDGE_INPUTS = {"int16 extremes": extreme_planes,
                         "parity chains": parity_chain_planes,
                         "dither boundaries": dither_edge_planes,
@@ -732,20 +765,37 @@ def kernel_phase(dev) -> dict:
     from nhwcodec_tpu_torch.ops import dwt
 
     rng = np.random.default_rng(SEED)
-    # K1 gets the (B,256,256) corner of the (B,512,512) Y plane
     y512 = torch.from_numpy(planes(rng, B, 512, -2000, 2000)).to(dev)
-    k1_in = y512[:, :256, :256]
     jp = torch.from_numpy(planes(rng, B, 512, -2, 3)).to(dev)
     dp_np, n_waves, ok = tdd.mark_depth_planes(mark_lists(rng, B))
     check(ok and n_waves >= 3, f"depth planes: ok={ok} n_waves={n_waves}")
     dp = torch.from_numpy(dp_np).to(dev)
     uv = torch.from_numpy(sentinel_planes(rng, 2 * B)).to(dev)
 
+    # K1 at its paths' shapes, each a corner view (synth_path_shapes), and
+    # on whole (B,512,512) planes; each call one launch of synth_cluster
+    k1_rng = np.random.default_rng(SEED + 6)
+    shapes = {}
+    for b, n, side in synth_path_shapes(B):
+        parent = torch.from_numpy(planes(k1_rng, b, side, -2000,
+                                         2000)).to(dev)
+        x = parent[:, :n, :n]
+        shape = f"({b},{n},{n}) view of ({b},{side},{side}) int16"
+        shapes[shape] = compare_and_time(
+            "synth_level", shape, lambda: dwt.synth_level(x),
+            lambda: dwt.synth_level_ref(x),
+            bound=work(4 * b * n * n, OPS["synth_level"] * b * n * n),
+            graph=True)
+        check_one_launch("synth_level", shape, lambda: dwt.synth_level(x),
+                         "synth_cluster")
+    compare_and_time("synth_level", f"({B},512,512) int16",
+                     lambda: dwt.synth_level(y512),
+                     lambda: dwt.synth_level_ref(y512), timed=False)
+    out = {"synth_level": shape_sums("synth_level", shapes, next(iter(
+        shapes)))}
+
     px256, px512 = B * 256 * 256, B * 512 * 512
     cases = [
-        ("synth_level", f"({B},256,256) view of ({B},512,512) int16",
-         lambda: dwt.synth_level(k1_in), lambda: dwt.synth_level_ref(k1_in),
-         work(4 * px256, OPS["synth_level"] * px256)),
         ("y_stage2_full", f"({B},512,512) int16 + depth, n_waves={n_waves}",
          lambda: dwt.y_stage2_full(jp, dp, n_waves),
          lambda: dwt.y_stage2_full_ref(jp, dp, n_waves),
@@ -755,9 +805,9 @@ def kernel_phase(dev) -> dict:
          lambda: dwt.uv_synth(uv), lambda: dwt.uv_synth_ref(uv),
          work(8 * px256, OPS["uv_synth"] * 2 * px256)),
     ]
-    out = {name: compare_and_time(name, shape, kern, twin, bound=bound,
-                                  graph=name != "synth_level")
-           for name, shape, kern, twin, bound in cases}
+    out.update({name: compare_and_time(name, shape, kern, twin, bound=bound,
+                                       graph=True)
+                for name, shape, kern, twin, bound in cases})
     # the waves did work on these inputs: one wave fewer changes pixels
     fewer = dwt.y_stage2_full(jp, dp, n_waves - 1)
     check(bool((fewer != dwt.y_stage2_full_ref(jp, dp, n_waves)).any()),
@@ -769,7 +819,7 @@ def kernel_phase(dev) -> dict:
         lambda: dwt.synth_norm_rows_clip_waves(dwt.synth_unnorm_rows_t(jp),
                                                dp, n_waves),
         lambda: dwt.y_stage2_full_ref(jp, dp, n_waves),
-        bound=cases[1][4], graph=True)
+        bound=cases[0][4], graph=True)
     k2 = out["y_stage2_full"]
     print("kernel y_stage2_full against K7 + K8 on the same inputs: device "
           "time (profiler) "
@@ -1085,6 +1135,22 @@ def chain_planes(rng, b):
                                    res256).astype(np.int16)
 
 
+def row_crossing_planes(rng, b):
+    """Chain planes whose ladder reads cross rows: sentinels in columns 0
+    and 255 of res256 on half the rows, and live band cells
+    process[r, 511] (column 0's left term of row r + 1) and process[r, 256]
+    (column 255's right term) (tests/test_torch_requant.py)."""
+    jpeg, process, res256 = chain_planes(rng, b)
+    for col in (0, 255):
+        rows = rng.random((b, 256)) < 0.5
+        res256[:, :, col] = np.where(
+            rows, res256[:, :, col] + rng.choice([12000, 16000], (b, 256)),
+            res256[:, :, col])
+    process[:, :256, 511] = rng.integers(-12, 13, (b, 256))
+    process[:, :256, 256] = rng.integers(-12, 13, (b, 256))
+    return jpeg, process, res256
+
+
 def encode_kernel_phase(dev, images: np.ndarray) -> dict:
     import torch
 
@@ -1108,7 +1174,8 @@ def encode_kernel_phase(dev, images: np.ndarray) -> dict:
                 shapes[f"({b},{n},{n})"] = res
                 check_one_launch("analysis_level_jp", f"({b},{n},{n})",
                                  lambda: dwt.analysis_level_jp(x))
-    out["analysis_level_jp"] = four_shapes("analysis_level_jp", shapes)
+    out["analysis_level_jp"] = shape_sums("analysis_level_jp", shapes,
+                                          f"({B},512,512)")
     rgb = torch.from_numpy(images).to(dev)
     out["colorspace_down420"] = compare_and_time(
         "colorspace_down420", f"({B},512,512,3) uint8, q20",
@@ -1116,14 +1183,26 @@ def encode_kernel_phase(dev, images: np.ndarray) -> dict:
         lambda: colorspace.rgb_to_yuv420_ref(rgb, 20),
         bound=work(B * (512 * 512 * (3 + 2) + 2 * 256 * 256),
                    OPS["colorspace_down420"] * B * 512 * 512), graph=True)
-    # K5 on real q20 encode states and on dense chain planes.  K5 and its
-    # twin update jpeg and process in place, as the encode path runs
-    # them, so each call takes its own clone of the inputs, made before
-    # any timing: the times hold no copies
+    # K5 on real q20 encode states, dense chain planes and row-crossing
+    # reads.  K5 and its twin update jpeg and process in place, as the
+    # encode path runs them, so each call takes its own clone of the
+    # inputs, made before any timing: the times hold no copies
+    for b in (1, 3):
+        for what, arrays in (
+                ("real q20 states", requant_states(images[:b], 20)),
+                ("chain planes", chain_planes(rng, b)),
+                ("row-crossing reads", row_crossing_planes(rng, b))):
+            args = [torch.from_numpy(a).to(dev) for a in arrays]
+            compare_and_time(
+                "requant_tail", f"({b},512,512) x2 + ({b},256,256), {what}",
+                lambda: dwt.requant_tail(*(a.clone() for a in args)),
+                lambda: dwt.requant_tail_ref(*(a.clone() for a in args)),
+                timed=False)
     for what, arrays in (("real q20 states", requant_states(images, 20)),
-                         ("chain planes", chain_planes(rng, B))):
+                         ("chain planes", chain_planes(rng, B)),
+                         ("row-crossing reads", row_crossing_planes(rng, B))):
         args = [torch.from_numpy(a).to(dev) for a in arrays]
-        timed = what.startswith("r")
+        timed = what == "real q20 states"
         k_in = fresh_inputs(args, 4 + RUNS + PROFILE_TRIES * 10 if timed
                             else 1)
         t_in = fresh_inputs(args, 4 + RUNS + PROFILE_TRIES if timed else 1)
@@ -1137,20 +1216,22 @@ def encode_kernel_phase(dev, images: np.ndarray) -> dict:
             bound=work(12 * B * 256 * 256,
                        OPS["requant_tail"] * B * 256 * 256))
         out.setdefault("requant_tail", res)
-    out["requant_tail"]["stages"] = requant_stages(
-        dev, [torch.from_numpy(a).to(dev)
-              for a in requant_states(images, 20)])
+    stages = requant_stages(dev, [torch.from_numpy(a).to(dev)
+                                  for a in requant_states(images, 20)])
+    out["requant_tail"]["stages"] = stages
+    out["requant_tail"]["graph_ms"] = stages["graph_ms"]["all"]
     return out
 
 
 def requant_stages(dev, args) -> dict:
     """K5's device time split into its three stages on the real q20
     states: the profiler's device entries of 10 calls grouped by kernel
-    (K1's two launches, unmark_ladder, K4's cluster kernel); and CUDA
-    graphs of 20 calls of the whole tail (in place on one copy of the
-    inputs: every stage's work is the same for any values), of K1 on the
-    jpeg LL corner and of K4 on a (B,256,256) plane, the ladder by
-    difference."""
+    (K1's synth_cluster, requant_ladder, K4's analysis_cluster); and CUDA
+    graphs of 20 calls: the whole tail on restored inputs (each call
+    first copies the pristine LL quadrants of jpeg and process back, the
+    only bytes the tail changes, and a graph of those copies alone is
+    subtracted), K1 on the jpeg LL corner and K4 on a (B,256,256) plane,
+    the ladder by difference."""
     import torch
 
     from nhwcodec_tpu_torch.ops import dwt
@@ -1158,28 +1239,39 @@ def requant_stages(dev, args) -> dict:
     k_in = fresh_inputs(args, 10 * PROFILE_TRIES)
     _, dev_ms, top = device_profile(lambda: dwt.requant_tail(*k_in()),
                                     calls=10)
-    groups = {"synth (K1)": ("unnorm_rows_t", "norm_rows"),
-              "unmark_ladder": ("unmark_ladder",),
+    groups = {"synth (K1)": ("synth_cluster",),
+              "requant_ladder": ("requant_ladder",),
               "re-analysis (K4)": ("analysis_cluster",)}
     prof = {g: sum(ms for key, ms in top if any(n in key for n in names))
             for g, names in groups.items()}
-    once = [a.clone() for a in args]
+    held = [a.clone() for a in args]
+
+    def restore():
+        for h, a in zip(held[:2], args[:2]):
+            h[:, :256, :256].copy_(a[:, :256, :256])
+
+    def restored_tail():
+        restore()
+        dwt.requant_tail(*held)
+
     ll = torch.from_numpy(np.random.default_rng(SEED + 5).integers(
         -300, 300, (args[0].shape[0], 256, 256)).astype(np.int16)).to(dev)
-    graph = {"all": graph_ms(lambda: dwt.requant_tail(*once)),
+    copies = graph_ms(restore)
+    graph = {"all": graph_ms(restored_tail) - copies,
              "synth (K1)": graph_ms(
                  lambda: dwt.synth_level(args[0][:, :256, :256])),
              "re-analysis (K4)": graph_ms(lambda: dwt.analysis_level_jp(ll))}
-    graph["unmark_ladder"] = (graph["all"] - graph["synth (K1)"]
-                              - graph["re-analysis (K4)"])
+    graph["requant_ladder"] = (graph["all"] - graph["synth (K1)"]
+                               - graph["re-analysis (K4)"])
     print("kernel requant_tail by stage, q20 states: device ms per call "
           "(profiler, mean per record) "
           + "; ".join(f"{g} {v:.4f}" for g, v in prof.items())
           + (f" of {dev_ms:.4f}" if dev_ms else " (window incomplete)")
-          + "; graphs of 20 calls (CUDA events): whole tail "
-          f"{graph['all']:.4f}, K1 on the corner {graph['synth (K1)']:.4f}, "
+          + "; graphs of 20 calls (CUDA events): whole tail on restored "
+          f"inputs {graph['all']:.4f} (its restoring copies {copies:.4f} "
+          f"subtracted), K1 on the corner {graph['synth (K1)']:.4f}, "
           f"K4 on a (B,256,256) plane {graph['re-analysis (K4)']:.4f}, "
-          f"unmark_ladder by difference {graph['unmark_ladder']:.4f}",
+          f"requant_ladder by difference {graph['requant_ladder']:.4f}",
           flush=True)
     return {"profiler_ms": prof, "profiler_window_complete": bool(dev_ms),
             "graph_ms": graph}
@@ -1374,9 +1466,10 @@ def transform_phase(dev) -> dict:
     return launches
 
 
-def check_one_launch(name: str, shape: str, fn) -> None:
+def check_one_launch(name: str, shape: str, fn,
+                     kernel: str = "analysis_cluster") -> None:
     """Check under torch.profiler that a call of ``fn`` is one launch of
-    one device kernel, the cluster kernel analysis_cluster."""
+    one device kernel, the cluster kernel ``kernel``."""
     host, records, names = launches_per_call(fn)
     print(f"kernel {name} {shape}: {host:g} kernel launch calls per call "
           f"on the host, {records:g} device kernel records per call "
@@ -1385,31 +1478,31 @@ def check_one_launch(name: str, shape: str, fn) -> None:
     # the host's count is exact; the profiler drops device records of
     # cluster launches now and then (device_profile)
     check(host == 1 and len(set(names)) == 1
-          and "analysis_cluster" in names[0] and 0 < records <= 1,
-          f"{name} {shape} is not one launch of analysis_cluster")
+          and kernel in names[0] and 0 < records <= 1,
+          f"{name} {shape} is not one launch of {kernel}")
 
 
-def four_shapes(name: str, shapes: dict) -> dict:
-    """Print and return the sums over the four path shapes of ``name``'s
-    timed results ``shapes`` (shape -> compare_and_time's entry): the
-    (B,512,512) entry, with device_ms, graph_ms and bound of each shape and
-    of the four."""
+def shape_sums(name: str, shapes: dict, main: str) -> dict:
+    """Print and return the sums over the path shapes of ``name``'s timed
+    results ``shapes`` (shape -> compare_and_time's entry): the ``main``
+    shape's entry, with device_ms, graph_ms and bound of each shape and
+    of all of them."""
     dev = [r["device_ms"] for r in shapes.values()]
     total = None if None in dev else sum(dev)
     graph = sum(r["graph_ms"] for r in shapes.values())
     bound = sum(r["bound_ms"] for r in shapes.values())
-    print(f"kernel {name}: the four shapes at batch {B}: bound "
+    print(f"kernel {name}: the {len(shapes)} path shapes: bound "
           f"{1e3 * bound:.3f} us, device time (profiler) "
           + ("not measured" if total is None else
              f"{total:.4f} ms ({bound / total:.2%})")
           + f", graph of {GRAPH_CALLS} calls {graph:.4f} ms "
           f"({bound / graph:.2%})", flush=True)
-    out = dict(shapes[f"({B},512,512)"])
+    out = dict(shapes[main])
     out["shapes"] = {s: {k: r[k] for k in ("device_ms", "graph_ms",
                                            "bound_ms", "ms")}
                      for s, r in shapes.items()}
-    out["four_shapes"] = {"device_ms": total, "graph_ms": graph,
-                          "bound_ms": bound}
+    out["all_shapes"] = {"device_ms": total, "graph_ms": graph,
+                         "bound_ms": bound}
     return out
 
 
@@ -1498,7 +1591,8 @@ def transform_kernel_phase(dev) -> dict:
                 shapes[f"({b},{n},{n})"] = res
                 check_one_launch("analysis_level", f"({b},{n},{n})",
                                  lambda: dwt.analysis_level(x))
-    out = {"analysis_level": four_shapes("analysis_level", shapes)}
+    out = {"analysis_level": shape_sums("analysis_level", shapes,
+                                        f"({B},512,512)")}
     for b, n in ((B, 512), (2 * B, 256)):
         h = n // 2
         l1 = dwt.analysis_level(torch.from_numpy(rng.integers(

@@ -6,7 +6,7 @@
 // K1 nhw_synth_level replaces nhwcodec_tpu/ops/pallas_dwt.py
 //    synth_level_pallas (_synth_level_kernel): one 2-D 5/3 synthesis
 //    level, out = norm_rows(int16(unnorm_rows(x))^T), on (B, n, n) int16
-//    with n in {128, 256, 512}.
+//    with n in {128, 256, 512}, x a strided view.  One cluster launch.
 // K2 nhw_y_stage2_full replaces pallas_dwt.py y_stage2_full_pallas
 //    (_y_stage2_full_kernel): decode Y stage 2 without an HQ scatter -
 //    un-normalised row pass + transpose, n_waves dering waves, normalised
@@ -15,15 +15,15 @@
 //    (_uv_synth_kernel): the whole chroma synthesis on (B, 256, 256).
 //    One cluster launch.
 // K7 nhw_synth_unnorm_rows_t replaces pallas_dwt.py
-//    synth_unnorm_rows_t_pallas: K1's launch A alone, the un-normalised row
-//    pass stored transposed, on (B, n, n) with n in {128, 256, 512}.
+//    synth_unnorm_rows_t_pallas: the un-normalised row pass stored
+//    transposed (launch A below), on (B, n, n) with n in {128, 256, 512}.
 // K8 nhw_synth_norm_rows_clip_waves replaces pallas_dwt.py
 //    synth_norm_rows_clip_waves_pallas: K2's waves, normalised row pass
 //    and clip alone, on a (B, 512, 512) transposed plane that the caller has scattered the HQ
 //    residue into.
 // K9 nhw_synth_norm_rows_clip replaces pallas_dwt.py
-//    synth_norm_rows_clip_pallas: the normalised row pass and the clip,
-//    K1's launch B with a uint8 store.
+//    synth_norm_rows_clip_pallas: the normalised row pass and the clip
+//    (launch B below, with a uint8 store).
 // nhw_smooth_marks_seq replaces the sequential mark scan of
 //    nhwcodec_tpu/models/device_decode.py y_stage2_device (a lax.scan,
 //    :126-148; host form native/hotpass.c nhw_smooth_marks), the decode's
@@ -37,15 +37,16 @@
 // stores.  A block stages one row and each thread stores its two results
 // in transposed position, 2-byte writes 1 KiB apart, so a warp's 32
 // stores hit 32 sectors; the launch that does this is 62-87% of the
-// device time of every kernel that begins with it.
+// device time of every kernel that begins with it.  The cluster kernels
+// (K1-K3) keep the transpose in shared memory instead.
 //
-// Row-per-block kernels (K1, K7, K8, K9).  Two launches through global
+// Row-per-block kernels (K7, K8, K9).  One launch each through global
 // memory (L2), one block per (image, row), one thread per output pair k:
-//   launch A (unnorm_rows_t): stage a row in shared memory, compute the
-//     un-normalised pair (2k, 2k+1), store int16 TRANSPOSED to scratch;
-//   launch B (norm_rows / waves_norm_clip): stage one scratch row,
-//     compute the normalised pair, store the output row.
-// K8's launch B runs the dering waves first.  Marks lie only on even
+//   launch A (unnorm_rows_t, K7): stage a row in shared memory, compute
+//     the un-normalised pair (2k, 2k+1), store int16 TRANSPOSED;
+//   launch B (norm_rows, K9; waves_norm_clip, K8): stage one row of the
+//     transposed plane, compute the normalised pair, store the output row.
+// K8 runs the dering waves first.  Marks lie only on even
 // rows of the transposed plane, and a mark's stencil reads rows j-1 and
 // j+1, which are odd and never written, so one block finishes row j on
 // its own: it stages rows j-1, j, j+1 (3 x 512 int16) and runs each wave
@@ -54,7 +55,7 @@
 // the reference's rolls (the depth plane is 0 on the borders anyway).
 // The HQ scatter does not move marks, so the same argument holds for K8.
 //
-// Cluster kernels (K2, K3): one launch, the plane in distributed shared
+// Cluster kernels (K1, K2, K3): one launch, the plane in distributed shared
 // memory (DSM; the helpers are in cluster.cuh).  A 512x512 int16 plane
 // (512 KiB) does not fit one block's 227 KB, but a thread-block cluster of 8 CTAs holds it, 64 KiB
 // of transposed rows each; K3's 256 plane is spread over 4 CTAs, because
@@ -70,10 +71,21 @@
 // stores all go to one CTA, and with a row pitch that is odd in 32-bit
 // words they land on 32 distinct banks.  cluster.sync() separates the
 // passes (and at the start, makes sure every peer runs before anyone
-// writes to it).  Both kernels stay near 100 KB of shared memory and 64
-// registers a thread, so two CTAs fit an SM: with one CTA an SM an H100
-// holds only 15 clusters of 8, and a batch of 16 images would take two
-// waves.
+// writes to it).  The kernels stay near 100 KB of shared memory or less
+// and at 64 registers a thread where 512-thread CTAs must pair, so two
+// CTAs fit an SM: with one CTA an SM an H100 holds only 15 clusters of 8,
+// and a batch of 16 images would take two waves.
+//   K1 (synth_cluster) takes one cluster a plane, of the size in
+//   kSynthShapes: 8 CTAs at n = 512 and 256, 4 at 128, so the paths'
+//   (16, 256), (8, 256) and (16, 128) planes give 64-128 CTAs.  CTA c
+//   stages its n / cluster rows of x (any plane and row stride that keeps
+//   16-byte copies: the decode, K5 and the transform pass corner views
+//   of 512 and 256 planes) by quarters through two buffers, at a word
+//   pitch of 8 mod 32 so a warp's reads of four rows fall on four bank
+//   groups; the un-normalised pass goes through DSM with K3's map; after
+//   the cluster.sync() each CTA's transposed rows are complete, and their
+//   normalised pass is K1's output rows (the output is the transposed
+//   orientation), 32-bit stores, no second exchange.
 //   K2 stages its 64 input rows in four quarters through two buffers,
 //   each quarter's row pass overlapping the next one's copies.  Then each
 //   warp finishes two even and two odd transposed rows: it reads a row's
@@ -607,15 +619,118 @@ const ClusterKernel& uv_kernel() {
   return k;
 }
 
+// K1 as one cluster launch: grid (cluster, B), one cluster per plane.  The
+// launch shape for each n: {n, CTAs a cluster, threads a CTA}; the numpy
+// emulation of the kernel's maps (tests/test_torch_synth_cluster.py)
+// reads this table.
+constexpr int kSynthShapes[3][3] = {{512, 8, 512}, {256, 8, 256}, {128, 4, 256}};
+
+constexpr int synth_shape(int n, int i) {
+  return n == kSynthShapes[0][0] ? kSynthShapes[0][i]
+         : n == kSynthShapes[1][0] ? kSynthShapes[1][i] : kSynthShapes[2][i];
+}
+
+template <int kN>
+struct SynthLayout {
+  static constexpr int kM = kN / 2;
+  static constexpr int kCluster = synth_shape(kN, 1);
+  static constexpr int kThreads = synth_shape(kN, 2);
+  static constexpr int kRows = kN / kCluster;   // rows of x and of t a CTA
+  static constexpr int kQuarter = kRows / 4;    // rows of x staged at a time
+  static constexpr int kInPitch = kN + 16;      // int16: word pitch 8 mod 32
+  static constexpr int kTPitch = kN + 2;        // int16: odd word pitch
+  static constexpr int kSmem =
+      2 * (kRows * kTPitch + 2 * kQuarter * kInPitch);
+  static_assert(synth_shape(kN, 0) == kN && kRows % 32 == 0 &&
+                    (kRows * kTPitch) % 8 == 0,
+                "a known n, whole transposed row blocks, aligned buffers");
+};
+
+// out = norm_rows(int16(unnorm_rows(x))^T) for plane blockIdx.y.  CTA c
+// stages rows [cR, (c+1)R) of x by quarters through two cp.async buffers;
+// the un-normalised row pass sends pair k of each row to transposed rows
+// 2k and 2k + 1, column = the source row, in the CTA that owns them
+// (rows_to_peers_t, K3's map: a warp takes 16 k of two row pairs, two
+// rows in a 32-bit store, 32 banks at the odd word pitch); after a
+// cluster.sync() the CTA's R transposed rows are complete and it runs the
+// normalised pass on them, 32-bit stores of out rows [cR, (c+1)R).
+template <int kN>
+__global__ void __launch_bounds__(SynthLayout<kN>::kThreads, 2)
+synth_cluster(const int16_t* x, size_t x_plane, int x_row,
+              int16_t* __restrict__ out) {
+  using L = SynthLayout<kN>;
+  constexpr int kM = L::kM;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int16_t* t = reinterpret_cast<int16_t*>(smem);   // the CTA's rows of t
+  int16_t* in = t + L::kRows * L::kTPitch;         // two quarter buffers
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int c = static_cast<int>(cluster.block_rank());
+  const size_t b = blockIdx.y;
+  const int16_t* src =
+      x + b * x_plane + static_cast<size_t>(L::kRows) * c * x_row;
+
+  for (int q = 0; q < 2; ++q)
+    stage_rows_async<kN, L::kInPitch, L::kThreads>(
+        in + q * L::kQuarter * L::kInPitch,
+        src + static_cast<size_t>(q) * L::kQuarter * x_row, x_row,
+        L::kQuarter);
+  cluster.sync();   // every peer runs before anyone writes to it
+  for (int q = 0; q < 4; ++q) {
+    if (q < 3) __pipeline_wait_prior(1); else __pipeline_wait_prior(0);
+    __syncthreads();   // quarter q is in, from every thread's copies
+    const int16_t* buf = in + (q & 1) * L::kQuarter * L::kInPitch;
+    rows_to_peers_t<L::kQuarter, kM, L::kRows, L::kTPitch, L::kThreads, 2, 1,
+                    2>(
+        cluster, L::kRows * c + L::kQuarter * q, t,
+        [&](int r, int k, int& even, int& odd) {
+          const int16_t* row = buf + r * L::kInPitch;
+          nhw::unnorm_pair(row, row + kM, kM, k, even, odd);
+        });
+    __syncthreads();   // every read of the buffer before it is refilled
+    if (q < 2)
+      stage_rows_async<kN, L::kInPitch, L::kThreads>(
+          in + (q & 1) * L::kQuarter * L::kInPitch,
+          src + static_cast<size_t>(q + 2) * L::kQuarter * x_row, x_row,
+          L::kQuarter);
+  }
+  cluster.sync();   // every transposed row is in; the last access to a peer
+
+  uint32_t* o32 = reinterpret_cast<uint32_t*>(
+      out + (b * kN + static_cast<size_t>(L::kRows) * c) * kN);
+#pragma unroll 4
+  for (int it = 0; it < L::kRows * kM / L::kThreads; ++it) {
+    const int g = threadIdx.x + it * L::kThreads;
+    const int16_t* row = t + (g / kM) * L::kTPitch;
+    int even, odd;
+    nhw::unnorm_pair(row, row + kM, kM, g % kM, even, odd);
+    o32[g] = pack16(nhw::norm_value(even), nhw::norm_value(odd));
+  }
+}
+
+template <int kN>
+const ClusterKernel& synth_kernel() {
+  static const ClusterKernel k =
+      cluster_setup(synth_cluster<kN>, SynthLayout<kN>::kCluster,
+                    SynthLayout<kN>::kThreads, SynthLayout<kN>::kSmem);
+  return k;
+}
+
+const ClusterKernel& synth_kernel_n(int n) {
+  return n == 512   ? synth_kernel<512>()
+         : n == 256 ? synth_kernel<256>()
+                    : synth_kernel<128>();
+}
+
 cudaError_t synth_level(const int16_t* x, size_t plane_stride, int row_stride,
-                        int16_t* scratch, int16_t* out, int batch, int n,
-                        cudaStream_t s) {
-  const dim3 grid(n, batch);
-  unnorm_rows_t<<<grid, n / 2, 0, s>>>(x, plane_stride, row_stride, scratch, n);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  norm_rows<int16_t><<<grid, n / 2, 0, s>>>(scratch, out, n);
-  return cudaGetLastError();
+                        int16_t* out, int batch, int n, cudaStream_t s) {
+  if (n == 512)
+    return launch_cluster(synth_kernel<512>(), synth_cluster<512>, batch, s, x,
+                          plane_stride, row_stride, out);
+  if (n == 256)
+    return launch_cluster(synth_kernel<256>(), synth_cluster<256>, batch, s, x,
+                          plane_stride, row_stride, out);
+  return launch_cluster(synth_kernel<128>(), synth_cluster<128>, batch, s, x,
+                        plane_stride, row_stride, out);
 }
 
 bool bad_n(int n) { return n != 128 && n != 256 && n != 512; }
@@ -632,14 +747,18 @@ const char* nhw_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// K1.  x: (B, n, n) int16 with the given plane and row strides (elements);
-// scratch, out: contiguous (B, n, n) int16.
-int nhw_synth_level(const void* x, int plane_stride, int row_stride,
-                    void* scratch, void* out, int batch, int n, void* stream) {
+// K1.  x: (B, n, n) int16 with the given plane and row strides (elements,
+// multiples of 8; 16-byte aligned base); out: contiguous (B, n, n) int16,
+// 16-byte aligned, not overlapping x.
+int nhw_synth_level(const void* x, int plane_stride, int row_stride, void* out,
+                    int batch, int n, void* stream) {
   if (bad_n(n) || bad_batch(batch)) return cudaErrorInvalidValue;
+  if (misaligned(x, 16) || row_stride % 8 != 0 ||
+      (batch > 1 && plane_stride % 8 != 0) || misaligned(out, 16))
+    return cudaErrorMisalignedAddress;
   return synth_level(static_cast<const int16_t*>(x), plane_stride, row_stride,
-                     static_cast<int16_t*>(scratch), static_cast<int16_t*>(out),
-                     batch, n, static_cast<cudaStream_t>(stream));
+                     static_cast<int16_t*>(out), batch, n,
+                     static_cast<cudaStream_t>(stream));
 }
 
 // K2.  jp: (B, 512, 512) int16, 16-byte aligned; depth: (B, 512, 512)
@@ -670,10 +789,13 @@ int nhw_uv_synth(const void* x, void* out, int batch, void* stream) {
 }
 
 // What the card allows for cluster kernel `kernel` (0: K2, 1: K3, 2-7:
-// K4 and K10 at n = 512, 256, 128, analysis.cu), as its entry point found
-// it: info[0] registers per thread, info[1] shared memory per CTA
-// (bytes), info[2] the most clusters resident at once.
+// K4 and K10 at n = 512, 256, 128, analysis.cu; 8-10: K1 at n = 512, 256,
+// 128), as its entry point found it: info[0] registers per thread,
+// info[1] shared memory per CTA (bytes), info[2] the most clusters
+// resident at once.
 int nhw_cluster_info(int kernel, void* info) {
+  if (kernel >= 8 && kernel <= 10)
+    return nhw::cluster_info(synth_kernel_n(512 >> (kernel - 8)), info);
   if (kernel >= 2) return nhw_analysis_cluster_info(kernel - 2, info);
   if (kernel != 0 && kernel != 1) return cudaErrorInvalidValue;
   return nhw::cluster_info(kernel == 0 ? y2_kernel() : uv_kernel(), info);

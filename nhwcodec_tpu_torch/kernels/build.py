@@ -37,14 +37,14 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # name -> argtypes; pointers and the stream are c_void_p, ints c_int
 SIGNATURES = {
-    # (x, plane_stride, row_stride, scratch, out, batch, n, stream)
-    "nhw_synth_level": [_P, _I, _I, _P, _P, _I, _I, _P],
+    # (x, plane_stride, row_stride, out, batch, n, stream)
+    "nhw_synth_level": [_P, _I, _I, _P, _I, _I, _P],
     # (jp, depth, out, batch, n_waves, stream)
     "nhw_y_stage2_full": [_P, _P, _P, _I, _I, _P],
     # (x, out, batch, stream)
     "nhw_uv_synth": [_P, _P, _I, _P],
-    # (kernel: 0 K2, 1 K3, 2-4 K4 and 5-7 K10 at n = 512, 256, 128;
-    #  int32[3] out: registers, shared bytes per CTA, most resident
+    # (kernel: 0 K2, 1 K3, 2-4 K4, 5-7 K10 and 8-10 K1 at n = 512, 256,
+    #  128; int32[3] out: registers, shared bytes per CTA, most resident
     #  clusters)
     "nhw_cluster_info": [_I, _P],
     # (x, x_plane, x_row, j, j_plane, j_row, p, p_plane, p_row, batch, n,

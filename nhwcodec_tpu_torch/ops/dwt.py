@@ -268,8 +268,11 @@ def requant_tail_ref(jpeg: torch.Tensor, process: torch.Tensor,
 
 def synth_level(x: torch.Tensor) -> torch.Tensor:
     """K1: one 2-D synthesis level on (B, n, n) int16, n in {128, 256,
-    512}.  A view whose rows are contiguous (e.g. a corner block of a
-    larger plane) is taken without a copy."""
+    512} -> contiguous (B, n, n) int16.  A view whose rows are contiguous
+    (e.g. a corner block of a larger plane) is taken without a copy; on
+    the card its base must be 16-byte aligned and its strides multiples
+    of 8, or the kernel refuses it and this raises.  On the card one
+    launch, a cluster of CTAs per plane."""
     _check(x, "synth_level", torch.int16, (None, None, None))
     b, n, n2 = x.shape
     if n != n2 or n not in (128, 256, 512):
@@ -279,13 +282,12 @@ def synth_level(x: torch.Tensor) -> torch.Tensor:
     if x.stride(2) != 1:
         raise ValueError("synth_level: rows must be contiguous")
     lib, stream = _cuda_args(x)
-    scratch = torch.empty((b, n, n), dtype=torch.int16, device=x.device)
-    out = torch.empty_like(scratch)
+    out = torch.empty((b, n, n), dtype=torch.int16, device=x.device)
     if b:
         with torch.cuda.device(x.device):
             build.check("nhw_synth_level", lib.nhw_synth_level(
-                x.data_ptr(), x.stride(0), x.stride(1), scratch.data_ptr(),
-                out.data_ptr(), b, n, stream))
+                x.data_ptr(), x.stride(0), x.stride(1), out.data_ptr(), b, n,
+                stream))
         build.count("synth_level")
     return out
 
@@ -337,15 +339,16 @@ def uv_synth(x: torch.Tensor) -> torch.Tensor:
 
 
 # the cluster kernels, in the order of nhw_cluster_info (dwt.cu): K2, K3,
-# then K4 and K10 at each n, one cluster shape per n
+# then K4, K10 and K1 at each n, one cluster shape per n
 CLUSTER_KERNELS = ("y_stage2_full", "uv_synth") + tuple(
-    f"{name}/{n}" for name in ("analysis_level_jp", "analysis_level")
+    f"{name}/{n}"
+    for name in ("analysis_level_jp", "analysis_level", "synth_level")
     for n in (512, 256, 128))
 
 
 def cluster_info(name: str, device=None) -> dict:
     """What the card allows for the cluster kernel ``name`` (an entry of
-    ``CLUSTER_KERNELS``: K2, K3, or K4 / K10 at one n, as
+    ``CLUSTER_KERNELS``: K2, K3, or K4 / K10 / K1 at one n, as
     ``"analysis_level/256"``), as its C entry point found it: registers
     per thread, shared memory per CTA in bytes, and the most clusters
     resident at once.  Raises where the card holds no cluster of the
@@ -425,7 +428,8 @@ def requant_tail(jpeg: torch.Tensor, process: torch.Tensor,
     ``requant_tail_ref``: the new 256x256 LL quadrants are written into
     the caller's ``jpeg`` and ``process`` (nothing else of them changes)
     and (jpeg, process, res_clean) is returned.  Callers that need the
-    inputs again pass clones."""
+    inputs again pass clones.  On the card three launches: K1's cluster
+    launch, the unmark + ladder table walk, K4's cluster launch."""
     _check(jpeg, "requant_tail jpeg", torch.int16, (None, 512, 512))
     _check(process, "requant_tail process", torch.int16, tuple(jpeg.shape))
     _check(res256, "requant_tail res256", torch.int16,
@@ -437,7 +441,7 @@ def requant_tail(jpeg: torch.Tensor, process: torch.Tensor,
     lib, stream = _cuda_args(jpeg, process, res256)
     b = jpeg.shape[0]
     res_clean = torch.empty_like(res256)
-    scratch = torch.empty((3, b, 256, 256), dtype=torch.int16,
+    scratch = torch.empty((2, b, 256, 256), dtype=torch.int16,
                           device=jpeg.device)
     if b:
         with torch.cuda.device(jpeg.device):

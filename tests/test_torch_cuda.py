@@ -45,6 +45,56 @@ def test_synth_level_kernel(cuda, n):
                                dwt.synth_level_ref(view), rtol=0, atol=0)
 
 
+# K1 is one cluster launch: batch 1, 3 and 16, corner views of 512 and 256
+# planes and whole 512 planes, int16 extremes and values at the CTA edges
+SYNTH_CASES = [(256, 512), (128, 256), (512, 512)]
+
+
+def _synth_planes(kind, rng, b, n):
+    from chip_smoke import extreme_planes, synth_edge_planes
+
+    return (extreme_planes if kind == "extremes" else synth_edge_planes)(
+        rng, b, n)
+
+
+@pytest.mark.parametrize("b", [1, 3, 16])
+@pytest.mark.parametrize("kind", ["extremes", "CTA edges"])
+@pytest.mark.parametrize("n, side", SYNTH_CASES)
+def test_synth_level_cluster_kernel(cuda, n, side, kind, b):
+    rng = np.random.default_rng(50 + b)
+    parent = torch.from_numpy(rng.integers(-32768, 32768, (b, side, side))
+                              .astype(np.int16)).to(cuda)
+    parent[:, :n, :n] = torch.from_numpy(_synth_planes(kind, rng, b, n))
+    view = parent[:, :n, :n]
+    before = build.LAUNCHES["synth_level"]
+    got = dwt.synth_level(view)
+    assert build.LAUNCHES["synth_level"] == before + 1
+    assert got.is_contiguous()
+    torch.testing.assert_close(got, dwt.synth_level_ref(view), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n, side", SYNTH_CASES)
+def test_synth_level_is_one_launch(cuda, n, side):
+    from chip_smoke import launches_per_call
+
+    x = torch.zeros((4, side, side), dtype=torch.int16, device=cuda)
+    host, records, names = launches_per_call(
+        lambda: dwt.synth_level(x[:, :n, :n]))
+    assert host == 1 and len(set(names)) == 1
+    assert "synth_cluster" in names[0] and 0 < records <= 1
+
+
+def test_synth_level_misaligned_view_raises(cuda):
+    # a base 8 bytes past a 16-byte boundary; a row stride of 260
+    views = (torch.zeros((2, 256, 264), dtype=torch.int16,
+                         device=cuda)[..., 4:260],
+             torch.zeros((2, 256, 260), dtype=torch.int16,
+                         device=cuda)[..., :256])
+    for view in views:
+        with pytest.raises(RuntimeError, match="misaligned"):
+            dwt.synth_level(view)
+
+
 def test_y_stage2_full_kernel(cuda):
     rng = np.random.default_rng(7)
     jp = torch.from_numpy(_planes(rng, 2, 512, -2, 3)).to(cuda)
@@ -230,20 +280,26 @@ def test_analysis_misaligned_view_raises(cuda):
             dwt.analysis_level(view)
 
 
-def test_requant_tail_kernel(cuda):
-    from chip_smoke import chain_planes, requant_states
+@pytest.mark.parametrize("b", [1, 3, 16])
+@pytest.mark.parametrize("kind", ["real q20 states", "chain planes",
+                                  "row-crossing reads"])
+def test_requant_tail_kernel(cuda, kind, b):
+    from chip_smoke import (chain_planes, encode_images, requant_states,
+                            row_crossing_planes)
 
-    imgs = np.stack([fixtures.gradient_circles(), fixtures.texture_noise()])
-    rng = np.random.default_rng(7)
-    for arrays in (requant_states(imgs, 20), chain_planes(rng, 3)):
-        args = [torch.from_numpy(a).to(cuda) for a in arrays]
-        want = dwt.requant_tail_ref(*(a.clone() for a in args))
-        before = build.LAUNCHES["requant_tail"]
-        got = dwt.requant_tail(*args)
-        assert build.LAUNCHES["requant_tail"] == before + 1
-        assert got[0] is args[0] and got[1] is args[1]
-        for g, w in zip(got, want):
-            torch.testing.assert_close(g, w, rtol=0, atol=0)
+    rng = np.random.default_rng(7 + b)
+    arrays = {"real q20 states": lambda: requant_states(
+                  encode_images(np.random.default_rng(2026))[:b], 20),
+              "chain planes": lambda: chain_planes(rng, b),
+              "row-crossing reads": lambda: row_crossing_planes(rng, b)}[kind]()
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    want = dwt.requant_tail_ref(*(a.clone() for a in args))
+    before = build.LAUNCHES["requant_tail"]
+    got = dwt.requant_tail(*args)
+    assert build.LAUNCHES["requant_tail"] == before + 1
+    assert got[0] is args[0] and got[1] is args[1]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
 def test_colorspace_down420_kernel(cuda):
