@@ -26,21 +26,23 @@
    the card, at the shapes its path gives it (batch 16 for the decode
    and encode services, the transform's four K10 shapes at batch 16),
    and times both (CUDA events around the wrapper call; torch.profiler
-   device time; for K1-K4, K6 and K10 also CUDA events around a CUDA
+   device time; for K1-K4, K6, K7 and K10 also CUDA events around a CUDA
    graph of back-to-back calls) beside the least time the card could
-   take for the same bytes and operations.  K1 (at its three path
-   shapes), K4 and K10 (at their four) are timed at every shape, each
-   call shown by the profiler to be one launch of one kernel; K5 is
-   split into its three stages (K1, the unmark + ladder table walk, K4)
-   and timed as a graph on restored inputs, and held to its twin at
-   batch 1, 3 and 16 on real states, chain planes and row-crossing
-   reads.  The cluster kernels (K1, K2, K3, K4, K10) print what the card
-   allows for them (registers, shared memory per CTA, resident
-   clusters); K2 and K3 are held to their twins at batch
+   take for the same bytes and operations.  K1 and K7 (at their three
+   path shapes), K4 and K10 (at their four) are timed at every shape,
+   each call shown by the profiler to be one launch of one kernel, as
+   is K6's; K5 is split into its three stages (K1, the unmark + ladder
+   table walk, K4) and timed as a graph on restored inputs, and held to
+   its twin at batch 1, 3 and 16 on real states, chain planes and
+   row-crossing reads.  The cluster kernels (K1, K2, K3, K4, K10) print
+   what the card allows for them (registers, shared memory per CTA,
+   resident clusters); K2 and K3 are held to their twins at batch
    1, 3 and 16 on random, near-flat, residue-bound and cluster-edge
    inputs, K4 and K10 at batch 1, 3 and 16 at their four shapes on
    full-range, +-1800 and edge inputs (ANALYSIS_EDGE_INPUTS) and in
-   place on the LL corners, and K2 is timed beside K7 + K8, its
+   place on the LL corners, K7 at batch 1, 3 and 16 at its three sizes
+   on int16 extremes and tile-edge inputs, K6 at batch 1, 3 and 16 on
+   fixture, random and flat images, and K2 is timed beside K7 + K8, its
    two-launch form, on the same inputs.
 5. Sweeps the decode colorspace over all 2^24 (y, u, v) triples in all
    four modes against the host decoder, and the encode colorspace over
@@ -712,6 +714,43 @@ def synth_edge_planes(rng, b, n):
     return x
 
 
+# K7's tiles (csrc/dwt.cu kT7Rows, kT7Pairs): a CTA owns source rows
+# [r0, r0 + 64) and output pairs [k0, k0 + 32), i.e. transposed rows
+# [2 k0, 2 k0 + 64), of one plane
+UNNORM_TILE = (64, 32)
+
+
+def unnorm_path_shapes(b: int, entry: int = 8) -> tuple:
+    """K7's (batch, n) on its paths: the HQ decode's and the fallback's Y
+    stage 2 at batch b, the transform's Y and U+V at its entry batch."""
+    return ((b, 512), (entry, 512), (2 * entry, 256))
+
+
+def tile_edge_planes(rng, b, n):
+    """Planes in [-2000, 2000) with int16 extremes on the rows at every
+    row-tile edge of K7 (r0 - 1, r0) and rows 0 and n - 1, and on the
+    columns of every pair-tile edge in both bands (k0 - 1 and k0 of L and
+    of H: each tile's halo) and of unnorm_pair's own edges (0, 1, m - 2,
+    m - 1 of L and of H)."""
+    rows_t, pairs_t = UNNORM_TILE
+    m = n // 2
+    x = rng.integers(-2000, 2000, (b, n, n)).astype(np.int16)
+    rows = {0, n - 1} | {r + d for r in range(rows_t, n, rows_t)
+                         for d in (-1, 0)}
+    ks = {0, 1, m - 2, m - 1} | {k + d for k in range(pairs_t, m, pairs_t)
+                                 for d in (-1, 0)}
+    for ln in sorted(rows):
+        x[:, ln, :] = rng.choice(INT16_EXTREMES, (b, n))
+    for k in sorted(ks):
+        for ln in (k, m + k):
+            x[:, :, ln] = rng.choice(INT16_EXTREMES, (b, n))
+    return x
+
+
+UNNORM_EDGE_INPUTS = {"int16 extremes": extreme_planes,
+                      "tile edges": tile_edge_planes}
+
+
 ANALYSIS_EDGE_INPUTS = {"int16 extremes": extreme_planes,
                         "parity chains": parity_chain_planes,
                         "dither boundaries": dither_edge_planes,
@@ -756,6 +795,34 @@ def cluster_edge_phase(dev) -> None:
             compare_and_time("uv_synth", f"({b},256,256) {what}",
                              lambda: dwt.uv_synth(xt),
                              lambda: dwt.uv_synth_ref(xt), timed=False)
+
+
+def unnorm_edge_phase(dev) -> None:
+    """K7 against its twin at batch 1, 3 and 16 at its path sizes (512,
+    256, and 128 as a corner view of a 256 plane) on int16 extremes and
+    values at every tile edge (UNNORM_EDGE_INPUTS)."""
+    import torch
+
+    from nhwcodec_tpu_torch.ops import dwt
+
+    rng = np.random.default_rng(SEED + 8)
+    for b in (1, 3, B):
+        for what, gen in UNNORM_EDGE_INPUTS.items():
+            worst = 0
+            for n, side in ((512, 512), (256, 256), (128, 256)):
+                parent = torch.from_numpy(rng.integers(
+                    -32768, 32768, (b, side, side)).astype(np.int16)).to(dev)
+                parent[:, :n, :n] = torch.from_numpy(gen(rng, b, n))
+                x = parent[:, :n, :n]
+                got = dwt.synth_unnorm_rows_t(x)
+                worst = max(worst, int((got.to(torch.int32) - dwt
+                                        .unnorm_rows_t_ref(x).to(torch.int32))
+                                       .abs().max()))
+            torch.cuda.synchronize()
+            print(f"kernel synth_unnorm_rows_t at batch {b}, {what}: n = "
+                  f"512, 256 and a 128 corner view, max_abs_err {worst} vs "
+                  "torch twin", flush=True)
+            check(worst == 0, f"K7 at batch {b} differs on {what}")
 
 
 def kernel_phase(dev) -> dict:
@@ -832,15 +899,31 @@ def kernel_phase(dev) -> dict:
     k2["two_launch_graph_ms"] = two["graph_ms"]
     cluster_edge_phase(dev)
 
-    # K7-K9 at the HQ and fallback paths' shapes; K8 on the transposed
+    # K7 at its paths' shapes (unnorm_path_shapes), each call one launch
+    # of unnorm_rows_t_tile; its inputs from their own generator, so the
+    # draws below stay as they were
+    k7_rng = np.random.default_rng(SEED + 7)
+    shapes = {}
+    for b, n in unnorm_path_shapes(B):
+        x7 = torch.from_numpy(planes(k7_rng, b, n, -2000, 2000)).to(dev)
+        shape = f"({b},{n},{n}) int16"
+        shapes[shape] = compare_and_time(
+            "synth_unnorm_rows_t", shape, lambda: dwt.synth_unnorm_rows_t(x7),
+            lambda: dwt.unnorm_rows_t_ref(x7).contiguous(),
+            bound=work(4 * b * n * n, OPS["synth_unnorm_rows_t"] * b * n * n),
+            graph=True)
+        check_one_launch("synth_unnorm_rows_t", shape,
+                         lambda: dwt.synth_unnorm_rows_t(x7),
+                         "unnorm_rows_t_tile")
+    out["synth_unnorm_rows_t"] = shape_sums("synth_unnorm_rows_t", shapes,
+                                            f"({B},512,512) int16")
+    unnorm_edge_phase(dev)
+
+    # K8 and K9 at the HQ and fallback paths' shapes; K8 on the transposed
     # near-flat planes with the depth planes above, so its waves fire
     t = dwt.unnorm_rows_t_ref(jp).contiguous()
     y9 = torch.from_numpy(planes(rng, B, 512, -20000, 20000)).to(dev)
     cases = [
-        ("synth_unnorm_rows_t", f"({B},512,512) int16",
-         lambda: dwt.synth_unnorm_rows_t(y512),
-         lambda: dwt.unnorm_rows_t_ref(y512).contiguous(),
-         work(4 * px512, OPS["synth_unnorm_rows_t"] * px512)),
         ("synth_norm_rows_clip_waves",
          f"({B},512,512) int16 + depth, n_waves={n_waves}",
          lambda: dwt.synth_norm_rows_clip_waves(t, dp, n_waves),
@@ -1183,6 +1266,23 @@ def encode_kernel_phase(dev, images: np.ndarray) -> dict:
         lambda: colorspace.rgb_to_yuv420_ref(rgb, 20),
         bound=work(B * (512 * 512 * (3 + 2) + 2 * 256 * 256),
                    OPS["colorspace_down420"] * B * 512 * 512), graph=True)
+    check_one_launch("colorspace_down420", f"({B},512,512,3)",
+                     lambda: colorspace.rgb_to_yuv420(rgb, 20),
+                     "colorspace_band")
+    k6_rng = np.random.default_rng(SEED + 9)
+    flat = np.stack([np.full((512, 512, 3), 255 * (i % 2), np.uint8)
+                     for i in range(B)])
+    for b in (1, 3, B):
+        for what, imgs in (
+                ("fixtures and random", images[:b]),
+                ("random", k6_rng.integers(0, 256, (b, 512, 512, 3),
+                                           dtype=np.uint8)),
+                ("flat 0/255", flat[:b])):
+            x = torch.from_numpy(np.ascontiguousarray(imgs)).to(dev)
+            compare_and_time(
+                "colorspace_down420", f"({b},512,512,3) {what}",
+                lambda: colorspace.rgb_to_yuv420(x, 20),
+                lambda: colorspace.rgb_to_yuv420_ref(x, 20), timed=False)
     # K5 on real q20 encode states, dense chain planes and row-crossing
     # reads.  K5 and its twin update jpeg and process in place, as the
     # encode path runs them, so each call takes its own clone of the

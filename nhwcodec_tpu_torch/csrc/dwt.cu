@@ -16,14 +16,15 @@
 //    One cluster launch.
 // K7 nhw_synth_unnorm_rows_t replaces pallas_dwt.py
 //    synth_unnorm_rows_t_pallas: the un-normalised row pass stored
-//    transposed (launch A below), on (B, n, n) with n in {128, 256, 512}.
+//    transposed, on (B, n, n) with n in {128, 256, 512}, x a strided
+//    view.  One launch of 64 x 32 tiles (unnorm_rows_t_tile).
 // K8 nhw_synth_norm_rows_clip_waves replaces pallas_dwt.py
 //    synth_norm_rows_clip_waves_pallas: K2's waves, normalised row pass
 //    and clip alone, on a (B, 512, 512) transposed plane that the caller has scattered the HQ
 //    residue into.
 // K9 nhw_synth_norm_rows_clip replaces pallas_dwt.py
 //    synth_norm_rows_clip_pallas: the normalised row pass and the clip
-//    (launch B below, with a uint8 store).
+//    (norm_rows below, with a uint8 store).
 // nhw_smooth_marks_seq replaces the sequential mark scan of
 //    nhwcodec_tpu/models/device_decode.py y_stage2_device (a lax.scan,
 //    :126-148; host form native/hotpass.c nhw_smooth_marks), the decode's
@@ -33,19 +34,18 @@
 // operations per element on 3-4 bytes moved: at the int32 issue rate
 // (132 SMs x 64 lanes x 1.98 GHz) the operations bound K1-K3, K8 and K9
 // and the bytes bound K7 (chip_smoke.py computes both for each call).
-// What the row-per-block kernels lose to is neither: the transposed
-// stores.  A block stages one row and each thread stores its two results
-// in transposed position, 2-byte writes 1 KiB apart, so a warp's 32
-// stores hit 32 sectors; the launch that does this is 62-87% of the
-// device time of every kernel that begins with it.  The cluster kernels
-// (K1-K3) keep the transpose in shared memory instead.
+// A transposed store straight to global memory (2-byte writes 1 KiB
+// apart, 32 sectors a warp) cost the first kernels 62-87% of their device
+// time, so every transpose here goes through shared memory: the cluster
+// kernels (K1-K3) keep the transposed plane in distributed shared memory
+// because a next pass reads it there; K7's output must reach global
+// memory, so it transposes one tile at a time in the CTA's own shared
+// memory and stores whole 128-byte row segments.
 //
-// Row-per-block kernels (K7, K8, K9).  One launch each through global
-// memory (L2), one block per (image, row), one thread per output pair k:
-//   launch A (unnorm_rows_t, K7): stage a row in shared memory, compute
-//     the un-normalised pair (2k, 2k+1), store int16 TRANSPOSED;
-//   launch B (norm_rows, K9; waves_norm_clip, K8): stage one row of the
-//     transposed plane, compute the normalised pair, store the output row.
+// Row-per-block kernels (K8, K9).  One launch each through global memory
+// (L2), one block per (image, row) of the transposed plane, one thread
+// per output pair k: stage the row, compute the normalised pair, store
+// the output row (norm_rows, K9; waves_norm_clip, K8).
 // K8 runs the dering waves first.  Marks lie only on even
 // rows of the transposed plane, and a mark's stencil reads rows j-1 and
 // j+1, which are odd and never written, so one block finishes row j on
@@ -145,51 +145,129 @@ constexpr int kY = 512;     // decode Y plane side
 constexpr int kUV = 256;    // decode chroma plane side
 constexpr int kLL = 128;    // chroma LL block side
 
-// Launch A: un-normalised synthesis of row r of image b, written
-// transposed: t[b][j][r] = unnorm_rows(x)[r][j].  grid (n, B), block n/2.
-// x may be a strided view: row r of image b starts at
-// b * plane_stride + r * row_stride.
-__global__ void unnorm_rows_t(const int16_t* __restrict__ x,
-                              size_t plane_stride, int row_stride,
-                              int16_t* __restrict__ t, int n) {
-  __shared__ int16_t row[kMaxN];
+// K7 as a tiled transpose: t[b][j][r] = unnorm_rows(x)[r][j].  A CTA owns
+// kT7Rows source rows r0.. and kT7Pairs output pairs k0.. of one plane,
+// i.e. the kT7Rows columns r0.. of transposed rows 2k0 .. 2k0 + 2kT7Pairs.
+// Pair k reads L[k..k+1] and H[k-1..k+1] only (lifting.cuh), so the tile
+// needs a one-value halo and no other CTA: no cluster.  Staged row r
+// holds kT7LVecs 16-byte vectors of L from k0 (L[k0 + kT7Pairs] is the
+// last one's first value) and kT7HVecs of H from k0 - 8 (H[k0 - 1] and
+// H[k0 + kT7Pairs] are the first's last and the last's first value);
+// vectors outside the row are not staged (k0 = 0, the last tile), and
+// unnorm_pair's edges at k = 0 and m - 1 never read them.  Row pairs sit
+// kT7PairPitch words apart, the odd row kT7OddRow words after the even
+// one: 16-byte rows for cp.async, and 4 banks between row pairs, so a
+// warp's reads of 8 even (or odd) rows at 4 k fall on distinct banks.
+// The row pass uses the warp map of cluster.cuh's rows_to_peers_t with
+// kStride 2 and kPairs 8, aimed at the CTA's own tile: a warp takes 4 k
+// of 8 row pairs, each thread packs its two rows into a 32-bit store;
+// with a transposed-row pitch of kT7TPitch = 4 mod 16 words the warp's 32
+// stores fall on 32 banks, and the rows stay 16-byte aligned.  The tile leaves as 16-byte stores of
+// whole 128-byte row segments.  grid (m / kT7Pairs, n / kT7Rows, B).
+//   Tile sizes: 64 x 32 gives a 64 x 64 int16 output tile, 22,016 bytes
+//   of shared memory and 256 threads, so 8 CTAs fit an SM (one wave of
+//   1,024 CTAs at (16, 512, 512), 256 at (16, 256, 256)); the halo costs
+//   11 staged vectors for 8 of the tile's own, and the neighbouring
+//   tile's staging reads the same bytes from L2 (blockIdx.x, the k tile,
+//   runs fastest).
+constexpr int kT7Rows = 64;
+constexpr int kT7Pairs = 32;
+constexpr int kT7Threads = 256;
+constexpr int kT7LVecs = 5;        // L[k0, k0 + 40)
+constexpr int kT7HVecs = 6;        // H[k0 - 8, k0 + 40)
+constexpr int kT7OddRow = 48;      // words
+constexpr int kT7PairPitch = 100;  // words, 4 mod 32
+constexpr int kT7TPitch = 36;      // words, 4 mod 16
+constexpr int kT7Vecs = kT7LVecs + kT7HVecs;
+static_assert(kT7LVecs == kT7Pairs / 8 + 1 && kT7HVecs == kT7Pairs / 8 + 2,
+              "the tile's vectors and the halo's");
+static_assert(4 * kT7Vecs <= kT7OddRow && kT7OddRow % 4 == 0 &&
+                  kT7OddRow + 4 * kT7Vecs <= kT7PairPitch &&
+                  kT7PairPitch % 32 == 4,
+              "16-byte staged rows, row pairs 4 banks apart");
+static_assert(kT7TPitch % 16 == 4 && 2 * kT7TPitch >= kT7Rows,
+              "16-byte transposed rows, a warp's stores on 32 banks");
+static_assert(kT7Rows / 2 % 8 == 0 && kT7Pairs % 4 == 0 &&
+                  kT7Rows / 2 * kT7Pairs % kT7Threads == 0 &&
+                  2 * kT7Pairs * kT7Rows / 8 % kT7Threads == 0,
+              "whole warp tasks and whole output passes");
+
+__global__ void __launch_bounds__(kT7Threads)
+unnorm_rows_t_tile(const int16_t* __restrict__ x, size_t plane_stride,
+                   int row_stride, int16_t* __restrict__ t, int n) {
+  __shared__ __align__(16) uint32_t staged[kT7Rows / 2 * kT7PairPitch];
+  __shared__ __align__(16) uint32_t tile[2 * kT7Pairs * kT7TPitch];
   const int m = n >> 1;
-  const int r = blockIdx.x;
-  const int k = threadIdx.x;
-  const size_t b = blockIdx.y;
-  const int16_t* src = x + b * plane_stride + static_cast<size_t>(r) * row_stride;
-  row[k] = src[k];
-  row[k + m] = src[k + m];
+  const int k0 = blockIdx.x * kT7Pairs;
+  const int r0 = blockIdx.y * kT7Rows;
+  const size_t b = blockIdx.z;
+  const int16_t* src =
+      x + b * plane_stride + static_cast<size_t>(r0) * row_stride;
+  const auto row_at = [&](int r) {   // staged row r as int16
+    return reinterpret_cast<int16_t*>(staged + (r >> 1) * kT7PairPitch +
+                                      (r & 1) * kT7OddRow);
+  };
+
+  for (int i = threadIdx.x; i < kT7Rows * kT7Vecs; i += kT7Threads) {
+    const int r = i / kT7Vecs;
+    const int v = i % kT7Vecs;
+    const bool low = v < kT7LVecs;
+    const int c = low ? k0 + 8 * v : k0 + 8 * (v - kT7LVecs - 1);
+    if (c < 0 || c >= m) continue;
+    __pipeline_memcpy_async(row_at(r) + 8 * v,
+                            src + static_cast<size_t>(r) * row_stride +
+                                (low ? c : m + c),
+                            16);
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
   __syncthreads();
-  int even, odd;
-  nhw::unnorm_pair(row, row + m, m, k, even, odd);
-  int16_t* dst = t + b * n * n;
-  dst[static_cast<size_t>(2 * k) * n + r] = static_cast<int16_t>(even);
-  dst[static_cast<size_t>(2 * k + 1) * n + r] = static_cast<int16_t>(odd);
+
+  // the row pass: warp task w takes k0 + 4 (w % 8) + (lane & 3) of row
+  // pairs 8 (w / 8) + (lane >> 2)
+#pragma unroll
+  for (int it = 0; it < kT7Rows / 2 * kT7Pairs / kT7Threads; ++it) {
+    const int g = threadIdx.x + it * kT7Threads;
+    const int w = g >> 5;
+    const int i = (w % (kT7Pairs / 4)) * 4 + (g & 3);
+    const int rp = (w / (kT7Pairs / 4)) * 8 + ((g & 31) >> 2);
+    int e[2], o[2];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int16_t* row = row_at(2 * rp + s);
+      nhw::unnorm_pair_at(row, row + 8 * kT7LVecs + 8, m, k0 + i, i, e[s],
+                          o[s]);
+    }
+    tile[2 * i * kT7TPitch + rp] = pack16(e[0], e[1]);
+    tile[(2 * i + 1) * kT7TPitch + rp] = pack16(o[0], o[1]);
+  }
+  __syncthreads();
+
+  int16_t* dst = t + b * n * n + static_cast<size_t>(2 * k0) * n + r0;
+#pragma unroll
+  for (int it = 0; it < 2 * kT7Pairs * kT7Rows / 8 / kT7Threads; ++it) {
+    const int q = threadIdx.x + it * kT7Threads;
+    const int j = q / (kT7Rows / 8);
+    const int v = q % (kT7Rows / 8);
+    *reinterpret_cast<uint4*>(dst + static_cast<size_t>(j) * n + 8 * v) =
+        *reinterpret_cast<const uint4*>(tile + j * kT7TPitch + 4 * v);
+  }
 }
 
 __device__ __forceinline__ uint8_t clip_u8(int v) {
   return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
 }
 
-// The normalised value of an un-normalised one, stored as int16 (a
-// synthesis level) or clipped to uint8 (the last pass of the Y decode).
-template <typename T>
-__device__ __forceinline__ T norm_out(int t);
-template <>
-__device__ __forceinline__ int16_t norm_out<int16_t>(int t) {
-  return static_cast<int16_t>(nhw::norm_value(t));
-}
-template <>
-__device__ __forceinline__ uint8_t norm_out<uint8_t>(int t) {
+// The normalised value of an un-normalised one, clipped to uint8 (the
+// last pass of the Y decode).
+__device__ __forceinline__ uint8_t norm_out(int t) {
   return clip_u8(nhw::norm_value(t));
 }
 
-// Launch B: normalised synthesis of row r of the contiguous (B, n, n)
-// plane t into out.  grid (n, B), block n/2.
-template <typename T>
-__global__ void norm_rows(const int16_t* __restrict__ t, T* __restrict__ out,
-                          int n) {
+// K9: normalised synthesis of row r of the contiguous (B, n, n) plane t
+// into out.  grid (n, B), block n/2.
+__global__ void norm_rows(const int16_t* __restrict__ t,
+                          uint8_t* __restrict__ out, int n) {
   __shared__ int16_t row[kMaxN];
   const int m = n >> 1;
   const int k = threadIdx.x;
@@ -199,8 +277,8 @@ __global__ void norm_rows(const int16_t* __restrict__ t, T* __restrict__ out,
   __syncthreads();
   int even, odd;
   nhw::unnorm_pair(row, row + m, m, k, even, odd);
-  out[base + 2 * k] = norm_out<T>(even);
-  out[base + 2 * k + 1] = norm_out<T>(odd);
+  out[base + 2 * k] = norm_out(even);
+  out[base + 2 * k + 1] = norm_out(odd);
 }
 
 // One dering wave at column c of the middle staged row: the smoothed
@@ -220,7 +298,7 @@ __device__ __forceinline__ bool wave_cell(const int16_t* up, const int16_t* mid,
   return (res < 0 ? -res : res) < 116;
 }
 
-// K2 launch B: dering waves on row j of the transposed plane, then the
+// K8: dering waves on row j of the transposed plane, then the
 // normalised row pass and the clip.  grid (512, B), block 256.
 __global__ void waves_norm_clip(const int16_t* __restrict__ t,
                                 const uint8_t* __restrict__ depth,
@@ -259,8 +337,8 @@ __global__ void waves_norm_clip(const int16_t* __restrict__ t,
   }
   int even, odd;
   nhw::unnorm_pair(rows[1], rows[1] + kY / 2, kY / 2, k, even, odd);
-  out[row_j + c0] = norm_out<uint8_t>(even);
-  out[row_j + c1] = norm_out<uint8_t>(odd);
+  out[row_j + c0] = norm_out(even);
+  out[row_j + c1] = norm_out(odd);
 }
 
 // The sequential mark scan: thread b walks image b's records in order,
@@ -466,7 +544,7 @@ y_stage2_cluster(const int16_t* __restrict__ jp,
       int even, odd;
       nhw::unnorm_pair(mid, mid + kY / 2, kY / 2, k, even, odd);
       reinterpret_cast<uint16_t*>(staged)[k] = static_cast<uint16_t>(
-          norm_out<uint8_t>(even) | (norm_out<uint8_t>(odd) << 8));
+          norm_out(even) | (norm_out(odd) << 8));
     }
     __syncwarp();
     reinterpret_cast<uint4*>(out + (b * kY + kY2Rows * c + lr) * kY)[lane] =
@@ -801,12 +879,17 @@ int nhw_cluster_info(int kernel, void* info) {
   return nhw::cluster_info(kernel == 0 ? y2_kernel() : uv_kernel(), info);
 }
 
-// K7.  x: (B, n, n) int16 with the given plane and row strides (elements);
-// out: contiguous (B, n, n) int16, out[b] = int16(unnorm_rows(x[b]))^T.
+// K7.  x: (B, n, n) int16 with the given plane and row strides (elements,
+// multiples of 8; 16-byte aligned base); out: contiguous (B, n, n) int16,
+// 16-byte aligned, out[b] = int16(unnorm_rows(x[b]))^T.
 int nhw_synth_unnorm_rows_t(const void* x, int plane_stride, int row_stride,
                             void* out, int batch, int n, void* stream) {
   if (bad_n(n) || bad_batch(batch)) return cudaErrorInvalidValue;
-  unnorm_rows_t<<<dim3(n, batch), n / 2, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (misaligned(x, 16) || row_stride % 8 != 0 ||
+      (batch > 1 && plane_stride % 8 != 0) || misaligned(out, 16))
+    return cudaErrorMisalignedAddress;
+  unnorm_rows_t_tile<<<dim3(n / 2 / kT7Pairs, n / kT7Rows, batch), kT7Threads,
+                       0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int16_t*>(x), plane_stride, row_stride,
       static_cast<int16_t*>(out), n);
   return cudaGetLastError();
@@ -828,7 +911,7 @@ int nhw_synth_norm_rows_clip_waves(const void* t, const void* depth, void* out,
 int nhw_synth_norm_rows_clip(const void* t, void* out, int batch, int n,
                              void* stream) {
   if (bad_n(n) || bad_batch(batch)) return cudaErrorInvalidValue;
-  norm_rows<uint8_t><<<dim3(n, batch), n / 2, 0,
+  norm_rows<<<dim3(n, batch), n / 2, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int16_t*>(t), static_cast<uint8_t*>(out), n);
   return cudaGetLastError();

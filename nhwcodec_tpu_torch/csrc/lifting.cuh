@@ -21,27 +21,37 @@ __device__ __forceinline__ int asr(int x, int s) {
   return x >= 0 ? (x >> s) : ~((~x) >> s);
 }
 
-// upfilter53I + upfilter53III for output pair k: the wrapped un-normalised
-// even (out[2k]) and odd (out[2k+1]) values.  L and H may point to shared
-// or global memory.
-__device__ __forceinline__ void unnorm_pair(const int16_t* L, const int16_t* H,
-                                            int m, int k, int& even,
-                                            int& odd) {
-  const int lk = L[k];
-  const int hk = H[k];
+// upfilter53I + upfilter53III for output pair k of a row of m pairs, read
+// through a window of it: L[k + d] is Ls[i + d] and H[k + d] is Hs[i + d]
+// (d in -1..1; L[k + 1] only for k < m - 1, H[k - 1] only for k > 0,
+// H[k + 1] only for k < m - 1).  The wrapped un-normalised even (out[2k])
+// and odd (out[2k+1]) values.  Ls and Hs may point to shared or global
+// memory.
+__device__ __forceinline__ void unnorm_pair_at(const int16_t* Ls,
+                                               const int16_t* Hs, int m, int k,
+                                               int i, int& even, int& odd) {
+  const int lk = Ls[i];
+  const int hk = Hs[i];
   const int e = wrap16(lk * 8);
-  const int o = wrap16(k < m - 1 ? (L[k + 1] + lk) * 4 : lk * 8);
-  const int sub_even = k == 0 ? hk * 4 : (hk + H[k - 1]) * 2;
+  const int o = wrap16(k < m - 1 ? (Ls[i + 1] + lk) * 4 : lk * 8);
+  const int sub_even = k == 0 ? hk * 4 : (hk + Hs[i - 1]) * 2;
   int add_odd;
   if (k == 0) {
-    add_odd = 5 * hk - H[1];
+    add_odd = 5 * hk - Hs[i + 1];   // H[1]
   } else if (k == m - 1) {
-    add_odd = 5 * hk - H[m - 2];
+    add_odd = 5 * hk - Hs[i - 1];   // H[m - 2]
   } else {
-    add_odd = 6 * hk - H[k + 1] - H[k - 1];
+    add_odd = 6 * hk - Hs[i + 1] - Hs[i - 1];
   }
   even = wrap16(e - sub_even);
   odd = wrap16(o + add_odd);
+}
+
+// The same on a whole row: L[0..m) and H[0..m).
+__device__ __forceinline__ void unnorm_pair(const int16_t* L, const int16_t* H,
+                                            int m, int k, int& even,
+                                            int& odd) {
+  unnorm_pair_at(L, H, m, k, k, even, odd);
 }
 
 // upfilter53VI on one un-normalised value: +32 on positives, then /64.

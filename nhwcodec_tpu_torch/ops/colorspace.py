@@ -177,7 +177,9 @@ def _check_rgb(rgb: torch.Tensor, name: str) -> None:
 def rgb_to_yuv420(rgb: torch.Tensor, quality: int):
     """The exact encode colorspace with 4:2:0 chroma: (B,512,512,3)
     uint8 -> (Y (B,512,512) int16, U, V (B,256,256) uint8).  K6 for a
-    CUDA tensor at q >= NORM; the twin otherwise."""
+    CUDA tensor at q >= NORM; the twin otherwise.  K6 reads the image
+    with 16-byte loads: a CUDA tensor must be contiguous and start on a
+    16-byte boundary, else this raises (RuntimeError, misaligned)."""
     _check_rgb(rgb, "rgb_to_yuv420")
     if rgb.device.type == "cpu" or quality < T.NORM:
         return rgb_to_yuv420_ref(rgb, quality)

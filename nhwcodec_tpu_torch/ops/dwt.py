@@ -455,7 +455,10 @@ def requant_tail(jpeg: torch.Tensor, process: torch.Tensor,
 def synth_unnorm_rows_t(x: torch.Tensor) -> torch.Tensor:
     """K7: the un-normalised row pass stored transposed, (B, n, n) int16
     with n in {128, 256, 512} -> contiguous int16(unnorm_rows(x))^T.  A
-    view whose rows are contiguous is taken without a copy."""
+    view whose rows are contiguous is taken without a copy; on the card
+    its base must be 16-byte aligned and its strides multiples of 8, or
+    the kernel refuses it and this raises.  On the card one launch of
+    64 x 32 tiles, each transposed in the CTA's shared memory."""
     _check(x, "synth_unnorm_rows_t", torch.int16, (None, None, None))
     b, n, n2 = x.shape
     if n != n2 or n not in (128, 256, 512):

@@ -315,6 +315,66 @@ def test_colorspace_down420_kernel(cuda):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
+def _k6_images(what, b):
+    rng = np.random.default_rng(2026)
+    if what == "fixtures":
+        gens = list({**fixtures.GENERATORS,
+                     **fixtures.EXTREME_GENERATORS}.values())
+        return np.stack([gens[i % len(gens)]() for i in range(b)])
+    if what == "random":
+        return rng.integers(0, 256, (b, 512, 512, 3), dtype=np.uint8)
+    return np.stack([np.full((512, 512, 3), 255 * (i % 2), np.uint8)
+                     for i in range(b)])
+
+
+# K6 is one launch of the band kernel: batch 1, 3 and 16 on the fixtures,
+# random images and flat 0 / 255 images
+@pytest.mark.parametrize("b", [1, 3, 16])
+@pytest.mark.parametrize("what", ["fixtures", "random", "flat 0/255"])
+def test_colorspace_down420_band_kernel(cuda, what, b):
+    rgb = torch.from_numpy(_k6_images(what, b)).to(cuda)
+    before = build.LAUNCHES["colorspace_down420"]
+    got = colorspace.rgb_to_yuv420(rgb, 20)
+    assert build.LAUNCHES["colorspace_down420"] == before + 1
+    for g, w in zip(got, colorspace.rgb_to_yuv420_ref(rgb, 20)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_colorspace_down420_is_one_launch(cuda):
+    from chip_smoke import launches_per_call
+
+    rgb = torch.zeros((4, 512, 512, 3), dtype=torch.uint8, device=cuda)
+    host, records, names = launches_per_call(
+        lambda: colorspace.rgb_to_yuv420(rgb, 20))
+    assert host == 1 and 0 < records <= 1 and len(set(names)) == 1
+    assert "colorspace_band" in names[0]
+
+
+def test_colorspace_down420_misaligned_input_raises(cuda):
+    # a contiguous image one byte past a 16-byte boundary
+    flat = torch.zeros(2 * 512 * 512 * 3 + 1, dtype=torch.uint8, device=cuda)
+    rgb = flat[1:].view(2, 512, 512, 3)
+    assert rgb.is_contiguous() and rgb.storage_offset() == 1
+    with pytest.raises(RuntimeError, match="misaligned"):
+        colorspace.rgb_to_yuv420(rgb, 20)
+
+
+# K6's per-pixel function, which the band kernel calls, over all 2^24 RGB
+# triples against the host encoder at the qualities K6 serves (q >= NORM)
+@pytest.mark.parametrize("q", [20, 23])
+def test_rgb_to_yuv_full_exhaustive(cuda, q):
+    from nhwcodec_tpu.ops import colorspace as hcs
+
+    allv = torch.arange(1 << 24, dtype=torch.int64, device=cuda)
+    rgb = torch.stack([allv >> 16, (allv >> 8) & 255, allv & 255],
+                      -1).to(torch.uint8).reshape(64, 512, 512, 3)
+    got = [g.cpu().numpy() for g in colorspace.rgb_to_yuv_full(rgb)]
+    rgb_h = rgb.cpu().numpy()
+    for c in range(0, 64, 8):
+        for g, w in zip(got, hcs.rgb_to_yuv(rgb_h[c:c + 8], q)):
+            np.testing.assert_array_equal(g[c:c + 8], w)
+
+
 def test_encode_batch_on_the_card(cuda):
     import nhwcodec_tpu
     from nhwcodec_tpu_torch.parallel import device_pipeline as tdp
@@ -344,6 +404,54 @@ def test_synth_unnorm_rows_t_kernel(cuda, n):
     view = x[:, : n // 2, : n // 2]
     torch.testing.assert_close(dwt.synth_unnorm_rows_t(view),
                                dwt.unnorm_rows_t_ref(view), rtol=0, atol=0)
+
+
+# K7 is one launch of 64 x 32 tiles: its path shapes ((16,512,512) on the
+# HQ decode, (8,512,512) and (16,256,256) in the transform) and (B,128,128)
+# corner views, at batch 1, 3, 8 and 16, on int16 extremes and values at
+# every tile edge
+UNNORM_CASES = [(512, 512), (256, 256), (128, 256)]
+
+
+@pytest.mark.parametrize("b", [1, 3, 8, 16])
+@pytest.mark.parametrize("kind", ["int16 extremes", "tile edges"])
+@pytest.mark.parametrize("n, side", UNNORM_CASES)
+def test_synth_unnorm_rows_t_tile_kernel(cuda, n, side, kind, b):
+    from chip_smoke import UNNORM_EDGE_INPUTS
+
+    rng = np.random.default_rng(70 + b)
+    parent = torch.from_numpy(rng.integers(-32768, 32768, (b, side, side))
+                              .astype(np.int16)).to(cuda)
+    parent[:, :n, :n] = torch.from_numpy(UNNORM_EDGE_INPUTS[kind](rng, b, n))
+    view = parent[:, :n, :n]
+    before = build.LAUNCHES["synth_unnorm_rows_t"]
+    got = dwt.synth_unnorm_rows_t(view)
+    assert build.LAUNCHES["synth_unnorm_rows_t"] == before + 1
+    assert got.is_contiguous()
+    torch.testing.assert_close(got, dwt.unnorm_rows_t_ref(view), rtol=0,
+                               atol=0)
+
+
+@pytest.mark.parametrize("n, side", UNNORM_CASES)
+def test_synth_unnorm_rows_t_is_one_launch(cuda, n, side):
+    from chip_smoke import launches_per_call
+
+    x = torch.zeros((4, side, side), dtype=torch.int16, device=cuda)
+    host, records, names = launches_per_call(
+        lambda: dwt.synth_unnorm_rows_t(x[:, :n, :n]))
+    assert host == 1 and 0 < records <= 1 and len(set(names)) == 1
+    assert "unnorm_rows_t_tile" in names[0]
+
+
+def test_synth_unnorm_rows_t_misaligned_view_raises(cuda):
+    # a base 8 bytes past a 16-byte boundary; a row stride of 260
+    views = (torch.zeros((2, 256, 264), dtype=torch.int16,
+                         device=cuda)[..., 4:260],
+             torch.zeros((2, 256, 260), dtype=torch.int16,
+                         device=cuda)[..., :256])
+    for view in views:
+        with pytest.raises(RuntimeError, match="misaligned"):
+            dwt.synth_unnorm_rows_t(view)
 
 
 def test_synth_norm_rows_clip_waves_kernel(cuda):
