@@ -15,7 +15,9 @@
    (STREAM_SHA256, recomputed by tests/test_torch_host_copy.py), and
    checks that every kernel of each path was launched on that path
    (launch counts set to 0 just before the path and read just after);
-   profiles each service and splits its wall time over the host steps.
+   profiles each service and splits its wall time over the host steps,
+   and the q23 chunk's HQ Y stage 2 (K7, the HQ scatter, K8) over its
+   device ops (hq_stage2_split).
 3. Drives the transform entry (nhwcodec_tpu_torch.entry: encode_transform
    and transform_step on the seed-0 (8, 512, 512, 3) batch): every
    output equal to the port's plain CPU path, the coefficients to
@@ -26,24 +28,27 @@
    the card, at the shapes its path gives it (batch 16 for the decode
    and encode services, the transform's four K10 shapes at batch 16),
    and times both (CUDA events around the wrapper call; torch.profiler
-   device time; for K1-K4, K6, K7 and K10 also CUDA events around a CUDA
-   graph of back-to-back calls) beside the least time the card could
+   device time; for every kernel but the scan also CUDA events around a
+   CUDA graph of back-to-back calls) beside the least time the card could
    take for the same bytes and operations.  K1 and K7 (at their three
    path shapes), K4 and K10 (at their four) are timed at every shape,
    each call shown by the profiler to be one launch of one kernel, as
-   is K6's; K5 is split into its three stages (K1, the unmark + ladder
-   table walk, K4) and timed as a graph on restored inputs, and held to
-   its twin at batch 1, 3 and 16 on real states, chain planes and
-   row-crossing reads.  The cluster kernels (K1, K2, K3, K4, K10) print
+   are K6's and K8's; K5 is split into its three stages (K1, the unmark
+   + ladder table walk, K4) and timed as a graph on restored inputs, and
+   held to its twin at batch 1, 3 and 16 on real states, chain planes
+   and row-crossing reads.  The cluster kernels (K1, K2, K3, K4, K10) print
    what the card allows for them (registers, shared memory per CTA,
    resident clusters); K2 and K3 are held to their twins at batch
    1, 3 and 16 on random, near-flat, residue-bound and cluster-edge
    inputs, K4 and K10 at batch 1, 3 and 16 at their four shapes on
    full-range, +-1800 and edge inputs (ANALYSIS_EDGE_INPUTS) and in
    place on the LL corners, K7 at batch 1, 3 and 16 at its three sizes
-   on int16 extremes and tile-edge inputs, K6 at batch 1, 3 and 16 on
-   fixture, random and flat images, and K2 is timed beside K7 + K8, its
-   two-launch form, on the same inputs.
+   on int16 extremes and tile-edge inputs, K8 at batch 1, 3 and 16 on
+   marks at every band edge, both column ends, a row of 384 marks, depths
+   past n_waves, one wave and no marks (WAVES_EDGE_INPUTS; the waves must
+   change image 0's output wherever it is marked), K6 at batch
+   1, 3 and 16 on fixture, random and flat images, and K2 is timed
+   beside K7 + K8, its two-launch form, on the same inputs.
 5. Sweeps the decode colorspace over all 2^24 (y, u, v) triples in all
    four modes against the host decoder, and the encode colorspace over
    all 2^24 RGB triples (K6's per-pixel entry at q >= NORM, the on-card
@@ -63,6 +68,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -341,21 +347,26 @@ def launches_per_call(fn, calls: int = 10) -> tuple[float, float, list]:
     launch calls per call, the device's kernel records per call, and the
     names of the device kernels.  A wrapper that is one kernel launch on
     the card gives 1, at most 1 (the profiler drops one or two of ten
-    cluster launches' records) and one name."""
+    cluster launches' records) and one name.  A window with no device
+    record at all (the profiler lost it whole, as it did once for K7 on an
+    H100) is run again, up to PROFILE_TRIES times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+    for _ in range(PROFILE_TRIES):
         torch.cuda.synchronize()
-    rows = prof.key_averages()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = prof.key_averages()
+        dev = [e for e in rows if e.device_type == DeviceType.CUDA]
+        if dev:
+            break
     host = sum(e.count for e in rows if e.device_type == DeviceType.CPU
                and e.key in LAUNCH_APIS[:3])
-    dev = [e for e in rows if e.device_type == DeviceType.CUDA]
     return (host / calls, sum(e.count for e in dev) / calls,
             sorted(e.key for e in dev))
 
@@ -750,6 +761,66 @@ def tile_edge_planes(rng, b, n):
 UNNORM_EDGE_INPUTS = {"int16 extremes": extreme_planes,
                       "tile edges": tile_edge_planes}
 
+# K8's bands (csrc/dwt.cu kW8Rows): a CTA owns rows [j0, j0 + 32) of one
+# transposed plane and stages rows j0 - 1 .. j0 + 32, modulo 512
+WAVES_BAND = 32
+# columns of the band-edge marks: both ends of a row (the column wrap)
+# and the middle
+WAVES_EDGE_COLS = (0, 1, 2, 255, 256, 509, 510, 511)
+# an even row marked in 3 of every 4 columns (384 cells: 12 passes of 32)
+WAVES_DENSE_ROW = 200
+
+
+def band_edge_depth(b, n_waves):
+    """``b`` (512, 512) uint8 depth planes, non-zero on even rows only:
+    marks on every band's first and last even rows (j0, j0 + WAVES_BAND -
+    2; row 0's row above wraps to 511, row 510's below is 511) in
+    WAVES_EDGE_COLS, with depths 1 .. n_waves + 2 (some deeper than the
+    waves reach); and row WAVES_DENSE_ROW in runs of 3 (depths 1, 2, 3)."""
+    dp = np.zeros((b, 512, 512), np.uint8)
+    rows = sorted(j0 + d for j0 in range(0, 512, WAVES_BAND)
+                  for d in (0, WAVES_BAND - 2))
+    for i, j in enumerate(rows):
+        for k, c in enumerate(WAVES_EDGE_COLS):
+            dp[:, j, c] = 1 + (i + k) % (n_waves + 2)
+    c = np.arange(512)
+    dp[:, WAVES_DENSE_ROW] = np.where(c % 4 == 3, 0, c % 4 + 1)
+    return dp
+
+
+def waves_planes(rng, b):
+    """K8's transposed planes: image 0 and the first half of the batch in
+    [-20, 21), where the waves fire on some cells and not on others and
+    change the clipped output, the rest over the full int16 range (image 0
+    is small at batch 1 too, where ``planes`` gives the full range)."""
+    t = planes(rng, b, 512, -20, 21)
+    t[0] = rng.integers(-20, 21, (512, 512))
+    return t
+
+
+def _band_case(n_waves, marked=True):
+    def make(rng, b):
+        dp = (band_edge_depth(b, 6) if marked
+              else np.zeros((b, 512, 512), np.uint8))
+        return waves_planes(rng, b), dp, n_waves
+    return make
+
+
+def _decode_marks_case(rng, b):
+    from nhwcodec_tpu_torch.models import device_decode as tdd
+
+    dp, n_waves, ok = tdd.mark_depth_planes(mark_lists(rng, b))
+    check(ok, "decode marks are in order")
+    return waves_planes(rng, b), dp, n_waves
+
+
+# K8's inputs: name -> (rng, b) -> (transposed int16 plane (waves_planes),
+# depth, n_waves)
+WAVES_EDGE_INPUTS = {"band edges": _band_case(6),
+                     "band edges, one wave": _band_case(1),
+                     "unmarked": _band_case(3, marked=False),
+                     "decode marks": _decode_marks_case}
+
 
 ANALYSIS_EDGE_INPUTS = {"int16 extremes": extreme_planes,
                         "parity chains": parity_chain_planes,
@@ -823,6 +894,41 @@ def unnorm_edge_phase(dev) -> None:
                   f"512, 256 and a 128 corner view, max_abs_err {worst} vs "
                   "torch twin", flush=True)
             check(worst == 0, f"K7 at batch {b} differs on {what}")
+
+
+def waves_edge_phase(dev) -> None:
+    """K8 against its twin at batch 1, 3 and 16 on its edge inputs
+    (WAVES_EDGE_INPUTS), each call one launch."""
+    import torch
+
+    from nhwcodec_tpu_torch.kernels import build
+    from nhwcodec_tpu_torch.ops import dwt
+
+    rng = np.random.default_rng(SEED + 9)
+    for b in (1, 3, B):
+        for what, gen in WAVES_EDGE_INPUTS.items():
+            t_np, dp_np, n_waves = gen(rng, b)
+            t, dp = (torch.from_numpy(a).to(dev) for a in (t_np, dp_np))
+            before = build.LAUNCHES["synth_norm_rows_clip_waves"]
+            got = dwt.synth_norm_rows_clip_waves(t, dp, n_waves)
+            launches = build.LAUNCHES["synth_norm_rows_clip_waves"] - before
+            want = dwt.synth_norm_rows_clip_waves_ref(t, dp, n_waves)
+            err = int((got.to(torch.int32) - want.to(torch.int32))
+                      .abs().max())
+            # the pixels of image 0 that the waves change
+            fired = int((want[0] != dwt.synth_norm_rows_clip_ref(t[:1])[0])
+                        .sum())
+            torch.cuda.synchronize()
+            print(f"kernel synth_norm_rows_clip_waves at batch {b}, {what}, "
+                  f"n_waves={n_waves}: {launches} launch, max_abs_err {err} "
+                  f"vs torch twin; the waves change {fired} pixels of "
+                  "image 0", flush=True)
+            check(err == 0 and launches == 1,
+                  f"K8 at batch {b} on {what}: {launches} launches, "
+                  f"max_abs_err {err}")
+            check((fired > 0) == bool(dp_np[0].any()),
+                  f"K8 at batch {b} on {what}: the waves change {fired} "
+                  "pixels of image 0")
 
 
 def kernel_phase(dev) -> dict:
@@ -935,8 +1041,12 @@ def kernel_phase(dev) -> dict:
          lambda: dwt.synth_norm_rows_clip_ref(y9),
          work(3 * px512, OPS["synth_norm_rows_clip"] * px512)),
     ]
-    out.update({name: compare_and_time(name, shape, kern, twin, bound=bound)
+    out.update({name: compare_and_time(name, shape, kern, twin, bound=bound,
+                                       graph=True)
                 for name, shape, kern, twin, bound in cases})
+    check_one_launch("synth_norm_rows_clip_waves", cases[0][1], cases[0][2],
+                     "waves_band")
+    waves_edge_phase(dev)
     fewer = dwt.synth_norm_rows_clip_waves(t, dp, n_waves - 1)
     check(bool((fewer != dwt.synth_norm_rows_clip_waves_ref(t, dp, n_waves))
                .any()), "K8's dering waves had no effect on the test planes")
@@ -1141,10 +1251,52 @@ def hq_decode_phase(dev) -> dict:
     def one_chunk():
         tdp.decode_batch_device(batches[23], workers=1, chunk=B, device=dev)
 
+    hq_stage2_split(dev, batches[23])
     print_profile(f"decode, batch {B} q23 in one chunk", one_chunk)
     print_breakdown(f"decode breakdown, batch {B} q23 in one chunk",
                     *host_breakdown(one_chunk, decode_targets()))
     return launches
+
+
+def hq_stage2_split(dev, datas) -> None:
+    """The HQ Y stage 2 (``y_stage2_dense`` with HQ pairs: the LL1 copy
+    into the plane, K7, the HQ scatter, K8) at the size of one chunk of
+    ``datas``, op by op: under torch.profiler (every device entry, ms per
+    call) and as a CUDA graph of back-to-back calls.  The HQ pairs are the
+    chunk's own, from the host front; the coefficient and LL1 planes and
+    the depth planes are drawn as kernel_phase draws them."""
+    import torch
+
+    from nhwcodec_tpu_torch.host.models import decoder as dec
+    from nhwcodec_tpu_torch.host.ops import dc_plane
+    from nhwcodec_tpu_torch.host.utils.container import parse_nhw
+    from nhwcodec_tpu_torch.models import device_decode as tdd
+
+    hqs = []
+    for data in datas:
+        s = parse_nhw(data)
+        res_comp = dc_plane.decode_dc_planes(
+            s.res_ch, s.highres_comp, s.res_U_64, s.res_V_64, s.quality,
+            s.res_high)
+        hqs.append(dec.decode_y_front(s, res_comp)[2])
+    check(any(len(i) for i, _ in hqs), "the chunk has no HQ pair")
+    b = len(datas)
+    rng = np.random.default_rng(SEED + 10)
+    dp_np, n_waves, ok = tdd.mark_depth_planes(mark_lists(rng, b))
+    check(ok, "depth planes of the HQ split")
+    args = (*tdd.front_to_torch(dev, planes(rng, b, 512, -2, 3),
+                                planes(rng, b, 256, -2000, 2000), dp_np),
+            n_waves, *tdd.front_to_torch(dev, *tdd.pad_hq(hqs)))
+    torch.cuda.synchronize()
+    _, dev_ms, entries = device_profile(lambda: tdd.y_stage2_dense(*args),
+                                        calls=10)
+    g_ms = graph_ms(lambda: tdd.y_stage2_dense(*args))
+    print(f"HQ Y stage 2, batch {b} (y_stage2_dense, the q23 chunk's "
+          f"{args[4].shape[1]} HQ pairs a plane, n_waves={n_waves}): device "
+          f"time per call (profiler) {dev_ms} ms, graph of {GRAPH_CALLS} "
+          f"calls (CUDA events) {g_ms:.4f} ms; device entries (ms per "
+          "call): " + "; ".join(f"{k[:110]} {v:.4f}" for k, v in entries),
+          flush=True)
 
 
 def fallback_phase(dev) -> dict:
@@ -1569,7 +1721,7 @@ def transform_phase(dev) -> dict:
 def check_one_launch(name: str, shape: str, fn,
                      kernel: str = "analysis_cluster") -> None:
     """Check under torch.profiler that a call of ``fn`` is one launch of
-    one device kernel, the cluster kernel ``kernel``."""
+    one device kernel, ``kernel``."""
     host, records, names = launches_per_call(fn)
     print(f"kernel {name} {shape}: {host:g} kernel launch calls per call "
           f"on the host, {records:g} device kernel records per call "
@@ -1710,6 +1862,33 @@ def transform_kernel_phase(dev) -> dict:
     return out
 
 
+def print_ptxas(kernels) -> None:
+    """Print what ``nvcc -Xptxas -v`` said of each kernel whose mangled
+    name holds one of ``kernels`` (registers, spills, static shared
+    memory), from the build's log, and fail unless each was found with no
+    spill: K2 and K8 share ``waves_norm_clip_row``, and K2 sits near its
+    64-register cap."""
+    from nhwcodec_tpu_torch.kernels import build
+
+    log = build.lib_path().parent / "build.log"
+    check(log.exists(), f"no build log beside {build.lib_path()}")
+    found = set()
+    for part in log.read_text().split("Compiling entry function '")[1:]:
+        name = part.split("'", 1)[0]
+        hit = [k for k in kernels if k in name]
+        if hit:
+            lines = [ln.split(":", 1)[-1].strip() for ln in part.splitlines()
+                     if "spill" in ln or "Used" in ln]
+            print(f"ptxas {hit[0]}: " + "; ".join(lines), flush=True)
+            spills = [int(n) for n in re.findall(
+                r"(\d+) bytes spill (?:stores|loads)", part)]
+            check(bool(spills) and not any(spills),
+                  f"ptxas: {hit[0]} spills ({'; '.join(lines)})")
+            found.add(hit[0])
+    check(found == set(kernels),
+          f"ptxas: no entry for {sorted(set(kernels) - found)} in {log}")
+
+
 def main() -> int:
     os.environ.setdefault("NHW_NATIVE_PGO", "0")  # no host PGO training run
     import torch
@@ -1739,6 +1918,7 @@ def main() -> int:
     print(f"kernel build (nvcc, sm_90a) + load: "
           f"{time.perf_counter() - t0:.1f} s -> {build.lib_path()}",
           flush=True)
+    print_ptxas(("y_stage2_cluster", "waves_band"))
 
     # the paths first: a profiler window of very many launches (the K5
     # twin's) can leave later windows incomplete

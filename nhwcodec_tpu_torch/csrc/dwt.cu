@@ -18,10 +18,11 @@
 //    synth_unnorm_rows_t_pallas: the un-normalised row pass stored
 //    transposed, on (B, n, n) with n in {128, 256, 512}, x a strided
 //    view.  One launch of 64 x 32 tiles (unnorm_rows_t_tile).
-// K8 nhw_synth_norm_rows_clip_waves replaces pallas_dwt.py
+// K8 nhw_synth_norm_rows_clip_waves replaces pallas_dwt.py:586
 //    synth_norm_rows_clip_waves_pallas: K2's waves, normalised row pass
-//    and clip alone, on a (B, 512, 512) transposed plane that the caller has scattered the HQ
-//    residue into.
+//    and clip alone, on a (B, 512, 512) transposed plane that the caller
+//    has scattered the HQ residue into.  One launch of 32-row bands
+//    (waves_band), a warp a row with K2's back end (waves_norm_clip_row).
 // K9 nhw_synth_norm_rows_clip replaces pallas_dwt.py
 //    synth_norm_rows_clip_pallas: the normalised row pass and the clip
 //    (norm_rows below, with a uint8 store).
@@ -42,18 +43,26 @@
 // memory, so it transposes one tile at a time in the CTA's own shared
 // memory and stores whole 128-byte row segments.
 //
-// Row-per-block kernels (K8, K9).  One launch each through global memory
-// (L2), one block per (image, row) of the transposed plane, one thread
-// per output pair k: stage the row, compute the normalised pair, store
-// the output row (norm_rows, K9; waves_norm_clip, K8).
-// K8 runs the dering waves first.  Marks lie only on even
-// rows of the transposed plane, and a mark's stencil reads rows j-1 and
-// j+1, which are odd and never written, so one block finishes row j on
-// its own: it stages rows j-1, j, j+1 (3 x 512 int16) and runs each wave
-// as a read phase, a barrier and a masked write of row j.  Rows without
-// marks skip the waves.  Row and column neighbours wrap modulo 512 like
-// the reference's rolls (the depth plane is 0 on the borders anyway).
-// The HQ scatter does not move marks, so the same argument holds for K8.
+// K9 (norm_rows) is one launch through global memory (L2), one block per
+// (image, row) of the plane, one thread per output pair k: stage the row,
+// compute the normalised pair, store the output row.
+//
+// The dering waves (K2, K8).  Marks lie only on even rows of the
+// transposed plane, and a mark's stencil reads rows j-1 and j+1, which
+// are odd and never written, so one warp finishes row j on its own once
+// rows j-1, j, j+1 are in shared memory: waves_norm_clip_row runs each
+// wave as a read phase, __syncwarp() and a masked write of row j.  Rows
+// without marks skip the waves.  Row and column neighbours wrap modulo
+// 512 like the reference's rolls.  The HQ scatter does not move marks,
+// so the same argument holds for K8, and a band of rows needs only the
+// rows on either side of it, read-only: K8 (waves_band) stages 32 rows
+// and that halo (1/16 more reads), each warp finishing one even and one
+// odd row.  K8 is bound by its operations (5.38 us at (16, 512,
+// 512) with 8 waves on chip_smoke.py's inputs) with its bytes close
+// behind (16 MiB, 5.0 us): the band reads every row of the plane once
+// with 16-byte copies (plus the halo), each depth row with one 16-byte
+// load a lane, and leaves as 16-byte stores; a warp's waves need no block
+// barrier, and the 256 CTAs of batch 16 are resident at once, two an SM.
 //
 // Cluster kernels (K1, K2, K3): one launch, the plane in distributed shared
 // memory (DSM; the helpers are in cluster.cuh).  A 512x512 int16 plane
@@ -88,18 +97,12 @@
 //   orientation), 32-bit stores, no second exchange.
 //   K2 stages its 64 input rows in four quarters through two buffers,
 //   each quarter's row pass overlapping the next one's copies.  Then each
-//   warp finishes two even and two odd transposed rows: it reads a row's
-//   depth (16-byte loads, the next row's while this one is worked on) and
-//   skips the waves where it is all zero (the odd rows and most even
-//   ones).  A marked row's cells are compacted onto the lanes (a prefix
-//   sum over the lanes' counts), so with up to 32 marks a wave is one
-//   stencil a lane, __syncwarp() and a masked store; longer rows take 32
-//   cells a pass.  Within a wave every read precedes every write, as in
-//   K8.  Row j-1 of the CTA's first row lies in the previous CTA (row 511
-//   for row 0: the ranks wrap like the reference's rolls) and is read
-//   there.  The normalised pass and the clip fill a per-warp 512-byte row
-//   that leaves as 16-byte stores.  A last cluster.sync() keeps every
-//   CTA's rows alive until no peer reads them.
+//   warp finishes two even and two odd transposed rows with
+//   waves_norm_clip_row, reading each row's depth (16-byte loads, the next
+//   row's while this one is worked on).  Row j-1 of the CTA's first row
+//   lies in the previous CTA (row 511 for row 0: the ranks wrap like the
+//   reference's rolls) and is read there.  A last cluster.sync() keeps
+//   every CTA's rows alive until no peer reads them.
 //   K3 runs the pattern three times: the 128 LL level's row pass (CTA c
 //   stages LL rows 32c..32c+31); its normalised pass plus the sentinel
 //   deltas (summed while the rows load), stored transposed into the LL
@@ -298,47 +301,169 @@ __device__ __forceinline__ bool wave_cell(const int16_t* up, const int16_t* mid,
   return (res < 0 ? -res : res) < 116;
 }
 
-// K8: dering waves on row j of the transposed plane, then the
-// normalised row pass and the clip.  grid (512, B), block 256.
-__global__ void waves_norm_clip(const int16_t* __restrict__ t,
-                                const uint8_t* __restrict__ depth,
-                                uint8_t* __restrict__ out, int n_waves) {
-  __shared__ int16_t rows[3][kY];
-  __shared__ int row_depth;
-  const int j = blockIdx.x;
-  const int k = threadIdx.x;
+// The back end of K2 and K8 for one row j of the transposed plane, by one
+// warp: the dering waves on `mid` (row j, in shared memory), the
+// normalised row pass and the clip into `out_row`.  up and dn are rows
+// j-1 and j+1, which no wave writes while j is worked on (see above);
+// `depth` is the row's depth bytes 16l .. 16l + 15 in lane l; `staged` is
+// the warp's kRowScratch bytes of shared memory, 16-byte aligned, which
+// hold the depth row, then the list of the row's marked cells, then the
+// output row.  A row whose depth is all zero (every odd row, most even
+// ones) skips the waves.  Otherwise its cells are compacted onto the
+// lanes (a prefix sum over the lanes' counts), so with up to 32 marks a
+// wave is one stencil a lane, __syncwarp() and a masked store; longer
+// rows take 32 cells a pass.  Within a wave every read precedes every
+// write.  The normalised pass and the clip fill a 512-byte row that
+// leaves as 16-byte stores.
+constexpr int kRowScratch = 4 * kY;   // a list of a whole row's cells
+
+__device__ __forceinline__ void waves_norm_clip_row(
+    const int16_t* up, int16_t* mid, const int16_t* dn, uint4 depth,
+    uint8_t* staged, uint8_t* __restrict__ out_row, int n_waves, int lane) {
+  uint32_t* cells = reinterpret_cast<uint32_t*>(staged);
+  reinterpret_cast<uint4*>(staged)[lane] = depth;
+  __syncwarp();
+  // the lane's cells: 64 s + 2 lane + {0, 1}, s < 8
+  uint32_t d[8];
+  int row_depth = 0;
+  int marked = 0;
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    d[s] = reinterpret_cast<const uint16_t*>(staged)[32 * s + lane];
+    row_depth = max(row_depth, static_cast<int>(max(d[s] & 255u, d[s] >> 8)));
+    marked += ((d[s] & 255u) != 0) + ((d[s] >> 8) != 0);
+  }
+  row_depth = __reduce_max_sync(0xffffffffu, row_depth);
+  const int last = n_waves < row_depth ? n_waves : row_depth;
+  if (last > 0) {
+    // the row's marked cells as a list, col | depth << 16, over the
+    // depth bytes: lane l's cells after those of lanes 0..l-1
+    int pos = marked;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int below = __shfl_up_sync(0xffffffffu, pos, o);
+      if (lane >= o) pos += below;
+    }
+    const int n = __shfl_sync(0xffffffffu, pos, 31);
+    pos -= marked;
+    __syncwarp();   // every lane's depth reads before the list
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      const uint32_t dq = (q & 1) ? d[q >> 1] >> 8 : d[q >> 1] & 255u;
+      if (dq != 0) cells[pos++] = (64 * (q >> 1) + 2 * lane + (q & 1)) | (dq << 16);
+    }
+    __syncwarp();
+    if (n <= 32) {
+      // one cell a lane: a wave is one stencil and a masked store
+      const uint32_t cell = lane < n ? cells[lane] : 0;
+      const int col = static_cast<int>(cell & 0xffffu);
+      for (int r = 1; r <= last; ++r) {
+        int val = 0;
+        const bool take = static_cast<int>(cell >> 16) == r &&
+                          wave_cell(up, mid, dn, col, val);
+        __syncwarp();   // every read of this wave before any write
+        if (take) mid[col] = static_cast<int16_t>(val);
+        __syncwarp();
+      }
+    } else {
+      // 32 cells a pass, up to 16 passes a wave
+      for (int r = 1; r <= last; ++r) {
+        int v[kY / 32];
+        unsigned take = 0;
+#pragma unroll
+        for (int j = 0; j < kY / 32; ++j) {
+          if (32 * j < n) {
+            const uint32_t cell =
+                32 * j + lane < n ? cells[32 * j + lane] : 0;
+            int val = 0;
+            if (static_cast<int>(cell >> 16) == r &&
+                wave_cell(up, mid, dn, static_cast<int>(cell & 0xffffu),
+                          val))
+              take |= 1u << j;
+            v[j] = val;
+          }
+        }
+        __syncwarp();
+#pragma unroll
+        for (int j = 0; j < kY / 32; ++j)
+          if ((take >> j) & 1u)
+            mid[cells[32 * j + lane] & 0xffffu] = static_cast<int16_t>(v[j]);
+        __syncwarp();
+      }
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < kY / 64; ++s) {
+    const int k = lane + 32 * s;
+    int even, odd;
+    nhw::unnorm_pair(mid, mid + kY / 2, kY / 2, k, even, odd);
+    reinterpret_cast<uint16_t*>(staged)[k] = static_cast<uint16_t>(
+        norm_out(even) | (norm_out(odd) << 8));
+  }
+  __syncwarp();
+  reinterpret_cast<uint4*>(out_row)[lane] =
+      reinterpret_cast<const uint4*>(staged)[lane];
+  __syncwarp();
+}
+
+// K8 as row bands: grid (kY / kW8Rows, B), kW8Threads threads.  CTA x
+// owns rows j0 = kW8Rows x .. j0 + kW8Rows - 1 of plane blockIdx.y and
+// stages rows j0 - 1 .. j0 + kW8Rows (modulo 512: the first band's row
+// above is 511, the last band's row below is 0) with 16-byte cp.async
+// copies, staged row s = j0 - 1 + s; no wave writes the halo rows (the
+// one above is odd, the one below is read by no wave, since the band's
+// last row is odd).  Warp w finishes rows j0 + kW8RowsPerWarp w onwards,
+// one even and one odd, reading the second row's depth while the first
+// is worked on.  67,584 bytes of shared memory and at most 64 registers:
+// two CTAs an SM, so the 256 CTAs of batch 16 are all resident at once.
+constexpr int kW8Rows = 32;
+constexpr int kW8Threads = 512;
+constexpr int kW8Warps = kW8Threads / 32;
+constexpr int kW8RowsPerWarp = kW8Rows / kW8Warps;
+constexpr int kW8Smem = 2 * (kW8Rows + 2) * kY + kW8Warps * kRowScratch;
+static_assert(kY % kW8Rows == 0 && kW8Rows % 2 == 0 &&
+                  kW8RowsPerWarp == 2,
+              "whole bands of even rows, one even and one odd row a warp");
+
+__global__ void __launch_bounds__(kW8Threads, 2)
+waves_band(const int16_t* __restrict__ t, const uint8_t* __restrict__ depth,
+           uint8_t* __restrict__ out, int n_waves) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int16_t* rows = reinterpret_cast<int16_t*>(smem);
+  const int j0 = blockIdx.x * kW8Rows;
   const size_t b = blockIdx.y;
   const int16_t* plane = t + b * kY * kY;
-  const int j_up = (j + kY - 1) & (kY - 1);
-  const int j_dn = (j + 1) & (kY - 1);
-  const size_t row_j = (b * kY + j) * kY;
-  const int c0 = 2 * k;
-  const int c1 = 2 * k + 1;
-  const int d0 = depth[row_j + c0];
-  const int d1 = depth[row_j + c1];
-  if (k == 0) row_depth = 0;
-  for (int i = k; i < kY; i += blockDim.x) {
-    rows[0][i] = plane[static_cast<size_t>(j_up) * kY + i];
-    rows[1][i] = plane[static_cast<size_t>(j) * kY + i];
-    rows[2][i] = plane[static_cast<size_t>(j_dn) * kY + i];
+  for (int i = threadIdx.x; i < (kW8Rows + 2) * (kY / 8); i += kW8Threads) {
+    const int s = i / (kY / 8);
+    const int v = i % (kY / 8);
+    const int j = (j0 - 1 + s) & (kY - 1);
+    __pipeline_memcpy_async(rows + s * kY + 8 * v,
+                            plane + static_cast<size_t>(j) * kY + 8 * v, 16);
   }
-  __syncthreads();
-  if (d0 | d1) atomicMax(&row_depth, d0 > d1 ? d0 : d1);
-  __syncthreads();
-  const int last = n_waves < row_depth ? n_waves : row_depth;
-  for (int r = 1; r <= last; ++r) {
-    int v0 = 0, v1 = 0;
-    const bool take0 = d0 == r && wave_cell(rows[0], rows[1], rows[2], c0, v0);
-    const bool take1 = d1 == r && wave_cell(rows[0], rows[1], rows[2], c1, v1);
-    __syncthreads();   // every read of this wave before any write
-    if (take0) rows[1][c0] = static_cast<int16_t>(v0);
-    if (take1) rows[1][c1] = static_cast<int16_t>(v1);
-    __syncthreads();
+  __pipeline_commit();
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int lr0 = warp * kW8RowsPerWarp;
+  const uint8_t* depth_rows = depth + (b * kY + j0 + lr0) * kY;
+  uint8_t* staged = smem + 2 * (kW8Rows + 2) * kY + warp * kRowScratch;
+  uint4 next = __ldg(reinterpret_cast<const uint4*>(depth_rows) + lane);
+  __pipeline_wait_prior(0);
+  __syncthreads();   // every thread's copies are in
+  for (int i = 0; i < kW8RowsPerWarp; ++i) {
+    int16_t* mid = rows + (lr0 + i + 1) * kY;
+    const uint4 cur = next;
+    if (i + 1 < kW8RowsPerWarp)
+      next = __ldg(reinterpret_cast<const uint4*>(depth_rows + (i + 1) * kY) +
+                   lane);
+    waves_norm_clip_row(mid - kY, mid, mid + kY, cur, staged,
+                        out + (b * kY + j0 + lr0 + i) * kY, n_waves, lane);
   }
-  int even, odd;
-  nhw::unnorm_pair(rows[1], rows[1] + kY / 2, kY / 2, k, even, odd);
-  out[row_j + c0] = norm_out(even);
-  out[row_j + c1] = norm_out(odd);
+}
+
+cudaError_t waves_band_setup() {
+  static const cudaError_t e = cudaFuncSetAttribute(
+      waves_band, cudaFuncAttributeMaxDynamicSharedMemorySize, kW8Smem);
+  return e;
 }
 
 // The sequential mark scan: thread b walks image b's records in order,
@@ -401,10 +526,10 @@ constexpr int kY2Quarter = kY2Rows / 4;
 constexpr int kY2InPitch = kY + 32;  // 272 words: rows r, r+1 16 banks apart
 constexpr int kY2TPitch = kY + 2;    // 257 words: odd
 constexpr int kY2Smem = 2 * (kY2Rows * kY2TPitch + 2 * kY2Quarter * kY2InPitch);
-// after the row pass the staging buffers give each warp a depth or output
-// row, or the list of a row's marked cells (4 bytes each)
+// after the row pass the staging buffers give each warp the scratch of
+// waves_norm_clip_row
 constexpr int kY2WarpBytes = 2 * kY2Quarter * kY2InPitch * 2 / kY2Warps;
-static_assert(kY2WarpBytes >= 4 * kY && kY2WarpBytes % 16 == 0,
+static_assert(kY2WarpBytes >= kRowScratch && kY2WarpBytes % 16 == 0,
               "a list of a whole row's cells per warp, 16-byte aligned");
 
 __global__ void __launch_bounds__(kY2Threads, 2)
@@ -445,8 +570,7 @@ y_stage2_cluster(const int16_t* __restrict__ jp,
           src + (q + 2) * kY2Quarter * kY, kY, kY2Quarter);
   }
   // 3-5. one warp per transposed row (two even and two odd rows each):
-  // the depth row, the dering waves, the normalised row pass and the
-  // clip, 16-byte stores.  The first row's depth is read before the
+  // waves_norm_clip_row.  The first row's depth is read before the
   // barrier, each next one while the current one is worked on.
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -458,98 +582,17 @@ y_stage2_cluster(const int16_t* __restrict__ jp,
       t + (kY2Rows - 1) * kY2TPitch, (c + kY2Cluster - 1) % kY2Cluster);
   const int16_t* dn_peer = cluster.map_shared_rank(t, (c + 1) % kY2Cluster);
   uint8_t* staged = reinterpret_cast<uint8_t*>(in) + warp * kY2WarpBytes;
-  uint32_t* cells = reinterpret_cast<uint32_t*>(staged);
   for (int i = 0; i < kY2Rows / kY2Warps; ++i) {
     const int lr = lr0 + i;
     int16_t* mid = t + lr * kY2TPitch;
     const int16_t* up = lr == 0 ? up_peer : mid - kY2TPitch;
     const int16_t* dn = lr == kY2Rows - 1 ? dn_peer : mid + kY2TPitch;
-    reinterpret_cast<uint4*>(staged)[lane] = next;
+    const uint4 cur = next;
     if (i + 1 < kY2Rows / kY2Warps)
       next = __ldg(reinterpret_cast<const uint4*>(depth_rows + (i + 1) * kY) +
                    lane);
-    __syncwarp();
-    // the lane's cells: 64 s + 2 lane + {0, 1}, s < 8
-    uint32_t d[8];
-    int row_depth = 0;
-    int marked = 0;
-#pragma unroll
-    for (int s = 0; s < 8; ++s) {
-      d[s] = reinterpret_cast<const uint16_t*>(staged)[32 * s + lane];
-      row_depth = max(row_depth, static_cast<int>(max(d[s] & 255u, d[s] >> 8)));
-      marked += ((d[s] & 255u) != 0) + ((d[s] >> 8) != 0);
-    }
-    row_depth = __reduce_max_sync(0xffffffffu, row_depth);
-    const int last = n_waves < row_depth ? n_waves : row_depth;
-    if (last > 0) {
-      // the row's marked cells as a list, col | depth << 16, over the
-      // depth bytes: lane l's cells after those of lanes 0..l-1
-      int pos = marked;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int below = __shfl_up_sync(0xffffffffu, pos, o);
-        if (lane >= o) pos += below;
-      }
-      const int n = __shfl_sync(0xffffffffu, pos, 31);
-      pos -= marked;
-      __syncwarp();   // every lane's depth reads before the list
-#pragma unroll
-      for (int q = 0; q < 16; ++q) {
-        const uint32_t dq = (q & 1) ? d[q >> 1] >> 8 : d[q >> 1] & 255u;
-        if (dq != 0) cells[pos++] = (64 * (q >> 1) + 2 * lane + (q & 1)) | (dq << 16);
-      }
-      __syncwarp();
-      if (n <= 32) {
-        // one cell a lane: a wave is one stencil and a masked store
-        const uint32_t cell = lane < n ? cells[lane] : 0;
-        const int col = static_cast<int>(cell & 0xffffu);
-        for (int r = 1; r <= last; ++r) {
-          int val = 0;
-          const bool take = static_cast<int>(cell >> 16) == r &&
-                            wave_cell(up, mid, dn, col, val);
-          __syncwarp();   // every read of this wave before any write
-          if (take) mid[col] = static_cast<int16_t>(val);
-          __syncwarp();
-        }
-      } else {
-        // 32 cells a pass, up to 16 passes a wave
-        for (int r = 1; r <= last; ++r) {
-          int v[kY / 32];
-          unsigned take = 0;
-#pragma unroll
-          for (int j = 0; j < kY / 32; ++j) {
-            if (32 * j < n) {
-              const uint32_t cell =
-                  32 * j + lane < n ? cells[32 * j + lane] : 0;
-              int val = 0;
-              if (static_cast<int>(cell >> 16) == r &&
-                  wave_cell(up, mid, dn, static_cast<int>(cell & 0xffffu),
-                            val))
-                take |= 1u << j;
-              v[j] = val;
-            }
-          }
-          __syncwarp();
-#pragma unroll
-          for (int j = 0; j < kY / 32; ++j)
-            if ((take >> j) & 1u)
-              mid[cells[32 * j + lane] & 0xffffu] = static_cast<int16_t>(v[j]);
-          __syncwarp();
-        }
-      }
-    }
-#pragma unroll
-    for (int s = 0; s < kY / 64; ++s) {
-      const int k = lane + 32 * s;
-      int even, odd;
-      nhw::unnorm_pair(mid, mid + kY / 2, kY / 2, k, even, odd);
-      reinterpret_cast<uint16_t*>(staged)[k] = static_cast<uint16_t>(
-          norm_out(even) | (norm_out(odd) << 8));
-    }
-    __syncwarp();
-    reinterpret_cast<uint4*>(out + (b * kY + kY2Rows * c + lr) * kY)[lane] =
-        reinterpret_cast<const uint4*>(staged)[lane];
-    __syncwarp();
+    waves_norm_clip_row(up, mid, dn, cur, staged,
+                        out + (b * kY + kY2Rows * c + lr) * kY, n_waves, lane);
   }
   cluster.sync();   // no peer reads this CTA's rows after it exits
 }
@@ -839,13 +882,13 @@ int nhw_synth_level(const void* x, int plane_stride, int row_stride, void* out,
                      static_cast<cudaStream_t>(stream));
 }
 
-// K2.  jp: (B, 512, 512) int16, 16-byte aligned; depth: (B, 512, 512)
-// uint8 (non-zero only on even rows), 2-byte aligned; out: (B, 512, 512)
-// uint8, 16-byte aligned.
+// K2.  jp: (B, 512, 512) int16; depth: (B, 512, 512) uint8 (non-zero only
+// on even rows), read with 16-byte loads; out: (B, 512, 512) uint8; all
+// three 16-byte aligned.
 int nhw_y_stage2_full(const void* jp, const void* depth, void* out, int batch,
                       int n_waves, void* stream) {
   if (bad_batch(batch)) return cudaErrorInvalidValue;
-  if (misaligned(jp, 16) || misaligned(depth, 2) || misaligned(out, 16))
+  if (misaligned(jp, 16) || misaligned(depth, 16) || misaligned(out, 16))
     return cudaErrorMisalignedAddress;
   return launch_cluster(y2_kernel(), y_stage2_cluster, batch,
                         static_cast<cudaStream_t>(stream),
@@ -896,12 +939,17 @@ int nhw_synth_unnorm_rows_t(const void* x, int plane_stride, int row_stride,
 }
 
 // K8.  t: (B, 512, 512) int16 transposed plane, depth: (B, 512, 512) uint8
-// (non-zero only on even rows), out: (B, 512, 512) uint8.
+// (non-zero only on even rows), out: (B, 512, 512) uint8; all three
+// 16-byte aligned.
 int nhw_synth_norm_rows_clip_waves(const void* t, const void* depth, void* out,
                                    int batch, int n_waves, void* stream) {
   if (bad_batch(batch)) return cudaErrorInvalidValue;
-  waves_norm_clip<<<dim3(kY, batch), kY / 2, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
+  if (misaligned(t, 16) || misaligned(depth, 16) || misaligned(out, 16))
+    return cudaErrorMisalignedAddress;
+  const cudaError_t e = waves_band_setup();
+  if (e != cudaSuccess) return e;
+  waves_band<<<dim3(kY / kW8Rows, batch), kW8Threads, kW8Smem,
+               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int16_t*>(t), static_cast<const uint8_t*>(depth),
       static_cast<uint8_t*>(out), n_waves);
   return cudaGetLastError();

@@ -64,17 +64,17 @@ def y_stage1(jpeg: torch.Tensor, idx: torch.Tensor,
 
 def hq_scatter_t(t: torch.Tensor, idx: torch.Tensor,
                  delta: torch.Tensor) -> torch.Tensor:
-    """The HQ residue scatter-add on the transposed level-1 plane: t
-    (B,512,512) int16 from K7, padded pairs idx (B,K) int32 in [0, 2^18)
-    (``pad_hq`` checks that on the host) and delta (B,K) int16.  Index i
-    of the untransposed plane lands at ((i & 511) << 9) | (i >> 9); the
-    padding pair (0, 0) adds nothing.  Duplicates accumulate, summed in
-    int32 and wrapped once, as the host's int16 ``np.add.at``."""
-    b = t.shape[0]
+    """The HQ residue scatter-add, in place on the transposed level-1
+    plane ``t``, which is returned: t (B,512,512) contiguous int16 that
+    the caller owns (K7's fresh output), padded pairs idx (B,K) int32 in
+    [0, 2^18) (``pad_hq`` checks that on the host) and delta (B,K)
+    int16.  Index i of the untransposed plane lands at ((i & 511) << 9)
+    | (i >> 9); the padding pair (0, 0) adds nothing.  One int16
+    ``scatter_add_``: integer adds wrap modulo 2^16 in any order, so
+    duplicates give what the host's int16 ``np.add.at`` gives."""
     idx_t = ((idx & (N - 1)) << 9) | (idx >> 9)
-    flat = t.reshape(b, N * N).to(torch.int32)
-    flat.scatter_add_(1, idx_t.to(torch.int64), delta.to(torch.int32))
-    return wrap16(flat).to(torch.int16).view(b, N, N)
+    t.view(t.shape[0], N * N).scatter_add_(1, idx_t.to(torch.int64), delta)
+    return t
 
 
 def _jp(jpeg: torch.Tensor, post_ll1: torch.Tensor) -> torch.Tensor:

@@ -298,7 +298,9 @@ def y_stage2_full(jp: torch.Tensor, depth: torch.Tensor,
     int16 with the post-dering LL1 transposed in; depth: (B, 512, 512)
     uint8 run positions (0 = no mark; the kernel requires marks on even
     rows only, which ``mark_depth_planes`` guarantees).  -> uint8.  On
-    the card one launch, a cluster of 8 CTAs per image."""
+    the card one launch, a cluster of 8 CTAs per image; both inputs must
+    have 16-byte aligned bases, or the kernel refuses them and this
+    raises."""
     _check(jp, "y_stage2_full jp", torch.int16, (None, 512, 512))
     _check(depth, "y_stage2_full depth", torch.uint8, tuple(jp.shape))
     n_waves = int(n_waves)
@@ -484,7 +486,9 @@ def synth_norm_rows_clip_waves(t: torch.Tensor, depth: torch.Tensor,
     """K8: dering waves, normalised row pass and clip on the transposed
     (B, 512, 512) int16 plane (after the HQ scatter); depth: (B, 512,
     512) uint8 run positions, non-zero on even rows only, as
-    ``mark_depth_planes`` makes them.  -> uint8."""
+    ``mark_depth_planes`` makes them.  -> uint8.  On the card one launch
+    of 32-row bands, a warp a row; both inputs must have 16-byte aligned
+    bases, or the kernel refuses them and this raises."""
     _check(t, "synth_norm_rows_clip_waves t", torch.int16, (None, 512, 512))
     _check(depth, "synth_norm_rows_clip_waves depth", torch.uint8,
            tuple(t.shape))

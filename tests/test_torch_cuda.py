@@ -9,7 +9,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import ANALYSIS_EDGE_INPUTS, analysis_path_shapes
+from chip_smoke import (ANALYSIS_EDGE_INPUTS, WAVES_EDGE_INPUTS,
+                        analysis_path_shapes)
 from nhwcodec_tpu.models import decoder, encoder
 from nhwcodec_tpu.utils import fixtures
 from nhwcodec_tpu_torch.kernels import build
@@ -469,6 +470,96 @@ def test_synth_norm_rows_clip_waves_kernel(cuda):
         assert build.LAUNCHES["synth_norm_rows_clip_waves"] == before + 1
         torch.testing.assert_close(
             got, dwt.synth_norm_rows_clip_waves_ref(t, dp, w), rtol=0, atol=0)
+
+
+# K8 is one launch of 32-row bands: batch 1, 3 and 16 on marks at every
+# band edge and both column ends, a row of 384 marks, depths past n_waves,
+# one wave, no marks and the decode's marks (chip_smoke.WAVES_EDGE_INPUTS)
+@pytest.mark.parametrize("b", [1, 3, 16])
+@pytest.mark.parametrize("kind", sorted(WAVES_EDGE_INPUTS))
+def test_synth_norm_rows_clip_waves_band_kernel(cuda, kind, b):
+    t_np, dp_np, n_waves = WAVES_EDGE_INPUTS[kind](
+        np.random.default_rng(80 + b), b)
+    t, dp = (torch.from_numpy(a).to(cuda) for a in (t_np, dp_np))
+    before = build.LAUNCHES["synth_norm_rows_clip_waves"]
+    got = dwt.synth_norm_rows_clip_waves(t, dp, n_waves)
+    assert build.LAUNCHES["synth_norm_rows_clip_waves"] == before + 1
+    want = dwt.synth_norm_rows_clip_waves_ref(t, dp, n_waves)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    # the waves change image 0 wherever it is marked, at every batch
+    fired = (want[0] != dwt.synth_norm_rows_clip_ref(t[:1])[0]).any()
+    assert bool(fired) == (kind != "unmarked")
+
+
+def test_synth_norm_rows_clip_waves_is_one_launch(cuda):
+    from chip_smoke import launches_per_call
+
+    t_np, dp_np, n_waves = WAVES_EDGE_INPUTS["band edges"](
+        np.random.default_rng(83), 16)
+    t, dp = (torch.from_numpy(a).to(cuda) for a in (t_np, dp_np))
+    host, records, names = launches_per_call(
+        lambda: dwt.synth_norm_rows_clip_waves(t, dp, n_waves))
+    assert host == 1 and 0 < records <= 1 and len(set(names)) == 1
+    assert "waves_band" in names[0]
+
+
+def _offset_view(dtype, shape, offset, cuda):
+    """A contiguous view of ``shape`` at element ``offset`` of a buffer."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 16, dtype=dtype, device=cuda)[
+        offset:offset + n].view(shape)
+
+
+def test_synth_norm_rows_clip_waves_misaligned_view_raises(cuda):
+    shape = (2, 512, 512)
+    t = torch.zeros(shape, dtype=torch.int16, device=cuda)
+    dp = torch.zeros(shape, dtype=torch.uint8, device=cuda)
+    for args in ((_offset_view(torch.int16, shape, 1, cuda), dp),
+                 (t, _offset_view(torch.uint8, shape, 2, cuda))):
+        with pytest.raises(RuntimeError, match="misaligned"):
+            dwt.synth_norm_rows_clip_waves(*args, 1)
+
+
+def test_y_stage2_full_misaligned_depth_raises(cuda):
+    # K2 reads the depth rows with 16-byte loads: a base 2 bytes past a
+    # 16-byte boundary is refused
+    shape = (2, 512, 512)
+    jp = torch.zeros(shape, dtype=torch.int16, device=cuda)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        dwt.y_stage2_full(jp, _offset_view(torch.uint8, shape, 2, cuda), 1)
+
+
+def test_hq_scatter_int16_on_the_card(cuda):
+    # test_hq_scatter_duplicates_wrap's inputs: duplicates accumulate and
+    # the sums cross +-32768; the in-place int16 scatter_add_ equals the
+    # int32 scatter wrapped once, and the host's int16 np.add.at
+    from nhwcodec_tpu_torch.ops.lifting import wrap16
+
+    n = 512
+    rng = np.random.default_rng(13)
+    b = 2
+    u = rng.integers(-3000, 3000, (b, n, n)).astype(np.int16)
+    u[0, 3, 7] = 32700
+    u[1, 400, 2] = -32700
+    idx = np.zeros((b, 16), np.int32)
+    dl = np.zeros((b, 16), np.int16)
+    idx[0, :6] = [3 * n + 7] * 4 + [n * n - 1, 5]
+    dl[0, :6] = [56, 32, -32, 56, 30000, 30000]
+    idx[1, :5] = [400 * n + 2] * 3 + [n * n - 1] * 2
+    dl[1, :5] = [-56, -56, 32, -32000, -32000]
+    host = u.copy()
+    for i in range(b):
+        np.add.at(host[i].reshape(-1), idx[i], dl[i])
+    t = torch.from_numpy(u.transpose(0, 2, 1).copy()).to(cuda)
+    idx_d, dl_d = torch.from_numpy(idx).to(cuda), torch.from_numpy(dl).to(cuda)
+    idx_t = ((idx_d & (n - 1)) << 9) | (idx_d >> 9)
+    flat = t.reshape(b, n * n).to(torch.int32)
+    flat.scatter_add_(1, idx_t.to(torch.int64), dl_d.to(torch.int32))
+    want = wrap16(flat).to(torch.int16).view(b, n, n)
+    got = tdd.hq_scatter_t(t, idx_d, dl_d)
+    assert got is t   # in place
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    np.testing.assert_array_equal(got.cpu().numpy(), host.transpose(0, 2, 1))
 
 
 @pytest.mark.parametrize("n", [256, 512])
