@@ -85,8 +85,26 @@
    255 + 254 m + d, crossings at the walk's end), whose merge + select +
    cap on the card also equal the host copy's.  The encode breakdown
    splits the host's encode_from_planes into the tokenizer, the stream
-   stage, the E16 LL2 coders, the E12 ladders and streams and the rest of
-   encode_uv.
+   stage, the E16 LL2 coders, the E11 tail and E12 (pair promotion, the
+   mid-q cleanup, the column ladder, classify, the positional streams and
+   finish_stream) and the rest of encode_uv.
+8. Drives the device encode scans' residue stage
+   (models/device_encode_scans._y_residue_stage: the mid-q cleanup, pair
+   promotion, the column ladder, classify, the res1/res3/res5 positional
+   streams and the LL2-zone rebuild; S4 pair_promotion, S5 column_ladder
+   and S6 classify in csrc/residue.cu, the rest torch ops) once a batch
+   on the inputs captured from the same host encodes (16 at q20, 4 each
+   at q21, q19 and q17) and from 4 host encodes at q18: the plane the
+   snap passes get, pair promotion's output and every res section byte
+   for byte against the host's, and, chained into the stream stage, each
+   image's stream and sel1/sel2; S4-S6 launched once a batch; times the
+   q20 batch's stage beside the host copy's C scans on the same inputs.
+   Holds S4-S6 to their twins, timed on the q20 batch's inputs, and at
+   batch 1, 3 and 16 on the adversarial pair-promotion plane, delta
+   planes at q17/18/20/21 and planes on which column 255's walk after
+   the others changes the ladder (also against the host copy's C), and
+   the positional streams on the card against the host copy's C on edge
+   rfs.
 
 Prints the card's name and power limit (nvidia-smi), whether the host
 copy's C scans were built (``native host library: loaded``) or the host
@@ -144,6 +162,12 @@ KERNELS = {
                  "nhwcodec_tpu/models/device_scans.py:375"),
     "merge_crossing": (CSRC + "scans.cu",
                        "nhwcodec_tpu/models/device_scans.py:527"),
+    "pair_promotion": (CSRC + "residue.cu",
+                       "nhwcodec_tpu/models/device_scans.py:2070"),
+    "column_ladder": (CSRC + "residue.cu",
+                      "nhwcodec_tpu/models/device_scans.py:952"),
+    "classify": (CSRC + "residue.cu",
+                 "nhwcodec_tpu/models/device_scans.py:1105"),
 }
 DECODE_KERNELS = ("synth_level", "y_stage2_full", "uv_synth")
 HQ_KERNELS = ("synth_unnorm_rows_t", "synth_norm_rows_clip_waves")
@@ -151,7 +175,7 @@ FALLBACK_KERNELS = ("synth_norm_rows_clip", "smooth_marks_seq")
 ENCODE_KERNELS = ("analysis_level_jp", "requant_tail", "colorspace_down420")
 # the groups of the encode breakdown timed inside encode_from_planes
 ENCODE_SCAN_GROUPS = ("host tokenizer", "host stream stage",
-                      "host E16 LL2 coders", "host E12 ladders + streams",
+                      "host E16 LL2 coders", "host E11 tail + E12",
                       "host encode_uv, the rest")
 TRANSFORM_KERNELS = {"analysis_level": 4, "synth_level": 2,
                      "synth_unnorm_rows_t": 2, "synth_norm_rows_clip": 2}
@@ -261,6 +285,15 @@ def fixture_for(q: int) -> str:
     """The fixture whose q stream is pinned in STREAM_SHA256 (q != 20)."""
     names = list(fixture_generators())
     return names[q % len(names)]
+
+
+def quality_batch(images: np.ndarray, q: int) -> np.ndarray:
+    """The 4 images of the encode batch that a quality other than q20 is
+    encoded on: a fixture with a pinned digest first (fixture_for), then
+    random images and fixtures."""
+    names = list(fixture_generators())
+    return images[[names.index(fixture_for(q)), (q + 5) % B,
+                   len(names) + q % 5, (3 * q) % B]]
 
 
 def sha256(data: bytes) -> str:
@@ -396,8 +429,10 @@ def launches_per_call(fn, calls: int = 10) -> tuple[float, float, list]:
     names of the device kernels.  A wrapper that is one kernel launch on
     the card gives 1, at most 1 (the profiler drops one or two of ten
     cluster launches' records) and one name.  A window with no device
-    record at all (the profiler lost it whole, as it did once for K7 on an
-    H100) is run again, up to PROFILE_TRIES times."""
+    record at all (the profiler lost it whole: K7's at (16, 256, 256) on
+    an H100 five times running in one run, short windows of microsecond
+    kernels most often, while windows of thousands of launches kept 99%)
+    is run again with four times the calls, up to PROFILE_TRIES times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -413,6 +448,7 @@ def launches_per_call(fn, calls: int = 10) -> tuple[float, float, list]:
         dev = [e for e in rows if e.device_type == DeviceType.CUDA]
         if dev:
             break
+        calls *= 4
     host = sum(e.count for e in rows if e.device_type == DeviceType.CPU
                and e.key in LAUNCH_APIS[:3])
     return (host / calls, sum(e.count for e in dev) / calls,
@@ -485,13 +521,31 @@ def print_profile(what: str, fn) -> None:
           + "; ".join(f"{k[:60]} {v:.3f}" for k, v in top[:8]), flush=True)
 
 
+def max_abs_err(name: str, got: tuple, want: tuple) -> int:
+    """The largest |got - want| over the outputs, after checking their
+    count, dtypes and shapes."""
+    import torch
+
+    torch.cuda.synchronize()
+    check(len(got) == len(want), f"{name}: {len(got)} vs {len(want)} outputs")
+    err = 0
+    for g, w in zip(got, want):
+        check(g.dtype == w.dtype and g.shape == w.shape,
+              f"{name}: {g.dtype}{tuple(g.shape)} vs "
+              f"{w.dtype}{tuple(w.shape)}")
+        err = max(err, int((g.to(torch.int32) - w.to(torch.int32))
+                           .abs().max()))
+    return err
+
+
 def compare_and_time(name: str, shape: str, kern, twin, timed: bool = True,
                      twin_calls: int = 10, bound: dict | None = None,
-                     graph: bool = False, twin_runs: int = RUNS):
+                     graph: bool = False, twin_runs: int = RUNS,
+                     twin_warm: int = 3):
     """Run ``kern`` and ``twin`` (each returns a tensor or a tuple of
     tensors) on the card, check dtype, shape and max_abs_err 0, and time
     both (the twin's profiler window over ``twin_calls`` calls, its call
-    time the median of ``twin_runs``).  When
+    time the median of ``twin_runs`` after ``twin_warm`` calls).  When
     timed, returns the kernel's entry of the JSON line: max_abs_err, ms
     and plain_ms (wrapper calls, CUDA events), device_ms (profiler),
     ``bound`` (``work(...)`` of these inputs), bound_us, bound_share (the
@@ -505,22 +559,14 @@ def compare_and_time(name: str, shape: str, kern, twin, timed: bool = True,
     got, want = kern(), twin()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
-    torch.cuda.synchronize()
-    check(len(got) == len(want), f"{name}: {len(got)} vs {len(want)} outputs")
-    err = 0
-    for g, w in zip(got, want):
-        check(g.dtype == w.dtype and g.shape == w.shape,
-              f"{name}: {g.dtype}{tuple(g.shape)} vs "
-              f"{w.dtype}{tuple(w.shape)}")
-        err = max(err, int((g.to(torch.int32) - w.to(torch.int32))
-                           .abs().max()))
+    err = max_abs_err(name, got, want)
     if not timed:
         print(f"kernel {name} {shape}: max_abs_err {err} vs torch twin",
               flush=True)
         check(err == 0, f"{name} disagrees with its torch twin on {shape}")
         return None
     ms = median_ms(kern)
-    plain_ms = median_ms(twin, runs=twin_runs)
+    plain_ms = median_ms(twin, runs=twin_runs, warm=twin_warm)
     _, k_dev, k_top = device_profile(kern, calls=10)
     t_dev = device_profile(twin, calls=twin_calls)[1]
     g_ms = graph_ms(kern) if graph else None
@@ -2058,9 +2104,7 @@ def encode_phase(dev, images: np.ndarray, captured: dict) -> dict:
           flush=True)
 
     for q in OTHER_QS:
-        # a fixture with a pinned digest first, then random and fixtures
-        sel = images[[names.index(fixture_for(q)), (q + 5) % B,
-                      len(names) + q % 5, (3 * q) % B]]
+        sel = quality_batch(images, q)
         out, mq = tdp.encode_batch_device(sel, q, device=dev)
         check(mq.failures == 0, f"q{q}: {mq.failures} failures")
         with StreamCapture() as cap:
@@ -2093,10 +2137,13 @@ def encode_phase(dev, images: np.ndarray, captured: dict) -> dict:
                    (quantize, "offset_uv"), (quantize, "serpentine_uv"))),
                (ll2, "ll2_code_y", "host E16 LL2 coders"),
                (ll2, "y_highres_compression", "host E16 LL2 coders"),
-               (residue, "res256_column_ladder", "host E12 ladders + streams"),
-               (residue, "res256_classify", "host E12 ladders + streams"),
-               (residue, "build_positional_stream",
-                "host E12 ladders + streams"),
+               *((m, f, "host E11 tail + E12") for m, f in (
+                   (host_encoder, "_mid_q_band_cleanup"),
+                   (host_encoder, "_pair_promotion"),
+                   (residue, "res256_column_ladder"),
+                   (residue, "res256_classify"),
+                   (residue, "build_positional_stream"),
+                   (residue, "finish_stream"))),
                (host_encoder, "encode_uv", "host encode_uv, the rest"),
                (tenc, "finish_deferred", "pack (device packer + container)"),
                (tds, "to_device", "host->device copies"),
@@ -2129,36 +2176,76 @@ MERGE_OPS = 25
 
 class StreamCapture:
     """A context that records, for each host encode run inside it, what
-    goes into and comes out of the stream stage: ``records`` gains one
-    dict per encode with "y" (the (512, 512) Y plane at the first snap
-    pass), "uv" ([U, V] (256, 256) planes just before ``offset_uv``),
-    "sel" ((sel1, sel2) of ``select_codes``) and "im_nhw" (the 6 SZ
-    stream the tokenizer or the packet builder got).  It wraps the host
-    copy's ``encoder._band_snap_pass``, ``quantize.offset_uv``,
-    ``quantize.select_codes`` and ``entropy_enc.wavlts2packet_tokenize``
-    / ``wavlts2packet`` for its duration."""
+    goes into and comes out of the residue stage and the stream stage:
+    ``records`` gains one dict per encode, opened when ``encode_y`` is
+    called (before the E11 tail, and also at q <= LOW4, which has no E11
+    tail call), with "e11" (the (512, 512) Y plane at the first E11 call,
+    ``_mid_q_band_cleanup`` at q17..q19, else ``_pair_promotion``), "pp",
+    "res256", "resIII", "khead" (the plane, res256, resIII and kernel head
+    that ``residue.res256_column_ladder`` gets: the plane is pair
+    promotion's output), "res" (the res1*, res3* and res5* sections of
+    ``encode_y``'s result), "y" (the plane at the first snap pass), "uv"
+    ([U, V] (256, 256) planes just before ``offset_uv``), "sel" ((sel1,
+    sel2) of ``select_codes``) and "im_nhw" (the 6 SZ stream the tokenizer
+    or the packet builder got).  It wraps the host copy's
+    ``encoder.encode_y``, ``_mid_q_band_cleanup``, ``_pair_promotion``
+    and ``_band_snap_pass``, ``residue.res256_column_ladder``,
+    ``quantize.offset_uv``, ``quantize.select_codes`` and
+    ``entropy_enc.wavlts2packet_tokenize`` / ``wavlts2packet`` for its
+    duration."""
 
     def __init__(self):
         self.records: list[dict] = []
 
     def __enter__(self):
         from nhwcodec_tpu_torch.host.models import encoder
-        from nhwcodec_tpu_torch.host.ops import entropy_enc, quantize
+        from nhwcodec_tpu_torch.host.ops import entropy_enc, quantize, residue
 
         rec = self.records
         self._saved = saved = [
+            (encoder, "encode_y", encoder.encode_y),
+            (encoder, "_mid_q_band_cleanup", encoder._mid_q_band_cleanup),
+            (encoder, "_pair_promotion", encoder._pair_promotion),
+            (residue, "res256_column_ladder", residue.res256_column_ladder),
             (encoder, "_band_snap_pass", encoder._band_snap_pass),
             (quantize, "offset_uv", quantize.offset_uv),
             (quantize, "select_codes", quantize.select_codes),
             (entropy_enc, "wavlts2packet_tokenize",
              entropy_enc.wavlts2packet_tokenize),
             (entropy_enc, "wavlts2packet", entropy_enc.wavlts2packet)]
-        snap, offset_uv, select, tokenize, packet = (f for *_, f in saved)
+        (encode_y, midq, pair, ladder, snap, offset_uv, select, tokenize,
+         packet) = (f for *_, f in saved)
+
+        def plane(pf):
+            return np.array(pf[: 4 * SZ]).reshape(512, 512)
+
+        def encode_y_w(*a, **k):
+            rec.append({"uv": []})
+            im_nhw, sec = encode_y(*a, **k)
+            rec[-1]["res"] = {key: np.array(v) for key, v in sec.items()
+                              if key[:4] in ("res1", "res3", "res5")}
+            return im_nhw, sec
+
+        def midq_w(pf, *a, **k):
+            rec[-1].setdefault("e11", plane(pf))
+            return midq(pf, *a, **k)
+
+        def pair_w(pf, *a, **k):
+            rec[-1].setdefault("e11", plane(pf))
+            return pair(pf, *a, **k)
+
+        def ladder_w(process, res256, q, res_setting, resIII=None,
+                     kernel_head=None):
+            rec[-1].update(pp=np.array(process), res256=np.array(res256),
+                           resIII=np.array(resIII))
+            if kernel_head is not None:     # q <= HIGH1
+                rec[-1]["khead"] = np.array(kernel_head, np.int16)
+            return ladder(process, res256, q, res_setting, resIII,
+                          kernel_head=kernel_head)
 
         def snap_w(pf, rows, *a, **k):
             if rows.start == 1:     # the first of the three passes
-                rec.append({"y": np.array(pf[: 4 * SZ]).reshape(512, 512),
-                            "uv": []})
+                rec[-1]["y"] = plane(pf)
             return snap(pf, rows, *a, **k)
 
         def offset_uv_w(process, *a, **k):
@@ -2177,8 +2264,9 @@ class StreamCapture:
             rec[-1]["im_nhw"] = np.array(im_nhw[: 6 * SZ], np.uint8)
             return packet(im_nhw, *a, **k)
 
-        for (mod, name, _), f in zip(saved, (snap_w, offset_uv_w, select_w,
-                                             tokenize_w, packet_w)):
+        for (mod, name, _), f in zip(saved, (
+                encode_y_w, midq_w, pair_w, ladder_w, snap_w, offset_uv_w,
+                select_w, tokenize_w, packet_w)):
             setattr(mod, name, f)
         return self
 
@@ -2190,16 +2278,25 @@ class StreamCapture:
 
 def stack_records(records: list) -> dict:
     """The captured encodes as batches: "y" (B, 512, 512), "u", "v" (B,
-    256, 256) int16, "im_nhw" (B, 6 SZ) uint8, "sel1", "sel2" (B,)."""
+    256, 256) int16, "im_nhw" (B, 6 SZ) uint8, "sel1", "sel2" (B,); and,
+    where every record has them (q > LOW8), the residue stage's "e11",
+    "pp" (B, 512, 512), "res256", "resIII" (B, 256, 256), "khead" (B, 4)
+    int16 and "res" (a list of each image's res sections)."""
     for r in records:
-        check(len(r["uv"]) == 2 and "sel" in r and "im_nhw" in r,
+        check("y" in r and len(r["uv"]) == 2 and "sel" in r
+              and "im_nhw" in r,
               "a captured host encode lacks part of its stream stage")
-    return {"y": np.stack([r["y"] for r in records]),
-            "u": np.stack([r["uv"][0] for r in records]),
-            "v": np.stack([r["uv"][1] for r in records]),
-            "im_nhw": np.stack([r["im_nhw"] for r in records]),
-            "sel1": np.array([r["sel"][0] for r in records]),
-            "sel2": np.array([r["sel"][1] for r in records])}
+    st = {"y": np.stack([r["y"] for r in records]),
+          "u": np.stack([r["uv"][0] for r in records]),
+          "v": np.stack([r["uv"][1] for r in records]),
+          "im_nhw": np.stack([r["im_nhw"] for r in records]),
+          "sel1": np.array([r["sel"][0] for r in records]),
+          "sel2": np.array([r["sel"][1] for r in records])}
+    if all("khead" in r for r in records):
+        for key in ("e11", "pp", "res256", "resIII", "khead"):
+            st[key] = np.stack([r[key] for r in records])
+        st["res"] = [r["res"] for r in records]
+    return st
 
 
 def device_stream_stage(y, u, v, q: int):
@@ -2501,6 +2598,381 @@ def scan_kernel_phase(dev, captured: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the device encode scans' residue stage: the E11 tail (mid-q cleanup, pair
+# promotion) and E12 (column ladder, classify, positional streams)
+# (models/device_encode_scans._y_residue_stage)
+
+RESIDUE_KERNELS = ("pair_promotion", "column_ladder", "classify")
+RESIDUE_LAUNCHES = {k: 1 for k in RESIDUE_KERNELS}
+# q -> images whose host encodes are captured: the StreamCapture records of
+# encode_phase, and q18 (LOW2, the ladder's low2 branch), captured from 4
+# host encodes of the encode batch inside encode_residue_phase
+RESIDUE_QS = {20: B, 21: 4, 19: 4, 18: 4, 17: 4}
+# the functions' own operations, counted from the sources: a region
+# position of pair promotion (the two triple tests, the +-8 rules, the
+# writes); a position of the column ladder (the three deltas, its branch
+# chain, the band op, the carries); a position of classify (the delta, the
+# band rules, the code map, the counts)
+PP_OPS = 25
+LADDER_OPS = 70
+CLASSIFY_OPS = 40
+
+
+def rf_ext_np(res256, khead, resIII) -> np.ndarray:
+    """(B, SZ + 1024) int16: res256 and the tail the column ladder reads
+    past it (``device_encode_scans._rf_ext`` on numpy arrays)."""
+    import torch
+
+    from nhwcodec_tpu_torch.models import device_encode_scans as des
+
+    return des._rf_ext(*(torch.from_numpy(np.ascontiguousarray(a))
+                         for a in (res256, khead, resIII))).numpy()
+
+
+def pp_adversarial_planes(rng, b):
+    """The adversarial plane of the JAX package's pair-promotion test:
+    triples, +-8 pairs and +-6/7 neighbours everywhere."""
+    vals = np.array([5, 6, 7, 8, -5, -6, -7, -8, 0, 9, -9, 12], np.int16)
+    return rng.choice(vals, size=(b, 512, 512))
+
+
+def delta_inputs(rng, b):
+    """The ladder's inputs as the JAX package's unit test draws them: a
+    plane in [-12, 12], res256 = its LL quadrant +- 6, resIII in
+    [-20, 20], a kernel head in [-5, 5].  Returns (plane, rf_ext, res256,
+    resIII, khead)."""
+    p = rng.integers(-12, 13, (b, 512, 512)).astype(np.int16)
+    r256 = (p[:, :256, :256] + rng.integers(-6, 7, (b, 256, 256))
+            ).astype(np.int16)
+    resIII = rng.integers(-20, 21, (b, 256, 256)).astype(np.int16)
+    khead = rng.integers(-5, 6, (b, 4)).astype(np.int16)
+    return p, rf_ext_np(r256, khead, resIII), r256, resIII, khead
+
+
+COL255_ROW0 = 10
+
+
+def col255_edge_inputs(b):
+    """(plane, rf_ext) on which column 255's walk after the barrier
+    changes the result.  Image i, at row r = 10 + 13 i: column 255 holds
+    deltas 2, 2, 0 at rows r..r + 2 (the cross-column pair check), band
+    column 256 holds 2 at rows r..r + 2 and rf column 0 is 0 there, so
+    with input values the check fires (mark 12400 at (r, 255)); but
+    column 0 holds deltas 2, 2, 2 at rows r + 1..r + 3 and marks rf
+    (r + 1, 0) 12400 first, so the C's check, which reads that mark,
+    does not fire.  Everything else is 0."""
+    p = np.zeros((b, 512, 512), np.int16)
+    for i in range(b):
+        r = COL255_ROW0 + 13 * i
+        p[i, r: r + 2, 255] = 2
+        p[i, r: r + 3, 256] = 2
+        p[i, r + 1: r + 4, 0] = 2
+    z = np.zeros((b, 256, 256), np.int16)
+    return p, rf_ext_np(z, np.zeros((b, 4), np.int16), z)
+
+
+# every code of the three positional streams
+RESIDUE_CODES = np.array([121, 122, 123, 124, 125, 126, 140, 141, 144, 145,
+                          148, 149], np.int16)
+
+
+def stream_edge_rfs(rng, b) -> dict:
+    """(B, 256, 256) int16 classify outputs for the positional streams:
+    one with no code of any stream (only the row markers; random other
+    values), one with a code at every position of columns 0..253, and one
+    with one code a row at column 37 r mod 254, so that the 254 markers
+    between a row's code and a lower next one are isolated and dropped
+    (and kept before a higher one)."""
+    none = rng.choice(np.array([0, 1, 5, 120, 130, 200, 12000, -3],
+                               np.int16), (b, 256, 256))
+    every = rng.choice(np.array([0, 7], np.int16), (b, 256, 256))
+    every[:, :, :254] = rng.choice(RESIDUE_CODES, (b, 256, 254))
+    iso = np.zeros((b, 256, 256), np.int16)
+    rows = np.arange(256)
+    iso[:, rows, (37 * rows) % 254] = rng.choice(RESIDUE_CODES, (b, 256))
+    return {"no codes": none, "every position": every,
+            "isolated markers": iso}
+
+
+def host_positional_streams(rf: np.ndarray, q: int) -> tuple:
+    """The host copy's build_positional_stream + finish_stream (its C) on
+    each image's rf, the streams of quality q in order: (rf' (B, 256,
+    256), [each image's sections])."""
+    from nhwcodec_tpu_torch.host.ops import residue
+    from nhwcodec_tpu_torch.models import device_encode_scans as des
+
+    rf = rf.copy()
+    secs = [dict() for _ in rf]
+    for key, codes, word_bits, q_min in des.RESIDUE_STREAMS:
+        if q < q_min:
+            continue
+        for k in range(len(rf)):
+            pos, words = residue.build_positional_stream(rf[k], codes, q)
+            res, bit, _, word = residue.finish_stream(pos, words, word_bits)
+            secs[k].update({key: res, key + "_bit": bit, key + "_word":
+                            word[: word_bits * ((len(words) >> 3) + 1)]})
+    return rf, secs
+
+
+def host_residue_stage(st: dict, q: int) -> tuple:
+    """The host copy's residue stage (its C scans) on the captured
+    planes, image by image as ``encoder.encode_y`` runs it: returns the
+    (B, 512, 512) planes after the LL2-zone rebuild and each image's res
+    sections."""
+    from nhwcodec_tpu_torch.host import tables as T
+    from nhwcodec_tpu_torch.host.models import encoder
+    from nhwcodec_tpu_torch.host.ops import residue
+
+    rs = encoder._res_setting(q)
+    planes, rfs = [], []
+    for k in range(len(st["e11"])):
+        process = st["e11"][k].copy()
+        pf = process.reshape(-1)
+        if T.LOW5 < q < T.NORM:
+            encoder._mid_q_band_cleanup(pf, 8)
+        encoder._pair_promotion(pf, q)
+        res256 = st["res256"][k].copy()
+        residue.res256_column_ladder(process, res256, q, rs, st["resIII"][k],
+                                     kernel_head=st["khead"][k])
+        residue.res256_classify(process, res256, q, rs)
+        block = st["resIII"][k].copy()
+        zone = block[:128, :128]
+        zone[zone <= 8000] = 0
+        process[:256, :256] = block
+        planes.append(process)
+        rfs.append(res256)
+    _, secs = host_positional_streams(np.stack(rfs), q)
+    return np.stack(planes), secs
+
+
+def sections_equal(got: list, want: list) -> list:
+    """The (image, section) pairs where two lists of res sections part."""
+    bad = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        for key in sorted(set(g) | set(w)):
+            if key not in g or key not in w or not np.array_equal(
+                    np.asarray(g[key], np.uint8), np.asarray(w[key],
+                                                             np.uint8)):
+                bad.append((i, key))
+    return bad
+
+
+def residue_inputs(st: dict, dev) -> tuple:
+    """The residue stage's captured inputs on ``dev``: (e11, res256,
+    khead, resIII)."""
+    import torch
+
+    return tuple(torch.from_numpy(st[k]).to(dev)
+                 for k in ("e11", "res256", "khead", "resIII"))
+
+
+def encode_residue_phase(dev, images: np.ndarray, captured: dict) -> dict:
+    """The residue stage on the card (``_y_residue_stage``) once a batch
+    on the inputs captured from the host copy's own encodes: the encode
+    batch's 16 images at q20 and 4 images each at q21, q19, q18 (captured
+    here: LOW2, the column ladder's low2 branch) and q17.  Each batch's
+    plane (the snap passes' input) byte for byte against the host's, pair
+    promotion's output on the way, every res1/res3/res5 section, and,
+    chained into ``_y_stream_stage`` and ``_uv_stream_stage`` on the
+    captured U/V planes, each image's 6 SZ stream and sel1/sel2;
+    pair_promotion, column_ladder and classify launched once a batch.
+    Times the q20 batch's stage (CUDA events, median of RUNS; a profile)
+    beside the host copy's C scans on the same inputs (host timer, median
+    of 5).  Returns the q20 batch's launches."""
+    import torch
+
+    from nhwcodec_tpu_torch.host import tables as T
+    from nhwcodec_tpu_torch.host.models import encoder as host_encoder
+    from nhwcodec_tpu_torch.kernels import build
+    from nhwcodec_tpu_torch.models import device_encode_scans as des
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    with StreamCapture() as cap:
+        for img in quality_batch(images, T.LOW2):
+            host_encoder.encode(img, T.LOW2)
+    captured[T.LOW2] = cap.records
+    out = None
+    for q, want_b in RESIDUE_QS.items():
+        st = stack_records(captured[q])
+        check(len(st["y"]) == want_b and "e11" in st,
+              f"q{q}: captured {len(st['y'])} host encodes with their "
+              f"residue stage, not {want_b}")
+        args = residue_inputs(st, dev)
+        build.reset_launches()
+        P, streams = des._y_residue_stage(*args, q)
+        secs = des._residue_sections(streams)
+        launches = {k: build.LAUNCHES[k] for k in RESIDUE_KERNELS}
+        check(launches == RESIDUE_LAUNCHES,
+              f"q{q}: residue stage launches {launches}, not "
+              f"{RESIDUE_LAUNCHES}")
+        diff = np.argwhere(P.cpu().numpy() != st["y"])
+        check(diff.size == 0, f"q{q}: the residue stage's plane differs from "
+              f"the host copy's at {diff[:8].tolist()}")
+        e11 = args[0]
+        if T.LOW5 < q < T.NORM:
+            e11 = ds.mid_q_band_cleanup_device(e11)
+        check(np.array_equal(ds.pair_promotion_device(e11).cpu().numpy(),
+                             st["pp"]),
+              f"q{q}: pair promotion differs from the host copy's")
+        bad = sections_equal(secs, st["res"])
+        check(not bad, f"q{q}: res sections differ from the host copy's at "
+              f"(image, section) {bad[:8]}")
+        u, v = (torch.from_numpy(st[k]).to(dev) for k in "uv")
+        stream, sel1, sel2 = device_stream_stage(P, u, v, q)
+        stream_check(f"q{q} residue + stream stages", stream, sel1, sel2, st)
+        sizes = [{k: len(x) for k, x in s.items()} for s in secs[:1]]
+        print(f"encode scans: residue stage at q{q}, batch {want_b}, "
+              "byte-identical to the host copy: the plane, pair promotion's "
+              f"output, the {len(secs[0])} res sections of each image "
+              f"(image 0: {sizes[0]}), and chained into the stream stage "
+              f"each image's im_nhw and sel1/sel2; launches {launches}",
+              flush=True)
+        if q != 20:
+            continue
+        out = launches
+        dev_ms = median_ms(lambda: des._y_residue_stage(*args, q))
+        t0 = time.perf_counter()
+        des._residue_sections(streams)
+        sec_ms = (time.perf_counter() - t0) * 1e3
+        planes, hsecs = host_residue_stage(st, q)
+        check(np.array_equal(planes, st["y"])
+              and not sections_equal(hsecs, st["res"]),
+              "the host copy's residue stage on the captured inputs differs "
+              "from its own encode")
+        host = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            host_residue_stage(st, q)
+            host.append((time.perf_counter() - t0) * 1e3)
+        print(f"encode scans: residue stage, batch {want_b} q20: device "
+              f"{dev_ms:.4f} ms (CUDA events, median of {RUNS}), the "
+              f"sections to the host {sec_ms:.2f} ms (host timer, once); "
+              f"host copy's C scans {float(np.median(host)):.2f} ms (host "
+              "timer, median of 5)", flush=True)
+        print_profile(f"encode scans residue stage, batch {want_b} q20",
+                      lambda: des._y_residue_stage(*args, q))
+    return out
+
+
+def compare_batches(name: str, what: str, kern, twin, args: tuple) -> None:
+    """``kern`` on the first 1, 3 and B images of ``args`` (batch-B
+    tensors) against one call of ``twin`` on all B: the twins treat the
+    images independently, so their first b results are their results on
+    the first b images.  Checks max_abs_err 0."""
+    want = twin(*args)
+    want = want if isinstance(want, tuple) else (want,)
+    for b in (1, 3, B):
+        got = kern(*(a[:b] for a in args))
+        got = got if isinstance(got, tuple) else (got,)
+        err = max_abs_err(name, got, tuple(w[:b] for w in want))
+        print(f"kernel {name} ({b},512,512) {what}: max_abs_err {err} vs "
+              "torch twin", flush=True)
+        check(err == 0, f"{name} disagrees with its torch twin on {what} "
+              f"at batch {b}")
+
+
+def residue_kernel_phase(dev, captured: dict) -> dict:
+    """S4-S6 against their twins (max_abs_err 0): timed on the q20
+    batch's captured inputs (pair_promotion on the E11 plane,
+    column_ladder on pair promotion's output, classify on the ladder's);
+    then at batch 1, 3 and 16 (``compare_batches``) on the adversarial
+    pair-promotion plane, delta planes at q17, q18, q20 and q21 (ladder,
+    then classify), and the column-255 edge planes, whose marks on the
+    card also equal the host copy's C; and the positional streams (torch ops) on the card against
+    the host copy's C on the edge rfs (no codes, a code at every
+    position, isolated markers) at every stream."""
+    import torch
+
+    from nhwcodec_tpu_torch.host.models import encoder as host_encoder
+    from nhwcodec_tpu_torch.host.ops import residue
+    from nhwcodec_tpu_torch.models import device_encode_scans as des
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    out = {}
+    st = stack_records(captured[20])
+    e11, res256, khead, resIII = residue_inputs(st, dev)
+    plane_bytes = 2 * 512 * 512
+    region = sum((r1 - r0) * (c1 - c0) for r0, r1, c0, c1, _ in ds.PP_REGIONS)
+    out["pair_promotion"] = compare_and_time(
+        "pair_promotion", f"({B},512,512) int16, q20 E11 planes",
+        lambda: ds.pair_promotion_device(e11),
+        lambda: ds.pair_promotion_ref(e11), twin_calls=2, twin_runs=5,
+        bound=work(2 * B * plane_bytes, PP_OPS * B * region), graph=True)
+    pp = ds.pair_promotion_device(e11)
+    rf_ext = des._rf_ext(res256, khead, resIII)
+    rs = host_encoder._res_setting(20)
+    out["column_ladder"] = compare_and_time(
+        "column_ladder", f"({B},512,512) int16 + ({B},{SZ + 1024}) rf_ext, "
+        "q20 planes", lambda: ds.column_ladder_device(pp, rf_ext, 20, rs),
+        lambda: ds.column_ladder_ref(pp, rf_ext, 20, rs), twin_calls=1,
+        twin_runs=3, twin_warm=1, bound=work(B * (2 * plane_bytes + 2 * (2 * SZ + 1024)),
+                                LADDER_OPS * B * 256 * 255), graph=True)
+    lp, lrf = ds.column_ladder_device(pp, rf_ext, 20, rs)
+    lrf = lrf.reshape(-1, 256, 256)
+    out["classify"] = compare_and_time(
+        "classify", f"({B},512,512) int16 + ({B},256,256) res256, q20 "
+        "ladder outputs", lambda: ds.classify_device(lp, lrf, 20, rs),
+        lambda: ds.classify_ref(lp, lrf, 20, rs), twin_calls=1, twin_runs=5,
+        bound=work(B * (2 * plane_bytes + 4 * SZ + 12),
+                   CLASSIFY_OPS * B * SZ), graph=True)
+    rng = np.random.default_rng(SEED + 40)
+    x = torch.from_numpy(pp_adversarial_planes(rng, B)).to(dev)
+    compare_batches("pair_promotion", "adversarial planes",
+                    ds.pair_promotion_device, ds.pair_promotion_ref, (x,))
+    for q in (17, 18, 20, 21):
+        rs = host_encoder._res_setting(q)
+        p, rfe = (torch.from_numpy(a).to(dev)
+                  for a in delta_inputs(rng, B)[:2])
+        compare_batches(
+            "column_ladder", f"delta planes q{q}",
+            lambda a, b, q=q, rs=rs: ds.column_ladder_device(a, b, q, rs),
+            lambda a, b, q=q, rs=rs: ds.column_ladder_ref(a, b, q, rs),
+            (p, rfe))
+        lp, lrf = ds.column_ladder_device(p, rfe, q, rs)
+        compare_batches(
+            "classify", f"delta-plane ladder outputs q{q}",
+            lambda a, b, q=q, rs=rs: ds.classify_device(a, b, q, rs),
+            lambda a, b, q=q, rs=rs: ds.classify_ref(a, b, q, rs),
+            (lp, lrf.reshape(B, 256, 256)))
+    p_np, rfe_np = col255_edge_inputs(B)
+    p, rfe = torch.from_numpy(p_np).to(dev), torch.from_numpy(rfe_np).to(dev)
+    rs = host_encoder._res_setting(20)
+    compare_batches("column_ladder", "column-255 edge planes",
+                    lambda a, b: ds.column_ladder_device(a, b, 20, rs),
+                    lambda a, b: ds.column_ladder_ref(a, b, 20, rs),
+                    (p, rfe))
+    gp, grf = (t.cpu().numpy() for t in ds.column_ladder_device(p, rfe, 20,
+                                                                rs))
+    for k in range(B):
+        hp, hrf = p_np[k].copy(), rfe_np[k, :SZ].reshape(256, 256).copy()
+        residue.res256_column_ladder(hp, hrf, 20, rs,
+                                     np.zeros((256, 256), np.int16),
+                                     kernel_head=np.zeros(4, np.int16))
+        check(np.array_equal(gp[k], hp) and np.array_equal(
+            grf[k].reshape(256, 256), hrf),
+            f"column_ladder: edge image {k} differs from the host C")
+    print("encode scans: S4-S6 equal their twins at batch 1, 3 and 16 on "
+          "adversarial, delta (q17/18/20/21) and column-255 edge inputs, "
+          "the edge planes' ladder also the host copy's C", flush=True)
+    for name, rf in stream_edge_rfs(rng, 3).items():
+        want_rf, want = host_positional_streams(rf, 21)
+        got = torch.from_numpy(rf).to(dev)
+        streams = {}
+        for key, codes, word_bits, _ in des.RESIDUE_STREAMS:
+            got, *s = ds.positional_stream_device(
+                got, *des._stream_tables(codes), word_bits)
+            streams[key] = (*s, word_bits)
+        bad = sections_equal(des._residue_sections(streams), want)
+        check(not bad and np.array_equal(got.cpu().numpy(), want_rf),
+              f"positional streams on the {name} rfs differ from the host "
+              f"copy's C at {bad[:8]}")
+    print("encode scans: the res1/res3/res5 positional streams on the card "
+          "equal the host copy's C on the no-code, every-position and "
+          "isolated-marker rfs", flush=True)
+    return out
+
+
 def transform_phase(dev) -> dict:
     """The transform entry on the card: encode_transform on the entry
     batch, decode_transform, and transform_step, each with the launch
@@ -2775,7 +3247,8 @@ def main() -> int:
                  "chain_entries", "chain_emit", "y_runs_fixpoint",
                  "snap_pass", "offset_y_rows", "offset_y_ll",
                  "offset_y_codes", "merge_tiles", "merge_entries",
-                 "merge_emit"))
+                 "merge_emit", "pair_promotion", "column_ladder",
+                 "classify"))
 
     # the paths first: a profiler window of very many launches (the K5
     # twin's) can leave later windows incomplete
@@ -2788,14 +3261,17 @@ def main() -> int:
     captured = {}
     launches.update(encode_phase(dev, images, captured))
     launches.update(encode_scans_phase(dev, captured))
+    launches.update(encode_residue_phase(dev, images, captured))
     launches["analysis_level"] = transform_phase(dev)["analysis_level"]
     # the kernels whose twins make the longest profiler windows (the scan's,
-    # K5's) last
+    # K5's, the column ladder's: 76,000 launches) last; the phases after
+    # them use no profiler
     timings = transform_kernel_phase(dev)
     timings.update(entropy_kernel_phase(dev, chunks))
     timings.update(scan_kernel_phase(dev, captured))
     timings.update(kernel_phase(dev))
     timings.update(encode_kernel_phase(dev, images))
+    timings.update(residue_kernel_phase(dev, captured))
     cluster_info_phase(dev, timings)
     analysis_edge_phase(dev)
     colorspace_phase(dev)

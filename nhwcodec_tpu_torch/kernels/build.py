@@ -80,6 +80,13 @@ SIGNATURES = {
     "nhw_offset_y": [_P, _P, _P, _P, _I, _I, _P],
     # (in, out, comp, entry, batch, n, stream)
     "nhw_merge_crossing": [_P, _P, _P, _P, _I, _I, _P],
+    # (in, out, batch, stream)
+    "nhw_pair_promotion": [_P, _P, _I, _P],
+    # (plane, rf_ext, out, rf_out, batch, low1, low2, hi1, res_setting,
+    #  stream)
+    "nhw_column_ladder": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # (plane, res256, out, rf_out, counts, batch, hi1, res_setting, stream)
+    "nhw_classify": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 LAUNCHES = {"synth_level": 0, "y_stage2_full": 0, "uv_synth": 0,
@@ -88,7 +95,8 @@ LAUNCHES = {"synth_level": 0, "y_stage2_full": 0, "uv_synth": 0,
             "synth_unnorm_rows_t": 0, "synth_norm_rows_clip_waves": 0,
             "synth_norm_rows_clip": 0, "smooth_marks_seq": 0,
             "analysis_level": 0, "chain_starts": 0, "y_runs_fixpoint": 0,
-            "snap_pass": 0, "offset_y": 0, "merge_crossing": 0}
+            "snap_pass": 0, "offset_y": 0, "merge_crossing": 0,
+            "pair_promotion": 0, "column_ladder": 0, "classify": 0}
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()

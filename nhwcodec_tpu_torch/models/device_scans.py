@@ -2,13 +2,15 @@
 
 Port of ``nhwcodec_tpu.models.device_scans``, with the same public names
 and results equal to the host copy's C scans
-(``nhwcodec_tpu_torch.host.ops.quantize``, ``host.models.encoder``).
-This module holds the stage at the end of the scan pipeline: the E11
-snap passes, the E14 quantizers and the E15 stream fixups.
+(``nhwcodec_tpu_torch.host.ops.quantize``, ``host.ops.residue``,
+``host.models.encoder``).  This module holds the two stages at the end of
+the scan pipeline: the residue stage (the E11 mid-q cleanup and pair
+promotion, the E12 column ladder, classify and positional streams) and
+the stream stage (the E11 snap passes, the E14 quantizers and the E15
+stream fixups).
 
-Three programs carry a serial chain and are CUDA kernels
-(``csrc/scans.cu``), each beside a torch twin (``*_ref``) of the same
-decomposition:
+Six programs carry a serial chain and are CUDA kernels, each beside a
+torch twin (``*_ref``) of the same decomposition.  In ``csrc/scans.cu``:
 
 - ``snap_pass_device`` (kernel ``snap_pass``): the neighbour count of the
   raster pass is static (the JAX module's analysis: alive values stay
@@ -30,9 +32,22 @@ decomposition:
   entry states, a CTA composes its tiles, one warp a stream walks the
   CTAs' composites, and each tile walks again from its entry state.
 
+In ``csrc/residue.cu``:
+
+- ``pair_promotion_device`` (kernel ``pair_promotion``): the C's chain
+  never leaves a row; one thread a row walks each region left to right.
+- ``column_ladder_device`` (kernel ``column_ladder``): the columns are
+  independent walks over the rows but for column 255, whose flat j + 1
+  reads see the other columns' results; one CTA an image, a thread a
+  column, column 255 again after a barrier.
+- ``classify_device`` (kernel ``classify``): a walk over the rows a
+  column, carrying the band value the previous row wrote.
+
 The rest are torch ops: the serpentines (one gather each), the select
 codes (shifts, run parity and two sums), the run cap (``cummax`` run
-starts and a closed-form crossing count) and ``offset_uv_device``.
+starts and a closed-form crossing count), ``offset_uv_device``, the mid-q
+cleanup (elementwise) and the positional streams (cumsum ranks and
+scatters; the pair pack's skip walk is a run parity).
 
 Each kernel wrapper launches its kernel for CUDA tensors and raises if
 the build or the launch fails; it takes its twin only for tensors on the
@@ -672,3 +687,565 @@ def cap_long_runs_device(s):
     out = torch.where(dem & (v == 153), 124,
                       torch.where(dem & (v == 155), 123, v))
     return out.to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# E11 tail: the mid-q band cleanup and pair promotion
+# (host.models.encoder._mid_q_band_cleanup / _pair_promotion,
+#  encoder/nhw_encoder.c:785-803, 970-1074)
+
+
+def mid_q_band_cleanup_device(plane):
+    """``_mid_q_band_cleanup`` (LOW5 < q < NORM) on a (B, 512, 512) int16
+    plane: small lower-half coefficients snap to +-7, elementwise (|v| in
+    [8, 9) on the left half, [8, 14] on the right)."""
+    _check_plane(plane, "mid_q_band_cleanup plane", N)
+    I = _i32(plane)
+    lower = I[:, D:]
+    av = lower.abs()
+    col = torch.arange(N, device=plane.device)
+    m = (av >= 8) & torch.where(col < D, av < 9, av <= 14)
+    out = I.clone()
+    out[:, D:] = torch.where(m, torch.where(lower > 0, 7, -7), lower)
+    return out.to(torch.int16)
+
+
+# The two regions of pair promotion: (rows [r0, r1), columns [c0, c1),
+# the band rules).  They share no row, and the C's chain never leaves a row:
+# its promotions of 7/-7 pairs and the lower block's vertical cases are
+# dead (4 < v < 8 and -8 < v < -4 take v = 7, -6 and -7 first), so the
+# only reads of another row never happen.
+PP_REGIONS = ((1, D - 1, D + 1, 2 * D - 1, True),
+              (D + 1, 2 * D - 1, 1, D - 1, False))
+
+
+def _pp_visit(left, cur, right, band: bool):
+    """One visit of pair promotion's walk: (left, cur, right) as the walk
+    left them -> the three after the visit's writes.  The 12700/12900
+    triples write 10100 on both sides; +-8 becomes 10 / -9 beside a +-6/7
+    neighbour; in the band block a 8/8 or -8/-8 pair becomes 9/9 or
+    -9/-9."""
+    tri1 = ((cur > 4) & (cur < 8) & (left > 3) & (left <= 7) & (right > 3)
+            & (right <= 7))
+    tri2 = ((cur > -8) & (cur < -4) & (left > -8) & (left <= -4)
+            & (right > -8) & (right <= -4))
+    e8, m8 = cur == 8, cur == -8
+    c6 = ((left & 65534) == 6) | ((right & 65534) == 6)
+    c7 = (((-left) & 65534) == 6) | (((-right) & 65534) == 6)
+    p9 = e8 & ~c6 & (right == 8) if band else torch.zeros_like(e8)
+    pm9 = m8 & ~c7 & (right == -8) if band else torch.zeros_like(m8)
+    tri = tri1 | tri2
+    cur2 = torch.where(tri1, 12700, torch.where(tri2, 12900, cur))
+    cur2 = torch.where(e8 & c6, 10, torch.where(m8 & c7, -9, cur2))
+    cur2 = torch.where(p9, 9, torch.where(pm9, -9, cur2))
+    right2 = torch.where(tri, 10100, torch.where(
+        p9, 9, torch.where(pm9, -9, right)))
+    return torch.where(tri, 10100, left), cur2, right2
+
+
+def pair_promotion_ref(plane):
+    """Torch twin of ``pair_promotion``: one left-to-right walk a row of
+    each region, the rows as a batch, the left neighbour's and the
+    visited value in registers, the right neighbour read from the input
+    (a visit writes a - 1, a and a + 1, so a value is final once the walk
+    is one column past it)."""
+    I = _i32(plane)
+    out = I.clone()
+    for r0, r1, c0, c1, band in PP_REGIONS:
+        rows, o = I[:, r0:r1], out[:, r0:r1]
+        left, cur = rows[..., c0 - 1], rows[..., c0]
+        for c in range(c0, c1):
+            left, cur, right = _pp_visit(left, cur, rows[..., c + 1], band)
+            o[..., c - 1] = left
+            left, cur = cur, right
+        o[..., c1 - 1] = left
+        o[..., c1] = cur
+    return out.to(torch.int16)
+
+
+def pair_promotion_device(plane):
+    """``_pair_promotion`` on a (B, 512, 512) int16 plane (q > LOW4),
+    bit-exact vs the host copy's C scan.  Returns a new plane (kernel
+    ``pair_promotion``: one launch, one thread a row)."""
+    _check_plane(plane, "pair_promotion plane", N)
+    if plane.device.type == "cpu":
+        return pair_promotion_ref(plane)
+    lib, stream = _cuda_args(plane)
+    out = torch.empty_like(plane)
+    if plane.shape[0]:
+        with torch.cuda.device(plane.device):
+            build.check("nhw_pair_promotion", lib.nhw_pair_promotion(
+                plane.data_ptr(), out.data_ptr(), plane.shape[0], stream))
+        build.count("pair_promotion")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# E12 marking: the res256 column ladder (host.ops.residue.
+# res256_column_ladder, encoder/nhw_encoder.c:1084-1326).  Column j's walk
+# over rows 0..254 reads its own writes (rows r + 1, r + 2 of plane column
+# j, its rf column, band row j) and the input values of column j + 1, which
+# the C visits later.  Only column 255 reads other columns' results: its
+# flat j + 1 reads land on band column 256 (row r's value there is column
+# r's step-0 band write) and on rf column 0 of the next rows; so it walks
+# again once the other columns are done.
+
+RF_EXT = SZ + 1024       # res256 and the out-of-bounds tail the C reads
+
+
+def _ladder_flags(quality: int, res_setting: int) -> tuple:
+    from nhwcodec_tpu_torch.host import tables as T
+
+    return (quality >= T.LOW1, quality == T.LOW2, quality >= T.HIGH1,
+            res_setting)
+
+
+def _cl_band_op(case, v, bp):
+    """The band ops on (band value, previous band value): case 0 none, 1
+    w1, 2 w2, 3 w3, 4 lw5 at res == -4, 5 lw5 at res < -6."""
+    neg_ok = (v < -14) & ((((-v) & 7) == 0) | (((-v) & 7) == 7))
+    w1 = torch.where((v == 7) & (bp >= 0) & (bp < 8), v + 2,
+                     torch.where((v == 8) & (bp >= -2) & (bp < 8), v + 2, v))
+    w2 = torch.where(neg_ok, v + 1, torch.where(
+        ((v == 7) | ((v & 65534) == 8)) & (bp >= -2), v + 3, v))
+    w3 = torch.where(neg_ok, v + 1, torch.where(
+        (v >= 0) & (((v + 2) & 65532) == 8) & (bp >= -2), 10,
+        torch.where((v > 14) & ((v & 7) == 7), v + 1, v)))
+    lw4 = torch.where(((v == -7) | (v == -8)) & (bp > -8) & (bp < 2), -9, v)
+    lw6 = torch.where(neg_ok, v + 1, torch.where(
+        ((v == 7) | (v == 8)) & (bp >= -1) & (bp < 8), v + 3, v))
+    out = v
+    for k, w in ((1, w1), (2, w2), (3, w3), (4, lw4), (5, lw6)):
+        out = torch.where(case == k, w, out)
+    return out
+
+
+class _Fire:
+    """The C's if/else chain as masks: each ``fire`` applies its writes
+    where its condition holds and no earlier branch matched; ``set1``
+    is v1 := rf[cnt + D]."""
+
+    def __init__(self, rfc, rf1):
+        z = torch.zeros_like(rfc)
+        self.mark, self.rf1 = rfc, rf1
+        self.d1, self.d2, self.case = z, z, z
+        self.set1 = torch.zeros_like(rfc, dtype=torch.bool)
+        self.done = torch.zeros_like(rfc, dtype=torch.bool)
+
+    def fire(self, cond, mk=None, dd1=None, dd2=None, set1=False, bc=None):
+        c = cond & ~self.done
+        if mk is not None:
+            self.mark = torch.where(c, mk, self.mark)
+        if dd1 is not None:
+            self.d1 = torch.where(c, dd1, self.d1)
+        if dd2 is not None:
+            self.d2 = torch.where(c, dd2, self.d2)
+        if set1:
+            self.set1 = self.set1 | c
+        if bc is not None:
+            self.case = torch.where(c, bc, self.case)
+        self.done = self.done | cond
+
+    def low2(self, cond, val: int, rf14, hit14):
+        """LOW2's rf[cnt + D] / rf[cnt] writes, then v1 := rf[cnt + D]."""
+        c = cond & ~self.done
+        self.rf1 = torch.where(c & rf14, val, self.rf1)
+        self.mark = torch.where(c & hit14, val, self.mark)
+        self.set1 = self.set1 | c
+        self.done = self.done | cond
+
+
+def _cl_step(flags, carry, xs):
+    """One row of the ladder, the columns as lanes: carry (v0, v1, vprev,
+    markm1, rfc, bnd_prev), xs (pf row r + 2, rf rows r + 1 and r + 2, the
+    band value (j, 256 + r), the j + 1 reads of plane rows r..r + 2 and rf
+    rows r..r + 2, has_prev) -> (carry', (v0, mark, bnd))."""
+    ge_low1, low2, ge_high1, res_setting = flags
+    v0, v1, vprev, markm1, rfc, bnd_prev = carry
+    v2, i_rf1, i_rf2, i_bnd, p_j1, p1_j1, p2_j1, r_j1, r1_j1, r2_j1, \
+        has_prev = xs
+    res = v0 - rfc
+    a = v1 - i_rf1
+    b2 = v2 - i_rf2
+    f = _Fire(rfc, i_rf1)
+    fire = f.fire
+    # 1-3
+    b = (res == 2) & (a == 2) & (b2 >= 2)
+    fire(b & ((b2 < 5) | (b2 > 6)), mk=12400, dd1=-2, dd2=-2)
+    f.done = f.done | b
+    fire((((res == 2) & (a == 3)) | ((res == 3) & (a == 2)))
+         & (b2 > 1) & (b2 < 6), mk=12400, dd1=-2, dd2=-2)
+    b3 = (res == 3) & (a == 3)
+    fire(b3 & (b2 > 0) & (b2 < 6), mk=12400, dd1=-2, dd2=-2)
+    if ge_low1:
+        fire(b3, mk=12100, set1=True)
+    else:
+        f.done = f.done | b3
+    # 4-5
+    b4 = (a == -4) & ((res == 2) | (res == 3)) & ((b2 == 2) | (b2 == 3))
+    fire(b4 & (res == 2) & (b2 == 2), dd1=1)
+    fire(b4, mk=12400, dd1=-2, dd2=-2)
+    b5 = (res == 1) & (a == 3) & (b2 == 2)
+    fire(b5 & has_prev & ((vprev - markm1) >= 0), mk=12400, dd1=-2, dd2=-2)
+    f.done = f.done | b5
+    # 6
+    b6 = (((res == 3) | (res == 4) | (res == 5) | (res > 6))
+          & ((a == 3) | ((a & 65534) == 4)))
+    fire(b6 & (res > 6), mk=12500, set1=True)
+    if ge_low1:
+        fire(b6, mk=12100, set1=True)
+    elif low2:
+        f.low2(b6, 14100,
+               torch.where((res < 5) & (a == 5), True, torch.where(
+                   res >= 5, False, (res == 3) & (a >= 4))), res >= 5)
+    else:
+        f.done = f.done | b6
+    # 7: the cross-column pair check
+    pr, pr1, pr2 = p_j1 - r_j1, p1_j1 - r1_j1, p2_j1 - r2_j1
+    b7 = ((res == 2) | (res == 3)) & ((a == 2) | (a == 3))
+    fire(b7 & ((b2 == 0) | (b2 == 1)) & ((pr == 2) | (pr == 3))
+         & ((pr1 == 2) | (pr1 == 3)) & (pr2 > 0), mk=12400, dd1=-2, dd2=-2)
+    f.done = f.done | b7
+    # 8-9
+    b8 = (a == 4) & ((res == -2) | (res == -3)) & ((b2 == -2) | (b2 == -3))
+    fire(b8 & (res == -2) & (b2 == -2), dd1=-1)
+    fire(b8, mk=12300, dd1=2, dd2=2)
+    b9 = (((res == -3) | (res == -4) | (res == -5) | (res < -7))
+          & ((a == -3) | (a == -4) | (a == -5)))
+    fire(b9 & (res < -7), mk=12600, set1=True)
+    if ge_low1:
+        fire(b9, mk=12200, set1=True)
+    elif low2:
+        f.low2(b9, 14000,
+               torch.where((res > -5) & (a == -5), True, torch.where(
+                   res <= -5, False, (res == -3) & (a <= -4))), res <= -5)
+    else:
+        f.done = f.done | b9
+    # 10: a in (-2, -3)
+    b10 = (a == -2) | (a == -3)
+    g = b10 & ~f.done
+    r23 = (res == -2) | (res == -3)
+    fire(g & r23 & (b2 < 0), mk=12300, dd1=2, dd2=2)
+    if ge_high1:
+        fire(g & r23 & (res == -3), mk=14500)
+    npair = (((pr == -2) | (pr == -3)) & ((pr1 == -2) | (pr1 == -3))
+             & (pr2 < 0))
+    fire(g & r23 & (b2 == 0) & npair, mk=12300, dd1=2, dd2=2)
+    fire(g & r23 & (b2 == 0))
+    fire(g & r23 & (res == -2), bc=2)
+    if ge_high1:
+        fire(g & r23, mk=14500)
+    else:
+        fire(g & r23, bc=3)
+    b10b = g & (res == -1) & (a == -3) & (b2 == -2)
+    fire(b10b & has_prev & ((vprev - markm1) <= 0), mk=12300, dd1=2, dd2=2)
+    f.done = f.done | b10b
+    fire(g & (res == -1) & (b2 == -3), mk=12300, dd1=2, dd2=2)
+    fire(g & (res == -1), bc=1)
+    b10d = g & (res == -4)
+    fire(b10d & (b2 <= -2) & (b2 >= -3), mk=12300, dd1=2, dd2=2)
+    fire(b10d, mk=14000, bc=4)
+    f.done = f.done | b10
+    # 11-14
+    fire((res == 0) | (res == -1), bc=1)
+    fire(res == -2, bc=2)
+    if ge_high1:
+        fire(res == -3, mk=14500)
+    else:
+        fire(res == -3, bc=3)
+    c0 = (res < -res_setting) & ~f.done
+    mark = torch.where(c0, 14000, f.mark)
+    case = torch.where(c0 & (res == -4), 4, f.case)
+    if ge_high1:
+        mark = torch.where(c0 & (res < -7), 14900, mark)
+        case = torch.where(c0 & (res < -6) & ~(res < -7), 5, case)
+    else:
+        case = torch.where(c0 & (res < -6), 5, case)
+    v1f = torch.where(f.set1, f.rf1, v1 + f.d1)
+    bnd = _cl_band_op(case, i_bnd, bnd_prev)
+    return (v1f, v2 + f.d2, v0, mark, f.rf1, bnd), (v0, mark, bnd)
+
+
+def _ladder_args(plane, rf_ext) -> None:
+    _check_plane(plane, "column_ladder plane", N)
+    _check(rf_ext, "column_ladder rf_ext", torch.int16, (plane.shape[0],
+                                                        RF_EXT))
+    if not rf_ext.is_contiguous():
+        raise ValueError("column_ladder rf_ext: must be contiguous")
+
+
+def column_ladder_ref(plane, rf_ext, quality: int, res_setting: int):
+    """Torch twin of ``column_ladder``: all 256 columns as lanes over rows
+    0..254 (column 255 with its j + 1 reads from the input), then column
+    255 alone again, in place, its j + 1 reads taken from the results at
+    the time of the step: column r's step-0 band value at (r, 256), its
+    own at (255, 256) from step 0 on, rf column 0 and the tail."""
+    _ladder_args(plane, rf_ext)
+    flags = _ladder_flags(quality, res_setting)
+    b = plane.shape[0]
+    I, rfe = _i32(plane), _i32(rf_ext)
+    out = I.clone()
+    rf = rfe[:, :SZ].reshape(b, D, D).clone()
+
+    def rf_at(off, k):    # rf[(r + off) * 256 + j + k] at [r, j]
+        return rfe[:, off * D + k: off * D + k + (D - 1) * D].reshape(
+            b, D - 1, D)
+
+    xs_all = (I[:, 2:D + 1, :D], rf_at(1, 0), rf_at(2, 0),
+              I[:, :D, D:2 * D - 1].transpose(1, 2),
+              I[:, 0:D - 1, 1:D + 1], I[:, 1:D, 1:D + 1],
+              I[:, 2:D + 1, 1:D + 1], rf_at(0, 1), rf_at(1, 1), rf_at(2, 1))
+    z = torch.zeros_like(I[:, 0, :D])
+    carry = (I[:, 0, :D], I[:, 1, :D], z, z, rfe[:, :D], I[:, :D, D - 1])
+    for r in range(D - 1):
+        xs = tuple(x[:, r] for x in xs_all) + (r > 0,)
+        carry, (v0, mark, bnd) = _cl_step(flags, carry, xs)
+        out[:, r, :D], rf[:, r], out[:, :D, D + r] = v0, mark, bnd
+    out[:, D - 1, :D], out[:, D, :D], rf[:, D - 1] = (carry[0], carry[1],
+                                                      carry[4])
+    # column 255 again
+    j = D - 1
+    rf_col0 = torch.cat([rf[:, :, 0], rfe[:, SZ, None],
+                         rfe[:, SZ + D, None]], 1)            # rows 0..257
+    carry = (I[:, 0, j, None], I[:, 1, j, None], z[:, :1], z[:, :1],
+             rfe[:, j, None], I[:, j, j, None])
+    for r in range(D - 1):
+        xs = (I[:, r + 2, j, None], rfe[:, (r + 1) * D + j, None],
+              rfe[:, (r + 2) * D + j, None], I[:, j, D + r, None],
+              out[:, r, D, None], out[:, r + 1, D, None],
+              out[:, r + 2, D, None], rf_col0[:, r + 1, None],
+              rf_col0[:, r + 2, None], rf_col0[:, r + 3, None], r > 0)
+        carry, (v0, mark, bnd) = _cl_step(flags, carry, xs)
+        out[:, r, j], rf[:, r, j], out[:, j, D + r] = (v0[:, 0], mark[:, 0],
+                                                       bnd[:, 0])
+    out[:, D - 1, j], out[:, D, j], rf[:, D - 1, j] = (carry[0][:, 0],
+                                                       carry[1][:, 0],
+                                                       carry[4][:, 0])
+    return out.to(torch.int16), rf.reshape(b, SZ).to(torch.int16)
+
+
+def column_ladder_device(plane, rf_ext, quality: int, res_setting: int):
+    """``host.ops.residue.res256_column_ladder`` on a (B, 512, 512) int16
+    plane and rf_ext, (B, SZ + 1024) int16: res256 and the tail the C
+    reads past it (the kernel head, [17, 2, 0, 0], resIII[:1016]).
+    Returns (plane', rf' (B, SZ) int16), bit-exact vs the host copy's C
+    scan (kernel ``column_ladder``: one launch, a CTA an image, a thread a
+    column, column 255 again after a block barrier)."""
+    _ladder_args(plane, rf_ext)
+    ge_low1, low2, ge_high1, _ = _ladder_flags(quality, res_setting)
+    if plane.device.type == "cpu":
+        return column_ladder_ref(plane, rf_ext, quality, res_setting)
+    lib, stream = _cuda_args(plane, rf_ext)
+    b = plane.shape[0]
+    out = torch.empty_like(plane)
+    rf = torch.empty((b, SZ), dtype=torch.int16, device=plane.device)
+    if b:
+        with torch.cuda.device(plane.device):
+            build.check("nhw_column_ladder", lib.nhw_column_ladder(
+                plane.data_ptr(), rf_ext.data_ptr(), out.data_ptr(),
+                rf.data_ptr(), b, int(ge_low1), int(low2), int(ge_high1),
+                res_setting, stream))
+        build.count("column_ladder")
+    return out, rf
+
+
+# ---------------------------------------------------------------------------
+# E12 classify: residue codes 121..149 (host.ops.residue.res256_classify,
+# encoder/nhw_encoder.c:1329-1420).  The pf[scan] and rf[cnt] reads are
+# input values; the only chain is band row j's st - 1 read of the value
+# the previous row's visit of column j wrote: a walk over rows a column.
+
+_MARK_CODES = ((14000, 140), (14500, 145), (12200, 122), (12100, 121),
+               (12300, 123), (12400, 124), (14100, 141), (12500, 125),
+               (12600, 126))
+
+
+def _classify_step(ge_high1: bool, res_setting: int, bnd_prev, pf_r, mark,
+                   v):
+    """One row of classify, the columns as lanes: (band value written at
+    the previous row, plane row r, rf row r, band value (j, 256 + r)) ->
+    (band', rf', n1, n3, n5), the counts per lane.  A mark >= 12000
+    outside the ladder's set maps to 149."""
+    low = mark < 12000
+    res = pf_r - mark
+    bp = bnd_prev
+    dec16 = (v > 15) & ((v & 7) == 0)
+    m78 = (v == -7) | (v == -8)
+    b01 = low & ((res == 0) | (res == 1))
+    bA = torch.where(m78 & (bp > -8) & (bp < 2), -9, v)
+    b2m = low & (res == 2)
+    bB = torch.where(dec16, v - 1, torch.where(
+        m78 & (bp <= 1), -9, torch.where((v == -6) & (bp > -8) & (bp <= -1),
+                                         -9, v)))
+    b3m = low & (res == 3)
+    bC = torch.where(dec16, v - 1, torch.where(
+        (v <= 0) & ((((-v) + 2) & 65532) == 8) & (bp <= 2), -10, v))
+    bhi = low & (res > res_setting)
+    bD = torch.where(((v == 7) | ((v & 65534) == 8)) & (bp >= 0) & (bp < 8),
+                     v + 2, v)
+    bE = torch.where(dec16, v - 1, torch.where(
+        ((v == -6) | (v == -7) | (v == -8)) & (bp > -8) & (bp < 0), -9, v))
+    r148 = bhi & (res > 7) if ge_high1 else torch.zeros_like(bhi)
+    bnd = torch.where(bhi & (res > 6) & ~r148, bE, v)
+    bnd = torch.where(bhi & (res == 4), bD, bnd)
+    if not ge_high1:
+        bnd = torch.where(b3m, bC, bnd)
+    bnd = torch.where(b2m, bB, torch.where(b01, bA, bnd))
+    if ge_high1:
+        rf_new = torch.where(b3m, 144, torch.where(r148, 148, torch.where(
+            bhi, 141, torch.where(low, 0, mark))))
+    else:
+        rf_new = torch.where(bhi, 141, torch.where(low, 0, mark))
+    hi = ~low
+    code = torch.full_like(mark, 149)
+    for m, c in _MARK_CODES:
+        code = torch.where(mark == m, c, code)
+    rf_new = torch.where(hi, code, rf_new)
+
+    def any_of(*cs):
+        return hi & sum((code == c) for c in cs).bool()
+
+    n1 = bhi.int() + r148.int() + any_of(140, 141, 125, 126, 149).int()
+    n3 = any_of(121, 122, 123, 124, 125, 126).int()
+    n5 = (b3m.int() if ge_high1 else 0) + r148.int() + any_of(145, 149).int()
+    return bnd, rf_new, n1, n3, n5
+
+
+def _classify_args(plane, res256) -> None:
+    _check_plane(plane, "classify plane", N)
+    _check(res256, "classify res256", torch.int16, (plane.shape[0], D, D))
+    if not res256.is_contiguous():
+        raise ValueError("classify res256: must be contiguous")
+
+
+def classify_ref(plane, res256, quality: int, res_setting: int):
+    """Torch twin of ``classify``: one walk over the 256 rows, the columns
+    as lanes, the band value written at the previous row carried."""
+    from nhwcodec_tpu_torch.host import tables as T
+
+    _classify_args(plane, res256)
+    ge_high1 = quality >= T.HIGH1
+    I, rf = _i32(plane), _i32(res256)
+    out, rf_out = I.clone(), rf.clone()
+    bnd = I[:, :D, D - 1]
+    counts = torch.zeros((I.shape[0], 3), dtype=torch.int32,
+                         device=plane.device)
+    for r in range(D):
+        bnd, rf_out[:, r], *ns = _classify_step(
+            ge_high1, res_setting, bnd, I[:, r, :D], rf[:, r], I[:, :D, D + r])
+        out[:, :D, D + r] = bnd
+        counts += torch.stack([n.sum(-1, dtype=torch.int32) for n in ns], -1)
+    return (out.to(torch.int16), rf_out.to(torch.int16), counts[:, 0],
+            counts[:, 1], counts[:, 2])
+
+
+def classify_device(plane, res256, quality: int, res_setting: int):
+    """``host.ops.residue.res256_classify`` on a (B, 512, 512) int16 plane
+    and the ladder's (B, 256, 256) int16 res256.  Returns (plane',
+    res256', n1, n3, n5), the counts (B,) int32 (kernel ``classify``: one
+    launch, a CTA an image, a thread a column, the counts summed in the
+    CTA)."""
+    from nhwcodec_tpu_torch.host import tables as T
+
+    _classify_args(plane, res256)
+    if plane.device.type == "cpu":
+        return classify_ref(plane, res256, quality, res_setting)
+    lib, stream = _cuda_args(plane, res256)
+    b = plane.shape[0]
+    out = torch.empty_like(plane)
+    rf = torch.empty_like(res256)
+    counts = torch.zeros((b, 3), dtype=torch.int32, device=plane.device)
+    if b:
+        with torch.cuda.device(plane.device):
+            build.check("nhw_classify", lib.nhw_classify(
+                plane.data_ptr(), res256.data_ptr(), out.data_ptr(),
+                rf.data_ptr(), counts.data_ptr(), b,
+                int(quality >= T.HIGH1), res_setting, stream))
+        build.count("classify")
+    return out, rf, counts[:, 0], counts[:, 1], counts[:, 2]
+
+
+# ---------------------------------------------------------------------------
+# E12 streams: the positional side streams (host.ops.residue.
+# build_positional_stream + finish_stream, encoder/nhw_encoder.c:1498-1887)
+
+P_MAX = SZ + 512                  # positions a stream can list
+_NO_POS = 1 << 20                 # fill past a list's end
+
+
+def _compact(mask, vals, fill: int, size: int):
+    """vals[mask], row-major order kept, into a (B, size) buffer filled
+    with ``fill`` past the end: a cumsum rank and one scatter (the rest
+    into a spill column).  Returns (buffer, counts (B,) int32)."""
+    b = mask.shape[0]
+    vals = vals.expand(mask.shape)
+    m = mask.to(torch.int64)
+    rank = torch.cumsum(m, 1) - m
+    idx = torch.where(mask & (rank < size), rank, size)
+    buf = torch.full((b, size + 1), fill, dtype=vals.dtype,
+                     device=mask.device)
+    buf.scatter_(1, idx, vals)
+    return buf[:, :size], mask.sum(1, dtype=torch.int32)
+
+
+def _pack_lsbs(v, bits: int):
+    """Entries' low ``bits`` bits, 8 // bits an output byte, first entry in
+    the high bits (``_pack_bits``)."""
+    per = 8 // bits
+    w = v.reshape(v.shape[0], -1, per) & ((1 << bits) - 1)
+    shift = bits * torch.arange(per - 1, -1, -1, device=v.device)
+    return (w << shift).sum(-1).to(torch.uint8)
+
+
+def positional_stream_device(rf, wt, rt, word_bits: int):
+    """``build_positional_stream`` + ``finish_stream`` on a (B, 256, 256)
+    int16 post-classify res256, in torch ops.  ``wt``/``rt``: (256,) word
+    value (-1: not a code of this stream) and replacement code per code.
+    Returns (rf', packed (B, P_MAX) int32, n_packed, bit_bytes (B, P_MAX //
+    8) uint8, n_nonmarker, word_bytes (B, SZ * word_bits // 8) uint8,
+    n_words), the counts (B,) int32; the C's sections are their heads
+    (``device_encode_scans._residue_sections``).  The delta-pair pack's
+    cursor skips a position exactly when the one before it was visited
+    and paired: the run parity of the pair flags."""
+    _check(rf, "positional_stream rf", torch.int16, (None, D, D))
+    if word_bits not in (1, 2):
+        raise ValueError(f"positional_stream: word_bits {word_bits}")
+    dev = rf.device
+    b = rf.shape[0]
+    wt = torch.as_tensor(wt, dtype=torch.int32, device=dev)
+    rt = torch.as_tensor(rt, dtype=torch.int32, device=dev)
+    if wt.shape != (256,) or rt.shape != (256,):
+        raise ValueError("positional_stream: wt and rt must have 256 entries")
+    code = _i32(rf).reshape(b, SZ)
+    jcol = torch.arange(SZ, device=dev, dtype=torch.int32) & (D - 1)
+    safe = code.clamp(0, 255).long()
+    cw = wt[safe]
+    is_code = (code >= 0) & (code < 256) & (cw >= 0) & (jcol < D - 2)
+    marker = (jcol == D - 2).expand(b, SZ)
+    rf_new = torch.where(is_code, rt[safe], code)
+    rf_new = torch.where(marker | (jcol == D - 1), 0, rf_new)
+    pos, npos = _compact(marker | is_code, jcol, _NO_POS, P_MAX)
+    words, nwords = _compact(is_code, cw, 0, SZ)
+    # drop isolated 254 markers between ascending neighbours
+    idx = torch.arange(P_MAX, device=dev, dtype=torch.int32)
+    prev = _flat_shift_r(pos, 1, _NO_POS)
+    nxt = _flat_shift_l(pos, 1, _NO_POS)
+    mid = (idx >= 1) & (idx < (npos - 1)[:, None])
+    drop = (mid & (pos == D - 2) & (prev != D - 2) & (nxt != D - 2)
+            & (prev > nxt))
+    ded, nded = _compact((idx < npos[:, None]) & ~drop, pos, _NO_POS, P_MAX)
+    # the delta-pair pack
+    sr = ded >> 1
+    d1 = sr - _flat_shift_r(sr, 1, 0)
+    d2 = _flat_shift_l(sr, 1, 0) - sr
+    pair = (d1 >= 0) & (d1 < 8) & (d2 >= 0) & (d2 < 16) & (idx >= 1)
+    skipped = _flat_shift_r(_run_parity_fire(pair), 1, False)
+    emit = (idx == 0) | (~skipped & (idx >= 1)
+                         & (idx < (nded - 1)[:, None]))
+    byte = torch.where(pair & (idx >= 1), 128 + (d1 << 4) + d2, sr)
+    packed, npacked = _compact(emit, byte, 0, P_MAX)
+    # the LSBs of the non-marker positions, and the words
+    nm = (ded != D - 2) & (idx < nded[:, None])
+    nmv, n_nm = _compact(nm, ded & 1, 0, P_MAX)
+    return (rf_new.reshape(b, D, D).to(torch.int16), packed, npacked,
+            _pack_lsbs(nmv, 1), n_nm, _pack_lsbs(words, word_bits), nwords)

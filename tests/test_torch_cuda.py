@@ -843,3 +843,83 @@ def test_scan_kernels_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         ds.merge_crossing_device(torch.zeros((2, 1000), dtype=torch.uint8,
                                              device=cuda))
+
+
+# the device encode scans' residue stage: S4 pair_promotion, S5
+# column_ladder and S6 classify (csrc/residue.cu) on chip_smoke.py's edge
+# inputs
+
+
+@pytest.mark.parametrize("b", [1, 3, 16])
+def test_pair_promotion_kernel(cuda, b):
+    import chip_smoke as cs
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    x = torch.from_numpy(cs.pp_adversarial_planes(
+        np.random.default_rng(80 + b), b)).to(cuda)
+    before = build.LAUNCHES["pair_promotion"]
+    got = ds.pair_promotion_device(x)
+    assert build.LAUNCHES["pair_promotion"] == before + 1
+    torch.testing.assert_close(got, ds.pair_promotion_ref(x), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("b", [1, 3, 16])
+@pytest.mark.parametrize("q", [17, 18, 20, 21, "column 255"])
+def test_column_ladder_and_classify_kernels(cuda, q, b):
+    import chip_smoke as cs
+    from nhwcodec_tpu_torch.host.models import encoder as host_encoder
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    if q == "column 255":
+        q, (p, rfe) = 20, cs.col255_edge_inputs(b)
+    else:
+        p, rfe = cs.delta_inputs(np.random.default_rng(90 + q + b), b)[:2]
+    p, rfe = torch.from_numpy(p).to(cuda), torch.from_numpy(rfe).to(cuda)
+    rs = host_encoder._res_setting(q)
+    before = dict(build.LAUNCHES)
+    lp, lrf = ds.column_ladder_device(p, rfe, q, rs)
+    for g, w in zip((lp, lrf), ds.column_ladder_ref(p, rfe, q, rs)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    lrf = lrf.reshape(b, 256, 256)
+    got = ds.classify_device(lp, lrf, q, rs)
+    assert build.LAUNCHES["column_ladder"] == before["column_ladder"] + 1
+    assert build.LAUNCHES["classify"] == before["classify"] + 1
+    for g, w in zip(got, ds.classify_ref(lp, lrf, q, rs)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("q", [20, 18])
+def test_residue_stage_on_the_card(cuda, q):
+    import chip_smoke as cs
+    from nhwcodec_tpu_torch.host.models import encoder as host_encoder
+    from nhwcodec_tpu_torch.models import device_encode_scans as des
+
+    with cs.StreamCapture() as cap:
+        for img in (fixtures.texture_noise(), fixtures.gradient_circles()):
+            host_encoder.encode(img, q)
+    st = cs.stack_records(cap.records)
+    build.reset_launches()
+    P, streams = des._y_residue_stage(*cs.residue_inputs(st, cuda), q)
+    secs = des._residue_sections(streams)
+    assert {k: build.LAUNCHES[k] for k in cs.RESIDUE_KERNELS} == \
+        cs.RESIDUE_LAUNCHES
+    np.testing.assert_array_equal(P.cpu().numpy(), st["y"])
+    assert not cs.sections_equal(secs, st["res"])
+    u, v = (torch.from_numpy(st[k]).to(cuda) for k in "uv")
+    stream, sel1, sel2 = cs.device_stream_stage(P, u, v, q)
+    cs.stream_check(f"q{q}", stream, sel1, sel2, st)
+
+
+def test_residue_kernels_reject_bad_inputs(cuda):
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    plane = torch.zeros((2, 512, 512), dtype=torch.int16, device=cuda)
+    with pytest.raises(ValueError):
+        ds.pair_promotion_device(plane.transpose(1, 2))
+    with pytest.raises(ValueError):
+        ds.column_ladder_device(plane, torch.zeros(
+            (2, 65536 + 1024), dtype=torch.int16), 20, 3)
+    with pytest.raises(ValueError):
+        ds.classify_device(plane, torch.zeros(
+            (2, 256, 256), dtype=torch.int16, device=cuda).transpose(1, 2),
+            20, 3)
