@@ -85,9 +85,10 @@
    255 + 254 m + d, crossings at the walk's end), whose merge + select +
    cap on the card also equal the host copy's.  The encode breakdown
    splits the host's encode_from_planes into the tokenizer, the stream
-   stage, the E16 LL2 coders, the E11 tail and E12 (pair promotion, the
-   mid-q cleanup, the column ladder, classify, the positional streams and
-   finish_stream) and the rest of encode_uv.
+   stage, the E16 LL2 coders, E17 (uv_highres_compression), the E11 tail
+   and E12 (pair promotion, the mid-q cleanup, the column ladder,
+   classify, the positional streams and finish_stream) and the rest of
+   encode_uv (its UV LL2 coding included).
 8. Drives the device encode scans' residue stage
    (models/device_encode_scans._y_residue_stage: the mid-q cleanup, pair
    promotion, the column ladder, classify, the res1/res3/res5 positional
@@ -105,6 +106,23 @@
    the others changes the ladder (also against the host copy's C), and
    the positional streams on the card against the host copy's C on edge
    rfs.
+9. Drives the device encode scans' LL2 stage
+   (models/device_encode_scans._y_ll2_stage, _uv_ll2_stage,
+   _uv_highres_stage, _ll2_sections and _uv_ll2_sections: the Y LL2 byte
+   coding and run-delta compression (E16), the chroma LL2 coding and
+   compression (E17); S7 ll2_code_y and S8 walk_visited in csrc/ll2.cu,
+   the rest torch ops) once a batch on the planes captured from the host copy's own
+   encodes (16 at q20, 4 each at q21, q17, q16, q15, q8 and q1): the
+   zeroed Y, U and V planes, every E16 and E17 section and hr_mem byte for
+   byte against the host's, ll2_code_y launched once a batch and
+   walk_visited three times; times the q20 batch's stage beside the host
+   copy's C on the same planes.  Holds S7 to its twin on the q20 planes
+   (timed) and at batch 1, 3 and 16 on planes with odd 4-runs at the row
+   ends, values about 10000 and 20000, int16 extremes, escapes at
+   positions 0 and 1, all-even and dense-odd planes, gt_low3 both ways;
+   S8 on the stage's three walks of the q20 batch (timed) and at batch 1,
+   3 and 16 on rows of jumps of 65, of 255 and 256, long jumps, parks and
+   squeeze rows whose 64/128 codes sit at the bound.
 
 Prints the card's name and power limit (nvidia-smi), whether the host
 copy's C scans were built (``native host library: loaded``) or the host
@@ -168,6 +186,10 @@ KERNELS = {
                       "nhwcodec_tpu/models/device_scans.py:952"),
     "classify": (CSRC + "residue.cu",
                  "nhwcodec_tpu/models/device_scans.py:1105"),
+    "ll2_code_y": (CSRC + "ll2.cu",
+                   "nhwcodec_tpu/models/device_scans.py:1899"),
+    "walk_visited": (CSRC + "ll2.cu",
+                     "nhwcodec_tpu/models/device_scans.py:1411"),
 }
 DECODE_KERNELS = ("synth_level", "y_stage2_full", "uv_synth")
 HQ_KERNELS = ("synth_unnorm_rows_t", "synth_norm_rows_clip_waves")
@@ -175,8 +197,8 @@ FALLBACK_KERNELS = ("synth_norm_rows_clip", "smooth_marks_seq")
 ENCODE_KERNELS = ("analysis_level_jp", "requant_tail", "colorspace_down420")
 # the groups of the encode breakdown timed inside encode_from_planes
 ENCODE_SCAN_GROUPS = ("host tokenizer", "host stream stage",
-                      "host E16 LL2 coders", "host E11 tail + E12",
-                      "host encode_uv, the rest")
+                      "host E16 LL2 coders", "host E17",
+                      "host E11 tail + E12", "host encode_uv, the rest")
 TRANSFORM_KERNELS = {"analysis_level": 4, "synth_level": 2,
                      "synth_unnorm_rows_t": 2, "synth_norm_rows_clip": 2}
 
@@ -2111,7 +2133,7 @@ def encode_phase(dev, images: np.ndarray, captured: dict) -> dict:
             for i, (img, g) in enumerate(zip(sel, out)):
                 check(g == host_encoder.encode(img, q),
                       f"q{q} stream {i} differs from the host encoder")
-        if q in STREAM_QS:
+        if q in STREAM_QS or q in LL2_QS:
             captured[q] = cap.records
         check(sha256(out[0]) == STREAM_SHA256[(fixture_for(q), q)],
               f"q{q} {fixture_for(q)} stream differs from the pinned digest")
@@ -2137,6 +2159,7 @@ def encode_phase(dev, images: np.ndarray, captured: dict) -> dict:
                    (quantize, "offset_uv"), (quantize, "serpentine_uv"))),
                (ll2, "ll2_code_y", "host E16 LL2 coders"),
                (ll2, "y_highres_compression", "host E16 LL2 coders"),
+               (ll2, "uv_highres_compression", "host E17"),
                *((m, f, "host E11 tail + E12") for m, f in (
                    (host_encoder, "_mid_q_band_cleanup"),
                    (host_encoder, "_pair_promotion"),
@@ -2176,30 +2199,42 @@ MERGE_OPS = 25
 
 class StreamCapture:
     """A context that records, for each host encode run inside it, what
-    goes into and comes out of the residue stage and the stream stage:
-    ``records`` gains one dict per encode, opened when ``encode_y`` is
-    called (before the E11 tail, and also at q <= LOW4, which has no E11
-    tail call), with "e11" (the (512, 512) Y plane at the first E11 call,
-    ``_mid_q_band_cleanup`` at q17..q19, else ``_pair_promotion``), "pp",
-    "res256", "resIII", "khead" (the plane, res256, resIII and kernel head
-    that ``residue.res256_column_ladder`` gets: the plane is pair
-    promotion's output), "res" (the res1*, res3* and res5* sections of
-    ``encode_y``'s result), "y" (the plane at the first snap pass), "uv"
-    ([U, V] (256, 256) planes just before ``offset_uv``), "sel" ((sel1,
-    sel2) of ``select_codes``) and "im_nhw" (the 6 SZ stream the tokenizer
-    or the packet builder got).  It wraps the host copy's
-    ``encoder.encode_y``, ``_mid_q_band_cleanup``, ``_pair_promotion``
-    and ``_band_snap_pass``, ``residue.res256_column_ladder``,
-    ``quantize.offset_uv``, ``quantize.select_codes`` and
-    ``entropy_enc.wavlts2packet_tokenize`` / ``wavlts2packet`` for its
-    duration."""
+    goes into and comes out of the LL2 stage, the residue stage and the
+    stream stage: ``records`` gains one dict per encode, opened when
+    ``encode_y`` is called (before the E11 tail, and also at q <= LOW4,
+    which has no E11 tail call), with "e11" (the (512, 512) Y plane at the
+    first E11 call, ``_mid_q_band_cleanup`` at q17..q19, else
+    ``_pair_promotion``), "pp", "res256", "resIII", "khead" (the plane,
+    res256, resIII and kernel head that ``residue.res256_column_ladder``
+    gets: the plane is pair promotion's output), "res" (the res1*, res3*
+    and res5* sections of ``encode_y``'s result), "y" (the plane at the
+    first snap pass), "uv" ([U, V] (256, 256) planes just before
+    ``offset_uv``), "sel" ((sel1, sel2) of ``select_codes``), "im_nhw"
+    (the 6 SZ stream the tokenizer or the packet builder got), and the LL2
+    stage's: "ll2y" (the plane ``ll2.ll2_code_y`` got, "in", and left,
+    "out", and its tree1, ch_res, exw and res4), "yhr"
+    (``ll2.y_highres_compression``'s ch, res_low, highres_word and
+    highres_mem), "ll2uv" (for U and V: the plane the host copy's C
+    ``nhw_ll2_code_uv`` got and left, its tree1_uv and exw) and "uvhr"
+    (``ll2.uv_highres_compression``'s input and bytes).  It wraps the host
+    copy's ``encoder.encode_y``, ``_mid_q_band_cleanup``,
+    ``_pair_promotion`` and ``_band_snap_pass``,
+    ``residue.res256_column_ladder``, ``quantize.offset_uv``,
+    ``quantize.select_codes``, ``entropy_enc.wavlts2packet_tokenize`` /
+    ``wavlts2packet``, ``ll2.ll2_code_y``, ``ll2.y_highres_compression``
+    and ``ll2.uv_highres_compression`` for its duration, and
+    ``native._load``, whose library it hands out behind a proxy that
+    records ``nhw_ll2_code_uv`` (a cffi library's attributes cannot be
+    replaced)."""
 
     def __init__(self):
         self.records: list[dict] = []
 
     def __enter__(self):
+        from nhwcodec_tpu_torch.host import native
         from nhwcodec_tpu_torch.host.models import encoder
-        from nhwcodec_tpu_torch.host.ops import entropy_enc, quantize, residue
+        from nhwcodec_tpu_torch.host.ops import (entropy_enc, ll2, quantize,
+                                                 residue)
 
         rec = self.records
         self._saved = saved = [
@@ -2212,9 +2247,13 @@ class StreamCapture:
             (quantize, "select_codes", quantize.select_codes),
             (entropy_enc, "wavlts2packet_tokenize",
              entropy_enc.wavlts2packet_tokenize),
-            (entropy_enc, "wavlts2packet", entropy_enc.wavlts2packet)]
+            (entropy_enc, "wavlts2packet", entropy_enc.wavlts2packet),
+            (ll2, "ll2_code_y", ll2.ll2_code_y),
+            (ll2, "y_highres_compression", ll2.y_highres_compression),
+            (ll2, "uv_highres_compression", ll2.uv_highres_compression),
+            (native, "_load", native._load)]
         (encode_y, midq, pair, ladder, snap, offset_uv, select, tokenize,
-         packet) = (f for *_, f in saved)
+         packet, ll2y, yhr, uvhr, load) = (f for *_, f in saved)
 
         def plane(pf):
             return np.array(pf[: 4 * SZ]).reshape(512, 512)
@@ -2264,9 +2303,60 @@ class StreamCapture:
             rec[-1]["im_nhw"] = np.array(im_nhw[: 6 * SZ], np.uint8)
             return packet(im_nhw, *a, **k)
 
+        def ll2y_w(process, *a, **k):
+            before = np.array(process, np.int16)
+            tree1, ch_res, exw, res4 = ll2y(process, *a, **k)
+            rec[-1]["ll2y"] = {"in": before, "out": np.array(process),
+                               "tree1": np.array(tree1),
+                               "ch_res": np.array(ch_res), "exw": list(exw),
+                               "res4": list(res4)}
+            return tree1, ch_res, exw, res4
+
+        def yhr_w(*a, **k):
+            out = yhr(*a, **k)
+            rec[-1]["yhr"] = dict(zip(("ch", "res_low", "hr_word", "hr_mem"),
+                                      (list(out[0]), int(out[1]),
+                                       list(out[2]), list(out[3]))))
+            return out
+
+        def uvhr_w(tree_uv, *a, **k):
+            out = uvhr(tree_uv, *a, **k)
+            rec[-1]["uvhr"] = {"in": np.array(tree_uv), "out": list(out)}
+            return out
+
+        class Lib:
+            """The host copy's C library, its LL2 UV coder recorded."""
+
+            def __init__(self, lib):
+                self._lib = lib
+
+            def __getattr__(self, name):
+                return getattr(self._lib, name)
+
+            def nhw_ll2_code_uv(self, pf, tree1, exw, n_exw):
+                ffi = native.ffi()
+
+                def plane():
+                    return np.frombuffer(ffi.buffer(pf, 2 * SZ), np.int16
+                                         ).reshape(256, 256).copy()
+
+                before = plane()
+                self._lib.nhw_ll2_code_uv(pf, tree1, exw, n_exw)
+                rec[-1].setdefault("ll2uv", []).append({
+                    "in": before, "out": plane(),
+                    "tree1": np.frombuffer(ffi.buffer(tree1, 4096),
+                                           np.uint8).copy(),
+                    "exw": np.frombuffer(ffi.buffer(exw, 4 * n_exw[0]),
+                                         np.int32).tolist()})
+
+        def load_w():
+            lib = load()
+            return None if lib is None else Lib(lib)
+
         for (mod, name, _), f in zip(saved, (
                 encode_y_w, midq_w, pair_w, ladder_w, snap_w, offset_uv_w,
-                select_w, tokenize_w, packet_w)):
+                select_w, tokenize_w, packet_w, ll2y_w, yhr_w, uvhr_w,
+                load_w)):
             setattr(mod, name, f)
         return self
 
@@ -2866,8 +2956,8 @@ def compare_batches(name: str, what: str, kern, twin, args: tuple) -> None:
         got = kern(*(a[:b] for a in args))
         got = got if isinstance(got, tuple) else (got,)
         err = max_abs_err(name, got, tuple(w[:b] for w in want))
-        print(f"kernel {name} ({b},512,512) {what}: max_abs_err {err} vs "
-              "torch twin", flush=True)
+        print(f"kernel {name} {tuple(args[0][:b].shape)} {what}: "
+              f"max_abs_err {err} vs torch twin", flush=True)
         check(err == 0, f"{name} disagrees with its torch twin on {what} "
               f"at batch {b}")
 
@@ -2970,6 +3060,390 @@ def residue_kernel_phase(dev, captured: dict) -> dict:
     print("encode scans: the res1/res3/res5 positional streams on the card "
           "equal the host copy's C on the no-code, every-position and "
           "isolated-marker rfs", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the device encode scans' LL2 stage: E16 (the Y LL2 byte coding and run-delta
+# compression) and E17 (the chroma LL2 coding and compression)
+# (models/device_encode_scans._y_ll2_stage, _uv_ll2_stage,
+# _uv_highres_stage, _ll2_sections)
+
+LL2_KERNELS = ("ll2_code_y", "walk_visited")
+LL2_LAUNCHES = {"ll2_code_y": 1, "walk_visited": 3}
+# q -> images whose host encodes are captured: the StreamCapture records of
+# encode_phase at q20 (the batch of 16), q21, q17, q16, q8 and q1 (its
+# batches of 4), and q15, captured inside encode_ll2_phase.  q > LOW3 marks
+# and nudges, q > LOW5 escapes in three bytes: q20 and q21 take both, q17
+# and q16 only the second, q15 and below neither
+LL2_QS = {20: B, 21: 4, 17: 4, 16: 4, 15: 4, 8: 4, 1: 4}
+# the functions' own operations, counted from the sources: an LL2 position
+# of ll2_code_y (the marking window, the 2a test, the cross-row tests, the
+# unmark); a position a walk stages (its jump) and a step it takes
+LL2_OPS = 45
+WALK_STAGE_OPS = 4
+WALK_STEP_OPS = 4
+
+
+def stack_ll2(records: list, q: int) -> dict:
+    """The captured encodes' LL2 stage as batches: "P" and "Pz" (B, 512,
+    512) int16, the plane ``ll2.ll2_code_y`` got and left; "u", "v" and
+    "uz", "vz" (B, 256, 256) int16, the planes the C ``nhw_ll2_code_uv``
+    got and left; "secs", each image's E16 and E17 sections as the host
+    copy's encode stores them, in ``ll2_sections``'s keys; "hr_mem", each
+    image's highres_mem."""
+    from nhwcodec_tpu_torch.host import tables as T
+
+    for r in records:
+        check("ll2y" in r and "yhr" in r and "uvhr" in r
+              and len(r.get("ll2uv", ())) == 2,
+              "a captured host encode lacks part of its LL2 stage (the UV "
+              "LL2 coding is captured through the host copy's C library)")
+    st = {"P": np.stack([r["ll2y"]["in"] for r in records]),
+          "Pz": np.stack([r["ll2y"]["out"] for r in records]),
+          "hr_mem": [np.array(r["yhr"]["hr_mem"], np.int64)
+                     for r in records], "secs": []}
+    for c, key in enumerate("uv"):
+        st[key] = np.stack([r["ll2uv"][c]["in"] for r in records])
+        st[key + "z"] = np.stack([r["ll2uv"][c]["out"] for r in records])
+    for r in records:
+        ly, yh, uvs = r["ll2y"], r["yhr"], r["ll2uv"]
+        sec = {"exw_Y": ly["exw"], "res_low": yh["res_low"],
+               "highres_word": np.array(yh["hr_word"], np.uint8),
+               "hrcomp_y": yh["ch"], "tree1_y": ly["tree1"],
+               "exw_uv": [0, 0] + uvs[0]["exw"] + [0, 0] + uvs[1]["exw"],
+               "ch_res_uv": r["uvhr"]["out"], "tree1_u": uvs[0]["tree1"],
+               "tree1_v": uvs[1]["tree1"]}
+        if q > T.LOW3:
+            sec["res4"] = np.array(ly["res4"], np.uint8)
+        if q > T.LOW5:
+            sec["res_U_64"] = np.packbits((uvs[0]["tree1"] >> 1) & 1)
+            sec["res_V_64"] = np.packbits((uvs[1]["tree1"] >> 1) & 1)
+        check(np.array_equal(r["uvhr"]["in"], np.concatenate(
+            [uvs[0]["tree1"], uvs[1]["tree1"]]) & 252),
+              "the host's UV highres input is not its tree1_uv & 252")
+        st["secs"].append(sec)
+    return st
+
+
+def ll2_sections_equal(got: list, want: list) -> list:
+    """The (image, section) pairs where two lists of LL2 sections part,
+    compared as integers."""
+    bad = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        for key in sorted(set(g) | set(w)):
+            if key not in g or key not in w or not np.array_equal(
+                    np.asarray(g[key], np.int64), np.asarray(w[key],
+                                                             np.int64)):
+                bad.append((i, key))
+    return bad
+
+
+def ll2_sections(y: dict, uv: dict) -> tuple:
+    """Each image's E16 and E17 sections in one dict, and hr_mem
+    (``_ll2_sections`` and ``_uv_ll2_sections``)."""
+    from nhwcodec_tpu_torch.models import device_encode_scans as des
+
+    secs, mems = des._ll2_sections(y)
+    for sec, uv_sec in zip(secs, des._uv_ll2_sections(uv)):
+        sec.update(uv_sec)
+    return secs, mems
+
+
+def device_ll2_stage(args: tuple, q: int):
+    """The port's LL2 stage on (P, U, V) device planes: E16 on Y, E17's
+    head on U and V, then E17.  Returns (Pz, Uz, Vz, y, uv): the zeroed
+    planes and the dicts ``ll2_sections`` slices."""
+    from nhwcodec_tpu_torch.models import device_encode_scans as des
+
+    P, U, V = args
+    Pz, y = des._y_ll2_stage(P, q)
+    u = des._uv_ll2_stage(U, q)
+    v = des._uv_ll2_stage(V, q)
+    return Pz, u[0], v[0], y, des._uv_highres_stage(u, v, q)
+
+
+def host_ll2_code_uv(process: np.ndarray) -> tuple:
+    """The host copy's C ``nhw_ll2_code_uv`` on a (256, 256) int16 plane,
+    in place, as ``encoder.encode_uv`` calls it: (tree1_uv, exw)."""
+    from nhwcodec_tpu_torch.host import native
+
+    lib, ffi = native._load(), native.ffi()
+    tree1 = np.zeros(4096, np.uint8)
+    exw = np.empty(3 * 4096, np.int32)
+    n = ffi.new("long *")
+    lib.nhw_ll2_code_uv(ffi.cast("int16_t *", process.ctypes.data),
+                        ffi.cast("uint8_t *", tree1.ctypes.data),
+                        ffi.cast("int32_t *", exw.ctypes.data), n)
+    return tree1, exw[: n[0]].tolist()
+
+
+def host_ll2_stage(st: dict, q: int) -> list:
+    """The host copy's LL2 stage (its C) on the captured planes, image by
+    image as ``encoder.encode_y``, ``encode_uv`` and ``encode`` run it:
+    returns each image's zeroed planes, ch, hr_mem and the UV bytes."""
+    from nhwcodec_tpu_torch.host.ops import ll2
+
+    out = []
+    for k in range(len(st["P"])):
+        process = st["P"][k].copy()
+        tree1, ch_res, _, _ = ll2.ll2_code_y(process, q)
+        ch, _, _, hr_mem = ll2.y_highres_compression(tree1, ch_res, q)
+        t1 = []
+        for key in "uv":
+            p = st[key][k].copy()
+            t1.append(host_ll2_code_uv(p)[0])
+        tail = ll2.uv_highres_compression(np.concatenate(t1) & 252)
+        out.append((process, ch, hr_mem, tail))
+    return out
+
+
+def record_walks(fn) -> list:
+    """The successor arrays ``fn()`` hands ``walk_visited_device``, in
+    order (the Y walk, its squeeze walk, the UV walk for a stage)."""
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    seen, walk = [], ds.walk_visited_device
+
+    def rec(nxt, start=1):
+        seen.append(nxt.clone())
+        return walk(nxt, start)
+
+    ds.walk_visited_device = rec
+    try:
+        fn()
+    finally:
+        ds.walk_visited_device = walk
+    return seen
+
+
+def ll2_inputs(st: dict, dev) -> tuple:
+    """The LL2 stage's captured inputs on ``dev``: (P, U, V)."""
+    import torch
+
+    return tuple(torch.from_numpy(st[k]).to(dev) for k in ("P", "u", "v"))
+
+
+def encode_ll2_phase(dev, images: np.ndarray, captured: dict) -> dict:
+    """The LL2 stage on the card (``_y_ll2_stage``, ``_uv_ll2_stage`` for U
+    and V, ``_uv_highres_stage``, ``_ll2_sections``,
+    ``_uv_ll2_sections``) once a batch on the
+    planes captured from the host copy's own encodes: the encode batch's 16
+    images at q20 and 4 images each at q21, q17, q16, q15 (captured here),
+    q8 and q1.  Each batch's zeroed Y, U and V planes, every E16 section
+    (exw_Y, res4, res_low, highres_word, hrcomp_y, tree1_y), hr_mem,
+    tree1_uv, the UV exw continuation, res_U_64/res_V_64 and ch_res's UV
+    tail byte for byte against the host's, with ll2_code_y launched once a
+    batch and walk_visited three times.  Times the q20 batch's stage (CUDA
+    events, median of RUNS; a profile) beside the host copy's C on the same
+    planes (host timer, median of 5).  Returns the q20 batch's
+    launches."""
+    import torch
+
+    from nhwcodec_tpu_torch.host.models import encoder as host_encoder
+    from nhwcodec_tpu_torch.kernels import build
+    from nhwcodec_tpu_torch.models import device_encode_scans as des
+
+    with StreamCapture() as cap:
+        for img in quality_batch(images, 15):
+            host_encoder.encode(img, 15)
+    captured[15] = cap.records
+    out = None
+    for q, want_b in LL2_QS.items():
+        st = stack_ll2(captured[q], q)
+        check(len(st["P"]) == want_b,
+              f"q{q}: captured {len(st['P'])} host encodes, not {want_b}")
+        args = ll2_inputs(st, dev)
+        build.reset_launches()
+        Pz, Uz, Vz, y, uv = device_ll2_stage(args, q)
+        secs, mems = ll2_sections(y, uv)
+        launches = {k: build.LAUNCHES[k] for k in LL2_KERNELS}
+        check(launches == LL2_LAUNCHES,
+              f"q{q}: LL2 stage launches {launches}, not {LL2_LAUNCHES}")
+        for got, key in ((Pz, "Pz"), (Uz, "uz"), (Vz, "vz")):
+            diff = np.argwhere(got.cpu().numpy() != st[key])
+            check(diff.size == 0, f"q{q}: the LL2 stage's {key} plane "
+                  f"differs from the host copy's at {diff[:8].tolist()}")
+        bad = ll2_sections_equal(secs, st["secs"])
+        check(not bad, f"q{q}: LL2 sections differ from the host copy's at "
+              f"(image, section) {bad[:8]}")
+        bad = [i for i, (g, w) in enumerate(zip(mems, st["hr_mem"]))
+               if not np.array_equal(g, w)]
+        check(not bad, f"q{q}: hr_mem differs from the host copy's for "
+              f"images {bad}")
+        print(f"encode scans: LL2 stage at q{q}, batch {want_b}, "
+              "byte-identical to the host copy: the zeroed Y, U and V planes, "
+              f"the {len(secs[0])} E16/E17 sections of each image (res_low "
+              f"{[s['res_low'] for s in secs]}, hrcomp_y bytes "
+              f"{[len(s['hrcomp_y']) for s in secs]}, UV tail bytes "
+              f"{[len(s['ch_res_uv']) for s in secs]}, escapes "
+              f"{[len(s['exw_Y']) // 3 for s in secs]}) and hr_mem "
+              f"({[len(m) for m in mems]} entries); launches {launches}",
+              flush=True)
+        if q != 20:
+            continue
+        out = launches
+        dev_ms = median_ms(lambda: device_ll2_stage(args, q))
+        t0 = time.perf_counter()
+        ll2_sections(y, uv)
+        sec_ms = (time.perf_counter() - t0) * 1e3
+        hout = host_ll2_stage(st, q)
+        check(all(np.array_equal(p, st["Pz"][k]) and ch == st["secs"][k][
+            "hrcomp_y"] and hm == list(st["hr_mem"][k]) and tail == st[
+                "secs"][k]["ch_res_uv"]
+                  for k, (p, ch, hm, tail) in enumerate(hout)),
+              "the host copy's LL2 stage on the captured planes differs "
+              "from its own encode")
+        host = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            host_ll2_stage(st, q)
+            host.append((time.perf_counter() - t0) * 1e3)
+        print(f"encode scans: LL2 stage (E16 + E17), batch {want_b} q20: "
+              f"device {dev_ms:.4f} ms (CUDA events, median of {RUNS}), the "
+              f"sections to the host {sec_ms:.2f} ms (host timer, once); host "
+              f"copy's C {float(np.median(host)):.2f} ms (host timer, median "
+              "of 5)", flush=True)
+        print_profile(f"encode scans LL2 stage, batch {want_b} q20",
+                      lambda: device_ll2_stage(args, q))
+    return out
+
+
+def ll2_edge_planes(rng, b, kind: str) -> np.ndarray:
+    """(B, 512, 512) int16 planes for S7: "runs and marks" (odd-heavy
+    values with odd 4-runs starting at columns 120..125, so ending at
+    123..128, escapes at positions 0 and 1, and values just above and
+    below 10000 and 20000 and int16 extremes, each between even
+    neighbours: no mark or nudge reaches them, as none does in a real
+    plane, where the host's C, which keeps the plane in int16, would
+    wrap), "all even", or "dense odd" (every LL2 value odd and small: the
+    most marks and nudges)."""
+    if kind == "all even":
+        return (rng.integers(-200, 600, (b, 512, 512)) * 2).astype(np.int16)
+    if kind == "dense odd":
+        return rng.choice(np.array([1, 3, 5, 7, 9, -1, -3], np.int16),
+                          (b, 512, 512))
+    x = rng.integers(-40, 300, (b, 512, 512)).astype(np.int16)
+    x[:, :131, :131] |= rng.choice(np.array([1, 1, 1, 0], np.int16),
+                                   (b, 131, 131))
+    for r, c in enumerate(range(120, 126)):
+        x[:, 2 * r + 1, c - 2: c + 6] = (11, 2, 13, 15, 17, 19, 4, 6)
+    big = np.array([10001, 10003, 9999, 20001, 20003, 19999, 32767, -32768,
+                    16001, 24001], np.int16)
+    for i in range(b):
+        rows, cols = rng.integers(0, 131, 24), 3 * rng.integers(0, 44, 24)
+        x[i, rows, cols] = rng.choice(big, 24)
+        for c in (cols - 1, cols + 1):
+            x[i, rows[c >= 0], c[c >= 0]] &= ~1
+    x[:, 0, 0] = np.where(np.arange(b) % 2, 300, -7)
+    x[:, 0, 1] = np.where(np.arange(b) % 2, -5, 256)
+    return x
+
+
+def walk_edge_rows(rng, b, kind: str) -> np.ndarray:
+    """(B, n) int32 successors for S8: "jumps of 65" (every jump 65, n =
+    24641, parks from 16384 on as the Y walk's), "jumps 255/256" (jumps of
+    255 and 256 at random), "long jumps" (random jumps up to 4096, and one
+    row walking 1 -> 65535), "parks" (random jumps of 1-3 with a park, a
+    successor >= n, at every position with probability 1/50, and a
+    non-increasing successor in image 0)."""
+    if kind == "jumps of 65":
+        idx = np.arange(24641)
+        row = np.where(idx < 16384, idx + 65, 24641)
+        return np.broadcast_to(row, (b, 24641)).astype(np.int32).copy()
+    n = 65536
+    idx = np.arange(n)[None]
+    if kind == "jumps 255/256":
+        return (idx + rng.choice([255, 256], (b, n))).astype(np.int32)
+    if kind == "long jumps":
+        x = (idx + rng.integers(1, 4097, (b, n))).astype(np.int32)
+        x[0, 1] = n - 1
+        return x
+    x = (idx + rng.integers(1, 4, (b, n))).astype(np.int32)
+    park = rng.random((b, n)) < 0.02
+    x[park] = n + rng.integers(0, 1 << 20, int(park.sum()))
+    x[0, 1000] = 1000
+    return x
+
+
+def squeeze_edge_rows(rng, b, q_gt_low5: bool):
+    """(B, 65536) successors of the Y coder's squeeze walk (device_scans.
+    _squeeze_nodes) over byte buffers whose 64 and 128 codes sit at the
+    bound: codes at n_ch - 4..n_ch - 1 (the last node can take a 64 or a
+    128 whose bytes reach past it, or land exactly on n_ch - 1), n_ch from
+    2 to 49153."""
+    import torch
+
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    ch = rng.choice(np.array([64, 128, 3, 70, 200], np.int32), (b, 65536))
+    n_ch = rng.integers(2, 49154, b).astype(np.int32)
+    n_ch[0] = 2
+    for i in range(b):
+        k = int(n_ch[i])
+        ch[i, max(k - 4, 1): k] = rng.choice(np.array([64, 128], np.int32),
+                                             min(4, k - 1))
+    return ds._squeeze_nodes(torch.from_numpy(ch), torch.from_numpy(n_ch),
+                             q_gt_low5)[3].numpy()
+
+
+def ll2_kernel_phase(dev, captured: dict) -> dict:
+    """S7 and S8 against their twins (max_abs_err 0): timed on the q20
+    batch's captured inputs (ll2_code_y on the planes ll2_code_y got, both
+    values of gt_low3; walk_visited on the stage's three walks: the Y walk
+    (16, 24641), the squeeze (16, 65536) and the UV walk (16, 8272)); then
+    at batch 1, 3 and 16 (``compare_batches``) on S7's edge planes with
+    gt_low3 both ways and S8's edge rows and squeeze rows whose 64/128
+    codes sit at the bound."""
+    import torch
+
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    out = {}
+    st = stack_ll2(captured[20], 20)
+    args = ll2_inputs(st, dev)
+    P = args[0]
+    ll_bytes = B * (2 * 131 * 131 + 5 * ds.LL_N)
+    out["ll2_code_y"] = compare_and_time(
+        "ll2_code_y", f"({B},512,512) int16, q20 LL2 planes",
+        lambda: ds.ll2_code_y_scan(P, True),
+        lambda: ds.ll2_code_y_ref(P, True), twin_calls=1, twin_runs=5,
+        bound=work(ll_bytes, LL2_OPS * B * ds.LL_N), graph=True)
+    compare_and_time("ll2_code_y", "gt_low3 off, q20 LL2 planes",
+                     lambda: ds.ll2_code_y_scan(P, False),
+                     lambda: ds.ll2_code_y_ref(P, False), timed=False)
+    walks = record_walks(lambda: device_ll2_stage(args, 20))
+    check(len(walks) == 3, f"the LL2 stage made {len(walks)} walks, not 3")
+    shapes = {}
+    for what, nxt in zip(("Y walk", "squeeze walk", "UV walk"), walks):
+        b, n = nxt.shape
+        steps = int(ds.walk_visited_device(nxt).sum())
+        shapes[f"({b},{n})"] = compare_and_time(
+            "walk_visited", f"({b},{n}) int32, the q20 batch's {what} "
+            f"({steps} steps)", lambda x=nxt: ds.walk_visited_device(x),
+            lambda x=nxt: ds.walk_visited_ref(x), twin_calls=1, twin_runs=5,
+            bound=work(5 * b * n, WALK_STAGE_OPS * b * n
+                       + WALK_STEP_OPS * steps), graph=True)
+    out["walk_visited"] = shape_sums("walk_visited", shapes,
+                                     f"({B},65536)")
+    rng = np.random.default_rng(SEED + 50)
+    for kind in ("runs and marks", "all even", "dense odd"):
+        x = torch.from_numpy(ll2_edge_planes(rng, B, kind)).to(dev)
+        for gt in (True, False):
+            compare_batches("ll2_code_y", f"{kind} planes, gt_low3 {gt}",
+                            lambda a, gt=gt: ds.ll2_code_y_scan(a, gt),
+                            lambda a, gt=gt: ds.ll2_code_y_ref(a, gt), (x,))
+    for kind in ("jumps of 65", "jumps 255/256", "long jumps", "parks"):
+        x = torch.from_numpy(walk_edge_rows(rng, B, kind)).to(dev)
+        compare_batches("walk_visited", f"{kind} rows",
+                        ds.walk_visited_device, ds.walk_visited_ref, (x,))
+    for g5 in (True, False):
+        x = torch.from_numpy(squeeze_edge_rows(rng, B, g5)).to(dev)
+        compare_batches("walk_visited", f"squeeze rows, codes at the bound "
+                        f"(q_gt_low5 {g5})", ds.walk_visited_device,
+                        ds.walk_visited_ref, (x,))
+    print("encode scans: S7 and S8 equal their twins at batch 1, 3 and 16 on "
+          "the LL2 edge planes and the walk edge rows", flush=True)
     return out
 
 
@@ -3248,7 +3722,7 @@ def main() -> int:
                  "snap_pass", "offset_y_rows", "offset_y_ll",
                  "offset_y_codes", "merge_tiles", "merge_entries",
                  "merge_emit", "pair_promotion", "column_ladder",
-                 "classify"))
+                 "classify", "ll2_code_y", "walk_visited"))
 
     # the paths first: a profiler window of very many launches (the K5
     # twin's) can leave later windows incomplete
@@ -3262,11 +3736,13 @@ def main() -> int:
     launches.update(encode_phase(dev, images, captured))
     launches.update(encode_scans_phase(dev, captured))
     launches.update(encode_residue_phase(dev, images, captured))
+    launches.update(encode_ll2_phase(dev, images, captured))
     launches["analysis_level"] = transform_phase(dev)["analysis_level"]
     # the kernels whose twins make the longest profiler windows (the scan's,
     # K5's, the column ladder's: 76,000 launches) last; the phases after
     # them use no profiler
     timings = transform_kernel_phase(dev)
+    timings.update(ll2_kernel_phase(dev, captured))
     timings.update(entropy_kernel_phase(dev, chunks))
     timings.update(scan_kernel_phase(dev, captured))
     timings.update(kernel_phase(dev))

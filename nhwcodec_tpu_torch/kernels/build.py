@@ -87,6 +87,10 @@ SIGNATURES = {
     "nhw_column_ladder": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # (plane, res256, out, rf_out, counts, batch, hi1, res_setting, stream)
     "nhw_classify": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # (plane, vem, is24, batch, gt_low3, stream)
+    "nhw_ll2_code_y": [_P, _P, _P, _I, _I, _P],
+    # (nxt, visited, batch, n, start, stream)
+    "nhw_walk_visited": [_P, _P, _I, _I, _I, _P],
 }
 
 LAUNCHES = {"synth_level": 0, "y_stage2_full": 0, "uv_synth": 0,
@@ -96,7 +100,8 @@ LAUNCHES = {"synth_level": 0, "y_stage2_full": 0, "uv_synth": 0,
             "synth_norm_rows_clip": 0, "smooth_marks_seq": 0,
             "analysis_level": 0, "chain_starts": 0, "y_runs_fixpoint": 0,
             "snap_pass": 0, "offset_y": 0, "merge_crossing": 0,
-            "pair_promotion": 0, "column_ladder": 0, "classify": 0}
+            "pair_promotion": 0, "column_ladder": 0, "classify": 0,
+            "ll2_code_y": 0, "walk_visited": 0}
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()

@@ -3,10 +3,17 @@
 Port of ``nhwcodec_tpu.models.device_encode_scans``.  The JAX function
 ``encode_batch_scans_device`` runs every post-transform raster scan of
 the encoder on the device, stage-major: each device stage runs once for
-the whole batch.  This module holds its last two stages so far, cut from
-the JAX function into helpers that a later ``encode_batch_scans_device``
-calls, each once for the whole batch:
+the whole batch.  This module holds its last three stages so far, cut
+from the JAX function into helpers that a later
+``encode_batch_scans_device`` calls, each once for the whole batch:
 
+- ``_y_ll2_stage``: E16, the Y LL2 byte coding and run-delta
+  compression, on the plane after the low-q cleanups; ``_uv_ll2_stage``
+  (one chroma component's LL2 byte coding) and ``_uv_highres_stage``
+  (E17, the two components' run-delta compression); ``_ll2_sections``
+  slices each image's E16 sections, and the ``hr_mem`` list that the
+  host's part-0 offset takes, out of them on the host, and
+  ``_uv_ll2_sections`` the E17 sections;
 - ``_y_residue_stage``: the E11 tail (the mid-q band cleanup, pair
   promotion) and E12 (the res256 column ladder, classify, the res1, res3
   and res5 positional streams) on the plane after the host's E10 part-0
@@ -17,17 +24,21 @@ calls, each once for the whole batch:
 - ``_uv_stream_stage``: the E14 chroma quantizer and serpentine of one
   component, written into the stream's UV half.
 
-The residue stage's plane goes straight into the stream stage.  Y's
-merge, select and cap run before any UV byte is written: the select
-reads up to five bytes past a candidate, so near 4 SZ it reads the UV
-half, which must still be zero then.  Together they give the res
-sections, the whole 6 SZ ``im_nhw`` and ``nhw_select1/2``,
-byte-identical to the host copy's ``encoder.encode_y`` from its E11 tail
-on and ``encode_uv``'s ``offset_uv`` + ``quantize.serpentine_uv``
+The LL2 stage covers q1..HIGH1 and its sections are byte-identical to
+the host copy's ``ll2.ll2_code_y`` + ``ll2.y_highres_compression``, its C
+``nhw_ll2_code_uv`` and ``ll2.uv_highres_compression``
+(tests/test_torch_encode_ll2_stage.py).  The residue stage's plane goes
+straight into the stream stage.  Y's merge, select and cap run before
+any UV byte is written: the select reads up to five bytes past a
+candidate, so near 4 SZ it reads the UV half, which must still be zero
+then.  Together they give the res sections, the whole 6 SZ ``im_nhw``
+and ``nhw_select1/2``, byte-identical to the host copy's
+``encoder.encode_y`` from its E11 tail on and ``encode_uv``'s
+``offset_uv`` + ``quantize.serpentine_uv``
 (tests/test_torch_encode_residue_stage.py,
 tests/test_torch_encode_scans.py).
-The stages cover LOW4 < q <= HIGH1; q <= LOW4 needs ``offset_y_low4``
-and the low-q cleanups.
+The residue and stream stages cover LOW4 < q <= HIGH1; q <= LOW4 needs
+``offset_y_low4`` and the low-q cleanups.
 """
 
 from __future__ import annotations
@@ -189,3 +200,106 @@ def _uv_stream_stage(stream: torch.Tensor, Pm2: torch.Tensor,
     su = ds.serpentine_uv_device(ds.offset_uv_device(Pm2, RATIO))
     stream[:, 4 * SZ + comp: 6 * SZ + comp - 1: 2] = su
     return stream
+
+
+# ---------------------------------------------------------------------------
+# the LL2 stage: E16 and E17 (JAX device_encode_scans.py:104-133, 341-370)
+
+
+def _ll2_range(q: int) -> None:
+    if not 1 <= q <= T.HIGH1:
+        raise ValueError(f"the device LL2 stage covers q1..q{T.HIGH1}, got "
+                         f"q{q} (above, the HQ residue stays on the host)")
+
+
+def _y_ll2_stage(P: torch.Tensor, q: int):
+    """E16 on the (B, 512, 512) int16 Y plane after the low-q cleanups,
+    as the host copy's ``ll2.ll2_code_y`` gets it: the LL2 byte coding,
+    then the run-delta compression of tree1 followed by the zero tail the
+    C reads past it.  Returns (the plane with its LL2 block zeroed, a
+    dict of the device tensors that ``_ll2_sections`` slices)."""
+    _ll2_range(q)
+    ds._check_plane(P, "LL2 stage plane", N)
+    Pz, tree1, ch_res, exw, n_exw, res4, n_res4 = ds.ll2_code_y_device(
+        P, q > T.LOW3)
+    h = torch.zeros((P.shape[0], ds.YH_PAD), dtype=torch.int32,
+                    device=P.device)
+    h[:, : ds.YH_N] = tree1
+    hr, n_hr, res_low, hw, n_hw, hm, n_hm = ds.y_highres_device(
+        h, ch_res.to(torch.int32), q > T.LOW5)
+    return Pz, {"q": q, "tree1": tree1, "exw": exw, "n_exw": n_exw,
+                "res4": res4, "n_res4": n_res4, "hrcomp": hr,
+                "n_hrcomp": n_hr, "res_low": res_low, "hr_word": hw,
+                "n_hw": n_hw, "hr_mem": hm, "n_hm": n_hm}
+
+
+def _uv_ll2_stage(Pm: torch.Tensor, q: int):
+    """E17's head for one chroma component: the (B, 256, 256) int16
+    plane as ``encode_uv``'s LL2 coding reads it -> (the plane with its
+    LL2 block zeroed, ``offset_uv``'s input, tree1_uv (B, 4096) uint8, exw
+    (B, 4096, 3) int32, n_exw (B,) int32)."""
+    _ll2_range(q)
+    return ds.ll2_code_uv_device(Pm)
+
+
+def _uv_highres_stage(u: tuple, v: tuple, q: int):
+    """E17 on the two components' ``_uv_ll2_stage`` results: the
+    run-delta compression of their tree1_uv, &252-masked, followed by the
+    zero tail the C reads past them.  Returns a dict of device tensors for
+    ``_uv_ll2_sections``: ch_res's UV tail and its count, and the
+    components' tree1_uv and exw."""
+    _ll2_range(q)
+    t1u, t1v = u[1], v[1]
+    b = t1u.shape[0]
+    for t, name in ((t1u, "tree1_u"), (t1v, "tree1_v")):
+        ds._check(t, f"UV highres {name}", torch.uint8, (b, ds.UV_N // 2))
+    h = torch.zeros((b, ds.UV_PAD), dtype=torch.int32, device=t1u.device)
+    h[:, : ds.UV_N] = torch.cat([t1u, t1v], 1).to(torch.int32) & 252
+    tail, n_tail = ds.uv_highres_device(h)
+    return {"q": q, "tail": tail, "n_tail": n_tail, "tree1_u": t1u,
+            "tree1_v": t1v, "exw_u": u[2], "n_u": u[3], "exw_v": v[2],
+            "n_v": v[3]}
+
+
+def _ll2_sections(y: dict) -> tuple:
+    """Each image's E16 sections from ``_y_ll2_stage``, as the host's
+    ``encode_y`` stores them: "exw_Y" (list), "res4" (above LOW3),
+    "res_low", "highres_word", "hrcomp_y" (list) and "tree1_y" (JAX
+    :113-133).  Returns (the sections, each image's hr_mem as int64: the
+    list the host's part-0 offset takes, before E17 runs)."""
+    q = y["q"]
+    h = {k: t.cpu().numpy() for k, t in y.items() if k != "q"}
+    secs, mems = [], []
+    for k in range(len(h["tree1"])):
+        sec = {"exw_Y": h["exw"][k, : h["n_exw"][k]].reshape(-1).tolist()}
+        if q > T.LOW3:
+            sec["res4"] = h["res4"][k, : h["n_res4"][k]].astype(np.uint8)
+        sec["res_low"] = int(h["res_low"][k])
+        sec["highres_word"] = h["hr_word"][k, : h["n_hw"][k]].astype(
+            np.uint8)
+        sec["hrcomp_y"] = h["hrcomp"][k, : h["n_hrcomp"][k]].tolist()
+        sec["tree1_y"] = h["tree1"][k]
+        secs.append(sec)
+        mems.append(h["hr_mem"][k, : h["n_hm"][k]].astype(np.int64))
+    return secs, mems
+
+
+def _uv_ll2_sections(uv: dict) -> list[dict]:
+    """Each image's E17 sections from ``_uv_highres_stage`` (JAX
+    :351-370): "exw_uv", the exw continuation [0, 0] + exw_u + [0, 0] +
+    exw_v that ``encode`` appends to exw_Y, "ch_res_uv" (list), the UV
+    tail it appends to hrcomp_y, "tree1_u", "tree1_v" and, above LOW5,
+    "res_U_64" and "res_V_64"."""
+    h = {k: t.cpu().numpy() for k, t in uv.items() if k != "q"}
+    out = []
+    for k in range(len(h["tail"])):
+        sec = {"exw_uv": (
+            [0, 0] + h["exw_u"][k, : h["n_u"][k]].reshape(-1).tolist()
+            + [0, 0] + h["exw_v"][k, : h["n_v"][k]].reshape(-1).tolist()),
+            "ch_res_uv": h["tail"][k, : h["n_tail"][k]].tolist(),
+            "tree1_u": h["tree1_u"][k], "tree1_v": h["tree1_v"][k]}
+        if uv["q"] > T.LOW5:
+            sec["res_U_64"] = np.packbits((h["tree1_u"][k] >> 1) & 1)
+            sec["res_V_64"] = np.packbits((h["tree1_v"][k] >> 1) & 1)
+        out.append(sec)
+    return out

@@ -3,13 +3,15 @@
 Port of ``nhwcodec_tpu.models.device_scans``, with the same public names
 and results equal to the host copy's C scans
 (``nhwcodec_tpu_torch.host.ops.quantize``, ``host.ops.residue``,
-``host.models.encoder``).  This module holds the two stages at the end of
-the scan pipeline: the residue stage (the E11 mid-q cleanup and pair
+``host.models.encoder``, ``host.ops.ll2``).  This module holds the three
+stages at the end of the scan pipeline: the LL2 stage (the E16 Y LL2
+byte coding and run-delta compression, the E17 chroma LL2 coding and
+compression), the residue stage (the E11 mid-q cleanup and pair
 promotion, the E12 column ladder, classify and positional streams) and
 the stream stage (the E11 snap passes, the E14 quantizers and the E15
 stream fixups).
 
-Six programs carry a serial chain and are CUDA kernels, each beside a
+Eight programs carry a serial chain and are CUDA kernels, each beside a
 torch twin (``*_ref``) of the same decomposition.  In ``csrc/scans.cu``:
 
 - ``snap_pass_device`` (kernel ``snap_pass``): the neighbour count of the
@@ -43,11 +45,26 @@ In ``csrc/residue.cu``:
 - ``classify_device`` (kernel ``classify``): a walk over the rows a
   column, carrying the band value the previous row wrote.
 
+In ``csrc/ll2.cu``:
+
+- ``ll2_code_y_scan`` (kernel ``ll2_code_y``), the serial part of
+  ``ll2_code_y_device``: the 4-run odd-marking pre-pass (a skip walk a
+  row) and the 128-step nudge scan over the rows, one CTA an image and a
+  thread a column; the within-row 2a fires are a run parity.
+- ``walk_visited_device`` (kernel ``walk_visited``): the visited mask of
+  a forward walk over static successors, one CTA a stream, the jumps
+  staged in shared memory and walked by one thread.  The Y highres walk,
+  its squeeze walk and the UV highres walk use it.
+
 The rest are torch ops: the serpentines (one gather each), the select
 codes (shifts, run parity and two sums), the run cap (``cummax`` run
 starts and a closed-form crossing count), ``offset_uv_device``, the mid-q
-cleanup (elementwise) and the positional streams (cumsum ranks and
-scatters; the pair pack's skip walk is a run parity).
+cleanup (elementwise), the positional streams (cumsum ranks and
+scatters; the pair pack's skip walk is a run parity), and the LL2
+coders' emissions: the escape fill ("last non-escape value", a
+``cummax`` of indices), the per-node successors and emissions of the
+highres walks (``torch.where`` chains, streak lengths by a reversed
+``cummin``) and the compactions.
 
 Each kernel wrapper launches its kernel for CUDA tensors and raises if
 the build or the launch fails; it takes its twin only for tensors on the
@@ -1249,3 +1266,507 @@ def positional_stream_device(rf, wt, rt, word_bits: int):
     nmv, n_nm = _compact(nm, ded & 1, 0, P_MAX)
     return (rf_new.reshape(b, D, D).to(torch.int16), packed, npacked,
             _pack_lsbs(nmv, 1), n_nm, _pack_lsbs(words, word_bits), nwords)
+
+
+# ---------------------------------------------------------------------------
+# E16/E17 walks: the visited mask of a forward walk over static successors.
+# The highres coders' per-node successor and emission are pure functions of
+# their input buffer, so each coder is one walk from node 1.
+
+WALK_MAX_N = 1 << 16      # csrc/ll2.cu kWalkMaxN: jumps staged as uint16
+
+
+def _walk_args(nxt, start: int) -> None:
+    _check(nxt, "walk_visited nxt", torch.int32, (None, None))
+    n = nxt.shape[1]
+    if not 1 <= n <= WALK_MAX_N:
+        raise ValueError(f"walk_visited: rows of {n} successors; a jump "
+                         f"must fit 16 bits, so at most {WALK_MAX_N}")
+    if not 0 <= start < n:
+        raise ValueError(f"walk_visited: start {start} outside [0, {n})")
+    if not nxt.is_contiguous():
+        raise ValueError("walk_visited nxt: must be contiguous")
+
+
+def walk_visited_ref(nxt, start: int = 1):
+    """Torch twin of ``walk_visited``: each row walked as a Python list,
+    start -> nxt[start] -> ..., ending at the first successor outside
+    (i, n)."""
+    _walk_args(nxt, start)
+    b, n = nxt.shape
+    rows, cols = [], []
+    for k, row in enumerate(nxt.cpu().tolist()):
+        i = start
+        while True:
+            rows.append(k)
+            cols.append(i)
+            t = row[i]
+            if not i < t < n:
+                break
+            i = t
+    vis = np.zeros((b, n), bool)
+    vis[rows, cols] = True
+    return torch.from_numpy(vis).to(nxt.device)
+
+
+def walk_visited_device(nxt, start: int = 1):
+    """The visited mask (B, n) bool of the walk start -> nxt[start] -> ...
+    over (B, n) int32 successors, n <= 65536.  Successors increase
+    (nxt[i] > i); one >= n parks the walk, and the walk also ends at one
+    that does not increase.  The JAX package resolves it by pointer
+    doubling (``_walk_visited``); here it is kernel ``walk_visited`` (one
+    launch, one CTA a row)."""
+    _walk_args(nxt, start)
+    if nxt.device.type == "cpu":
+        return walk_visited_ref(nxt, start)
+    lib, stream = _cuda_args(nxt)
+    b, n = nxt.shape
+    vis = torch.empty((b, n), dtype=torch.bool, device=nxt.device)
+    if b:
+        with torch.cuda.device(nxt.device):
+            build.check("nhw_walk_visited", lib.nhw_walk_visited(
+                nxt.data_ptr(), vis.data_ptr(), b, n, start, stream))
+        build.count("walk_visited")
+    return vis
+
+
+# ---------------------------------------------------------------------------
+# E16 head: the Y LL2 byte coding (host.ops.ll2.ll2_code_y,
+# encoder/nhw_encoder.c:636-743).  The 4-run odd marking is a skip walk a
+# row (its windows see the original parities: the marks are even).  The
+# odd-pattern nudges chain within a row only through the 2a fire's +1 on
+# the next column, which makes that column even (a run parity), and into
+# the next row (a 128-step scan carrying ``pend``).  Escapes emit the last
+# non-escaped value.
+
+LL = 128                 # the Y LL2 block's side
+LL_ROW = LL + 3          # the scan's row: the reads at j = 126/127 reach
+                         # plane columns 128-129 (the band area)
+LL_N = LL * LL
+UV_LL = 64               # the chroma LL2 block's side
+
+
+def _ll2y_marks(ll):
+    """The 4-run odd marking on the (B, 128, 128) int32 LL2 block, one
+    skip walk a row over j < 125, the rows as lanes: a window of four odd
+    values with |v[j] - v[j + 3]| > 1 fires, adds 24000 at j and 16000 at
+    j + 1..j + 3, and the walk resumes at j + 4."""
+    o = (ll & 1) == 1
+    match = torch.zeros_like(o)
+    match[..., :125] = (o[..., :125] & o[..., 1:126] & o[..., 2:127]
+                        & o[..., 3:] & ((ll[..., :125] - ll[..., 3:]).abs()
+                                        > 1))
+    fired = torch.zeros_like(o)
+    skip = torch.zeros_like(ll[..., 0])
+    for j in range(125):
+        f = match[..., j] & (skip == 0)
+        fired[..., j] = f
+        skip = torch.where(f, 3, (skip - 1).clamp(min=0))
+    f = fired.to(torch.int32)
+    add = 24000 * f
+    for k in (1, 2, 3):
+        add[..., k:] += 16000 * f[..., :-k]
+    return ll + add
+
+
+def ll2_code_y_ref(plane, gt_low3: bool):
+    """Torch twin of ``ll2_code_y``: the marks (``_ll2y_marks``), then the
+    nudge scan over the 128 rows with a row's 131 columns as lanes,
+    ``pend`` (the nudges into the next row) carried.  Returns (vem (B,
+    16384) int32, each LL2 position's value after its nudges and unmark,
+    is24 (B, 16384) bool, its 24000 marks)."""
+    _check_plane(plane, "ll2_code_y plane", N)
+    b = plane.shape[0]
+    # rows 0..130: the cross-row reads of rows r + 1..r + 3 stay inside
+    w = _i32(plane)[:, :LL_ROW, :LL_ROW].clone()
+    if gt_low3:
+        w[:, :LL, :LL] = _ll2y_marks(w[:, :LL, :LL])
+    jc = torch.arange(LL_ROW, device=plane.device)
+    none = torch.zeros_like(w[:, 0], dtype=torch.bool)
+    pend = torch.zeros_like(w[:, 0])
+    vem = torch.empty((b, LL, LL), dtype=torch.int32, device=plane.device)
+    is24 = torch.empty((b, LL, LL), dtype=torch.bool, device=plane.device)
+
+    def odd(x):
+        return (x & 1) == 1
+
+    for r in range(LL):
+        cur = w[:, r] + pend
+        marked = cur > 10000 if gt_low3 else none
+        c2 = _flat_shift_l(cur, 2)
+        o1, o2 = odd(_flat_shift_l(cur)), odd(c2)
+        # the within-row 2a fire: +1 on the next column
+        f2a = (~marked & odd(cur) & (jc > 0) & o1 & (jc < 126) & o2
+               & ((cur - c2).abs() > 1))
+        fire = _run_parity_fire(f2a) if gt_low3 else none
+        v = cur + _flat_shift_r(fire, 1, False).to(torch.int32)
+        # the cross-row nudges: +1 on row r + 1, column j
+        n0, n1, n2 = (_flat_shift_l(w[:, r + 1], k) if k else w[:, r + 1]
+                      for k in (0, 1, 2))
+        live = ~marked & odd(v) & odd(n0) & odd(n1) & (n0 < 10000)
+        left = (jc > 0) & o1
+        b2b = (live & left & ~((jc < 126) & o2) & ~odd(n2)
+               if gt_low3 and r <= 126 else none)
+        b3 = (live & ~left & odd(w[:, r + 2]) & ~odd(w[:, r + 3])
+              if gt_low3 and 1 <= r <= 124 else none)
+        pend = ((b2b | b3) & (jc < LL)).to(torch.int32)
+        hi = v > 20000 if gt_low3 else none
+        mid = v > 10000 if gt_low3 else none
+        out = torch.where(hi, v - 24000, torch.where(mid, v - 16000, v))
+        vem[:, r] = out[:, :LL]
+        is24[:, r] = hi[:, :LL]
+    return vem.reshape(b, LL_N), is24.reshape(b, LL_N)
+
+
+def ll2_code_y_scan(plane, gt_low3: bool):
+    """The serial part of ``ll2_code_y_device`` on a (B, 512, 512) int16
+    plane: (vem, is24) as ``ll2_code_y_ref`` gives them (kernel
+    ``ll2_code_y``: one launch, one CTA an image, a thread a column)."""
+    _check_plane(plane, "ll2_code_y plane", N)
+    if plane.device.type == "cpu":
+        return ll2_code_y_ref(plane, gt_low3)
+    lib, stream = _cuda_args(plane)
+    b = plane.shape[0]
+    vem = torch.empty((b, LL_N), dtype=torch.int32, device=plane.device)
+    is24 = torch.empty((b, LL_N), dtype=torch.bool, device=plane.device)
+    if b:
+        with torch.cuda.device(plane.device):
+            build.check("nhw_ll2_code_y", lib.nhw_ll2_code_y(
+                plane.data_ptr(), vem.data_ptr(), is24.data_ptr(), b,
+                int(gt_low3), stream))
+        build.count("ll2_code_y")
+    return vem, is24
+
+
+def _escape_fill(v):
+    """The LL2 coders' byte rule on (B, n) int32 values in raster order:
+    position k > 0 escapes when v > 255 or v < 0 and repeats the previous
+    tree1 byte, the last non-escaped value's ``& 254``.  Returns (esc_p,
+    esc, clip (v clipped to 0..255), the repeated byte at each
+    position)."""
+    idx = torch.arange(v.shape[1], device=v.device, dtype=torch.int32)
+    esc_p = (v > 255) & (idx > 0)
+    esc = esc_p | ((v < 0) & (idx > 0))
+    clip = v.clamp(0, 255)
+    src = torch.cummax(torch.where(esc, -1, idx), dim=1).values
+    prev = _flat_shift_r(src, 1, 0)
+    return esc_p, esc, clip, torch.gather(clip & 254, 1, prev.long())
+
+
+def _escape_words(v, esc_p, esc, side: int):
+    """The escapes' (row, column (+ 128 above 255), magnitude) triples in
+    raster order: ((B, n, 3) int32, the count of triples (B,))."""
+    b, n = v.shape
+    idx = torch.arange(n, device=v.device, dtype=torch.int32)
+    jj = idx % side
+    ev = torch.stack([(idx // side).expand(b, n),
+                      torch.where(esc_p, jj + 128, jj),
+                      torch.where(esc_p, (v - 255).clamp(max=255),
+                                  -v.clamp(min=-255))], -1)
+    m = esc.to(torch.int64)
+    rank = torch.where(esc, torch.cumsum(m, 1) - m, n)
+    buf = torch.zeros((b, n + 1, 3), dtype=torch.int32, device=v.device)
+    buf.scatter_(1, rank[..., None].expand(b, n, 3), ev)
+    return buf[:, :n], esc.sum(1, dtype=torch.int32)
+
+
+def ll2_code_y_device(plane, gt_low3: bool):
+    """``host.ops.ll2.ll2_code_y`` on (B, 512, 512) int16 planes, gt_low3
+    = quality > LOW3.  Returns (plane' (its LL2 block zeroed), tree1 and
+    ch_res (B, 16384) uint8, exw (B, 16384, 3) int32, n_exw (B,) (the C's
+    exw list is the first n_exw triples), res4 (B, 16512) int32, n_res4
+    (B,)): the marks and the nudge scan in ``ll2_code_y_scan``, the
+    emissions in torch ops."""
+    vem, is24 = ll2_code_y_scan(plane, gt_low3)
+    b = plane.shape[0]
+    esc_p, esc, clip, fill = _escape_fill(vem)
+    tree1 = torch.where(esc, fill, clip & 254).to(torch.uint8)
+    ch_res = torch.where(esc, fill, clip).to(torch.uint8)
+    exw, n_exw = _escape_words(vem, esc_p, esc, LL)
+    # res4: a row's 24000-mark columns (j + 1 each, the last + 128), or a
+    # single 128 for a row without any
+    m24 = is24.reshape(b, LL, LL)
+    jr = torch.arange(LL, device=plane.device, dtype=torch.int32)
+    last = m24 & (jr == torch.where(m24, jr, -1).amax(-1, keepdim=True))
+    val = jr + 1 + 128 * last.to(torch.int32)
+    grid_m = torch.cat([m24, ~m24.any(-1, keepdim=True)], 2)
+    grid_v = torch.cat([val, torch.full((b, LL, 1), 128, dtype=torch.int32,
+                                        device=plane.device)], 2)
+    res4, n_res4 = _compact(grid_m.reshape(b, -1), grid_v.reshape(b, -1), 0,
+                            LL * (LL + 1))
+    out = plane.clone()
+    out[:, :LL, :LL] = 0
+    return out, tree1, ch_res, exw, n_exw, res4, n_res4
+
+
+def ll2_code_uv_device(process):
+    """``encode_uv``'s LL2 byte coding (the host copy's C
+    ``nhw_ll2_code_uv``) on (B, 256, 256) int16 planes: the 64 x 64 block
+    in raster order, escapes repeating the previous byte.  Returns
+    (process' (its LL2 block zeroed), tree1_uv (B, 4096) uint8, exw (B,
+    4096, 3) int32, n_exw (B,))."""
+    _check(process, "ll2_code_uv plane", torch.int16, (None, D, D))
+    b = process.shape[0]
+    v = _i32(process[:, :UV_LL, :UV_LL]).reshape(b, UV_LL * UV_LL)
+    esc_p, esc, clip, fill = _escape_fill(v)
+    tree1 = torch.where(esc, fill, clip & 254).to(torch.uint8)
+    exw, n_exw = _escape_words(v, esc_p, esc, UV_LL)
+    out = process.clone()
+    out[:, :UV_LL, :UV_LL] = 0
+    return out, tree1, exw, n_exw
+
+
+# ---------------------------------------------------------------------------
+# E16/E17 run-delta compression (host.ops.ll2.y_highres_compression and
+# uv_highres_compression, encoder/compress_pixel.c:471-1022): each node's
+# successor and emission are functions of the input buffer, so the coder is
+# a walk from node 1 (``walk_visited_device``) and a compaction of the
+# visited nodes' emissions.  The Y coder picks its mode from per-image run
+# statistics, in closed form per maximal run of equal pairs, and squeezes
+# its bytes in a second walk over them.
+
+YH_N = 16384
+YH_PAD = YH_N + 8193 + 64      # tree1 and the tail the C reads past it
+UV_N = 2 * UV_LL * UV_LL
+UV_PAD = UV_N + 80
+CH = 1 << 16                   # the Y coder's byte buffer
+_FAR = 1 << 20
+
+
+def _gather(h, pos):
+    return torch.gather(h, 1, pos.clamp(0, h.shape[1] - 1).long())
+
+
+def _streak(eq, idx):
+    """E[i]: how many eq[k] hold in a row from k = i + 1 on (the equal
+    pairs a run node at i can swallow), from the next false index by a
+    reversed cummin."""
+    npad = eq.shape[1]
+    nf = torch.flip(torch.cummin(torch.flip(torch.where(eq, _FAR, idx),
+                                            [1]), dim=1).values, [1])
+    e = nf[:, (idx + 1).clamp(max=npad - 1).long()] - (idx + 1)
+    return e.clamp(0, 1 << 19)
+
+
+def _uv_nodes(h):
+    """Each node's (emission, successor) of the UV coder over its (B,
+    8272) int32 buffer; nodes from 8192 on park (successor 8272)."""
+    npad = h.shape[1]
+    idx = torch.arange(npad, device=h.device, dtype=torch.int32)
+    h1, h2 = _flat_shift_l(h), _flat_shift_l(h, 2)
+    scan = h - _flat_shift_r(h)
+    count = h1 - h
+    w = torch.where
+    # a run of 2 + a equal values: up to 14 more pairs, then (below 7) the
+    # pattern of the next three deltas
+    a_run = _streak(h1 == h, idx).clamp(max=14)
+    base = idx + a_run + 2
+    g = [_gather(h, base + k) for k in (-1, 0, 1, 2)]
+    d1, d2, d3 = g[1] - g[0], g[2] - g[1], g[3] - g[2]
+    code0 = 64 + (a_run << 3)
+    run_code = code0 + w(d1 == 4, w(d2 == -4, w(d3 == 0, 3, 2), 1),
+                         w(d1 == -4, w(d2 == 4, w(d3 == 0, 4, 5), 6),
+                           w(d1 == 8, 7, 0)))
+    run_adv = w((d1 == 4) | (d1 == -4),
+                w(d2 == -d1, w(d3 == 0, 3, 2), 1), w(d1 == 8, 1, 0))
+    res1 = a_run >= 7
+    run_nxt = w(res1, base, base + run_adv)
+    run_emit = w(res1, 64 + 56 + a_run - 7, run_code)
+    # the other nodes: a +-4 pair with its next delta, a +-16 pair, or the
+    # value itself
+    resv = torch.zeros_like(h)
+    for k, (s, c) in enumerate(((0, 4), (0, -4), (4, 0), (-4, 0), (4, 4),
+                                (4, -4), (-4, 4), (-4, -4))):
+        resv = w((scan == s) & (count == c), k, resv)
+    dd3 = h2 - h1
+    quad = (dd3 == 0) | (dd3 == 4) | (dd3 == -4) | (dd3 == 8)
+    q_add = w(dd3 == 0, 0, w(dd3 == 4, 1, w(dd3 == -4, 2, 3)))
+    s16, c16 = scan + 16, count + 16
+    pair_b = (s16 << 1) + (c16 >> 2)
+    in4 = (scan.abs() <= 4) & (count.abs() <= 4)
+    in16 = (scan.abs() <= 16) & (count.abs() <= 16)
+    esc16 = (s16 == 32) | (c16 == 32)
+    lit = 128 + (h >> 2)
+    nr_emit = w(in4, w(quad, 192 + (resv << 2) + q_add, pair_b),
+                w(in16 & ~esc16, pair_b, lit))
+    nr_nxt = w(in4, w(quad, idx + 3, idx + 2),
+               w(in16 & ~esc16, idx + 2, idx + 1))
+    runb = (scan == 0) & (count == 0)
+    nxt = w(idx < UV_N, w(runb, run_nxt, nr_nxt), npad)
+    return _i32(w(runb, run_emit, nr_emit)), _i32(nxt)
+
+
+def uv_highres_device(h):
+    """``host.ops.ll2.uv_highres_compression`` on (B, 8272) int32 buffers
+    (the two components' &252-masked tree1_uv, then the tail the C reads
+    past them).  Returns (bytes (B, 8200) int32, count (B,) int32): the
+    head byte h[0], then the visited nodes' emissions, one each."""
+    _check(h, "uv_highres h", torch.int32, (None, UV_PAD))
+    emit, nxt = _uv_nodes(h)
+    idx = torch.arange(UV_PAD, device=h.device)
+    live = walk_visited_device(nxt, 1) & (idx < UV_N) & (idx >= 1)
+    vals, cnt = _compact(live, emit, 0, UV_N + 8)
+    return torch.cat([h[:, :1], vals[:, : UV_N + 7]], 1), cnt + 1
+
+
+def _yh_mode_select(h, eq, idx):
+    """The Y coder's mode (B,) int32 from its run statistics
+    (compress_pixel.c:482-497), in closed form per maximal run of equal
+    pairs starting before 16384: Y counts the run's full 16s (the outer
+    bound cuts them), a also its remainders of 8 or more, then res_low =
+    2 if Y > 299, else 1 if a + Y > 179, else 0."""
+    pr = _flat_shift_r(eq, 1, False)        # pair at k: h[k] == h[k - 1]
+    start = pr & ~_flat_shift_r(pr, 1, False)
+    end = pr & ~_flat_shift_l(pr, 1, False)
+    sidx = torch.cummax(torch.where(start, idx, -1), dim=1).values
+    p = torch.where(end, idx - sidx + 1, 0)
+    s0 = torch.where(end, sidx, _FAR)
+    started = s0 < YH_N
+    full16 = p // 16
+    centr = ((YH_N - s0 + 15) // 16).clamp(0, 1 << 19)
+    yr = torch.where(started, torch.minimum(full16, centr), 0)
+    rem = started & (s0 + 16 * full16 < YH_N) & ((p % 16) >= 8)
+    y = yr.sum(1, dtype=torch.int32)
+    a = (yr + rem.to(torch.int32)).sum(1, dtype=torch.int32) + y
+    return torch.where(y > 299, 2, torch.where(a > 179, 1, 0)).to(
+        torch.int32)
+
+
+def _yh_nodes(h, eq, res_low, q_gt_low5: bool):
+    """Each node's emissions (e0, e1, e2: up to three bytes), byte count,
+    successor and escape flag for the Y coder in each image's mode
+    ``res_low`` (B,), over (B, 24641) int32 h with its pairs eq (h[i + 1]
+    == h[i]); nodes from 16384 on park."""
+    npad = h.shape[1]
+    idx = torch.arange(npad, device=h.device, dtype=torch.int32)
+    h1, h2 = _flat_shift_l(h), _flat_shift_l(h, 2)
+    scan = h - _flat_shift_r(h)
+    count = h1 - h
+    w = torch.where
+    e = _streak(eq, idx)
+    run0 = (scan == 0) & (count == 0)
+    # the 3-byte triple, the same in every mode: scan + 32, count + 16 and
+    # the next delta + 32 (h[i + 2] exists for i < 16382)
+    s3, c3, e3v = scan + 32, count + 16, h2 - h1 + 32
+    tri_ok = ((scan.abs() <= 32) & (count.abs() <= 16) & (idx < YH_N - 2)
+              & ((h2 - h1).abs() <= 32) & (s3 != 64) & (c3 != 32)
+              & (e3v != 64))
+    cc = c3 >> 1
+    # the escape: 128, h[i] / 2 + 128 and, above LOW5, h[i + 1] / 2 + 128
+    esc_len, esc_step = (3, 2) if q_gt_low5 else (2, 1)
+    e1 = w(tri_ok, 64 + s3 + (cc >> 3), 128 + (h >> 1))
+    e2 = w(tri_ok, ((cc & 7) << 5) + (e3v >> 1),
+           128 + (h1 >> 1) if q_gt_low5 else torch.zeros_like(h))
+    rl = res_low[:, None]
+    # mode 0: runs of 2-3, deltas +-2 / 4 after them; the 6 x 8 window
+    a0 = (e >= 1).to(torch.int32)
+    base0 = idx + a0 + 2
+    d1 = _gather(h, base0) - _gather(h, base0 - 1)
+    d2 = _gather(h, base0 + 1) - _gather(h, base0)
+    c_add0 = w(d1 == 2, w(d2 == -2, 2, w(d2 == 0, 3, 1)),
+               w(d1 == -2, w(d2 == 2, 4, w(d2 == 0, 5, 6)),
+                 w(d1 == 4, 7, 0)))
+    adv0 = w(((d1 == 2) | (d1 == -2)) & ((d2 == -d1) | (d2 == 0)), 2,
+             w((d1 == 2) | (d1 == -2) | (d1 == 4), 1, 0))
+    s0_, c0_ = scan + 6, count + 8
+    plain0 = w(s0_ < 8, 32 + (s0_ << 2) + (c0_ >> 1),
+               w(s0_ == 8, 16 + (c0_ >> 1), 24 + (c0_ >> 1)))
+    win0 = ((scan.abs() <= 6) & (count.abs() <= 8) & (s0_ != 12)
+            & (c0_ != 16))
+    # mode 1: runs of 2-9, deltas +-2 / 0 after them; the 4 x 8 window
+    a1 = e.clamp(max=7)
+    base1 = idx + a1 + 2
+    d1m = _gather(h, base1) - _gather(h, base1 - 1)
+    c_add1 = w(d1m == 2, 1, w(d1m == -2, 2, w(d1m == 0, 3, 0)))
+    adv1 = ((d1m == 2) | (d1m == -2) | (d1m == 0)).to(torch.int32)
+    s1_ = scan + 4
+    win1 = ((scan.abs() <= 4) & (count.abs() <= 8) & (s1_ != 8)
+            & (count + 8 != 16))
+    plain1 = 32 + (s1_ << 2) + ((count + 8) >> 1)
+    # mode 2: runs of 2-65, no window
+    a2 = e.clamp(max=63)
+    run_e = w(rl == 0, (a0 << 3) + c_add0, w(rl == 1, (a1 << 2) + c_add1,
+                                              a2))
+    run_nxt = w(rl == 0, base0 + adv0, w(rl == 1, base1 + adv1,
+                                         idx + a2 + 2))
+    win = w(rl == 0, win0, w(rl == 1, win1, torch.zeros_like(win0)))
+    plain = w(rl == 0, plain0, plain1)
+    e0 = w(run0, run_e, w(win, plain, w(tri_ok, 64, 128)))
+    ln = w(run0 | win, 1, w(tri_ok, 3, esc_len))
+    nxt = w(run0, run_nxt, w(win, idx + 2, w(tri_ok, idx + 3,
+                                             idx + esc_step)))
+    isesc = ~run0 & ~win & ~tri_ok
+    return (*map(_i32, (e0, e1, e2, ln, w(idx < YH_N, nxt, npad))), isesc)
+
+
+def _scatter_bytes(live, lens, parts, head, width: int):
+    """The live nodes' bytes in order into a (B, width) int32 buffer
+    after the head byte: node i's byte k (k < lens) at 1 + (bytes of the
+    live nodes before it) + k.  Returns (buffer, count)."""
+    b = live.shape[0]
+    lens = torch.where(live, lens, 0)
+    off = 1 + torch.cumsum(lens, 1, dtype=torch.int32) - lens
+    out = torch.zeros((b, width + 1), dtype=torch.int32, device=live.device)
+    for k, ek in enumerate(parts):
+        tgt = torch.where(live & (lens > k), off + k, width)
+        out.scatter_(1, tgt.long(), ek)
+    out = out[:, :width]
+    out[:, 0] = head
+    return out, 1 + lens.sum(1, dtype=torch.int32)
+
+
+def _squeeze_nodes(ch, n_ch, q_gt_low5: bool):
+    """The squeeze pass over the Y coder's bytes (compress_pixel.c:
+    838-866): a 64 keeps the two bytes after it, a 128 the byte two (above
+    LOW5) or one after it, any other byte itself.  Returns (e0, e1, bytes,
+    successor); nodes from n_ch - 1 on park."""
+    cidx = torch.arange(CH, device=ch.device, dtype=torch.int32)
+    c1, c2 = _flat_shift_l(ch), _flat_shift_l(ch, 2)
+    is64, is128 = ch == 64, ch == 128
+    w = torch.where
+    if q_gt_low5:
+        nxt = w(is64 | is128, cidx + 3, cidx + 1)
+        e0 = w(is64, c1, w(is128, c2, ch))
+    else:
+        nxt = w(is64, cidx + 3, w(is128, cidx + 2, cidx + 1))
+        e0 = w(is64 | is128, c1, ch)
+    nxt = w(cidx < (n_ch - 1)[:, None], nxt, CH)
+    return e0, c2, _i32(w(is64, 2, 1)), nxt
+
+
+def y_highres_device(h, ch_res, q_gt_low5: bool):
+    """``host.ops.ll2.y_highres_compression`` on (B, 24641) int32 h (tree1
+    and the tail the C reads past it) and (B, 16384) int32 ch_res, q_gt_low5
+    = quality > LOW5.  Returns (out (B, 65536) int32, n_out, res_low,
+    hr_word (B, 16384) int32, n_hw, hr_mem (B, 16384) int32, n_hm), the
+    counts (B,) int32; the C's lists are the heads."""
+    _check(h, "y_highres h", torch.int32, (None, YH_PAD))
+    b = h.shape[0]
+    _check(ch_res, "y_highres ch_res", torch.int32, (b, YH_N))
+    idx = torch.arange(YH_PAD, device=h.device, dtype=torch.int32)
+    eq = (_flat_shift_l(h) == h) & (idx + 1 < YH_PAD - 1)
+    res_low = _yh_mode_select(h, eq, idx)
+    e0, e1, e2, ln, nxt, isesc = _yh_nodes(h, eq, res_low, q_gt_low5)
+    live = walk_visited_device(nxt, 1) & (idx < YH_N) & (idx >= 1)
+    # the escapes' ch_res bytes and positions, in walk order
+    esc = live & isesc
+    pad = torch.zeros((b, YH_PAD - YH_N), dtype=torch.int32, device=h.device)
+    hr_word, n_hw = _compact(esc, torch.cat([ch_res, pad], 1), 0, YH_N)
+    hr_mem, n_hm = _compact(esc, idx, 0, YH_N)
+    if not q_gt_low5:
+        n_hw, n_hm = torch.zeros_like(n_hw), torch.zeros_like(n_hm)
+    ch, n_ch = _scatter_bytes(live, ln, (e0, e1, e2), h[:, 0], CH)
+    # the squeeze: its own walk over the bytes; the last byte is kept when
+    # the walk lands on it
+    s0, s1, slen, snxt = _squeeze_nodes(ch, n_ch, q_gt_low5)
+    svis = walk_visited_device(snxt, 1)
+    bound = (n_ch - 1)[:, None]
+    cidx = torch.arange(CH, device=h.device, dtype=torch.int32)
+    out, n_out = _scatter_bytes(svis & (cidx >= 1) & (cidx < bound), slen,
+                                (s0, s1), ch[:, 0], CH)
+    at = bound.clamp(min=0).long()
+    tail = torch.gather(svis, 1, at)[:, 0] & (n_ch > 1)
+    out = torch.where((cidx == n_out[:, None]) & tail[:, None],
+                      torch.gather(ch, 1, at), out)
+    return (out, n_out + tail.to(torch.int32), res_low, hr_word, n_hw,
+            hr_mem, n_hm)

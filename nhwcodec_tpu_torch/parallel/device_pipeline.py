@@ -164,18 +164,20 @@ def encode_batch_device(images: np.ndarray, quality: int = 20,
     ``device_pack``: pack each chunk's Huffman bits on the device
     (default) instead of on the host.  ``scans_on_device=True`` (the
     device raster scans, for 1 <= q <= HIGH1) is not ported yet: of its
-    stages only the residue stage and the stream stage are
+    stages only the LL2 stage, the residue stage and the stream stage are
     (``models.device_encode_scans``)."""
     if scans_on_device:
         raise NotImplementedError(
             f"scans_on_device=True (1 <= q <= {T.HIGH1}) is not ported yet: "
-            "the device residue stage (the E11 mid-q cleanup and pair "
-            "promotion, the E12 column ladder, classify and positional "
-            "streams) and the device stream stage (snap passes, "
-            "offset_y/offset_uv, serpentines, merge, select, cap) are, for "
-            f"{T.LOW4 + 1} <= q <= {T.HIGH1}; the E16/E17 LL2 coders, the UV "
-            "ladders, the q <= LOW4 programs and the composition are not "
-            "(ROADMAP Queue 1 item 1)")
+            "the device LL2 stage (the E16 Y and E17 UV LL2 byte coding and "
+            f"run-delta compression, 1 <= q <= {T.HIGH1}), the device "
+            "residue stage (the E11 mid-q cleanup and pair promotion, the "
+            "E12 column ladder, classify and positional streams) and the "
+            "device stream stage (snap passes, offset_y/offset_uv, "
+            "serpentines, merge, select, cap) are, the latter two for "
+            f"{T.LOW4 + 1} <= q <= {T.HIGH1}; the UV compare ladder and "
+            "sentinel marking, the q <= LOW4 programs and the composition "
+            "(encode_batch_scans_device) are not (ROADMAP Queue 1 item 1)")
     dev = resolve_device(device)
     t0 = time.perf_counter()
     b = len(images)

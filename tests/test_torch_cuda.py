@@ -923,3 +923,80 @@ def test_residue_kernels_reject_bad_inputs(cuda):
         ds.classify_device(plane, torch.zeros(
             (2, 256, 256), dtype=torch.int16, device=cuda).transpose(1, 2),
             20, 3)
+
+
+# the device encode scans' LL2 stage: S7 ll2_code_y and S8 walk_visited
+# (csrc/ll2.cu) on chip_smoke.py's edge inputs
+
+
+@pytest.mark.parametrize("b", [1, 3, 16])
+@pytest.mark.parametrize("gt_low3", [True, False])
+@pytest.mark.parametrize("kind", ["runs and marks", "all even", "dense odd"])
+def test_ll2_code_y_kernel(cuda, kind, gt_low3, b):
+    import chip_smoke as cs
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    x = torch.from_numpy(cs.ll2_edge_planes(
+        np.random.default_rng(100 + b), b, kind)).to(cuda)
+    before = build.LAUNCHES["ll2_code_y"]
+    got = ds.ll2_code_y_scan(x, gt_low3)
+    assert build.LAUNCHES["ll2_code_y"] == before + 1
+    for g, w in zip(got, ds.ll2_code_y_ref(x, gt_low3)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("b", [1, 3, 16])
+@pytest.mark.parametrize("kind", ["jumps of 65", "jumps 255/256",
+                                  "long jumps", "parks", "squeeze",
+                                  "squeeze at LOW5"])
+def test_walk_visited_kernel(cuda, kind, b):
+    import chip_smoke as cs
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    rng = np.random.default_rng(110 + b)
+    if kind.startswith("squeeze"):
+        nxt = cs.squeeze_edge_rows(rng, b, kind == "squeeze")
+    else:
+        nxt = cs.walk_edge_rows(rng, b, kind)
+    x = torch.from_numpy(nxt).to(cuda)
+    before = build.LAUNCHES["walk_visited"]
+    got = ds.walk_visited_device(x, 1)
+    assert build.LAUNCHES["walk_visited"] == before + 1
+    torch.testing.assert_close(got, ds.walk_visited_ref(x, 1), rtol=0,
+                               atol=0)
+
+
+@pytest.mark.parametrize("q", [20, 16])
+def test_ll2_stage_on_the_card(cuda, q):
+    import chip_smoke as cs
+    from nhwcodec_tpu_torch.host.models import encoder as host_encoder
+    from nhwcodec_tpu_torch.models import device_encode_scans as des
+
+    with cs.StreamCapture() as cap:
+        for img in (fixtures.texture_noise(), fixtures.gradient_circles()):
+            host_encoder.encode(img, q)
+    st = cs.stack_ll2(cap.records, q)
+    build.reset_launches()
+    Pz, Uz, Vz, y, uv = cs.device_ll2_stage(cs.ll2_inputs(st, cuda), q)
+    secs, mems = cs.ll2_sections(y, uv)
+    assert {k: build.LAUNCHES[k] for k in cs.LL2_KERNELS} == \
+        cs.LL2_LAUNCHES
+    for got, key in ((Pz, "Pz"), (Uz, "uz"), (Vz, "vz")):
+        np.testing.assert_array_equal(got.cpu().numpy(), st[key])
+    assert not cs.ll2_sections_equal(secs, st["secs"])
+    for g, w in zip(mems, st["hr_mem"]):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_ll2_kernels_reject_bad_inputs(cuda):
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    plane = torch.zeros((2, 512, 512), dtype=torch.int16, device=cuda)
+    with pytest.raises(ValueError):
+        ds.ll2_code_y_scan(plane.transpose(1, 2), True)
+    with pytest.raises(ValueError):
+        ds.walk_visited_device(torch.zeros((2, 1 << 17), dtype=torch.int32,
+                                           device=cuda))
+    with pytest.raises(ValueError):
+        ds.walk_visited_device(torch.zeros((2, 64), dtype=torch.int32,
+                                           device=cuda)[:, ::2])

@@ -1,0 +1,218 @@
+"""The device encode scans' LL2 stage, module by module
+(``models/device_scans.py``: ``ll2_code_y_device`` with its twin
+``ll2_code_y_ref``, ``ll2_code_uv_device``, ``y_highres_device``,
+``uv_highres_device`` and ``walk_visited_device`` with its twin
+``walk_visited_ref``) on the CPU, tolerance 0.
+
+- Each equals the JAX package's function (XLA:CPU, batch 2) and the host
+  copy's C (``host.ops.ll2``, ``nhw_ll2_code_uv``): the LL2 byte coding on
+  ``chip_smoke.ll2_edge_planes`` (odd 4-runs ending at the row's end,
+  values about 10000 and 20000, int16 extremes, escapes at positions 0
+  and 1, all-even and dense-odd planes) with gt_low3 both ways; the Y
+  run-delta coder in each of its three modes, forced by long pair runs,
+  with q_gt_low5 both ways; the UV coder; the walk against JAX's
+  ``_walk_visited`` on seeded random monotone successors with parks and
+  on ``chip_smoke.walk_edge_rows`` / ``squeeze_edge_rows``.
+- The wrappers check their inputs.
+
+The stage as a whole: tests/test_torch_encode_ll2_stage.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke as cs
+from nhwcodec_tpu.models import device_scans as jds
+from nhwcodec_tpu_torch.host import tables as T
+from nhwcodec_tpu_torch.host.ops import ll2 as hll2
+from nhwcodec_tpu_torch.models import device_scans as tds
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    # beside the other workers of a parallel run, intra-op threads make
+    # the twins' many small ops slower
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _eq(got, want):
+    return np.array_equal(np.asarray(got, np.int64), np.asarray(want,
+                                                               np.int64))
+
+
+@pytest.mark.parametrize("gt_low3", [True, False])
+@pytest.mark.parametrize("kind", ["runs and marks", "all even", "dense odd"])
+def test_ll2_code_y(kind, gt_low3):
+    p = cs.ll2_edge_planes(np.random.default_rng(11), 2, kind)
+    got = [x.numpy() for x in tds.ll2_code_y_device(_t(p), gt_low3)]
+    want = [np.asarray(x) for x in jds.ll2_code_y_device(p, gt_low3)]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and _eq(g, w)
+    Pz, tree1, ch_res, exw, n_exw, res4, n_res4 = got
+    q = T.LOW3 + 1 if gt_low3 else T.LOW3
+    for k in range(2):
+        proc = p[k].copy()
+        h_tree1, h_ch_res, h_exw, h_res4 = hll2.ll2_code_y(proc, q)
+        assert _eq(Pz[k], proc)
+        assert _eq(tree1[k], h_tree1) and _eq(ch_res[k], h_ch_res)
+        assert _eq(exw[k, : n_exw[k]].reshape(-1), h_exw)
+        if gt_low3:
+            assert _eq(res4[k, : n_res4[k]], h_res4)
+    # the inputs reach what they claim: marks and nudges, escapes
+    vem, is24 = tds.ll2_code_y_ref(_t(p), gt_low3)
+    ll = torch.from_numpy(p[:, :128, :128].astype(np.int32))
+    base = tds._ll2y_marks(ll) if gt_low3 else ll
+    if gt_low3:
+        base = torch.where(base > 20000, base - 24000,
+                           torch.where(base > 10000, base - 16000, base))
+    nudged = (vem.reshape(2, 128, 128) != base).sum().item()
+    if kind == "all even" or not gt_low3:
+        assert nudged == 0
+    else:
+        assert nudged > 0 and is24.any()
+    if kind == "runs and marks":
+        assert (n_exw > 0).all() and (exw[:, :, 0] == 0).any()
+
+
+def test_ll2_code_y_scan_is_its_twin_on_cpu():
+    p = _t(cs.ll2_edge_planes(np.random.default_rng(12), 3, "dense odd"))
+    for g, w in zip(tds.ll2_code_y_scan(p, True), tds.ll2_code_y_ref(p,
+                                                                     True)):
+        assert torch.equal(g, w)
+
+
+def test_ll2_code_uv():
+    rng = np.random.default_rng(13)
+    p = rng.integers(-30, 300, (2, 256, 256)).astype(np.int16)
+    p[0, 0, :2] = (300, -4)
+    p[1, 0, :2] = (-9, 256)
+    got = [x.numpy() for x in tds.ll2_code_uv_device(_t(p))]
+    want = [np.asarray(x) for x in jds.ll2_code_uv_device(p)]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and _eq(g, w)
+    Pz, tree1, exw, n_exw = got
+    for k in range(2):
+        proc = p[k].copy()
+        h_tree1, h_exw = cs.host_ll2_code_uv(proc)
+        assert _eq(Pz[k], proc) and _eq(tree1[k], h_tree1)
+        assert _eq(exw[k, : n_exw[k]].reshape(-1), h_exw)
+    assert (n_exw > 20).all()
+
+
+def _tree1_with_runs(rng, run: int, n_runs: int) -> np.ndarray:
+    """(2, 16384) uint8 tree1 values (even): ``n_runs`` runs of ``run``
+    equal values, then a random walk of mixed steps (deltas of 0, +-2, +-4,
+    up to +-40, and jumps), so every node type of the mode appears."""
+    out = np.zeros((2, 16384), np.uint8)
+    for k in range(2):
+        vals = rng.integers(0, 128, n_runs) * 2
+        head = np.repeat(vals, run)[: 16384]
+        steps = rng.choice(np.array([0, 0, 2, -2, 4, -4, 8, -8, 16, -16, 40,
+                                     -40, 120]), 16384 - head.size)
+        walk = (np.cumsum(steps) % 256) & 254
+        out[k] = np.concatenate([head, walk]).astype(np.uint8)
+    return out
+
+
+@pytest.mark.parametrize("q_gt_low5", [True, False])
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_y_highres(mode, q_gt_low5):
+    rng = np.random.default_rng(20 + mode)
+    run, n_runs = {0: (3, 400), 1: (10, 400), 2: (20, 400)}[mode]
+    tree1 = _tree1_with_runs(rng, run, n_runs)
+    ch_res = (tree1 | rng.integers(0, 2, tree1.shape)).astype(np.int32)
+    h = np.zeros((2, tds.YH_PAD), np.int32)
+    h[:, :16384] = tree1
+    got = [x.numpy() for x in tds.y_highres_device(_t(h), _t(ch_res),
+                                                    q_gt_low5)]
+    want = [np.asarray(x) for x in jds.y_highres_device(h, ch_res,
+                                                        q_gt_low5)]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and _eq(g, w)
+    out, n_out, res_low, hw, n_hw, hm, n_hm = got
+    assert (res_low == mode).all()
+    q = T.LOW5 + 1 if q_gt_low5 else T.LOW5
+    for k in range(2):
+        h_out, h_rl, h_hw, h_hm = hll2.y_highres_compression(
+            tree1[k], ch_res[k].astype(np.uint8), q)
+        assert h_rl == mode
+        assert _eq(out[k, : n_out[k]], h_out)
+        assert _eq(hw[k, : n_hw[k]], h_hw) and _eq(hm[k, : n_hm[k]], h_hm)
+    if q_gt_low5:
+        assert (n_hm > 0).all()
+
+
+def test_uv_highres():
+    rng = np.random.default_rng(30)
+    h = np.zeros((2, tds.UV_PAD), np.int32)
+    for k in range(2):
+        runs = np.repeat(rng.integers(0, 64, 300) * 4, rng.integers(
+            2, 20, 300))[:4000]
+        steps = rng.choice(np.array([0, 0, 4, -4, 8, -8, 16, -16, 60]),
+                           8192 - runs.size)
+        h[k, :8192] = np.concatenate([runs, np.cumsum(steps) % 256]) & 252
+    got = [x.numpy() for x in tds.uv_highres_device(_t(h))]
+    want = [np.asarray(x) for x in jds.uv_highres_device(h)]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and _eq(g, w)
+    out, cnt = got
+    for k in range(2):
+        assert _eq(out[k, : cnt[k]], hll2.uv_highres_compression(
+            h[k, :8192]))
+
+
+@pytest.mark.parametrize("n", [8272, 24641, 65536])
+def test_walk_visited_random(n):
+    rng = np.random.default_rng(n)
+    nxt = (np.arange(n)[None] + rng.integers(1, 70, (2, n))).astype(np.int32)
+    park = rng.random((2, n)) < 0.01
+    nxt[park] = n + rng.integers(0, 1000, int(park.sum()))
+    got = tds.walk_visited_device(_t(nxt), 1).numpy()
+    assert _eq(got, np.asarray(jds._walk_visited(nxt, 1)))
+    assert got.sum() > 10
+
+
+@pytest.mark.parametrize("kind", ["jumps of 65", "jumps 255/256",
+                                  "long jumps", "parks", "squeeze",
+                                  "squeeze at LOW5"])
+def test_walk_visited_edge_rows(kind):
+    rng = np.random.default_rng(40)
+    if kind.startswith("squeeze"):
+        nxt = cs.squeeze_edge_rows(rng, 3, kind == "squeeze")
+    else:
+        nxt = cs.walk_edge_rows(rng, 3, kind)
+    got = tds.walk_visited_ref(_t(nxt), 1).numpy()
+    # the parks row's non-increasing successor is a self-loop, which ends
+    # the pointer-doubling closure too
+    assert _eq(got, np.asarray(jds._walk_visited(nxt, 1)))
+    assert got[:, 1].all()
+
+
+def test_wrappers_check_inputs():
+    nxt = torch.zeros((2, 10), dtype=torch.int32)
+    with pytest.raises(TypeError):
+        tds.walk_visited_device(nxt.long())
+    with pytest.raises(ValueError):
+        tds.walk_visited_device(torch.zeros((1, 65537), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        tds.walk_visited_device(nxt, 10)
+    with pytest.raises(ValueError):
+        tds.walk_visited_device(torch.zeros((2, 20), dtype=torch.int32)[:,
+                                                                       ::2])
+    with pytest.raises(TypeError):
+        tds.ll2_code_y_scan(torch.zeros((1, 512, 512), dtype=torch.int32),
+                            True)
+    with pytest.raises(ValueError):
+        tds.y_highres_device(torch.zeros((1, 16384), dtype=torch.int32),
+                             torch.zeros((1, 16384), dtype=torch.int32),
+                             True)
+    with pytest.raises(ValueError):
+        tds.uv_highres_device(torch.zeros((1, 8192), dtype=torch.int32))

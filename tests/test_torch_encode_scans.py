@@ -210,8 +210,8 @@ def test_stream_stage_range():
 def test_scans_on_device_message_names_the_range():
     img = np.zeros((1, 512, 512, 3), np.uint8)
     with pytest.raises(NotImplementedError,
-                       match=rf"1 <= q <= {T.HIGH1}\).*residue stage.*"
-                       "stream stage"):
+                       match=rf"1 <= q <= {T.HIGH1}\).*LL2 stage.*"
+                       "residue stage.*stream stage.*UV compare ladder"):
         tdp.encode_batch_device(img, 20, device="cpu", scans_on_device=True)
 
 
