@@ -123,6 +123,25 @@
    S8 on the stage's three walks of the q20 batch (timed) and at batch 1,
    3 and 16 on rows of jumps of 65, of 255 and 256, long jumps, parks and
    squeeze rows whose 64/128 codes sit at the bound.
+10. Drives the encode service with every raster scan on the card,
+   ``encode_batch_device(images, q, scans_on_device=True)``
+   (models/device_encode_scans.encode_batch_scans_device: the front, the
+   LL2, residue and stream stages, the chroma ladders, the tokenizer and
+   the packer; S9 uv_sentinel in csrc/uv.cu), on the encode batch's 16
+   images at q20 in one call and 4 each at q21, q19, q18 and q17: every
+   stream byte for byte against the host copy's encoder, the fixtures'
+   against STREAM_SHA256, each call's launches (K4, K5, K6 at q >= NORM,
+   S1-S8, S9 twice at q >= LOW2 and never at q17); q16 and q22 raise.
+   Times the q20 call in turns against the option off (one chunk, and the
+   default pool), splits the on path's wall over its host steps and
+   device stages, and profiles one call.  Holds S9 to its twin and the
+   host copy's C on the chroma planes captured from the host copy's
+   encodes (StreamCapture: q20, q21, q19, q18; timed on the q20 U planes)
+   and at batch 1, 3 and 16 on edge planes (lane 127's pairs drifting the
+   window into the oob tail, lane 0 writing the slot lane 127 reads, d0 =
+   -5, taken band slots, runs of 128 pairs), res_uv 4 and 5, and the
+   compare ladder (torch ops) on the card to the host copy's C, strict
+   both ways.
 
 Prints the card's name and power limit (nvidia-smi), whether the host
 copy's C scans were built (``native host library: loaded``) or the host
@@ -190,6 +209,8 @@ KERNELS = {
                    "nhwcodec_tpu/models/device_scans.py:1899"),
     "walk_visited": (CSRC + "ll2.cu",
                      "nhwcodec_tpu/models/device_scans.py:1411"),
+    "uv_sentinel": (CSRC + "uv.cu",
+                    "nhwcodec_tpu/models/device_scans.py:1327"),
 }
 DECODE_KERNELS = ("synth_level", "y_stage2_full", "uv_synth")
 HQ_KERNELS = ("synth_unnorm_rows_t", "synth_norm_rows_clip_waves")
@@ -2216,9 +2237,15 @@ class StreamCapture:
     (``ll2.y_highres_compression``'s ch, res_low, highres_word and
     highres_mem), "ll2uv" (for U and V: the plane the host copy's C
     ``nhw_ll2_code_uv`` got and left, its tree1_uv and exw) and "uvhr"
-    (``ll2.uv_highres_compression``'s input and bytes).  It wraps the host
+    (``ll2.uv_highres_compression``'s input and bytes), and the chroma
+    ladders': "uvcl" (for U and V: the jpeg, process, res256, strict and
+    oob0 ``_uv_compare_ladder`` got, and the jpeg it left) and, at q >=
+    LOW2, "uvsm" (for U and V: the process and res_uv
+    ``_uv_sentinel_marking`` got, res256 and its oob tail as the (16896,)
+    rf_ext, and the process it left).  It wraps the host
     copy's ``encoder.encode_y``, ``_mid_q_band_cleanup``,
-    ``_pair_promotion`` and ``_band_snap_pass``,
+    ``_pair_promotion``, ``_band_snap_pass``, ``_uv_compare_ladder`` and
+    ``_uv_sentinel_marking``,
     ``residue.res256_column_ladder``, ``quantize.offset_uv``,
     ``quantize.select_codes``, ``entropy_enc.wavlts2packet_tokenize`` /
     ``wavlts2packet``, ``ll2.ll2_code_y``, ``ll2.y_highres_compression``
@@ -2251,9 +2278,11 @@ class StreamCapture:
             (ll2, "ll2_code_y", ll2.ll2_code_y),
             (ll2, "y_highres_compression", ll2.y_highres_compression),
             (ll2, "uv_highres_compression", ll2.uv_highres_compression),
-            (native, "_load", native._load)]
+            (native, "_load", native._load),
+            (encoder, "_uv_compare_ladder", encoder._uv_compare_ladder),
+            (encoder, "_uv_sentinel_marking", encoder._uv_sentinel_marking)]
         (encode_y, midq, pair, ladder, snap, offset_uv, select, tokenize,
-         packet, ll2y, yhr, uvhr, load) = (f for *_, f in saved)
+         packet, ll2y, yhr, uvhr, load, uvcl, uvsm) = (f for *_, f in saved)
 
         def plane(pf):
             return np.array(pf[: 4 * SZ]).reshape(512, 512)
@@ -2353,10 +2382,31 @@ class StreamCapture:
             lib = load()
             return None if lib is None else Lib(lib)
 
+        def uvcl_w(jpeg, process, res256, strict, oob0=0):
+            r = {"jpeg": np.array(jpeg, np.int16),
+                 "process": np.array(process, np.int16),
+                 "res256": np.array(res256, np.int16), "strict": strict,
+                 "oob0": int(oob0)}
+            uvcl(jpeg, process, res256, strict, oob0)
+            r["out"] = np.array(jpeg, np.int16)
+            rec[-1].setdefault("uvcl", []).append(r)
+
+        def uvsm_w(process, res256, quality, res_uv, oob_tail=None):
+            rf_ext = np.zeros(UV_RF_EXT, np.int16)
+            rf_ext[:16384] = np.asarray(res256).reshape(-1)
+            if oob_tail is not None:
+                t = np.asarray(oob_tail, np.int16)
+                rf_ext[16384: 16384 + t.size] = t
+            r = {"process": np.array(process, np.int16), "rf_ext": rf_ext,
+                 "res_uv": res_uv}
+            uvsm(process, res256, quality, res_uv, oob_tail)
+            r["out"] = np.array(process, np.int16)
+            rec[-1].setdefault("uvsm", []).append(r)
+
         for (mod, name, _), f in zip(saved, (
                 encode_y_w, midq_w, pair_w, ladder_w, snap_w, offset_uv_w,
                 select_w, tokenize_w, packet_w, ll2y_w, yhr_w, uvhr_w,
-                load_w)):
+                load_w, uvcl_w, uvsm_w)):
             setattr(mod, name, f)
         return self
 
@@ -3447,6 +3497,375 @@ def ll2_kernel_phase(dev, captured: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the device encode scans composed: encode_batch_device(scans_on_device=True)
+# (models/device_encode_scans.encode_batch_scans_device) with the chroma
+# ladders (uv_compare_ladder_device, torch ops; uv_sentinel_marking_device,
+# S9 uv_sentinel in csrc/uv.cu)
+
+UV_RF_EXT = 16384 + 512    # res256 and the tail the sentinel marking reads
+# q -> images of the encode batch encoded with the option on: the 16 of the
+# q20 batch, 4 each (quality_batch) at q21, q19, q18 and q17
+SCANS_DEVICE_QS = {20: B, 21: 4, 19: 4, 18: 4, 17: 4}
+SCANS_DEVICE_TURNS = 3
+# the sentinel marking's operations a lane, counted from csrc/uv.cu (the
+# two decisions' compares and selects, the run parity, the writes)
+UVSM_OPS = 40
+UVSM_KINDS = ("drift", "d0 -5", "bands taken", "pair runs")
+
+
+def scans_device_launches(q: int) -> dict:
+    """The kernel launches of one encode_batch_device(scans_on_device=True)
+    call at quality q (LOW4 < q <= HIGH1): the front's K6 (q >= NORM), K4
+    (Y's two levels, U + V's two) and K5, the stream, residue and LL2
+    stages' S1-S8, and S9 for U and V at q >= LOW2."""
+    return {"colorspace_down420": int(q >= 20), "analysis_level_jp": 4,
+            "requant_tail": 1, **SCAN_LAUNCHES, **RESIDUE_LAUNCHES,
+            **LL2_LAUNCHES, "uv_sentinel": 2 if q >= 18 else 0}
+
+
+def stack_uv(records: list) -> dict:
+    """The captured encodes' chroma ladders as batches, for U (0) and V
+    (1): "cl" [(jpeg, process (B, 256, 256), res256 (B, 128, 128), oob0
+    (B,), strict, the jpeg the host left)], and where every record has
+    them (q >= LOW2) "sm" [(process (B, 256, 256), rf_ext (B, 16896),
+    res_uv, the process the host left)]."""
+    for r in records:
+        check(len(r.get("uvcl", ())) == 2,
+              "a captured host encode lacks its compare ladders")
+    st = {"cl": [], "sm": []}
+    for c in (0, 1):
+        cl = [r["uvcl"][c] for r in records]
+        st["cl"].append(tuple(np.stack([x[k] for x in cl]) for k in (
+            "jpeg", "process", "res256")) + (
+            np.array([x["oob0"] for x in cl], np.int16), cl[0]["strict"],
+            np.stack([x["out"] for x in cl])))
+        if all(len(r.get("uvsm", ())) == 2 for r in records):
+            sm = [r["uvsm"][c] for r in records]
+            st["sm"].append((np.stack([x["process"] for x in sm]),
+                             np.stack([x["rf_ext"] for x in sm]),
+                             sm[0]["res_uv"],
+                             np.stack([x["out"] for x in sm])))
+    return st
+
+
+def uv_sentinel_edge_inputs(rng, b, kind: str) -> tuple:
+    """(process (B, 256, 256) int16, rf_ext (B, 16896) int16) for S9.
+    "drift": each row built against the window it will read (count_start
+    tracked), lanes 1..125 random; rows r % 4 in (0, 2): lanes 0 and 126
+    neutral, lane 127 places a pair (d0 5, d1 4, its band 0 slot free);
+    r % 4 == 1: lane 0 writes 12900 into column 128 and res256 at lane
+    127's r1 is 12896, so only the written value makes lane 127's pair;
+    r % 8 == 3: column 128's initial value would make lane 127's pair, and
+    lane 0's write takes it away; r % 8 == 7: lane 126 places a pair, so
+    lane 127 is skipped.  96 rows drift, so the last rows read the oob
+    tail and the zeros past res256.  The other kinds hold res256 at a
+    constant c: "d0 -5" (most lanes d0 = -5, d1 on both sides of 0),
+    "bands taken" (rows whose band 0, bands 0-1 or all three slots are
+    taken), "pair runs" (rows of 128 pair candidates with free slots, of 127
+    from lane 1, and runs of 31, 32 and 33 across the warps' edges)."""
+    proc = rng.integers(-12, 13, (b, 256, 256)).astype(np.int16)
+    rf = np.zeros((b, UV_RF_EXT), np.int16)
+    rf[:, 16384: 16388] = rng.integers(-20, 21, (b, 4))
+    if kind == "drift":
+        rf[:, :16384] = rng.integers(-20, 21, (b, 16384))
+        for i in range(b):
+            p, f, cs = proc[i], rf[i], 0
+            for r in range(128):
+                mode = r % 4 if r % 4 != 3 else (3 if r % 8 == 3 else 4)
+                if mode == 1:
+                    f[cs + 128] = 12896
+                elif mode == 3:
+                    f[cs + 128] = -1
+                d = rng.integers(-9, 10, 129)
+                d[0] = 10 if mode in (1, 3) else 0
+                d[125:129] = ((0, 0, 5, 4) if mode != 4 else (0, 5, 4, 0))
+                p[r, :129] = f[cs: cs + 129] + d
+                if mode in (1, 3):
+                    p[r, 128] = 3               # lane 0's free slot
+                p[r, 254:256] = 0               # lanes 126, 127 free
+                cs += 128 + (mode in (0, 1, 2))
+        return proc, rf
+    c = rng.integers(-10, 3, (b, 1, 1))
+    rf[:, :16384] = np.broadcast_to(c.reshape(b, 1), (b, 16384))
+    if kind == "d0 -5":
+        d = rng.choice(np.array([-5, -5, -5, -5, -2, -1, 0, 1, 2, -3, -4,
+                                 5]), (b, 128, 129))
+    else:
+        d = rng.integers(-9, 10, (b, 128, 129))
+    if kind == "pair runs":
+        d[:, 0::4] = 5
+        d[:, 1::4] = 5
+        d[:, 1::4, 0] = 0
+        d[:, 2::4, :] = 0
+        for lo, hi in ((20, 51), (56, 88), (92, 125)):   # candidates lo..hi
+            d[:, 2::4, lo: hi + 1] = 5
+        proc[:, 0:128:4, 128:] = 0
+        proc[:, 1:128:4, 128:] = 0
+    proc[:, :128, :129] = (c + d).astype(np.int16)
+    if kind == "bands taken":
+        # rows 0 mod 3: band 0 taken; 1 mod 3: bands 0-1; 2 mod 3: all three
+        taken = np.array([8, -8, 9, 300, -300])
+        for k in range(3):
+            for r0, c0 in ((0, 128), (128, 0), (128, 128))[: k + 1]:
+                blk = proc[:, r0: r0 + 128, c0: c0 + 128][:, k::3]
+                blk[:] = rng.choice(taken, blk.shape)
+    return proc, rf
+
+
+def uv_ladder_edge_inputs(rng, b) -> tuple:
+    """(jpeg, process (B, 256, 256), res256 (B, 128, 128) int16, oob0 (B,)
+    int16) for the compare ladder: differences scan in [-12, 12], one in
+    three at +-3, the next one 0 as often; column 128 one past each row
+    and, at the last position, oob0, so that nxt there is -1, 0 or 1."""
+    jpeg = rng.integers(-32768, 32768, (b, 256, 256)).astype(np.int16)
+    proc = rng.integers(-300, 300, (b, 256, 256)).astype(np.int16)
+    r256 = rng.integers(-50, 51, (b, 128, 128)).astype(np.int16)
+    scan = rng.integers(-12, 13, (b, 128, 128))
+    pick = rng.integers(0, 3, scan.shape)
+    scan = np.where(pick == 0, rng.choice([-3, 3], scan.shape),
+                    np.where(pick == 1, 0, scan))
+    scan[:, 127, 127] = np.where(np.arange(b) % 2, 3, -3)
+    proc[:, :128, :128] = r256 + scan
+    oob0 = rng.integers(-30, 31, b).astype(np.int16)
+    nxt0 = np.roll(r256.reshape(b, -1), -1, 1).reshape(b, 128, 128)[:, :, 0]
+    nxt0[:, 127] = oob0
+    proc[:, :128, 128] = nxt0 + rng.integers(-1, 2, (b, 128))
+    return jpeg, proc, r256, oob0
+
+
+def host_uv_sentinel(process: np.ndarray, rf_ext: np.ndarray,
+                     res_uv: int) -> np.ndarray:
+    """The host copy's C sentinel marking on each image, as ``encode_uv``
+    calls it (res256 and the oob tail from rf_ext)."""
+    from nhwcodec_tpu_torch.host.models import encoder
+
+    out = process.copy()
+    for k in range(len(out)):
+        encoder._uv_sentinel_marking(out[k], rf_ext[k, :16384], 20, res_uv,
+                                     rf_ext[k, 16384:])
+    return out
+
+
+def encode_scans_device_phase(dev, images: np.ndarray) -> dict:
+    """encode_batch_device(scans_on_device=True) on the card: the encode
+    batch's 16 images at q20 in one call (the 11 fixtures also against
+    STREAM_SHA256) and 4 each at q21, q19, q18 and q17, every stream byte
+    for byte against the host copy's encoder.encode, with the launches of
+    each call (scans_device_launches: S9 twice at q >= 18, never at q17);
+    q16 and q22 raise.  Times the q20 call in SCANS_DEVICE_TURNS turns
+    against the option off in one chunk and through the default pool,
+    splits the on path's wall (host_breakdown, each device stage
+    synchronised at its end) and profiles one call.  Returns the q20
+    call's launches."""
+    import torch
+
+    from nhwcodec_tpu_torch.host import tables as T
+    from nhwcodec_tpu_torch.host.models import encoder as host_encoder
+    from nhwcodec_tpu_torch.host.ops import entropy_enc
+    from nhwcodec_tpu_torch.kernels import build
+    from nhwcodec_tpu_torch.models import device_encode_scans as des
+    from nhwcodec_tpu_torch.models import device_scans as ds
+    from nhwcodec_tpu_torch.models import device_stages as tds
+    from nhwcodec_tpu_torch.models import encoder as tenc
+    from nhwcodec_tpu_torch.parallel import device_pipeline as tdp
+
+    def on(imgs, q):
+        return tdp.encode_batch_device(imgs, q, device=dev,
+                                       scans_on_device=True)[0]
+
+    names = list(fixture_generators())
+    out, want20 = None, None
+    for q, want_b in SCANS_DEVICE_QS.items():
+        sel = images if q == 20 else quality_batch(images, q)
+        want = [host_encoder.encode(img, q) for img in sel]
+        build.reset_launches()
+        got = on(sel, q)
+        torch.cuda.synchronize()
+        want_l = scans_device_launches(q)
+        launches = {k: build.LAUNCHES[k] for k in want_l}
+        check(launches == want_l, f"scans on device q{q}: launches "
+              f"{launches}, not {want_l}")
+        bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+        check(len(got) == want_b and not bad, f"scans on device q{q}: "
+              f"streams {bad} differ from the host copy's encoder")
+        pinned = ([(n, 20) for n in names] if q == 20
+                  else [(fixture_for(q), q)])
+        pinned = [(i, key) for i, key in enumerate(pinned)
+                  if key in STREAM_SHA256]
+        check(all(sha256(got[i]) == STREAM_SHA256[key]
+                  for i, key in pinned),
+              f"scans on device q{q}: a fixture's stream differs from the "
+              "pinned digest")
+        print(f"encode scans on device: q{q}, batch {want_b} in one call, "
+              f"byte-identical to the host copy's encoder ({len(pinned)} "
+              "also to the pinned digests of nhwcodec_tpu.encode); launches "
+              f"{launches}", flush=True)
+        if q == 20:
+            out, want20 = launches, want
+    for q, err, msg in ((T.LOW4, NotImplementedError, "slice e"),
+                        (T.HIGH2, ValueError, f"1 <= q <= {T.HIGH1}")):
+        try:
+            on(images[:1], q)
+        except err as e:
+            check(msg in str(e), f"scans on device q{q}: message {e!r}")
+            print(f"encode scans on device: q{q} raises "
+                  f"{type(e).__name__}: {e}", flush=True)
+        else:
+            check(False, f"scans on device q{q} did not raise")
+
+    runs = {"option on, one call": lambda: on(images, 20),
+            f"option off, one chunk of {B}": lambda:
+            tdp.encode_batch_device(images, 20, workers=1, chunk=B,
+                                    device=dev)[0],
+            f"option off, default pool ({os.cpu_count()} workers)": lambda:
+            tdp.encode_batch_device(images, 20, device=dev)[0]}
+    walls = {k: [] for k in runs}
+    for turn in range(SCANS_DEVICE_TURNS):
+        keys = list(runs)[turn:] + list(runs)[:turn]
+        for k in keys:
+            t0 = time.perf_counter()
+            got = runs[k]()
+            walls[k].append((time.perf_counter() - t0) * 1e3)
+            check(got == want20, f"q20 {k}: streams differ")
+    for k, w in walls.items():
+        print(f"encode scans on device, batch {B} q20 wall, {k}: "
+              + ", ".join(f"{x:.2f}" for x in w) + f" ms (median "
+              f"{float(np.median(w)):.2f}, {float(np.median(w)) / B:.2f} "
+              f"ms/img; turns of {SCANS_DEVICE_TURNS}, orders rotated)",
+              flush=True)
+
+    def synced(f):
+        def run(*a, **k):
+            r = f(*a, **k)
+            torch.cuda.synchronize()
+            return r
+        return run
+
+    stages = [(des, n, "device stream stage")
+              for n in ("_y_stream_stage", "_uv_stream_stage")]
+    stages += [(des, n, "device residue stage") for n in (
+        "_y_residue_stage",)]
+    stages += [(des, n, "device LL2 stage") for n in (
+        "_y_ll2_stage", "_uv_ll2_stage", "_uv_highres_stage")]
+    stages += [(ds, n, "device UV ladders (compare ladder, S9)") for n in (
+        "uv_compare_ladder_device", "uv_sentinel_marking_device")]
+    targets = [(tds, "encode_front", "front (colorspace, pre-filter, "
+                "analysis, requant)"),
+               (des, "_host_e10", "host E10 part-0 offset + synthesis"),
+               (des, "_kernel_heads", "host kernel heads"),
+               (des, "_host_uv_ladder_in", "host UV greedy steps"),
+               (des, "_host_uv_marking_in", "host UV greedy steps"),
+               *stages,
+               *((des, n, "section copies to the host") for n in (
+                   "_ll2_sections", "_residue_sections",
+                   "_uv_ll2_sections")),
+               (entropy_enc, "wavlts2packet_tokenize", "host tokenizer"),
+               (tenc, "finish_deferred", "pack (device packer + container)"),
+               (tds, "to_device", "host->device copies")]
+    saved = [(m, n, getattr(m, n)) for m, n, _ in stages]
+    try:
+        for m, n, f in saved:
+            setattr(m, n, synced(f))
+        print_breakdown(f"encode scans on device breakdown, batch {B} q20 "
+                        "in one call (each device stage synchronised at its "
+                        "end)", *host_breakdown(lambda: on(images, 20),
+                                                targets))
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+    print_profile(f"encode scans on device, batch {B} q20 in one call",
+                  lambda: on(images, 20))
+    return out
+
+
+def uv_kernel_phase(dev, captured: dict) -> dict:
+    """S9 against its twin (max_abs_err 0) and the host copy's C, timed on
+    the U planes captured from the q20 batch's host encodes, untimed on the
+    V planes and at q21, q19 and q18 (res_uv 4; the q17 encodes skip the
+    marking); at batch 1, 3 and 16 on uv_sentinel_edge_inputs with res_uv
+    4 and 5.  The compare ladder on the card against the host copy's C on
+    the captured planes (strict both ways) and uv_ladder_edge_inputs."""
+    import torch
+
+    from nhwcodec_tpu_torch.host.models import encoder
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    out = None
+    for q in (20, 21, 19, 18):
+        st = stack_uv(captured[q])
+        if q == 20:
+            st20 = st
+        check(len(st["sm"]) == 2, f"q{q}: no captured sentinel marking")
+        for c, (proc, rf, res_uv, want) in enumerate(st["sm"]):
+            P, R = t(proc), t(rf)
+            got = ds.uv_sentinel_marking_device(P, R, res_uv)
+            check(np.array_equal(got.cpu().numpy(), want),
+                  f"uv_sentinel q{q} {'UV'[c]}: differs from the host "
+                  "copy's C")
+            what = (f"({len(proc)},256,256) + ({len(proc)},{rf.shape[1]}) "
+                    f"q{q} {'UV'[c]} planes, res_uv {res_uv}")
+            nbytes = P.numel() * 4 + R.numel() * 2
+            res = compare_and_time(
+                "uv_sentinel", what,
+                lambda: ds.uv_sentinel_marking_device(P, R, res_uv),
+                lambda: ds.uv_sentinel_marking_ref(P, R, res_uv),
+                timed=q == 20 and c == 0, twin_calls=1, twin_runs=5,
+                bound=work(nbytes, UVSM_OPS * len(proc) * 16384),
+                graph=True)
+            out = out or res
+        for c, (jpeg, proc, r256, oob0, strict, want) in enumerate(st["cl"]):
+            got = ds.uv_compare_ladder_device(t(jpeg), t(proc), t(r256),
+                                              t(oob0), strict)
+            check(np.array_equal(got.cpu().numpy(), want),
+                  f"compare ladder q{q} {'UV'[c]}: differs from the host "
+                  "copy's C")
+    jpeg, proc, r256, oob0 = (t(x) for x in st20["cl"][0][:4])
+    for strict in (False, True):
+        ms = median_ms(lambda: ds.uv_compare_ladder_device(
+            jpeg, proc, r256, oob0, strict))
+        print(f"uv_compare_ladder_device (torch ops), q20 U planes batch "
+              f"{len(jpeg)}, strict {strict}: {ms:.4f} ms a call (CUDA "
+              f"events, median of {RUNS})", flush=True)
+    print_profile(f"uv_compare_ladder_device, q20 U planes batch {B}",
+                  lambda: ds.uv_compare_ladder_device(jpeg, proc, r256,
+                                                      oob0, False))
+    rng = np.random.default_rng(SEED + 60)
+    jpeg, proc, r256, oob0 = uv_ladder_edge_inputs(rng, B)
+    for strict in (False, True):
+        got = ds.uv_compare_ladder_device(t(jpeg), t(proc), t(r256),
+                                          t(oob0), strict).cpu().numpy()
+        for k in range(B):
+            want = jpeg[k].copy()
+            encoder._uv_compare_ladder(want, proc[k].copy(), r256[k],
+                                       strict, int(oob0[k]))
+            check(np.array_equal(got[k], want), f"compare ladder edge "
+                  f"image {k}, strict {strict}: differs from the host C")
+    for kind in UVSM_KINDS:
+        proc, rf = uv_sentinel_edge_inputs(rng, B, kind)
+        for res_uv in (4, 5):
+            P, R = t(proc), t(rf)
+            compare_batches("uv_sentinel", f"{kind} planes, res_uv {res_uv}",
+                            lambda a, b: ds.uv_sentinel_marking_device(
+                                a, b, res_uv),
+                            lambda a, b: ds.uv_sentinel_marking_ref(
+                                a, b, res_uv), (P, R))
+            check(np.array_equal(
+                ds.uv_sentinel_marking_device(P, R, res_uv).cpu().numpy(),
+                host_uv_sentinel(proc, rf, res_uv)),
+                f"uv_sentinel {kind} planes, res_uv {res_uv}: differ from "
+                "the host copy's C")
+    print("encode scans: S9 equals its twin and the host copy's C on the "
+          "captured q20/q21/q19/q18 planes and at batch 1, 3 and 16 on the "
+          f"{', '.join(UVSM_KINDS)} planes; the compare ladder on the card "
+          "equals the host copy's C on the captured planes and the edge "
+          "planes, strict both ways", flush=True)
+    return {"uv_sentinel": out}
+
+
 def transform_phase(dev) -> dict:
     """The transform entry on the card: encode_transform on the entry
     batch, decode_transform, and transform_step, each with the launch
@@ -3722,7 +4141,7 @@ def main() -> int:
                  "snap_pass", "offset_y_rows", "offset_y_ll",
                  "offset_y_codes", "merge_tiles", "merge_entries",
                  "merge_emit", "pair_promotion", "column_ladder",
-                 "classify", "ll2_code_y", "walk_visited"))
+                 "classify", "ll2_code_y", "walk_visited", "uv_sentinel"))
 
     # the paths first: a profiler window of very many launches (the K5
     # twin's) can leave later windows incomplete
@@ -3737,12 +4156,17 @@ def main() -> int:
     launches.update(encode_scans_phase(dev, captured))
     launches.update(encode_residue_phase(dev, images, captured))
     launches.update(encode_ll2_phase(dev, images, captured))
+    # S1-S9 on the service path that runs them
+    on = encode_scans_device_phase(dev, images)
+    launches.update({k: on[k] for k in (*SCAN_KERNELS, *RESIDUE_KERNELS,
+                                        *LL2_KERNELS, "uv_sentinel")})
     launches["analysis_level"] = transform_phase(dev)["analysis_level"]
     # the kernels whose twins make the longest profiler windows (the scan's,
     # K5's, the column ladder's: 76,000 launches) last; the phases after
     # them use no profiler
     timings = transform_kernel_phase(dev)
     timings.update(ll2_kernel_phase(dev, captured))
+    timings.update(uv_kernel_phase(dev, captured))
     timings.update(entropy_kernel_phase(dev, chunks))
     timings.update(scan_kernel_phase(dev, captured))
     timings.update(kernel_phase(dev))

@@ -41,7 +41,12 @@
 
 #include <cstdint>
 
+#include "block_scan.cuh"
+
 namespace {
+
+using nhw::iabs;
+using nhw::run_parity_block;
 
 constexpr int kN = 512;
 constexpr int kPlane = kN * kN;
@@ -63,26 +68,6 @@ bool misaligned(const void* p, int bytes) {
 // ---------------------------------------------------------------------------
 // S7: the LL2 byte coding's marks and nudges (encoder/nhw_encoder.c:636-743,
 // the host copy's nhw_ll2_code_y)
-
-// fired = F and an even offset within F's run, over the 128 threads of the
-// CTA (thread j = column j); warp_last: 4 ints of shared memory.
-__device__ __forceinline__ bool run_parity_128(bool f, int* warp_last) {
-  const int j = threadIdx.x, lane = j & 31, w = j >> 5;
-  const unsigned nf = __ballot_sync(0xFFFFFFFFu, !f);
-  if (lane == 0) warp_last[w] = nf ? w * 32 + 31 - __clz(nf) : -1;
-  __syncthreads();
-  const unsigned le = nf & (lane == 31 ? 0xFFFFFFFFu : ((2u << lane) - 1u));
-  int last = -1;
-  if (le) {
-    last = w * 32 + 31 - __clz(le);
-  } else {
-    for (int k = 0; k < w; ++k) last = max(last, warp_last[k]);
-  }
-  __syncthreads();
-  return f && ((j - (last + 1)) & 1) == 0;
-}
-
-__device__ __forceinline__ int iabs(int x) { return x < 0 ? -x : x; }
 
 __device__ __forceinline__ bool odd(int x) { return x & 1; }
 
@@ -142,7 +127,7 @@ __global__ void __launch_bounds__(kLL)
     const bool marked = gt_low3 && cur > 10000;
     const bool f2a = gt_low3 && !marked && odd(cur) && j > 0 && odd(c1) &&
                      j < 126 && odd(c2) && iabs(cur - c2) > 1;
-    const bool fire = run_parity_128(f2a, warp_last);
+    const bool fire = run_parity_block(f2a, warp_last);
     fire_s[j + 1] = fire;
     __syncthreads();
     const int v = cur + fire_s[j];

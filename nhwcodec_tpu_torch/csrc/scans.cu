@@ -48,7 +48,12 @@
 #include <initializer_list>
 #include <utility>
 
+#include "block_scan.cuh"
+
 namespace {
+
+using nhw::iabs;
+using nhw::run_parity_block;
 
 constexpr int kN = 512;
 constexpr int kD = 256;
@@ -75,8 +80,6 @@ constexpr int kMStates = 5;
 struct SnapArgs {
   int r0, r1, col0, col1, thr, yw, yw2, second_rule, guard6, gc;
 };
-
-__device__ __forceinline__ int iabs(int v) { return v < 0 ? -v : v; }
 
 // The snap decision for an alive position with current value v and static
 // neighbour count cnt (encoder/nhw_encoder.c:1923-1960).
@@ -183,24 +186,6 @@ __global__ void __launch_bounds__(kRowThreads)
     o[c] = static_cast<int16_t>(a - int(case_a));
     d = int(give);
   }
-}
-
-// fired = F and an even offset within F's run, over the 256 threads of the
-// CTA (thread j = column j); warp_last: 8 ints of shared memory.
-__device__ __forceinline__ bool run_parity_block(bool f, int* warp_last) {
-  const int j = threadIdx.x, lane = j & 31, w = j >> 5;
-  const unsigned nf = __ballot_sync(0xFFFFFFFFu, !f);
-  if (lane == 0) warp_last[w] = nf ? w * 32 + 31 - __clz(nf) : -1;
-  __syncthreads();
-  const unsigned le = nf & (lane == 31 ? 0xFFFFFFFFu : ((2u << lane) - 1u));
-  int last = -1;
-  if (le) {
-    last = w * 32 + 31 - __clz(le);
-  } else {
-    for (int k = 0; k < w; ++k) last = max(last, warp_last[k]);
-  }
-  __syncthreads();
-  return f && ((j - (last + 1)) & 1) == 0;
 }
 
 // Passes 2-3 (image_processing.c:241-309) on the LL quadrant of one image,

@@ -91,6 +91,8 @@ SIGNATURES = {
     "nhw_ll2_code_y": [_P, _P, _P, _I, _I, _P],
     # (nxt, visited, batch, n, start, stream)
     "nhw_walk_visited": [_P, _P, _I, _I, _I, _P],
+    # (process, rf_ext, out, batch, rf_len, res_uv, stream)
+    "nhw_uv_sentinel": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 LAUNCHES = {"synth_level": 0, "y_stage2_full": 0, "uv_synth": 0,
@@ -101,7 +103,7 @@ LAUNCHES = {"synth_level": 0, "y_stage2_full": 0, "uv_synth": 0,
             "analysis_level": 0, "chain_starts": 0, "y_runs_fixpoint": 0,
             "snap_pass": 0, "offset_y": 0, "merge_crossing": 0,
             "pair_promotion": 0, "column_ladder": 0, "classify": 0,
-            "ll2_code_y": 0, "walk_visited": 0}
+            "ll2_code_y": 0, "walk_visited": 0, "uv_sentinel": 0}
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()

@@ -1,44 +1,48 @@
-"""The full-device encode configuration, in parts.
+"""The full-device encode configuration.
 
-Port of ``nhwcodec_tpu.models.device_encode_scans``.  The JAX function
-``encode_batch_scans_device`` runs every post-transform raster scan of
-the encoder on the device, stage-major: each device stage runs once for
-the whole batch.  This module holds its last three stages so far, cut
-from the JAX function into helpers that a later
-``encode_batch_scans_device`` calls, each once for the whole batch:
+Port of ``nhwcodec_tpu.models.device_encode_scans``.
+``encode_batch_scans_device(images, quality)`` runs every post-transform
+raster scan of the encoder on the device, stage-major: each host step
+runs image by image, each device stage once for the whole batch.  The
+host keeps the front's pre-filter and requant automata, the E10 greedy
+offsets with their transforms, the chroma greedy offsets, the tokenizer
+and the container.  The stages, in the order the composition runs them:
 
+- the front (``device_stages.encode_front``: colorspace, pre-filter,
+  analysis, requant), as ``encode_batch_device`` runs it;
 - ``_y_ll2_stage``: E16, the Y LL2 byte coding and run-delta
-  compression, on the plane after the low-q cleanups; ``_uv_ll2_stage``
-  (one chroma component's LL2 byte coding) and ``_uv_highres_stage``
-  (E17, the two components' run-delta compression); ``_ll2_sections``
-  slices each image's E16 sections, and the ``hr_mem`` list that the
-  host's part-0 offset takes, out of them on the host, and
-  ``_uv_ll2_sections`` the E17 sections;
+  compression; ``_ll2_sections`` slices each image's E16 sections, and
+  the ``hr_mem`` list that the host's part-0 offset takes, out of it on
+  the host;
+- ``_host_e10``: the host's E10 part-0 offset and synthesis;
 - ``_y_residue_stage``: the E11 tail (the mid-q band cleanup, pair
   promotion) and E12 (the res256 column ladder, classify, the res1, res3
-  and res5 positional streams) on the plane after the host's E10 part-0
-  offset and synthesis, then the LL2-zone rebuild; ``_residue_sections``
-  slices each image's res sections out of its streams on the host;
+  and res5 positional streams), then the LL2-zone rebuild;
+  ``_residue_sections`` slices each image's res sections on the host;
 - ``_y_stream_stage``: the three E11 snap passes, the E14 Y quantizer
   and the E15 serpentine, crossing merge, select codes and run cap;
-- ``_uv_stream_stage``: the E14 chroma quantizer and serpentine of one
-  component, written into the stream's UV half.
+- per chroma component: the host's offset_uv part 1 and synthesis
+  (``_host_uv_ladder_in``), ``device_scans.uv_compare_ladder_device``,
+  the host's analysis, resIII, offset_uv part 0 and synthesis
+  (``_host_uv_marking_in``), ``device_scans.uv_sentinel_marking_device``
+  (q >= LOW2), then ``_uv_ll2_stage`` (the chroma LL2 byte coding) and
+  ``_uv_stream_stage`` (the E14 chroma quantizer and serpentine, written
+  into the stream's UV half);
+- ``_uv_highres_stage``: E17, the two components' run-delta
+  compression; ``_uv_ll2_sections`` slices the E17 sections;
+- the host tokenizer and the device bit packer
+  (``models.encoder.finish_deferred``).
 
-The LL2 stage covers q1..HIGH1 and its sections are byte-identical to
-the host copy's ``ll2.ll2_code_y`` + ``ll2.y_highres_compression``, its C
-``nhw_ll2_code_uv`` and ``ll2.uv_highres_compression``
-(tests/test_torch_encode_ll2_stage.py).  The residue stage's plane goes
-straight into the stream stage.  Y's merge, select and cap run before
-any UV byte is written: the select reads up to five bytes past a
-candidate, so near 4 SZ it reads the UV half, which must still be zero
-then.  Together they give the res sections, the whole 6 SZ ``im_nhw``
-and ``nhw_select1/2``, byte-identical to the host copy's
-``encoder.encode_y`` from its E11 tail on and ``encode_uv``'s
-``offset_uv`` + ``quantize.serpentine_uv``
-(tests/test_torch_encode_residue_stage.py,
-tests/test_torch_encode_scans.py).
-The residue and stream stages cover LOW4 < q <= HIGH1; q <= LOW4 needs
-``offset_y_low4`` and the low-q cleanups.
+Y's merge, select and cap run before any UV byte is written: the select
+reads up to five bytes past a candidate, so near 4 SZ it reads the UV
+half, which must still be zero then.  The streams are byte-identical to
+``nhwcodec_tpu.encode`` at LOW4 < q <= HIGH1
+(tests/test_torch_encode_scans_device.py); the stages on their own are
+held to the host copy's encode (tests/test_torch_encode_scans.py,
+tests/test_torch_encode_residue_stage.py,
+tests/test_torch_encode_ll2_stage.py).  The LL2 stage covers q1..HIGH1;
+q <= LOW4 needs ``offset_y_low4``, the low-q cleanups and
+``uv_ll_smooth``, which are not ported.
 """
 
 from __future__ import annotations
@@ -46,9 +50,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from nhwcodec_tpu_torch.device import resolve_device
 from nhwcodec_tpu_torch.host import tables as T
+from nhwcodec_tpu_torch.host.models import encoder as host_encoder
 from nhwcodec_tpu_torch.host.models.encoder import _res_setting
+from nhwcodec_tpu_torch.host.ops import (analysis, entropy_enc, prefilter,
+                                         requant)
 from nhwcodec_tpu_torch.models import device_scans as ds
+from nhwcodec_tpu_torch.models import device_stages as stages
+from nhwcodec_tpu_torch.models import encoder as tenc
 
 D = 256
 N = 512
@@ -303,3 +313,147 @@ def _uv_ll2_sections(uv: dict) -> list[dict]:
             sec["res_V_64"] = np.packbits((h["tree1_v"][k] >> 1) & 1)
         out.append(sec)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the composition (JAX device_encode_scans.py:47-376)
+
+
+def _host_e10(jpegs: np.ndarray, procs: np.ndarray, mems: list,
+              q: int) -> None:
+    """The host's E10 part-0 offset (with each image's hr_mem) and
+    synthesis on (B, 512, 512) int16 jpeg and process, in place."""
+    for k in range(len(procs)):
+        requant.offset_y_recons256(jpegs[k], procs[k], q, RATIO, part=0,
+                                   highres_mem=mems[k], highres_tmp_out=[])
+        analysis.wavelet_synthesis(jpegs[k], procs[k], D, 0)
+
+
+def _kernel_heads(origs: list, q: int) -> np.ndarray:
+    """(B, 4) int16: each image's pre-filter kernel at [65536:65540], what
+    the column ladder reads past res256 (q > LOW4)."""
+    return np.stack([np.asarray(prefilter.kernel_for(o, q)).reshape(-1)[
+        SZ: SZ + 4] for o in origs]).astype(np.int16)
+
+
+def _host_uv_ladder_in(jm: np.ndarray, pm: np.ndarray, q: int) -> None:
+    """encode_uv's offset_uv part 1 and synthesis on (B, 256, 256) int16
+    jpeg and process, in place: the compare ladder's inputs."""
+    for k in range(len(pm)):
+        requant.offset_uv_recons256(jm[k], pm[k], q, RATIO, comp=1)
+        analysis.wavelet_synthesis(jm[k], pm[k], 128, 0)
+
+
+def _host_uv_marking_in(jm: np.ndarray, pm: np.ndarray,
+                        q: int) -> np.ndarray:
+    """encode_uv after the compare ladder, in place: the analysis, resIII
+    (returned, (B, 128, 128)), offset_uv part 0 and synthesis: the
+    sentinel marking's input."""
+    res3 = np.empty((len(pm), 128, 128), np.int16)
+    for k in range(len(pm)):
+        analysis.wavelet_analysis(jm[k], pm[k], 128, 1, 0)
+        res3[k] = pm[k][:128, :128]
+        requant.offset_uv_recons256(jm[k], pm[k], q, RATIO, comp=0)
+        analysis.wavelet_synthesis(jm[k], pm[k], 128, 0)
+    return res3
+
+
+def _u8_pairs(u: np.ndarray) -> np.ndarray:
+    """(B, 4) int16: the int16 pairs of each U byte plane at flat 32768,
+    what the chroma ladders read past res256 (for U and V both; the host
+    copy's ``encode_from_planes``)."""
+    f = u.reshape(len(u), -1)[:, 32768: 32776].astype(np.uint16)
+    return (f[:, 0::2] | (f[:, 1::2] << 8)).view(np.int16)
+
+
+def _uv_component(stream, pre: tuple, tails: np.ndarray, q: int, comp: int,
+                  dev):
+    """One chroma component from the front's (jpeg, process, res256) host
+    arrays: the host and device steps of encode_uv up to its LL2 coding,
+    then ``_uv_stream_stage`` into ``stream``.  Returns
+    ``_uv_ll2_stage``'s result."""
+    jm, pm, r256 = (np.array(a, np.int16) for a in pre)
+    _host_uv_ladder_in(jm, pm, q)
+    R, oob = stages.to_device(dev, r256, tails)
+    J = ds.uv_compare_ladder_device(*stages.to_device(dev, jm, pm), R,
+                                    oob[:, 0], comp == 1)
+    jm = np.array(J.cpu())
+    res3 = _host_uv_marking_in(jm, pm, q)
+    Pm, res3 = stages.to_device(dev, pm, res3)
+    if q >= T.LOW2:
+        b = len(pm)
+        rf_ext = torch.zeros((b, ds.UV_RF_EXT), dtype=torch.int16,
+                             device=Pm.device)
+        rf_ext[:, : ds.UVQ_N] = R.reshape(b, -1)
+        rf_ext[:, ds.UVQ_N: ds.UVQ_N + 4] = oob
+        Pm = ds.uv_sentinel_marking_device(Pm, rf_ext,
+                                           4 if q > T.LOW3 else 5)
+    Pm[:, :128, :128] = res3
+    res = _uv_ll2_stage(Pm, q)
+    _uv_stream_stage(stream, res[0], comp)
+    return res
+
+
+def _tokens(stream: torch.Tensor) -> list:
+    """The host tokenizer on each image's 6 SZ stream."""
+    return [entropy_enc.wavlts2packet_tokenize(s)
+            for s in stream[:, : 6 * SZ].cpu().numpy()]
+
+
+def encode_batch_scans_device(images: np.ndarray, quality: int = 20,
+                              device="cuda") -> list[bytes]:
+    """(B, 512, 512, 3) uint8 -> list of .nhw byte strings, byte-identical
+    to ``nhwcodec_tpu.encode``, with every raster scan after the front on
+    ``device``: the stages of this module, each once for the whole batch.
+    Raises ValueError outside 1 <= quality <= HIGH1 (above, the HQ residue
+    runs on the host encoder) and NotImplementedError at q <= LOW4."""
+    q = quality
+    if not 1 <= q <= T.HIGH1:
+        raise ValueError(f"scans_on_device covers 1 <= q <= {T.HIGH1}, got "
+                         f"q{q} (above, the HQ residue runs on the host "
+                         "encoder)")
+    if q <= T.LOW4:
+        raise NotImplementedError(
+            f"scans_on_device at q{q}: q <= {T.LOW4} waits for slice e of "
+            "the port: offset_y_low4, the low-q cleanups (low_q_ll1, "
+            "very_low_q, low56 and lowest-q band cleanups) and uv_ll_smooth "
+            f"are not ported; {T.LOW4 + 1} <= q <= {T.HIGH1} run")
+    dev = resolve_device(device)
+    images = np.asarray(images, np.uint8)
+    _, origs, u8, _, pre_y, pre_u, pre_v = stages.encode_front(images, q, dev)
+    jpegs, procs, res256 = (np.array(a, np.int16) for a in pre_y[:3])
+
+    # Y: E16, the host's E10, the residue stage and the stream stage
+    P, = stages.to_device(dev, procs)
+    resIII = P[:, :D, :D].clone()
+    Pz, y = _y_ll2_stage(P, q)
+    secs, mems = _ll2_sections(y)
+    procs = np.array(Pz.cpu())
+    procs[:, :D, :D] = resIII.cpu().numpy()
+    _host_e10(jpegs, procs, mems, q)
+    P, r256, khead = stages.to_device(dev, procs, res256,
+                                      _kernel_heads(origs, q))
+    P, streams = _y_residue_stage(P, r256, khead, resIII, q)
+    stream, sel1, sel2 = _y_stream_stage(P, q)
+
+    # U, then V; both read the U plane's bytes past res256
+    tails = _u8_pairs(u8)
+    uv = [_uv_component(stream, pre, tails, q, comp, dev)
+          for comp, pre in enumerate((pre_u, pre_v))]
+    uv_secs = _uv_ll2_sections(_uv_highres_stage(*uv, q))
+
+    deferred = []
+    sel = np.stack([sel1.cpu().numpy(), sel2.cpu().numpy()], 1)
+    for sec, res, uvs, (s1, s2), tokens in zip(
+            secs, _residue_sections(streams), uv_secs, sel, _tokens(stream)):
+        sec.update(res)
+        sec["exw_Y"] = sec["exw_Y"] + uvs["exw_uv"]
+        if q > T.LOW5:
+            sec["res_U_64"] = uvs["res_U_64"]
+            sec["res_V_64"] = uvs["res_V_64"]
+        sec["ch_res"] = np.array(sec.pop("hrcomp_y") + uvs["ch_res_uv"],
+                                 np.uint8)
+        sec["nhw_select1"] = int(s1)
+        sec["nhw_select2"] = int(s2)
+        deferred.append(host_encoder.DeferredEncode(q, sec, tokens))
+    return tenc.finish_deferred(deferred, device=dev)

@@ -1269,6 +1269,151 @@ def positional_stream_device(rf, wt, rt, word_bits: int):
 
 
 # ---------------------------------------------------------------------------
+# The chroma ladders of encode_uv (the host copy's
+# encoder._uv_compare_ladder and _uv_sentinel_marking,
+# encoder/nhw_encoder.c:2316-2424)
+
+UVQ = 128                      # the chroma LL1 quadrant's side
+UVQ_N = UVQ * UVQ
+UV_RF_EXT = UVQ_N + 512        # res256 and the tail the drift reads
+UV_RF_MIN = UVQ_N + 130 + 127  # csrc/uv.cu kRfMin
+# the compare ladder's k by the difference scan, at clamp(scan, -11, 11) +
+# 11; at scan = +-3 the rules also read nxt
+_UV_LADDER_K = (6, 3, 3, 3, 2, 2, 2, 1, 0, 0, 0, 0, 0, 0, 0, -1, -2, -2, -2,
+                -3, -3, -3, -6)
+
+
+def uv_compare_ladder_device(jpeg, process, res256, oob0, strict: bool):
+    """The post-synthesis LL1 compare on (B, 256, 256) int16 jpeg and
+    process, (B, 128, 128) int16 res256 and oob0 (B,), the value read one
+    past res256: a new jpeg whose (128, 128) LL quadrant is res256 + k.
+    Every read is an initial value, so it is elementwise torch ops: k from
+    a table on the clamped difference, and the +-3 rules against the next
+    LL position's difference (flat e + 1 reaches process column 128 at j =
+    127; res256's next is oob0 at the last position), ``strict`` (V) with
+    > / <, else >= / <=."""
+    b = jpeg.shape[0]
+    for x, name in ((jpeg, "jpeg"), (process, "process")):
+        _check(x, f"uv_compare_ladder {name}", torch.int16, (b, D, D))
+    _check(res256, "uv_compare_ladder res256", torch.int16,
+           (b, UVQ, UVQ))
+    if oob0.shape != (b,) or oob0.is_floating_point():
+        raise ValueError(f"uv_compare_ladder oob0: expected ({b},) integers, "
+                         f"got {oob0.dtype}{tuple(oob0.shape)}")
+    r = _i32(res256)
+    rn = torch.cat([r.reshape(b, UVQ_N)[:, 1:],
+                    _i32(oob0)[:, None]], 1)
+    scan = _i32(process[:, :UVQ, :UVQ]) - r
+    nxt = _i32(process[:, :UVQ, 1:UVQ + 1]) - rn.reshape(b, UVQ, UVQ)
+    tab = torch.tensor(_UV_LADDER_K, dtype=torch.int32, device=r.device)
+    k = tab[(scan.clamp(-11, 11) + 11).long()]
+    up = (nxt > 0) if strict else (nxt >= 0)
+    down = (nxt < 0) if strict else (nxt <= 0)
+    k = k - ((scan == 3) & up).to(torch.int32) + ((scan == -3) & down).to(
+        torch.int32)
+    out = jpeg.clone()
+    out[:, :UVQ, :UVQ] = (r + k).to(torch.int16)
+    return out
+
+
+def _uvsm_args(process, rf_ext) -> None:
+    _check(process, "uv_sentinel_marking process", torch.int16,
+           (None, D, D))
+    b = process.shape[0]
+    _check(rf_ext, "uv_sentinel_marking rf_ext", torch.int16, (b, None))
+    if rf_ext.shape[1] < UV_RF_MIN:
+        raise ValueError(f"uv_sentinel_marking rf_ext: rows of "
+                         f"{rf_ext.shape[1]}; the drift reads up to "
+                         f"{UV_RF_MIN}")
+    if not (process.is_contiguous() and rf_ext.is_contiguous()):
+        raise ValueError("uv_sentinel_marking: inputs must be contiguous")
+
+
+def _uvsm_decide(d0, d1, b0, b1, b2, res_uv: int):
+    """One lane's decision on its differences d0, d1 and its band slots'
+    initial values: (pos, placed, code, slot), as csrc/uv.cu ``decide``:
+    pos a 12400 pair (else 12600), placed a pair with a free slot, code
+    the single sentinel (0: none), slot the first free one (3: none)."""
+    pos = (d0 > 3) & (d0 < 7) & (d1 > 2) & (d1 < 7)
+    neg = (d0 > -7) & (d0 < -3) & (d1 > -8) & (d1 < -2)
+    slot = torch.where(b0.abs() < 8, 0, torch.where(
+        b1.abs() < 8, 1, torch.where(b2.abs() < 8, 2, 3)))
+    placed = (pos | neg) & (slot < 3)
+    code = torch.where(d0 > 0, 12900, torch.where((d0 == -5) & (d1 >= 0),
+                                                  0, 13000))
+    code = torch.where(d0.abs() > res_uv, code, 0)
+    return pos, placed, code, slot
+
+
+def _uvsm_apply(visited, pos, placed, code, slot, bands):
+    """The lane's band values after its turn: the written code in its
+    first free slot where it fires, else the initial values."""
+    code = torch.where(placed, torch.where(pos, 12400, 12600), code)
+    fire = visited & (code != 0)
+    return [torch.where(fire & (slot == s), code, band)
+            for s, band in enumerate(bands)]
+
+
+def uv_sentinel_marking_ref(process, rf_ext, res_uv: int):
+    """Torch twin of ``uv_sentinel``: the 128 rows in order with a row's
+    lanes as columns and each image's window start carried: the lanes
+    decide on their reads, the visited lanes are the run parity of the
+    placed pairs, lane 127 decides again against the value lane 0 left in
+    column 128, and its placed pair moves the next row's window by
+    one."""
+    _uvsm_args(process, rf_ext)
+    b = process.shape[0]
+    dev = process.device
+    p = _i32(process)
+    rf = _i32(rf_ext)
+    out = process.clone()
+    lanes = torch.arange(UVQ + 1, device=dev)
+    count = torch.zeros((b, 1), dtype=torch.long, device=dev)
+    for r in range(UVQ):
+        sl = rf.gather(1, count + lanes)
+        bands = [p[:, r, UVQ:], p[:, UVQ + r, :UVQ],
+                 p[:, UVQ + r, UVQ:]]
+        d0 = p[:, r, :UVQ] - sl[:, :UVQ]
+        pos, placed, code, slot = _uvsm_decide(
+            d0, p[:, r, 1:UVQ + 1] - sl[:, 1:], *bands, res_uv)
+        visited = ~_flat_shift_r(_run_parity_fire(placed), 1, False)
+        w = _uvsm_apply(visited, pos, placed, code, slot, bands)
+        # lane 127 against lane 0's band 0 value in column 128
+        last = [x[:, -1:] for x in bands]
+        pos, placed, code, slot = _uvsm_decide(
+            d0[:, -1:], w[0][:, :1] - sl[:, -1:], *last, res_uv)
+        w127 = _uvsm_apply(visited[:, -1:], pos, placed, code, slot, last)
+        for x, x127 in zip(w, w127):
+            x[:, -1:] = x127
+        out[:, r, UVQ:] = w[0].to(torch.int16)
+        out[:, UVQ + r, :UVQ] = w[1].to(torch.int16)
+        out[:, UVQ + r, UVQ:] = w[2].to(torch.int16)
+        count = count + UVQ + (visited[:, -1:] & placed)
+    return out
+
+
+def uv_sentinel_marking_device(process, rf_ext, res_uv: int):
+    """The band sentinels 12400/12600/12900/13000 on (B, 256, 256) int16
+    process planes against rf_ext (B, >= 16641) int16: res256 (16384),
+    then the tail the reference reads past it (its oob values, then
+    zeros).  Returns a new plane (kernel ``uv_sentinel``: one launch, one
+    CTA an image, a thread a lane)."""
+    _uvsm_args(process, rf_ext)
+    if process.device.type == "cpu":
+        return uv_sentinel_marking_ref(process, rf_ext, res_uv)
+    lib, stream = _cuda_args(process, rf_ext)
+    b = process.shape[0]
+    out = torch.empty_like(process)
+    if b:
+        with torch.cuda.device(process.device):
+            build.check("nhw_uv_sentinel", lib.nhw_uv_sentinel(
+                process.data_ptr(), rf_ext.data_ptr(), out.data_ptr(), b,
+                rf_ext.shape[1], res_uv, stream))
+        build.count("uv_sentinel")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # E16/E17 walks: the visited mask of a forward walk over static successors.
 # The highres coders' per-node successor and emission are pure functions of
 # their input buffer, so each coder is one walk from node 1.

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from nhwcodec_tpu_torch.host import tables as T
+from nhwcodec_tpu_torch.host.ops import prefilter, requant
 from nhwcodec_tpu_torch.ops import colorspace, dwt
 
 D = 256
@@ -150,3 +151,40 @@ def encode_front_device(rgb: torch.Tensor, quality: int):
     pre_y, pre_u, pre_v = _analysis_all(y, u, v, quality)
     return (to_host(y, u, v), to_host(*pre_y), to_host(*pre_u),
             to_host(*pre_v))
+
+
+def encode_front(images: np.ndarray, quality: int, dev):
+    """The encode's front for a (B, 512, 512, 3) uint8 batch: D1
+    colorspace (K6 at q >= NORM), H1 the host Y pre-filter (q < HIGH2), D2
+    analysis (K4), H1b the host requant mark + offset(part=1) and D3 the
+    requant tail (K5) (q > LOW14).  Returns host arrays (y1s, origs, u, v,
+    pre_y, pre_u, pre_v): the pre-filtered and the original Y planes, the
+    chroma planes and the transform states; pre_y is (jpeg, process,
+    res256, snap) after the requant block, so the host encode skips its own
+    (``requant_done``)."""
+    rgb, = to_device(dev, images)
+    if quality > T.HIGH1:
+        (y, u, v), pre_y, pre_u, pre_v = encode_front_device(rgb, quality)
+        y1s = origs = list(y)
+    else:
+        y_d, u_d, v_d = colorspace_front_device(rgb, quality)
+        y, u, v = to_host(y_d, u_d, v_d)
+        origs = list(y)
+        y1s = ([prefilter.pre_process_y(o, quality) for o in origs]
+               if quality < T.HIGH2 else origs)
+        pre_y, pre_u, pre_v = analysis_front_device(
+            np.stack(y1s), u_d, v_d, quality, dev)
+    if quality > T.LOW14:
+        # imported here: models.device_requant imports this module
+        from nhwcodec_tpu_torch.models import device_requant
+
+        # the host greedy mark + offset(part=1) automata, then the rest of
+        # the requant block on the device
+        jpegs, procs, r256s = (np.array(a, np.int16) for a in pre_y[:3])
+        for k in range(len(images)):
+            requant.mark_res256(procs[k], r256s[k])
+            requant.offset_y_recons256(jpegs[k], procs[k], quality, 8,
+                                       part=1)
+        pre_y = device_requant.requant_tail_device(
+            jpegs, procs, r256s, dev) + (pre_y[3],)
+    return y1s, origs, u, v, pre_y, pre_u, pre_v

@@ -16,7 +16,10 @@ Encode, per chunk:
 
 For q > HIGH1 (no Y pre-filter) D1 and D2 run back to back on the
 device.  A failure of the chunk's device stages costs the chunk's
-images; the host stage and the pack isolate each image.
+images; the host stage and the pack isolate each image.  With
+``scans_on_device`` the whole batch takes the front and then
+``models.device_encode_scans``, the raster scans on the device, in one
+call (q17..q21).
 
 Decode: a failed chunk is retried image by image, so one bad stream
 costs one result, not the chunk.  With ``entropy_on_device`` each
@@ -34,11 +37,10 @@ import numpy as np
 
 from nhwcodec_tpu_torch.host import tables as T
 from nhwcodec_tpu_torch.host.models import encoder as host_encoder
-from nhwcodec_tpu_torch.host.ops import prefilter, requant
 from nhwcodec_tpu_torch.host.parallel.api import BatchMetrics
 from nhwcodec_tpu_torch.device import resolve_device
 from nhwcodec_tpu_torch.models import device_decode as dd
-from nhwcodec_tpu_torch.models import device_requant
+from nhwcodec_tpu_torch.models import device_encode_scans as des
 from nhwcodec_tpu_torch.models import device_stages as ds
 from nhwcodec_tpu_torch.models import encoder as tenc
 
@@ -66,41 +68,12 @@ def _run(fn, jobs, n_workers: int, *args) -> int:
         return sum(f.result() for f in futs)
 
 
-def _encode_front(images: np.ndarray, quality: int, dev):
-    """D1, H1, D2, H1b, D3 for one chunk -> (y1s, origs, u, v, pre_y,
-    pre_u, pre_v) host arrays."""
-    rgb, = ds.to_device(dev, images)
-    if quality > T.HIGH1:
-        (y, u, v), pre_y, pre_u, pre_v = ds.encode_front_device(rgb, quality)
-        y1s = origs = list(y)
-    else:
-        y_d, u_d, v_d = ds.colorspace_front_device(rgb, quality)
-        y, u, v = ds.to_host(y_d, u_d, v_d)
-        origs = list(y)
-        y1s = ([prefilter.pre_process_y(o, quality) for o in origs]
-               if quality < T.HIGH2 else origs)
-        pre_y, pre_u, pre_v = ds.analysis_front_device(
-            np.stack(y1s), u_d, v_d, quality, dev)
-    if quality > T.LOW14:
-        # the host greedy mark + offset(part=1) automata, then the rest of
-        # the requant block on the device; encode_y then skips its host
-        # requant block (requant_done)
-        jpegs, procs, r256s = (np.array(a, np.int16) for a in pre_y[:3])
-        for k in range(len(images)):
-            requant.mark_res256(procs[k], r256s[k])
-            requant.offset_y_recons256(jpegs[k], procs[k], quality, 8,
-                                       part=1)
-        pre_y = device_requant.requant_tail_device(
-            jpegs, procs, r256s, dev) + (pre_y[3],)
-    return y1s, origs, u, v, pre_y, pre_u, pre_v
-
-
 def _encode_chunk_device(images: np.ndarray, idxs: list[int], quality: int,
                          out: list, dev, device_pack: bool) -> int:
     """Run one chunk through D1..D4 into ``out``; returns its failure
     count."""
     try:
-        y1s, origs, u, v, pre_y, pre_u, pre_v = _encode_front(
+        y1s, origs, u, v, pre_y, pre_u, pre_v = ds.encode_front(
             images, quality, dev)
     except Exception:  # noqa: BLE001 — whole-chunk device failure
         log.warning("encode chunk %s failed in its device stages", idxs,
@@ -162,22 +135,23 @@ def encode_batch_device(images: np.ndarray, quality: int = 20,
     ``workers``: host thread count (default: cpu count); ``chunk``:
     images per device batch (default: B/workers, capped 16);
     ``device_pack``: pack each chunk's Huffman bits on the device
-    (default) instead of on the host.  ``scans_on_device=True`` (the
-    device raster scans, for 1 <= q <= HIGH1) is not ported yet: of its
-    stages only the LL2 stage, the residue stage and the stream stage are
-    (``models.device_encode_scans``)."""
+    (default) instead of on the host.  ``scans_on_device=True``: every
+    raster scan after the front on ``device`` too
+    (``models.device_encode_scans.encode_batch_scans_device``), the whole
+    batch in one call, with no chunks, no pool and no per-image
+    isolation, as the JAX pipeline runs it: a failure raises, and
+    ``workers``, ``chunk`` and ``device_pack`` do not apply.  It runs at
+    LOW4 < q <= HIGH1 (q17..q21); q <= LOW4 (q16 and below) raises
+    NotImplementedError until the low-q programs (``offset_y_low4``, the
+    low-q cleanups, ``uv_ll_smooth``) are ported, and q outside 1..HIGH1
+    raises ValueError."""
     if scans_on_device:
-        raise NotImplementedError(
-            f"scans_on_device=True (1 <= q <= {T.HIGH1}) is not ported yet: "
-            "the device LL2 stage (the E16 Y and E17 UV LL2 byte coding and "
-            f"run-delta compression, 1 <= q <= {T.HIGH1}), the device "
-            "residue stage (the E11 mid-q cleanup and pair promotion, the "
-            "E12 column ladder, classify and positional streams) and the "
-            "device stream stage (snap passes, offset_y/offset_uv, "
-            "serpentines, merge, select, cap) are, the latter two for "
-            f"{T.LOW4 + 1} <= q <= {T.HIGH1}; the UV compare ladder and "
-            "sentinel marking, the q <= LOW4 programs and the composition "
-            "(encode_batch_scans_device) are not (ROADMAP Queue 1 item 1)")
+        dev = resolve_device(device)
+        t0 = time.perf_counter()
+        streams = des.encode_batch_scans_device(images, quality, dev)
+        return streams, BatchMetrics(
+            images=len(images), wall_s=time.perf_counter() - t0,
+            megapixels=len(images) * 512 * 512 / 1e6)
     dev = resolve_device(device)
     t0 = time.perf_counter()
     b = len(images)

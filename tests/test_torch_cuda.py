@@ -1000,3 +1000,68 @@ def test_ll2_kernels_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         ds.walk_visited_device(torch.zeros((2, 64), dtype=torch.int32,
                                            device=cuda)[:, ::2])
+
+
+# the device encode scans composed: S9 uv_sentinel (csrc/uv.cu), the compare
+# ladder's torch ops and encode_batch_device(scans_on_device=True)
+
+
+@pytest.mark.parametrize("b", [1, 3, 16])
+@pytest.mark.parametrize("res_uv", [4, 5])
+@pytest.mark.parametrize("kind", ["drift", "d0 -5", "bands taken",
+                                  "pair runs"])
+def test_uv_sentinel_kernel(cuda, kind, res_uv, b):
+    import chip_smoke as cs
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    proc, rf = cs.uv_sentinel_edge_inputs(np.random.default_rng(120 + b), b,
+                                          kind)
+    P, R = torch.from_numpy(proc).to(cuda), torch.from_numpy(rf).to(cuda)
+    before = build.LAUNCHES["uv_sentinel"]
+    got = ds.uv_sentinel_marking_device(P, R, res_uv)
+    assert build.LAUNCHES["uv_sentinel"] == before + 1
+    torch.testing.assert_close(got, ds.uv_sentinel_marking_ref(P, R, res_uv),
+                               rtol=0, atol=0)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  cs.host_uv_sentinel(proc, rf, res_uv))
+
+
+@pytest.mark.parametrize("strict", [False, True])
+def test_uv_compare_ladder_on_the_card(cuda, strict):
+    import chip_smoke as cs
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    args = cs.uv_ladder_edge_inputs(np.random.default_rng(130), 16)
+    got = ds.uv_compare_ladder_device(
+        *(torch.from_numpy(a).to(cuda) for a in args), strict)
+    want = ds.uv_compare_ladder_device(
+        *(torch.from_numpy(a) for a in args), strict)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("q", [20, 18, 17])
+def test_scans_on_device_on_the_card(cuda, q):
+    import chip_smoke as cs
+    from nhwcodec_tpu_torch.host.models import encoder as host_encoder
+    from nhwcodec_tpu_torch.parallel import device_pipeline as tdp
+
+    images = np.stack([fixtures.texture_noise(), fixtures.gradient_circles()])
+    build.reset_launches()
+    got, _ = tdp.encode_batch_device(images, q, device=cuda,
+                                     scans_on_device=True)
+    want = cs.scans_device_launches(q)
+    assert {k: build.LAUNCHES[k] for k in want} == want
+    assert got == [host_encoder.encode(img, q) for img in images]
+
+
+def test_uv_sentinel_rejects_bad_inputs(cuda):
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    p = torch.zeros((2, 256, 256), dtype=torch.int16, device=cuda)
+    rf = torch.zeros((2, ds.UV_RF_EXT), dtype=torch.int16, device=cuda)
+    with pytest.raises(ValueError):
+        ds.uv_sentinel_marking_device(p, rf[:, : ds.UV_RF_MIN - 1], 4)
+    with pytest.raises(ValueError):
+        ds.uv_sentinel_marking_device(p.transpose(1, 2), rf, 4)
+    with pytest.raises(ValueError):
+        ds.uv_sentinel_marking_device(p, rf.cpu(), 4)

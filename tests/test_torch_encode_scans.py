@@ -13,7 +13,8 @@
   ``im_nhw`` and ``nhw_select1/2`` on real images at q20 (two fixtures),
   q21 and q17, with the inputs captured from the host copy's own encode
   by ``chip_smoke.StreamCapture``.
-- ``scans_on_device=True`` still raises, naming the range 1..HIGH1.
+- ``scans_on_device=True`` raises below and above the range it runs,
+  naming it.
 """
 
 import numpy as np
@@ -210,9 +211,13 @@ def test_stream_stage_range():
 def test_scans_on_device_message_names_the_range():
     img = np.zeros((1, 512, 512, 3), np.uint8)
     with pytest.raises(NotImplementedError,
-                       match=rf"1 <= q <= {T.HIGH1}\).*LL2 stage.*"
-                       "residue stage.*stream stage.*UV compare ladder"):
-        tdp.encode_batch_device(img, 20, device="cpu", scans_on_device=True)
+                       match=rf"offset_y_low4.*uv_ll_smooth.*"
+                       rf"{T.LOW4 + 1} <= q <= {T.HIGH1} run"):
+        tdp.encode_batch_device(img, T.LOW4, device="cpu",
+                                scans_on_device=True)
+    with pytest.raises(ValueError, match=rf"1 <= q <= {T.HIGH1}"):
+        tdp.encode_batch_device(img, T.HIGH2, device="cpu",
+                                scans_on_device=True)
 
 
 def test_wrappers_check_their_inputs():
