@@ -127,14 +127,18 @@
    ``encode_batch_device(images, q, scans_on_device=True)``
    (models/device_encode_scans.encode_batch_scans_device: the front, the
    LL2, residue and stream stages, the chroma ladders, the tokenizer and
-   the packer; S9 uv_sentinel in csrc/uv.cu), on the encode batch's 16
-   images at q20 in one call and 4 each at q21, q19, q18 and q17: every
-   stream byte for byte against the host copy's encoder, the fixtures'
-   against STREAM_SHA256, each call's launches (K4, K5, K6 at q >= NORM,
-   S1-S8, S9 twice at q >= LOW2 and never at q17); q16 and q22 raise.
-   Times the q20 call in turns against the option off (one chunk, and the
-   default pool), splits the on path's wall over its host steps and
-   device stages, and profiles one call.  Holds S9 to its twin and the
+   the packer; S9 uv_sentinel in csrc/uv.cu; at q <= LOW4 S10
+   offset_y_low4 in csrc/scans.cu, the low56 cleanup and, below LOW6, S11
+   lowest_q_band_cleanup in csrc/lowq.cu), on the encode batch's 16
+   images at q20 and at q16 in one call each and 4 each at q21, q19, q18,
+   q17, q15, q14 and q13: every stream byte for byte against the host
+   copy's encoder, the fixtures' against STREAM_SHA256, each call's
+   launches (K4, K5, K6 at q >= NORM, S1-S8, S9 twice at q >= LOW2 and
+   never below, S10 in S2's place and no S4 at q <= 16, S11 at q13 only);
+   q12 and q22 raise.  Times the q20 and q16 calls of 16 and the q13 call
+   of 4 in turns against the option off (one chunk, and the default
+   pool), splits the on path's wall at q20 and q16 over its host steps
+   and device stages, and profiles one q20 call.  Holds S9 to its twin and the
    host copy's C on the chroma planes captured from the host copy's
    encodes (StreamCapture: q20, q21, q19, q18; timed on the q20 U planes)
    and at batch 1, 3 and 16 on edge planes (lane 127's pairs drifting the
@@ -142,6 +146,15 @@
    -5, taken band slots, runs of 128 pairs), res_uv 4 and 5, and the
    compare ladder (torch ops) on the card to the host copy's C, strict
    both ways.
+11. Holds S10 to its twin and the host copy's C on the planes its host
+   encodes captured at q16 (16, timed), q15, q14 and q13 (4 each) and at
+   batch 1, 3 and 16 on edge planes (quant4 pair writes across row ends,
+   counters at row starts, random trigger values); S11 on the captured
+   q13 planes (timed as a batch of 16 and of 4) and at batch 1, 3 and 16
+   on edge planes (pairR at 510 chained into the next row, pairL at
+   column 0, loop A's writes into columns 255 and 0 and row 256, reads in
+   the tail past resIII, random) at q13 and q10; the low56 cleanup on the
+   captured q15 and q14 planes.
 
 Prints the card's name and power limit (nvidia-smi), whether the host
 copy's C scans were built (``native host library: loaded``) or the host
@@ -211,6 +224,10 @@ KERNELS = {
                      "nhwcodec_tpu/models/device_scans.py:1411"),
     "uv_sentinel": (CSRC + "uv.cu",
                     "nhwcodec_tpu/models/device_scans.py:1327"),
+    "offset_y_low4": (CSRC + "scans.cu",
+                      "nhwcodec_tpu/models/device_scans.py:2750"),
+    "lowest_q_band_cleanup": (CSRC + "lowq.cu",
+                              "nhwcodec_tpu/models/device_scans.py:2165"),
 }
 DECODE_KERNELS = ("synth_level", "y_stage2_full", "uv_synth")
 HQ_KERNELS = ("synth_unnorm_rows_t", "synth_norm_rows_clip_waves")
@@ -581,14 +598,20 @@ def max_abs_err(name: str, got: tuple, want: tuple) -> int:
     return err
 
 
+# the longest twin window the profiler summarises: a twin call of some
+# 80,000 launches (S5's, S10's) takes it about a minute
+TWIN_PROFILE_MS = 1000
+
+
 def compare_and_time(name: str, shape: str, kern, twin, timed: bool = True,
                      twin_calls: int = 10, bound: dict | None = None,
                      graph: bool = False, twin_runs: int = RUNS,
                      twin_warm: int = 3):
     """Run ``kern`` and ``twin`` (each returns a tensor or a tuple of
     tensors) on the card, check dtype, shape and max_abs_err 0, and time
-    both (the twin's profiler window over ``twin_calls`` calls, its call
-    time the median of ``twin_runs`` after ``twin_warm`` calls).  When
+    both (the twin's profiler window over ``twin_calls`` calls, where
+    those take under TWIN_PROFILE_MS; its call time the median of
+    ``twin_runs`` after ``twin_warm`` calls).  When
     timed, returns the kernel's entry of the JSON line: max_abs_err, ms
     and plain_ms (wrapper calls, CUDA events), device_ms (profiler),
     ``bound`` (``work(...)`` of these inputs), bound_us, bound_share (the
@@ -611,7 +634,8 @@ def compare_and_time(name: str, shape: str, kern, twin, timed: bool = True,
     ms = median_ms(kern)
     plain_ms = median_ms(twin, runs=twin_runs, warm=twin_warm)
     _, k_dev, k_top = device_profile(kern, calls=10)
-    t_dev = device_profile(twin, calls=twin_calls)[1]
+    t_dev = (device_profile(twin, calls=twin_calls)[1]
+             if plain_ms * twin_calls < TWIN_PROFILE_MS else None)
     g_ms = graph_ms(kern) if graph else None
     # the share of the profiler's device time, else of the graph's
     share_of = k_dev or g_ms
@@ -2209,11 +2233,14 @@ STREAM_QS = {20: B, 21: 4, 19: 4, 17: 4}
 SZ = 65536
 # the functions' own operations, counted from the sources: a snap-pass
 # region position (the static count, the fixup, the decision); a plane
-# position of offset_y (pass 1 and pass 4) and an LL position (passes 2-3);
-# a stream position of the merge (its skip and fire test, a step of the
-# walk)
+# position of offset_y's pass 1 (scans.cu offset_y_rows: the compares,
+# arithmetic and selects of a step, 21) and of its pass 4 (offset_y_codes:
+# the code map of a value, 24; the left-neighbour fixups' tests are not
+# counted), and an LL position (passes 2-3); a stream position of the
+# merge (its skip and fire test, a step of the walk)
 SNAP_OPS = 30
-OFFSET_Y_OPS = 45
+OFFSET_Y_PASS1_OPS = 21
+OFFSET_Y_PASS4_OPS = 24
 OFFSET_Y_LL_OPS = 60
 MERGE_OPS = 25
 
@@ -2242,10 +2269,17 @@ class StreamCapture:
     oob0 ``_uv_compare_ladder`` got, and the jpeg it left) and, at q >=
     LOW2, "uvsm" (for U and V: the process and res_uv
     ``_uv_sentinel_marking`` got, res256 and its oob tail as the (16896,)
-    rf_ext, and the process it left).  It wraps the host
-    copy's ``encoder.encode_y``, ``_mid_q_band_cleanup``,
-    ``_pair_promotion``, ``_band_snap_pass``, ``_uv_compare_ladder`` and
-    ``_uv_sentinel_marking``,
+    rf_ext, and the process it left), and the quantizer's and the low-q
+    cleanups': "oy" (the plane ``quantize.offset_y`` got, "in", its
+    quality "q" and the codes it left, "out"), at LOW6..LOW5 "low56" (q
+    and the plane ``_low56_band_cleanup`` left; its input is "e11") and
+    below LOW6 "lq" (q, xs, the (65792,) r3_ext as ``lowq_r3_ext`` builds
+    it from the free-time kernel and tree1, and the plane
+    ``_lowest_q_band_cleanup`` left; its input is "e11").  It wraps the
+    host copy's ``encoder.encode_y``, ``_mid_q_band_cleanup``,
+    ``_pair_promotion``, ``_band_snap_pass``, ``_uv_compare_ladder``,
+    ``_uv_sentinel_marking``, ``_low56_band_cleanup`` and
+    ``_lowest_q_band_cleanup``, ``quantize.offset_y``,
     ``residue.res256_column_ladder``, ``quantize.offset_uv``,
     ``quantize.select_codes``, ``entropy_enc.wavlts2packet_tokenize`` /
     ``wavlts2packet``, ``ll2.ll2_code_y``, ``ll2.y_highres_compression``
@@ -2280,9 +2314,14 @@ class StreamCapture:
             (ll2, "uv_highres_compression", ll2.uv_highres_compression),
             (native, "_load", native._load),
             (encoder, "_uv_compare_ladder", encoder._uv_compare_ladder),
-            (encoder, "_uv_sentinel_marking", encoder._uv_sentinel_marking)]
+            (encoder, "_uv_sentinel_marking", encoder._uv_sentinel_marking),
+            (quantize, "offset_y", quantize.offset_y),
+            (encoder, "_low56_band_cleanup", encoder._low56_band_cleanup),
+            (encoder, "_lowest_q_band_cleanup",
+             encoder._lowest_q_band_cleanup)]
         (encode_y, midq, pair, ladder, snap, offset_uv, select, tokenize,
-         packet, ll2y, yhr, uvhr, load, uvcl, uvsm) = (f for *_, f in saved)
+         packet, ll2y, yhr, uvhr, load, uvcl, uvsm, offset_y, low56,
+         lowest) = (f for *_, f in saved)
 
         def plane(pf):
             return np.array(pf[: 4 * SZ]).reshape(512, 512)
@@ -2403,10 +2442,33 @@ class StreamCapture:
             r["out"] = np.array(process, np.int16)
             rec[-1].setdefault("uvsm", []).append(r)
 
+        def offset_y_w(process, quality, m1):
+            r = {"in": np.array(process, np.int16), "q": quality}
+            offset_y(process, quality, m1)
+            r["out"] = np.array(process, np.int16)
+            rec[-1]["oy"] = r
+
+        def low56_w(pf, q, ratio):
+            rec[-1].setdefault("e11", plane(pf))
+            low56(pf, q, ratio)
+            rec[-1]["low56"] = {"q": q, "out": plane(pf)}
+
+        def lowest_w(pf, resIII, q, ratio, tree1_y=None, y_original=None):
+            from nhwcodec_tpu_torch.host.ops import prefilter
+
+            rec[-1].setdefault("e11", plane(pf))
+            kern = np.asarray(prefilter.final_low_kernel(y_original, q))
+            r = {"q": q, "xs": encoder._lowest_q_xs(pf, q),
+                 "r3": lowq_r3_ext(resIII, kern.reshape(-1)[
+                     2 * SZ + 8: 2 * SZ + 12], tree1_y)}
+            lowest(pf, resIII, q, ratio, tree1_y, y_original)
+            r["out"] = plane(pf)
+            rec[-1]["lq"] = r
+
         for (mod, name, _), f in zip(saved, (
                 encode_y_w, midq_w, pair_w, ladder_w, snap_w, offset_uv_w,
                 select_w, tokenize_w, packet_w, ll2y_w, yhr_w, uvhr_w,
-                load_w, uvcl_w, uvsm_w)):
+                load_w, uvcl_w, uvsm_w, offset_y_w, low56_w, lowest_w)):
             setattr(mod, name, f)
         return self
 
@@ -2419,9 +2481,10 @@ class StreamCapture:
 def stack_records(records: list) -> dict:
     """The captured encodes as batches: "y" (B, 512, 512), "u", "v" (B,
     256, 256) int16, "im_nhw" (B, 6 SZ) uint8, "sel1", "sel2" (B,); and,
-    where every record has them (q > LOW8), the residue stage's "e11",
-    "pp" (B, 512, 512), "res256", "resIII" (B, 256, 256), "khead" (B, 4)
-    int16 and "res" (a list of each image's res sections)."""
+    where every record has them (q > LOW8), the residue stage's "e11"
+    (but at LOW4, which has no E11 call), "pp" (B, 512, 512), "res256",
+    "resIII" (B, 256, 256), "khead" (B, 4) int16 and "res" (a list of each
+    image's res sections)."""
     for r in records:
         check("y" in r and len(r["uv"]) == 2 and "sel" in r
               and "im_nhw" in r,
@@ -2434,7 +2497,8 @@ def stack_records(records: list) -> dict:
           "sel2": np.array([r["sel"][1] for r in records])}
     if all("khead" in r for r in records):
         for key in ("e11", "pp", "res256", "resIII", "khead"):
-            st[key] = np.stack([r[key] for r in records])
+            if all(key in r for r in records):   # no E11 call at LOW4
+                st[key] = np.stack([r[key] for r in records])
         st["res"] = [r["res"] for r in records]
     return st
 
@@ -2677,7 +2741,8 @@ def scan_kernel_phase(dev, captured: dict) -> dict:
         "offset_y", f"({B},512,512) int16, q20 snapped planes",
         lambda: ds.offset_y_device(snapped, 8),
         lambda: ds.offset_y_ref(snapped, 8), twin_calls=1, twin_runs=3,
-        bound=work(4 * B * 512 * 512, OFFSET_Y_OPS * B * 512 * 512
+        bound=work(4 * B * 512 * 512,
+                   (OFFSET_Y_PASS1_OPS + OFFSET_Y_PASS4_OPS) * B * 512 * 512
                    + OFFSET_Y_LL_OPS * B * 256 * 256), graph=True)
     stream = torch.zeros((B, 6 * SZ + 16), dtype=torch.uint8, device=dev)
     stream[:, : 4 * SZ] = ds.serpentine_y_device(
@@ -3505,8 +3570,11 @@ def ll2_kernel_phase(dev, captured: dict) -> dict:
 
 UV_RF_EXT = 16384 + 512    # res256 and the tail the sentinel marking reads
 # q -> images of the encode batch encoded with the option on: the 16 of the
-# q20 batch, 4 each (quality_batch) at q21, q19, q18 and q17
-SCANS_DEVICE_QS = {20: B, 21: 4, 19: 4, 18: 4, 17: 4}
+# q20 batch, 4 each (quality_batch) at q21, q19, q18 and q17, and LOW4_QS
+SCANS_DEVICE_QS = {20: B, 21: 4, 19: 4, 18: 4, 17: 4, 16: B, 15: 4, 14: 4,
+                   13: 4}
+# the calls timed in turns against the option off: q -> images
+SCANS_DEVICE_TIMED = {20: B, 16: B, 13: 4}
 SCANS_DEVICE_TURNS = 3
 # the sentinel marking's operations a lane, counted from csrc/uv.cu (the
 # two decisions' compares and selects, the run parity, the writes)
@@ -3516,12 +3584,19 @@ UVSM_KINDS = ("drift", "d0 -5", "bands taken", "pair runs")
 
 def scans_device_launches(q: int) -> dict:
     """The kernel launches of one encode_batch_device(scans_on_device=True)
-    call at quality q (LOW4 < q <= HIGH1): the front's K6 (q >= NORM), K4
+    call at quality q (LOW8 < q <= HIGH1): the front's K6 (q >= NORM), K4
     (Y's two levels, U + V's two) and K5, the stream, residue and LL2
-    stages' S1-S8, and S9 for U and V at q >= LOW2."""
-    return {"colorspace_down420": int(q >= 20), "analysis_level_jp": 4,
-            "requant_tail": 1, **SCAN_LAUNCHES, **RESIDUE_LAUNCHES,
-            **LL2_LAUNCHES, "uv_sentinel": 2 if q >= 18 else 0}
+    stages' S1-S8 (at q <= LOW4 S10 in S2's place and no S4), S9 for U and
+    V at q >= LOW2, and S11 below LOW6."""
+    from nhwcodec_tpu_torch.host import tables as T
+
+    low4 = q <= T.LOW4
+    return {"colorspace_down420": int(q >= T.NORM), "analysis_level_jp": 4,
+            "requant_tail": 1, **SCAN_LAUNCHES, "offset_y": int(not low4),
+            **RESIDUE_LAUNCHES, "pair_promotion": int(not low4),
+            **LL2_LAUNCHES, "uv_sentinel": 2 if q >= T.LOW2 else 0,
+            "offset_y_low4": int(low4),
+            "lowest_q_band_cleanup": int(q < T.LOW6)}
 
 
 def stack_uv(records: list) -> dict:
@@ -3647,17 +3722,21 @@ def host_uv_sentinel(process: np.ndarray, rf_ext: np.ndarray,
     return out
 
 
-def encode_scans_device_phase(dev, images: np.ndarray) -> dict:
+def encode_scans_device_phase(dev, images: np.ndarray,
+                              captured: dict) -> dict:
     """encode_batch_device(scans_on_device=True) on the card: the encode
-    batch's 16 images at q20 in one call (the 11 fixtures also against
-    STREAM_SHA256) and 4 each at q21, q19, q18 and q17, every stream byte
-    for byte against the host copy's encoder.encode, with the launches of
-    each call (scans_device_launches: S9 twice at q >= 18, never at q17);
-    q16 and q22 raise.  Times the q20 call in SCANS_DEVICE_TURNS turns
-    against the option off in one chunk and through the default pool,
-    splits the on path's wall (host_breakdown, each device stage
-    synchronised at its end) and profiles one call.  Returns the q20
-    call's launches."""
+    batch's 16 images at q20 and at q16 in one call each (the 11
+    fixtures also against STREAM_SHA256) and 4 each at q21, q19, q18,
+    q17, q15, q14 and q13, every stream byte for byte against the host
+    copy's encoder.encode, with the launches of each call
+    (scans_device_launches: S9 twice at q >= 18, never below; S10 in S2's
+    place and no S4 at q <= 16; S11 at q13 only); q12 and q22 raise.  The
+    host encodes at LOW4_QS run under a StreamCapture, whose records go
+    into ``captured``.  Times the SCANS_DEVICE_TIMED calls in
+    SCANS_DEVICE_TURNS turns against the option off in one chunk and
+    through the default pool, splits the on path's wall at q20 and q16
+    (host_breakdown, each device stage synchronised at its end) and
+    profiles one q20 call.  Returns each quality's launches."""
     import torch
 
     from nhwcodec_tpu_torch.host import tables as T
@@ -3675,10 +3754,13 @@ def encode_scans_device_phase(dev, images: np.ndarray) -> dict:
                                        scans_on_device=True)[0]
 
     names = list(fixture_generators())
-    out, want20 = None, None
+    out, wants = {}, {}
     for q, want_b in SCANS_DEVICE_QS.items():
-        sel = images if q == 20 else quality_batch(images, q)
-        want = [host_encoder.encode(img, q) for img in sel]
+        sel = images if want_b == B else quality_batch(images, q)
+        with StreamCapture() as cap:
+            want = [host_encoder.encode(img, q) for img in sel]
+        if q in LOW4_QS:
+            captured[q] = cap.records
         build.reset_launches()
         got = on(sel, q)
         torch.cuda.synchronize()
@@ -3689,7 +3771,7 @@ def encode_scans_device_phase(dev, images: np.ndarray) -> dict:
         bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
         check(len(got) == want_b and not bad, f"scans on device q{q}: "
               f"streams {bad} differ from the host copy's encoder")
-        pinned = ([(n, 20) for n in names] if q == 20
+        pinned = ([(n, q) for n in names] if want_b == B
                   else [(fixture_for(q), q)])
         pinned = [(i, key) for i, key in enumerate(pinned)
                   if key in STREAM_SHA256]
@@ -3701,9 +3783,8 @@ def encode_scans_device_phase(dev, images: np.ndarray) -> dict:
               f"byte-identical to the host copy's encoder ({len(pinned)} "
               "also to the pinned digests of nhwcodec_tpu.encode); launches "
               f"{launches}", flush=True)
-        if q == 20:
-            out, want20 = launches, want
-    for q, err, msg in ((T.LOW4, NotImplementedError, "slice e"),
+        out[q], wants[q] = launches, want
+    for q, err, msg in ((T.LOW8, NotImplementedError, "slice e2"),
                         (T.HIGH2, ValueError, f"1 <= q <= {T.HIGH1}")):
         try:
             on(images[:1], q)
@@ -3714,26 +3795,28 @@ def encode_scans_device_phase(dev, images: np.ndarray) -> dict:
         else:
             check(False, f"scans on device q{q} did not raise")
 
-    runs = {"option on, one call": lambda: on(images, 20),
-            f"option off, one chunk of {B}": lambda:
-            tdp.encode_batch_device(images, 20, workers=1, chunk=B,
-                                    device=dev)[0],
-            f"option off, default pool ({os.cpu_count()} workers)": lambda:
-            tdp.encode_batch_device(images, 20, device=dev)[0]}
-    walls = {k: [] for k in runs}
-    for turn in range(SCANS_DEVICE_TURNS):
-        keys = list(runs)[turn:] + list(runs)[:turn]
-        for k in keys:
-            t0 = time.perf_counter()
-            got = runs[k]()
-            walls[k].append((time.perf_counter() - t0) * 1e3)
-            check(got == want20, f"q20 {k}: streams differ")
-    for k, w in walls.items():
-        print(f"encode scans on device, batch {B} q20 wall, {k}: "
-              + ", ".join(f"{x:.2f}" for x in w) + f" ms (median "
-              f"{float(np.median(w)):.2f}, {float(np.median(w)) / B:.2f} "
-              f"ms/img; turns of {SCANS_DEVICE_TURNS}, orders rotated)",
-              flush=True)
+    for q, nb in SCANS_DEVICE_TIMED.items():
+        imgs = images if nb == B else quality_batch(images, q)
+        runs = {"option on, one call": lambda: on(imgs, q),
+                f"option off, one chunk of {nb}": lambda:
+                tdp.encode_batch_device(imgs, q, workers=1, chunk=nb,
+                                        device=dev)[0],
+                f"option off, default pool ({os.cpu_count()} workers)":
+                lambda: tdp.encode_batch_device(imgs, q, device=dev)[0]}
+        walls = {k: [] for k in runs}
+        for turn in range(SCANS_DEVICE_TURNS):
+            keys = list(runs)[turn:] + list(runs)[:turn]
+            for k in keys:
+                t0 = time.perf_counter()
+                got = runs[k]()
+                walls[k].append((time.perf_counter() - t0) * 1e3)
+                check(got == wants[q], f"q{q} {k}: streams differ")
+        for k, w in walls.items():
+            print(f"encode scans on device, batch {nb} q{q} wall, {k}: "
+                  + ", ".join(f"{x:.2f}" for x in w) + f" ms (median "
+                  f"{float(np.median(w)):.2f}, "
+                  f"{float(np.median(w)) / nb:.2f} ms/img; turns of "
+                  f"{SCANS_DEVICE_TURNS}, orders rotated)", flush=True)
 
     def synced(f):
         def run(*a, **k):
@@ -3753,7 +3836,7 @@ def encode_scans_device_phase(dev, images: np.ndarray) -> dict:
     targets = [(tds, "encode_front", "front (colorspace, pre-filter, "
                 "analysis, requant)"),
                (des, "_host_e10", "host E10 part-0 offset + synthesis"),
-               (des, "_kernel_heads", "host kernel heads"),
+               (des, "_kernel_slices", "host kernel slices"),
                (des, "_host_uv_ladder_in", "host UV greedy steps"),
                (des, "_host_uv_marking_in", "host UV greedy steps"),
                *stages,
@@ -3767,10 +3850,12 @@ def encode_scans_device_phase(dev, images: np.ndarray) -> dict:
     try:
         for m, n, f in saved:
             setattr(m, n, synced(f))
-        print_breakdown(f"encode scans on device breakdown, batch {B} q20 "
-                        "in one call (each device stage synchronised at its "
-                        "end)", *host_breakdown(lambda: on(images, 20),
-                                                targets))
+        for q in (20, 16):
+            print_breakdown(
+                f"encode scans on device breakdown, batch {B} q{q} in one "
+                "call (each device stage synchronised at its end)",
+                *host_breakdown(lambda: on(images, q), targets,
+                                ("host kernel slices",)))
     finally:
         for m, n, f in saved:
             setattr(m, n, f)
@@ -3864,6 +3949,273 @@ def uv_kernel_phase(dev, captured: dict) -> dict:
           "equals the host copy's C on the captured planes and the edge "
           "planes, strict both ways", flush=True)
     return {"uv_sentinel": out}
+
+
+# ---------------------------------------------------------------------------
+# the device encode scans' low-q programs at q13..q16: S10 offset_y_low4
+# (csrc/scans.cu), S11 lowest_q_band_cleanup (csrc/lowq.cu) and the low56
+# cleanup (torch ops), in models/device_scans.py
+
+LOW4_KERNELS = ("offset_y_low4", "lowest_q_band_cleanup")
+# q -> images of the encode batch encoded with the option on at q <= LOW4,
+# whose host encodes encode_scans_device_phase captures: the 16 at q16, 4
+# each (quality_batch) at q15, q14 (low56) and q13 (LOW7, the lowest-q
+# cleanup)
+LOW4_QS = {16: B, 15: 4, 14: 4, 13: 4}
+# the functions' own operations, counted from the sources: a position of
+# pass 4 with the duty cycles (scans.cu oy4_step: the code map of a value,
+# 24 as in OFFSET_Y_PASS4_OPS; the quant and quant6 tests and updates, 10;
+# the quant4 pair rule's test and counter, 15; the fixups' tests and the
+# pair rule's writes are not counted), which offset_y_low4 runs after pass
+# 1 (OFFSET_Y_PASS1_OPS); a visit of the lowest-q cleanup (LQ_VISITS an
+# image: loop A's 256 x 256, B + C's 256 x 511)
+OY4_OPS = 49
+LQ_OPS = 30
+LQ_VISITS = 256 * 256 + 256 * 511
+OY4_KINDS = ("random", "row ends", "row starts")
+OY4_VALUES = np.array([0, 7, -7, 8, -8, 9, -9, 12, -12, 13, -13, 14, -14,
+                       15, -15, 22, -22, 23, -23, 30, -30, 31, -31, 38, 39,
+                       46, 47, 6, -6, 200, -300, 10100, 12900, 14000],
+                      np.int16)
+LQ_KINDS = ("random", "pairR chain", "pairL column 0", "A into row 256",
+            "r3 tail")
+
+
+def lowq_r3_ext(resIII, ktail, tree1) -> np.ndarray:
+    """(ds.LQ_R3_EXT,) int16, as the host encoder's
+    ``_lowest_q_band_cleanup`` builds it: resIII, then the tail its last
+    rows read: ktail (the free-time kernel's [131080:131084]), the tree1
+    chunk's size field 24593, and tree1's first 496 bytes as int16
+    pairs."""
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    r3 = np.zeros(ds.LQ_R3_EXT, np.int16)
+    r3[:SZ] = np.asarray(resIII).reshape(-1)
+    r3[SZ: SZ + 4] = ktail
+    r3[SZ + 4] = 24593
+    t = np.asarray(tree1)[:496].astype(np.uint16)
+    r3[SZ + 8:] = (t[0::2] | (t[1::2] << 8)).view(np.int16)
+    return r3
+
+
+def oy4_edge_planes(rng, b, kind: str) -> np.ndarray:
+    """(B, 512, 512) int16 planes for S10.  "random": OY4_VALUES, which
+    reach the -9/-8/9 fixups, the duty cycles (-15, -23, -31), the quant4
+    pair rule (v >= 14 with (v & 510) & 7 == 6), escapes and sentinels.
+    "row ends": rows of |v| <= 6 (no pair rule, fixup or counter) whose
+    column 511 and the next row's column 0 hold a pair the quant4 rule
+    takes, by row % 5: 31/22 (the next row's 22 becomes 24), 23/30 (23
+    becomes 25, 28 pending), 30/31 (31 becomes 33), 22/31 (22 becomes 24,
+    29 pending), none; quant4 advances only there, so every third pair
+    fires, each kind in turn, and its write crosses the row end.  "row
+    starts": rows of values in [-6, 0] whose columns 0 and 1 hold -15 and
+    -23, with 1 + r % 6 -15s and 1 + r % 4 -23s in all, so quant and
+    quant6 end most rows nonzero: only the reset at each row start masks
+    columns 0 and 1 (codes 120 and 112; unmasked, 112 and 104)."""
+    if kind == "random":
+        return rng.choice(OY4_VALUES, (b, 512, 512))
+    if kind == "row ends":
+        x = rng.integers(-6, 7, (b, 512, 512)).astype(np.int16)
+        for r in range(511):
+            if r % 5 < 4:
+                x[:, r, 511], x[:, r + 1, 0] = ((31, 22), (23, 30), (30, 31),
+                                                (22, 31))[r % 5]
+        return x
+    x = rng.integers(-6, 1, (b, 512, 512)).astype(np.int16)
+    x[:, :, 0], x[:, :, 1] = -15, -23
+    for r in range(512):
+        x[:, r, 10: 10 + 10 * (r % 6): 10] = -15
+        x[:, r, 300: 300 + 10 * (r % 4): 10] = -23
+    return x
+
+
+def lowq_edge_inputs(rng, b, kind: str) -> tuple:
+    """(plane (B, 512, 512), r3_ext (B, ds.LQ_R3_EXT)) int16 for S11 at
+    the LOW7 thresholds (15, 27, 10, 6, 3).  "random": values in [-40, 40],
+    r3 in [-20, 20].  The others: r3 at +-50..200 (no r3 zeroing) and a
+    plane of |v| <= 2 (no candidate) but for: "pairR chain": rows 256,
+    258, .., 510 end 0, 16, -15 (pairR at 510 zeroes 511) and the next row
+    starts 15, 0, which only the chained left neighbour 0 keeps (-15
+    would make a pairL); "pairL column 0": rows 255, 257, .., 509 end 0,
+    -15 and the next row starts 15, 0: pairL at column 0 zeroes the
+    previous row's column 511 (row 255's in loop A's region); "A into
+    row 256": rows 0..255 end 0, 11 and the next row starts -12 (row 256:
+    -12, 100), so loop A's pairR at column 511 zeroes the next row's
+    column 0, and row 256 keeps its -12 only without it; even rows hold
+    -11, 11, 0 at columns 255..257 (pairL at 256 zeroes column 255); "r3
+    tail": row 511's columns 256..510 alternate 27 and 100, and the tail
+    past resIII, which only that row reads, alternates 0 and 500: only
+    the r3 test zeroes a 27 there, where the tail is 0."""
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    n = ds.LQ_R3_EXT
+    if kind == "random":
+        return (rng.integers(-40, 41, (b, 512, 512)).astype(np.int16),
+                rng.integers(-20, 21, (b, n)).astype(np.int16))
+    x = rng.integers(-2, 3, (b, 512, 512)).astype(np.int16)
+    r3 = (rng.integers(50, 201, (b, n))
+          * rng.choice(np.array([-1, 1]), (b, n))).astype(np.int16)
+    if kind == "pairR chain":
+        for r in range(256, 511, 2):
+            x[:, r, 509:512] = (0, 16, -15)
+            x[:, r + 1, 0:2] = (15, 0)
+    elif kind == "pairL column 0":
+        for r in range(255, 510, 2):
+            x[:, r, 510:512] = (0, -15)
+            x[:, r + 1, 0:2] = (15, 0)
+    elif kind == "A into row 256":
+        for r in range(256):
+            x[:, r, 510:512] = (0, 11)
+            x[:, r + 1, 0] = -12
+        x[:, 256, 1] = 100
+        x[:, 0:256:2, 255:258] = (-11, 11, 0)
+    else:
+        x[:, 511, 256:511:2] = 27
+        x[:, 511, 257:511:2] = 100
+        r3[:, SZ: SZ + 128] = np.where(np.arange(128) % 2 == 0, 0, 500)
+    return x, r3
+
+
+def host_offset_y_low4(x: np.ndarray) -> np.ndarray:
+    """The host copy's C quantizer at q16 (the duty cycles) on each
+    image."""
+    from nhwcodec_tpu_torch.host.ops import quantize
+
+    out = x.copy()
+    for p in out:
+        quantize.offset_y(p, 16, 8)
+    return out
+
+
+def host_lowest_q(x: np.ndarray, r3: np.ndarray, q: int,
+                  xs: np.ndarray) -> np.ndarray:
+    """The host copy's C lowest-q cleanup (ratio 8) on each image, with
+    its r3_ext row and thresholds."""
+    from nhwcodec_tpu_torch.host import native
+
+    lib, ffi = native._load(), native.ffi()
+    out = x.copy()
+    for k in range(len(out)):
+        r = np.ascontiguousarray(r3[k], np.int16)
+        lib.nhw_lowest_q_band_cleanup(
+            ffi.cast("int16_t *", out[k].ctypes.data),
+            ffi.cast("int16_t *", r.ctypes.data), 8, int(q > 10),
+            *map(int, xs[k]))
+    return out
+
+
+def low4_kernel_phase(dev, captured: dict) -> dict:
+    """S10, S11 and the low56 cleanup on the planes captured from the host
+    copy's encodes at q16 (16 images), q15, q14 and q13 (4 each): S10 at
+    all four against its twin and the host copy's C (timed at q16),
+    low56 at q15 and q14 and S11 at q13 against the host copy's C, S11
+    also against its twin (timed on the 4 q13 planes 4 times, a batch of
+    16, and at batch 4); then at batch 1, 3 and 16 (``compare_batches``)
+    S10 on OY4_KINDS and S11 on LQ_KINDS at q13 (the random ones at q10
+    too: gt_low10 both ways), each against the host copy's C too."""
+    import torch
+
+    from nhwcodec_tpu_torch.models import device_encode_scans as des
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    out = {}
+    plane = 2 * 512 * 512
+    oy_in, oy_out = [], []
+    for q, want_b in LOW4_QS.items():
+        recs = captured[q]
+        check(len(recs) == want_b and all("oy" in r for r in recs),
+              f"q{q}: captured {len(recs)} host encodes, not {want_b}")
+        oy_in.append(np.stack([r["oy"]["in"] for r in recs]))
+        oy_out.append(np.stack([r["oy"]["out"] for r in recs]))
+        x = t(oy_in[-1])
+        got = ds.offset_y_low4_device(x, 8)
+        check(np.array_equal(got.cpu().numpy(), oy_out[-1]),
+              f"offset_y_low4 q{q}: differs from the host copy's C")
+        if q == 16:
+            out["offset_y_low4"] = compare_and_time(
+                "offset_y_low4", f"({want_b},512,512) q{q} planes",
+                lambda: ds.offset_y_low4_device(x, 8),
+                lambda: ds.offset_y_low4_ref(x, 8), twin_calls=1,
+                twin_runs=1, twin_warm=0,
+                bound=work(2 * want_b * plane,
+                           (OFFSET_Y_PASS1_OPS + OY4_OPS)
+                           * want_b * 512 * 512), graph=True)
+        e11 = np.stack([r["e11"] for r in recs]) if q < 16 else None
+        if q in (15, 14):
+            got = ds.low56_band_cleanup_device(t(e11), 19 if q == 15 else 20)
+            check(np.array_equal(got.cpu().numpy(), np.stack(
+                [r["low56"]["out"] for r in recs])),
+                f"low56 q{q}: differs from the host copy's C")
+            e = t(e11)
+            ms = median_ms(lambda: ds.low56_band_cleanup_device(e, 19))
+            print(f"low56_band_cleanup_device (torch ops), q{q} planes "
+                  f"batch {want_b}: equal to the host copy's; {ms:.4f} ms a "
+                  f"call (CUDA events, median of {RUNS})", flush=True)
+        if q == 13:
+            r3 = np.stack([r["lq"]["r3"] for r in recs])
+            xs = np.array([r["lq"]["xs"] for r in recs], np.int32)
+            check(all(tuple(v) == des.LOW7_XS for v in xs.tolist()),
+                  f"q13: thresholds {xs.tolist()}, not {des.LOW7_XS}")
+            P, R, X = t(e11), t(r3), t(xs)
+            got = ds.lowest_q_band_cleanup_device(P, R, q, X)
+            check(np.array_equal(got.cpu().numpy(), np.stack(
+                [r["lq"]["out"] for r in recs])),
+                "lowest_q_band_cleanup q13: differs from the host copy's C")
+            k = B // want_b
+            P, R, X = P.repeat(k, 1, 1), R.repeat(k, 1), X.repeat(k, 1)
+            out["lowest_q_band_cleanup"] = compare_and_time(
+                "lowest_q_band_cleanup",
+                f"({B},512,512) + ({B},{ds.LQ_R3_EXT}) "
+                f"r3_ext, the {want_b} q13 planes {k} times",
+                lambda: ds.lowest_q_band_cleanup_device(P, R, 13, X),
+                lambda: ds.lowest_q_band_cleanup_ref(P, R, 13, X),
+                twin_calls=1, twin_runs=1, twin_warm=0,
+                bound=work(B * (2 * plane + 2 * ds.LQ_R3_EXT),
+                           LQ_OPS * B * LQ_VISITS), graph=True)
+            P4, R4, X4 = P[:want_b], R[:want_b], X[:want_b]
+            ms = median_ms(lambda: ds.lowest_q_band_cleanup_device(
+                P4, R4, 13, X4))
+            print(f"kernel lowest_q_band_cleanup ({want_b},512,512) q13 "
+                  f"planes: wrapper call {ms:.4f} ms (CUDA events, median "
+                  f"of {RUNS})", flush=True)
+    # the twin on the q15, q14 and q13 planes as one batch (its launches,
+    # not its batch, set its time)
+    x = t(np.concatenate(oy_in[1:]))
+    compare_and_time("offset_y_low4", f"({len(x)},512,512) q15, q14 and q13 "
+                     "planes", lambda: ds.offset_y_low4_device(x, 8),
+                     lambda: ds.offset_y_low4_ref(x, 8), timed=False)
+    rng = np.random.default_rng(SEED + 70)
+    for kind in OY4_KINDS:
+        x = oy4_edge_planes(rng, B, kind)
+        compare_batches("offset_y_low4", f"{kind} planes",
+                        lambda a: ds.offset_y_low4_device(a, 8),
+                        lambda a: ds.offset_y_low4_ref(a, 8), (t(x),))
+        check(np.array_equal(ds.offset_y_low4_device(t(x), 8).cpu().numpy(),
+                             host_offset_y_low4(x)),
+              f"offset_y_low4 {kind} planes: differ from the host copy's C")
+    xs = np.tile(np.array(des.LOW7_XS, np.int32), (B, 1))
+    for kind in LQ_KINDS:
+        x, r3 = lowq_edge_inputs(rng, B, kind)
+        for q in (13, 10) if kind == "random" else (13,):
+            compare_batches(
+                "lowest_q_band_cleanup", f"{kind} planes, q{q}",
+                lambda a, r, s: ds.lowest_q_band_cleanup_device(a, r, q, s),
+                lambda a, r, s: ds.lowest_q_band_cleanup_ref(a, r, q, s),
+                (t(x), t(r3), t(xs)))
+            got = ds.lowest_q_band_cleanup_device(t(x), t(r3), q, t(xs))
+            check(np.array_equal(got.cpu().numpy(),
+                                 host_lowest_q(x, r3, q, xs)),
+                  f"lowest_q_band_cleanup {kind} planes, q{q}: differ from "
+                  "the host copy's C")
+    print("encode scans: S10 equals its twin and the host copy's C on the "
+          "captured q16/q15/q14/q13 planes and at batch 1, 3 and 16 on the "
+          f"{', '.join(OY4_KINDS)} planes; S11 on the captured q13 planes and "
+          f"on the {', '.join(LQ_KINDS)} planes at q13 (the random ones at "
+          "q10 too); low56 on the captured q15/q14 planes", flush=True)
+    return out
 
 
 def transform_phase(dev) -> dict:
@@ -4141,41 +4493,53 @@ def main() -> int:
                  "snap_pass", "offset_y_rows", "offset_y_ll",
                  "offset_y_codes", "merge_tiles", "merge_entries",
                  "merge_emit", "pair_promotion", "column_ladder",
-                 "classify", "ll2_code_y", "walk_visited", "uv_sentinel"))
+                 "classify", "ll2_code_y", "walk_visited", "uv_sentinel",
+                 "oy4_maps", "oy4_emit", "lq_a", "lq_maps", "lq_emit"))
+
+    def phase(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {fn.__name__}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        return out
 
     # the paths first: a profiler window of very many launches (the K5
     # twin's) can leave later windows incomplete
     images = encode_images(np.random.default_rng(SEED))
     chunks = entropy_chunks(images)
-    launches = decode_phase(dev)
-    launches.update(hq_decode_phase(dev))
-    launches.update(fallback_phase(dev))
-    launches.update(entropy_decode_phase(dev, chunks))
+    launches = phase(decode_phase, dev)
+    launches.update(phase(hq_decode_phase, dev))
+    launches.update(phase(fallback_phase, dev))
+    launches.update(phase(entropy_decode_phase, dev, chunks))
     captured = {}
-    launches.update(encode_phase(dev, images, captured))
-    launches.update(encode_scans_phase(dev, captured))
-    launches.update(encode_residue_phase(dev, images, captured))
-    launches.update(encode_ll2_phase(dev, images, captured))
-    # S1-S9 on the service path that runs them
-    on = encode_scans_device_phase(dev, images)
-    launches.update({k: on[k] for k in (*SCAN_KERNELS, *RESIDUE_KERNELS,
-                                        *LL2_KERNELS, "uv_sentinel")})
-    launches["analysis_level"] = transform_phase(dev)["analysis_level"]
+    launches.update(phase(encode_phase, dev, images, captured))
+    launches.update(phase(encode_scans_phase, dev, captured))
+    launches.update(phase(encode_residue_phase, dev, images, captured))
+    launches.update(phase(encode_ll2_phase, dev, images, captured))
+    # S1-S11 on the service path that runs them: S1-S9 at q20, S10 at q16,
+    # S11 at q13
+    on = phase(encode_scans_device_phase, dev, images, captured)
+    launches.update({k: on[20][k] for k in (*SCAN_KERNELS, *RESIDUE_KERNELS,
+                                            *LL2_KERNELS, "uv_sentinel")})
+    launches["offset_y_low4"] = on[16]["offset_y_low4"]
+    launches["lowest_q_band_cleanup"] = on[13]["lowest_q_band_cleanup"]
+    launches["analysis_level"] = phase(transform_phase, dev)["analysis_level"]
     # the kernels whose twins make the longest profiler windows (the scan's,
     # K5's, the column ladder's: 76,000 launches) last; the phases after
     # them use no profiler
-    timings = transform_kernel_phase(dev)
-    timings.update(ll2_kernel_phase(dev, captured))
-    timings.update(uv_kernel_phase(dev, captured))
-    timings.update(entropy_kernel_phase(dev, chunks))
-    timings.update(scan_kernel_phase(dev, captured))
-    timings.update(kernel_phase(dev))
-    timings.update(encode_kernel_phase(dev, images))
-    timings.update(residue_kernel_phase(dev, captured))
-    cluster_info_phase(dev, timings)
-    analysis_edge_phase(dev)
-    colorspace_phase(dev)
-    encode_colorspace_phase(dev, images)
+    timings = phase(transform_kernel_phase, dev)
+    timings.update(phase(ll2_kernel_phase, dev, captured))
+    timings.update(phase(uv_kernel_phase, dev, captured))
+    timings.update(phase(entropy_kernel_phase, dev, chunks))
+    timings.update(phase(scan_kernel_phase, dev, captured))
+    timings.update(phase(kernel_phase, dev))
+    timings.update(phase(encode_kernel_phase, dev, images))
+    timings.update(phase(low4_kernel_phase, dev, captured))
+    timings.update(phase(residue_kernel_phase, dev, captured))
+    phase(cluster_info_phase, dev, timings)
+    phase(analysis_edge_phase, dev)
+    phase(colorspace_phase, dev)
+    phase(encode_colorspace_phase, dev, images)
     check(not any(m.split(".")[0] in ("jax", "nhwcodec_tpu")
                   for m in sys.modules), "jax or nhwcodec_tpu was imported")
 

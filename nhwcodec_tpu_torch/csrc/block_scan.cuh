@@ -1,8 +1,11 @@
 // Block-wide helpers shared by the encode scans' kernels (scans.cu, ll2.cu,
-// uv.cu), whose CTAs walk a row's positions a thread each.
+// uv.cu, lowq.cu), whose CTAs walk a row's positions a thread each, or a
+// plane's rows a thread each.
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace nhw {
 
@@ -27,6 +30,99 @@ __device__ __forceinline__ bool run_parity_block(bool f, int* warp_last) {
   }
   __syncthreads();
   return f && ((j - (last + 1)) & 1) == 0;
+}
+
+// Rows of a (512, 512) int16 plane staged in shared memory for kernels
+// whose threads walk a row each: a staged row holds the plane row at
+// [0, 512), the flat previous value (the previous row's last, 0 before the
+// plane) at -1 and the flat next values (the next row's first, 0 past the
+// plane) from 512 on.  kStagePitch int16 a row is 259 words, odd, so the
+// threads of a warp, a row each, read one column on 32 banks.
+constexpr int kStageCols = 512;
+constexpr int kStageAfter = 3;
+constexpr int kStagePitch = 518;
+
+// Stage rows [r0, r0 + rows) of plane (16-byte aligned) into s, row k at s
+// + k * kStagePitch + 1: each warp loads whole rows, 16 bytes a lane.  All
+// threads of the CTA call it; the caller synchronises before reading.
+__device__ __forceinline__ void stage_rows(const int16_t* __restrict__ plane,
+                                           int r0, int rows, int16_t* s) {
+  const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  for (int k = threadIdx.x >> 5; k < rows; k += nw) {
+    const int r = r0 + k;
+    const int16_t* src = plane + r * kStageCols;
+    int16_t* dst = s + k * kStagePitch + 1;
+#pragma unroll
+    for (int h = 0; h < kStageCols; h += 256) {
+      const int c = h + lane * 8;
+      const int4 v = *reinterpret_cast<const int4*>(src + c);
+      const int16_t* e = reinterpret_cast<const int16_t*>(&v);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) dst[c + i] = e[i];
+    }
+    if (lane == 0) dst[-1] = r > 0 ? src[-1] : 0;
+    if (lane < kStageAfter)
+      dst[kStageCols + lane] = r + 1 < kStageCols ? src[kStageCols + lane] : 0;
+  }
+}
+
+// Write staged rows [0, rows) back to plane rows [r0, r0 + rows) (16-byte
+// aligned), each warp whole rows.
+__device__ __forceinline__ void unstage_rows(const int16_t* s, int rows,
+                                             int16_t* __restrict__ plane,
+                                             int r0) {
+  const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  for (int k = threadIdx.x >> 5; k < rows; k += nw) {
+    const int16_t* src = s + k * kStagePitch + 1;
+    int16_t* dst = plane + (r0 + k) * kStageCols;
+#pragma unroll
+    for (int h = 0; h < kStageCols; h += 256) {
+      const int c = h + lane * 8;
+      int4 v;
+      int16_t* e = reinterpret_cast<int16_t*>(&v);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) e[i] = src[c + i];
+      *reinterpret_cast<int4*>(dst + c) = v;
+    }
+  }
+}
+
+// The entry state of each of n rows (n a multiple of 32) whose walks chain:
+// maps[r * S + s] is row r's exit state from entry state s (S states), and
+// row 0 enters from state 0.  One whole warp runs it: each lane composes
+// n / 32 consecutive maps, the lanes' composites are scanned with shuffles
+// (a composite is S small ints), and each lane walks its rows again from its
+// own entry.  maps and entry (n bytes) may be in shared memory.
+template <int S>
+__device__ void chain_entries(const uint8_t* maps, uint8_t* entry, int n) {
+  const int lane = threadIdx.x & 31, k = n / 32;
+  int f[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) f[s] = s;
+  for (int r = lane * k; r < (lane + 1) * k; ++r) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) f[s] = maps[r * S + f[s]];
+  }
+  // inclusive scan: lane l's composite after lane l - d's
+  for (int d = 1; d < 32; d <<= 1) {
+    int h[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int g = __shfl_up_sync(0xFFFFFFFFu, f[s], d);
+      int v = f[0];
+#pragma unroll
+      for (int u = 1; u < S; ++u) v = g == u ? f[u] : v;
+      h[s] = lane >= d ? v : f[s];
+    }
+#pragma unroll
+    for (int s = 0; s < S; ++s) f[s] = h[s];
+  }
+  int e = __shfl_up_sync(0xFFFFFFFFu, f[0], 1);
+  if (lane == 0) e = 0;
+  for (int r = lane * k; r < (lane + 1) * k; ++r) {
+    entry[r] = static_cast<uint8_t>(e);
+    e = maps[r * S + e];
+  }
 }
 
 }  // namespace nhw

@@ -15,9 +15,15 @@
 // S3 nhw_merge_crossing replaces nhwcodec_tpu/models/device_scans.py:527
 //    merge_crossing_device (an associative scan of a 5-state skip machine):
 //    the crossing merge of a (B, n >= 4 SZ) uint8 stream.  Three launches.
+// S10 nhw_offset_y_low4 replaces nhwcodec_tpu/models/device_scans.py:2750
+//    offset_y_low4_device (a Jacobi while_loop for pass 1, then one flat
+//    262,144-step lax.scan, _oy4_step :2655): the q <= LOW4 quantizer with
+//    the duty-cycle counters, (B, 512, 512) int16 plane -> int16 code plane.
+//    Three launches.
 //
-// The bound of each is bytes: the plane or the stream read once and
-// written once, some tens of operations a position.  Each is a chain of
+// The bound of S1 and S3 is bytes: the plane or the stream read once and
+// written once, some tens of operations a position; S2's and S10's is
+// their operations, 45-105 a position.  Each is a chain of
 // dependent steps along a row or a stream, and the designs below are the
 // simple exact ones, not yet tuned:
 // - S1: one thread a row walks its region columns left to right, the left
@@ -26,7 +32,10 @@
 //   pass), read from the input plane above and below.  The thread also
 //   copies its row's columns outside the region, so the output is whole.
 // - S2: pass 1 one thread a row (a give lands on the next column and never
-//   leaves column 510); passes 2-3 one CTA an image, a thread a column,
+//   leaves column 510), 32 rows a CTA staged in shared memory with their
+//   flat neighbours (block_scan.cuh's stage_rows: whole rows a warp, 16
+//   bytes a lane, so the reads are coalesced and the walks read shared
+//   memory); passes 2-3 one CTA an image, a thread a column,
 //   rows in order, in place on pass 1's output (a vertical fire writes
 //   10100 into the next row through a register; row 255's land in plane
 //   row 256).  The greedy pair rule is the parity of a position in its run
@@ -41,6 +50,18 @@
 //   positions and the next tile's first 4.  A fire at i writes i and
 //   201 at i + 4, so thread t writes positions [16 t + 4, 16 t + 20) (and
 //   tile 0 also [0, 4)): every byte has one writer.
+// - S10: pass 1 is S2's launch (offset_y_rows); passes 2-3 do not run at
+//   these qualities.  Pass 4's counters: quant and quant6 reset at each row
+//   start, quant4 runs on, and a step may leave a write pending on the next
+//   position; at column 511 only the quant4 pair rule can, into the next
+//   row's column 0, and only where it fires (quant4 is 1 after).  So a row
+//   enters from one of 5 states (quant4 0, 1, 2; or 1 with column 0 pending
+//   at its value - 2 or + 2) and leaves in one.  Both walks take 32 staged
+//   rows a CTA (as pass 1).  oy4_maps walks every row from every entry
+//   state, a thread each, and stores the exit; oy4_emit stages an image's
+//   512 maps too, its warp chains them (block_scan.cuh's chain_entries),
+//   and each thread walks its row again from its entry state and writes
+//   the codes in place, which the CTA writes back whole rows a warp.
 
 #include <cuda_runtime.h>
 
@@ -61,7 +82,7 @@ constexpr int kSZ = 65536;
 constexpr int kPlane = kN * kN;
 
 constexpr int kSnapThreads = 128;   // rows a CTA of S1
-constexpr int kRowThreads = 128;    // rows a CTA of S2's pass 1
+constexpr int kRows = 32;           // rows a CTA of S2's pass 1 and S10
 constexpr int kCodeThreads = 256;   // positions a CTA of S2's pass 4
 
 constexpr int kMT = 16;                      // positions a thread of S3
@@ -73,6 +94,8 @@ constexpr int kMEnd = kMLen - 4;             // the cursor walk's end
 constexpr int kMCtas = kMLen / kMSpan;       // CTAs a stream
 constexpr int kMStage = kMSpan + 32;         // staged bytes a CTA
 constexpr int kMStates = 5;
+
+constexpr int kOy4States = 5;                // S10's entry states a row
 
 // ---------------------------------------------------------------------------
 // S1: snap pass
@@ -159,33 +182,38 @@ __global__ void __launch_bounds__(kSnapThreads)
 // S2: offset_y, q > LOW4
 
 // Pass 1 (image_processing.c:194-237): even-pair decrements, one thread a
-// row; reads of x + 1, x + 2 and x - 1 are initial values, in flat order.
-__global__ void __launch_bounds__(kRowThreads)
-    offset_y_rows(const int16_t* __restrict__ in, int16_t* __restrict__ out,
-                  int batch) {
-  const int g = blockIdx.x * kRowThreads + threadIdx.x;
-  if (g >= batch * kN) return;
-  const int r = g % kN;
-  const int16_t* img = in + static_cast<size_t>(g / kN) * kPlane;
-  int16_t* o = out + static_cast<size_t>(g) * kN;
-  int d = 0;
+// row of kRows staged ones (the CTA's rows with their flat neighbours);
+// reads of x + 1, x + 2 and x - 1 are initial values, in flat order, so the
+// thread keeps them in registers and writes the row in place.
+__global__ void __launch_bounds__(kRows)
+    offset_y_rows(const int16_t* __restrict__ in, int16_t* __restrict__ out) {
+  __shared__ int16_t s[kRows * nhw::kStagePitch];
+  const size_t b = blockIdx.y;
+  const int r0 = blockIdx.x * kRows, r = r0 + threadIdx.x;
+  nhw::stage_rows(in + b * kPlane, r0, kRows, s);
+  __syncthreads();
+  int16_t* row = s + threadIdx.x * nhw::kStagePitch + 1;
+  int irs = row[-1], cur = row[0], il = row[1], d = 0;
   for (int c = 0; c < kN; ++c) {
-    const int x = r * kN + c;
-    const int a = img[x] - d;
-    const int il = x + 1 < kPlane ? img[x + 1] : 0;
-    const int il2 = x + 2 < kPlane ? img[x + 2] : 0;
-    const int irs = x > 0 ? img[x - 1] : 0;
+    const int il2 = row[c + 2];
+    const bool x0 = r > 0 || c > 0;     // x > 0
+    const int a = cur - d;
     const bool reg = (r >= kD || c >= kD) && c < 2 * kD - 1;
     const bool outer =
         reg && a > 7 && il > 7 && (a & 7) == 0 && (il & 7) == 0;
     const bool outer_r =
         il > 15 && (il & 7) == 0 && c < 2 * kD - 2 && il2 <= 0;
     const bool big = a > 15;
-    const bool case_a = outer && big && x > 0 && irs <= 0;
-    const bool give = outer && outer_r && (!big || (x > 0 && irs > 0));
-    o[c] = static_cast<int16_t>(a - int(case_a));
+    const bool case_a = outer && big && x0 && irs <= 0;
+    const bool give = outer && outer_r && (!big || (x0 && irs > 0));
+    row[c] = static_cast<int16_t>(a - int(case_a));
     d = int(give);
+    irs = cur;
+    cur = il;
+    il = il2;
   }
+  __syncthreads();
+  nhw::unstage_rows(s, kRows, out + b * kPlane, r0);
 }
 
 // Passes 2-3 (image_processing.c:241-309) on the LL quadrant of one image,
@@ -301,6 +329,149 @@ __global__ void __launch_bounds__(kCodeThreads)
     o = (aq > -m1 && aq < m1) ? 128 : ((aq + 128) & 248);
   }
   out[i] = static_cast<int16_t>(o);
+}
+
+// ---------------------------------------------------------------------------
+// S10: offset_y_low4, q <= LOW4
+
+struct Oy4State {
+  int quant, quant6, quant4, pend_val;
+  bool pend, up;    // a write pending on the next position; by the up rule
+};
+
+__device__ __forceinline__ Oy4State oy4_entry(int s, int i0) {
+  Oy4State st;
+  st.quant = st.quant6 = 0;
+  st.quant4 = s == 0 ? 0 : (s == 2 ? 2 : 1);
+  st.pend = s >= 3;
+  st.pend_val = i0 + (s == 3 ? -2 : 2);
+  st.up = false;
+  return st;
+}
+
+// One step of pass 4 (image_processing.c:312-520 with the duty cycles) at
+// column c of row r: i0 the position's input value, i1 and i2 the next two
+// positions' (a step writes only the next position, where the next step
+// starts); the previous position is a code by then, so the pair rule's r1
+// is 0.  Returns the code.
+__device__ __forceinline__ int oy4_step(Oy4State& st, int i0, int i1, int i2,
+                                        int r, int c, int m1,
+                                        const int* __restrict__ esc) {
+  const int a0 = st.pend ? st.pend_val : i0;
+  st.pend = st.up = false;
+  if (a0 == 0) return 128;
+  if (a0 > 10000) return sentinel_code(a0);
+  if (a0 > 127 || a0 < -127) return escape_code(a0, esc);
+  const bool incol = c < 2 * kD - 1;
+  int a = a0, fix = 0;
+  if (a0 < 0) {
+    if (a0 < -12 && ((-a0) & 7) == 6 && incol && i1 == -7) fix = -9;
+    int an = (a0 == -7 && i1 == 8 && incol) ? 8 : -a0;
+    if (an > 14 && (an & 7) == 7 && i1 > 0 && i1 < 8) an -= 2;
+    if (an == 15) {
+      if (st.quant == 0) {
+        an &= 504;
+        st.quant = 1;
+      } else {
+        st.quant = (st.quant + 1) % 6;
+      }
+    } else if (an > 22 && (an & 7) == 7) {
+      if (st.quant6 == 0) {
+        an &= 504;
+        st.quant6 = 1;
+      } else {
+        st.quant6 = (st.quant6 + 1) % 4;
+      }
+    } else {
+      an &= 504;
+    }
+    a = -an;
+  } else if (a0 == 8 && i1 == -7 && incol) {
+    fix = -8;
+  } else if (a0 > 12 && (a0 & 7) >= 6 && incol && i1 == 7) {
+    fix = 9;
+  }
+  if (fix) {
+    st.pend = true;
+    st.pend_val = fix;
+  } else if (a >= 14 && i1 >= 14 && (r >= kD || c >= kD) &&
+             ((a & 510) & 7) == 6 && ((i1 & 510) & 7) == 6 &&
+             ((a & 1) || (i1 & 1))) {
+    if (st.quant4 == 0) {
+      const bool same = (a & 504) == (i1 & 504);
+      const bool r2 = c > 0 && c < 2 * kD - 2 &&
+                      ((i2 > -8 && i2 < -2) || (i2 < -7 && ((-i2) & 7) >= 6));
+      if (same ? a >= i1 : a <= i1) {
+        a += 2;
+        st.pend = st.up = true;
+        st.pend_val = i1 - 2;
+      } else if (!r2) {
+        st.pend = true;
+        st.pend_val = i1 + 2;
+      }
+      st.quant4 = 1;
+    } else {
+      st.quant4 = (st.quant4 + 1) % 3;
+    }
+  }
+  return (a > -m1 && a < m1) ? 128 : ((a + 128) & 248);
+}
+
+// Row r of one image from entry state s, staged at row (kStageAfter
+// values past its end); writes the codes in place when kWrite.  Returns
+// the exit state.
+template <bool kWrite>
+__device__ __forceinline__ int oy4_walk(int16_t* row, int r, int s, int m1,
+                                        const int* __restrict__ esc) {
+  int i0 = row[0], i1 = row[1], i2 = row[2];
+  Oy4State st = oy4_entry(s, i0);
+  for (int c = 0; c < kN; ++c) {
+    const int i3 = row[c + 3];
+    const int code = oy4_step(st, i0, i1, i2, r, c, m1, esc);
+    if (kWrite) row[c] = static_cast<int16_t>(code);
+    i0 = i1;
+    i1 = i2;
+    i2 = i3;
+  }
+  return st.pend ? (st.up ? 3 : 4) : st.quant4;
+}
+
+// kRows staged rows from every entry state, a thread each: maps (B, 512,
+// 5) uint8.
+__global__ void __launch_bounds__(kRows * kOy4States)
+    oy4_maps(const int16_t* __restrict__ in, uint8_t* __restrict__ maps,
+             int m1, const int* __restrict__ esc) {
+  __shared__ int16_t s[kRows * nhw::kStagePitch];
+  const size_t b = blockIdx.y;
+  const int r0 = blockIdx.x * kRows;
+  nhw::stage_rows(in + b * kPlane, r0, kRows, s);
+  __syncthreads();
+  const int k = threadIdx.x / kOy4States, e = threadIdx.x % kOy4States;
+  maps[(b * kN + r0 + k) * kOy4States + e] = static_cast<uint8_t>(
+      oy4_walk<false>(s + k * nhw::kStagePitch + 1, r0 + k, e, m1, esc));
+}
+
+// kN / kRows CTAs an image: each chains the image's maps, then each thread
+// walks its staged row from its entry state and writes the codes.
+__global__ void __launch_bounds__(kRows)
+    oy4_emit(const int16_t* __restrict__ in,
+             const uint8_t* __restrict__ maps, int16_t* __restrict__ out,
+             int m1, const int* __restrict__ esc) {
+  __shared__ int16_t s[kRows * nhw::kStagePitch];
+  __shared__ uint8_t map_s[kN * kOy4States];
+  __shared__ uint8_t entry_s[kN];
+  const size_t b = blockIdx.y;
+  const int r0 = blockIdx.x * kRows, k = threadIdx.x;
+  nhw::stage_rows(in + b * kPlane, r0, kRows, s);
+  const uint8_t* m = maps + b * kN * kOy4States;
+  for (int i = k; i < kN * kOy4States; i += kRows) map_s[i] = m[i];
+  __syncthreads();
+  nhw::chain_entries<kOy4States>(map_s, entry_s, kN);
+  __syncthreads();
+  oy4_walk<true>(s + k * nhw::kStagePitch + 1, r0 + k, entry_s[r0 + k], m1,
+                 esc);
+  __syncthreads();
+  nhw::unstage_rows(s, kRows, out + b * kPlane, r0);
 }
 
 // ---------------------------------------------------------------------------
@@ -487,18 +658,35 @@ int nhw_snap_pass(const void* in, void* out, int batch, int r0, int r1,
 int nhw_offset_y(const void* in, void* tmp, void* out, const void* esc,
                  int batch, int m1, void* stream) {
   if (batch < 1 || batch > 65535) return cudaErrorInvalidValue;
-  if (misaligned({{in, 2}, {tmp, 2}, {out, 2}, {esc, 4}}))
+  if (misaligned({{in, 16}, {tmp, 16}, {out, 2}, {esc, 4}}))
     return cudaErrorMisalignedAddress;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* t = static_cast<int16_t*>(tmp);
-  const int rows = batch * kN;
-  offset_y_rows<<<(rows + kRowThreads - 1) / kRowThreads, kRowThreads, 0,
-                  s>>>(static_cast<const int16_t*>(in), t, batch);
+  offset_y_rows<<<dim3(kN / kRows, batch), kRows, 0, s>>>(
+      static_cast<const int16_t*>(in), t);
   offset_y_ll<<<batch, kD, 0, s>>>(t);
   const int total = batch * kPlane;
   offset_y_codes<<<(total + kCodeThreads - 1) / kCodeThreads, kCodeThreads,
                    0, s>>>(t, static_cast<int16_t*>(out),
                            static_cast<const int*>(esc), total, m1);
+  return cudaGetLastError();
+}
+
+// S10.  in, tmp, out: (B, 512, 512) int16, 16-byte aligned (tmp holds pass
+// 1); maps: (B, 512, 5) uint8 scratch; esc: (2, 19) int32 escape words.
+int nhw_offset_y_low4(const void* in, void* tmp, void* maps, void* out,
+                      const void* esc, int batch, int m1, void* stream) {
+  if (batch < 1 || batch > 65535) return cudaErrorInvalidValue;
+  if (misaligned({{in, 16}, {tmp, 16}, {out, 16}, {esc, 4}}))
+    return cudaErrorMisalignedAddress;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* t = static_cast<int16_t*>(tmp);
+  auto* m = static_cast<uint8_t*>(maps);
+  const auto* e = static_cast<const int*>(esc);
+  const dim3 grid(kN / kRows, batch);
+  offset_y_rows<<<grid, kRows, 0, s>>>(static_cast<const int16_t*>(in), t);
+  oy4_maps<<<grid, kRows * kOy4States, 0, s>>>(t, m, m1, e);
+  oy4_emit<<<grid, kRows, 0, s>>>(t, m, static_cast<int16_t*>(out), m1, e);
   return cudaGetLastError();
 }
 

@@ -93,6 +93,10 @@ SIGNATURES = {
     "nhw_walk_visited": [_P, _P, _I, _I, _I, _P],
     # (process, rf_ext, out, batch, rf_len, res_uv, stream)
     "nhw_uv_sentinel": [_P, _P, _P, _I, _I, _I, _P],
+    # (in, tmp, maps, out, esc, batch, m1, stream)
+    "nhw_offset_y_low4": [_P, _P, _P, _P, _P, _I, _I, _P],
+    # (in, r3_ext, xs, out, scratch, batch, r3_len, gt_low10, stream)
+    "nhw_lowest_q_band_cleanup": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 LAUNCHES = {"synth_level": 0, "y_stage2_full": 0, "uv_synth": 0,
@@ -103,7 +107,8 @@ LAUNCHES = {"synth_level": 0, "y_stage2_full": 0, "uv_synth": 0,
             "analysis_level": 0, "chain_starts": 0, "y_runs_fixpoint": 0,
             "snap_pass": 0, "offset_y": 0, "merge_crossing": 0,
             "pair_promotion": 0, "column_ladder": 0, "classify": 0,
-            "ll2_code_y": 0, "walk_visited": 0, "uv_sentinel": 0}
+            "ll2_code_y": 0, "walk_visited": 0, "uv_sentinel": 0,
+            "offset_y_low4": 0, "lowest_q_band_cleanup": 0}
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()

@@ -15,12 +15,15 @@ and the container.  The stages, in the order the composition runs them:
   the ``hr_mem`` list that the host's part-0 offset takes, out of it on
   the host;
 - ``_host_e10``: the host's E10 part-0 offset and synthesis;
-- ``_y_residue_stage``: the E11 tail (the mid-q band cleanup, pair
-  promotion) and E12 (the res256 column ladder, classify, the res1, res3
-  and res5 positional streams), then the LL2-zone rebuild;
+- ``_y_residue_stage``: the E11 tail (the mid-q band cleanup above LOW5,
+  the low56 cleanup at LOW6..LOW5, the lowest-q cleanup below LOW6 with
+  its r3 tail built from resIII, the free-time kernel and E16's tree1,
+  pair promotion above LOW4) and E12 (the res256 column ladder, classify,
+  the res1, res3 and res5 positional streams), then the LL2-zone rebuild;
   ``_residue_sections`` slices each image's res sections on the host;
 - ``_y_stream_stage``: the three E11 snap passes, the E14 Y quantizer
-  and the E15 serpentine, crossing merge, select codes and run cap;
+  (``offset_y_low4``'s duty cycles at and below LOW4) and the E15
+  serpentine, crossing merge, select codes and run cap;
 - per chroma component: the host's offset_uv part 1 and synthesis
   (``_host_uv_ladder_in``), ``device_scans.uv_compare_ladder_device``,
   the host's analysis, resIII, offset_uv part 0 and synthesis
@@ -36,13 +39,15 @@ and the container.  The stages, in the order the composition runs them:
 Y's merge, select and cap run before any UV byte is written: the select
 reads up to five bytes past a candidate, so near 4 SZ it reads the UV
 half, which must still be zero then.  The streams are byte-identical to
-``nhwcodec_tpu.encode`` at LOW4 < q <= HIGH1
+``nhwcodec_tpu.encode`` at LOW8 < q <= HIGH1, q13..q21
 (tests/test_torch_encode_scans_device.py); the stages on their own are
 held to the host copy's encode (tests/test_torch_encode_scans.py,
 tests/test_torch_encode_residue_stage.py,
-tests/test_torch_encode_ll2_stage.py).  The LL2 stage covers q1..HIGH1;
-q <= LOW4 needs ``offset_y_low4``, the low-q cleanups and
-``uv_ll_smooth``, which are not ported.
+tests/test_torch_encode_ll2_stage.py), the low-q programs to the JAX
+package's and the host copy's C (tests/test_torch_encode_low4.py).  The
+LL2 stage covers q1..HIGH1; q <= LOW8 needs what slice e2 of the port
+brings: ``very_low_q_cleanup``, ``low_q_ll1_cleanup``, ``uv_ll_smooth``
+and the count-adaptive lowest-q thresholds.
 """
 
 from __future__ import annotations
@@ -123,20 +128,57 @@ def _rf_ext(res256: torch.Tensor, khead: torch.Tensor,
     return rf_ext
 
 
+# the e2 programs, for the message of the qualities below the slice
+E2_PROGRAMS = ("very_low_q_cleanup, low_q_ll1_cleanup and uv_ll_smooth (and "
+               "the count-adaptive lowest-q thresholds)")
+# the lowest-q band cleanup's thresholds at LOW7 (host encoder._lowest_q_xs)
+LOW7_XS = (15, 27, 10, 6, 3)
+TREE1_CHUNK_SIZE = 24593   # the tree1 chunk's size field, past resIII
+
+
+def _stage_range(stage: str, q: int) -> None:
+    if not T.LOW8 < q <= T.HIGH1:
+        raise NotImplementedError(
+            f"the device {stage} stage covers {T.LOW8 + 1}..{T.HIGH1}, got "
+            f"q{q} (below, slice e2: {E2_PROGRAMS} are not ported; above, "
+            "the HQ residue stays on the host)")
+
+
+def _r3_ext(resIII: torch.Tensor, ktail: torch.Tensor,
+            tree1: torch.Tensor) -> torch.Tensor:
+    """(B, LQ_R3_EXT) int16: resIII, then the heap-alias tail the lowest-q
+    cleanup's last rows read: the free-time kernel's [131080:131084], the
+    tree1 chunk's size field, and tree1's first 496 bytes as int16 pairs
+    (the host encoder's ``_lowest_q_band_cleanup``; JAX
+    device_encode_scans.py:158-167)."""
+    b = resIII.shape[0]
+    r3 = torch.zeros((b, ds.LQ_R3_EXT), dtype=torch.int16,
+                     device=resIII.device)
+    r3[:, :SZ] = resIII.reshape(b, SZ)
+    r3[:, SZ: SZ + 4] = ktail
+    r3[:, SZ + 4] = TREE1_CHUNK_SIZE
+    t = tree1[:, :496].to(torch.int32)
+    pairs = t[:, 0::2] | (t[:, 1::2] << 8)
+    r3[:, SZ + 8:] = torch.where(pairs >= 1 << 15, pairs - (1 << 16),
+                                 pairs).to(torch.int16)
+    return r3
+
+
 def _y_residue_stage(P: torch.Tensor, res256: torch.Tensor,
-                     khead: torch.Tensor, resIII: torch.Tensor, q: int):
+                     khead: torch.Tensor, resIII: torch.Tensor, q: int,
+                     ktail: torch.Tensor | None = None,
+                     tree1: torch.Tensor | None = None):
     """The E11 tail and E12 on the (B, 512, 512) int16 plane after the
     host's E10 part-0 offset and synthesis, with res256 and resIII (B,
     256, 256) int16 and khead (B, 4) int16 (the prefilter kernel's
-    [65536:65540]), then the LL2-zone rebuild.  Returns (the plane that
-    ``_y_stream_stage`` takes, {key: (packed, n_packed, bit_bytes,
-    n_nonmarker, word_bytes, n_words, word_bits)} for the streams of
-    quality q, device tensors as ``positional_stream_device`` gives
-    them)."""
-    if not T.LOW4 < q <= T.HIGH1:
-        raise NotImplementedError(
-            f"the device residue stage covers {T.LOW4 + 1}..{T.HIGH1}, got "
-            f"q{q} (the low56 and lowest-q band cleanups are not ported)")
+    [65536:65540]), then the LL2-zone rebuild.  Below LOW6 the lowest-q
+    cleanup also takes ktail (B, 4) int16, the free-time kernel's
+    [131080:131084], and the LL2 stage's tree1 (B, 16384).  Returns (the
+    plane that ``_y_stream_stage`` takes, {key: (packed, n_packed,
+    bit_bytes, n_nonmarker, word_bytes, n_words, word_bits)} for the
+    streams of quality q, device tensors as ``positional_stream_device``
+    gives them)."""
+    _stage_range("residue", q)
     b = P.shape[0]
     ds._check_plane(P, "residue stage plane", N)
     for x, name, shape in ((res256, "res256", (b, D, D)),
@@ -145,7 +187,19 @@ def _y_residue_stage(P: torch.Tensor, res256: torch.Tensor,
         ds._check(x, f"residue stage {name}", torch.int16, shape)
     if T.LOW5 < q < T.NORM:
         P = ds.mid_q_band_cleanup_device(P)
-    P = ds.pair_promotion_device(P)
+    elif T.LOW6 <= q <= T.LOW5:
+        P = ds.low56_band_cleanup_device(P, 19 if q == T.LOW5 else 20)
+    elif q < T.LOW6:
+        if ktail is None or tree1 is None:
+            raise ValueError(f"the residue stage at q{q} needs ktail and "
+                             "tree1 (the lowest-q cleanup's r3 tail)")
+        ds._check(ktail, "residue stage ktail", torch.int16, (b, 4))
+        xs = torch.tensor(LOW7_XS, dtype=torch.int32,
+                          device=P.device).expand(b, 5).contiguous()
+        P = ds.lowest_q_band_cleanup_device(
+            P, _r3_ext(resIII, ktail, tree1), q, xs)
+    if q > T.LOW4:
+        P = ds.pair_promotion_device(P)
     rs = _res_setting(q)
     P, rf = ds.column_ladder_device(P, _rf_ext(res256, khead, resIII), q, rs)
     P, rf, *_ = ds.classify_device(P, rf.reshape(b, D, D), q, rs)
@@ -186,13 +240,11 @@ def _y_stream_stage(P: torch.Tensor, q: int):
     before the first snap pass -> (stream (B, 6 SZ + 16) uint8 with the Y
     part written and the UV half zero, sel1 (B,) int32, sel2 (B,)
     int32)."""
-    if not T.LOW4 < q <= T.HIGH1:
-        raise NotImplementedError(
-            f"the device stream stage covers {T.LOW4 + 1}..{T.HIGH1}, got "
-            f"q{q} (offset_y_low4 is not ported)")
+    _stage_range("stream", q)
     for args in snap_args(q):
         P = ds.snap_pass_device(P, *args)
-    P = ds.offset_y_device(P, RATIO)
+    P = (ds.offset_y_low4_device if q <= T.LOW4 else ds.offset_y_device)(
+        P, RATIO)
     stream = torch.zeros((P.shape[0], 6 * SZ + 16), dtype=torch.uint8,
                          device=P.device)
     stream[:, : 4 * SZ] = ds.serpentine_y_device(P)
@@ -329,11 +381,19 @@ def _host_e10(jpegs: np.ndarray, procs: np.ndarray, mems: list,
         analysis.wavelet_synthesis(jpegs[k], procs[k], D, 0)
 
 
-def _kernel_heads(origs: list, q: int) -> np.ndarray:
-    """(B, 4) int16: each image's pre-filter kernel at [65536:65540], what
-    the column ladder reads past res256 (q > LOW4)."""
-    return np.stack([np.asarray(prefilter.kernel_for(o, q)).reshape(-1)[
-        SZ: SZ + 4] for o in origs]).astype(np.int16)
+def _kernel_slices(orig: np.ndarray, q: int) -> np.ndarray:
+    """One image's pre-filter kernel slices, (2, 4) int16: the head at
+    [65536:65540], which the column ladder reads past res256, and the tail
+    at [131080:131084], which the lowest-q cleanup reads past resIII (q <
+    LOW6).  Above LOW4 the kernel is ``kernel_for``'s; at and below, the
+    low pre-filter's free-time kernel, taken from its cache right after
+    the image's pre-filter (the cache holds one plane: later, it would
+    run the pre-filter again)."""
+    kern = (prefilter.kernel_for(orig, q) if q > T.LOW4
+            else prefilter.final_low_kernel(orig, q))
+    k = np.asarray(kern).reshape(-1)
+    return np.stack([k[SZ: SZ + 4], k[2 * SZ + 8: 2 * SZ + 12]]).astype(
+        np.int16)
 
 
 def _host_uv_ladder_in(jm: np.ndarray, pm: np.ndarray, q: int) -> None:
@@ -406,21 +466,22 @@ def encode_batch_scans_device(images: np.ndarray, quality: int = 20,
     to ``nhwcodec_tpu.encode``, with every raster scan after the front on
     ``device``: the stages of this module, each once for the whole batch.
     Raises ValueError outside 1 <= quality <= HIGH1 (above, the HQ residue
-    runs on the host encoder) and NotImplementedError at q <= LOW4."""
+    runs on the host encoder) and NotImplementedError at q <= LOW8."""
     q = quality
     if not 1 <= q <= T.HIGH1:
         raise ValueError(f"scans_on_device covers 1 <= q <= {T.HIGH1}, got "
                          f"q{q} (above, the HQ residue runs on the host "
                          "encoder)")
-    if q <= T.LOW4:
+    if q <= T.LOW8:
         raise NotImplementedError(
-            f"scans_on_device at q{q}: q <= {T.LOW4} waits for slice e of "
-            "the port: offset_y_low4, the low-q cleanups (low_q_ll1, "
-            "very_low_q, low56 and lowest-q band cleanups) and uv_ll_smooth "
-            f"are not ported; {T.LOW4 + 1} <= q <= {T.HIGH1} run")
+            f"scans_on_device at q{q}: q <= {T.LOW8} waits for slice e2 of "
+            f"the port: {E2_PROGRAMS} are not ported; "
+            f"{T.LOW8 + 1} <= q <= {T.HIGH1} run")
     dev = resolve_device(device)
     images = np.asarray(images, np.uint8)
-    _, origs, u8, _, pre_y, pre_u, pre_v = stages.encode_front(images, q, dev)
+    kslices = []
+    _, _, u8, _, pre_y, pre_u, pre_v = stages.encode_front(
+        images, q, dev, lambda o: kslices.append(_kernel_slices(o, q)))
     jpegs, procs, res256 = (np.array(a, np.int16) for a in pre_y[:3])
 
     # Y: E16, the host's E10, the residue stage and the stream stage
@@ -431,9 +492,10 @@ def encode_batch_scans_device(images: np.ndarray, quality: int = 20,
     procs = np.array(Pz.cpu())
     procs[:, :D, :D] = resIII.cpu().numpy()
     _host_e10(jpegs, procs, mems, q)
-    P, r256, khead = stages.to_device(dev, procs, res256,
-                                      _kernel_heads(origs, q))
-    P, streams = _y_residue_stage(P, r256, khead, resIII, q)
+    P, r256, kslices = stages.to_device(dev, procs, res256,
+                                        np.stack(kslices))
+    P, streams = _y_residue_stage(P, r256, kslices[:, 0], resIII, q,
+                                  kslices[:, 1], y["tree1"])
     stream, sel1, sel2 = _y_stream_stage(P, q)
 
     # U, then V; both read the U plane's bytes past res256

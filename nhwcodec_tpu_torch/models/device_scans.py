@@ -6,12 +6,12 @@ and results equal to the host copy's C scans
 ``host.models.encoder``, ``host.ops.ll2``).  This module holds the three
 stages at the end of the scan pipeline: the LL2 stage (the E16 Y LL2
 byte coding and run-delta compression, the E17 chroma LL2 coding and
-compression), the residue stage (the E11 mid-q cleanup and pair
-promotion, the E12 column ladder, classify and positional streams) and
-the stream stage (the E11 snap passes, the E14 quantizers and the E15
-stream fixups).
+compression), the residue stage (the E11 mid-q, low56 and lowest-q
+cleanups and pair promotion, the E12 column ladder, classify and
+positional streams) and the stream stage (the E11 snap passes, the E14
+quantizers and the E15 stream fixups), and the chroma ladders.
 
-Eight programs carry a serial chain and are CUDA kernels, each beside a
+Eleven programs carry a serial chain and are CUDA kernels, each beside a
 torch twin (``*_ref``) of the same decomposition.  In ``csrc/scans.cu``:
 
 - ``snap_pass_device`` (kernel ``snap_pass``): the neighbour count of the
@@ -28,6 +28,11 @@ torch twin (``*_ref``) of the same decomposition.  In ``csrc/scans.cu``:
   greedy pair rule within a row is the parity of the position in its run
   of candidates, the run starts a block-wide max-scan of ballots); pass
   4, the code map, one thread a position.
+- ``offset_y_low4_device`` (kernel ``offset_y_low4``, q <= LOW4): S2's
+  pass 1, then pass 4 with the duty-cycle counters, whose state crosses a
+  row end in one of ``OY4_STATES``: every row walked from each (a
+  thread a walk), the rows' maps chained by a warp scan, every row walked
+  again from its entry.
 - ``merge_crossing_device`` (kernel ``merge_crossing``): the cursor walk
   is a 5-state skip machine whose per-position map depends only on the
   input bytes.  Each thread builds its 16-position tile's map from the 5
@@ -56,10 +61,25 @@ In ``csrc/ll2.cu``:
   staged in shared memory and walked by one thread.  The Y highres walk,
   its squeeze walk and the UV highres walk use it.
 
+In ``csrc/uv.cu``:
+
+- ``uv_sentinel_marking_device`` (kernel ``uv_sentinel``): the chroma
+  band sentinels, one CTA an image, a thread a lane, the rows in order
+  (a pair at a row's last lane moves every later row's window).
+
+In ``csrc/lowq.cu``:
+
+- ``lowest_q_band_cleanup_device`` (kernel ``lowest_q_band_cleanup``, q <
+  LOW6): loop A a thread a row; B + C's rows walked from their two entry
+  states, the 256 exits chained, the rows walked again.
+
+The rows of S2's pass 1, S10 and S11 are staged in shared memory, 32 a
+CTA, a thread a row.
+
 The rest are torch ops: the serpentines (one gather each), the select
 codes (shifts, run parity and two sums), the run cap (``cummax`` run
 starts and a closed-form crossing count), ``offset_uv_device``, the mid-q
-cleanup (elementwise), the positional streams (cumsum ranks and
+and low56 cleanups (elementwise), the positional streams (cumsum ranks and
 scatters; the pair pack's skip walk is a run parity), and the LL2
 coders' emissions: the escape fill ("last non-escape value", a
 ``cummax`` of indices), the per-node successors and emissions of the
@@ -78,6 +98,7 @@ import functools
 import numpy as np
 import torch
 
+from nhwcodec_tpu_torch.host import tables as T
 from nhwcodec_tpu_torch.host.ops import geometry
 from nhwcodec_tpu_torch.host.ops.quantize import EXTRA_WORDS1, EXTRA_WORDS2
 from nhwcodec_tpu_torch.kernels import build
@@ -420,6 +441,139 @@ def offset_y_device(plane, m1: int = 8):
     return out
 
 
+# The q <= LOW4 quantizer's pass 4 carries the duty-cycle counters: quant
+# (mod 6) and quant6 (mod 4) reset at every row start, quant4 (mod 3) runs
+# on, and a step may write the next position.  At column 511 only the quant4
+# pair rule writes on (the -9/-8/9 fixups stop at 510), into the next row's
+# column 0 as its value -+ 2, and only where it fires, which leaves quant4 at
+# 1.  So a row's walk starts from one of OY4_STATES entry states: quant4 0,
+# 1 or 2 with nothing pending, or quant4 1 with the next row's column 0
+# pending at its value - 2 (state 3) or + 2 (state 4); its exit is one of
+# them too, and the rows chain through these maps.
+OY4_STATES = 5
+_OY4_Q4 = (0, 1, 2, 1, 1)
+
+
+def _oy4_walk(I, state, m1: int, codes: bool):
+    """Walk every row of ``I`` ((B, 512, 512) int32, pass 1's output) from
+    the entry states ``state`` ((B, 512, S) int64) as the C's pass 4 does
+    (image_processing.c:312-520 with the duty cycles) -> (the exit states
+    (B, 512, S), the code plane (B, 512, 512) int32 where ``codes`` and S
+    is 1).  Every read of the next two positions is of their input values
+    (only a step's pending write changes them, and it lands where the next
+    step starts); the previous position is read as a code, so the pair
+    rule's r1 is 0."""
+    b = I.shape[0]
+    dev = I.device
+    flat = I.reshape(b, -1)
+    nxt1 = _flat_shift_l(flat).reshape(b, N, N, 1)
+    nxt2 = _flat_shift_l(flat, 2).reshape(b, N, N, 1)
+    I = I.reshape(b, N, N, 1)
+    row = torch.arange(N, device=dev).reshape(N, 1)
+    quant = torch.zeros_like(state, dtype=torch.int32)
+    quant6 = torch.zeros_like(quant)
+    quant4 = torch.tensor(_OY4_Q4, dtype=torch.int32, device=dev)[state]
+    pend = state >= 3
+    pend_v = I[:, :, 0] + torch.where(state == 3, -2, 2)
+    out = torch.empty((b, N, N), dtype=torch.int32, device=dev) if codes \
+        else None
+    for c in range(N):
+        i0, i1, i2 = I[:, :, c], nxt1[:, :, c], nxt2[:, :, c]
+        a0 = torch.where(pend, pend_v, i0)
+        sent = a0 > 10000
+        esc = ~sent & ((a0 > 127) | (a0 < -127))
+        plain = (a0 != 0) & ~sent & ~esc
+        incol = c < N - 1
+        neg = a0 < 0
+        w_m9 = plain & (a0 < -12) & (((-a0) & 7) == 6) & (i1 == -7) & incol
+        a1 = torch.where(plain & (a0 == -7) & (i1 == 8) & incol, -8, a0)
+        an = -a1
+        an = torch.where((an > 14) & ((an & 7) == 7) & (i1 > 0) & (i1 < 8),
+                         an - 2, an)
+        is15 = an == 15
+        is22 = ~is15 & (an > 22) & ((an & 7) == 7)
+        keep = (is15 & (quant != 0)) | (is22 & (quant6 != 0))
+        a2 = torch.where(plain & neg, -torch.where(keep, an, an & 504), a0)
+        adv = plain & neg
+        quant = torch.where(adv & is15, torch.where(
+            quant == 0, 1, (quant + 1) % 6), quant)
+        quant6 = torch.where(adv & is22, torch.where(
+            quant6 == 0, 1, (quant6 + 1) % 4), quant6)
+        w_m8 = plain & ~neg & (a0 == 8) & (i1 == -7) & incol
+        w_9 = (plain & ~neg & (a0 != 8) & (a0 > 12) & ((a0 & 7) >= 6)
+               & (i1 == 7) & incol)
+        fixed = w_m9 | w_m8 | w_9
+        reg4 = (row >= D) | (c >= D)
+        pairok = (plain & ~fixed & (a2 >= 14) & (i1 >= 14) & reg4
+                  & (((a2 & 510) & 7) == 6) & (((i1 & 510) & 7) == 6)
+                  & (((a2 & 1) == 1) | ((i1 & 1) == 1)))
+        if 0 < c < N - 2:
+            r2 = ((i2 > -8) & (i2 < -2)) | ((i2 < -7) & (((-i2) & 7) >= 6))
+        else:
+            r2 = torch.zeros_like(pairok)
+        fire4 = pairok & (quant4 == 0)
+        same = (a2 & 504) == (i1 & 504)
+        up_a = fire4 & ((same & (a2 >= i1)) | (~same & (a2 <= i1)))
+        up_b = fire4 & ~up_a & ~r2
+        quant4 = torch.where(pairok, torch.where(
+            quant4 == 0, 1, (quant4 + 1) % 3), quant4)
+        if codes:
+            a3 = torch.where(up_a, a2 + 2, a2)
+            code = torch.where((a3 > -m1) & (a3 < m1), 128, (a3 + 128) & 248)
+            code = torch.where(esc, _escape_code(a0), code)
+            code = torch.where(sent, _sentinel_code(a0), code)
+            out[:, :, c] = torch.where(a0 == 0, 128, code)[..., 0]
+        pend_v = torch.where(w_m9, -9, torch.where(
+            w_m8, -8, torch.where(w_9, 9, torch.where(up_a, i1 - 2,
+                                                      i1 + 2))))
+        pend = fixed | up_a | up_b
+    # at column 511 only the pair rule leaves a write pending
+    return torch.where(pend, torch.where(up_a, 3, 4), quant4.long()), out
+
+
+def offset_y_low4_ref(plane, m1: int = 8):
+    """Torch twin of ``offset_y_low4``: pass 1 row by row (as S2's), then
+    pass 4 in the kernel's decomposition: every row walked as a batch from
+    each of the OY4_STATES entry states for its exit, the 512 maps of an
+    image chained in order from state 0, and each row walked again from
+    its entry to write the codes."""
+    b = plane.shape[0]
+    dev = plane.device
+    If = _offset_y_rows_ref(_i32(plane).reshape(b, -1)).reshape(b, N, N)
+    every = torch.arange(OY4_STATES, device=dev).expand(b, N, OY4_STATES)
+    maps, _ = _oy4_walk(If, every, m1, False)
+    ent = torch.zeros((b, N, 1), dtype=torch.long, device=dev)
+    for r in range(1, N):
+        ent[:, r] = maps[:, r - 1].gather(1, ent[:, r - 1])
+    _, codes = _oy4_walk(If, ent, m1, True)
+    return codes.to(torch.int16)
+
+
+def offset_y_low4_device(plane, m1: int = 8):
+    """``host.ops.quantize.offset_y`` on a (B, 512, 512) int16 plane for q
+    <= LOW4: pass 1 (no passes 2-3 at these qualities) and the quantizer
+    with the duty-cycle counters.  Returns the code plane, int16 (kernel
+    ``offset_y_low4``: S2's pass-1 launch, then the row maps, then the
+    chained walks that write; 32 staged rows a CTA)."""
+    _check_plane(plane, "offset_y_low4 plane", N)
+    if plane.device.type == "cpu":
+        return offset_y_low4_ref(plane, m1)
+    lib, stream = _cuda_args(plane)
+    b = plane.shape[0]
+    tmp = torch.empty_like(plane)
+    maps = torch.empty((b, N, OY4_STATES), dtype=torch.uint8,
+                       device=plane.device)
+    out = torch.empty_like(plane)
+    if b:
+        with torch.cuda.device(plane.device):
+            build.check("nhw_offset_y_low4", lib.nhw_offset_y_low4(
+                plane.data_ptr(), tmp.data_ptr(), maps.data_ptr(),
+                out.data_ptr(), _escape_table(plane.device).data_ptr(), b,
+                m1, stream))
+        build.count("offset_y_low4")
+    return out
+
+
 def offset_uv_device(plane, m2: int = 8):
     """``host.ops.quantize.offset_uv`` on a (B, 256, 256) int16 plane, in
     torch ops: the 7 -> 8 fixup and the 120-pair greedy are both
@@ -727,6 +881,199 @@ def mid_q_band_cleanup_device(plane):
     return out.to(torch.int16)
 
 
+def low56_band_cleanup_device(plane, thrx2: int):
+    """``_low56_band_cleanup`` (LOW6 <= q <= LOW5; thrx2 19 at LOW5, 20 at
+    LOW6) on a (B, 512, 512) int16 plane, elementwise on the lower half:
+    |v| in [8, 11) on the left half becomes 0, |v| in [8, thrx2) on the
+    right half +-7 from |v| >= 14, else 0."""
+    _check_plane(plane, "low56_band_cleanup plane", N)
+    I = _i32(plane)
+    lower = I[:, D:]
+    av = lower.abs()
+    col = torch.arange(N, device=plane.device)
+    left = col < D
+    m = (av >= 8) & torch.where(left, av < 11, av < thrx2)
+    snap = torch.where(lower >= 14, 7, torch.where(lower <= -14, -7, 0))
+    out = I.clone()
+    out[:, D:] = torch.where(m, torch.where(left, 0, snap), lower)
+    return out.to(torch.int16)
+
+
+# ---------------------------------------------------------------------------
+# E11 at q < LOW6: the lowest-q band cleanup (host.models.encoder.
+# _lowest_q_band_cleanup, encoder/nhw_encoder.c:833-968).  Loop A walks rows
+# 0..255 over columns 256..511, each row on its own: its left boundary
+# (column 255) and the right neighbour of column 511 (the next row's column
+# 0) are read before anything writes them.  Loops B and C are one walk over
+# columns 0..510 of rows 256..511, the parameters switching at column 256;
+# it crosses a row only through column 511, which it never visits: the next
+# row's column-0 visit reads it as its left neighbour, as it was or zeroed
+# by the row's pairR at column 510.  So each row of B + C has two entry
+# states, and its map from entry to exit (pairR at 510) chains the rows.
+
+LQ_R3_EXT = SZ + 256            # resIII and the heap-alias tail
+LQ_R3_MIN = ((SZ - 2) >> 1) + (SZ >> 1) + 128 + 1   # the last row's reads
+
+
+def _lq_visit(vin, left, right, r3ok, thi, tlo, lo2, x5, snap):
+    """One visit (phase 1, then the re-read of phase 2) -> (value, pairL,
+    pairR).  Where phase 1 writes, the value is 0 and phase 2 has nothing
+    to do, so both phases read the left and right values as the visit
+    found them.  lo2: |v| below it zeroes (0: never); snap: +-16 and
+    beyond become +-7 instead of 0."""
+    av = vin.abs()
+    cand1 = (av >= 8) & (av < thi)
+    z_r3 = cand1 & r3ok
+    pair_l = (cand1 & ~z_r3 & ((vin + left).abs() < x5)
+              & (right.abs() < x5))
+    pair_r = (cand1 & ~z_r3 & ~pair_l & ((vin + right).abs() < x5)
+              & (left.abs() < x5))
+    v1 = torch.where(z_r3 | pair_l | pair_r, 0, vin)
+    av2 = v1.abs()
+    cand2 = (av2 >= 8) & (av2 < tlo)
+    iso = (left.abs() < 8) & (right.abs() < 8)
+    hit = cand2 & (iso | (av2 < lo2))
+    to = torch.where(v1 >= 16, 7, torch.where(v1 <= -16, -7, 0))
+    to = torch.where(snap, to, 0)
+    return torch.where(hit, to, v1), pair_l, pair_r
+
+
+def _lq_args(plane, r3_ext, xs) -> None:
+    _check_plane(plane, "lowest_q_band_cleanup plane", N)
+    b = plane.shape[0]
+    _check(r3_ext, "lowest_q_band_cleanup r3_ext", torch.int16, (b, None))
+    _check(xs, "lowest_q_band_cleanup xs", torch.int32, (b, 5))
+    if r3_ext.shape[1] < LQ_R3_MIN:
+        raise ValueError(f"lowest_q_band_cleanup r3_ext: rows of "
+                         f"{r3_ext.shape[1]}; the last plane row reads up "
+                         f"to {LQ_R3_MIN}")
+    if not (r3_ext.is_contiguous() and xs.is_contiguous()):
+        raise ValueError("lowest_q_band_cleanup: inputs must be contiguous")
+
+
+def _lq_r3ok(r3, idx, thr):
+    """|r3[image, idx]| < thr[image] for an index table (rows, cols)."""
+    b = r3.shape[0]
+    v = r3.gather(1, idx.reshape(1, -1).expand(b, -1)).reshape(
+        (b,) + idx.shape)
+    return v.abs() < thr.reshape(b, 1, 1)
+
+
+def lowest_q_band_cleanup_ref(plane, r3_ext, quality: int, xs):
+    """Torch twin of ``lowest_q_band_cleanup``, with its decomposition:
+    loop A's rows walked as a batch; B + C's rows walked as a batch from
+    both entry states (the previous row's column 511 as it was, or 0) for
+    their exit (pairR at 510), the 256 exits chained in order from row
+    256 (which enters from loop A's last value), and each row walked again
+    from its entry to write."""
+    _lq_args(plane, r3_ext, xs)
+    dev = plane.device
+    b = plane.shape[0]
+    I = _i32(plane)
+    r3 = _i32(r3_ext)
+    x1, x2, x3, x4, x5 = (xs[:, k].to(torch.int32).reshape(b, 1)
+                          for k in range(5))
+    gt10 = torch.tensor(quality > T.LOW10, device=dev)
+    no = torch.tensor(False, device=dev)
+    out = I.clone()
+    row = torch.arange(D, device=dev).reshape(D, 1)
+    col = torch.arange(D, device=dev).reshape(1, D)
+    half = (row * D + col) >> 1
+
+    # loop A: rows 0..255, columns 256..511
+    okA = _lq_r3ok(r3, half + 128, x4)
+    left = I[:, :D, D - 1]
+    zcur = torch.zeros_like(left, dtype=torch.bool)
+    for c in range(D):
+        j = D + c
+        right = I[:, :D, j + 1] if j + 1 < N else I[:, 1:D + 1, 0]
+        vin = torch.where(zcur, 0, I[:, :D, j])
+        v, pl, pr = _lq_visit(vin, left, right, okA[..., c], x3 + 2, x3, 0,
+                              x5, no)
+        out[:, :D, j] = v
+        if c == 0:
+            out[:, :D, D - 1] = torch.where(pl, 0, out[:, :D, D - 1])
+        else:
+            out[:, :D, j - 1] = torch.where(pl, 0, out[:, :D, j - 1])
+        left, zcur = v, pr
+    # pairR at column 511 zeroes the next row's column 0 (rows 1..256)
+    out[:, 1:D + 1, 0] = torch.where(zcur, 0, out[:, 1:D + 1, 0])
+
+    # loops B + C: rows 256..511, columns 0..510
+    H = out[:, D:].clone()
+    okH = torch.cat([_lq_r3ok(r3, half + (SZ >> 1), x4),
+                     _lq_r3ok(r3, half + (SZ >> 1) + 128, x4 + 1)], 2)
+    seg = [(x1 + 2, x1, x1 - 4, no), (x2 + 1, x2, x2 - 5, gt10)]
+    prev511 = torch.cat([out[:, D - 1: D, N - 1], H[:, :-1, N - 1]], 1)
+
+    def walk(left, write):
+        """Walk every row from ``left`` (its column-0 left value, with
+        trailing entry dims) -> (pairR at 510, pairL at 0)."""
+        ext = left.dim() - 2
+        zcur = torch.zeros_like(left, dtype=torch.bool)
+
+        def at(x):
+            return x.reshape(x.shape + (1,) * ext)
+
+        pl0 = None
+        for j in range(N - 1):
+            thi, tlo, lo2, snap = (at(p) for p in seg[j >= D])
+            vin = torch.where(zcur, 0, at(H[..., j]))
+            v, pl, pr = _lq_visit(vin, left, at(H[..., j + 1]),
+                                  at(okH[..., j]), thi, tlo, lo2,
+                                  at(x5), snap)
+            if write:
+                H[..., j] = v
+                if j:
+                    H[..., j - 1] = torch.where(pl, 0, H[..., j - 1])
+            if j == 0:
+                pl0 = pl
+            left, zcur = v, pr
+        return zcur, pl0
+
+    exits, _ = walk(torch.stack([prev511, torch.zeros_like(prev511)], -1),
+                    False)
+    ent = torch.zeros((b, D), dtype=torch.long, device=dev)
+    e = torch.zeros((b, 1), dtype=torch.long, device=dev)
+    for r in range(D):
+        ent[:, r: r + 1] = e
+        e = exits[:, r].gather(1, e).long()
+    pr510, pl0 = walk(torch.where(ent == 0, prev511, 0), True)
+    H[..., N - 1] = torch.where(pr510, 0, H[..., N - 1])
+    H[:, :-1, N - 1] = torch.where(pl0[:, 1:], 0, H[:, :-1, N - 1])
+    out[:, D - 1, N - 1] = torch.where(pl0[:, 0], 0, out[:, D - 1, N - 1])
+    out[:, D:] = H
+    return out.to(torch.int16)
+
+
+def lowest_q_band_cleanup_device(plane, r3_ext, quality: int, xs):
+    """``_lowest_q_band_cleanup`` (q < LOW6) on a (B, 512, 512) int16
+    plane, bit-exact vs the host copy's C: r3_ext (B, >= LQ_R3_MIN) int16
+    is resIII followed by the heap-alias tail the last rows read (the
+    free-time kernel's [131080:131084], 24593, tree1's first 496 bytes as
+    int16 pairs), xs (B, 5) int32 each image's (x1, x2, x3, x4, x5), and
+    quality > LOW10 turns on C's +-7 snap.  Returns a new plane (kernel
+    ``lowest_q_band_cleanup``: three launches of 32 staged rows a CTA, a
+    thread a row: loop A, B + C's maps, B + C's chained walks)."""
+    _lq_args(plane, r3_ext, xs)
+    if plane.device.type == "cpu":
+        return lowest_q_band_cleanup_ref(plane, r3_ext, quality, xs)
+    lib, stream = _cuda_args(plane, r3_ext, xs)
+    b = plane.shape[0]
+    out = torch.empty_like(plane)
+    scratch = torch.empty((b, 3 * D), dtype=torch.uint8, device=plane.device)
+    if b:
+        with torch.cuda.device(plane.device):
+            build.check("nhw_lowest_q_band_cleanup",
+                        lib.nhw_lowest_q_band_cleanup(
+                            plane.data_ptr(), r3_ext.data_ptr(),
+                            xs.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                            b, r3_ext.shape[1], int(quality > T.LOW10),
+                            stream))
+        build.count("lowest_q_band_cleanup")
+    return out
+
+
 # The two regions of pair promotion: (rows [r0, r1), columns [c0, c1),
 # the band rules).  They share no row, and the C's chain never leaves a row:
 # its promotions of 7/-7 pairs and the lower block's vertical cases are
@@ -811,8 +1158,6 @@ RF_EXT = SZ + 1024       # res256 and the out-of-bounds tail the C reads
 
 
 def _ladder_flags(quality: int, res_setting: int) -> tuple:
-    from nhwcodec_tpu_torch.host import tables as T
-
     return (quality >= T.LOW1, quality == T.LOW2, quality >= T.HIGH1,
             res_setting)
 
@@ -1138,8 +1483,6 @@ def _classify_args(plane, res256) -> None:
 def classify_ref(plane, res256, quality: int, res_setting: int):
     """Torch twin of ``classify``: one walk over the 256 rows, the columns
     as lanes, the band value written at the previous row carried."""
-    from nhwcodec_tpu_torch.host import tables as T
-
     _classify_args(plane, res256)
     ge_high1 = quality >= T.HIGH1
     I, rf = _i32(plane), _i32(res256)
@@ -1162,8 +1505,6 @@ def classify_device(plane, res256, quality: int, res_setting: int):
     res256', n1, n3, n5), the counts (B,) int32 (kernel ``classify``: one
     launch, a CTA an image, a thread a column, the counts summed in the
     CTA)."""
-    from nhwcodec_tpu_torch.host import tables as T
-
     _classify_args(plane, res256)
     if plane.device.type == "cpu":
         return classify_ref(plane, res256, quality, res_setting)

@@ -153,7 +153,8 @@ def encode_front_device(rgb: torch.Tensor, quality: int):
             to_host(*pre_v))
 
 
-def encode_front(images: np.ndarray, quality: int, dev):
+def encode_front(images: np.ndarray, quality: int, dev,
+                 after_prefilter=None):
     """The encode's front for a (B, 512, 512, 3) uint8 batch: D1
     colorspace (K6 at q >= NORM), H1 the host Y pre-filter (q < HIGH2), D2
     analysis (K4), H1b the host requant mark + offset(part=1) and D3 the
@@ -161,7 +162,9 @@ def encode_front(images: np.ndarray, quality: int, dev):
     pre_y, pre_u, pre_v): the pre-filtered and the original Y planes, the
     chroma planes and the transform states; pre_y is (jpeg, process,
     res256, snap) after the requant block, so the host encode skips its own
-    (``requant_done``)."""
+    (``requant_done``).  ``after_prefilter(orig)``, where given, runs
+    after each image's pre-filter (q < HIGH2), while the pre-filter's
+    one-plane cache still holds that image."""
     rgb, = to_device(dev, images)
     if quality > T.HIGH1:
         (y, u, v), pre_y, pre_u, pre_v = encode_front_device(rgb, quality)
@@ -170,8 +173,13 @@ def encode_front(images: np.ndarray, quality: int, dev):
         y_d, u_d, v_d = colorspace_front_device(rgb, quality)
         y, u, v = to_host(y_d, u_d, v_d)
         origs = list(y)
-        y1s = ([prefilter.pre_process_y(o, quality) for o in origs]
-               if quality < T.HIGH2 else origs)
+        y1s = origs
+        if quality < T.HIGH2:
+            y1s = []
+            for o in origs:
+                y1s.append(prefilter.pre_process_y(o, quality))
+                if after_prefilter is not None:
+                    after_prefilter(o)
         pre_y, pre_u, pre_v = analysis_front_device(
             np.stack(y1s), u_d, v_d, quality, dev)
     if quality > T.LOW14:

@@ -1039,7 +1039,7 @@ def test_uv_compare_ladder_on_the_card(cuda, strict):
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("q", [20, 18, 17])
+@pytest.mark.parametrize("q", [20, 18, 17, 16, 14, 13])
 def test_scans_on_device_on_the_card(cuda, q):
     import chip_smoke as cs
     from nhwcodec_tpu_torch.host.models import encoder as host_encoder
@@ -1065,3 +1065,59 @@ def test_uv_sentinel_rejects_bad_inputs(cuda):
         ds.uv_sentinel_marking_device(p.transpose(1, 2), rf, 4)
     with pytest.raises(ValueError):
         ds.uv_sentinel_marking_device(p, rf.cpu(), 4)
+
+
+# the low-q programs: S10 offset_y_low4 (csrc/scans.cu), S11
+# lowest_q_band_cleanup (csrc/lowq.cu)
+
+
+@pytest.mark.parametrize("b", [1, 3, 16])
+@pytest.mark.parametrize("kind", ["random", "row ends", "row starts"])
+def test_offset_y_low4_kernel(cuda, kind, b):
+    import chip_smoke as cs
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    x = cs.oy4_edge_planes(np.random.default_rng(140 + b), b, kind)
+    X = torch.from_numpy(x).to(cuda)
+    before = build.LAUNCHES["offset_y_low4"]
+    got = ds.offset_y_low4_device(X, 8)
+    assert build.LAUNCHES["offset_y_low4"] == before + 1
+    torch.testing.assert_close(got, ds.offset_y_low4_ref(X, 8), rtol=0,
+                               atol=0)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  cs.host_offset_y_low4(x))
+
+
+@pytest.mark.parametrize("b", [1, 3, 16])
+@pytest.mark.parametrize("q", [13, 10])
+@pytest.mark.parametrize("kind", ["random", "pairR chain", "pairL column 0",
+                                  "A into row 256", "r3 tail"])
+def test_lowest_q_band_cleanup_kernel(cuda, kind, q, b):
+    import chip_smoke as cs
+    from nhwcodec_tpu_torch.models import device_encode_scans as des
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    x, r3 = cs.lowq_edge_inputs(np.random.default_rng(150 + b), b, kind)
+    xs = np.tile(np.array(des.LOW7_XS, np.int32), (b, 1))
+    X, R, S = (torch.from_numpy(a).to(cuda) for a in (x, r3, xs))
+    before = build.LAUNCHES["lowest_q_band_cleanup"]
+    got = ds.lowest_q_band_cleanup_device(X, R, q, S)
+    assert build.LAUNCHES["lowest_q_band_cleanup"] == before + 1
+    torch.testing.assert_close(got, ds.lowest_q_band_cleanup_ref(X, R, q, S),
+                               rtol=0, atol=0)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  cs.host_lowest_q(x, r3, q, xs))
+
+
+def test_lowest_q_band_cleanup_rejects_bad_inputs(cuda):
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    p = torch.zeros((2, 512, 512), dtype=torch.int16, device=cuda)
+    r3 = torch.zeros((2, ds.LQ_R3_EXT), dtype=torch.int16, device=cuda)
+    xs = torch.zeros((2, 5), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        ds.lowest_q_band_cleanup_device(p, r3[:, : ds.LQ_R3_MIN - 1], 13, xs)
+    with pytest.raises(ValueError):
+        ds.lowest_q_band_cleanup_device(p, r3.cpu(), 13, xs)
+    with pytest.raises(ValueError):
+        ds.offset_y_low4_device(p.transpose(1, 2), 8)

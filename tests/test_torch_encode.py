@@ -121,10 +121,10 @@ def test_device_stage_failure_costs_the_chunk(monkeypatch, caplog):
 
 
 def test_scans_on_device_is_outside_the_slice():
-    # q17..q21 run (tests/test_torch_encode_scans_device.py); q <= 16
-    # waits for the low-q programs
-    with pytest.raises(NotImplementedError, match="slice e"):
-        tdp.encode_batch_device(_images(1), 16, device="cpu",
+    # q13..q21 run (tests/test_torch_encode_scans_device.py); q <= 12
+    # waits for the lowest qualities' programs
+    with pytest.raises(NotImplementedError, match="slice e2"):
+        tdp.encode_batch_device(_images(1), 12, device="cpu",
                                 scans_on_device=True)
 
 

@@ -62,8 +62,8 @@ def test_residue_stage_range():
     z, r = (torch.zeros(s, dtype=torch.int16)
             for s in ((1, 512, 512), (1, 256, 256)))
     k = torch.zeros((1, 4), dtype=torch.int16)
-    for q in (T.LOW4, T.HIGH2):
-        with pytest.raises(NotImplementedError, match="low56"):
+    for q in (T.LOW8, T.HIGH2):
+        with pytest.raises(NotImplementedError, match="very_low_q_cleanup"):
             des._y_residue_stage(z, r, k, r, q)
     with pytest.raises(ValueError):
         des._y_residue_stage(z, r, torch.zeros((1, 3), dtype=torch.int16),

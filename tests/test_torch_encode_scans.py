@@ -203,17 +203,18 @@ def test_stream_stage_matches_host_encode(q, names):
 
 def test_stream_stage_range():
     y = torch.zeros((1, 512, 512), dtype=torch.int16)
-    for q in (T.LOW4, T.HIGH2):
-        with pytest.raises(NotImplementedError, match="offset_y_low4"):
+    for q in (T.LOW8, T.HIGH2):
+        with pytest.raises(NotImplementedError, match="very_low_q_cleanup"):
             des._y_stream_stage(y, q)
 
 
 def test_scans_on_device_message_names_the_range():
     img = np.zeros((1, 512, 512, 3), np.uint8)
     with pytest.raises(NotImplementedError,
-                       match=rf"offset_y_low4.*uv_ll_smooth.*"
-                       rf"{T.LOW4 + 1} <= q <= {T.HIGH1} run"):
-        tdp.encode_batch_device(img, T.LOW4, device="cpu",
+                       match=rf"slice e2.*very_low_q_cleanup.*"
+                       rf"low_q_ll1_cleanup.*uv_ll_smooth.*"
+                       rf"{T.LOW8 + 1} <= q <= {T.HIGH1} run"):
+        tdp.encode_batch_device(img, T.LOW8, device="cpu",
                                 scans_on_device=True)
     with pytest.raises(ValueError, match=rf"1 <= q <= {T.HIGH1}"):
         tdp.encode_batch_device(img, T.HIGH2, device="cpu",
