@@ -129,16 +129,20 @@
    LL2, residue and stream stages, the chroma ladders, the tokenizer and
    the packer; S9 uv_sentinel in csrc/uv.cu; at q <= LOW4 S10
    offset_y_low4 in csrc/scans.cu, the low56 cleanup and, below LOW6, S11
-   lowest_q_band_cleanup in csrc/lowq.cu), on the encode batch's 16
-   images at q20 and at q16 in one call each and 4 each at q21, q19, q18,
-   q17, q15, q14 and q13: every stream byte for byte against the host
+   lowest_q_band_cleanup in csrc/lowq.cu; below LOW7 S12
+   very_low_q_cleanup, at q <= LOW9 S13 low_q_ll1_cleanup and S14
+   uv_ll_smooth in csrc/vlq.cu), on the encode batch's 16 images at q20
+   and at q16 in one call each and 4 each at q21, q19, q18, q17, q15, q14,
+   q13, q12, q11, q8 and q1: every stream byte for byte against the host
    copy's encoder, the fixtures' against STREAM_SHA256, each call's
-   launches (K4, K5, K6 at q >= NORM, S1-S8, S9 twice at q >= LOW2 and
-   never below, S10 in S2's place and no S4 at q <= 16, S11 at q13 only);
-   q12 and q22 raise.  Times the q20 and q16 calls of 16 and the q13 call
-   of 4 in turns against the option off (one chunk, and the default
-   pool), splits the on path's wall at q20 and q16 over its host steps
-   and device stages, and profiles one q20 call.  Holds S9 to its twin and the
+   launches (K4, K5 above q6, K6 at q >= NORM, S1-S8, S9 twice at q >=
+   LOW2 and never below, S10 in S2's place and no S4 at q <= 16, S11
+   below q14, S12 below q13, no S5, S6 or positional stream at q <= 12,
+   S13 once and S14 twice at q <= 11); q0 and q22 raise ValueError.
+   Times the q20 and q16 calls of 16 and the q13 and q8 calls of 4 in
+   turns against the option off (one chunk, and the default pool), splits
+   the on path's wall at q20, q16 and q8 over its host steps and device
+   stages, and profiles one q20 call.  Holds S9 to its twin and the
    host copy's C on the chroma planes captured from the host copy's
    encodes (StreamCapture: q20, q21, q19, q18; timed on the q20 U planes)
    and at batch 1, 3 and 16 on edge planes (lane 127's pairs drifting the
@@ -155,6 +159,15 @@
    column 0, loop A's writes into columns 255 and 0 and row 256, reads in
    the tail past resIII, random) at q13 and q10; the low56 cleanup on the
    captured q15 and q14 planes.
+12. Holds S12 (its passes and fire masks), S13 and S14 to their twins and
+   the whole programs to the host copy's C on the planes captured from
+   the host encodes at q12, q11, q8 and q1 (S12 timed at q12, S13 and S14
+   at q8, each as a batch of 16) and at batch 1, 3 and 16 on edge planes
+   (a pass-1 write chained into the next window, a wavefront step reading
+   its left neighbour's write, pass 3's stale carry 4 and 0, level-2
+   zeroings in the LL1 cleanup's region, a zeroed left neighbour, the
+   row ends, random), and the count-adaptive lowest-q thresholds on the
+   card to the host's at each count band's edge.
 
 Prints the card's name and power limit (nvidia-smi), whether the host
 copy's C scans were built (``native host library: loaded``) or the host
@@ -228,6 +241,12 @@ KERNELS = {
                       "nhwcodec_tpu/models/device_scans.py:2750"),
     "lowest_q_band_cleanup": (CSRC + "lowq.cu",
                               "nhwcodec_tpu/models/device_scans.py:2165"),
+    "very_low_q_cleanup": (CSRC + "vlq.cu",
+                           "nhwcodec_tpu/models/device_scans.py:2479"),
+    "low_q_ll1_cleanup": (CSRC + "vlq.cu",
+                          "nhwcodec_tpu/models/device_scans.py:2101"),
+    "uv_ll_smooth": (CSRC + "vlq.cu",
+                     "nhwcodec_tpu/models/device_scans.py:2353"),
 }
 DECODE_KERNELS = ("synth_level", "y_stage2_full", "uv_synth")
 HQ_KERNELS = ("synth_unnorm_rows_t", "synth_norm_rows_clip_waves")
@@ -606,12 +625,12 @@ TWIN_PROFILE_MS = 1000
 def compare_and_time(name: str, shape: str, kern, twin, timed: bool = True,
                      twin_calls: int = 10, bound: dict | None = None,
                      graph: bool = False, twin_runs: int = RUNS,
-                     twin_warm: int = 3):
+                     twin_warm: int = 3, twin_profile: bool = True):
     """Run ``kern`` and ``twin`` (each returns a tensor or a tuple of
     tensors) on the card, check dtype, shape and max_abs_err 0, and time
     both (the twin's profiler window over ``twin_calls`` calls, where
-    those take under TWIN_PROFILE_MS; its call time the median of
-    ``twin_runs`` after ``twin_warm`` calls).  When
+    those take under TWIN_PROFILE_MS and ``twin_profile``; its call time
+    the median of ``twin_runs`` after ``twin_warm`` calls).  When
     timed, returns the kernel's entry of the JSON line: max_abs_err, ms
     and plain_ms (wrapper calls, CUDA events), device_ms (profiler),
     ``bound`` (``work(...)`` of these inputs), bound_us, bound_share (the
@@ -635,7 +654,8 @@ def compare_and_time(name: str, shape: str, kern, twin, timed: bool = True,
     plain_ms = median_ms(twin, runs=twin_runs, warm=twin_warm)
     _, k_dev, k_top = device_profile(kern, calls=10)
     t_dev = (device_profile(twin, calls=twin_calls)[1]
-             if plain_ms * twin_calls < TWIN_PROFILE_MS else None)
+             if twin_profile and plain_ms * twin_calls < TWIN_PROFILE_MS
+             else None)
     g_ms = graph_ms(kern) if graph else None
     # the share of the profiler's device time, else of the graph's
     share_of = k_dev or g_ms
@@ -2275,11 +2295,16 @@ class StreamCapture:
     and the plane ``_low56_band_cleanup`` left; its input is "e11") and
     below LOW6 "lq" (q, xs, the (65792,) r3_ext as ``lowq_r3_ext`` builds
     it from the free-time kernel and tree1, and the plane
-    ``_lowest_q_band_cleanup`` left; its input is "e11").  It wraps the
+    ``_lowest_q_band_cleanup`` left; its input is "e11"), and the cleanups
+    below LOW7: at q <= LOW9 "ll1" (q, the plane ``_low_q_ll1_cleanup``
+    got, "in", and left, "out") and "uvs" (for U and V: the plane
+    ``_uv_ll_smooth`` got and left), below LOW7 "vlq" (q, the plane
+    ``_very_low_q_cleanup`` got and left).  It wraps the
     host copy's ``encoder.encode_y``, ``_mid_q_band_cleanup``,
     ``_pair_promotion``, ``_band_snap_pass``, ``_uv_compare_ladder``,
-    ``_uv_sentinel_marking``, ``_low56_band_cleanup`` and
-    ``_lowest_q_band_cleanup``, ``quantize.offset_y``,
+    ``_uv_sentinel_marking``, ``_low56_band_cleanup``,
+    ``_lowest_q_band_cleanup``, ``_low_q_ll1_cleanup``,
+    ``_very_low_q_cleanup`` and ``_uv_ll_smooth``, ``quantize.offset_y``,
     ``residue.res256_column_ladder``, ``quantize.offset_uv``,
     ``quantize.select_codes``, ``entropy_enc.wavlts2packet_tokenize`` /
     ``wavlts2packet``, ``ll2.ll2_code_y``, ``ll2.y_highres_compression``
@@ -2318,10 +2343,13 @@ class StreamCapture:
             (quantize, "offset_y", quantize.offset_y),
             (encoder, "_low56_band_cleanup", encoder._low56_band_cleanup),
             (encoder, "_lowest_q_band_cleanup",
-             encoder._lowest_q_band_cleanup)]
+             encoder._lowest_q_band_cleanup),
+            (encoder, "_low_q_ll1_cleanup", encoder._low_q_ll1_cleanup),
+            (encoder, "_very_low_q_cleanup", encoder._very_low_q_cleanup),
+            (encoder, "_uv_ll_smooth", encoder._uv_ll_smooth)]
         (encode_y, midq, pair, ladder, snap, offset_uv, select, tokenize,
          packet, ll2y, yhr, uvhr, load, uvcl, uvsm, offset_y, low56,
-         lowest) = (f for *_, f in saved)
+         lowest, ll1, vlq, uvs) = (f for *_, f in saved)
 
         def plane(pf):
             return np.array(pf[: 4 * SZ]).reshape(512, 512)
@@ -2465,10 +2493,25 @@ class StreamCapture:
             r["out"] = plane(pf)
             rec[-1]["lq"] = r
 
+        def cleanup_w(key, f):
+            def run(pf, q, ratio):
+                r = {"q": q, "in": plane(pf)}
+                f(pf, q, ratio)
+                r["out"] = plane(pf)
+                rec[-1][key] = r
+            return run
+
+        def uvs_w(process):
+            r = {"in": np.array(process, np.int16)}
+            uvs(process)
+            r["out"] = np.array(process, np.int16)
+            rec[-1].setdefault("uvs", []).append(r)
+
         for (mod, name, _), f in zip(saved, (
                 encode_y_w, midq_w, pair_w, ladder_w, snap_w, offset_uv_w,
                 select_w, tokenize_w, packet_w, ll2y_w, yhr_w, uvhr_w,
-                load_w, uvcl_w, uvsm_w, offset_y_w, low56_w, lowest_w)):
+                load_w, uvcl_w, uvsm_w, offset_y_w, low56_w, lowest_w,
+                cleanup_w("ll1", ll1), cleanup_w("vlq", vlq), uvs_w)):
             setattr(mod, name, f)
         return self
 
@@ -3570,11 +3613,12 @@ def ll2_kernel_phase(dev, captured: dict) -> dict:
 
 UV_RF_EXT = 16384 + 512    # res256 and the tail the sentinel marking reads
 # q -> images of the encode batch encoded with the option on: the 16 of the
-# q20 batch, 4 each (quality_batch) at q21, q19, q18 and q17, and LOW4_QS
+# q20 batch, 4 each (quality_batch) at q21, q19, q18 and q17, LOW4_QS and
+# VLQ_QS
 SCANS_DEVICE_QS = {20: B, 21: 4, 19: 4, 18: 4, 17: 4, 16: B, 15: 4, 14: 4,
-                   13: 4}
+                   13: 4, 12: 4, 11: 4, 8: 4, 1: 4}
 # the calls timed in turns against the option off: q -> images
-SCANS_DEVICE_TIMED = {20: B, 16: B, 13: 4}
+SCANS_DEVICE_TIMED = {20: B, 16: B, 13: 4, 8: 4}
 SCANS_DEVICE_TURNS = 3
 # the sentinel marking's operations a lane, counted from csrc/uv.cu (the
 # two decisions' compares and selects, the run parity, the writes)
@@ -3584,19 +3628,32 @@ UVSM_KINDS = ("drift", "d0 -5", "bands taken", "pair runs")
 
 def scans_device_launches(q: int) -> dict:
     """The kernel launches of one encode_batch_device(scans_on_device=True)
-    call at quality q (LOW8 < q <= HIGH1): the front's K6 (q >= NORM), K4
-    (Y's two levels, U + V's two) and K5, the stream, residue and LL2
-    stages' S1-S8 (at q <= LOW4 S10 in S2's place and no S4), S9 for U and
-    V at q >= LOW2, and S11 below LOW6."""
+    call at quality q (1 <= q <= HIGH1): the front's K6 (q >= NORM), K4
+    (Y's two levels, U + V's two) and K5 (q > LOW14), the stream, residue
+    and LL2 stages' S1-S8 (at q <= LOW4 S10 in S2's place and no S4; at q
+    <= LOW8 no E12: no S5, S6), S9 for U and V at q >= LOW2, S11 below
+    LOW6, S12 below LOW7, S13 and S14 (U and V) at q <= LOW9."""
     from nhwcodec_tpu_torch.host import tables as T
 
-    low4 = q <= T.LOW4
+    low4, e12, low9 = q <= T.LOW4, int(q > T.LOW8), q <= T.LOW9
     return {"colorspace_down420": int(q >= T.NORM), "analysis_level_jp": 4,
-            "requant_tail": 1, **SCAN_LAUNCHES, "offset_y": int(not low4),
-            **RESIDUE_LAUNCHES, "pair_promotion": int(not low4),
-            **LL2_LAUNCHES, "uv_sentinel": 2 if q >= T.LOW2 else 0,
+            "requant_tail": int(q > T.LOW14), **SCAN_LAUNCHES,
+            "offset_y": int(not low4), **RESIDUE_LAUNCHES,
+            "pair_promotion": int(not low4), "column_ladder": e12,
+            "classify": e12, **LL2_LAUNCHES,
+            "uv_sentinel": 2 if q >= T.LOW2 else 0,
             "offset_y_low4": int(low4),
-            "lowest_q_band_cleanup": int(q < T.LOW6)}
+            "lowest_q_band_cleanup": int(q < T.LOW6),
+            "very_low_q_cleanup": int(q < T.LOW7),
+            "low_q_ll1_cleanup": int(low9), "uv_ll_smooth": 2 * low9}
+
+
+def scans_device_streams(q: int) -> int:
+    """The positional streams (torch ops) of one call at quality q: res1
+    above LOW8, res3 from LOW1, res5 from HIGH1; none at q <= LOW8."""
+    from nhwcodec_tpu_torch.models import device_encode_scans as des
+
+    return sum(q >= q_min for *_, q_min in des.RESIDUE_STREAMS)
 
 
 def stack_uv(records: list) -> dict:
@@ -3727,15 +3784,17 @@ def encode_scans_device_phase(dev, images: np.ndarray,
     """encode_batch_device(scans_on_device=True) on the card: the encode
     batch's 16 images at q20 and at q16 in one call each (the 11
     fixtures also against STREAM_SHA256) and 4 each at q21, q19, q18,
-    q17, q15, q14 and q13, every stream byte for byte against the host
-    copy's encoder.encode, with the launches of each call
+    q17, q15, q14, q13, q12, q11, q8 and q1, every stream byte for byte
+    against the host copy's encoder.encode, with the launches of each call
     (scans_device_launches: S9 twice at q >= 18, never below; S10 in S2's
-    place and no S4 at q <= 16; S11 at q13 only); q12 and q22 raise.  The
-    host encodes at LOW4_QS run under a StreamCapture, whose records go
-    into ``captured``.  Times the SCANS_DEVICE_TIMED calls in
+    place and no S4 at q <= 16; S11 below q14; S12 below q13; no S5, S6
+    or positional stream at q <= 12; S13 once and S14 twice at q <= 11;
+    K5 above q6); q0 and q22 raise ValueError.  The host encodes at
+    LOW4_QS and VLQ_QS run under a StreamCapture, whose records go into
+    ``captured``.  Times the SCANS_DEVICE_TIMED calls in
     SCANS_DEVICE_TURNS turns against the option off in one chunk and
-    through the default pool, splits the on path's wall at q20 and q16
-    (host_breakdown, each device stage synchronised at its end) and
+    through the default pool, splits the on path's wall at q20, q16 and
+    q8 (host_breakdown, each device stage synchronised at its end) and
     profiles one q20 call.  Returns each quality's launches."""
     import torch
 
@@ -3759,15 +3818,25 @@ def encode_scans_device_phase(dev, images: np.ndarray,
         sel = images if want_b == B else quality_batch(images, q)
         with StreamCapture() as cap:
             want = [host_encoder.encode(img, q) for img in sel]
-        if q in LOW4_QS:
+        if q in LOW4_QS or q in VLQ_QS:
             captured[q] = cap.records
+        n_streams = []
+        stream_fn = ds.positional_stream_device
+        ds.positional_stream_device = lambda *a: n_streams.append(
+            1) or stream_fn(*a)
         build.reset_launches()
-        got = on(sel, q)
+        try:
+            got = on(sel, q)
+        finally:
+            ds.positional_stream_device = stream_fn
         torch.cuda.synchronize()
         want_l = scans_device_launches(q)
         launches = {k: build.LAUNCHES[k] for k in want_l}
         check(launches == want_l, f"scans on device q{q}: launches "
               f"{launches}, not {want_l}")
+        check(len(n_streams) == scans_device_streams(q),
+              f"scans on device q{q}: {len(n_streams)} positional streams, "
+              f"not {scans_device_streams(q)}")
         bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
         check(len(got) == want_b and not bad, f"scans on device q{q}: "
               f"streams {bad} differ from the host copy's encoder")
@@ -3782,14 +3851,14 @@ def encode_scans_device_phase(dev, images: np.ndarray,
         print(f"encode scans on device: q{q}, batch {want_b} in one call, "
               f"byte-identical to the host copy's encoder ({len(pinned)} "
               "also to the pinned digests of nhwcodec_tpu.encode); launches "
-              f"{launches}", flush=True)
+              f"{launches}; {len(n_streams)} positional streams", flush=True)
         out[q], wants[q] = launches, want
-    for q, err, msg in ((T.LOW8, NotImplementedError, "slice e2"),
-                        (T.HIGH2, ValueError, f"1 <= q <= {T.HIGH1}")):
+    for q in (0, T.HIGH2):
         try:
             on(images[:1], q)
-        except err as e:
-            check(msg in str(e), f"scans on device q{q}: message {e!r}")
+        except ValueError as e:
+            check(f"1 <= q <= {T.HIGH1}" in str(e),
+                  f"scans on device q{q}: message {e!r}")
             print(f"encode scans on device: q{q} raises "
                   f"{type(e).__name__}: {e}", flush=True)
         else:
@@ -3833,6 +3902,9 @@ def encode_scans_device_phase(dev, images: np.ndarray,
         "_y_ll2_stage", "_uv_ll2_stage", "_uv_highres_stage")]
     stages += [(ds, n, "device UV ladders (compare ladder, S9)") for n in (
         "uv_compare_ladder_device", "uv_sentinel_marking_device")]
+    stages += [(ds, n, "device cleanups below q13 (S12-S14)") for n in (
+        "very_low_q_cleanup_device", "low_q_ll1_cleanup_device",
+        "uv_ll_smooth_device")]
     targets = [(tds, "encode_front", "front (colorspace, pre-filter, "
                 "analysis, requant)"),
                (des, "_host_e10", "host E10 part-0 offset + synthesis"),
@@ -3850,7 +3922,7 @@ def encode_scans_device_phase(dev, images: np.ndarray,
     try:
         for m, n, f in saved:
             setattr(m, n, synced(f))
-        for q in (20, 16):
+        for q in (20, 16, 8):
             print_breakdown(
                 f"encode scans on device breakdown, batch {B} q{q} in one "
                 "call (each device stage synchronised at its end)",
@@ -4218,6 +4290,339 @@ def low4_kernel_phase(dev, captured: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the device encode scans' programs below LOW7 (q1..q12): S12
+# very_low_q_cleanup's passes (vlq_passes), S13 low_q_ll1_cleanup (ll1_rows)
+# and S14 uv_ll_smooth (uv_smooth) in csrc/vlq.cu, the far zeroings, pass 4
+# and the count-adaptive lowest-q thresholds as torch ops
+
+VLQ_KERNELS = ("very_low_q_cleanup", "low_q_ll1_cleanup", "uv_ll_smooth")
+# q -> images of the encode batch whose host encodes encode_scans_device_phase
+# captures for vlq_kernel_phase (4 each): S12 at q12 (LOW8) and below, S13
+# and S14 at q11 (LOW9) and below
+VLQ_QS = {12: 4, 11: 4, 8: 4, 1: 4}
+# the functions' own operations, counted from csrc/vlq.cu: a pass-1 window
+# (5 reads, c1's 5 differences, absolutes and compares, the write ladder's
+# 8 tests, c2's 6 more tests: 45), a wave visit (7 reads, the outer and
+# inner tests' 6 differences, absolutes and compares, the mean, the write
+# test, the mask bits: 35), an LL1 visit (the reads, 3 absolutes, 5
+# compares, the select: 12)
+VLQ_P1_OPS = 45
+WAVE_OPS = 35
+LL1_OPS = 12
+VLQ_VISITS = (128 * 124, 2 * 126 * 126)   # pass 1; passes 2 and 3
+UVS_VISITS = 2 * 62 * 62
+VLQ_KINDS = ("random", "p1 chain", "wave left", "stale use4", "stale use0",
+             "l2 in ll1")
+# the qualities of each kind: q12 (LOW8: no pass 4, no level-2 zeroing),
+# q11 and q8 (LOW9, LOW12: both, x1..x4 as at q12), q1 (LOW19: the widest
+# thresholds); the stale carry acts at q <= LOW9 only
+VLQ_EDGE_QS = {"random": (12, 11, 1), "p1 chain": (12, 1),
+               "wave left": (12, 1), "stale use4": (11, 8),
+               "stale use0": (11, 8), "l2 in ll1": (11, 1)}
+# the level-2 targets of the stale carry 4 and 0 (count - 1..count + 1
+# plus 128, SZ and SZ + 128), flat in a (512, 512) plane
+STALE_TARGETS = {c: [k + o for k in (c - 1, c, c + 1)
+                     for o in (128, SZ, SZ + 128)] for c in (4, 0)}
+LL1_KINDS = ("random", "zero chain", "row ends")
+UVS_KINDS = ("random", "wave left")
+# counts of |v| >= 12 in rows 256..511 at the lowest-q thresholds' band
+# edges (> 12500, > 10000, >= 7000)
+XS_COUNTS = (6999, 7000, 10000, 10001, 12500, 12501)
+
+
+def _smooth(rng, b, n, step, noise):
+    """(B, n, n) int: a random walk along the columns plus one along the
+    rows plus noise in [-noise, noise]: flat enough for the windows."""
+    cols = np.cumsum(rng.integers(-step, step + 1, (b, 1, n)), 2)
+    rows = np.cumsum(rng.integers(-step, step + 1, (b, n, 1)), 1)
+    return cols + rows + rng.integers(-noise, noise + 1, (b, n, n))
+
+
+def vlq_edge_planes(rng, b, kind: str) -> np.ndarray:
+    """(B, 512, 512) int16 planes for S12, their level-1 bands random in
+    [-40, 40] (most of them under the far zeroings' thresholds).
+    "random": a smooth LL2 quadrant, every pass firing.  "p1 chain": each
+    quadrant row starts 0, 0, 9, 4, 0, 7 (rows 500 apart, so passes 2 and
+    3 never fire): window 0 writes 2 at column 2, and only that value
+    makes window 1 write 1 at column 3 (with the 9, window 1 fires
+    without a write).  "wave left": rows 4k and 4k + 2 alternate 2 and 18
+    (pass 1 never fires there, pass 3 never on them), rows 4k + 1 hold 10
+    and rows 4k + 3 1000: pass 2's visits (4k, j) write along row 4k + 1,
+    and visit (4k, 1) writes 7 at (4k + 1, 2) from (4k + 1, 1) = 14, the
+    write of visit (4k, 0) (from the 10 there: 6).  "stale use4" and
+    "stale use0" (for q <= LOW9 with x3 = 6): ramps of slope 4 (no pass-1
+    or pass-2 fire; pass 3 fires from row 3 on), row 2 20 higher, so row
+    0's visits hit without firing before any fire, and pass 3's carry is
+    stale.  use4: a plateau in row 120 makes a pass-1 fire, and row 0's
+    columns 2..6 zigzag (no pass 4 there): the carry is 4, and only the
+    stale zeroing takes STALE_TARGETS[4].  use0: no pass-1 fire; (0, 127)
+    is 10, so carry 0 zeroes it during pass 3, and pass 3's visit (0, 125)
+    then does not hit, where with the 10 it would fire and zero the bands
+    around (1, 126) (rows 1-2 set so that pass 4 does not).  "l2 in ll1":
+    a smooth quadrant, rows 128..255 and the level-2 band beside the
+    quadrant in [-14, 14]: the level-2 zeroings (q <= LOW9) land in the
+    LL1 cleanup's region."""
+    x = rng.integers(-40, 41, (b, 512, 512)).astype(np.int16)
+    off = rng.integers(-200, 201, (b, 1, 1))
+    q_ = x[:, :128, :128]
+    if kind in ("random", "l2 in ll1"):
+        q_[:] = _smooth(rng, b, 128, 3, 2) + off
+        if kind == "l2 in ll1":
+            x[:, :256, 128:256] = rng.integers(-14, 15, (b, 256, 128))
+            x[:, 128:256, :128] = rng.integers(-14, 15, (b, 128, 128))
+        return x
+    if kind == "p1 chain":
+        q_[:] = rng.integers(-3, 4, (b, 128, 128))
+        q_[:, :, :6] = (0, 0, 9, 4, 0, 7)
+        q_ += (np.arange(128) % 2 * 500).reshape(1, 128, 1) + off
+        return x
+    if kind == "wave left":
+        alt = np.where(np.arange(128) % 2, 18, 2)
+        q_[:, 0::4], q_[:, 1::4] = alt, 10
+        q_[:, 2::4], q_[:, 3::4] = alt, 1000
+        q_ += off
+        return x
+    ramp = 4 * (np.arange(128) - 127) + 10
+    q_[:] = ramp
+    q_[:, 2] += 20
+    if kind == "stale use4":
+        q_[:, 0, 2:7] += (0, 50, 0, 50, 0)
+        q_[:, 120, 50:61] = 1000
+        for t, v in zip(STALE_TARGETS[4], (5, -7, 10, 3, -11, 8, 0, 12, -1)):
+            x.reshape(b, -1)[:, t] = v
+    else:
+        q_[:, 2, 126] = 2
+        q_[:, 1, 124:128] = (10, 2, -2, 14)
+        # the bands around (1, 126), which only that fire would zero
+        for r, c in (((2, 4), (508, 510)), ((258, 260), (252, 254)),
+                     ((258, 260), (508, 510)), ((1, 2), (253, 256)),
+                     ((129, 130), (125, 128)), ((129, 130), (253, 256))):
+            x[:, r[0]: r[1], c[0]: c[1]] = 3
+        for t in STALE_TARGETS[0][1:]:     # all but (0, 127) itself
+            x.reshape(b, -1)[:, t] = 5
+    return x
+
+
+def ll1_edge_planes(rng, b, kind: str) -> np.ndarray:
+    """(B, 512, 512) int16 planes for S13.  "random": values in [-14,
+    14].  The others |v| <= 2 but for: "zero chain": each row of 128..255
+    holds 0, 8, 9, 0 every 4 columns: the 8 is zeroed (beside a small
+    left value), and then the 9 (only beside the zeroed 8); "row ends":
+    columns 0 and 255 hold 9 with 0 inside the region, the previous row's
+    column 511 0 in even rows (then column 0 is zeroed) and 20 in odd ones,
+    column 256 0 in rows r % 4 < 2 (then column 255 is zeroed) and 20
+    else."""
+    if kind == "random":
+        return rng.integers(-14, 15, (b, 512, 512)).astype(np.int16)
+    x = rng.integers(-2, 3, (b, 512, 512)).astype(np.int16)
+    rows = x[:, 128:256]
+    if kind == "zero chain":
+        rows[:, :, 0:256:4], rows[:, :, 1:256:4] = 0, 8
+        rows[:, :, 2:256:4], rows[:, :, 3:256:4] = 9, 0
+    else:
+        rows[:, :, 0], rows[:, :, 1] = 9, 0
+        rows[:, :, 255], rows[:, :, 254] = 9, 0
+        x[:, 127:255, 511] = np.where(np.arange(128) % 2, 20, 0)
+        rows[:, :, 256] = np.where(np.arange(128) % 4 < 2, 0, 20)
+    return x
+
+
+def uvs_edge_planes(rng, b, kind: str) -> np.ndarray:
+    """(B, 256, 256) int16 chroma planes for S14.  "random": a smooth LL2
+    block (both passes firing), the rest in [-300, 300].  "wave left":
+    rows 4k of the block alternate 6 and 0 (the second pass never fires
+    there), rows 4k + 1 hold 0, rows 4k + 2 3 and rows 4k + 3 1000: the
+    first pass's visits (4k, j) write along row 4k + 1, and visit (4k, 1)
+    writes 3 at (4k + 1, 2) from (4k + 1, 1) = 1, the write of visit (4k,
+    0) (from the 0 there: 2)."""
+    x = rng.integers(-300, 301, (b, 256, 256)).astype(np.int16)
+    off = rng.integers(-100, 101, (b, 1, 1))
+    blk = x[:, :64, :64]
+    if kind == "random":
+        blk[:] = _smooth(rng, b, 64, 2, 1) + off
+    else:
+        blk[:, 0::4] = np.where(np.arange(64) % 2, 0, 6)
+        blk[:, 1::4], blk[:, 2::4], blk[:, 3::4] = 0, 3, 1000
+        blk += off
+    return x
+
+
+def xs_count_planes(rng, counts) -> np.ndarray:
+    """(len(counts), 512, 512) int16 planes with exactly counts[k] values of
+    |v| >= 12 (in [12, 40], either sign) in rows 256..511, and the rest in
+    [-11, 11] but for 100 values of -32768, which the host's int16 |v| does
+    not count."""
+    x = rng.integers(-11, 12, (len(counts), 512, 512)).astype(np.int16)
+    for k, n in enumerate(counts):
+        low = x[k, 256:].reshape(-1)
+        pos = rng.permutation(low.size)
+        low[pos[:n]] = rng.integers(12, 41, n) * rng.choice([-1, 1], n)
+        low[pos[n: n + 100]] = -32768
+    return x
+
+
+def _host_each(fn, x: np.ndarray, *args) -> np.ndarray:
+    out = x.copy()
+    for p in out:
+        fn(p, *args)
+    return out
+
+
+def host_vlq(x: np.ndarray, q: int) -> np.ndarray:
+    """The host copy's C very-low-q cleanup (ratio 8) on each image."""
+    from nhwcodec_tpu_torch.host.models import encoder
+
+    return _host_each(lambda p: encoder._very_low_q_cleanup(
+        p.reshape(-1), q, 8), x)
+
+
+def host_ll1(x: np.ndarray, q: int) -> np.ndarray:
+    """The host copy's C LL1 cleanup (ratio 8) on each image."""
+    from nhwcodec_tpu_torch.host.models import encoder
+
+    return _host_each(lambda p: encoder._low_q_ll1_cleanup(
+        p.reshape(-1), q, 8), x)
+
+
+def host_uvs(x: np.ndarray) -> np.ndarray:
+    """The host copy's C chroma LL smoothing on each plane."""
+    from nhwcodec_tpu_torch.host.models import encoder
+
+    return _host_each(encoder._uv_ll_smooth, x)
+
+
+def vlq_kernel_phase(dev, captured: dict) -> dict:
+    """S12-S14 against their twins (max_abs_err 0) and the host copy's C:
+    on the planes captured from the host copy's encodes at VLQ_QS (4
+    each): S12 at q12, q11, q8 and q1 (its passes and masks timed on the
+    4 q12 planes 4 times, a batch of 16, and the whole wrapper with its
+    far zeroings beside), S13 and S14 at q11, q8 and q1 (timed on the 4
+    q8 planes 4 times and on the q8 U and V planes twice: a batch of 16
+    each); then at batch 1, 3 and 16 (``compare_batches``) S12's passes
+    on VLQ_KINDS at their VLQ_EDGE_QS, S13 on LL1_KINDS with x1 10 and
+    11, S14 on UVS_KINDS, each also against the host copy's C; and the
+    lowest-q thresholds on the card against the host's on
+    xs_count_planes at q12, q11 and q10.  The twins' profiler windows of
+    some 4,000-30,000 launches a call are not taken (their summaries cost
+    about a minute)."""
+    import torch
+
+    from nhwcodec_tpu_torch.host import tables as T
+    from nhwcodec_tpu_torch.host.models import encoder
+    from nhwcodec_tpu_torch.models import device_encode_scans as des
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    def same(got, want, what):
+        check(np.array_equal(got.cpu().numpy(), want),
+              f"{what}: differs from the host copy's C")
+
+    out = {}
+    plane, uvp, masks = 2 * 512 * 512, 2 * 256 * 256, 4 * 128 * 128
+    for q, want_b in VLQ_QS.items():
+        recs = captured[q]
+        check(len(recs) == want_b and all("vlq" in r for r in recs),
+              f"q{q}: captured {len(recs)} host encodes, not {want_b}")
+        xs7 = encoder._VLQ_THRX(q, None)
+        x = t(np.stack([r["vlq"]["in"] for r in recs]))
+        same(ds.very_low_q_cleanup_device(x, q, xs7),
+             np.stack([r["vlq"]["out"] for r in recs]),
+             f"very_low_q_cleanup q{q}")
+        k = B // want_b
+        if q == T.LOW8:
+            X = x.repeat(k, 1, 1)
+            out["very_low_q_cleanup"] = compare_and_time(
+                "very_low_q_cleanup", f"({B},512,512) the {want_b} q{q} "
+                f"planes {k} times: passes 1-3 and the masks",
+                lambda: ds.very_low_q_passes_device(X, q, xs7),
+                lambda: ds.very_low_q_passes_ref(X, q, xs7), twin_runs=1,
+                twin_warm=0, twin_profile=False,
+                bound=work(B * (2 * plane + masks), B * (
+                    VLQ_P1_OPS * VLQ_VISITS[0] + WAVE_OPS * VLQ_VISITS[1])),
+                graph=True)
+            ms = median_ms(lambda: ds.very_low_q_cleanup_device(X, q, xs7))
+            print(f"very_low_q_cleanup_device ({B},512,512) q{q}: wrapper "
+                  f"call with pass 4 and the far zeroings {ms:.4f} ms (CUDA "
+                  f"events, median of {RUNS})", flush=True)
+        else:
+            compare_and_time(
+                "very_low_q_cleanup", f"({want_b},512,512) q{q} planes",
+                lambda: ds.very_low_q_passes_device(x, q, xs7),
+                lambda: ds.very_low_q_passes_ref(x, q, xs7), timed=False)
+        if q > T.LOW9:
+            continue
+        x1 = 10 if q > T.LOW14 else 11
+        x = t(np.stack([r["ll1"]["in"] for r in recs]))
+        same(ds.low_q_ll1_cleanup_device(x, x1),
+             np.stack([r["ll1"]["out"] for r in recs]),
+             f"low_q_ll1_cleanup q{q}")
+        u = t(np.stack([p["in"] for r in recs for p in r["uvs"]]))
+        same(ds.uv_ll_smooth_device(u),
+             np.stack([p["out"] for r in recs for p in r["uvs"]]),
+             f"uv_ll_smooth q{q}")
+        timed = q == T.LOW12
+        X = x.repeat(k, 1, 1) if timed else x
+        U = u.repeat(B // len(u), 1, 1) if timed else u
+        res = compare_and_time(
+            "low_q_ll1_cleanup", f"({len(X)},512,512) q{q} planes, x1 {x1}",
+            lambda: ds.low_q_ll1_cleanup_device(X, x1),
+            lambda: ds.low_q_ll1_cleanup_ref(X, x1), timed=timed,
+            twin_runs=3, twin_warm=1, twin_profile=False,
+            bound=work(B * 2 * plane, B * LL1_OPS * 128 * 256), graph=True)
+        out["low_q_ll1_cleanup"] = res or out.get("low_q_ll1_cleanup")
+        res = compare_and_time(
+            "uv_ll_smooth", f"({len(U)},256,256) q{q} U and V planes",
+            lambda: ds.uv_ll_smooth_device(U),
+            lambda: ds.uv_ll_smooth_ref(U), timed=timed, twin_runs=3,
+            twin_warm=1, twin_profile=False,
+            bound=work(B * 2 * uvp, B * WAVE_OPS * UVS_VISITS), graph=True)
+        out["uv_ll_smooth"] = res or out.get("uv_ll_smooth")
+
+    rng = np.random.default_rng(SEED + 80)
+    for kind in VLQ_KINDS:
+        x = vlq_edge_planes(rng, B, kind)
+        for q in VLQ_EDGE_QS[kind]:
+            xs7 = encoder._VLQ_THRX(q, None)
+            compare_batches(
+                "very_low_q_cleanup", f"{kind} planes, q{q}",
+                lambda a: ds.very_low_q_passes_device(a, q, xs7),
+                lambda a: ds.very_low_q_passes_ref(a, q, xs7), (t(x),))
+            same(ds.very_low_q_cleanup_device(t(x), q, xs7),
+                 host_vlq(x, q), f"very_low_q_cleanup {kind} planes, q{q}")
+    for kind in LL1_KINDS:
+        x = ll1_edge_planes(rng, B, kind)
+        for q in (T.LOW9, T.LOW14):
+            x1 = 10 if q > T.LOW14 else 11
+            compare_batches(
+                "low_q_ll1_cleanup", f"{kind} planes, x1 {x1}",
+                lambda a: ds.low_q_ll1_cleanup_device(a, x1),
+                lambda a: ds.low_q_ll1_cleanup_ref(a, x1), (t(x),))
+            same(ds.low_q_ll1_cleanup_device(t(x), x1), host_ll1(x, q),
+                 f"low_q_ll1_cleanup {kind} planes, x1 {x1}")
+    for kind in UVS_KINDS:
+        x = uvs_edge_planes(rng, B, kind)
+        compare_batches("uv_ll_smooth", f"{kind} planes",
+                        ds.uv_ll_smooth_device, ds.uv_ll_smooth_ref, (t(x),))
+        same(ds.uv_ll_smooth_device(t(x)), host_uvs(x),
+             f"uv_ll_smooth {kind} planes")
+    x = xs_count_planes(rng, XS_COUNTS)
+    for q in (T.LOW8, T.LOW9, T.LOW10):
+        got = des.lowest_q_xs_device(t(x), q).cpu().tolist()
+        want = [list(encoder._lowest_q_xs(p.reshape(-1), q)) for p in x]
+        check(got == want, f"lowest-q thresholds q{q}: {got}, not {want}")
+    print("encode scans: S12 equals its twin and the host copy's C on the "
+          f"captured q{'/q'.join(map(str, VLQ_QS))} planes and at batch 1, "
+          f"3 and 16 on the {', '.join(VLQ_KINDS)} planes; S13 and S14 on "
+          "the captured q11/q8/q1 planes and on the "
+          f"{', '.join(LL1_KINDS)} and {', '.join(UVS_KINDS)} planes; the "
+          "lowest-q thresholds on the card equal the host's at every count "
+          "band's edge", flush=True)
+    return out
+
+
 def transform_phase(dev) -> dict:
     """The transform entry on the card: encode_transform on the entry
     batch, decode_transform, and transform_step, each with the launch
@@ -4494,7 +4899,8 @@ def main() -> int:
                  "offset_y_codes", "merge_tiles", "merge_entries",
                  "merge_emit", "pair_promotion", "column_ladder",
                  "classify", "ll2_code_y", "walk_visited", "uv_sentinel",
-                 "oy4_maps", "oy4_emit", "lq_a", "lq_maps", "lq_emit"))
+                 "oy4_maps", "oy4_emit", "lq_a", "lq_maps", "lq_emit",
+                 "vlq_passes", "ll1_rows", "uv_smooth"))
 
     def phase(fn, *args):
         t0 = time.perf_counter()
@@ -4516,13 +4922,14 @@ def main() -> int:
     launches.update(phase(encode_scans_phase, dev, captured))
     launches.update(phase(encode_residue_phase, dev, images, captured))
     launches.update(phase(encode_ll2_phase, dev, images, captured))
-    # S1-S11 on the service path that runs them: S1-S9 at q20, S10 at q16,
-    # S11 at q13
+    # S1-S14 on the service path that runs them: S1-S9 at q20, S10 at q16,
+    # S11 at q13, S12-S14 at q11
     on = phase(encode_scans_device_phase, dev, images, captured)
     launches.update({k: on[20][k] for k in (*SCAN_KERNELS, *RESIDUE_KERNELS,
                                             *LL2_KERNELS, "uv_sentinel")})
     launches["offset_y_low4"] = on[16]["offset_y_low4"]
     launches["lowest_q_band_cleanup"] = on[13]["lowest_q_band_cleanup"]
+    launches.update({k: on[11][k] for k in VLQ_KERNELS})
     launches["analysis_level"] = phase(transform_phase, dev)["analysis_level"]
     # the kernels whose twins make the longest profiler windows (the scan's,
     # K5's, the column ladder's: 76,000 launches) last; the phases after
@@ -4535,6 +4942,7 @@ def main() -> int:
     timings.update(phase(kernel_phase, dev))
     timings.update(phase(encode_kernel_phase, dev, images))
     timings.update(phase(low4_kernel_phase, dev, captured))
+    timings.update(phase(vlq_kernel_phase, dev, captured))
     timings.update(phase(residue_kernel_phase, dev, captured))
     phase(cluster_info_phase, dev, timings)
     phase(analysis_edge_phase, dev)

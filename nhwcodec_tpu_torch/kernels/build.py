@@ -97,6 +97,12 @@ SIGNATURES = {
     "nhw_offset_y_low4": [_P, _P, _P, _P, _P, _I, _I, _P],
     # (in, r3_ext, xs, out, scratch, batch, r3_len, gt_low10, stream)
     "nhw_lowest_q_band_cleanup": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # (plane, masks, batch, low9, x1, x2, x3, x4, stream)
+    "nhw_very_low_q_cleanup": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # (in, out, batch, x1, stream)
+    "nhw_low_q_ll1_cleanup": [_P, _P, _I, _I, _P],
+    # (uv, batch, stream)
+    "nhw_uv_ll_smooth": [_P, _I, _P],
 }
 
 LAUNCHES = {"synth_level": 0, "y_stage2_full": 0, "uv_synth": 0,
@@ -108,7 +114,9 @@ LAUNCHES = {"synth_level": 0, "y_stage2_full": 0, "uv_synth": 0,
             "snap_pass": 0, "offset_y": 0, "merge_crossing": 0,
             "pair_promotion": 0, "column_ladder": 0, "classify": 0,
             "ll2_code_y": 0, "walk_visited": 0, "uv_sentinel": 0,
-            "offset_y_low4": 0, "lowest_q_band_cleanup": 0}
+            "offset_y_low4": 0, "lowest_q_band_cleanup": 0,
+            "very_low_q_cleanup": 0, "low_q_ll1_cleanup": 0,
+            "uv_ll_smooth": 0}
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()

@@ -5,22 +5,30 @@ Port of ``nhwcodec_tpu.models.device_encode_scans``.
 raster scan of the encoder on the device, stage-major: each host step
 runs image by image, each device stage once for the whole batch.  The
 host keeps the front's pre-filter and requant automata, the E10 greedy
-offsets with their transforms, the chroma greedy offsets, the tokenizer
-and the container.  The stages, in the order the composition runs them:
+offsets with their transforms (q > LOW8), the chroma greedy offsets, the
+tokenizer and the container.  The stages, in the order the composition
+runs them:
 
 - the front (``device_stages.encode_front``: colorspace, pre-filter,
   analysis, requant), as ``encode_batch_device`` runs it;
+- the cleanups before the LL2 coding: at q <= LOW9
+  ``device_scans.low_q_ll1_cleanup_device``, below LOW7
+  ``device_scans.very_low_q_cleanup_device``;
 - ``_y_ll2_stage``: E16, the Y LL2 byte coding and run-delta
   compression; ``_ll2_sections`` slices each image's E16 sections, and
   the ``hr_mem`` list that the host's part-0 offset takes, out of it on
   the host;
-- ``_host_e10``: the host's E10 part-0 offset and synthesis;
+- ``_host_e10``: the host's E10 part-0 offset and synthesis, above LOW8
+  only (at and below, the plane stays on the device: E16's output with
+  resIII back in its LL2 quadrant);
 - ``_y_residue_stage``: the E11 tail (the mid-q band cleanup above LOW5,
   the low56 cleanup at LOW6..LOW5, the lowest-q cleanup below LOW6 with
-  its r3 tail built from resIII, the free-time kernel and E16's tree1,
-  pair promotion above LOW4) and E12 (the res256 column ladder, classify,
-  the res1, res3 and res5 positional streams), then the LL2-zone rebuild;
-  ``_residue_sections`` slices each image's res sections on the host;
+  its r3 tail built from resIII and its thresholds from each image's
+  count below LOW7 (``lowest_q_xs_device``), the free-time kernel and
+  E16's tree1, pair promotion above LOW4) and, above LOW8, E12 (the
+  res256 column ladder, classify, the res1, res3 and res5 positional
+  streams), then the LL2-zone rebuild; ``_residue_sections`` slices each
+  image's res sections on the host;
 - ``_y_stream_stage``: the three E11 snap passes, the E14 Y quantizer
   (``offset_y_low4``'s duty cycles at and below LOW4) and the E15
   serpentine, crossing merge, select codes and run cap;
@@ -28,9 +36,10 @@ and the container.  The stages, in the order the composition runs them:
   (``_host_uv_ladder_in``), ``device_scans.uv_compare_ladder_device``,
   the host's analysis, resIII, offset_uv part 0 and synthesis
   (``_host_uv_marking_in``), ``device_scans.uv_sentinel_marking_device``
-  (q >= LOW2), then ``_uv_ll2_stage`` (the chroma LL2 byte coding) and
-  ``_uv_stream_stage`` (the E14 chroma quantizer and serpentine, written
-  into the stream's UV half);
+  (q >= LOW2), ``device_scans.uv_ll_smooth_device`` (q <= LOW9), then
+  ``_uv_ll2_stage`` (the chroma LL2 byte coding) and ``_uv_stream_stage``
+  (the E14 chroma quantizer and serpentine, written into the stream's UV
+  half);
 - ``_uv_highres_stage``: E17, the two components' run-delta
   compression; ``_uv_ll2_sections`` slices the E17 sections;
 - the host tokenizer and the device bit packer
@@ -39,15 +48,14 @@ and the container.  The stages, in the order the composition runs them:
 Y's merge, select and cap run before any UV byte is written: the select
 reads up to five bytes past a candidate, so near 4 SZ it reads the UV
 half, which must still be zero then.  The streams are byte-identical to
-``nhwcodec_tpu.encode`` at LOW8 < q <= HIGH1, q13..q21
+``nhwcodec_tpu.encode`` at 1 <= q <= HIGH1
 (tests/test_torch_encode_scans_device.py); the stages on their own are
 held to the host copy's encode (tests/test_torch_encode_scans.py,
 tests/test_torch_encode_residue_stage.py,
 tests/test_torch_encode_ll2_stage.py), the low-q programs to the JAX
-package's and the host copy's C (tests/test_torch_encode_low4.py).  The
-LL2 stage covers q1..HIGH1; q <= LOW8 needs what slice e2 of the port
-brings: ``very_low_q_cleanup``, ``low_q_ll1_cleanup``, ``uv_ll_smooth``
-and the count-adaptive lowest-q thresholds.
+package's and the host copy's C (tests/test_torch_encode_low4.py,
+tests/test_torch_encode_lowq2.py).  Above HIGH1 the HQ residue stays on
+the host encoder.
 """
 
 from __future__ import annotations
@@ -128,20 +136,45 @@ def _rf_ext(res256: torch.Tensor, khead: torch.Tensor,
     return rf_ext
 
 
-# the e2 programs, for the message of the qualities below the slice
-E2_PROGRAMS = ("very_low_q_cleanup, low_q_ll1_cleanup and uv_ll_smooth (and "
-               "the count-adaptive lowest-q thresholds)")
 # the lowest-q band cleanup's thresholds at LOW7 (host encoder._lowest_q_xs)
 LOW7_XS = (15, 27, 10, 6, 3)
+# below LOW7: by each image's count of |v| >= 12 in rows 256..511, the
+# base tuples (count > 12500, > 10000, >= 7000, else) and the bumps at LOW9
+# and at and below LOW10 (count > 12500, else)
+LOWEST_Q_XS = ((19, 31, 13, 9, 6), (18, 30, 12, 8, 6), (17, 29, 11, 8, 5),
+               (16, 28, 11, 8, 5))
+LOWEST_Q_BUMPS = {T.LOW9: ((1, 1, 1, 1, 1), (1, 0, 0, 0, 0)),
+                  T.LOW10: ((3, 3, 2, 3, 3), (3, 2, 2, 2, 2))}
 TREE1_CHUNK_SIZE = 24593   # the tree1 chunk's size field, past resIII
 
 
 def _stage_range(stage: str, q: int) -> None:
-    if not T.LOW8 < q <= T.HIGH1:
-        raise NotImplementedError(
-            f"the device {stage} stage covers {T.LOW8 + 1}..{T.HIGH1}, got "
-            f"q{q} (below, slice e2: {E2_PROGRAMS} are not ported; above, "
-            "the HQ residue stays on the host)")
+    if not 1 <= q <= T.HIGH1:
+        raise ValueError(f"the device {stage} stage covers q1..q{T.HIGH1}, "
+                         f"got q{q} (above, the HQ residue stays on the "
+                         "host)")
+
+
+def lowest_q_xs_device(P: torch.Tensor, q: int) -> torch.Tensor:
+    """The lowest-q band cleanup's thresholds (q < LOW6) for each image of
+    the (B, 512, 512) int16 plane it gets, as (B, 5) int32 on its device
+    (the host copy's ``encoder._lowest_q_xs``): LOW7_XS at LOW7, else by
+    the image's count of |v| >= 12 in rows 256..511 (|v| in int16, as the
+    host's numpy takes it: -32768 does not count)."""
+    b = P.shape[0]
+    dev = P.device
+    if q == T.LOW7:
+        return torch.tensor(LOW7_XS, dtype=torch.int32,
+                            device=dev).expand(b, 5).contiguous()
+    count = (P[:, D:].abs() >= 12).flatten(1).sum(1).reshape(b, 1)
+    tab = torch.tensor(LOWEST_Q_XS, dtype=torch.int32, device=dev)
+    xs = torch.where(count > 12500, tab[0], torch.where(
+        count > 10000, tab[1], torch.where(count >= 7000, tab[2], tab[3])))
+    if q <= T.LOW9:
+        bt = torch.tensor(LOWEST_Q_BUMPS[max(q, T.LOW10)], dtype=torch.int32,
+                          device=dev)
+        xs = xs + torch.where(count > 12500, bt[0], bt[1])
+    return xs.contiguous()
 
 
 def _r3_ext(resIII: torch.Tensor, ktail: torch.Tensor,
@@ -168,16 +201,18 @@ def _y_residue_stage(P: torch.Tensor, res256: torch.Tensor,
                      khead: torch.Tensor, resIII: torch.Tensor, q: int,
                      ktail: torch.Tensor | None = None,
                      tree1: torch.Tensor | None = None):
-    """The E11 tail and E12 on the (B, 512, 512) int16 plane after the
-    host's E10 part-0 offset and synthesis, with res256 and resIII (B,
-    256, 256) int16 and khead (B, 4) int16 (the prefilter kernel's
-    [65536:65540]), then the LL2-zone rebuild.  Below LOW6 the lowest-q
-    cleanup also takes ktail (B, 4) int16, the free-time kernel's
-    [131080:131084], and the LL2 stage's tree1 (B, 16384).  Returns (the
+    """The E11 tail and, above LOW8, E12 on the (B, 512, 512) int16 plane
+    after the host's E10 part-0 offset and synthesis (at and below LOW8,
+    E16's output with resIII in its LL2 quadrant), with res256 and resIII
+    (B, 256, 256) int16 and khead (B, 4) int16 (the prefilter kernel's
+    [65536:65540], which only E12 reads), then the LL2-zone rebuild.
+    Below LOW6 the lowest-q cleanup also takes ktail (B, 4) int16, the
+    free-time kernel's [131080:131084], and the LL2 stage's tree1 (B,
+    16384).  Returns (the
     plane that ``_y_stream_stage`` takes, {key: (packed, n_packed,
     bit_bytes, n_nonmarker, word_bytes, n_words, word_bits)} for the
     streams of quality q, device tensors as ``positional_stream_device``
-    gives them)."""
+    gives them; none at q <= LOW8)."""
     _stage_range("residue", q)
     b = P.shape[0]
     ds._check_plane(P, "residue stage plane", N)
@@ -194,12 +229,24 @@ def _y_residue_stage(P: torch.Tensor, res256: torch.Tensor,
             raise ValueError(f"the residue stage at q{q} needs ktail and "
                              "tree1 (the lowest-q cleanup's r3 tail)")
         ds._check(ktail, "residue stage ktail", torch.int16, (b, 4))
-        xs = torch.tensor(LOW7_XS, dtype=torch.int32,
-                          device=P.device).expand(b, 5).contiguous()
         P = ds.lowest_q_band_cleanup_device(
-            P, _r3_ext(resIII, ktail, tree1), q, xs)
+            P, _r3_ext(resIII, ktail, tree1), q, lowest_q_xs_device(P, q))
     if q > T.LOW4:
         P = ds.pair_promotion_device(P)
+    streams = {}
+    if q > T.LOW8:
+        P, streams = _e12(P, res256, khead, resIII, q)
+    block = resIII.clone()
+    zone = block[:, :128, :128]
+    zone.masked_fill_(zone <= 8000, 0)
+    P[:, :D, :D] = block
+    return P, streams
+
+
+def _e12(P, res256, khead, resIII, q: int):
+    """E12 (q > LOW8): the res256 column ladder, classify and the
+    positional streams of quality q."""
+    b = P.shape[0]
     rs = _res_setting(q)
     P, rf = ds.column_ladder_device(P, _rf_ext(res256, khead, resIII), q, rs)
     P, rf, *_ = ds.classify_device(P, rf.reshape(b, D, D), q, rs)
@@ -209,21 +256,20 @@ def _y_residue_stage(P: torch.Tensor, res256: torch.Tensor,
             rf, *out = ds.positional_stream_device(
                 rf, *_stream_tables(codes), word_bits)
             streams[key] = (*out, word_bits)
-    block = resIII.clone()
-    zone = block[:, :128, :128]
-    zone.masked_fill_(zone <= 8000, 0)
-    P[:, :D, :D] = block
     return P, streams
 
 
-def _residue_sections(streams: dict) -> list[dict]:
+def _residue_sections(streams: dict, b: int | None = None) -> list[dict]:
     """Each image's res sections from ``_y_residue_stage``'s streams, as
     the host's ``encode_y`` stores them: "resK" (the packed positions),
     "resK_bit" ((n_nonmarker >> 3) + 1 bytes) and "resK_word" ((n_words
-    >> 3) + 1 blocks of word_bits bytes), uint8 arrays (JAX :202-224)."""
+    >> 3) + 1 blocks of word_bits bytes), uint8 arrays (JAX :202-224).
+    b: the batch size, taken from the streams when None; at q <= LOW8
+    there is no stream, and each of the b images gets an empty dict."""
     host = {key: [t.cpu().numpy() for t in s[:6]]
             for key, s in streams.items()}
-    b = len(next(iter(host.values()))[0]) if host else 0
+    if b is None:
+        b = len(next(iter(host.values()))[0])
     out = [dict() for _ in range(b)]
     for key, (pk, npk, bit, nnm, wrd, nw) in host.items():
         word_bits = streams[key][6]
@@ -429,8 +475,9 @@ def _u8_pairs(u: np.ndarray) -> np.ndarray:
 def _uv_component(stream, pre: tuple, tails: np.ndarray, q: int, comp: int,
                   dev):
     """One chroma component from the front's (jpeg, process, res256) host
-    arrays: the host and device steps of encode_uv up to its LL2 coding,
-    then ``_uv_stream_stage`` into ``stream``.  Returns
+    arrays: the host and device steps of encode_uv up to its LL2 coding
+    (the smoothing at q <= LOW9 included), then ``_uv_stream_stage`` into
+    ``stream``.  Returns
     ``_uv_ll2_stage``'s result."""
     jm, pm, r256 = (np.array(a, np.int16) for a in pre)
     _host_uv_ladder_in(jm, pm, q)
@@ -449,6 +496,8 @@ def _uv_component(stream, pre: tuple, tails: np.ndarray, q: int, comp: int,
         Pm = ds.uv_sentinel_marking_device(Pm, rf_ext,
                                            4 if q > T.LOW3 else 5)
     Pm[:, :128, :128] = res3
+    if q <= T.LOW9:
+        Pm = ds.uv_ll_smooth_device(Pm)
     res = _uv_ll2_stage(Pm, q)
     _uv_stream_stage(stream, res[0], comp)
     return res
@@ -465,35 +514,41 @@ def encode_batch_scans_device(images: np.ndarray, quality: int = 20,
     """(B, 512, 512, 3) uint8 -> list of .nhw byte strings, byte-identical
     to ``nhwcodec_tpu.encode``, with every raster scan after the front on
     ``device``: the stages of this module, each once for the whole batch.
-    Raises ValueError outside 1 <= quality <= HIGH1 (above, the HQ residue
-    runs on the host encoder) and NotImplementedError at q <= LOW8."""
+    Raises ValueError outside 1 <= quality <= HIGH1 (above, the HQ
+    residue runs on the host encoder)."""
     q = quality
     if not 1 <= q <= T.HIGH1:
         raise ValueError(f"scans_on_device covers 1 <= q <= {T.HIGH1}, got "
                          f"q{q} (above, the HQ residue runs on the host "
                          "encoder)")
-    if q <= T.LOW8:
-        raise NotImplementedError(
-            f"scans_on_device at q{q}: q <= {T.LOW8} waits for slice e2 of "
-            f"the port: {E2_PROGRAMS} are not ported; "
-            f"{T.LOW8 + 1} <= q <= {T.HIGH1} run")
     dev = resolve_device(device)
     images = np.asarray(images, np.uint8)
+    b = len(images)
     kslices = []
     _, _, u8, _, pre_y, pre_u, pre_v = stages.encode_front(
         images, q, dev, lambda o: kslices.append(_kernel_slices(o, q)))
     jpegs, procs, res256 = (np.array(a, np.int16) for a in pre_y[:3])
 
-    # Y: E16, the host's E10, the residue stage and the stream stage
-    P, = stages.to_device(dev, procs)
+    # Y: the low-q cleanups, E16, the host's E10 (q > LOW8), the residue
+    # stage and the stream stage
+    P, r256, kslices = stages.to_device(dev, procs, res256,
+                                        np.stack(kslices))
+    if q <= T.LOW9:
+        P = ds.low_q_ll1_cleanup_device(P, 10 if q > T.LOW14 else 11)
+    if q < T.LOW7:
+        P = ds.very_low_q_cleanup_device(P, q, host_encoder._VLQ_THRX(
+            q, None))
     resIII = P[:, :D, :D].clone()
     Pz, y = _y_ll2_stage(P, q)
     secs, mems = _ll2_sections(y)
-    procs = np.array(Pz.cpu())
-    procs[:, :D, :D] = resIII.cpu().numpy()
-    _host_e10(jpegs, procs, mems, q)
-    P, r256, kslices = stages.to_device(dev, procs, res256,
-                                        np.stack(kslices))
+    if q > T.LOW8:
+        procs = np.array(Pz.cpu())
+        procs[:, :D, :D] = resIII.cpu().numpy()
+        _host_e10(jpegs, procs, mems, q)
+        P, = stages.to_device(dev, procs)
+    else:
+        P = Pz
+        P[:, :D, :D] = resIII
     P, streams = _y_residue_stage(P, r256, kslices[:, 0], resIII, q,
                                   kslices[:, 1], y["tree1"])
     stream, sel1, sel2 = _y_stream_stage(P, q)
@@ -507,7 +562,8 @@ def encode_batch_scans_device(images: np.ndarray, quality: int = 20,
     deferred = []
     sel = np.stack([sel1.cpu().numpy(), sel2.cpu().numpy()], 1)
     for sec, res, uvs, (s1, s2), tokens in zip(
-            secs, _residue_sections(streams), uv_secs, sel, _tokens(stream)):
+            secs, _residue_sections(streams, b), uv_secs, sel,
+            _tokens(stream)):
         sec.update(res)
         sec["exw_Y"] = sec["exw_Y"] + uvs["exw_uv"]
         if q > T.LOW5:

@@ -9,10 +9,13 @@ byte coding and run-delta compression, the E17 chroma LL2 coding and
 compression), the residue stage (the E11 mid-q, low56 and lowest-q
 cleanups and pair promotion, the E12 column ladder, classify and
 positional streams) and the stream stage (the E11 snap passes, the E14
-quantizers and the E15 stream fixups), and the chroma ladders.
+quantizers and the E15 stream fixups), the chroma ladders, and the
+cleanups that run before the LL2 coding below LOW7 (the LL1 cleanup, the
+very-low-q cleanup) and the chroma LL smoothing.
 
-Eleven programs carry a serial chain and are CUDA kernels, each beside a
-torch twin (``*_ref``) of the same decomposition.  In ``csrc/scans.cu``:
+Fourteen programs carry a serial chain and are CUDA kernels, each beside
+a torch twin (``*_ref``) of the same decomposition.  In
+``csrc/scans.cu``:
 
 - ``snap_pass_device`` (kernel ``snap_pass``): the neighbour count of the
   raster pass is static (the JAX module's analysis: alive values stay
@@ -73,10 +76,26 @@ In ``csrc/lowq.cu``:
   LOW6): loop A a thread a row; B + C's rows walked from their two entry
   states, the 256 exits chained, the rows walked again.
 
-The rows of S2's pass 1, S10 and S11 are staged in shared memory, 32 a
-CTA, a thread a row.
+In ``csrc/vlq.cu``:
 
-The rest are torch ops: the serpentines (one gather each), the select
+- ``very_low_q_passes_device`` (kernel ``vlq_passes``, q < LOW7): passes
+  1-3 of the very-low-q cleanup, one CTA an image, the LL2 quadrant in
+  shared memory: pass 1 a thread a row; passes 2 and 3 as wavefronts
+  (row r's visit j at step 2r + j), out with their fire masks.
+  ``very_low_q_cleanup_device`` then applies pass 4 and the far zeroings
+  (band and level-2 zeroings, pass 3's stale carry) as torch ops: masked
+  fills of the masks mapped onto their target bands.
+- ``low_q_ll1_cleanup_device`` (kernel ``ll1_rows``, q <= LOW9): a thread
+  a row of 128..255.
+- ``uv_ll_smooth_device`` (kernel ``uv_smooth``, q <= LOW9): one CTA a
+  chroma plane, both passes as S12's wavefront.
+
+The rows of S2's pass 1, S10, S11 and S13 are staged in shared memory, 32
+a CTA, a thread a row.
+
+The rest are torch ops: the count-adaptive lowest-q thresholds (a count
+and a ``torch.where`` ladder, in ``device_encode_scans``), the
+serpentines (one gather each), the select
 codes (shifts, run parity and two sums), the run cap (``cummax`` run
 starts and a closed-form crossing count), ``offset_uv_device``, the mid-q
 and low56 cleanups (elementwise), the positional streams (cumsum ranks and
@@ -1751,6 +1770,327 @@ def uv_sentinel_marking_device(process, rf_ext, res_uv: int):
                 process.data_ptr(), rf_ext.data_ptr(), out.data_ptr(), b,
                 rf_ext.shape[1], res_uv, stream))
         build.count("uv_sentinel")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The programs below LOW7 (host.models.encoder._low_q_ll1_cleanup,
+# _very_low_q_cleanup, _uv_ll_smooth; encoder/nhw_encoder.c:285-621,
+# 2438-2477).  The LL1 cleanup's rows are independent walks: a visit reads
+# its left neighbour as the walk left it (column 0 reads the previous row's
+# column 511, which the walk never writes) and its right neighbour as it was.
+# The very-low-q cleanup's pass 1 writes only within its row.  Its passes 2
+# and 3, and the two passes of the chroma LL smoothing, share one
+# recurrence: visit (r, j) reads rows r, r + 1 and r + 2 at columns j..j + 2
+# and writes (r + 1, j + 1), so it depends only on visits (r, j - 1) and
+# (r - 1, j + 1) and runs at wavefront step 2r + j; within a step no visit
+# reads what another writes.  The very-low-q cleanup's far zeroings target
+# the level-1 bands, which no pass reads, and are absorbing: they apply once
+# after the passes, from fire masks.  The one exception is the stale-carry
+# zeroing at carry 0, whose first target (0, 127) pass 3 and pass 4 read.
+
+VLQ = 128                  # the LL2 quadrant the very-low-q passes walk
+VLQ_P1 = VLQ - 4           # pass 1's visits a row
+VLQ_WAVE = VLQ - 2         # the rows and the visits a row of passes 2-3
+VLQ_MASKS = 4              # pass 1's fires, pass 2's, pass 3's, pass 3's hits
+UVS = 64                   # the chroma LL2 block the smoothing walks
+# a wave pass: (variant: 2 reads row r at j + 1, 3 at j..j + 2; x3, x4,
+# the rounding, whether an inner fire always writes)
+UVS_PASSES = ((2, 5, 8, 2, True), (3, 5, 8, 1, True))
+
+
+def _ll1_args(plane, x1: int) -> None:
+    _check_plane(plane, "low_q_ll1_cleanup plane", N)
+    if x1 not in (10, 11):
+        raise ValueError(f"low_q_ll1_cleanup: x1 {x1}, not 10 or 11")
+
+
+def low_q_ll1_cleanup_ref(plane, x1: int):
+    """Torch twin of ``ll1_rows``: the 256 column steps of rows 128..255
+    as a batch, the left neighbour as the walk left it, the right one as
+    it was."""
+    _ll1_args(plane, x1)
+    I = _i32(plane)
+    out = I.clone()
+    rows = I[:, 128:D]
+    left = I[:, 127:D - 1, N - 1]
+    for j in range(D):
+        v, right = rows[..., j], rows[..., j + 1]
+        av = v.abs()
+        lsm, rsm = left.abs() < 8, right.abs() < 8
+        z = (av >= 8) & (av < x1) & ((lsm & rsm) | ((av == 8) & (lsm | rsm)))
+        left = torch.where(z, 0, v)
+        out[:, 128:D, j] = left
+    return out.to(torch.int16)
+
+
+def low_q_ll1_cleanup_device(plane, x1: int):
+    """``_low_q_ll1_cleanup`` (q <= LOW9; x1 10 above LOW14, 11 at or
+    below) on a (B, 512, 512) int16 plane: rows 128..255, columns 0..255,
+    bit-exact vs the host copy's C.  Returns a new plane (kernel
+    ``ll1_rows``: one launch of 32 staged rows a CTA, a thread a row)."""
+    _ll1_args(plane, x1)
+    if plane.device.type == "cpu":
+        return low_q_ll1_cleanup_ref(plane, x1)
+    lib, stream = _cuda_args(plane)
+    out = plane.clone()
+    if plane.shape[0]:
+        with torch.cuda.device(plane.device):
+            build.check("nhw_low_q_ll1_cleanup", lib.nhw_low_q_ll1_cleanup(
+                plane.data_ptr(), out.data_ptr(), plane.shape[0], x1,
+                stream))
+        build.count("low_q_ll1_cleanup")
+    return out
+
+
+def _wave_ref(P, m: int, variant: int, x3: int, x4: int, rnd: int,
+              always: bool, stale0=None):
+    """One wave pass on the (B, >= m + 2, >= m + 2) int32 corner P, in
+    place: step s visits (r, s - 2r) for every row r < m whose column lies
+    in [0, m).  A visit fires (inner) where its window is flat and writes
+    the rounded mean of its four neighbours into (r + 1, j + 1) (always,
+    or only near one of its row neighbours).  stale0 (B,) bool: images
+    where pass 3's hits before its first fire zero (0, 127) below 11 (the
+    very-low-q cleanup's stale carry 0; row 0's visits are the first of
+    raster order, so row 0 alone reads the zero in time).  Returns (inner,
+    outer) (B, m, m) bool in the visit frame."""
+    b, dev = P.shape[0], P.device
+    inner_m = torch.zeros((b, m, m), dtype=torch.bool, device=dev)
+    outer_m = torch.zeros_like(inner_m)
+    fired0 = torch.zeros(b, dtype=torch.bool, device=dev)
+    for s in range(3 * m - 2):
+        rr = torch.arange(max(0, (s - m + 2) // 2), min(m - 1, s // 2) + 1,
+                          device=dev)
+        jj = s - 2 * rr
+        r0, r0s, r0s2 = (P[:, rr, jj + k] for k in range(3))
+        a0, r1i1, r1i2 = (P[:, rr + 1, jj + k] for k in range(3))
+        r2s = P[:, rr + 2, jj + 1]
+        if variant == 2:
+            outer = ((r0s - r2s).abs() < x3) & ((a0 - r1i2).abs() < x3)
+            inner = (outer & ((r1i1 - a0).abs() < x4 - 1)
+                     & ((r0s - r1i1).abs() < x4))
+        else:
+            outer = (((r0s2 - r0s).abs() < x3) & ((r0s - r0).abs() < x3)
+                     & ((r0 - a0).abs() < x3) & ((r0s2 - r1i2).abs() < x3))
+            inner = (outer & ((r2s - a0).abs() < x3)
+                     & ((a0 - r1i1).abs() < x4))
+        e = (r0s + r2s + a0 + r1i2 + rnd) >> 2
+        w = inner if always else inner & (((e - a0).abs() < 5)
+                                          | ((e - r1i2).abs() < 5))
+        P[:, rr + 1, jj + 1] = torch.where(w, e, r1i1)
+        inner_m[:, rr, jj] = inner
+        outer_m[:, rr, jj] = outer
+        if stale0 is not None and s < m:     # row 0 in this step
+            z = (stale0 & outer[:, 0] & ~inner[:, 0] & ~fired0
+                 & (P[:, 0, VLQ - 1].abs() < 11))
+            P[:, 0, VLQ - 1] = torch.where(z, 0, P[:, 0, VLQ - 1])
+            fired0 |= inner[:, 0]
+    return inner_m, outer_m
+
+
+def _vlq_p1_ref(P, x1: int, x2: int):
+    """Pass 1 on the (B, 128, 128) int32 LL2 quadrant P, in place: the
+    124 column steps of the rows as a batch (a window's write at j + 2 is
+    read by the next two steps).  Returns its fires (B, 128, 124) bool."""
+    fires = []
+    for j in range(VLQ_P1):
+        p0, p1, p2, p3, p4 = (P[..., j + k] for k in range(5))
+        c1 = (((p4 - p0).abs() < x1) & ((p4 - p3).abs() < x1)
+              & ((p1 - p0).abs() < x1) & ((p3 - p1).abs() < x1)
+              & ((p3 - p2).abs() < x2 - 2))
+        b1 = (p3 - p1 > 5) & (p2 - p3 >= 0)
+        b2 = ~b1 & (p1 - p3 > 5) & (p2 - p3 <= 0)
+        b3 = ~b1 & ~b2 & (p1 - p3 > 5) & (p2 - p1 >= 0)
+        b4 = ~b1 & ~b2 & ~b3 & (p3 - p1 > 5) & (p2 - p1 <= 0)
+        rest = ~(b1 | b2 | b3 | b4)
+        keep = rest & (((p3 - p2 > 0) & (p2 - p1 > 0))
+                       | ((p1 - p2 > 0) & (p2 - p3 > 0)))
+        wv = torch.where(b1 | b2, p3, torch.where(b3 | b4, p1,
+                                                  (p3 + p1) >> 1))
+        P[..., j + 2] = torch.where(c1 & ~keep, wv, p2)
+        c2 = (~c1 & ((p4 - p0).abs() < x2 + 1) & ((p4 - p3).abs() < x2 + 1)
+              & ((p1 - p0).abs() < x2 + 1) & ((p3 - p1).abs() < x2 + 6)
+              & ((p3 - p2).abs() < x2 + 6)
+              & (((p3 - p2 >= 0) & (p2 - p1 >= 0))
+                 | ((p3 - p2 <= 0) & (p2 - p1 <= 0))))
+        fires.append(c1 | c2)
+    return torch.stack(fires, -1)
+
+
+def _vlq_args(plane, quality: int, xs7) -> None:
+    _check_plane(plane, "very_low_q_cleanup plane", N)
+    if not 1 <= quality < T.LOW7 or len(xs7) != 7:
+        raise ValueError(f"very_low_q_cleanup: q{quality} with {xs7}; it "
+                         f"runs at 1 <= q < {T.LOW7} with 7 thresholds")
+
+
+def very_low_q_passes_ref(plane, quality: int, xs7):
+    """Torch twin of ``vlq_passes``: passes 1-3 on the LL2 quadrant of a
+    copy of ``plane`` -> (the copy, masks (B, 4, 128, 128) bool in the
+    visit frame: pass 1's fires, pass 2's, pass 3's, pass 3's hits)."""
+    _vlq_args(plane, quality, xs7)
+    x1, x2, x3, x4 = xs7[:4]
+    out = plane.clone()
+    P = _i32(plane[:, :VLQ, :VLQ])
+    b = P.shape[0]
+    masks = torch.zeros((b, VLQ_MASKS, VLQ, VLQ), dtype=torch.bool,
+                        device=plane.device)
+    masks[:, 0, :, :VLQ_P1] = _vlq_p1_ref(P, x1, x2)
+    f2, _ = _wave_ref(P, VLQ_WAVE, 2, x3, x4, 2, False)
+    stale0 = ~masks[:, 0].flatten(1).any(1) & ~f2.flatten(1).any(1)
+    stale0 &= quality <= T.LOW9
+    f3, h3 = _wave_ref(P, VLQ_WAVE, 3, x3, x4, 1, False, stale0)
+    masks[:, 1, :VLQ_WAVE, :VLQ_WAVE] = f2
+    masks[:, 2, :VLQ_WAVE, :VLQ_WAVE] = f3
+    masks[:, 3, :VLQ_WAVE, :VLQ_WAVE] = h3
+    out[:, :VLQ, :VLQ] = P.to(torch.int16)
+    return out, masks
+
+
+def very_low_q_passes_device(plane, quality: int, xs7):
+    """Passes 1-3 of ``_very_low_q_cleanup`` -> (a new plane, the fire
+    masks), as ``very_low_q_passes_ref`` (kernel ``vlq_passes``: one
+    launch, one CTA an image, pass 1 a thread a row, passes 2 and 3 as
+    wavefronts over the quadrant in shared memory)."""
+    _vlq_args(plane, quality, xs7)
+    if plane.device.type == "cpu":
+        return very_low_q_passes_ref(plane, quality, xs7)
+    lib, stream = _cuda_args(plane)
+    b = plane.shape[0]
+    out = plane.clone()
+    masks = torch.empty((b, VLQ_MASKS, VLQ, VLQ), dtype=torch.bool,
+                        device=plane.device)
+    if b:
+        with torch.cuda.device(plane.device):
+            build.check("nhw_very_low_q_cleanup", lib.nhw_very_low_q_cleanup(
+                out.data_ptr(), masks.data_ptr(), b,
+                int(quality <= T.LOW9), *map(int, xs7[:4]), stream))
+        build.count("very_low_q_cleanup")
+    return out, masks
+
+
+def _first_pos(m):
+    """Each image's first set position of m (B, ...) in raster order, and
+    whether it has one."""
+    f = m.flatten(1)
+    has = f.any(1)
+    return torch.where(has, f.to(torch.int8).argmax(1), f.shape[1]), has
+
+
+def _up2(m):
+    """(B, 128, 128) -> (B, 256, 256): each position over its 2 x 2 block
+    (a count position's band targets c2 + 0/1 and c2 + row + 0/1)."""
+    return m.repeat_interleave(2, 1).repeat_interleave(2, 2)
+
+
+def _zero_below(x, mask, thr) -> None:
+    """x = 0 where mask and |x| < thr (in int32, as the C), in place."""
+    x.masked_fill_(mask & (_i32(x).abs() < thr), 0)
+
+
+def _vlq_far(out, masks, quality: int, xs7):
+    """The very-low-q cleanup after its passes 1-3, in place on ``out``
+    (B, 512, 512) int16: at q <= LOW9 pass 3's stale carry (its hits
+    before its first fire zero around the carry passes 1-2 left: 4 after
+    a pass-1 fire, else 0, the latter's (0, 127) only where the kernel did
+    not already) and pass 4's fires, then the far zeroings that the fire
+    masks (count positions r * 512 + c, c < 128) map to: the band
+    zeroings (``_vlq_zero_bands``) of pass 1 (thresholds x6, x6 + 6, x5),
+    passes 2-3 (x6, x6 + 6, 32) and pass 4 (x6, x6 + 6, 34) as one masked
+    fill a band, and at q <= LOW9 the level-2 zeroings (``_vlq_zero_l2``,
+    thresholds 11, 12, 13)."""
+    x5, x6, x7 = xs7[4:]
+    low9 = quality <= T.LOW9
+    b = out.shape[0]
+    p1, f2, f3, h3 = masks.unbind(1)
+    cnt1 = (_flat_shift_r(p1, 1, False) | _flat_shift_r(p1, 2, False)
+            | _flat_shift_r(p1, 3, False))
+    # pass 2-3 fires at visit (r, j) count position (r + 1, j + 1)
+    d23 = torch.zeros_like(f2)
+    d23[:, 1:, 1:] = (f2 | f3)[:, :-1, :-1]
+    fe34 = torch.zeros_like(p1)
+    flat = out.view(b, -1)
+    if low9:
+        hpos, has = _first_pos(h3)
+        fpos, _ = _first_pos(f3)
+        stale = has & (hpos < fpos) & ~f2.flatten(1).any(1)
+        any1 = p1.flatten(1).any(1)
+        for cnts, cond in (((3, 4, 5), stale & any1),
+                           ((-1, 0, 1), stale & ~any1)):
+            for cnt in cnts:
+                for o, thr in ((128, 11), (SZ, 12), (SZ + 128, 13)):
+                    v = flat[:, cnt + o]
+                    flat[:, cnt + o] = torch.where(
+                        cond & (_i32(v).abs() < thr), 0, v)
+        r4 = _i32(out[:, :VLQ, :VLQ])
+        d = [(_flat_shift_l(r4, 2) - _flat_shift_l(r4, 1)).abs(),
+             (_flat_shift_l(r4, 2) - r4).abs(),
+             (_flat_shift_l(r4, 1) - r4).abs()]
+        fire4 = (d[0] < x7) & (d[1] < x7) & (d[2] < x7)
+        fire4[..., VLQ_WAVE:] = False
+        fe34 = _flat_shift_r(fire4, 1, False)
+    cnt = cnt1 | d23 | fe34
+    _zero_below(out[:, :D, D:], _up2(cnt), x6)
+    _zero_below(out[:, D:, :D], _up2(cnt), x6 + 6)
+    e = _i32(out[:, D:, D:]).abs()
+    out[:, D:, D:].masked_fill_((_up2(cnt1) & (e < x5))
+                                | (_up2(d23) & (e < 32))
+                                | (_up2(fe34) & (e < 34)), 0)
+    if low9:
+        l2 = (cnt1 | d23 | _flat_shift_r(d23, 1, False)
+              | _flat_shift_l(d23, 1, False) | fe34)
+        _zero_below(out[:, :VLQ, VLQ:D], l2, 11)
+        _zero_below(out[:, VLQ:D, :VLQ], l2, 12)
+        _zero_below(out[:, VLQ:D, VLQ:D], l2, 13)
+    return out
+
+
+def very_low_q_cleanup_ref(plane, quality: int, xs7):
+    """Torch twin of ``very_low_q_cleanup_device``: the passes' twin,
+    then the same far zeroings."""
+    return _vlq_far(*very_low_q_passes_ref(plane, quality, xs7), quality,
+                    xs7)
+
+
+def very_low_q_cleanup_device(plane, quality: int, xs7):
+    """``_very_low_q_cleanup`` (q < LOW7) on a (B, 512, 512) int16 plane,
+    bit-exact vs the host copy's C; xs7 = (x1, .., x7), the host copy's
+    ``encoder._VLQ_THRX(quality, None)``.  Returns a new plane: passes 1-3
+    and the fire masks by ``very_low_q_passes_device`` (kernel
+    ``vlq_passes``), then pass 4 and the far zeroings as torch ops."""
+    return _vlq_far(*very_low_q_passes_device(plane, quality, xs7),
+                    quality, xs7)
+
+
+def uv_ll_smooth_ref(process):
+    """Torch twin of ``uv_smooth``: the two wave passes on the 64 x 64
+    corner, as anti-diagonal steps over its rows."""
+    _check(process, "uv_ll_smooth process", torch.int16, (None, D, D))
+    out = process.clone()
+    P = _i32(process[:, :UVS, :UVS])
+    for args in UVS_PASSES:
+        _wave_ref(P, UVS - 2, *args)
+    out[:, :UVS, :UVS] = P.to(torch.int16)
+    return out
+
+
+def uv_ll_smooth_device(process):
+    """``_uv_ll_smooth`` (q <= LOW9) on (B, 256, 256) int16 chroma
+    planes, bit-exact vs the host copy's C: two smoothing passes over the
+    LL2 block.  Returns a new plane (kernel ``uv_smooth``: one launch, one
+    CTA a plane, both passes as wavefronts in shared memory)."""
+    _check(process, "uv_ll_smooth process", torch.int16, (None, D, D))
+    if not process.is_contiguous():
+        raise ValueError("uv_ll_smooth process: plane must be contiguous")
+    if process.device.type == "cpu":
+        return uv_ll_smooth_ref(process)
+    lib, stream = _cuda_args(process)
+    out = process.clone()
+    if process.shape[0]:
+        with torch.cuda.device(process.device):
+            build.check("nhw_uv_ll_smooth", lib.nhw_uv_ll_smooth(
+                out.data_ptr(), process.shape[0], stream))
+        build.count("uv_ll_smooth")
     return out
 
 

@@ -141,10 +141,8 @@ def encode_batch_device(images: np.ndarray, quality: int = 20,
     batch in one call, with no chunks, no pool and no per-image
     isolation, as the JAX pipeline runs it: a failure raises, and
     ``workers``, ``chunk`` and ``device_pack`` do not apply.  It runs at
-    LOW8 < q <= HIGH1 (q13..q21); q <= LOW8 (q12 and below) raises
-    NotImplementedError until the lowest qualities' programs
-    (``very_low_q_cleanup``, ``low_q_ll1_cleanup``, ``uv_ll_smooth``) are
-    ported, and q outside 1..HIGH1 raises ValueError."""
+    1 <= q <= HIGH1 (q1..q21); above, the HQ residue stays on the host
+    encoder, and q outside 1..HIGH1 raises ValueError."""
     if scans_on_device:
         dev = resolve_device(device)
         t0 = time.perf_counter()

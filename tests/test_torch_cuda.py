@@ -1039,7 +1039,7 @@ def test_uv_compare_ladder_on_the_card(cuda, strict):
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("q", [20, 18, 17, 16, 14, 13])
+@pytest.mark.parametrize("q", [20, 18, 17, 16, 14, 13, 12, 11, 8, 1])
 def test_scans_on_device_on_the_card(cuda, q):
     import chip_smoke as cs
     from nhwcodec_tpu_torch.host.models import encoder as host_encoder
@@ -1121,3 +1121,76 @@ def test_lowest_q_band_cleanup_rejects_bad_inputs(cuda):
         ds.lowest_q_band_cleanup_device(p, r3.cpu(), 13, xs)
     with pytest.raises(ValueError):
         ds.offset_y_low4_device(p.transpose(1, 2), 8)
+
+
+# the programs below LOW7: S12 very_low_q_cleanup's passes, S13
+# low_q_ll1_cleanup, S14 uv_ll_smooth (csrc/vlq.cu)
+
+
+@pytest.mark.parametrize("b", [1, 3, 16])
+@pytest.mark.parametrize("kind, q", [
+    ("random", 12), ("random", 1), ("p1 chain", 12), ("wave left", 1),
+    ("stale use4", 11), ("stale use0", 8), ("l2 in ll1", 11)])
+def test_very_low_q_cleanup_kernel(cuda, kind, q, b):
+    import chip_smoke as cs
+    from nhwcodec_tpu_torch.host.models import encoder as host_encoder
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    xs7 = host_encoder._VLQ_THRX(q, None)
+    x = cs.vlq_edge_planes(np.random.default_rng(160 + b), b, kind)
+    X = torch.from_numpy(x).to(cuda)
+    before = build.LAUNCHES["very_low_q_cleanup"]
+    got = ds.very_low_q_passes_device(X, q, xs7)
+    assert build.LAUNCHES["very_low_q_cleanup"] == before + 1
+    for g, w in zip(got, ds.very_low_q_passes_ref(X, q, xs7)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    np.testing.assert_array_equal(
+        ds.very_low_q_cleanup_device(X, q, xs7).cpu().numpy(),
+        cs.host_vlq(x, q))
+
+
+@pytest.mark.parametrize("b", [1, 3, 16])
+@pytest.mark.parametrize("x1", [10, 11])
+@pytest.mark.parametrize("kind", ["random", "zero chain", "row ends"])
+def test_low_q_ll1_cleanup_kernel(cuda, kind, x1, b):
+    import chip_smoke as cs
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    x = cs.ll1_edge_planes(np.random.default_rng(170 + b), b, kind)
+    X = torch.from_numpy(x).to(cuda)
+    before = build.LAUNCHES["low_q_ll1_cleanup"]
+    got = ds.low_q_ll1_cleanup_device(X, x1)
+    assert build.LAUNCHES["low_q_ll1_cleanup"] == before + 1
+    torch.testing.assert_close(got, ds.low_q_ll1_cleanup_ref(X, x1), rtol=0,
+                               atol=0)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  cs.host_ll1(x, 11 if x1 == 10 else 6))
+
+
+@pytest.mark.parametrize("b", [1, 3, 16])
+@pytest.mark.parametrize("kind", ["random", "wave left"])
+def test_uv_ll_smooth_kernel(cuda, kind, b):
+    import chip_smoke as cs
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    x = cs.uvs_edge_planes(np.random.default_rng(180 + b), b, kind)
+    X = torch.from_numpy(x).to(cuda)
+    before = build.LAUNCHES["uv_ll_smooth"]
+    got = ds.uv_ll_smooth_device(X)
+    assert build.LAUNCHES["uv_ll_smooth"] == before + 1
+    torch.testing.assert_close(got, ds.uv_ll_smooth_ref(X), rtol=0, atol=0)
+    np.testing.assert_array_equal(got.cpu().numpy(), cs.host_uvs(x))
+
+
+def test_very_low_q_kernels_reject_bad_inputs(cuda):
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    p = torch.zeros((2, 512, 512), dtype=torch.int16, device=cuda)
+    with pytest.raises(ValueError):
+        ds.very_low_q_passes_device(p.transpose(1, 2), 12,
+                                    (8, 13, 6, 11, 34, 14, 15))
+    with pytest.raises(ValueError):
+        ds.low_q_ll1_cleanup_device(p, 9)
+    with pytest.raises(TypeError):
+        ds.uv_ll_smooth_device(torch.zeros((2, 256, 256), dtype=torch.int32,
+                                           device=cuda))

@@ -121,11 +121,17 @@ def test_device_stage_failure_costs_the_chunk(monkeypatch, caplog):
 
 
 def test_scans_on_device_is_outside_the_slice():
-    # q13..q21 run (tests/test_torch_encode_scans_device.py); q <= 12
-    # waits for the lowest qualities' programs
-    with pytest.raises(NotImplementedError, match="slice e2"):
-        tdp.encode_batch_device(_images(1), 12, device="cpu",
-                                scans_on_device=True)
+    # q1..q21 run (tests/test_torch_encode_scans_device.py); outside, the
+    # option raises ValueError (above HIGH1 the HQ residue stays on the
+    # host encoder)
+    img = _images(1)
+    got, _ = tdp.encode_batch_device(img, 12, device="cpu",
+                                     scans_on_device=True)
+    assert got == tdp.encode_batch_device(img, 12, device="cpu")[0]
+    for q in (0, 22):
+        with pytest.raises(ValueError, match="1 <= q <= 21"):
+            tdp.encode_batch_device(img, q, device="cpu",
+                                    scans_on_device=True)
 
 
 def test_cuda_without_a_card_raises():

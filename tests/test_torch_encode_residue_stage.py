@@ -4,7 +4,8 @@
 copy's own encode at q20 (two fixtures), q21, q18 and q17, its inputs
 captured by ``chip_smoke.StreamCapture`` — the plane the snap passes get,
 every res section, and, chained with ``_y_stream_stage``,
-``im_nhw[:4 SZ]`` and sel1/sel2 — and raises outside q17..q21.  Its
+``im_nhw[:4 SZ]`` and sel1/sel2 — runs at q12 (no E12, no stream) and
+raises outside q1..q21.  Its
 modules one by one: tests/test_torch_encode_residue.py.
 """
 
@@ -62,8 +63,14 @@ def test_residue_stage_range():
     z, r = (torch.zeros(s, dtype=torch.int16)
             for s in ((1, 512, 512), (1, 256, 256)))
     k = torch.zeros((1, 4), dtype=torch.int16)
-    for q in (T.LOW8, T.HIGH2):
-        with pytest.raises(NotImplementedError, match="very_low_q_cleanup"):
+    P, streams = des._y_residue_stage(z, r, k, r, T.LOW8, k,
+                                      torch.zeros((1, 16384),
+                                                  dtype=torch.uint8))
+    assert P.shape == z.shape and streams == {}
+    with pytest.raises(ValueError, match="needs ktail and tree1"):
+        des._y_residue_stage(z, r, k, r, T.LOW8)
+    for q in (0, T.HIGH2):
+        with pytest.raises(ValueError, match="HQ residue stays on the host"):
             des._y_residue_stage(z, r, k, r, q)
     with pytest.raises(ValueError):
         des._y_residue_stage(z, r, torch.zeros((1, 3), dtype=torch.int16),

@@ -203,22 +203,24 @@ def test_stream_stage_matches_host_encode(q, names):
 
 def test_stream_stage_range():
     y = torch.zeros((1, 512, 512), dtype=torch.int16)
-    for q in (T.LOW8, T.HIGH2):
-        with pytest.raises(NotImplementedError, match="very_low_q_cleanup"):
+    stream, sel1, sel2 = des._y_stream_stage(y, T.LOW8)
+    assert stream.shape == (1, 6 * SZ + 16) and sel1.shape == (1,)
+    for q in (0, T.HIGH2):
+        with pytest.raises(ValueError, match="HQ residue stays on the host"):
             des._y_stream_stage(y, q)
 
 
 def test_scans_on_device_message_names_the_range():
     img = np.zeros((1, 512, 512, 3), np.uint8)
-    with pytest.raises(NotImplementedError,
-                       match=rf"slice e2.*very_low_q_cleanup.*"
-                       rf"low_q_ll1_cleanup.*uv_ll_smooth.*"
-                       rf"{T.LOW8 + 1} <= q <= {T.HIGH1} run"):
-        tdp.encode_batch_device(img, T.LOW8, device="cpu",
-                                scans_on_device=True)
-    with pytest.raises(ValueError, match=rf"1 <= q <= {T.HIGH1}"):
-        tdp.encode_batch_device(img, T.HIGH2, device="cpu",
-                                scans_on_device=True)
+    got, _ = tdp.encode_batch_device(img, T.LOW8, device="cpu",
+                                     scans_on_device=True)
+    assert got == [henc.encode(img[0], T.LOW8)]
+    for q in (0, T.HIGH2):
+        with pytest.raises(ValueError,
+                           match=rf"1 <= q <= {T.HIGH1}, got q{q} "
+                           r"\(above, the HQ residue runs on the host"):
+            tdp.encode_batch_device(img, q, device="cpu",
+                                    scans_on_device=True)
 
 
 def test_wrappers_check_their_inputs():
