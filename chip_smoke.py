@@ -66,8 +66,12 @@
    decode's stages.  Holds E1 to its twin at batch 1, 3 and 16 on the
    chunk's Y and UV words, the near-flat fixture's words and random
    words in both zone modes, and E2 to its twin on the q20 and q23
-   chunks' per-run tuples at k = 64 and, to 2048 runs a stream, at
-   k = 1; times E2 at k = 64, 256 and 1024 with each k's sweeps.
+   chunks' per-run tuples at the default k at batch 1, 3 and 16 and, to
+   2048 runs a stream, at k = 1, and on edge tuples (random, pinned
+   tails, a carry through every chunk, the k + 1 cap, runs past the
+   plane) at k = 1, 2, 7, 37 and 100 and on streams longer than a
+   cluster stages; times E2 at k = 64, 128, 256, 512 and 1024 with each
+   k's sweeps, beside the one-CTA kernel's times.
 7. Drives the device encode scans' stream stage
    (models/device_encode_scans.py: the three snap passes, offset_y, the
    serpentines, the crossing merge, select codes, the run cap and
@@ -121,8 +125,11 @@
    ends, values about 10000 and 20000, int16 extremes, escapes at
    positions 0 and 1, all-even and dense-odd planes, gt_low3 both ways;
    S8 on the stage's three walks of the q20 batch (timed) and at batch 1,
-   3 and 16 on rows of jumps of 65, of 255 and 256, long jumps, parks and
-   squeeze rows whose 64/128 codes sit at the bound.
+   3 and 16 on them, on rows of jumps of 65, of 255 and 256, long jumps,
+   parks, squeeze rows whose 64/128 codes sit at the bound, and rows at
+   the segmented walk's edges (jumps onto segment ends and over many
+   segments, a park in the first segment, n off the segment grid, n = 1,
+   a start in the last segment).
 10. Drives the encode service with every raster scan on the card,
    ``encode_batch_device(images, q, scans_on_device=True)``
    (models/device_encode_scans.encode_batch_scans_device: the front, the
@@ -1542,8 +1549,11 @@ ENTROPY_KERNELS = ("chain_starts", "y_runs_fixpoint")
 CHAIN_OPS_START = 30
 RUN_OPS = 60
 E1_KERNELS = {"chain_tiles", "chain_entries", "chain_emit"}
-E2_KS = (64, 256, 1024)
+E2_KS = (64, 128, 256, 512, 1024)
 E2_TWIN_DEPTH = 2048    # the runs of each stream the k = 1 twin walks
+# the device time of the one-CTA E2 kernel this design replaced, on the
+# same q20 chunk (ms, profiler; NVIDIA H100 80GB HBM3 at 700 W), by k
+E2_WAS_MS = {64: 1.3238, 256: 0.6992, 1024: 1.1951}
 
 
 def entropy_chunks(images) -> dict:
@@ -1610,6 +1620,72 @@ def per_stream(a, b: int):
     return a.t().reshape(b, -1)
 
 
+E2_EDGE_KINDS = ("random", "pinned tail", "carry through every chunk",
+                 "k + 1 sweeps", "past the plane")
+E2_EDGE_KS = (7, 37, 100)    # chunks a stream, none a power of two
+# (k, L): 262,144 runs a stream, past the 225,280 a cluster of 8 stages
+E2_LONG = (1024, 256)
+
+
+def e2_edge_tuples(rng, b, k, length, kind: str) -> tuple:
+    """(ebase, fields) (L, B k) int32 per-run tuples for E2, k chunks of
+    ``length`` runs a stream, laid out as ``_runs_xs_batch`` lays them
+    (chunk c of stream i in lane i k + c): "random" (random runs, 254-runs
+    one in 20, three in ten of 1-5, advances of 1-11 so that the e_in
+    thresholds near the start matter), "pinned tail" (stream i's runs
+    past a cut at (i + 1) / (b + 1) of its runs are padding, so its later
+    chunks are all pinned), "carry through every chunk" (only each
+    stream's first
+    run acts; the other runs lie below p1 - 1 but are not valid, so the
+    window it leaves rides the shift relay through all k chunks, one a
+    sweep: k sweeps), "k + 1 sweeps" (the same, but the first chunk's
+    second run lies below its first, so its insert is made with the
+    initial run_over and not with the floor the relay gives chunk 0: the
+    chain starts a sweep late and the stream stops at the k + 1 cap, the
+    only way past k sweeps at k >= 2; real streams' e_base increase),
+    "past the plane" (random runs whose e_base crosses p1 - 1 in the
+    middle of the stream)."""
+    from nhwcodec_tpu_torch.ops import entropy_decode_device as edd
+
+    p1 = edd.Y_P1
+    runs = k * length
+    shape = (b, runs)
+    rle = np.where(rng.random(shape) < 0.3, rng.integers(1, 6, shape),
+                   rng.integers(1, 256, shape))
+    rle[rng.random(shape) < 0.05] = 254
+    segm = rng.integers(0, 32, shape)
+    segc = rng.integers(0, 6, shape)
+    prev_run = (rng.random(shape) < 0.5).astype(np.int64)
+    mem2 = rng.integers(0, 2, shape)
+    valid = np.ones(shape, np.int64)
+    adv = rng.integers(1, 12, shape)
+    ebase = np.cumsum(adv, 1) - adv
+    if kind == "pinned tail":
+        for i in range(b):
+            cut = runs * (i + 1) // (b + 1)
+            valid[i, cut:] = 0
+            ebase[i, cut:] = p1 + (1 << 20)
+    elif kind == "carry through every chunk":
+        valid[:, 1:] = 0
+        rle[:, 0], segm[:, 0], segc[:, 0], prev_run[:, 0] = 1, 1, 1, 0
+    elif kind == "k + 1 sweeps":
+        # run 1 inserts (rle 4, the window clear, no run before) only
+        # while run_over is -257: room = 5 + 4 - 257 against 2000 - 256
+        valid[:, 2:] = 0
+        ebase[:, 0], ebase[:, 1] = 2000, 5
+        rle[:, :2] = (1, 4)
+        segm[:, :2], segc[:, :2], prev_run[:, :2], mem2[:, :2] = 0, 0, 0, 0
+    elif kind == "past the plane":
+        ebase += p1 - 1 - ebase[:, runs // 2: runs // 2 + 1]
+    fields = (rle | segm << 8 | segc << 13 | prev_run << 16 | mem2 << 17
+              | valid << 18)
+
+    def time_major(a):
+        return np.ascontiguousarray(a.reshape(b * k, length).T).astype(
+            np.int32)
+    return time_major(ebase), time_major(fields)
+
+
 def e2_check(what: str, kern, twin, b: int) -> tuple:
     """E2 against its twin: e_in, flags and sweeps equal.  Returns (the
     kernel's outputs, the twin's call ms)."""
@@ -1635,10 +1711,13 @@ def e2_check(what: str, kern, twin, b: int) -> tuple:
 
 def entropy_kernel_phase(dev, chunks) -> dict:
     """E1 against its twin at batch 1, 3 and 16 (chain_cases), timed on
-    the q20 chunk's Y words; E2 against its twin on the per-run tuples of
-    the q20 and q23 chunks at k = 64, and at k = 1 to E2_TWIN_DEPTH runs
-    of each stream (and at full depth equal to k = 64's), timed at
-    k in E2_KS with each k's sweeps and serial depth."""
+    the q20 chunk's Y words; E2 against its twin at batch 1, 3 and 16
+    (``e2_batches``) on the per-run tuples of the q20 and q23 chunks at
+    the default k (``edd.K_CHUNKS``), at k = 1 to E2_TWIN_DEPTH runs of
+    each stream, and at full depth (the one CTA reading most rows from
+    global memory) equal to the default k's ys, and on the edge tuples
+    (``e2_edge_phase``); timed at k in E2_KS with each k's sweeps and
+    serial depth."""
     import torch
 
     from nhwcodec_tpu_torch.ops import entropy_decode_device as edd
@@ -1680,17 +1759,26 @@ def entropy_kernel_phase(dev, chunks) -> dict:
             out["chain_starts"] = res
 
     p1 = edd.Y_P1
+    k_def = edd.K_CHUNKS
     for q in (20, 23):
         parsed = chunks[q][1]
         b = len(parsed)
         syms, book, r_max = edd._y_run_inputs(parsed, p1, dev)
-        k = min(64, r_max)
+        k = min(k_def, r_max)
         xs, _ = edd._runs_xs_batch(syms, book, p1, r_max, k)
-        what = f"q{q} chunk of {b}, {r_max} runs at most, k={k}"
-        got, twin_ms = e2_check(what, lambda: edd.runs_fixpoint(*xs, p1, k),
-                                lambda: edd.runs_fixpoint_ref(*xs, p1, k), b)
+        length = xs[0].shape[0]
+        cluster, cpc, rows = edd.fixpoint_layout(length, k)
+        print(f"kernel y_runs_fixpoint q{q} chunk: {r_max} runs at most, "
+              f"k={k}, L={length}; a cluster of {cluster} CTAs a stream, "
+              f"{cpc} chunks a CTA, {rows} of {length} rows staged "
+              f"({8 * rows * cpc} bytes a CTA)", flush=True)
+        e2_batches(f"q{q} chunk, k={k}", xs, p1, k, b)
+        got = edd.runs_fixpoint(*xs, p1, k)
+        # the k = 1 fallback's one CTA stages what fits of each stream and
+        # reads the rest from global memory
         xs1, _ = edd._runs_xs_batch(syms, book, p1, r_max, 1)
         one = edd.runs_fixpoint(*xs1, p1, 1)
+        rows1 = edd.fixpoint_layout(xs1[0].shape[0], 1)[2]
         # the flags everywhere; e_in where a run can act (a chunk with no
         # such run is pinned, its inserts counted from 0)
         can_act = per_stream(xs[0], b)[:, :r_max] < p1 - 1
@@ -1703,11 +1791,16 @@ def entropy_kernel_phase(dev, chunks) -> dict:
         e2_check(f"q{q} chunk of {b}, k=1, the first {E2_TWIN_DEPTH} runs "
                  "of each stream", lambda: edd.runs_fixpoint(*depth, p1, 1),
                  lambda: edd.runs_fixpoint_ref(*depth, p1, 1), b)
-        print(f"kernel y_runs_fixpoint q{q}: k=1 at full depth equals "
-              f"k={k} on the flags and on the {int(can_act.sum())} runs "
-              f"that can act (sweeps {one[2].tolist()})", flush=True)
+        print(f"kernel y_runs_fixpoint q{q}: k=1 at full depth ({rows1} "
+              f"of {xs1[0].shape[0]} runs staged, the rest read from "
+              f"global memory) equals k={k} on the flags and on the "
+              f"{int(can_act.sum())} runs that can act (sweeps "
+              f"{one[2].tolist()})", flush=True)
         if q != 20:
             continue
+        twin_ms = e2_check(f"q20 chunk of {b}, k={k} (the twin timed)",
+                           lambda: edd.runs_fixpoint(*xs, p1, k),
+                           lambda: edd.runs_fixpoint_ref(*xs, p1, k), b)[1]
         per_k = {}
         for kk in E2_KS:
             xk, _ = edd._runs_xs_batch(syms, book, p1, r_max, kk)
@@ -1730,19 +1823,78 @@ def entropy_kernel_phase(dev, chunks) -> dict:
                   f"serial depth {smax * length} dependent steps; wrapper "
                   f"call {ms:.4f} ms (median of {RUNS}), device time per "
                   f"call (profiler) {dev_ms} ms, graph of {GRAPH_CALLS} "
-                  f"calls {g_ms:.4f} ms per call; bound "
+                  f"calls {g_ms:.4f} ms per call "
+                  f"({1e6 * g_ms / (smax * length):.1f} ns a dependent "
+                  f"step); was (the one-CTA kernel, H100 at 700 W) "
+                  f"{E2_WAS_MS.get(kk, 'not measured')} ms; bound "
                   f"{1e3 * bound['bound_ms']:.3f} us ({bound['bound_by']}"
                   f", {valid} runs)", flush=True)
-            if kk == 64:
+            if kk == k:
+                # the share of the profiler's device time, else of the
+                # graph's, as compare_and_time takes it
                 out["y_runs_fixpoint"] = {
                     "max_abs_err": 0, "ms": ms, "plain_ms": twin_ms,
                     "device_ms": dev_ms, **bound,
                     "bound_us": 1e3 * bound["bound_ms"],
-                    "bound_share": (bound["bound_ms"] / dev_ms if dev_ms
-                                    else None),
-                    "library_ms": None, "graph_ms": g_ms}
+                    "bound_share": bound["bound_ms"] / (dev_ms or g_ms),
+                    "bound_share_of": "profiler" if dev_ms else "graph",
+                    "library_ms": None, "graph_ms": g_ms, "k": kk}
+        fastest = min(per_k, key=lambda kk: per_k[kk]["graph_ms"])
+        print(f"kernel y_runs_fixpoint q20 chunk: the fastest k by graph "
+              f"time is {fastest} ({per_k[fastest]['graph_ms']:.4f} ms); "
+              f"the default is {k_def}", flush=True)
         out["y_runs_fixpoint"]["per_k"] = per_k
+    e2_edge_phase(dev)
     return out
+
+
+def e2_batches(what: str, xs, p1: int, k: int, b: int):
+    """E2 on the first 1, 3 and ``b`` streams of (L, b k) tuples ``xs``
+    against one twin call on all ``b``: the streams are independent, so
+    the twin's first streams are its results on them.  Returns the twin's
+    outputs."""
+    from nhwcodec_tpu_torch.ops import entropy_decode_device as edd
+
+    want = edd.runs_fixpoint_ref(*xs, p1, k)
+    for bb in sorted({1, min(3, b), b}):
+        sub = tuple(a[:, :bb * k].contiguous() for a in xs)
+        got = edd.runs_fixpoint(*sub, p1, k)
+        err = max_abs_err("y_runs_fixpoint", got,
+                          (want[0][:, :bb * k], want[1][:, :bb * k],
+                           want[2][:bb]))
+        print(f"kernel y_runs_fixpoint {what}, batch {bb}: max_abs_err "
+              f"{err} vs torch twin (e_in, flags, sweeps); sweeps "
+              f"{got[2].tolist()}", flush=True)
+        check(err == 0, f"y_runs_fixpoint disagrees with its twin: {what}, "
+              f"batch {bb}")
+    return want
+
+
+def e2_edge_phase(dev) -> None:
+    """E2 against its twin at batch 1, 3 and 16 on the edge tuples
+    (``e2_edge_tuples``, 40 runs a chunk) at k = 1, 2 and E2_EDGE_KS (the
+    "k + 1 sweeps" streams reach the cap), and on random streams longer
+    than a cluster stages (E2_LONG: each CTA reads its last rows from
+    global memory)."""
+    import torch
+
+    from nhwcodec_tpu_torch.ops import entropy_decode_device as edd
+
+    rng = np.random.default_rng(SEED + 60)
+    p1 = edd.Y_P1
+    cases = [(kind, k, 40) for kind in E2_EDGE_KINDS
+             for k in (1, 2) + E2_EDGE_KS] + [("random", *E2_LONG)]
+    for kind, k, length in cases:
+        eb, f = e2_edge_tuples(rng, B, k, length, kind)
+        xs = (torch.from_numpy(eb).to(dev), torch.from_numpy(f).to(dev))
+        rows = edd.fixpoint_layout(length, k)[2]
+        want = e2_batches(f"{kind} tuples, k={k}, L={length} ({rows} rows "
+                          "staged)", xs, p1, k, B)
+        if kind == "k + 1 sweeps":
+            check(bool((want[2] == k + 1).all()),
+                  f"{kind} at k={k}: sweeps {want[2].tolist()}")
+    check(edd.fixpoint_layout(E2_LONG[1], E2_LONG[0])[2] < E2_LONG[1],
+          "the long streams fit the staging")
 
 
 def forced_fallback(edd):
@@ -1786,8 +1938,9 @@ def entropy_decode_phase(dev, chunks) -> dict:
             f"{what}, entropy on the device", datas, want[what],
             ENTROPY_KERNELS, chunk=len(datas), device=dev,
             entropy_on_device=True)
-        check(got["chain_starts"] == 2,
-              f"{what}: E1 launched {got['chain_starts']} times, not 2")
+        check(got["chain_starts"] == 2 and got["y_runs_fixpoint"] == 1,
+              f"{what}: E1 launched {got['chain_starts']} times, not 2, "
+              f"or E2 {got['y_runs_fixpoint']}, not once")
         if not launches:
             launches = got
     q20 = cases[f"q20 chunk of {B} (fixtures + random)"]
@@ -1887,7 +2040,8 @@ def entropy_stages(dev, parsed, reps: int = 5) -> None:
     d2h_uv = median_ms(lambda: uv.cpu(), runs=10)
     print(f"device entropy decode, q20 chunk of {len(parsed)}, stages (ms, "
           f"CUDA events, median of {reps}): E1 Y {med[0]:.4f}, Y prep "
-          f"(book, count sync, per-run tuples) {med[1]:.4f}, E2 (k=64) "
+          f"(book, count sync, per-run tuples) {med[1]:.4f}, E2 "
+          f"(k={edd.K_CHUNKS}) "
           f"{med[2]:.4f}, Y emit {med[3]:.4f} (Y total {med[6]:.4f}); E1 UV "
           f"{med[4]:.4f}, UV scatter {med[5]:.4f} (UV total {med[7]:.4f}); "
           f"device-to-host copies {tuple(y.shape)} int16 {d2h_y:.4f}, "
@@ -3241,6 +3395,9 @@ LL2_QS = {20: B, 21: 4, 17: 4, 16: 4, 15: 4, 8: 4, 1: 4}
 LL2_OPS = 45
 WALK_STAGE_OPS = 4
 WALK_STEP_OPS = 4
+# the device time of the one-thread S8 kernel this design replaced, on
+# the q20 batch's walks (ms, profiler; NVIDIA H100 80GB HBM3 at 700 W), by n
+S8_WAS_MS = {24641: 0.2172, 65536: 0.2209, 8272: 0.1602}
 
 
 def stack_ll2(records: list, q: int) -> dict:
@@ -3545,14 +3702,60 @@ def squeeze_edge_rows(rng, b, q_gt_low5: bool):
                              q_gt_low5)[3].numpy()
 
 
+WALK_SEGMENT_KINDS = ("onto segment ends", "over many segments",
+                      "park in segment 0", "n not a multiple of s", "n = 1",
+                      "start in the last segment")
+
+
+def walk_segment_rows(rng, b, kind: str) -> tuple:
+    """(B, n) int32 successors and the start for S8's segmented walk (s =
+    2^walk_segment_log2(n) nodes a segment): "onto segment ends" (n =
+    65536: jumps onto a segment's first node, its last, the node past its
+    first, or by one), "over many segments" (jumps of 2 s to 12 s among
+    jumps of 1-8), "park in segment 0" (the walk from 1 parks at node 3 +
+    i of row i, inside the first segment), "n not a multiple of s" (n =
+    40007, its last segment 71 nodes; jumps of 1-300), "n = 1" (the one
+    node, parked or not), "start in the last segment" (n = 65536, start
+    65436, jumps of 1-5)."""
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    n = {"n not a multiple of s": 40007, "n = 1": 1}.get(kind, 65536)
+    s = 1 << ds.walk_segment_log2(n)
+    idx = np.arange(n)[None]
+    start = 1 if n > 1 else 0
+    if kind == "onto segment ends":
+        first = (idx // s + 1) * s
+        pick = rng.integers(0, 4, (b, n))
+        x = np.select([pick == 0, pick == 1, pick == 2],
+                      [first, np.maximum(first - 1, idx + 1), first + 1],
+                      idx + 1)
+    elif kind == "over many segments":
+        x = idx + np.where(rng.random((b, n)) < 0.2,
+                           rng.integers(2 * s, 12 * s, (b, n)),
+                           rng.integers(1, 9, (b, n)))
+    elif kind == "park in segment 0":
+        x = idx + rng.integers(1, 3, (b, n))
+        for i in range(b):
+            x[i, 3 + i: 5 + i] = n + i
+    elif kind == "n not a multiple of s":
+        x = idx + rng.integers(1, 301, (b, n))
+    elif kind == "n = 1":
+        x = rng.integers(0, 3, (b, n))
+    else:
+        x = idx + rng.integers(1, 6, (b, n))
+        start = n - 100
+    return x.astype(np.int32), start
+
+
 def ll2_kernel_phase(dev, captured: dict) -> dict:
     """S7 and S8 against their twins (max_abs_err 0): timed on the q20
     batch's captured inputs (ll2_code_y on the planes ll2_code_y got, both
     values of gt_low3; walk_visited on the stage's three walks: the Y walk
-    (16, 24641), the squeeze (16, 65536) and the UV walk (16, 8272)); then
-    at batch 1, 3 and 16 (``compare_batches``) on S7's edge planes with
-    gt_low3 both ways and S8's edge rows and squeeze rows whose 64/128
-    codes sit at the bound."""
+    (16, 24641), the squeeze (16, 65536) and the UV walk (16, 8272), each
+    also at batch 1, 3 and 16); then at batch 1, 3 and 16
+    (``compare_batches``) on S7's edge planes with gt_low3 both ways and
+    S8's edge rows, squeeze rows whose 64/128 codes sit at the bound and
+    segment edge rows (``walk_segment_rows``, each with its start)."""
     import torch
 
     from nhwcodec_tpu_torch.models import device_scans as ds
@@ -3576,12 +3779,17 @@ def ll2_kernel_phase(dev, captured: dict) -> dict:
     for what, nxt in zip(("Y walk", "squeeze walk", "UV walk"), walks):
         b, n = nxt.shape
         steps = int(ds.walk_visited_device(nxt).sum())
+        seg = 1 << ds.walk_segment_log2(n)
         shapes[f"({b},{n})"] = compare_and_time(
             "walk_visited", f"({b},{n}) int32, the q20 batch's {what} "
-            f"({steps} steps)", lambda x=nxt: ds.walk_visited_device(x),
+            f"({steps} steps; segments of {seg}, {-(-n // seg)} a row; was "
+            f"{S8_WAS_MS.get(n, 'not measured')} ms)",
+            lambda x=nxt: ds.walk_visited_device(x),
             lambda x=nxt: ds.walk_visited_ref(x), twin_calls=1, twin_runs=5,
             bound=work(5 * b * n, WALK_STAGE_OPS * b * n
                        + WALK_STEP_OPS * steps), graph=True)
+        compare_batches("walk_visited", f"the q20 batch's {what}",
+                        ds.walk_visited_device, ds.walk_visited_ref, (nxt,))
     out["walk_visited"] = shape_sums("walk_visited", shapes,
                                      f"({B},65536)")
     rng = np.random.default_rng(SEED + 50)
@@ -3600,8 +3808,15 @@ def ll2_kernel_phase(dev, captured: dict) -> dict:
         compare_batches("walk_visited", f"squeeze rows, codes at the bound "
                         f"(q_gt_low5 {g5})", ds.walk_visited_device,
                         ds.walk_visited_ref, (x,))
+    for kind in WALK_SEGMENT_KINDS:
+        nxt, start = walk_segment_rows(rng, B, kind)
+        compare_batches("walk_visited", f"{kind} rows, start {start}",
+                        lambda a, st=start: ds.walk_visited_device(a, st),
+                        lambda a, st=start: ds.walk_visited_ref(a, st),
+                        (torch.from_numpy(nxt).to(dev),))
     print("encode scans: S7 and S8 equal their twins at batch 1, 3 and 16 on "
-          "the LL2 edge planes and the walk edge rows", flush=True)
+          "the LL2 edge planes, the stage's three walks, the walk edge rows "
+          "and the segment edge rows", flush=True)
     return out
 
 

@@ -13,7 +13,7 @@
 //    :923 _runs_fixpoint (an XLA while_loop around a lax.scan, step
 //    _runs_step :634): the Y run automaton as a chunk-relay fixpoint over
 //    time-major (L, B k) per-run tuples -> per-run (e_in, ev1, ev2) and
-//    each stream's sweep count.  One launch.
+//    each stream's sweep count.  One cluster launch.
 //
 // E1's bound.  The function reads 4 bytes a word, writes 4 bytes a
 // codeword start and needs some 30 operations a start (a 20-bit peek, a
@@ -38,22 +38,38 @@
 //
 // E2's bound.  It reads the per-run tuples once and writes e_in and the
 // flags once (13 bytes a run) - microseconds - but it is a chain of
-// dependent steps: sweeps x L of them (L = runs / k).  Design: one CTA a
-// stream, one thread a chunk (k <= 1024); each thread walks its L runs with
-// the carry in registers, the loads of a step independent of the carry and
-// time-major (lanes of a warp read neighbouring words), unrolled so that
-// they run ahead.  After a sweep the relay goes through shared memory: the
-// exclusive prefix of the chunks' insert counts by a block scan, the other
-// carries from the chunk before; __syncthreads_or decides whether anything
-// changed.  Every sweep writes its ys, so the last sweep's stand.  The
-// batch's exact fallback is a launch at k = 1 (one thread walks every run).
+// dependent steps: sweeps x L of them (L = runs / k).  What a step costs
+// is then what matters: with a step's loads from global memory and one or
+// two warps an SM, 270-620 ns (H100); from shared memory 71-100 ns, some
+// 80 instructions 13 deep.  Design: a thread-block cluster a stream,
+// min(k, 8) CTAs (at batch 16, 128 of the 132 SMs), each CTA owning a
+// contiguous block of the stream's chunks, one thread a chunk.  Each CTA
+// stages its chunks' (ebase, fields) rows in shared memory once with
+// cp.async (a q20 stream's 0.6 MB fits the cluster's 8 x 220 KB), and
+// every sweep walks them from there, the loads of eight steps issued
+// ahead; rows past what fits are read from global memory by the same
+// loop.  After a sweep the relay: the exclusive prefix of the chunks'
+// insert deltas is a warp scan within the CTA plus the totals of the
+// lower-ranked CTAs, and the other carries shift from the chunk before,
+// across a CTA edge from the peer's last chunk; both go through
+// distributed shared memory between cluster.sync()s, double-buffered by
+// the sweep's parity, and so does "an in-carry changed".  A chunk whose
+// in-carry did not change keeps its last walk (e_in, flags and out-carry
+// stand) and is not walked again.  The batch's exact fallback is a launch
+// at k = 1 (one CTA, one thread walks every run).
 
+#include <cooperative_groups.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <initializer_list>
 
+#include "cluster.cuh"
+
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kTile = 256;          // words a CTA of E1, one a thread
 constexpr int kWarps = kTile / 32;
@@ -61,6 +77,12 @@ constexpr int kStates = 20;         // overhang states (longest code 20)
 constexpr int kSeg = 32;            // padded segment table (>= 28 used)
 constexpr int kPitch = kTile + 1;   // row pitch of the per-offset table
 constexpr int kMaxChunks = 1024;
+constexpr int kFixCluster = 8;            // E2: CTAs a stream, at most
+constexpr int kFixThreads = 128;          // E2: threads a CTA, >= its chunks
+constexpr int kFixWarps = kFixThreads / 32;
+constexpr int kFixSmemMax = 220 * 1024;   // E2: staged tuples a CTA, bytes
+static_assert(kMaxChunks <= kFixCluster * kFixThreads,
+              "a chunk a thread over the cluster");
 
 // The segment table of one zone mode in shared memory: thresholds (padded
 // with 2^20), lengths and bases, from the (2, 3, 32) int32 table.
@@ -271,89 +293,158 @@ struct Carry {
   int ins, mem, mem2, ac1, run_over, win;
 };
 
+// Branch-free: the conditions are ints combined with & and |, so that a
+// walk's unrolled steps form one basic block and their shared-memory loads
+// can be issued ahead of the carry chain.
 __device__ __forceinline__ int run_step(Carry& c, int e_base, int f, int p1,
                                         int* e_in_out) {
   const int rle = f & 0xFF, segm = (f >> 8) & 31, segc = (f >> 13) & 7;
-  const bool prun = (f >> 16) & 1, valid = (f >> 18) & 1;
+  const int prun = (f >> 16) & 1, valid = (f >> 18) & 1;
+  const int rle4 = rle >= 4, is254 = rle == 254;
   const int e_in = e_base + c.ins;
-  const bool act = valid && e_in < p1 - 1;
+  const int act = valid & (e_in < p1 - 1);
   const int mem_in = prun ? c.mem : 0;
   const int mem2_in = prun ? c.mem2 : (f >> 17) & 1;
+  const int m2 = mem2_in == 1;
   const int ac1_in = prun ? c.ac1 : 0;
   const int win_in = (segm | (c.win << segc)) & 31;
-  const bool z1 = !(win_in & 1), z2 = !(win_in & 2), z3 = !(win_in & 4),
-             z4 = !(win_in & 8), z5 = !(win_in & 16);
-  const bool room = e_in + rle - 257 >= c.run_over;
-  const bool ins2 = mem2_in == 1 && ((e_in >= 5 && z2 && z3 && z4 && z5) ||
-                                     (rle >= 4 && e_in >= 2 && z2));
-  const bool first2 = mem_in == 1 && ac1_in == 0;
-  const bool c_b = (e_in >= 4 && z1 && z2 && z3 && z4 && room) ||
-                   (rle >= 4 && e_in > 0 && z1 && room);
-  const bool ins_b = mem2_in != 1 && first2 && c_b;
-  const bool ins_c = mem2_in != 1 && !first2 && rle >= 4 && e_in > 0 && z1 &&
-                     ac1_in == 0 && room;
-  const bool ev1 = (ins_b || ins_c) && act;
-  const bool ev2 = ins2 && act;
-  const int ins = ev1 || ev2;
-  const bool is254 = rle == 254;
-  if (act) {
-    // mem is read only through mem == 1 a run later: it saturates at 2
-    c.mem = is254 ? 0 : (ev1 ? 1 : min(mem_in + 1, 2));
-    c.mem2 = mem2_in == 1 ? 0 : mem2_in;
-    c.ac1 = is254;
-    if (is254) c.run_over = e_in + ins;
-    const int shifted = ins ? ((win_in << 1) | 1) : win_in;
-    c.win = (shifted << min(rle, 5)) & 31;
-  }
+  const int room = e_in - c.run_over >= 257 - rle;
+  // the long run's insert (output 1 back zero) and, right after a run that
+  // inserted, the one with outputs 1..4 back zero; both need room past
+  // run_over and no 254-run just before
+  const int long_run = rle4 & (e_in > 0) & ((win_in & 1) == 0);
+  const int after = (mem_in == 1) & (e_in >= 4) & ((win_in & 15) == 0);
+  const int ev1 = act & (m2 ^ 1) & (ac1_in == 0) & room & (long_run | after);
+  const int ev2 = act & m2 &
+                  (((e_in >= 5) & ((win_in & 30) == 0)) |
+                   (rle4 & (e_in >= 2) & ((win_in & 2) == 0)));
+  const int ins = ev1 | ev2;
+  // mem is read only through mem == 1 a run later: it saturates at 2;
+  // 1 after an ev1, 0 after a 254-run
+  const int mem_new =
+      ((min(mem_in + 1, 2) & (ev1 - 1)) | ev1) & (is254 - 1);
+  const int win_new = (((win_in << ins) | ins) << min(rle, 5)) & 31;
+  c.mem = act ? mem_new : c.mem;
+  c.mem2 = act ? (m2 ? 0 : mem2_in) : c.mem2;
+  c.ac1 = act ? is254 : c.ac1;
+  c.run_over = (act & is254) ? e_in + ins : c.run_over;
+  c.win = act ? win_new : c.win;
   c.ins += ins;
   *e_in_out = e_in;
   return ev1 | (ev2 << 1);
 }
 
-// E2: blockIdx.x a stream, threadIdx.x < k a chunk.  ebase, fields: (L, B k)
-// int32; e_in: (L, B k) int32; flags: (L, B k) uint8; sweeps: (B,) int32.
-__global__ void __launch_bounds__(kMaxChunks)
-    y_runs_fixpoint(const int* __restrict__ ebase, const int* __restrict__ fields,
-                    int* __restrict__ e_in, uint8_t* __restrict__ flags,
-                    int* __restrict__ sweeps, int length, int k, int p1) {
-  __shared__ int s_mem[kMaxChunks], s_mem2[kMaxChunks], s_ac1[kMaxChunks],
-      s_ro[kMaxChunks], s_win[kMaxChunks];
-  __shared__ int s_warp[32];
+// E2's rows of per-run tuples, walked by one thread from run t0 to t1:
+// the loads of kAhead steps are issued before their steps (they do not
+// depend on the carry), and each step writes its e_in and flags at rows t
+// of the thread's column (row pitch n).
+template <typename Rows>
+__device__ __forceinline__ void walk_rows(Carry& c, const Rows& rows, int t0,
+                                          int t1, int p1, size_t n,
+                                          int* e_in, uint8_t* flags,
+                                          bool& live) {
+  constexpr int kAhead = 8;
+  int t = t0;
+  for (; t + kAhead <= t1; t += kAhead) {
+    int2 x[kAhead];
+#pragma unroll
+    for (int i = 0; i < kAhead; ++i) x[i] = rows(t + i);
+#pragma unroll
+    for (int i = 0; i < kAhead; ++i) {
+      live |= x[i].x < p1 - 1;
+      flags[(t + i) * n] = static_cast<uint8_t>(
+          run_step(c, x[i].x, x[i].y, p1, e_in + (t + i) * n));
+    }
+  }
+  for (; t < t1; ++t) {
+    const int2 x = rows(t);
+    live |= x.x < p1 - 1;
+    flags[t * n] =
+        static_cast<uint8_t>(run_step(c, x.x, x.y, p1, e_in + t * n));
+  }
+}
+
+// A chunk's staged (ebase, fields) rows in shared memory, pitch: the CTA's
+// chunks.
+struct SharedRows {
+  const int2* p;
+  int pitch;
+  __device__ __forceinline__ int2 operator()(int t) const {
+    return p[t * pitch];
+  }
+};
+
+// A chunk's rows past the staged ones, in global memory (pitch n).
+struct GlobalRows {
+  const int* eb;
+  const int* fl;
+  size_t n;
+  __device__ __forceinline__ int2 operator()(int t) const {
+    return make_int2(eb[t * n], fl[t * n]);
+  }
+};
+
+// What a CTA of E2 hears from its cluster each sweep, by the sweep's
+// parity: written by the peers through DSM before a cluster.sync(), read
+// from the CTA's own shared memory after it.
+struct FixRelay {
+  int sum[2][kFixCluster];      // each CTA's insert-delta total, by rank
+  int last[2][5];               // rank - 1's last chunk's mem, mem2, ac1,
+                                // run_over, win
+  int changed[2][kFixCluster];  // each CTA: an in-carry changed
+};
+
+// E2: a cluster of gridDim.x CTAs a stream (blockIdx.y); CTA `rank` owns
+// chunks [rank cpc, rank cpc + cpc) of the stream's k, one thread each,
+// and stages rows [0, rows) of their tuples in shared memory.  ebase,
+// fields: (L, B k) int32; e_in: (L, B k) int32; flags: (L, B k) uint8;
+// sweeps: (B,) int32.
+__global__ void __launch_bounds__(kFixThreads)
+    y_runs_fixpoint(const int* __restrict__ ebase,
+                    const int* __restrict__ fields, int* __restrict__ e_in,
+                    uint8_t* __restrict__ flags, int* __restrict__ sweeps,
+                    int length, int k, int p1, int cpc, int rows) {
+  extern __shared__ __align__(16) uint8_t fix_smem[];
+  int2* tup = reinterpret_cast<int2*>(fix_smem);
+  __shared__ FixRelay relay;
+  __shared__ int s_mem[kFixThreads], s_mem2[kFixThreads], s_ac1[kFixThreads],
+      s_ro[kFixThreads], s_win[kFixThreads];
+  __shared__ int s_warp[kFixWarps];
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int ncta = static_cast<int>(cluster.num_blocks());
   const int c = threadIdx.x, lane = c & 31, warp = c >> 5;
-  const bool active = c < k;
-  const size_t n = static_cast<size_t>(gridDim.x) * k;
-  const size_t col = static_cast<size_t>(blockIdx.x) * k + c;
-  Carry in{0, 0, 0, 0, -257, 0};
-  bool live = false;
+  const int first = rank * cpc;
+  const int nloc = max(0, min(k - first, cpc));
+  const bool active = c < nloc;
+  const size_t n = static_cast<size_t>(gridDim.y) * k;
+  const size_t col0 = static_cast<size_t>(blockIdx.y) * k + first;
+  for (int i = c; i < rows * nloc; i += kFixThreads) {
+    const int t = i / nloc, j = i - t * nloc;
+    const size_t at = t * n + col0 + j;
+    __pipeline_memcpy_async(&tup[t * cpc + j].x, ebase + at, 4);
+    __pipeline_memcpy_async(&tup[t * cpc + j].y, fields + at, 4);
+  }
+  __pipeline_commit();
+  const size_t col = col0 + c;
   const int ro_floor = active ? ebase[col] - 256 : 0;
+  const SharedRows staged{tup + c, cpc};
+  const GlobalRows spilled{ebase + col, fields + col, n};
+  __pipeline_wait_prior(0);
+  cluster.sync();   // the tuples staged, every peer started
+
+  Carry in{0, 0, 0, 0, -257, 0}, out = in;
+  bool live = false, dirty = true;
   int it = 1;
   for (;; ++it) {
-    Carry out = in;
-    if (active) {
-      constexpr int kAhead = 8;
-      int t = 0;
-      for (; t + kAhead <= length; t += kAhead) {
-        int eb[kAhead], fl[kAhead];
-#pragma unroll
-        for (int i = 0; i < kAhead; ++i) {
-          eb[i] = ebase[(t + i) * n + col];
-          fl[i] = fields[(t + i) * n + col];
-        }
-#pragma unroll
-        for (int i = 0; i < kAhead; ++i) {
-          live |= eb[i] < p1 - 1;
-          flags[(t + i) * n + col] = static_cast<uint8_t>(
-              run_step(out, eb[i], fl[i], p1, e_in + (t + i) * n + col));
-        }
-      }
-      for (; t < length; ++t) {
-        const int eb = ebase[t * n + col];
-        live |= eb < p1 - 1;
-        flags[t * n + col] = static_cast<uint8_t>(
-            run_step(out, eb, fields[t * n + col], p1, e_in + t * n + col));
-      }
+    const int par = it & 1;
+    if (active && dirty) {
+      out = in;
+      walk_rows(out, staged, 0, rows, p1, n, e_in + col, flags + col, live);
+      walk_rows(out, spilled, rows, length, p1, n, e_in + col, flags + col,
+                live);
     }
-    // exclusive prefix of the chunks' insert deltas
+    // the CTA's inclusive prefix of its chunks' insert deltas
     const int delta = active ? out.ins - in.ins : 0;
     int incl = delta;
 #pragma unroll
@@ -370,36 +461,66 @@ __global__ void __launch_bounds__(kMaxChunks)
       s_win[c] = out.win;
     }
     __syncthreads();
-    if (warp == 0) {
-      const int nw = (blockDim.x + 31) >> 5;
-      int v = lane < nw ? s_warp[lane] : 0;
+    if (c == 0) {
 #pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int o = __shfl_up_sync(0xFFFFFFFFu, v, d);
-        if (lane >= d) v += o;
-      }
-      if (lane < nw) s_warp[lane] = v;
+      for (int w = 1; w < kFixWarps; ++w) s_warp[w] += s_warp[w - 1];
     }
     __syncthreads();
+    // to the peers: the CTA's total, and its last chunk's carries to the
+    // next CTA
+    if (c < ncta)
+      *cluster.map_shared_rank(&relay.sum[par][rank], c) =
+          s_warp[kFixWarps - 1];
+    if (active && c == nloc - 1 && rank + 1 < ncta) {
+      int* to = cluster.map_shared_rank(relay.last[par], rank + 1);
+      to[0] = out.mem;
+      to[1] = out.mem2;
+      to[2] = out.ac1;
+      to[3] = out.run_over;
+      to[4] = out.win;
+    }
+    cluster.sync();
     bool changed = false;
     if (active) {
-      const bool pin = c == 0 || !live;
-      const int excl = incl - delta + (warp ? s_warp[warp - 1] : 0);
+      int before = incl - delta + (warp ? s_warp[warp - 1] : 0);
+      for (int r = 0; r < rank; ++r) before += relay.sum[par][r];
+      const bool pin = first + c == 0 || !live;
+      const int* prev = relay.last[par];
+      const int pm = c ? s_mem[c - 1] : prev[0];
+      const int pm2 = c ? s_mem2[c - 1] : prev[1];
+      const int pa = c ? s_ac1[c - 1] : prev[2];
+      const int pr = c ? s_ro[c - 1] : prev[3];
+      const int pw = c ? s_win[c - 1] : prev[4];
       Carry nxt;
-      nxt.ins = pin ? 0 : excl;
-      nxt.mem = pin ? 0 : s_mem[c - 1];
-      nxt.mem2 = pin ? 0 : s_mem2[c - 1];
-      nxt.ac1 = pin ? 0 : s_ac1[c - 1];
-      nxt.run_over = max(pin ? -257 : s_ro[c - 1], ro_floor);
-      nxt.win = pin ? 0 : s_win[c - 1];
+      nxt.ins = pin ? 0 : before;
+      nxt.mem = pin ? 0 : pm;
+      nxt.mem2 = pin ? 0 : pm2;
+      nxt.ac1 = pin ? 0 : pa;
+      nxt.run_over = max(pin ? -257 : pr, ro_floor);
+      nxt.win = pin ? 0 : pw;
       changed = nxt.ins != in.ins || nxt.mem != in.mem ||
                 nxt.mem2 != in.mem2 || nxt.ac1 != in.ac1 ||
                 nxt.run_over != in.run_over || nxt.win != in.win;
       in = nxt;
     }
-    if (!__syncthreads_or(changed) || it == k + 1) break;
+    // a chunk whose in-carry stands keeps its walk: its e_in, flags and
+    // out-carry are those of this in-carry
+    dirty = changed;
+    const int any = __syncthreads_or(changed);
+    if (c < ncta) *cluster.map_shared_rank(&relay.changed[par][rank], c) = any;
+    cluster.sync();
+    bool again = false;
+    for (int r = 0; r < ncta; ++r) again |= relay.changed[par][r] != 0;
+    if (!again || it == k + 1) break;
   }
-  if (c == 0) sweeps[blockIdx.x] = it;
+  if (rank == 0 && c == 0) sweeps[blockIdx.y] = it;
+}
+
+cudaError_t fixpoint_setup() {
+  static const cudaError_t e = cudaFuncSetAttribute(
+      y_runs_fixpoint, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kFixSmemMax);
+  return e;
 }
 
 bool misaligned4(std::initializer_list<const void*> ptrs) {
@@ -442,20 +563,36 @@ int nhw_chain_starts(const void* words, const void* nbits, const void* zone,
 
 // E2.  ebase, fields: (L, B k) int32 time-major per-run tuples; e_in: (L,
 // B k) int32, flags: (L, B k) uint8 (ev1 bit 0, ev2 bit 1), sweeps: (B,)
-// int32.
+// int32.  A cluster of min(k, 8) CTAs a stream; each CTA stages the first
+// rows of its chunks' tuples that fit kFixSmemMax and reads the rest from
+// global memory.
 int nhw_y_runs_fixpoint(const void* ebase, const void* fields, void* e_in,
                         void* flags, void* sweeps, int length, int batch,
                         int k, int p1, void* stream) {
-  if (batch < 1 || length < 1 || k < 1 || k > kMaxChunks)
+  if (batch < 1 || batch > 65535 || length < 1 || k < 1 || k > kMaxChunks)
     return cudaErrorInvalidValue;
   if (misaligned4({ebase, fields, e_in, sweeps}))
     return cudaErrorMisalignedAddress;
-  y_runs_fixpoint<<<batch, (k + 31) / 32 * 32, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(ebase), static_cast<const int*>(fields),
-      static_cast<int*>(e_in), static_cast<uint8_t*>(flags),
-      static_cast<int*>(sweeps), length, k, p1);
-  return cudaGetLastError();
+  const cudaError_t e = fixpoint_setup();
+  if (e != cudaSuccess) return e;
+  const int cluster = k < kFixCluster ? k : kFixCluster;
+  const int cpc = (k + cluster - 1) / cluster;
+  int rows = kFixSmemMax / (8 * cpc);
+  if (rows > length) rows = length;
+  cudaLaunchAttribute dims = nhw::cluster_dims(cluster);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, batch, 1);
+  cfg.blockDim = dim3(kFixThreads, 1, 1);
+  cfg.dynamicSmemBytes = static_cast<size_t>(rows) * cpc * 8;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = &dims;
+  cfg.numAttrs = 1;
+  const cudaError_t l = cudaLaunchKernelEx(
+      &cfg, y_runs_fixpoint, static_cast<const int*>(ebase),
+      static_cast<const int*>(fields), static_cast<int*>(e_in),
+      static_cast<uint8_t*>(flags), static_cast<int*>(sweeps), length, k,
+      p1, cpc, rows);
+  return l != cudaSuccess ? l : cudaGetLastError();
 }
 
 }  // extern "C"

@@ -13,12 +13,11 @@
 // S8 nhw_walk_visited replaces nhwcodec_tpu/models/device_scans.py:1411
 //    _walk_visited (pointer doubling: log2 n rounds of gather, scatter-max
 //    and select): the visited mask of the walk start -> nxt[start] -> ...
-//    over (B, n) int32 successors.  One launch.
+//    over (B, n) int32 successors.  One launch, segmented walks.
 //
 // The bound of each is bytes: the LL2 rows read once, vem and is24 written
 // once; the successors read once, the mask written once.  Both are chains
-// of dependent steps, and the designs below are the simple exact ones, not
-// yet tuned:
+// of dependent steps:
 // - S7: one CTA an image.  The marking is a skip walk within a row (the
 //   windows read the original parities: the marks are even), one thread a
 //   row, its marks kept as codes in shared memory.  The nudge scan is one
@@ -31,11 +30,24 @@
 //   tests read rows r + 1..r + 3 before their nudges (a row only nudges
 //   the next one, at its own column), and the nudge into row r + 1 stays
 //   in the thread's register.
-// - S8: one CTA a stream.  The CTA stages the jumps nxt[i] - i as uint16
-//   in shared memory (0 = the walk ends here: a successor >= n or one that
-//   does not increase), one thread walks them marking visited bytes in
-//   shared memory, and the CTA writes the mask out.  A row of n takes 3 n
-//   bytes of shared memory, 192 KiB at n = 65536.
+// - S8: one CTA a row; the walk by segments, so that its serial depth no
+//   longer grows with the path.  The CTA stages the jumps nxt[i] - i as
+//   uint16 in shared memory (0 = the walk ends here: a successor >= n or
+//   one that does not increase; no input can hang the walk).  The row is
+//   cut into segments of s = 2^seg_log2 >= sqrt(n) nodes (at most 256 of
+//   at most 256 nodes), thread g owning segment g.  (a) In one backward
+//   pass over its segment, thread g finds each node's last node within
+//   the segment on the walk from it (the node the walk leaves from, or
+//   ends at), as an offset byte.  (b) Thread 0 follows the chain of
+//   segment entries from `start`: entry -> its last node -> that node's
+//   jump, at most one hop a segment, since the walk only moves forward.
+//   (c) Thread g walks its segment from its entry, if it has one, and
+//   marks the visited nodes; the bytes of (a) become the visited bytes.
+//   Serial depth: s + segments + s steps, about 770 at n = 65536 against
+//   the path's length.  Shared memory holds the jumps and one byte a node
+//   (194 KiB at n = 65536), with no second jump table: the last-node
+//   offsets fit a byte.  Each segment sits at an odd word pitch, so that
+//   the lanes of a warp, at one offset of 32 segments, hit 32 banks.
 
 #include <cuda_runtime.h>
 
@@ -55,11 +67,10 @@ constexpr int kMarkPitch = kLL + 4; // bytes a row of S7's mark codes
 constexpr int kLLN = kLL * kLL;
 
 constexpr int kWalkThreads = 1024;
+constexpr int kWalkAhead = 4;       // S8's loads in flight a thread
 constexpr int kWalkMaxN = 1 << 16;  // jumps fit 16 bits
-constexpr int kWalkSmemMax = 3 * kWalkMaxN;
-
-// the jumps' room in S8's shared memory: n rounded up to 8
-__host__ __device__ constexpr int walk_pitch(int n) { return (n + 7) & ~7; }
+constexpr int kWalkMaxSegLog2 = 8;  // in-segment offsets fit 8 bits
+constexpr int kWalkMaxSegs = 256;   // a thread a segment
 
 bool misaligned(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes != 0;
@@ -152,34 +163,138 @@ __global__ void __launch_bounds__(kLL)
 }
 
 // ---------------------------------------------------------------------------
-// S8: the walk's visited mask
+// S8: the walk's visited mask, by segments
+
+// The jump staged for node i from its successor s: 0 (the walk ends) for
+// a successor >= n or one that does not increase.
+__device__ __forceinline__ uint16_t walk_jump(int s, int i, int n) {
+  return (s > i && s < n) ? static_cast<uint16_t>(s - i) : 0;
+}
+
+// S8's shared memory for segments of s nodes: each segment's jumps at a
+// pitch of s + 2 uint16 and its bytes at s + 4, so that the threads of a
+// warp, one segment each, reach the same offset of their segments on 32
+// banks (odd word pitches).
+__host__ __device__ constexpr int walk_jump_pitch(int s) { return s + 2; }
+__host__ __device__ constexpr int walk_byte_pitch(int s) { return s + 4; }
+__host__ __device__ constexpr int walk_bytes_at(int segs, int s) {
+  return (2 * segs * walk_jump_pitch(s) + 3) & ~3;
+}
+__host__ __device__ constexpr int walk_smem(int segs, int s) {
+  return walk_bytes_at(segs, s) + segs * walk_byte_pitch(s);
+}
 
 __global__ void __launch_bounds__(kWalkThreads)
     walk_visited(const int* __restrict__ nxt, uint8_t* __restrict__ visited,
-                 int n, int start) {
+                 int n, int start, int seg_log2) {
   extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int entry[kWalkMaxSegs];
+  const int s = 1 << seg_log2, mask = s - 1;
+  const int segs = ((n - 1) >> seg_log2) + 1;
+  const int jp = walk_jump_pitch(s), bp = walk_byte_pitch(s);
   uint16_t* jump = reinterpret_cast<uint16_t*>(smem);
-  uint8_t* vis = smem + 2 * walk_pitch(n);
+  // (a)-(b): the last node of each node's walk within its segment, as an
+  // offset in the segment; (c): the visited bytes
+  uint8_t* last = smem + walk_bytes_at(segs, s);
+  const int t = threadIdx.x;
+  // stage the jumps: 16-byte loads from the row's first aligned word, four
+  // of them in flight a thread
   const int* row = nxt + static_cast<size_t>(blockIdx.x) * n;
-  for (int i = threadIdx.x; i < n; i += kWalkThreads) {
-    const int s = row[i];
-    jump[i] = (s > i && s < n) ? static_cast<uint16_t>(s - i) : 0;
-    vis[i] = 0;
+  auto stage = [&](int i, int v) {
+    jump[(i >> seg_log2) * jp + (i & mask)] = walk_jump(v, i, n);
+  };
+  const int head = min(
+      n, static_cast<int>((16 - (reinterpret_cast<uintptr_t>(row) & 15)) &
+                          15) / 4);
+  const int nv = (n - head) / 4;
+  const int4* row4 = reinterpret_cast<const int4*>(row + head);
+  for (int v0 = t; v0 < nv; v0 += kWalkAhead * kWalkThreads) {
+    int4 x[kWalkAhead];
+#pragma unroll
+    for (int u = 0; u < kWalkAhead; ++u) {
+      const int v = v0 + u * kWalkThreads;
+      if (v < nv) x[u] = row4[v];
+    }
+#pragma unroll
+    for (int u = 0; u < kWalkAhead; ++u) {
+      const int v = v0 + u * kWalkThreads;
+      if (v < nv) {
+        const int i = head + 4 * v;
+        stage(i, x[u].x);
+        stage(i + 1, x[u].y);
+        stage(i + 2, x[u].z);
+        stage(i + 3, x[u].w);
+      }
+    }
+  }
+  if (t < head) stage(t, row[t]);
+  for (int i = head + 4 * nv + t; i < n; i += kWalkThreads) stage(i, row[i]);
+  for (int g = t; g < segs; g += kWalkThreads) entry[g] = -1;
+  __syncthreads();
+  // (a) thread g, segment g of m nodes: every node's last in-segment node,
+  // backward, branch-free, the jumps of eight nodes read ahead
+  const int g = t;
+  const int m = min(s, n - (g << seg_log2));
+  uint16_t* jseg = jump + g * jp;
+  uint8_t* lseg = last + g * bp;
+  auto last_of = [&](int o, int d) {
+    const int j = o + d, leave = (d == 0) | (j >= m);
+    const int on = lseg[leave ? o : j];
+    lseg[o] = static_cast<uint8_t>(leave ? o : on);
+  };
+  if (g < segs) {
+    int o = m - 1;
+    for (; o >= 2 * kWalkAhead - 1; o -= 2 * kWalkAhead) {
+      int d[2 * kWalkAhead];
+#pragma unroll
+      for (int u = 0; u < 2 * kWalkAhead; ++u) d[u] = jseg[o - u];
+#pragma unroll
+      for (int u = 0; u < 2 * kWalkAhead; ++u) last_of(o - u, d[u]);
+    }
+    for (; o >= 0; --o) last_of(o, jseg[o]);
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
+  // (b) the chain of segment entries: a walk leaves a segment from its
+  // last node, and never comes back
+  if (t == 0) {
     int i = start;
     for (;;) {
-      vis[i] = 1;
-      const int d = jump[i];
+      const int sg = i >> seg_log2;
+      entry[sg] = i;
+      const int p = last[sg * bp + (i & mask)];
+      const int d = jump[sg * jp + p];
       if (!d) break;
-      i += d;
+      i = (sg << seg_log2) + p + d;
+    }
+  }
+  __syncthreads();
+  // (c) the bytes cleared, then thread g walks segment g from its entry,
+  // marking
+  const int bytes = segs * bp;
+  uint32_t* words = reinterpret_cast<uint32_t*>(last);
+  for (int w = t; w < bytes / 4; w += kWalkThreads) words[w] = 0;
+  if (t < bytes % 4) last[bytes / 4 * 4 + t] = 0;
+  __syncthreads();
+  if (g < segs) {
+    const int i = entry[g];
+    if (i >= 0) {
+      for (int o = i - (g << seg_log2);;) {
+        lseg[o] = 1;
+        const int d = jseg[o];
+        o += d;
+        if (!d || o >= m) break;
+      }
     }
   }
   __syncthreads();
   uint8_t* out = visited + static_cast<size_t>(blockIdx.x) * n;
-  for (int i = threadIdx.x; i < n; i += kWalkThreads) out[i] = vis[i];
+#pragma unroll 4
+  for (int i = t; i < n; i += kWalkThreads)
+    out[i] = last[(i >> seg_log2) * bp + (i & mask)];
 }
+
+constexpr int kWalkSmemMax =
+    walk_smem(kWalkMaxSegs, 1 << kWalkMaxSegLog2);   // 198,656 bytes
 
 cudaError_t walk_visited_setup() {
   static const cudaError_t e = cudaFuncSetAttribute(
@@ -206,19 +321,22 @@ int nhw_ll2_code_y(const void* plane, void* vem, void* is24, int batch,
 }
 
 // S8.  nxt: (B, n) int32, 1 <= n <= 65536; visited: (B, n) bytes
-// (torch.bool); 0 <= start < n.
+// (torch.bool); 0 <= start < n; segments of 2^seg_log2 nodes, at most
+// kWalkMaxSegs of them and at most 256 nodes each.
 int nhw_walk_visited(const void* nxt, void* visited, int batch, int n,
-                     int start, void* stream) {
+                     int start, int seg_log2, void* stream) {
   if (batch < 1 || batch > 65535 || n < 1 || n > kWalkMaxN || start < 0 ||
-      start >= n)
+      start >= n || seg_log2 < 0 || seg_log2 > kWalkMaxSegLog2 ||
+      ((n - 1) >> seg_log2) >= kWalkMaxSegs)
     return cudaErrorInvalidValue;
   if (misaligned(nxt, 4)) return cudaErrorMisalignedAddress;
   const cudaError_t e = walk_visited_setup();
   if (e != cudaSuccess) return e;
-  walk_visited<<<batch, kWalkThreads, 2 * walk_pitch(n) + n,
+  walk_visited<<<batch, kWalkThreads,
+                 walk_smem(((n - 1) >> seg_log2) + 1, 1 << seg_log2),
                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(nxt), static_cast<uint8_t*>(visited), n,
-      start);
+      start, seg_log2);
   return cudaGetLastError();
 }
 

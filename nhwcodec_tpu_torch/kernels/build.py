@@ -89,8 +89,8 @@ SIGNATURES = {
     "nhw_classify": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # (plane, vem, is24, batch, gt_low3, stream)
     "nhw_ll2_code_y": [_P, _P, _P, _I, _I, _P],
-    # (nxt, visited, batch, n, start, stream)
-    "nhw_walk_visited": [_P, _P, _I, _I, _I, _P],
+    # (nxt, visited, batch, n, start, seg_log2, stream)
+    "nhw_walk_visited": [_P, _P, _I, _I, _I, _I, _P],
     # (process, rf_ext, out, batch, rf_len, res_uv, stream)
     "nhw_uv_sentinel": [_P, _P, _P, _I, _I, _I, _P],
     # (in, tmp, maps, out, esc, batch, m1, stream)

@@ -60,9 +60,11 @@ In ``csrc/ll2.cu``:
   row) and the 128-step nudge scan over the rows, one CTA an image and a
   thread a column; the within-row 2a fires are a run parity.
 - ``walk_visited_device`` (kernel ``walk_visited``): the visited mask of
-  a forward walk over static successors, one CTA a stream, the jumps
-  staged in shared memory and walked by one thread.  The Y highres walk,
-  its squeeze walk and the UV highres walk use it.
+  a forward walk over static successors, one CTA a row, the jumps staged
+  in shared memory and walked by segments: each segment's last node from
+  every node (a thread a segment), the chain of segment entries (one
+  thread, a hop a segment), each segment walked from its entry.  The Y
+  highres walk, its squeeze walk and the UV highres walk use it.
 
 In ``csrc/uv.cu``:
 
@@ -2114,25 +2116,66 @@ def _walk_args(nxt, start: int) -> None:
         raise ValueError("walk_visited nxt: must be contiguous")
 
 
+def walk_segment_log2(n: int) -> int:
+    """log2 of S8's segment: the least power of two s with s * s >= n, so
+    that a row of n <= 65536 nodes has at most 256 segments of at most
+    256 nodes (csrc/ll2.cu kWalkMaxSegs, kWalkMaxSegLog2)."""
+    return ((n - 1).bit_length() + 1) // 2
+
+
 def walk_visited_ref(nxt, start: int = 1):
-    """Torch twin of ``walk_visited``: each row walked as a Python list,
-    start -> nxt[start] -> ..., ending at the first successor outside
-    (i, n)."""
+    """Torch twin of ``walk_visited``, in its decomposition, vectorised
+    over rows and segments (s = 2^``walk_segment_log2(n)`` nodes each):
+    (a) every node's last node within its segment on the walk from it, one
+    backward step over all segments at a time; (b) the chain of segment
+    entries from ``start``, a hop a segment (entry -> its last node -> that
+    node's successor); (c) each segment walked from its entry, marking.
+    The walk ends at the first successor outside (i, n)."""
     _walk_args(nxt, start)
     b, n = nxt.shape
-    rows, cols = [], []
-    for k, row in enumerate(nxt.cpu().tolist()):
-        i = start
-        while True:
-            rows.append(k)
-            cols.append(i)
-            t = row[i]
-            if not i < t < n:
-                break
-            i = t
-    vis = np.zeros((b, n), bool)
-    vis[rows, cols] = True
-    return torch.from_numpy(vis).to(nxt.device)
+    dev = nxt.device
+    s = 1 << walk_segment_log2(n)
+    segs = -(-n // s)
+    idx = torch.arange(n, device=dev)
+    x = nxt.long()
+    jump = torch.where((x > idx) & (x < n), x - idx, 0)
+    # padding nodes past n end their walk where they stand
+    jump = torch.nn.functional.pad(jump, (0, segs * s - n)).reshape(b, segs,
+                                                                    s)
+    # (a)
+    last = torch.zeros_like(jump)
+    for o in range(s - 1, -1, -1):
+        d = jump[:, :, o]
+        leaves = (d == 0) | (o + d >= s)
+        on = torch.gather(last, 2, (o + d).clamp(max=s - 1)[:, :, None])
+        last[:, :, o] = torch.where(leaves, o, on[:, :, 0])
+    # (b)
+    rows = torch.arange(b, device=dev)
+    flat_last, flat_jump = last.reshape(b, -1), jump.reshape(b, -1)
+    entry = torch.full((b, segs + 1), -1, dtype=torch.long, device=dev)
+    cur = torch.full((b,), start, dtype=torch.long, device=dev)
+    alive = torch.ones(b, dtype=torch.bool, device=dev)
+    for _ in range(segs):
+        g = cur // s
+        entry[rows, torch.where(alive, g, segs)] = cur
+        p = g * s + flat_last[rows, cur]
+        d = flat_jump[rows, p]
+        alive = alive & (d > 0)
+        cur = torch.where(alive, p + d, cur)
+    # (c)
+    vis = torch.zeros((b, segs * s), dtype=torch.bool, device=dev)
+    cur = entry[:, :segs]
+    live = cur >= 0
+    seg = torch.arange(segs, device=dev)
+    dump = segs * s
+    vis = torch.nn.functional.pad(vis, (0, 1))
+    for _ in range(s):
+        at = torch.where(live, cur, dump)
+        vis.scatter_(1, at, True)
+        d = torch.gather(flat_jump, 1, at.clamp(max=dump - 1))
+        cur = cur + d
+        live = live & (d > 0) & (cur // s == seg)
+    return vis[:, :n]
 
 
 def walk_visited_device(nxt, start: int = 1):
@@ -2141,7 +2184,7 @@ def walk_visited_device(nxt, start: int = 1):
     (nxt[i] > i); one >= n parks the walk, and the walk also ends at one
     that does not increase.  The JAX package resolves it by pointer
     doubling (``_walk_visited``); here it is kernel ``walk_visited`` (one
-    launch, one CTA a row)."""
+    launch, one CTA a row, the walk by segments: ``walk_visited_ref``)."""
     _walk_args(nxt, start)
     if nxt.device.type == "cpu":
         return walk_visited_ref(nxt, start)
@@ -2151,7 +2194,8 @@ def walk_visited_device(nxt, start: int = 1):
     if b:
         with torch.cuda.device(nxt.device):
             build.check("nhw_walk_visited", lib.nhw_walk_visited(
-                nxt.data_ptr(), vis.data_ptr(), b, n, start, stream))
+                nxt.data_ptr(), vis.data_ptr(), b, n, start,
+                walk_segment_log2(n), stream))
         build.count("walk_visited")
     return vis
 

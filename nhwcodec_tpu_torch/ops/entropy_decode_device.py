@@ -58,7 +58,11 @@ MAXST = 20          # overhang states at a word boundary
 WSTEPS = 16         # most codeword starts in a 32-bit word (shortest code 2)
 NSEG = 32           # segment table size the binary search walks
 CHAIN_TILE = 256    # words per CTA of E1 (csrc/entropy.cu kTile)
-MAX_CHUNKS = 1024   # E2 runs one thread a chunk, one CTA a stream
+MAX_CHUNKS = 1024   # E2 runs one thread a chunk, a cluster a stream
+K_CHUNKS = 512      # decode_y_planes' default chunks a stream: the fastest
+                    # k of 64-1024 for E2 on a q20 chunk of 16 (H100)
+FIX_CLUSTER = 8     # E2's most CTAs a stream (csrc/entropy.cu kFixCluster)
+FIX_SMEM = 220 * 1024   # E2's staged tuples a CTA, bytes (kFixSmemMax)
 Y_P1 = 4 * T.IM_SIZE
 UV_P1 = 2 * T.IM_SIZE - 1
 
@@ -549,33 +553,63 @@ def runs_step(carry: tuple, x: dict, p1: int):
     return new, ev1, ev2, e_in
 
 
+def fixpoint_layout(length: int, k: int):
+    """E2's launch shape for (L, B k) tuples, as ``nhw_y_runs_fixpoint``
+    computes it: (cluster, chunks a CTA, rows staged in shared memory).
+    A cluster of min(k, FIX_CLUSTER) CTAs a stream, the chunks split in
+    blocks of ceil(k / cluster); each CTA stages the rows of its chunks'
+    tuples (8 bytes a run) that fit FIX_SMEM bytes, and its walks read
+    the rest from global memory: the k = 1 fallback's one CTA stages
+    28,160 runs, a q20 stream has some 78,000."""
+    cluster = min(k, FIX_CLUSTER)
+    cpc = -(-k // cluster)
+    return cluster, cpc, min(length, FIX_SMEM // (8 * cpc))
+
+
 def runs_fixpoint_ref(ebase: torch.Tensor, fields: torch.Tensor, p1: int,
                       k: int):
-    """Torch twin of E2: sweeps of the run walk over all B k lanes, each
+    """Torch twin of E2: sweeps of the run walk over the B k lanes, each
     followed by the relay, until no stream's in-carry changes or k + 1
     sweeps have run.  Relay: chunk c's insert count is the exclusive
-    prefix of its stream's local counts; mem, mem2, ac1, win and run_over
-    come from chunk c - 1; chunk 0 and the chunks with no step below
-    p1 - 1 are pinned to the initial state; run_over is raised to the
-    chunk's floor (its first e_base - 256, below which every run_over
-    acts alike).  Returns (e_in (L, B k) int32, flags (L, B k) uint8 with
-    ev1 in bit 0 and ev2 in bit 1, sweeps (B,) int32: the sweep at which
-    each stream's carries stopped changing, at most k + 1)."""
+    prefix of its stream's local counts, taken as E2 takes it: within
+    each CTA's block of chunks (``fixpoint_layout``) plus the totals of
+    the blocks before; mem, mem2, ac1, win and run_over come from chunk
+    c - 1; chunk 0 and the chunks with no step below p1 - 1 are pinned to
+    the initial state; run_over is raised to the chunk's floor (its
+    first e_base - 256, below which every run_over acts alike).  A chunk
+    whose in-carry did not change in a sweep keeps its last walk (its
+    e_in, flags and out-carry), as E2 does not walk it again.  Returns
+    (e_in (L, B k) int32, flags (L, B k) uint8 with ev1 in bit 0 and ev2
+    in bit 1, sweeps (B,) int32: the sweep at which each stream's
+    carries stopped changing, at most k + 1)."""
     length, n = ebase.shape
     b = n // k
     dev = ebase.device
     steps = _run_steps(ebase, fields)
     zi = torch.zeros(n, dtype=torch.int32, device=dev)
     carry_in = (zi, zi, zi, zi, torch.full_like(zi, -257), zi)
+    carry_out = carry_in
     pin = ((torch.arange(n, device=dev) % k) == 0) | ~(ebase < p1 - 1).any(0)
     ro_floor = ebase[0] - 256
-    e_in = torch.empty((length, n), dtype=torch.int32, device=dev)
-    flags = torch.empty((length, n), dtype=torch.uint8, device=dev)
+    cluster, cpc, _ = fixpoint_layout(length, k)
+    e_in = torch.zeros((length, n), dtype=torch.int32, device=dev)
+    flags = torch.zeros((length, n), dtype=torch.uint8, device=dev)
     sweeps = torch.full((b,), k + 1, dtype=torch.int32, device=dev)
     done = torch.zeros(b, dtype=torch.bool, device=dev)
+    dirty = torch.ones(n, dtype=torch.bool, device=dev)
 
     def shift(a, v0):
         return torch.where(pin, v0, torch.nn.functional.pad(a[:-1], (1, 0)))
+
+    def exclusive_prefix(delta):
+        # per CTA block of cpc chunks, then the blocks' totals before it
+        d = torch.nn.functional.pad(delta.reshape(b, k),
+                                    (0, cluster * cpc - k))
+        d = d.reshape(b, cluster, cpc)
+        within = torch.cumsum(d, 2, dtype=torch.int32) - d
+        tot = d.sum(2, dtype=torch.int32)
+        before = torch.cumsum(tot, 1, dtype=torch.int32) - tot
+        return (within + before[:, :, None]).reshape(b, -1)[:, :k].reshape(n)
 
     for it in range(1, k + 2):
         c = carry_in
@@ -585,17 +619,21 @@ def runs_fixpoint_ref(ebase: torch.Tensor, fields: torch.Tensor, p1: int,
             ev1s.append(ev1)
             ev2s.append(ev2)
             es.append(e)
+        carry_out = tuple(torch.where(dirty, a, o)
+                          for a, o in zip(c, carry_out))
         if length:
-            e_in = torch.stack(es)
-            flags = (torch.stack(ev1s).to(torch.uint8)
-                     | (torch.stack(ev2s).to(torch.uint8) << 1))
-        delta = (c[0] - carry_in[0]).reshape(b, k)
-        pref = (torch.cumsum(delta, 1, dtype=torch.int32) - delta).reshape(n)
+            e_in = torch.where(dirty, torch.stack(es), e_in)
+            flags = torch.where(dirty, torch.stack(ev1s).to(torch.uint8)
+                                | (torch.stack(ev2s).to(torch.uint8) << 1),
+                                flags)
+        c = carry_out
+        pref = exclusive_prefix(c[0] - carry_in[0])
         new_in = (torch.where(pin, 0, pref), shift(c[1], 0), shift(c[2], 0),
                   shift(c[3], 0), torch.maximum(shift(c[4], -257), ro_floor),
                   shift(c[5], 0))
-        changed = torch.stack([a != o for a, o in zip(new_in, carry_in)]
-                              ).any(0).reshape(b, k).any(1)
+        dirty = torch.stack([a != o for a, o in zip(new_in, carry_in)]
+                            ).any(0)
+        changed = dirty.reshape(b, k).any(1)
         sweeps = torch.where(~done & ~changed, it, sweeps)
         done = done | ~changed
         carry_in = new_in
@@ -700,7 +738,8 @@ def _y_run_inputs(streams: list, p1: int, dev):
     return syms[:, :min(n_max, s_max)], book, max(r_max, 1)
 
 
-def decode_y_planes(streams: list, p1: int = Y_P1, k_chunks: int = 64,
+def decode_y_planes(streams: list, p1: int = Y_P1,
+                    k_chunks: int = K_CHUNKS,
                     device="cuda") -> torch.Tensor:
     """The Y symbol planes of parsed streams as one (B, p1) int16 tensor
     on ``device``: E1 for the batch's chain, torch ops for the per-run
@@ -725,7 +764,8 @@ def decode_y_planes(streams: list, p1: int = Y_P1, k_chunks: int = 64,
     return _runs_emit(e_in, flags, lits, sel1, sel2, p1, k)
 
 
-def decode_y_device_batch(streams: list, p1: int = Y_P1, k_chunks: int = 64,
+def decode_y_device_batch(streams: list, p1: int = Y_P1,
+                          k_chunks: int = K_CHUNKS,
                           device="cuda") -> list[np.ndarray]:
     """Y symbol planes of parsed streams, each equal to the host copy's
     ``entropy.decode_y`` of the stream: (p1,) int16 numpy arrays."""

@@ -3,10 +3,12 @@ process, so that two trees can be compared in turns.
 
 After one warm-up call of each, times ``runs`` calls (default 9) of:
 the encode of chip_smoke's 16 q20 images in one chunk, the decode of
-their q20 streams and of 16 q23 streams in one chunk (host clock around
-``encode_batch_device`` / ``decode_batch_device``, which end on host
-bytes and arrays), and ``encode_transform`` and ``transform_step`` on the
-entry batch of 8 (host clock after ``torch.cuda.synchronize()``).
+their q20 streams and of 16 q23 streams in one chunk, the q20 decode
+with ``entropy_on_device=True`` and the q20 encode with
+``scans_on_device=True`` (host clock around ``encode_batch_device`` /
+``decode_batch_device``, which end on host bytes and arrays), and
+``encode_transform`` and ``transform_step`` on the entry batch of 8
+(host clock after ``torch.cuda.synchronize()``).
 Prints the card's name and power limit, then one JSON line: for each
 service the median and quartiles of ms per image.  The streams come from
 the tree's host encoder.  Needs a CUDA card; run from a tree's root:
@@ -63,6 +65,13 @@ def main() -> int:
             streams[20], workers=1, chunk=b, device=dev), runs, b),
         "decode q23": _times(lambda: tdp.decode_batch_device(
             streams[23], workers=1, chunk=b, device=dev), runs, b),
+        "decode q20, entropy on the card": _times(
+            lambda: tdp.decode_batch_device(
+                streams[20], workers=1, chunk=b, device=dev,
+                entropy_on_device=True), runs, b),
+        "encode q20, scans on the card": _times(
+            lambda: tdp.encode_batch_device(
+                images, 20, device=dev, scans_on_device=True), runs, b),
         "encode_transform": _times(lambda: fn(rgb), runs, len(rgb)),
         "transform_step": _times(lambda: tentry.transform_step(rgb), runs,
                                  len(rgb)),

@@ -698,10 +698,11 @@ def test_chain_starts_kernel(cuda, q20_chunk, kind, b):
 
 
 @pytest.mark.parametrize("b", [1, 3, 16])
-@pytest.mark.parametrize("k", [64, 1])
+@pytest.mark.parametrize("k", [512, 64, 100, 1])
 def test_y_runs_fixpoint_kernel(cuda, q20_chunk, k, b):
-    """E2 equals its twin on the chunk's per-run tuples; at k = 1 (one
-    thread walks every run) on each stream's first 2048 runs."""
+    """E2 equals its twin on the chunk's per-run tuples (k = 512 the
+    default, 100 not a power of two); at k = 1 (one thread walks every
+    run) on each stream's first 2048 runs."""
     from nhwcodec_tpu_torch.ops import entropy_decode_device as edd
 
     streams = q20_chunk[-b:]   # the random images' streams come last
@@ -715,6 +716,61 @@ def test_y_runs_fixpoint_kernel(cuda, q20_chunk, k, b):
     assert build.LAUNCHES["y_runs_fixpoint"] == before + 1
     for g, w in zip(got, edd.runs_fixpoint_ref(*xs, edd.Y_P1, k)):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("k", [2, 7, 37, 100])
+@pytest.mark.parametrize("kind", ["random", "pinned tail",
+                                  "carry through every chunk",
+                                  "k + 1 sweeps", "past the plane"])
+def test_y_runs_fixpoint_kernel_edge_tuples(cuda, kind, k):
+    """E2 on chip_smoke's edge tuples (40 runs a chunk) at batch 1, 3 and
+    16."""
+    from chip_smoke import e2_edge_tuples
+    from nhwcodec_tpu_torch.ops import entropy_decode_device as edd
+
+    eb, f = e2_edge_tuples(np.random.default_rng(90 + k), 16, k, 40, kind)
+    xs = (torch.from_numpy(eb).to(cuda), torch.from_numpy(f).to(cuda))
+    want = edd.runs_fixpoint_ref(*xs, edd.Y_P1, k)
+    if kind == "k + 1 sweeps":
+        assert want[2].tolist() == [k + 1] * 16
+    for b in (1, 3, 16):
+        sub = tuple(a[:, :b * k].contiguous() for a in xs)
+        before = build.LAUNCHES["y_runs_fixpoint"]
+        got = edd.runs_fixpoint(*sub, edd.Y_P1, k)
+        assert build.LAUNCHES["y_runs_fixpoint"] == before + 1
+        for g, w in zip(got, (want[0][:, :b * k], want[1][:, :b * k],
+                              want[2][:b])):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("b", [1, 3])
+def test_y_runs_fixpoint_kernel_rows_from_global(cuda, q20_chunk, b):
+    """Streams longer than a cluster stages: random tuples at k = 1024,
+    L = 256 (each CTA stages 220 rows), against the twin; the q20 chunk
+    at k = 1 (the fallback's one CTA stages 28,160 of each stream's
+    runs) with the default k's flags."""
+    from chip_smoke import E2_LONG, e2_edge_tuples, per_stream
+    from nhwcodec_tpu_torch.ops import entropy_decode_device as edd
+
+    k, length = E2_LONG
+    assert edd.fixpoint_layout(length, k)[2] < length
+    eb, f = e2_edge_tuples(np.random.default_rng(95), b, k, length,
+                           "random")
+    xs = (torch.from_numpy(eb).to(cuda), torch.from_numpy(f).to(cuda))
+    for g, w in zip(edd.runs_fixpoint(*xs, edd.Y_P1, k),
+                    edd.runs_fixpoint_ref(*xs, edd.Y_P1, k)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    streams = q20_chunk[-b:]
+    syms, book, r_max = edd._y_run_inputs(streams, edd.Y_P1, cuda)
+    xs1, _ = edd._runs_xs_batch(syms, book, edd.Y_P1, r_max, 1)
+    assert edd.fixpoint_layout(xs1[0].shape[0], 1)[2] < xs1[0].shape[0]
+    k = min(edd.K_CHUNKS, r_max)
+    xk, _ = edd._runs_xs_batch(syms, book, edd.Y_P1, r_max, k)
+    one = edd.runs_fixpoint(*xs1, edd.Y_P1, 1)
+    many = edd.runs_fixpoint(*xk, edd.Y_P1, k)
+    torch.testing.assert_close(per_stream(one[1], b)[:, :r_max],
+                               per_stream(many[1], b)[:, :r_max], rtol=0,
+                               atol=0)
 
 
 def test_entropy_kernels_reject_bad_inputs(cuda):
@@ -943,6 +999,27 @@ def test_ll2_code_y_kernel(cuda, kind, gt_low3, b):
     assert build.LAUNCHES["ll2_code_y"] == before + 1
     for g, w in zip(got, ds.ll2_code_y_ref(x, gt_low3)):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("b", [1, 3, 16])
+@pytest.mark.parametrize("kind", ["onto segment ends", "over many segments",
+                                  "park in segment 0",
+                                  "n not a multiple of s", "n = 1",
+                                  "start in the last segment"])
+def test_walk_visited_kernel_segment_rows(cuda, kind, b):
+    """The segmented walk on rows at its segments' edges, each with its
+    start (chip_smoke.walk_segment_rows)."""
+    import chip_smoke as cs
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    nxt, start = cs.walk_segment_rows(np.random.default_rng(120 + b), b,
+                                      kind)
+    x = torch.from_numpy(nxt).to(cuda)
+    before = build.LAUNCHES["walk_visited"]
+    got = ds.walk_visited_device(x, start)
+    assert build.LAUNCHES["walk_visited"] == before + 1
+    torch.testing.assert_close(got, ds.walk_visited_ref(x, start), rtol=0,
+                               atol=0)
 
 
 @pytest.mark.parametrize("b", [1, 3, 16])

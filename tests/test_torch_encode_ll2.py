@@ -11,8 +11,12 @@
   and 1, all-even and dense-odd planes) with gt_low3 both ways; the Y
   run-delta coder in each of its three modes, forced by long pair runs,
   with q_gt_low5 both ways; the UV coder; the walk against JAX's
-  ``_walk_visited`` on seeded random monotone successors with parks and
-  on ``chip_smoke.walk_edge_rows`` / ``squeeze_edge_rows``.
+  ``_walk_visited`` on seeded random monotone successors with parks, on
+  ``chip_smoke.walk_edge_rows`` / ``squeeze_edge_rows`` and on the
+  segmented walk's edges (``chip_smoke.walk_segment_rows``: jumps onto
+  segment ends and over many segments, a park in the first segment, n
+  off the segment grid, n = 1, a start in the last segment), and from
+  every kind of start; the segment size against the kernel's limits.
 - The wrappers check their inputs.
 
 The stage as a whole: tests/test_torch_encode_ll2_stage.py.
@@ -194,6 +198,59 @@ def test_walk_visited_edge_rows(kind):
     # the pointer-doubling closure too
     assert _eq(got, np.asarray(jds._walk_visited(nxt, 1)))
     assert got[:, 1].all()
+
+
+@pytest.mark.parametrize("kind", cs.WALK_SEGMENT_KINDS)
+def test_walk_twin_on_segment_edge_rows(kind):
+    """The segmented twin against JAX's pointer doubling where the
+    segments' edges matter: jumps onto a segment's first and last nodes,
+    over many segments, a park in the first segment, n off the segment
+    grid, n = 1, a start in the last segment."""
+    nxt, start = cs.walk_segment_rows(np.random.default_rng(50), 3, kind)
+    got = tds.walk_visited_ref(_t(nxt), start).numpy()
+    assert _eq(got, np.asarray(jds._walk_visited(nxt, start)))
+    assert got[:, start].all()
+    s = 1 << tds.walk_segment_log2(nxt.shape[1])
+    if kind == "onto segment ends":
+        on = got[:, s::s].sum() + got[:, s - 1::s].sum()
+        assert on > 50
+    elif kind == "over many segments":
+        idx = np.flatnonzero(got[0])
+        assert (np.diff(idx // s) >= 2).sum() > 5
+    elif kind == "park in segment 0":
+        assert got[:, s:].sum() == 0
+    elif kind == "start in the last segment":
+        assert got[:, :start].sum() == 0 and (start // s + 1) * s == 65536
+
+
+@pytest.mark.parametrize("n", [2, 3, 17, 64, 65, 1000, 4097])
+def test_walk_twin_random_starts(n):
+    """Every start, jumps short and long, against JAX's doubling."""
+    rng = np.random.default_rng(n)
+    nxt = (np.arange(n)[None] + rng.integers(1, 2 + n // 8, (2, n))).astype(
+        np.int32)
+    nxt[rng.random((2, n)) < 0.02] = n + 3
+    for start in sorted({0, 1, n // 3, n - 2, n - 1}):
+        got = tds.walk_visited_ref(_t(nxt), start).numpy()
+        assert _eq(got, np.asarray(jds._walk_visited(nxt, start)))
+
+
+def test_walk_segments_fit_the_kernel():
+    """s = 2^walk_segment_log2(n) has s * s >= n, so a row of n <= 65536
+    has at most kWalkMaxSegs segments of at most 2^kWalkMaxSegLog2 nodes
+    (csrc/ll2.cu), and s is the least such power of two."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tds.__file__).resolve().parent.parent / "csrc" /
+           "ll2.cu").read_text()
+    segs_max = int(re.search(r"kWalkMaxSegs = (\d+);", src).group(1))
+    log2_max = int(re.search(r"kWalkMaxSegLog2 = (\d+);", src).group(1))
+    for n in range(1, tds.WALK_MAX_N + 1):
+        lg = tds.walk_segment_log2(n)
+        s = 1 << lg
+        assert s * s >= n and (lg == 0 or (s // 2) ** 2 < n)
+        assert lg <= log2_max and -(-n // s) <= segs_max
 
 
 def test_wrappers_check_inputs():

@@ -115,7 +115,7 @@ def test_fixpoint_bound_falls_back_to_one_chunk(monkeypatch):
 
     monkeypatch.setattr(edd, "runs_fixpoint", fake)
     _assert_planes(_parsed([("gradient_circles", 20), ("near_flat", 20)]))
-    assert ks == [64, 1]
+    assert ks == [edd.K_CHUNKS, 1]
 
 
 def test_malformed_book_rejected_before_any_launch(monkeypatch):
