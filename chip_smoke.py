@@ -2400,7 +2400,7 @@ def encode_phase(dev, images: np.ndarray, captured: dict) -> dict:
 # quantizers and the E15 stream fixups (models/device_encode_scans.py)
 
 SCAN_KERNELS = ("snap_pass", "offset_y", "merge_crossing")
-SCAN_LAUNCHES = {"snap_pass": 3, "offset_y": 1, "merge_crossing": 1}
+SCAN_LAUNCHES = {"snap_pass": 1, "offset_y": 1, "merge_crossing": 1}
 # q -> images of the encode batch whose host encodes are captured (the q20
 # batch of 16, and the batches of 4 of OTHER_QS at q21, q19 and q17)
 STREAM_QS = {20: B, 21: 4, 19: 4, 17: 4}
@@ -2761,8 +2761,8 @@ def encode_scans_phase(dev, captured: dict) -> dict:
     host copy's own encodes: the encode batch's 16 images at q20 and 4
     images each at q21, q19 and q17 (q17 takes the second snap pass's
     other yw/yw2), each image's 6 SZ stream and sel1/sel2 byte for byte
-    against the host's, with snap_pass launched 3 times a batch and
-    offset_y and merge_crossing once.  Times the q20 batch's stage (CUDA
+    against the host's, with snap_pass (its three variants), offset_y and
+    merge_crossing launched once a batch.  Times the q20 batch's stage (CUDA
     events, median of RUNS; a profile) beside the host copy's C scans on
     the same images (host timer, median of 5).  Returns the q20 batch's
     launches."""
@@ -2835,6 +2835,49 @@ def snap_spill_planes(rng, b):
     return x
 
 
+# runs of the fixup chain's two classes across S1's 16-column lane tiles:
+# (first column, values): 17 then 18s (class 1: a 17 turns every 18 after
+# it into 17), -16s (class 2 alternates -15 / -16 from its entry class),
+# -17s (class 2 throughout); each crosses tile edges at 16 t
+SNAP_TILE_RUNS = ((13, [17] + [18] * 40), (60, [-16] * 37),
+                  (270, [17] + [18] * 60), (333, [-16] * 50),
+                  (400, [-17] * 30), (150, [-17] * 20))
+
+
+def snap_tile_edge_planes(rng, b):
+    """Chain planes with, in every other row, the runs of SNAP_TILE_RUNS
+    (fixup chains through S1's lane tiles, both classes, in both halves
+    of the row), and two fully alive rows (301, 303: values of 7..25 and
+    -7..-25 of both classes) in each image."""
+    x = snap_chain_planes(rng, b)
+    for r in range(2, 510, 2):
+        for c0, vals in SNAP_TILE_RUNS:
+            x[:, r, c0: c0 + len(vals)] = vals
+    alive = np.array([7, 8, 9, 16, 17, 18, 24, 25, -7, -8, -9, -16, -17, -23,
+                      -24, -25], np.int16)
+    x[:, 301] = rng.choice(alive, (b, 512))
+    x[:, 303] = rng.choice(alive, (b, 512))
+    return x
+
+
+def snap_spill_left_planes(rng, b):
+    """Planes on which variant 3 (rows 256..510, columns 257..510) counts
+    its left neighbour in variant 2's spill column 256: column 255 holds
+    values that fix up column 256 (16, 24 over 9 and 20; -16, -24 over
+    -15 and -23), column 257 +-9 with +-9 above and below and 0 on its
+    right, so that below HIGH2 (yw 11) it snaps to +-7 unless column 256
+    counts; column 256 small (0, 3, -5) in every fourth row."""
+    x = snap_chain_planes(rng, b)
+    x[:, 256:511, 255] = rng.choice(np.array([16, -16, 24, -24], np.int16),
+                                    (b, 255))
+    x[:, 256:511, 256] = rng.choice(np.array([9, 20, -15, -23], np.int16),
+                                    (b, 255))
+    x[:, 256:511:4, 256] = rng.choice(np.array([0, 3, -5], np.int16), (b, 64))
+    x[:, 255:512, 257] = rng.choice(np.array([9, -9], np.int16), (b, 257))
+    x[:, 255:512, 258] = 0
+    return x
+
+
 def offset_y_edge_planes(rng, b):
     """Planes in [-400, 400] with: row 255 in quads [0, -5, -5, 0] over a
     plane row 256 of [8, -7, -7, 0] (row 254 zero), so row 255's vertical
@@ -2903,16 +2946,76 @@ def host_stream_fixups(s: np.ndarray) -> tuple:
     return out, np.array([a for a, _ in sels]), np.array([c for _, c in sels])
 
 
+def snap_edge_check(dev, rng, b: int) -> None:
+    """S1 against its twin at batch b on the edge planes: each variant of
+    q20 and q17's second alone, and the three variants of q20, q17 and q8
+    as one launch (the twin checked against the variants one after
+    another); the spill checked to move bytes, the tile-edge runs and the
+    spill-left planes to do what they claim."""
+    import torch
+
+    from nhwcodec_tpu_torch.models import device_encode_scans as des
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    for what, gen in SNAP_EDGE_KINDS.items():
+        xt = torch.from_numpy(gen(rng, b)).to(dev)
+        for a in des.snap_args(20) + des.snap_args(17)[1:2]:
+            compare_and_time(
+                "snap_pass", f"({b},512,512) {what} planes, rows "
+                f"[{a[0]}, {a[1]}) columns [{a[2]}, {a[3]}) yw {a[5]}/{a[6]}",
+                lambda: ds.snap_pass_device(xt, *a),
+                lambda: ds.snap_pass_ref(xt, *a), timed=False)
+            if what == "spill":
+                got = ds.snap_pass_device(xt, *a)
+                moved = (got[:, a[0]:a[1], a[3]]
+                         != xt[:, a[0]:a[1], a[3]]).sum()
+                check(int(moved) > 0, f"snap_pass: no spill into column "
+                      f"{a[3]} at batch {b}")
+        for q in (20, 17, 8):
+            variants = des.snap_args(q)
+            seq = xt
+            for a in variants:
+                seq = ds.snap_pass_ref(seq, *a)
+            check(torch.equal(ds.snap_passes_ref(xt, variants), seq),
+                  f"snap_passes_ref differs from its variants in turn on "
+                  f"the {what} planes at q{q}")
+            compare_and_time(
+                "snap_pass", f"({b},512,512) {what} planes, the three "
+                f"variants of q{q} in one launch",
+                lambda: ds.snap_passes_device(xt, variants),
+                lambda: ds.snap_passes_ref(xt, variants), timed=False)
+            got = ds.snap_passes_device(xt, variants)
+            if what == "tile edges":
+                check(bool((got[:, 2:255:2, 271:331] == 17).all()),
+                      "snap_pass: the class-1 run did not cross the tiles")
+            if what == "spill left":
+                big = xt[:, 256:511, 256].abs() >= 6
+                out = got[:, 256:511, 257].abs()
+                check(bool((out[big] == 9).all() and (out[~big] == 7).all()),
+                      "snap_pass: variant 3 did not count the spill column")
+
+
+# S1's edge planes: name -> generator
+SNAP_EDGE_KINDS = {"chain": snap_chain_planes, "spill": snap_spill_planes,
+                   "tile edges": snap_tile_edge_planes,
+                   "spill left": snap_spill_left_planes}
+# S1's device time before this design, three launches a batch on the q20
+# batch (ms, CUDA events around a graph; PERF.md's row S1, NVIDIA H100
+# 80GB HBM3 at 700 W)
+S1_WAS_GRAPH_MS = 0.5176
+
+
 def scan_kernel_phase(dev, captured: dict) -> dict:
     """S1-S3 against their twins (max_abs_err 0): timed on the q20
-    batch's real planes and stream (snap_pass as its three variants a
-    call, offset_y on the snapped plane, merge_crossing on the serpentine
-    stream); then at batch 1, 3 and 16 on the adversarial chain plane in
-    all three variants, spill planes (the spill checked to move bytes),
-    offset_y's edge planes (row 255's vertical fires checked to write row
-    256) and random planes, and edge streams (128-runs of 255 + 254 m +
-    d, crossings at the walk's end), whose merge + select + cap on the
-    card also equal the host copy's C scans."""
+    batch's real planes and stream (snap_pass as the one launch of its
+    three variants, also timed as three one-variant launches, the
+    parent's pattern; offset_y on the snapped plane, merge_crossing on
+    the serpentine stream); then at batch 1, 3 and 16 S1 on its edge
+    planes (``snap_edge_check``), offset_y's edge planes (row 255's
+    vertical fires checked to write row 256) and random planes, and edge
+    streams (128-runs of 255 + 254 m + d, crossings at the walk's end),
+    whose merge + select + cap on the card also equal the host copy's C
+    scans."""
     import torch
 
     from nhwcodec_tpu_torch.models import device_encode_scans as des
@@ -2925,15 +3028,20 @@ def scan_kernel_phase(dev, captured: dict) -> dict:
     region = sum((r1 - r0) * (c1 - c0)
                  for r0, r1, c0, c1, *_ in variants)
     out["snap_pass"] = compare_and_time(
-        "snap_pass", f"({B},512,512) int16, q20 planes, the 3 variants",
-        lambda: tuple(ds.snap_pass_device(y, *a) for a in variants),
-        lambda: tuple(ds.snap_pass_ref(y, *a) for a in variants),
+        "snap_pass", f"({B},512,512) int16, q20 planes, the 3 variants in "
+        "one launch", lambda: ds.snap_passes_device(y, variants),
+        lambda: ds.snap_passes_ref(y, variants),
         twin_calls=1, twin_runs=3,
-        bound=work(3 * 4 * B * 512 * 512, SNAP_OPS * B * region),
+        bound=work(2 * 2 * B * 512 * 512, SNAP_OPS * B * region),
         graph=True)
-    snapped = y
-    for a in variants:
-        snapped = ds.snap_pass_device(snapped, *a)
+    three = graph_ms(lambda: [ds.snap_pass_device(y, *a) for a in variants])
+    print(f"kernel snap_pass ({B},512,512) q20 planes: the one launch "
+          f"{out['snap_pass']['graph_ms']:.4f} ms, the three variants as "
+          f"three launches {three:.4f} ms (graph of {GRAPH_CALLS} calls, "
+          f"CUDA events); the design before, three launches: "
+          f"{S1_WAS_GRAPH_MS} ms (PERF.md)", flush=True)
+    out["snap_pass"]["three_launches_graph_ms"] = three
+    snapped = ds.snap_passes_device(y, variants)
     out["offset_y"] = compare_and_time(
         "offset_y", f"({B},512,512) int16, q20 snapped planes",
         lambda: ds.offset_y_device(snapped, 8),
@@ -2951,22 +3059,7 @@ def scan_kernel_phase(dev, captured: dict) -> dict:
         bound=work(2 * stream.numel(), MERGE_OPS * B * 4 * SZ), graph=True)
     rng = np.random.default_rng(SEED + 30)
     for b in (1, 3, B):
-        for what, x in (("chain", snap_chain_planes(rng, b)),
-                        ("spill", snap_spill_planes(rng, b))):
-            xt = torch.from_numpy(x).to(dev)
-            for a in variants + des.snap_args(17)[1:2]:
-                compare_and_time(
-                    "snap_pass", f"({b},512,512) {what} planes, rows "
-                    f"[{a[0]}, {a[1]}) columns [{a[2]}, {a[3]}) "
-                    f"yw {a[5]}/{a[6]}",
-                    lambda: ds.snap_pass_device(xt, *a),
-                    lambda: ds.snap_pass_ref(xt, *a), timed=False)
-                if what == "spill":
-                    got = ds.snap_pass_device(xt, *a)
-                    moved = (got[:, a[0]:a[1], a[3]]
-                             != xt[:, a[0]:a[1], a[3]]).sum()
-                    check(int(moved) > 0, f"snap_pass: no spill into column "
-                          f"{a[3]} at batch {b}")
+        snap_edge_check(dev, rng, b)
         for what, x in (("edge", offset_y_edge_planes(rng, b)),
                         ("random [-400, 400]", rng.integers(
                             -400, 401, (b, 512, 512)).astype(np.int16))):
@@ -3019,6 +3112,34 @@ RESIDUE_QS = {20: B, 21: 4, 19: 4, 18: 4, 17: 4}
 PP_OPS = 25
 LADDER_OPS = 70
 CLASSIFY_OPS = 40
+# S5's device time before this design, one CTA an image, on the q20 batch
+# (ms, CUDA events around a graph; PERF.md's row S5, NVIDIA H100 80GB HBM3
+# at 700 W)
+S5_WAS_GRAPH_MS = 0.2898
+
+
+# columns whose cross-column pair check reads the next column's inputs at
+# S5's 32-column block edges (31 reads 32, 63 reads 64), at a block's first
+# columns (32, 64), and column 254 reading column 255, at row r + k (image
+# k)
+LADDER_EDGE_COLS = {31: 20, 32: 40, 63: 60, 64: 80, 254: 100}
+
+
+def ladder_block_edge_inputs(b):
+    """(plane, rf_ext) on which column j of LADDER_EDGE_COLS fires the
+    cross-column pair check at row r (deltas 2, 2, 0 at rows r..r + 2,
+    rf 0) on column j + 1's input deltas 2, 2, 1 there, while column
+    j + 1's own walk (deltas 2, 2, 2 from row r - 1: 12400 at r - 1)
+    lowers its rows r and r + 1 by 2: read as results, the check would
+    not fire.  Everything else is 0."""
+    p = np.zeros((b, 512, 512), np.int16)
+    for k in range(b):
+        for j, r in LADDER_EDGE_COLS.items():
+            r += k
+            p[k, r: r + 3, j] = (2, 2, 0)
+            p[k, r - 1: r + 3, j + 1] = (2, 2, 2, 1)
+    z = np.zeros((b, 256, 256), np.int16)
+    return p, rf_ext_np(z, np.zeros((b, 4), np.int16), z)
 
 
 def rf_ext_np(res256, khead, resIII) -> np.ndarray:
@@ -3280,9 +3401,9 @@ def residue_kernel_phase(dev, captured: dict) -> dict:
     column_ladder on pair promotion's output, classify on the ladder's);
     then at batch 1, 3 and 16 (``compare_batches``) on the adversarial
     pair-promotion plane, delta planes at q17, q18, q20 and q21 (ladder,
-    then classify), and the column-255 edge planes, whose marks on the
-    card also equal the host copy's C; and the positional streams (torch ops) on the card against
-    the host copy's C on the edge rfs (no codes, a code at every
+    then classify), and the column-255 and block-edge planes, whose marks
+    on the card also equal the host copy's C; and the positional streams
+    (torch ops) on the card against the host copy's C on the edge rfs (no codes, a code at every
     position, isolated markers) at every stream."""
     import torch
 
@@ -3310,6 +3431,11 @@ def residue_kernel_phase(dev, captured: dict) -> dict:
         lambda: ds.column_ladder_ref(pp, rf_ext, 20, rs), twin_calls=1,
         twin_runs=3, twin_warm=1, bound=work(B * (2 * plane_bytes + 2 * (2 * SZ + 1024)),
                                 LADDER_OPS * B * 256 * 255), graph=True)
+    print(f"kernel column_ladder ({B},512,512) q20: "
+          f"{out['column_ladder']['graph_ms']:.4f} ms (graph of "
+          f"{GRAPH_CALLS} calls, CUDA events; its two launches, the step's "
+          f"table and the walk); the design before: {S5_WAS_GRAPH_MS} ms "
+          "(PERF.md)", flush=True)
     lp, lrf = ds.column_ladder_device(pp, rf_ext, 20, rs)
     lrf = lrf.reshape(-1, 256, 256)
     out["classify"] = compare_and_time(
@@ -3337,26 +3463,30 @@ def residue_kernel_phase(dev, captured: dict) -> dict:
             lambda a, b, q=q, rs=rs: ds.classify_device(a, b, q, rs),
             lambda a, b, q=q, rs=rs: ds.classify_ref(a, b, q, rs),
             (lp, lrf.reshape(B, 256, 256)))
-    p_np, rfe_np = col255_edge_inputs(B)
-    p, rfe = torch.from_numpy(p_np).to(dev), torch.from_numpy(rfe_np).to(dev)
     rs = host_encoder._res_setting(20)
-    compare_batches("column_ladder", "column-255 edge planes",
-                    lambda a, b: ds.column_ladder_device(a, b, 20, rs),
-                    lambda a, b: ds.column_ladder_ref(a, b, 20, rs),
-                    (p, rfe))
-    gp, grf = (t.cpu().numpy() for t in ds.column_ladder_device(p, rfe, 20,
-                                                                rs))
-    for k in range(B):
-        hp, hrf = p_np[k].copy(), rfe_np[k, :SZ].reshape(256, 256).copy()
-        residue.res256_column_ladder(hp, hrf, 20, rs,
-                                     np.zeros((256, 256), np.int16),
-                                     kernel_head=np.zeros(4, np.int16))
-        check(np.array_equal(gp[k], hp) and np.array_equal(
-            grf[k].reshape(256, 256), hrf),
-            f"column_ladder: edge image {k} differs from the host C")
+    for what, gen in (("column-255 edge", col255_edge_inputs),
+                      ("block edge", ladder_block_edge_inputs)):
+        p_np, rfe_np = gen(B)
+        p, rfe = (torch.from_numpy(p_np).to(dev),
+                  torch.from_numpy(rfe_np).to(dev))
+        compare_batches("column_ladder", f"{what} planes",
+                        lambda a, b: ds.column_ladder_device(a, b, 20, rs),
+                        lambda a, b: ds.column_ladder_ref(a, b, 20, rs),
+                        (p, rfe))
+        gp, grf = (t.cpu().numpy()
+                   for t in ds.column_ladder_device(p, rfe, 20, rs))
+        for k in range(B):
+            hp, hrf = p_np[k].copy(), rfe_np[k, :SZ].reshape(256, 256).copy()
+            residue.res256_column_ladder(hp, hrf, 20, rs,
+                                         np.zeros((256, 256), np.int16),
+                                         kernel_head=np.zeros(4, np.int16))
+            check(np.array_equal(gp[k], hp) and np.array_equal(
+                grf[k].reshape(256, 256), hrf),
+                f"column_ladder: {what} image {k} differs from the host C")
     print("encode scans: S4-S6 equal their twins at batch 1, 3 and 16 on "
-          "adversarial, delta (q17/18/20/21) and column-255 edge inputs, "
-          "the edge planes' ladder also the host copy's C", flush=True)
+          "adversarial, delta (q17/18/20/21), column-255 and block-edge "
+          "inputs, the edge planes' ladder also the host copy's C",
+          flush=True)
     for name, rf in stream_edge_rfs(rng, 3).items():
         want_rf, want = host_positional_streams(rf, 21)
         got = torch.from_numpy(rf).to(dev)
@@ -5110,7 +5240,7 @@ def main() -> int:
           flush=True)
     print_ptxas(("y_stage2_cluster", "waves_band", "chain_tiles",
                  "chain_entries", "chain_emit", "y_runs_fixpoint",
-                 "snap_pass", "offset_y_rows", "offset_y_ll",
+                 "snap_pass", "ladder_table", "offset_y_rows", "offset_y_ll",
                  "offset_y_codes", "merge_tiles", "merge_entries",
                  "merge_emit", "pair_promotion", "column_ladder",
                  "classify", "ll2_code_y", "walk_visited", "uv_sentinel",

@@ -9,14 +9,15 @@
 //    _pair_promotion on a (B, 512, 512) int16 plane.  One launch.
 // S5 nhw_column_ladder replaces nhwcodec_tpu/models/device_scans.py:952
 //    column_ladder_device (a 255-step lax.scan with the columns as lanes,
-//    then column 255's scan twice): res256_column_ladder.  One launch.
+//    then column 255's scan twice): res256_column_ladder.  Two launches: the
+//    step's table, then 8 CTAs an image.
 // S6 nhw_classify replaces nhwcodec_tpu/models/device_scans.py:1105
 //    classify_device (a 256-step lax.scan over rows): res256_classify and
 //    its counts n1, n3, n5.  One launch.
 //
 // The bound of each is bytes: a plane (and res256) read once and written
 // once, some tens of operations a position.  Each is a chain of dependent
-// steps, and the designs below are the simple exact ones, not yet tuned:
+// steps:
 // - S4: the C's chain never leaves a row (its 7/-7 promotions and the lower
 //   block's vertical cases are dead: 4 < v < 8 and -8 < v < -4 take v = 7,
 //   -6 and -7 first), and the two regions, rows 1..254 x columns 257..510
@@ -25,20 +26,30 @@
 //   registers and reads the right neighbour from the input; a value is
 //   final, and stored, once the walk is one column past it (a visit
 //   writes a - 1, a and a + 1: columns 256 and 0 take the first a - 1).
-// - S5: one CTA an image, a thread a column.  Column j's walk over rows
-//   0..254 carries (pf[scan], pf[scan + N], pf[scan - N], rf[cnt - D],
-//   rf[cnt], the band value it wrote last) and reads the rest from the
-//   input: rows r + 2, column j + 1 (which the C visits later) and its band
-//   row j.  Its outputs go to a separate plane.  Column 255's flat j + 1
-//   reads land on band column 256 (row r's value there is column r's
-//   step-0 band write), on rf column 0 of rows r + 1..r + 3 and on the
-//   tail, so it walks after a block barrier: the CTA stages its inputs and
-//   those results in shared memory, and one thread walks it in place, its
-//   own step-0 band value (read back at steps 253-254) stored as it goes.
+// - S5: columns 0..254 walk independently (their j + 1 reads are input
+//   values: the C walks column j + 1 after column j), so 8 CTAs an image
+//   each take a block of 32 columns (the last 31), a lane a column, one
+//   warp walking rows 0..254 from shared memory: the CTA stages with
+//   cp.async pf rows 0..256 and rf rows 0..257 of its columns and the
+//   next (the j + 1 reads) and its 32 band rows (columns 256..511, where
+//   column j writes its row j), and the walks read and write them in
+//   place, __syncwarp() a step keeping the lanes one step apart.  Column
+//   255's flat j + 1 reads land on band column 256 (row k: column k's
+//   step-0 band value) and on rf column 0 of the next rows, so CTA 0
+//   walks it on a second warp 4 steps behind column 0: that warp first
+//   computes every column's step 0 from the input, then follows column
+//   0's published row count in shared memory.  The other warps copy what
+//   the ladder leaves meanwhile; each CTA then writes its columns' rows,
+//   rf rows and band rows whole.  A step is a walk's whole latency, so
+//   its if/else chain (14 branches on res, a, b2 and 4 bits) is a table
+//   of its effects by classes of res, a and b2 (ladder_table, a first
+//   launch; 96 KB, staged with the rest): a lookup, no branches to split
+//   the warp.  Two launches.
 // - S6: one CTA an image, a thread a column: the pf[scan] and rf[cnt] reads
 //   are inputs, and column j's only chain is its band row's st - 1 read of
 //   the value its previous row wrote.  The counts are summed in the CTA.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -128,170 +139,244 @@ struct LadderFlags {
   int low1, low2, hi1, res_setting;
 };
 
-__device__ __forceinline__ int band_w1(int v, int bp) {
-  if (v == 7) return (bp >= 0 && bp < 8) ? v + 2 : v;
-  if (v == 8) return (bp >= -2 && bp < 8) ? v + 2 : v;
-  return v;
+// A step's effect, packed: bits 0-4 the mark (0 kept, m: 12000 + 100 m),
+// 5-7 v1's delta + 2, 8 v1 := rf1 (as the step leaves it), 9-10 v2's
+// delta / 2 + 1, 11-12 rf1 (0 kept, 1 14100, 2 14000), 13-15 the band
+// op (0 none, 1 w1, 2 w2, 3 w3, 4 lw4, 5 lw6).
+__device__ constexpr int ladder_pack(int mk, int d1, int set1,
+                                                int d2, int rf, int op) {
+  return mk | ((d1 + 2) << 5) | (set1 << 8) | ((d2 / 2 + 1) << 9) |
+         (rf << 11) | (op << 13);
+}
+constexpr int kLNone = ladder_pack(0, 0, 0, 0, 0, 0);
+constexpr int kL12400 = ladder_pack(4, -2, 0, -2, 0, 0);
+constexpr int kL12300 = ladder_pack(3, 2, 0, 2, 0, 0);
+
+// The first of two branches of an if/else chain: (fired, effect).
+struct LadderPick {
+  int c;   // 0 or 1
+  int e;
+};
+__device__ __forceinline__ LadderPick ladder_first(LadderPick a,
+                                                   LadderPick b) {
+  return {a.c | b.c, a.c ? a.e : b.e};
 }
 
-__device__ __forceinline__ int band_w2(int v, int bp) {
-  if (v < -14) return ((((-v) & 7) == 0) || (((-v) & 7) == 7)) ? v + 1 : v;
-  if (v == 7 || (v & 65534) == 8) return bp >= -2 ? v + 3 : v;
-  return v;
+// The conditions of the chain besides res, a and b2, as bits: 0 the row
+// above's delta up >= 0, 1 up <= 0 (both 0 at row 0), 2 the cross-column
+// pair check (the j + 1 deltas x0, x1 in {2, 3}, x2 > 0), 3 its negative
+// (x0, x1 in {-2, -3}, x2 < 0).
+__device__ __forceinline__ int ladder_sp(bool has_up, int up, int x0, int x1,
+                                         int x2) {
+  const bool pair = ((x0 == 2) | (x0 == 3)) & ((x1 == 2) | (x1 == 3)) &
+                    (x2 > 0);
+  const bool npair = ((x0 == -2) | (x0 == -3)) & ((x1 == -2) | (x1 == -3)) &
+                     (x2 < 0);
+  return int(has_up & (up >= 0)) | (int(has_up & (up <= 0)) << 1) |
+         (int(pair) << 2) | (int(npair) << 3);
 }
 
-__device__ __forceinline__ int band_w3(int v, int bp) {
-  if (v < -14) return ((((-v) & 7) == 0) || (((-v) & 7) == 7)) ? v + 1 : v;
-  if (v >= 0 && ((v + 2) & 65532) == 8) return bp >= -2 ? 10 : v;
-  if (v > 14 && (v & 7) == 7) return v + 1;
-  return v;
-}
-
-// One step of a column's ladder at row r, the C's chain with pf/rf reads
-// as values: v0 = pf[scan], v1 = pf[scan + N] (both as the walk left
-// them), v2 = pf[scan + 2N]; mark = rf[cnt] (as the walk left it), rf1 =
-// rf[cnt + D], rf2 = rf[cnt + 2D]; up = pf[scan - N] - rf[cnt - D] (r > 0);
-// x0..x2 = pf[scan + 1 + kN k] - rf[cnt + 1 + kD k]; bnd = pf[st], bp =
-// pf[st - 1].  v1, v2, mark, rf1 and bnd are updated in place.
-__device__ __forceinline__ void ladder_step(int v0, int& v1, int& v2,
-                                            int& mark, int& rf1, int rf2,
-                                            bool has_up, int up, int x0,
-                                            int x1, int x2, int& bnd, int bp,
-                                            const LadderFlags f) {
-  const int res = v0 - mark;
-  const int a = v1 - rf1;
-  const int b2 = v2 - rf2;
-  auto m12400 = [&] { mark = 12400; v1 -= 2; v2 -= 2; };
-  auto m12300 = [&] { mark = 12300; v1 += 2; v2 += 2; };
-  auto lw3 = [&] {
-    if (f.hi1) mark = 14500;
-    else bnd = band_w3(bnd, bp);
-  };
-  auto lw5 = [&] {
-    mark = 14000;
-    if (res == -4) {
-      if ((bnd == -7 || bnd == -8) && bp > -8 && bp < 2) bnd = -9;
-    } else if (res < -6) {
-      if (res < -7 && f.hi1) {
-        mark = 14900;
-      } else if (bnd < -14) {
-        if ((((-bnd) & 7) == 0) || (((-bnd) & 7) == 7)) bnd += 1;
-      } else if ((bnd == 7 || bnd == 8) && bp >= -1 && bp < 8) {
-        bnd += 3;
-      }
-    }
-  };
-  if (res == 2 && a == 2 && b2 >= 2) {
-    if (b2 < 5 || b2 > 6) m12400();
-  } else if (((res == 2 && a == 3) || (res == 3 && a == 2)) && b2 > 1 &&
-             b2 < 6) {
-    m12400();
-  } else if (res == 3 && a == 3) {
-    if (b2 > 0 && b2 < 6) {
-      m12400();
-    } else if (f.low1) {
-      mark = 12100;
-      v1 = rf1;
-    }
-  } else if (a == -4 && (res == 2 || res == 3) && (b2 == 2 || b2 == 3)) {
-    if (res == 2 && b2 == 2) v1 += 1;
-    else m12400();
-  } else if (res == 1 && a == 3 && b2 == 2) {
-    if (has_up && up >= 0) m12400();
-  } else if ((res == 3 || res == 4 || res == 5 || res > 6) &&
-             (a == 3 || (a & 65534) == 4)) {
-    if (res > 6) {
-      mark = 12500;
-      v1 = rf1;
-    } else if (f.low1) {
-      mark = 12100;
-      v1 = rf1;
-    } else if (f.low2) {
-      if (res < 5 && a == 5) rf1 = 14100;
-      else if (res >= 5) mark = 14100;
-      else if (res == 3 && a >= 4) rf1 = 14100;
-      v1 = rf1;
-    }
-  } else if ((res == 2 || res == 3) && (a == 2 || a == 3)) {
-    if ((b2 == 0 || b2 == 1) && (x0 == 2 || x0 == 3) &&
-        (x1 == 2 || x1 == 3) && x2 > 0)
-      m12400();
-  } else if (a == 4 && (res == -2 || res == -3) && (-b2 == 2 || -b2 == 3)) {
-    if (res == -2 && b2 == -2) v1 -= 1;
-    else m12300();
-  } else if ((res == -3 || res == -4 || res == -5 || res < -7) &&
-             (a == -3 || a == -4 || a == -5)) {
-    if (res < -7) {
-      mark = 12600;
-      v1 = rf1;
-    } else if (f.low1) {
-      mark = 12200;
-      v1 = rf1;
-    } else if (f.low2) {
-      if (res > -5 && a == -5) rf1 = 14000;
-      else if (res <= -5) mark = 14000;
-      else if (res == -3 && a <= -4) rf1 = 14000;
-      v1 = rf1;
-    }
-  } else if (a == -2 || a == -3) {
-    if (res == -2 || res == -3) {
-      if (-b2 > 0) {
-        m12300();
-      } else if (res == -3 && f.hi1) {
-        mark = 14500;
-      } else if (-b2 == 0) {
-        if ((x0 == -2 || x0 == -3) && (x1 == -2 || x1 == -3) && x2 < 0)
-          m12300();
-      } else if (res == -2) {
-        bnd = band_w2(bnd, bp);
-      } else {
-        lw3();
-      }
-    } else if (res == -1 && a == -3 && b2 == -2) {
-      if (has_up && up <= 0) m12300();
-    } else if (res == -1) {
-      if (-b2 == 3) m12300();
-      else bnd = band_w1(bnd, bp);
-    } else if (res == -4) {
-      if (-b2 > 1 && -b2 < 4) m12300();
-      else lw5();
-    }
-  } else if (res == 0 || res == -1) {
-    bnd = band_w1(bnd, bp);
-  } else if (res == -2) {
-    bnd = band_w2(bnd, bp);
-  } else if (res == -3) {
-    lw3();
-  } else if (res < -f.res_setting) {
-    lw5();
+// The effect of one step of a column's ladder (encoder/nhw_encoder.c:
+// 1084-1326, the host copy's nhw_column_ladder) from res = pf[scan] -
+// rf[cnt], a = pf[scan + N] - rf[cnt + D], b2 = pf[scan + 2N] - rf[cnt +
+// 2D] and the bits of ladder_sp.  The C's if/else chain (14 branches,
+// nested) without branches: each branch's condition and effect side by
+// side, the first that fires picked by a tree of selects (`&`, `|` on
+// bools: `&&`, `||` would branch).
+__device__ __forceinline__ int ladder_effect(int res, int a, int b2, int sp,
+                                             const LadderFlags f) {
+  const bool r2 = res == 2, r3 = res == 3, rm2 = res == -2, rm3 = res == -3;
+  const bool a2 = a == 2, a3 = a == 3, am3 = a == -3;
+  const bool b23 = (b2 == 2) | (b2 == 3), bm23 = (b2 == -2) | (b2 == -3);
+  const bool r23 = r2 | r3, rm23 = rm2 | rm3, a23 = a2 | a3;
+  const bool low1 = f.low1, low2 = f.low2, hi1 = f.hi1;
+  const int set1 = ladder_pack(0, 0, 1, 0, 0, 0);
+  LadderPick p[14];
+  p[0] = {r2 & a2 & (b2 >= 2), ((b2 < 5) | (b2 > 6)) ? kL12400 : kLNone};
+  p[1] = {((r2 & a3) | (r3 & a2)) & (b2 > 1) & (b2 < 6), kL12400};
+  p[2] = {r3 & a3, ((b2 > 0) & (b2 < 6))
+                       ? kL12400
+                       : (low1 ? ladder_pack(1, 0, 1, 0, 0, 0) : kLNone)};
+  p[3] = {(a == -4) & r23 & b23,
+          (r2 & (b2 == 2)) ? ladder_pack(0, 1, 0, 0, 0, 0) : kL12400};
+  p[4] = {(res == 1) & a3 & (b2 == 2),
+          (sp & 1) ? kL12400 : kLNone};
+  {
+    const int l2 = ((res < 5) & (a == 5)) ? ladder_pack(0, 0, 1, 0, 1, 0)
+                   : (res >= 5)           ? ladder_pack(21, 0, 1, 0, 0, 0)
+                   : (r3 & (a >= 4))      ? ladder_pack(0, 0, 1, 0, 1, 0)
+                                          : set1;
+    p[5] = {(r3 | (res == 4) | (res == 5) | (res > 6)) &
+                (a3 | ((a & 65534) == 4)),
+            (res > 6) ? ladder_pack(5, 0, 1, 0, 0, 0)
+            : low1    ? ladder_pack(1, 0, 1, 0, 0, 0)
+            : low2    ? l2
+                      : kLNone};
   }
+  p[6] = {r23 & a23,
+          (((b2 == 0) | (b2 == 1)) & ((sp >> 2) & 1)) ? kL12400 : kLNone};
+  p[7] = {(a == 4) & rm23 & bm23,
+          (rm2 & (b2 == -2)) ? ladder_pack(0, -1, 0, 0, 0, 0) : kL12300};
+  {
+    const int l2 = ((res > -5) & (a == -5)) ? ladder_pack(0, 0, 1, 0, 2, 0)
+                   : (res <= -5)            ? ladder_pack(20, 0, 1, 0, 0, 0)
+                   : (rm3 & (a <= -4))      ? ladder_pack(0, 0, 1, 0, 2, 0)
+                                            : set1;
+    p[8] = {(rm3 | (res == -4) | (res == -5) | (res < -7)) &
+                (am3 | (a == -4) | (a == -5)),
+            (res < -7) ? ladder_pack(6, 0, 1, 0, 0, 0)
+            : low1     ? ladder_pack(2, 0, 1, 0, 0, 0)
+            : low2     ? l2
+                       : kLNone};
+  }
+  {
+    const bool npair = (sp >> 3) & 1;
+    const int e23 = (b2 < 0)            ? kL12300
+                    : (rm3 & hi1)       ? ladder_pack(25, 0, 0, 0, 0, 0)
+                    : (b2 == 0)         ? (npair ? kL12300 : kLNone)
+                    : rm2               ? ladder_pack(0, 0, 0, 0, 0, 2)
+                                        : ladder_pack(0, 0, 0, 0, 0, 3);
+    const int e1 = (am3 & (b2 == -2))
+                       ? (((sp >> 1) & 1) ? kL12300 : kLNone)
+                   : (b2 == -3) ? kL12300
+                                : ladder_pack(0, 0, 0, 0, 0, 1);
+    const int e4 = bm23 ? kL12300 : ladder_pack(20, 0, 0, 0, 0, 4);
+    p[9] = {am3 | (a == -2), rm23             ? e23
+                             : (res == -1)    ? e1
+                             : (res == -4)    ? e4
+                                              : kLNone};
+  }
+  p[10] = {(res == 0) | (res == -1), ladder_pack(0, 0, 0, 0, 0, 1)};
+  p[11] = {rm2, ladder_pack(0, 0, 0, 0, 0, 2)};
+  p[12] = {rm3, hi1 ? ladder_pack(25, 0, 0, 0, 0, 0)
+                    : ladder_pack(0, 0, 0, 0, 0, 3)};
+  p[13] = {res < -f.res_setting,
+           (res == -4)                 ? ladder_pack(20, 0, 0, 0, 0, 4)
+           : ((res < -7) & hi1)        ? ladder_pack(29, 0, 0, 0, 0, 0)
+           : (res < -6)                ? ladder_pack(20, 0, 0, 0, 0, 5)
+                                       : ladder_pack(20, 0, 0, 0, 0, 0)};
+  const LadderPick q0 = ladder_first(p[0], p[1]),
+                   q1 = ladder_first(p[2], p[3]),
+                   q2 = ladder_first(p[4], p[5]),
+                   q3 = ladder_first(p[6], p[7]),
+                   q4 = ladder_first(p[8], p[9]),
+                   q5 = ladder_first(p[10], p[11]),
+                   q6 = ladder_first(p[12], p[13]);
+  const LadderPick s0 = ladder_first(q0, q1), s1 = ladder_first(q2, q3),
+                   s2 = ladder_first(q4, q5);
+  const LadderPick t = ladder_first(ladder_first(s0, s1),
+                                    ladder_first(s2, q6));
+  return t.c ? t.e : kLNone;
 }
 
-// Column j's walk over rows 0..254.  Src gives the reads that are not
-// carried: v2(r) = pf row r + 2, rf(k) = rf[k * 256 + j] for rows k <= 257
-// (the tail past row 255), band(r) = pf (j, 256 + r), x(k) = the j + 1 read
-// pf[k * 512 + j + 1] - rf[k * 256 + j + 1] of row k, and is told of each
-// band value written (wrote_band).  The results go to o (plane) and ro (rf).
+// The chain reads res, a and b2 only through these classes: res clamped
+// to [-9, 7] (res < -res_setting the same below -9 while res_setting <=
+// 8), a to [-6, 6] and, apart, the a with (a & 65534) == 4 below 4 (as
+// -65532) and above 5 (as 65540), b2 to [-4, 7].  A step's effect is a
+// table of the classes and the 4 bits of ladder_sp, built once a call
+// (ladder_table).
+constexpr int kLResLo = -9;
+constexpr int kLResN = 7 - kLResLo + 1;
+constexpr int kLAN = 15;
+constexpr int kLBN = 12;
+constexpr int kLTab = kLResN * kLAN * kLBN * 16;   // 48,960 effects
+
+__device__ __forceinline__ int ladder_index(int res, int a, int b2, int sp) {
+  const int rc = min(max(res, kLResLo), 7) - kLResLo;
+  const bool odd4 = ((a & 65534) == 4) & ((a < 4) | (a > 5));
+  const int ac = odd4 ? (a < 0 ? 13 : 14) : min(max(a, -6), 6) + 6;
+  const int bc = min(max(b2, -4), 7) + 4;
+  return ((rc * kLAN + ac) * kLBN + bc) * 16 + sp;
+}
+
+// The effect of every class and bits: tab (kLTab) uint16.
+__global__ void __launch_bounds__(256)
+    ladder_table(LadderFlags f, uint16_t* __restrict__ tab) {
+  const int i = blockIdx.x * 256 + threadIdx.x;
+  if (i >= kLTab) return;
+  const int cell = i >> 4;
+  const int ac = cell / kLBN % kLAN;
+  tab[i] = static_cast<uint16_t>(
+      ladder_effect(cell / (kLAN * kLBN) + kLResLo,
+                    ac == 13 ? -65532 : (ac == 14 ? 65540 : ac - 6),
+                    cell % kLBN - 4, i & 15, f));
+}
+
+// One step of a column's ladder at row r with pf/rf reads as values: v0 =
+// pf[scan], v1 = pf[scan + N] (both as the walk left them), v2 = pf[scan
+// + 2N]; mark = rf[cnt] (as the walk left it), rf1 = rf[cnt + D], rf2 =
+// rf[cnt + 2D]; up = pf[scan - N] - rf[cnt - D] (r > 0); x0..x2 = pf[scan
+// + 1 + kN k] - rf[cnt + 1 + kD k]; bnd = pf[st], bp = pf[st - 1].  v1,
+// v2, mark, rf1 and bnd are updated in place; the effect comes from the
+// table.
+__device__ __forceinline__ void ladder_step(const uint16_t* tab, int v0,
+                                            int& v1, int& v2, int& mark,
+                                            int& rf1, int rf2, bool has_up,
+                                            int up, int x0, int x1, int x2,
+                                            int& bnd, int bp) {
+  const int e = tab[ladder_index(v0 - mark, v1 - rf1, v2 - rf2,
+                                 ladder_sp(has_up, up, x0, x1, x2))];
+  // the band values of the ops
+  const int nb = -bnd;
+  const bool neg_ok = (bnd < -14) & (((nb & 7) == 0) | ((nb & 7) == 7));
+  const int neg = neg_ok ? bnd + 1 : bnd;
+  const int w1 = (((bnd == 7) & (bp >= 0) & (bp < 8)) |
+                  ((bnd == 8) & (bp >= -2) & (bp < 8)))
+                     ? bnd + 2
+                     : bnd;
+  const int w2 = (bnd < -14) ? neg
+                 : (((bnd == 7) | ((bnd & 65534) == 8)) & (bp >= -2))
+                     ? bnd + 3
+                     : bnd;
+  const int w3 = (bnd < -14) ? neg
+                 : ((bnd >= 0) & (((bnd + 2) & 65532) == 8))
+                     ? ((bp >= -2) ? 10 : bnd)
+                 : ((bnd > 14) & ((bnd & 7) == 7)) ? bnd + 1
+                                                   : bnd;
+  const int lw4 =
+      (((bnd == -7) | (bnd == -8)) & (bp > -8) & (bp < 2)) ? -9 : bnd;
+  const int lw6 = (bnd < -14) ? neg
+                  : (((bnd == 7) | (bnd == 8)) & (bp >= -1) & (bp < 8))
+                      ? bnd + 3
+                      : bnd;
+  const int mc = e & 31, op = (e >> 13) & 7, rc = (e >> 11) & 3;
+  rf1 = rc == 0 ? rf1 : (rc == 1 ? 14100 : 14000);
+  v1 = ((e >> 8) & 1) ? rf1 : v1 + ((e >> 5) & 7) - 2;
+  v2 += 2 * ((e >> 9) & 3) - 2;
+  mark = mc ? 12000 + 100 * mc : mark;
+  bnd = op == 0   ? bnd
+        : op == 1 ? w1
+        : op == 2 ? w2
+        : op == 3 ? w3
+        : op == 4 ? lw4
+                  : lw6;
+}
+
+// A column's walk over rows 0..254.  Src gives the reads that are not
+// carried: v2(r) = pf row r + 2, rf(k) = rf row k (k <= 257), band(r) = the
+// band value (j, 256 + r), bp0() = pf (j, 255), x(k) = the j + 1 read of
+// row k, pf (k, j + 1) - rf[k * 256 + j + 1]; it takes each step's
+// results (put), is told before step r reads row r + 2 (ready) and after
+// it (done), and takes rows 255 and 256 at the end (finish).
 template <class Src>
-__device__ void ladder_walk(int j, const int16_t* p, Src& src, int16_t* o,
-                            int16_t* ro, const LadderFlags f) {
-  int v0 = p[j], v1 = p[kN + j];
+__device__ __forceinline__ void ladder_walk(Src& src, const uint16_t* tab) {
+  int v0 = src.pf(0), v1 = src.pf(1);
   int rfc = src.rf(0), rf1 = src.rf(1);
-  int bp = p[j * kN + kD - 1];
+  int bp = src.bp0();
   int vprev = 0, markm1 = 0;
+  src.ready(-1);
   int x0 = src.x(0), x1 = src.x(1);
   for (int r = 0; r < kD - 1; ++r) {
-    int v2 = src.v2(r);
+    src.ready(r);
+    int v2 = src.pf(r + 2);
     const int rf2 = src.rf(r + 2);
     const int x2 = src.x(r + 2);
     int bnd = src.band(r);
     int mark = rfc, nv1 = v1, nrf1 = rf1;
-    ladder_step(v0, nv1, v2, mark, nrf1, rf2, r > 0, vprev - markm1, x0, x1,
-                x2, bnd, bp, f);
-    o[r * kN + j] = static_cast<int16_t>(v0);
-    ro[r * kD + j] = static_cast<int16_t>(mark);
-    o[j * kN + kD + r] = static_cast<int16_t>(bnd);
-    src.wrote_band(r, bnd);
+    ladder_step(tab, v0, nv1, v2, mark, nrf1, rf2, r > 0, vprev - markm1, x0,
+                x1, x2, bnd, bp);
+    src.put(r, v0, mark, bnd);
+    src.done(r);
     vprev = v0;
     markm1 = mark;
     v0 = nv1;
@@ -302,87 +387,269 @@ __device__ void ladder_walk(int j, const int16_t* p, Src& src, int16_t* o,
     x0 = x1;
     x1 = x2;
   }
-  o[(kD - 1) * kN + j] = static_cast<int16_t>(v0);
-  o[kD * kN + j] = static_cast<int16_t>(v1);
-  ro[(kD - 1) * kD + j] = static_cast<int16_t>(rfc);
+  src.finish(v0, v1, rfc);
 }
 
-// Columns 0..254: every read an input value.
-struct InputSrc {
+// S5's shared memory, int16 unless noted.  A CTA stages pf rows 0..256 and
+// rf rows 0..257 of kLCols columns from its block's first (its columns and
+// the j + 1 reads of its last; 16-byte rows) and its band rows, columns
+// kLBand0..511 (pitch kLBandPitch: 133 words, odd, so a warp's lanes, a
+// row each, read one column on 32 banks).  CTA 0 also holds column 255's
+// inputs and every column's step-0 band value.
+constexpr int kLBlock = 32;                    // columns a CTA walks
+constexpr int kLCtas = kD / kLBlock;           // CTAs an image
+constexpr int kLThreads = 128;
+constexpr int kLCols = 40;
+constexpr int kLPfRows = kD + 1;
+constexpr int kLRfRows = kD + 2;
+constexpr int kLBand0 = kD - 8;
+constexpr int kLBandPitch = kN - kLBand0 + 2;
+constexpr int kLPf = 0;
+constexpr int kLRf = kLPf + kLPfRows * kLCols;
+constexpr int kLBand = kLRf + kLRfRows * kLCols;
+constexpr int kL255Pf = kLBand + kLBlock * kLBandPitch;   // pf (k, 255)
+constexpr int kL255Rf = kL255Pf + kLRfRows;               // rf (k, 255)
+constexpr int kL255Band = kL255Rf + kLRfRows;             // row 255
+constexpr int kLStep0 = kL255Band + kLBandPitch;          // (k, 256)
+constexpr int kLProgress = kLStep0 + kLRfRows;            // int
+constexpr int kLSmem = 2 * (kLTab + kLProgress) + 16;    // bytes, the
+                                                          // table first
+static_assert(kLRf % 8 == 0 && kLBand % 2 == 0 && kLProgress % 2 == 0,
+              "S5 staging alignment");
+
+// Column j = j0 + lane of a block, from the CTA's staged copy, in place.
+// The warp keeps its lanes one step apart at most (done), so a lane's j + 1
+// reads of row r + 2 come before its neighbour writes that row.  CTA 0's
+// lane 0 (column 0) publishes after each step how many rf rows of column 0
+// are final.
+struct BlockSrc {
+  int16_t* sm;
+  int lane;
+  volatile int* progress;   // column 0's final rf rows, or null
+  __device__ int pf(int k) const { return sm[kLPf + k * kLCols + lane]; }
+  __device__ int rf(int k) const { return sm[kLRf + k * kLCols + lane]; }
+  __device__ int band(int r) const {
+    return sm[kLBand + lane * kLBandPitch + kD - kLBand0 + r];
+  }
+  __device__ int bp0() const {
+    return sm[kLBand + lane * kLBandPitch + kD - 1 - kLBand0];
+  }
+  __device__ int x(int k) const {
+    return sm[kLPf + k * kLCols + lane + 1] -
+           sm[kLRf + k * kLCols + lane + 1];
+  }
+  __device__ void ready(int) const {}
+  __device__ void put(int r, int v0, int mark, int bnd) const {
+    sm[kLPf + r * kLCols + lane] = static_cast<int16_t>(v0);
+    sm[kLRf + r * kLCols + lane] = static_cast<int16_t>(mark);
+    sm[kLBand + lane * kLBandPitch + kD - kLBand0 + r] =
+        static_cast<int16_t>(bnd);
+  }
+  __device__ void done(int r) const {
+    if (progress && lane == 0) {
+      __threadfence_block();
+      *progress = r + 1;
+    }
+    __syncwarp();
+  }
+  __device__ void finish(int v0, int v1, int rfc) const {
+    sm[kLPf + (kD - 1) * kLCols + lane] = static_cast<int16_t>(v0);
+    sm[kLPf + kD * kLCols + lane] = static_cast<int16_t>(v1);
+    sm[kLRf + (kD - 1) * kLCols + lane] = static_cast<int16_t>(rfc);
+    if (progress && lane == 0) {
+      __threadfence_block();
+      *progress = kD;
+    }
+  }
+};
+
+// Column 255 in CTA 0, 4 steps behind column 0: its flat j + 1 reads
+// land on band column 256 (row k: column k's step-0 band value, its own
+// from its step 0 on, the input at row 256) and on rf column 0 of rows
+// k + 1, final once column 0 has walked row k + 1 (rows 256 and 257 are
+// the tail).
+struct Col255Src {
+  int16_t* sm;
+  volatile int* progress;
+  __device__ int pf(int k) const { return sm[kL255Pf + k]; }
+  __device__ int rf(int k) const { return sm[kL255Rf + k]; }
+  __device__ int band(int r) const {
+    return sm[kL255Band + kD - kLBand0 + r];
+  }
+  __device__ int bp0() const { return sm[kL255Band + kD - 1 - kLBand0]; }
+  __device__ int x(int k) const {
+    const volatile int16_t* rf0 = sm + kLRf;
+    return sm[kLStep0 + k] - rf0[(k + 1) * kLCols];
+  }
+  // before step r reads x(r + 2): rf (r + 3, 0) final
+  __device__ void ready(int r) const {
+    const int need = min(r + 4, kD);
+    while (*progress < need) {
+    }
+    __threadfence_block();
+  }
+  __device__ void put(int r, int v0, int mark, int bnd) const {
+    sm[kL255Pf + r] = static_cast<int16_t>(v0);
+    sm[kL255Rf + r] = static_cast<int16_t>(mark);
+    sm[kL255Band + kD - kLBand0 + r] = static_cast<int16_t>(bnd);
+    if (r == 0) sm[kLStep0 + kD - 1] = static_cast<int16_t>(bnd);
+  }
+  __device__ void done(int) const {}
+  __device__ void finish(int v0, int v1, int rfc) const {
+    sm[kL255Pf + kD - 1] = static_cast<int16_t>(v0);
+    sm[kL255Pf + kD] = static_cast<int16_t>(v1);
+    sm[kL255Rf + kD - 1] = static_cast<int16_t>(rfc);
+  }
+};
+
+// Column j's step 0 from the input: its band value (j, 256).  Every read
+// is an input value (rows 0..2 of columns j and j + 1).
+struct Step0Src {
   const int16_t* p;
   const int16_t* rfe;
   int j;
-  __device__ int v2(int r) const { return p[(r + 2) * kN + j]; }
+  __device__ int pf(int k) const { return p[k * kN + j]; }
   __device__ int rf(int k) const { return rfe[k * kD + j]; }
   __device__ int band(int r) const { return p[j * kN + kD + r]; }
+  __device__ int bp0() const { return p[j * kN + kD - 1]; }
   __device__ int x(int k) const {
     return p[k * kN + j + 1] - rfe[k * kD + j + 1];
   }
-  __device__ void wrote_band(int, int) const {}
 };
 
-// Column 255 after the barrier, from shared memory: its own input column
-// and band row, band column 256 (rows 0..254 the other columns' results,
-// row 255 its own as it walks, row 256 the input) and rf column 0 (rows
-// 0..255 results, 256 and 257 the tail).
-struct Col255Src {
-  const int16_t* v2s;    // pf (r + 2, 255), r = 0..254
-  const int16_t* rfs;    // rf (k, 255), k = 0..257
-  const int16_t* bnds;   // pf (255, 256 + r), r = 0..254
-  int16_t* c256;         // pf (k, 256), k = 0..256
-  const int16_t* rf0;    // rf (k, 0), k = 0..257
-  __device__ int v2(int r) const { return v2s[r]; }
-  __device__ int rf(int k) const { return rfs[k]; }
-  __device__ int band(int r) const { return bnds[r]; }
-  // the flat j + 1 read of row k: pf (k, 256) - rf (k + 1, 0)
-  __device__ int x(int k) const { return c256[k] - rf0[k + 1]; }
-  __device__ void wrote_band(int r, int v) const {
-    if (r == 0) c256[kD - 1] = static_cast<int16_t>(v);
-  }
-};
+__device__ __forceinline__ int step0_band(const int16_t* p,
+                                          const int16_t* rfe, int j,
+                                          const uint16_t* tab) {
+  const Step0Src s{p, rfe, j};
+  int v1 = s.pf(1), v2 = s.pf(2), mark = s.rf(0), rf1 = s.rf(1);
+  int bnd = s.band(0);
+  ladder_step(tab, s.pf(0), v1, v2, mark, rf1, s.rf(2), false, 0, s.x(0),
+              s.x(1), s.x(2), bnd, s.bp0());
+  return bnd;
+}
 
-__global__ void __launch_bounds__(kD)
+// kLCtas CTAs an image (blockIdx.y), CTA k walking columns [32 k, 32 k +
+// 32) but 255 with its warp 0 from shared memory.  In CTA 0, warp 1 first
+// computes every column's step-0 band value, then its lane 0 walks column
+// 255 behind column 0; in the others warps 1-3 (in CTA 0 warps 2-3) copy
+// what the ladder leaves during the walk.  Then the CTA writes its
+// columns' rows, its band rows and, in CTA 0, column 255.
+__global__ void __launch_bounds__(kLThreads)
     column_ladder(const int16_t* __restrict__ pin,
                   const int16_t* __restrict__ rfin, int16_t* __restrict__ pout,
-                  int16_t* __restrict__ rfout, LadderFlags f) {
-  __shared__ int16_t s_v2[kD], s_rf[kD + 2], s_bnd[kD], s_c256[kD + 1],
-      s_rf0[kD + 2];
-  const int j = threadIdx.x;
-  const size_t b = blockIdx.x;
+                  int16_t* __restrict__ rfout,
+                  const uint16_t* __restrict__ tab) {
+  extern __shared__ __align__(16) int16_t smem[];
+  uint16_t* tab_s = reinterpret_cast<uint16_t*>(smem);
+  int16_t* lsm = smem + kLTab;
+  const int t = threadIdx.x, w = t >> 5, lane = t & 31;
+  const int blk = blockIdx.x, j0 = blk * kLBlock;
+  const int ncols = min(kLBlock, kD - 1 - j0);
+  const size_t b = blockIdx.y;
   const int16_t* p = pin + b * kPlane;
   const int16_t* rf = rfin + b * kRfExt;
   int16_t* o = pout + b * kPlane;
   int16_t* ro = rfout + b * kSZ;
-  // what the ladder leaves: rows 257..511, row 256's right half, column 511
-  for (int r = kD + 1; r < kN; ++r) {
-    o[r * kN + j] = p[r * kN + j];
-    o[r * kN + kD + j] = p[r * kN + kD + j];
+  volatile int* progress = reinterpret_cast<volatile int*>(lsm + kLProgress);
+  for (int i = t; i < kLTab / 8; i += kLThreads)
+    __pipeline_memcpy_async(tab_s + 8 * i, tab + 8 * i, 16);
+  constexpr int kVecs = kLCols / 8;
+  for (int i = t; i < kLPfRows * kVecs; i += kLThreads)
+    __pipeline_memcpy_async(lsm + kLPf + (i / kVecs) * kLCols +
+                                (i % kVecs) * 8,
+                            p + (i / kVecs) * kN + j0 + (i % kVecs) * 8, 16);
+  for (int i = t; i < kLRfRows * kVecs; i += kLThreads)
+    __pipeline_memcpy_async(lsm + kLRf + (i / kVecs) * kLCols +
+                                (i % kVecs) * 8,
+                            rf + (i / kVecs) * kD + j0 + (i % kVecs) * 8, 16);
+  constexpr int kBandWords = (kN - kLBand0) / 2;
+  for (int i = t; i < kLBlock * kBandWords; i += kLThreads)
+    __pipeline_memcpy_async(
+        lsm + kLBand + (i / kBandWords) * kLBandPitch + (i % kBandWords) * 2,
+        p + (j0 + i / kBandWords) * kN + kLBand0 + (i % kBandWords) * 2, 4);
+  if (blk == 0) {
+    for (int i = t; i < kBandWords; i += kLThreads)
+      __pipeline_memcpy_async(lsm + kL255Band + 2 * i,
+                              p + (kD - 1) * kN + kLBand0 + 2 * i, 4);
+    for (int k = t; k < kLRfRows; k += kLThreads) {
+      if (k < kLPfRows) lsm[kL255Pf + k] = p[k * kN + kD - 1];
+      lsm[kL255Rf + k] = rf[k * kD + kD - 1];
+    }
+    if (t == 0) {
+      *progress = 0;
+      lsm[kLStep0 + kD] = p[kD * kN + kD];
+    }
   }
-  o[kD * kN + kD + j] = p[kD * kN + kD + j];
-  o[j * kN + kN - 1] = p[j * kN + kN - 1];
-  if (j < kD - 1) {
-    InputSrc src{p, rf, j};
-    ladder_walk(j, p, src, o, ro, f);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  if (w == 0) {
+    BlockSrc src{lsm, lane, blk == 0 ? progress : nullptr};
+    ladder_walk(src, tab_s);
+  } else if (blk == 0 && w == 1) {
+#pragma unroll
+    for (int i = 0; i < kD / 32; ++i) {
+      const int k = lane + 32 * i;
+      if (k < kD - 1)
+        lsm[kLStep0 + k] = static_cast<int16_t>(step0_band(p, rf, k, tab_s));
+    }
+    __syncwarp();
+    if (lane == 0) {
+      Col255Src src{lsm, progress};
+      ladder_walk(src, tab_s);
+    }
+  } else {
+    // what the ladder leaves: rows 257..511, row 256's right half
+    const int helpers = blk == 0 ? 64 : 96;
+    const int h = t - (kLThreads - helpers);
+    constexpr int kRowVecs = kN / 8;
+    const int rows = (kN - kD - 1 - blk + kLCtas - 1) / kLCtas;
+    for (int i = h; i < rows * kRowVecs; i += helpers) {
+      const int r = kD + 1 + blk + kLCtas * (i / kRowVecs);
+      const size_t at = r * kN + (i % kRowVecs) * 8;
+      *reinterpret_cast<int4*>(o + at) =
+          *reinterpret_cast<const int4*>(p + at);
+    }
+    if (blk == kLCtas - 1)
+      for (int i = h; i < kD / 8; i += helpers) {
+        const size_t at = kD * kN + kD + i * 8;
+        *reinterpret_cast<int4*>(o + at) =
+            *reinterpret_cast<const int4*>(p + at);
+      }
   }
   __syncthreads();
-  const int c = kD - 1;
-  if (j < kD - 1) {
-    s_v2[j] = p[(j + 2) * kN + c];
-    s_bnd[j] = p[c * kN + kD + j];
-    s_c256[j] = o[j * kN + kD];
+  for (int i = t; i < kLPfRows * kLBlock; i += kLThreads) {
+    const int r = i / kLBlock, c = i % kLBlock;
+    if (c < ncols) o[r * kN + j0 + c] = lsm[kLPf + r * kLCols + c];
   }
-  s_rf[j] = rf[j * kD + c];
-  s_rf0[j] = ro[j * kD];
-  if (j < 2) {
-    s_rf[kD + j] = rf[(kD + j) * kD + c];
-    s_rf0[kD + j] = rf[(kD + j) * kD];
+  for (int i = t; i < kD * kLBlock; i += kLThreads) {
+    const int r = i / kLBlock, c = i % kLBlock;
+    if (c < ncols) ro[r * kD + j0 + c] = lsm[kLRf + r * kLCols + c];
   }
-  if (j == 0) s_c256[kD] = p[kD * kN + kD];
-  __syncthreads();
-  if (j == 0) {
-    Col255Src src{s_v2, s_rf, s_bnd, s_c256, s_rf0};
-    ladder_walk(c, p, src, o, ro, f);
+  // band rows: columns 256..511 (511 as staged)
+  constexpr int kOutWords = kD / 2;
+  for (int i = t; i < ncols * kOutWords; i += kLThreads) {
+    const int k = i / kOutWords, c = kD + 2 * (i % kOutWords);
+    *reinterpret_cast<uint32_t*>(o + (j0 + k) * kN + c) =
+        *reinterpret_cast<const uint32_t*>(lsm + kLBand + k * kLBandPitch +
+                                           c - kLBand0);
   }
+  if (blk == 0) {
+    for (int k = t; k < kLPfRows; k += kLThreads)
+      o[k * kN + kD - 1] = lsm[kL255Pf + k];
+    for (int k = t; k < kD; k += kLThreads)
+      ro[k * kD + kD - 1] = lsm[kL255Rf + k];
+    for (int i = t; i < kOutWords; i += kLThreads)
+      *reinterpret_cast<uint32_t*>(o + (kD - 1) * kN + kD + 2 * i) =
+          *reinterpret_cast<const uint32_t*>(lsm + kL255Band + kD - kLBand0 +
+                                             2 * i);
+  }
+}
+
+cudaError_t column_ladder_setup() {
+  static const cudaError_t e = cudaFuncSetAttribute(
+      column_ladder, cudaFuncAttributeMaxDynamicSharedMemorySize, kLSmem);
+  return e;
 }
 
 // ---------------------------------------------------------------------------
@@ -499,18 +766,25 @@ int nhw_pair_promotion(const void* in, void* out, int batch, void* stream) {
 }
 
 // S5.  plane, out: (B, 512, 512) int16; rf_ext: (B, SZ + 1024) int16;
-// rf_out: (B, SZ) int16.
+// rf_out: (B, SZ) int16; tab: (48960,) int16 scratch, the step's table of
+// these flags (16-byte aligned), written first.  res_setting 0..8.
 int nhw_column_ladder(const void* plane, const void* rf_ext, void* out,
-                      void* rf_out, int batch, int low1, int low2, int hi1,
-                      int res_setting, void* stream) {
-  if (batch < 1 || batch > 65535) return cudaErrorInvalidValue;
-  if (misaligned(plane, 2) || misaligned(rf_ext, 2) || misaligned(out, 2) ||
-      misaligned(rf_out, 2))
+                      void* rf_out, void* tab, int batch, int low1, int low2,
+                      int hi1, int res_setting, void* stream) {
+  if (batch < 1 || batch > 65535 || res_setting < 0 || res_setting > 8)
+    return cudaErrorInvalidValue;
+  if (misaligned(plane, 16) || misaligned(rf_ext, 16) || misaligned(out, 16) ||
+      misaligned(rf_out, 2) || misaligned(tab, 16))
     return cudaErrorMisalignedAddress;
-  column_ladder<<<batch, kD, 0, static_cast<cudaStream_t>(stream)>>>(
+  const cudaError_t e = column_ladder_setup();
+  if (e != cudaSuccess) return e;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* t = static_cast<uint16_t*>(tab);
+  ladder_table<<<(kLTab + 255) / 256, 256, 0, s>>>(
+      LadderFlags{low1, low2, hi1, res_setting}, t);
+  column_ladder<<<dim3(kLCtas, batch), kLThreads, kLSmem, s>>>(
       static_cast<const int16_t*>(plane), static_cast<const int16_t*>(rf_ext),
-      static_cast<int16_t*>(out), static_cast<int16_t*>(rf_out),
-      LadderFlags{low1, low2, hi1, res_setting});
+      static_cast<int16_t*>(out), static_cast<int16_t*>(rf_out), t);
   return cudaGetLastError();
 }
 

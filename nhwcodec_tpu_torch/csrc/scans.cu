@@ -4,10 +4,10 @@
 // nhwcodec_tpu_torch/models/device_scans.py (snap_pass_device / _ref,
 // offset_y_device / offset_y_ref, merge_crossing_device / _ref).
 //
-// S1 nhw_snap_pass replaces nhwcodec_tpu/models/device_scans.py:93
+// S1 nhw_snap_passes replaces nhwcodec_tpu/models/device_scans.py:93
 //    snap_pass_device (an XLA while_loop, a Jacobi fixpoint over the
-//    left-neighbour fixup chain): one _band_snap_pass on a (B, 512, 512)
-//    int16 plane.  One launch.
+//    left-neighbour fixup chain): up to three _band_snap_pass regions in
+//    order on a (B, 512, 512) int16 plane.  One launch.
 // S2 nhw_offset_y replaces nhwcodec_tpu/models/device_scans.py:375
 //    offset_y_device (a Jacobi while_loop, a 256-step lax.scan over rows
 //    and elementwise passes): the q > LOW4 quantizer, (B, 512, 512) int16
@@ -21,16 +21,28 @@
 //    the duty-cycle counters, (B, 512, 512) int16 plane -> int16 code plane.
 //    Three launches.
 //
-// The bound of S1 and S3 is bytes: the plane or the stream read once and
-// written once, some tens of operations a position; S2's and S10's is
-// their operations, 45-105 a position.  Each is a chain of
-// dependent steps along a row or a stream, and the designs below are the
-// simple exact ones, not yet tuned:
-// - S1: one thread a row walks its region columns left to right, the left
-//   neighbour's post-snap value and aliveness in registers; the neighbour
+// The bound of S1 is its operations (some 30 a region position; the
+// plane read and written once for the three regions), S3's bytes: the
+// stream read once and written once, some tens of operations a position;
+// S2's and S10's is their operations, 45-105 a position.  Each is a chain
+// of dependent steps along a row or a stream:
+// - S1: one warp a row: the row and the rows above and below staged in
+//   shared memory in 16-byte loads, the row stored whole (rows and
+//   columns outside every region are copied coalesced).  The neighbour
 //   count is static (alive values stay alive under every write of the
-//   pass), read from the input plane above and below.  The thread also
-//   copies its row's columns outside the region, so the output is whole.
+//   pass; the rows above and below come from the input), so a position
+//   depends on its left neighbour only through the class of that
+//   neighbour's post-snap e (snap_class: decrement, increment or
+//   neither), and a region's row is a scan of maps of 3 classes: lane l
+//   takes the 8 columns from col0 + 8 l (16 for regions wider than 255),
+//   composes their maps, the warp scans the 32 maps with shuffles, each
+//   lane walks its columns again from its entry class.  The spill column
+//   takes the class that reaches it; positions past the region map every
+//   class to 0.  The regions of a row run in order on the staged row;
+//   the wrapper checks that no region reads, above or below, what an
+//   earlier one writes (the three variants of a quality pass: variant 1's
+//   rows 1..254 neither touch nor neighbour rows 256..510, and variant 3
+//   reads variant 2's output only in its own row).
 // - S2: pass 1 one thread a row (a give lands on the next column and never
 //   leaves column 510), 32 rows a CTA staged in shared memory with their
 //   flat neighbours (block_scan.cuh's stage_rows: whole rows a warp, 16
@@ -81,7 +93,9 @@ constexpr int kD = 256;
 constexpr int kSZ = 65536;
 constexpr int kPlane = kN * kN;
 
-constexpr int kSnapThreads = 128;   // rows a CTA of S1
+constexpr int kSnapWarps = 8;       // rows a CTA of S1, a warp each
+constexpr int kSnapMax = 3;         // regions one S1 launch walks
+constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kRows = 32;           // rows a CTA of S2's pass 1 and S10
 constexpr int kCodeThreads = 256;   // positions a CTA of S2's pass 4
 
@@ -104,78 +118,187 @@ struct SnapArgs {
   int r0, r1, col0, col1, thr, yw, yw2, second_rule, guard6, gc;
 };
 
-// The snap decision for an alive position with current value v and static
-// neighbour count cnt (encoder/nhw_encoder.c:1923-1960).
-__device__ __forceinline__ int snap_decide(int v, int cnt, const SnapArgs& a) {
+struct SnapList {
+  int n;
+  SnapArgs v[kSnapMax];
+};
+
+// The snap decision (encoder/nhw_encoder.c:1923-1960) for an alive value
+// v whose static neighbour count gave the limits lim1 (cnt < 3: min(yw,
+// yw2), else 0) and lim2 (the second rule at cnt 0: yw2, else 0): the
+// first rule snaps |v| < lim1 to +-7 (with the +-6 guard, not |v| <= 6),
+// the second |v| < lim2.  S1's steps are selects on ints (`&`, `|`: `&&`,
+// `||` would branch and split the warp).
+__device__ __forceinline__ int snap_decide(int v, int lim1, int lim2,
+                                           bool guard6) {
   const int av = iabs(v);
-  if (av < a.yw2 && cnt < 3 && v > -a.yw && v < a.yw) {
-    if (a.guard6) return v < -6 ? -7 : (v > 6 ? 7 : v);
-    return v < 0 ? -7 : 7;
-  }
-  if (a.second_rule && cnt == 0 && av < a.yw2) return v < 0 ? -7 : 7;
-  return v;
+  const bool snap = (av < lim1) ? !(guard6 & (av <= 6)) : (av < lim2);
+  return snap ? (v < 0 ? -7 : 7) : v;
 }
 
-// Value of I after its alive left neighbour's fixup, given the neighbour's
-// post-snap e; right is I's right neighbour, gc_ok whether the neighbour's
-// column lies below the guard column.
-__device__ __forceinline__ int snap_fixup(int I, int right, int e_left,
-                                          bool left_alive, bool gc_ok) {
-  if (!left_alive) return I;
-  if (e_left >= 8 && (e_left & 7) < 2) return (I > 7 && I < 10000) ? I - 1 : I;
-  if (e_left < -7 && ((-e_left) & 7) < 2 && I < -14) {
-    const int m = (-I) & 7;
-    if (m == 7 || (m < 2 && gc_ok && right <= 0)) return I + 1;
-  }
-  return I;
+// The class of a post-snap e that its right neighbour's fixup reads: 1
+// the decrement (e >= 8, e & 7 < 2), 2 the increment (e < -7, -e & 7 <
+// 2), 0 neither.  A dead position passes class 0 on.
+__device__ __forceinline__ int snap_class(int e) {
+  const int ae = iabs(e);
+  return ((ae >= 8) & ((ae & 6) == 0)) ? (e > 0 ? 1 : 2) : 0;
 }
 
-__global__ void __launch_bounds__(kSnapThreads)
-    snap_pass(const int16_t* __restrict__ in, int16_t* __restrict__ out,
-              int batch, SnapArgs a) {
-  const int g = blockIdx.x * kSnapThreads + threadIdx.x;
-  if (g >= batch * kN) return;
-  const int r = g % kN;
-  const int16_t* p = in + static_cast<size_t>(g) * kN;
-  int16_t* o = out + static_cast<size_t>(g) * kN;
-  if (r < a.r0 || r >= a.r1) {
-    for (int c = 0; c < kN; ++c) o[c] = p[c];
+// The two fixups a left neighbour can make on I (right: I's right
+// neighbour; gc_ok: the neighbour's column lies below the guard column):
+// class 1 decrements where dec1, class 2 increments where inc2.
+__device__ __forceinline__ bool snap_dec1(int I) {
+  return (I > 7) & (I < 10000);
+}
+__device__ __forceinline__ bool snap_inc2(int I, int right, bool gc_ok) {
+  const int m = (-I) & 7;
+  return (I < -14) & ((m == 7) | ((m < 2) & gc_ok & (right <= 0)));
+}
+
+// A warp's rows in shared memory: the row, the rows above and below,
+// column c at kSnapOff + c, 0 at -1 and 512 (the plane's edges).
+constexpr int kSnapOff = 8;
+constexpr int kSnapPitch = kN + 2 * kSnapOff;
+
+// One region on the warp's row in shared memory (xs: the row as the
+// earlier regions left it; us, ds: the input rows r - 1 and r + 1), lane
+// l taking the K columns from col0 + K l (the region and its spill
+// column).  A region position with left class k writes decide(fix_k(x)):
+// a fixup moves x by one where class 1 meets dec1 or class 2 meets inc2
+// (never both), so each position has two outcomes, from x and from the
+// moved value.  Lanes build their columns' maps from the 3 entry classes,
+// the warp scans the maps, and each lane walks its columns again from its
+// entry class, deciding again (fewer registers than keeping both
+// outcomes).
+template <int K>
+__device__ __forceinline__ void snap_region(int16_t* xs, const int16_t* us,
+                                            const int16_t* ds, int r,
+                                            int lane, const SnapArgs& a) {
+  const int c_lo = a.col0 + K * lane;
+  int x[K + 2], cnt[K];             // x[i]: column c_lo - 1 + i
+#pragma unroll
+  for (int i = 0; i < K + 2; ++i) {
+    const int c = min(c_lo - 1 + i, kN);
+    x[i] = xs[kSnapOff + c];
+  }
+  const int up_thr = r - 1 >= a.r0 ? a.thr : 6;   // the row above walked
+  const int lim1 = min(a.yw, a.yw2);
+  const bool g6 = a.guard6 != 0;
+  int s0 = 0, s1 = 1, s2 = 2;       // the lane's exit class from each entry
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    const int c = c_lo + i, cc = min(c, kN);
+    const int cur = x[i + 1], left = x[i], right = x[i + 2];
+    cnt[i] = int(iabs(left) >= (c > a.col0 ? a.thr : 6)) +
+             int(iabs(right) >= 6) + int(iabs(us[kSnapOff + cc]) >= up_thr) +
+             int(iabs(ds[kSnapOff + cc]) >= 6);
+    const int l1 = cnt[i] < 3 ? lim1 : 0;
+    const int l2 = (a.second_rule != 0) & (cnt[i] == 0) ? a.yw2 : 0;
+    const bool d1 = snap_dec1(cur), i2 = snap_inc2(cur, right, c - 1 < a.gc);
+    const bool live = (c < a.col1) & (iabs(cur) >= a.thr);
+    const int k0 = snap_class(snap_decide(cur, l1, l2, g6));
+    const int k1 = snap_class(snap_decide(d1 ? cur - 1 : cur + 1, l1, l2, g6));
+    // the column's map: class 0 -> k0, 1 -> (d1 ? k1 : k0), 2 -> (i2 ? k1
+    // : k0); everything -> 0 off the live region positions
+    const int t = live ? (k0 | ((d1 ? k1 : k0) << 2) | ((i2 ? k1 : k0) << 4))
+                       : 0;
+    s0 = (t >> (2 * s0)) & 3;
+    s1 = (t >> (2 * s1)) & 3;
+    s2 = (t >> (2 * s2)) & 3;
+  }
+  int m = s0 | (s1 << 2) | (s2 << 4);
+#pragma unroll
+  for (int d = 1; d < 32; d *= 2) {
+    const int prev = __shfl_up_sync(kFull, m, d);
+    // m after prev: entry k -> m's entry prev(k)
+    const int h = ((m >> (2 * (prev & 3))) & 3) |
+                  (((m >> (2 * ((prev >> 2) & 3))) & 3) << 2) |
+                  (((m >> (2 * ((prev >> 4) & 3))) & 3) << 4);
+    m = lane >= d ? h : m;
+  }
+  const int before = __shfl_up_sync(kFull, m, 1);
+  int k = lane > 0 ? (before & 3) : 0;   // from class 0 at column col0
+  int y[K];
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    const int c = c_lo + i;
+    const int cur = x[i + 1], right = x[i + 2];
+    const bool moved = ((k == 1) & snap_dec1(cur)) |
+                       ((k == 2) & snap_inc2(cur, right, c - 1 < a.gc));
+    const int fixed = moved ? cur + (k == 1 ? -1 : 1) : cur;
+    const int e = snap_decide(fixed, cnt[i] < 3 ? lim1 : 0,
+                              (a.second_rule != 0) & (cnt[i] == 0) ? a.yw2
+                                                                   : 0,
+                              g6);
+    const bool live = (c < a.col1) & (iabs(cur) >= a.thr);
+    k = live ? snap_class(e) : 0;
+    y[i] = c < a.col1 ? (live ? (((e == -7) & (right == 8)) ? -8 : e) : 0)
+                      : fixed;      // the spill column
+  }
+  __syncwarp();                      // every lane has read its columns
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    const int c = c_lo + i;
+    if (c <= a.col1 && c < kN) xs[kSnapOff + c] = static_cast<int16_t>(y[i]);
+  }
+  __syncwarp();
+}
+
+// A lane's 16 values of row r (0 outside the plane) into a staged row.
+__device__ __forceinline__ void stage_cols(const int16_t* plane, int r,
+                                           int lane, int16_t* row) {
+  uint4* d = reinterpret_cast<uint4*>(row + kSnapOff + 16 * lane);
+  if (r < 0 || r >= kN) {
+    d[0] = d[1] = make_uint4(0, 0, 0, 0);
     return;
   }
-  const bool has_up = r > 0, has_dn = r + 1 < kN;
-  const bool up_in = r - 1 >= a.r0;   // the row above lies in the region
-  for (int c = 0; c < a.col0; ++c) o[c] = p[c];
-  int e_prev = 0;
-  bool la = false;
-  int left = a.col0 > 0 ? p[a.col0 - 1] : 0;
-  int cur = p[a.col0];
-  for (int c = a.col0; c < a.col1; ++c) {
-    const int right = c + 1 < kN ? p[c + 1] : 0;
-    const bool alive = iabs(cur) >= a.thr;
-    int e = cur, val = 0;
-    if (alive) {
-      const int up = has_up ? p[c - kN] : 0;
-      const int dn = has_dn ? p[c + kN] : 0;
-      const bool l_tr = c > a.col0 ? la : iabs(left) >= 6;
-      const bool u_tr = up_in ? iabs(up) >= a.thr : iabs(up) >= 6;
-      const int cnt = int(l_tr) + int(iabs(right) >= 6) + int(u_tr) +
-                      int(iabs(dn) >= 6);
-      e = snap_decide(snap_fixup(cur, right, e_prev, la, c - 1 < a.gc), cnt,
-                      a);
-      val = (e == -7 && right == 8) ? -8 : e;
+  const uint4* p = reinterpret_cast<const uint4*>(plane + r * kN + 16 * lane);
+  d[0] = __ldg(p);
+  d[1] = __ldg(p + 1);
+}
+
+// One warp a row: the row and its neighbours staged in shared memory in
+// 16-byte loads, the regions that cover the row in order, the row stored
+// whole.
+__global__ void __launch_bounds__(kSnapWarps * 32)
+    snap_passes(const int16_t* __restrict__ in, int16_t* __restrict__ out,
+                int batch, SnapList list) {
+  __shared__ __align__(16) int16_t sm[kSnapWarps][3][kSnapPitch];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int g = blockIdx.x * kSnapWarps + w;
+  if (g >= batch * kN) return;
+  const int r = g % kN;
+  const int16_t* plane = in + static_cast<size_t>(g / kN) * kPlane;
+  int16_t* xs = sm[w][0];
+  stage_cols(plane, r, lane, xs);
+  if (lane < 2) {
+    for (int k = 0; k < 3; ++k) {
+      sm[w][k][kSnapOff - 1] = 0;
+      sm[w][k][kSnapOff + kN] = 0;
     }
-    o[c] = static_cast<int16_t>(val);
-    e_prev = e;
-    la = alive;
-    left = cur;
-    cur = right;
   }
-  if (a.col1 < kN) {
-    const int right = a.col1 + 1 < kN ? p[a.col1 + 1] : 0;
-    o[a.col1] = static_cast<int16_t>(
-        snap_fixup(cur, right, e_prev, la, a.col1 - 1 < a.gc));
-    for (int c = a.col1 + 1; c < kN; ++c) o[c] = p[c];
+  bool staged = false;
+  for (int v = 0; v < list.n; ++v) {
+    // a static index: a dynamic one copies the list to local memory
+    const SnapArgs a = v == 0 ? list.v[0] : (v == 1 ? list.v[1] : list.v[2]);
+    if (r < a.r0 || r >= a.r1) continue;
+    if (!staged) {
+      stage_cols(plane, r - 1, lane, sm[w][1]);
+      stage_cols(plane, r + 1, lane, sm[w][2]);
+      staged = true;
+    }
+    __syncwarp();
+    if (a.col1 - a.col0 < 8 * 32)
+      snap_region<8>(xs, sm[w][1], sm[w][2], r, lane, a);
+    else
+      snap_region<16>(xs, sm[w][1], sm[w][2], r, lane, a);
   }
+  __syncwarp();
+  uint4* o = reinterpret_cast<uint4*>(out + static_cast<size_t>(g) * kN +
+                                      16 * lane);
+  const uint4* src = reinterpret_cast<const uint4*>(xs + kSnapOff + 16 * lane);
+  o[0] = src[0];
+  o[1] = src[1];
 }
 
 // ---------------------------------------------------------------------------
@@ -634,22 +757,34 @@ bool misaligned(std::initializer_list<std::pair<const void*, int>> ptrs) {
 
 extern "C" {
 
-// S1.  in, out: (B, 512, 512) int16; region rows [r0, r1), columns
+// S1.  in, out: (B, 512, 512) int16, 16-byte aligned; args: n regions
+// of 10 ints each (r0, r1, col0, col1, thr, yw, yw2, second_rule,
+// snap_guard6, gc), walked in order: region rows [r0, r1), columns
 // [col0, col1), col1 <= 512 (the spill write lands on column col1 when it
-// is below 512).
-int nhw_snap_pass(const void* in, void* out, int batch, int r0, int r1,
-                  int col0, int col1, int thr, int yw, int yw2,
-                  int second_rule, int snap_guard6, int gc, void* stream) {
-  if (batch < 1 || batch > (1 << 21) || r0 < 0 || r0 >= r1 || r1 > kN ||
-      col0 < 0 || col0 >= col1 || col1 > kN)
+// is below 512).  The caller guarantees that no region's reads of the rows
+// above and below touch what an earlier region writes.
+int nhw_snap_passes(const void* in, void* out, int batch, int n,
+                    const int* args, void* stream) {
+  if (batch < 1 || batch > (1 << 21) / kN * kSnapWarps || n < 1 ||
+      n > kSnapMax || args == nullptr)
     return cudaErrorInvalidValue;
-  if (misaligned({{in, 2}, {out, 2}})) return cudaErrorMisalignedAddress;
-  const SnapArgs a{r0, r1, col0, col1, thr, yw, yw2, second_rule,
-                   snap_guard6, gc};
+  if (misaligned({{in, 16}, {out, 16}})) return cudaErrorMisalignedAddress;
+  SnapList list{};
+  list.n = n;
+  for (int k = 0; k < n; ++k) {
+    const int* p = args + 10 * k;
+    list.v[k] = SnapArgs{p[0], p[1], p[2], p[3], p[4],
+                         p[5], p[6], p[7], p[8], p[9]};
+    const SnapArgs& a = list.v[k];
+    if (a.r0 < 0 || a.r0 >= a.r1 || a.r1 > kN || a.col0 < 0 ||
+        a.col0 >= a.col1 || a.col1 > kN)
+      return cudaErrorInvalidValue;
+  }
   const int rows = batch * kN;
-  snap_pass<<<(rows + kSnapThreads - 1) / kSnapThreads, kSnapThreads, 0,
-              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int16_t*>(in), static_cast<int16_t*>(out), batch, a);
+  snap_passes<<<(rows + kSnapWarps - 1) / kSnapWarps, kSnapWarps * 32, 0,
+                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int16_t*>(in), static_cast<int16_t*>(out), batch,
+      list);
   return cudaGetLastError();
 }
 

@@ -72,19 +72,17 @@ SIGNATURES = {
     "nhw_chain_starts": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # (ebase, fields, e_in, flags, sweeps, length, batch, k, p1, stream)
     "nhw_y_runs_fixpoint": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # (in, out, batch, r0, r1, col0, col1, thr, yw, yw2, second_rule,
-    #  snap_guard6, gc, stream)
-    "nhw_snap_pass": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                      _P],
+    # (in, out, batch, n, args: int32[10 n], stream)
+    "nhw_snap_passes": [_P, _P, _I, _I, _P, _P],
     # (in, tmp, out, esc, batch, m1, stream)
     "nhw_offset_y": [_P, _P, _P, _P, _I, _I, _P],
     # (in, out, comp, entry, batch, n, stream)
     "nhw_merge_crossing": [_P, _P, _P, _P, _I, _I, _P],
     # (in, out, batch, stream)
     "nhw_pair_promotion": [_P, _P, _I, _P],
-    # (plane, rf_ext, out, rf_out, batch, low1, low2, hi1, res_setting,
+    # (plane, rf_ext, out, rf_out, tab, batch, low1, low2, hi1, res_setting,
     #  stream)
-    "nhw_column_ladder": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "nhw_column_ladder": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # (plane, res256, out, rf_out, counts, batch, hi1, res_setting, stream)
     "nhw_classify": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # (plane, vem, is24, batch, gt_low3, stream)

@@ -83,7 +83,10 @@ def snap_args(q: int) -> list[tuple]:
     """The three snap passes' arguments at quality q, in order:
     (r0, r1, col0, col1, thr, yw, yw2, second_rule, snap_guard6, gc) for
     ``device_scans.snap_pass_device`` (encoder/nhw_encoder.c:1914-2098;
-    the host copy's ``encoder.encode_y``)."""
+    the host copy's ``encoder.encode_y``), one ``snap_passes_device``
+    call for the three: variant 1's rows (1..254) neither touch nor
+    neighbour the rows variants 2 and 3 write, and variant 3 reads what
+    variant 2 writes only in the same row (column 256)."""
     r = RATIO
     yw1 = (8, 4) if q > T.HIGH2 else (9, 9)
     if q > T.HIGH2:
@@ -287,8 +290,7 @@ def _y_stream_stage(P: torch.Tensor, q: int):
     part written and the UV half zero, sel1 (B,) int32, sel2 (B,)
     int32)."""
     _stage_range("stream", q)
-    for args in snap_args(q):
-        P = ds.snap_pass_device(P, *args)
+    P = ds.snap_passes_device(P, snap_args(q))
     P = (ds.offset_y_low4_device if q <= T.LOW4 else ds.offset_y_device)(
         P, RATIO)
     stream = torch.zeros((P.shape[0], 6 * SZ + 16), dtype=torch.uint8,

@@ -17,13 +17,16 @@ Fourteen programs carry a serial chain and are CUDA kernels, each beside
 a torch twin (``*_ref``) of the same decomposition.  In
 ``csrc/scans.cu``:
 
-- ``snap_pass_device`` (kernel ``snap_pass``): the neighbour count of the
-  raster pass is static (the JAX module's analysis: alive values stay
-  alive under every write the pass can make), so the only dynamic
-  dependency is the left-neighbour fixup chain within a row.  One thread
-  a row walks its region columns left to right with the left neighbour's
-  post-snap value in a register, then does the self-overwrite and the
-  spill write one column right of the region.
+- ``snap_passes_device`` (kernel ``snap_passes``; ``snap_pass_device``
+  is a list of one): the neighbour count of the raster pass is static
+  (the JAX module's analysis: alive values stay alive under every write
+  the pass can make), so the only dynamic dependency is the
+  left-neighbour fixup chain within a row, through the class of the
+  neighbour's post-snap value (decrement, increment, neither).  One
+  warp a row: each lane composes the 3-class maps of its tile of the
+  region's columns, the warp scans the tiles' maps, each lane walks its
+  tile again from its entry class.  A quality's three regions run in
+  one launch, a row's regions in order (``_snap_plan`` checks a list).
 - ``offset_y_device`` (kernel ``offset_y``, q > LOW4), three launches:
   pass 1's decrement chain one thread a row (a give never crosses a
   row); passes 2-3 on the LL quadrant one CTA an image, a thread a
@@ -48,8 +51,10 @@ In ``csrc/residue.cu``:
   never leaves a row; one thread a row walks each region left to right.
 - ``column_ladder_device`` (kernel ``column_ladder``): the columns are
   independent walks over the rows but for column 255, whose flat j + 1
-  reads see the other columns' results; one CTA an image, a thread a
-  column, column 255 again after a barrier.
+  reads see the other columns' results; 8 CTAs an image, a warp a block
+  of 32 columns walking from shared memory (a step a lookup in a table
+  of the step's effects, built by a first launch), column 255 on a
+  second warp of CTA 0 ``LADDER_LAG`` steps behind column 0.
 - ``classify_device`` (kernel ``classify``): a walk over the rows a
   column, carrying the band value the previous row wrote.
 
@@ -114,6 +119,7 @@ CPU.  Launches are counted in ``kernels.build.LAUNCHES``.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -233,19 +239,14 @@ def _snap_decide(v, cnt, yw: int, yw2: int, second_rule: bool,
     return out
 
 
-def _snap_fixup(I, IL, e_left, left_alive, gc_ok: bool):
-    """Value of a position after its alive left neighbour's fixup phase,
-    given that neighbour's post-snap e (the elif chain; the e == 8 branch
-    is unreachable: e >= 8 & (e & 7) < 2 matches first)."""
-    dec = left_alive & (e_left >= 8) & ((e_left & 7) < 2)
-    negdec = left_alive & (e_left < -7) & (((-e_left) & 7) < 2)
-    v = torch.where(dec & (I > 7) & (I < 10000), I - 1, I)
-    n_ok = negdec & (I < -14)
-    inc7 = n_ok & (((-I) & 7) == 7)
-    inc_lo = n_ok & (((-I) & 7) < 2) & ~inc7 & (IL <= 0)
-    if not gc_ok:
-        inc_lo = torch.zeros_like(inc_lo)
-    return torch.where(inc7 | inc_lo, I + 1, v)
+SNAP_LANES = 32     # lanes a region's row (csrc/scans.cu snap_region)
+SNAP_MAX = 3        # regions one launch walks (kSnapMax)
+
+
+def snap_lane_cols(col0: int, col1: int) -> int:
+    """Columns a lane of ``snap_passes`` takes of region [col0, col1) and
+    its spill column: 8, or 16 past 256."""
+    return 8 if col1 - col0 < 8 * SNAP_LANES else 16
 
 
 def _snap_args(r0, r1, col0, col1) -> None:
@@ -254,48 +255,159 @@ def _snap_args(r0, r1, col0, col1) -> None:
                          f"columns [{col0}, {col1})")
 
 
+def _snap_plan(variants) -> list[tuple]:
+    """Check a list of snap regions for one fused walk and return it as
+    tuples.  The walk reads the rows above and below a region from the
+    input plane and walks the regions of a row in order in registers, so
+    it equals the regions run one after another when no region's reads
+    of the rows above and below (rows r0 - 1 .. r1 but its own, columns
+    [col0, col1)) touch what an earlier region writes (rows [r0, r1),
+    columns [col0, col1] with the spill column); reads in the same row
+    may."""
+    plan = [tuple(int(x) for x in v) for v in variants]
+    if not 1 <= len(plan) <= SNAP_MAX:
+        raise ValueError(f"snap_passes: 1..{SNAP_MAX} regions, got "
+                         f"{len(plan)}")
+    for k, v in enumerate(plan):
+        if len(v) != 10:
+            raise ValueError(f"snap_passes: region {k} has {len(v)} "
+                             "arguments, not 10")
+        r0, r1, c0, c1 = v[:4]
+        _snap_args(r0, r1, c0, c1)
+        for j, w in enumerate(plan[:k]):
+            wr0, wr1, wc0, wc1 = w[:4]
+            rows = any(max(lo, wr0) < min(hi, wr1)
+                       for lo, hi in ((r0 - 1, r1 - 1), (r0 + 1, r1 + 1)))
+            cols = max(c0, wc0) < min(c1, wc1 + 1)
+            if rows and cols:
+                raise ValueError(
+                    f"snap_passes: region {k} (rows [{r0}, {r1}) columns "
+                    f"[{c0}, {c1})) reads rows above or below that region "
+                    f"{j} (rows [{wr0}, {wr1}) columns [{wc0}, {wc1}]) "
+                    "writes; run them as separate calls")
+    return plan
+
+
+def _snap_class(e):
+    """The class of a post-snap e that its right neighbour's fixup reads:
+    1 the decrement, 2 the increment, 0 neither."""
+    return torch.where((e >= 8) & ((e & 7) < 2), 1, torch.where(
+        (e < -7) & (((-e) & 7) < 2), 2, 0))
+
+
+def _snap_fix(I, right, k, gc_ok):
+    """Value of I after its left neighbour's fixup, given the neighbour's
+    class k (a tensor; 0 for a dead neighbour); right is I's right
+    neighbour, gc_ok whether the neighbour's column lies below the guard
+    column."""
+    dec = (k == 1) & (I > 7) & (I < 10000)
+    inc = (k == 2) & (I < -14) & ((((-I) & 7) == 7) | (
+        (((-I) & 7) < 2) & gc_ok & (right <= 0)))
+    return torch.where(dec, I - 1, torch.where(inc, I + 1, I))
+
+
+def _snap_region(x, up, dn, rows, v):
+    """One region on rows ``rows`` of ``x`` (B, R, 512) int32, the rows as
+    the earlier regions left them; up and dn the input rows above and
+    below.  The kernel's decomposition: each column's map from the 3
+    entry classes, the maps composed over the lanes' tiles of
+    ``snap_lane_cols`` columns from col0, the tiles chained from class 0,
+    each tile walked from its entry."""
+    r0, r1, c0, c1, thr, yw, yw2, sec, g6, gc = v
+    b, nr, _ = x.shape
+    cols = torch.arange(N, device=x.device)
+    zero = torch.zeros_like(x[..., :1])
+    left = torch.cat([zero, x[..., :-1]], -1)
+    right = torch.cat([x[..., 1:], zero], -1)
+    up_in = (rows - 1 >= r0)[None, :, None]
+    l_tr = torch.where(cols > c0, left.abs() >= thr, left.abs() >= 6)
+    u_tr = torch.where(up_in, up.abs() >= thr, up.abs() >= 6)
+    cnt = (l_tr.to(torch.int32) + (right.abs() >= 6).to(torch.int32)
+           + u_tr.to(torch.int32) + (dn.abs() >= 6).to(torch.int32))
+    gc_ok = (cols - 1) < gc
+    inreg = (cols >= c0) & (cols < c1)
+    alive = x.abs() >= thr
+    vals, trans = [], []
+    for k in range(3):
+        e = _snap_decide(_snap_fix(x, right, torch.full_like(x, k), gc_ok),
+                         cnt, yw, yw2, sec, g6)
+        vals.append(torch.where(alive, torch.where(
+            (e == -7) & (right == 8), -8, e), 0))
+        trans.append(torch.where(inreg & alive, _snap_class(e), 0))
+    w = snap_lane_cols(c0, c1)
+    span = SNAP_LANES * w           # the lanes' columns from c0
+    t = torch.stack(trans, -1)[..., c0: c0 + span, :]
+    t = torch.cat([t, torch.zeros_like(t[..., :span - t.shape[-2], :])], -2)
+    t = t.reshape(b, nr, SNAP_LANES, w, 3)
+    m = torch.arange(3, device=x.device).expand(b, nr, SNAP_LANES, 3)
+    for i in range(w):              # each tile's map
+        m = torch.gather(t[..., i, :], -1, m)
+    k = torch.zeros_like(m[..., 0, :1])
+    entry = []
+    for i in range(SNAP_LANES):     # the tiles chained from class 0
+        entry.append(k)
+        k = torch.gather(m[..., i, :], -1, k)
+    k = torch.cat(entry, -1)[..., None]
+    kin = []
+    for i in range(w):              # each tile walked from its entry
+        kin.append(k)
+        k = torch.gather(t[..., i, :], -1, k)
+    kin = torch.cat(kin, -1).reshape(b, nr, span)[..., : N - c0]
+    kin = torch.nn.functional.pad(kin, (c0, N - c0 - kin.shape[-1]))
+    val = torch.gather(torch.stack(vals, -1), -1, kin[..., None])[..., 0]
+    spill = _snap_fix(x, right, kin, gc_ok)
+    return torch.where(inreg, val, torch.where(cols == c1, spill, x))
+
+
+def snap_passes_ref(plane, variants):
+    """Torch twin of ``snap_passes``: the regions of ``variants`` in
+    order, each row's regions on the row as the earlier ones left it, the
+    rows above and below read from the input (``_snap_plan``)."""
+    plan = _snap_plan(variants)
+    I = _i32(plane)
+    zero = torch.zeros_like(I[:, :1])
+    up_all = torch.cat([zero, I[:, :-1]], 1)      # row r - 1
+    dn_all = torch.cat([I[:, 1:], zero], 1)       # row r + 1
+    out = I.clone()
+    for v in plan:
+        r0, r1 = v[:2]
+        rows = torch.arange(r0, r1, device=I.device)
+        out[:, r0:r1] = _snap_region(out[:, r0:r1], up_all[:, r0:r1],
+                                     dn_all[:, r0:r1], rows, v)
+    return out.to(torch.int16)
+
+
 def snap_pass_ref(plane, r0: int, r1: int, col0: int, col1: int, thr: int,
                   yw: int, yw2: int, second_rule: bool, snap_guard6: bool,
                   gc: int):
-    """Torch twin of ``snap_pass``: one walk per region row, left to
-    right over the region's columns, the rows as a batch."""
-    _snap_args(r0, r1, col0, col1)
-    I = _i32(plane)
-    zero = torch.zeros_like(I[:, :1, :])
-    up = torch.cat([zero, I[:, :-1]], 1)          # row r - 1
-    down = torch.cat([I[:, 1:], zero], 1)         # row r + 1
-    rows = slice(r0, r1)
-    Ir, up_r, dn_r = I[:, rows], up[:, rows], down[:, rows]
-    row = torch.arange(r0, r1, device=I.device)[None, :]
-    up_in = (row - 1 >= r0).expand(Ir.shape[:2])  # upper row in the region
-    out = I.clone()
-    orow = out[:, rows]
-    e_prev = torch.zeros_like(Ir[..., 0])
-    la = torch.zeros_like(Ir[..., 0], dtype=torch.bool)
-    for c in range(col0, col1):
-        cur = Ir[..., c]
-        right = Ir[..., c + 1] if c + 1 < N else torch.zeros_like(cur)
-        left = Ir[..., c - 1] if c > 0 else torch.zeros_like(cur)
-        alive = cur.abs() >= thr
-        l_tr = la if c > col0 else left.abs() >= 6
-        u_tr = torch.where(up_in, up_r[..., c].abs() >= thr,
-                           up_r[..., c].abs() >= 6)
-        cnt = (l_tr.to(torch.int32) + (right.abs() >= 6).to(torch.int32)
-               + u_tr.to(torch.int32)
-               + (dn_r[..., c].abs() >= 6).to(torch.int32))
-        v = _snap_fixup(cur, right, e_prev, la, c - 1 < gc)
-        e = _snap_decide(v, cnt, yw, yw2, second_rule, snap_guard6)
-        final = torch.where((e == -7) & (right == 8), -8, e)
-        orow[..., c] = torch.where(alive, final, 0)
-        e_prev = torch.where(alive, e, cur)
-        la = alive
-    if col1 < N:
-        cur = Ir[..., col1]
-        right = (Ir[..., col1 + 1] if col1 + 1 < N
-                 else torch.zeros_like(cur))
-        orow[..., col1] = _snap_fixup(cur, right, e_prev, la, col1 - 1 < gc)
-    out[:, rows] = orow
-    return out.to(torch.int16)
+    """Torch twin of one ``snap_pass_device`` region."""
+    return snap_passes_ref(plane, [(r0, r1, col0, col1, thr, yw, yw2,
+                                    second_rule, snap_guard6, gc)])
+
+
+def snap_passes_device(plane, variants):
+    """The ``_band_snap_pass`` calls of ``variants`` (each (r0, r1, col0,
+    col1, thr, yw, yw2, second_rule, snap_guard6, gc)) one after another
+    on a (B, 512, 512) int16 plane, in one launch of kernel
+    ``snap_passes``: a warp a row staged in shared memory, the regions of
+    the row in order, a lane a tile of ``snap_lane_cols`` columns.
+    Raises ValueError on a list whose fused walk would differ from the
+    calls in turn (``_snap_plan``).  Returns a new plane."""
+    _check_plane(plane, "snap_pass plane", N)
+    plan = _snap_plan(variants)
+    if plane.device.type == "cpu":
+        return snap_passes_ref(plane, plan)
+    lib, stream = _cuda_args(plane)
+    out = torch.empty_like(plane)
+    if plane.shape[0]:
+        args = (ctypes.c_int * (10 * len(plan)))(
+            *[x for v in plan for x in v])
+        with torch.cuda.device(plane.device):
+            build.check("nhw_snap_passes", lib.nhw_snap_passes(
+                plane.data_ptr(), out.data_ptr(), plane.shape[0], len(plan),
+                args, stream))
+        build.count("snap_pass")
+    return out
 
 
 def snap_pass_device(plane, r0: int, r1: int, col0: int, col1: int,
@@ -305,22 +417,10 @@ def snap_pass_device(plane, r0: int, r1: int, col0: int, col1: int,
     vs the host copy's ``models.encoder._band_snap_pass``: rows [r0, r1),
     columns [col0, col1), threshold ``thr``, the snap window (yw, yw2),
     the second rule, the +-6 guard and the guard column ``gc`` of the
-    fixup chain.  Returns a new plane (kernel ``snap_pass``)."""
-    _check_plane(plane, "snap_pass plane", N)
-    _snap_args(r0, r1, col0, col1)
-    if plane.device.type == "cpu":
-        return snap_pass_ref(plane, r0, r1, col0, col1, thr, yw, yw2,
-                             second_rule, snap_guard6, gc)
-    lib, stream = _cuda_args(plane)
-    out = torch.empty_like(plane)
-    if plane.shape[0]:
-        with torch.cuda.device(plane.device):
-            build.check("nhw_snap_pass", lib.nhw_snap_pass(
-                plane.data_ptr(), out.data_ptr(), plane.shape[0], r0, r1,
-                col0, col1, thr, yw, yw2, int(second_rule),
-                int(snap_guard6), gc, stream))
-        build.count("snap_pass")
-    return out
+    fixup chain.  Returns a new plane (``snap_passes_device`` on a list of
+    one)."""
+    return snap_passes_device(plane, [(r0, r1, col0, col1, thr, yw, yw2,
+                                       second_rule, snap_guard6, gc)])
 
 
 # ---------------------------------------------------------------------------
@@ -1357,53 +1457,63 @@ def _ladder_args(plane, rf_ext) -> None:
         raise ValueError("column_ladder rf_ext: must be contiguous")
 
 
+LADDER_LAG = 4     # column 255's steps behind column 0 (residue.cu Col255Src)
+LADDER_TAB = 17 * 15 * 12 * 16   # the step's effect table (kLTab)
+LADDER_RES_MAX = 8               # res_setting the table's classes cover
+
+
 def column_ladder_ref(plane, rf_ext, quality: int, res_setting: int):
-    """Torch twin of ``column_ladder``: all 256 columns as lanes over rows
-    0..254 (column 255 with its j + 1 reads from the input), then column
-    255 alone again, in place, its j + 1 reads taken from the results at
-    the time of the step: column r's step-0 band value at (r, 256), its
-    own at (255, 256) from step 0 on, rf column 0 and the tail."""
+    """Torch twin of ``column_ladder``: columns 0..254 as lanes over rows
+    0..254, every read an input value, and column 255 LADDER_LAG steps
+    behind them, its j + 1 reads taken from the results at the time of
+    its step: column r's step-0 band value at (r, 256), its own at (255,
+    256) from its step 0 on, rf column 0 (final up to the row column 0
+    has walked) and the tail."""
     _ladder_args(plane, rf_ext)
     flags = _ladder_flags(quality, res_setting)
     b = plane.shape[0]
     I, rfe = _i32(plane), _i32(rf_ext)
     out = I.clone()
     rf = rfe[:, :SZ].reshape(b, D, D).clone()
+    j = D - 1                # column 255; the lanes are columns 0..254
 
-    def rf_at(off, k):    # rf[(r + off) * 256 + j + k] at [r, j]
+    def rf_at(off, k):    # rf[(r + off) * 256 + c + k] at [r, c], c < 255
         return rfe[:, off * D + k: off * D + k + (D - 1) * D].reshape(
-            b, D - 1, D)
+            b, D - 1, D)[..., :j]
 
-    xs_all = (I[:, 2:D + 1, :D], rf_at(1, 0), rf_at(2, 0),
-              I[:, :D, D:2 * D - 1].transpose(1, 2),
-              I[:, 0:D - 1, 1:D + 1], I[:, 1:D, 1:D + 1],
-              I[:, 2:D + 1, 1:D + 1], rf_at(0, 1), rf_at(1, 1), rf_at(2, 1))
-    z = torch.zeros_like(I[:, 0, :D])
-    carry = (I[:, 0, :D], I[:, 1, :D], z, z, rfe[:, :D], I[:, :D, D - 1])
-    for r in range(D - 1):
-        xs = tuple(x[:, r] for x in xs_all) + (r > 0,)
-        carry, (v0, mark, bnd) = _cl_step(flags, carry, xs)
-        out[:, r, :D], rf[:, r], out[:, :D, D + r] = v0, mark, bnd
-    out[:, D - 1, :D], out[:, D, :D], rf[:, D - 1] = (carry[0], carry[1],
-                                                      carry[4])
-    # column 255 again
-    j = D - 1
-    rf_col0 = torch.cat([rf[:, :, 0], rfe[:, SZ, None],
-                         rfe[:, SZ + D, None]], 1)            # rows 0..257
-    carry = (I[:, 0, j, None], I[:, 1, j, None], z[:, :1], z[:, :1],
-             rfe[:, j, None], I[:, j, j, None])
-    for r in range(D - 1):
-        xs = (I[:, r + 2, j, None], rfe[:, (r + 1) * D + j, None],
-              rfe[:, (r + 2) * D + j, None], I[:, j, D + r, None],
-              out[:, r, D, None], out[:, r + 1, D, None],
-              out[:, r + 2, D, None], rf_col0[:, r + 1, None],
-              rf_col0[:, r + 2, None], rf_col0[:, r + 3, None], r > 0)
-        carry, (v0, mark, bnd) = _cl_step(flags, carry, xs)
-        out[:, r, j], rf[:, r, j], out[:, j, D + r] = (v0[:, 0], mark[:, 0],
+    xs_all = (I[:, 2:D + 1, :j], rf_at(1, 0), rf_at(2, 0),
+              I[:, :j, D:2 * D - 1].transpose(1, 2),
+              I[:, 0:D - 1, 1:D], I[:, 1:D, 1:D],
+              I[:, 2:D + 1, 1:D], rf_at(0, 1), rf_at(1, 1), rf_at(2, 1))
+    z = torch.zeros_like(I[:, 0, :j])
+    carry = (I[:, 0, :j], I[:, 1, :j], z, z, rfe[:, :j], I[:, :j, D - 1])
+    tail = torch.stack([rfe[:, SZ], rfe[:, SZ + D]], 1)   # rf (256..257, 0)
+    z1 = z[:, :1]
+    carry255 = (I[:, 0, j, None], I[:, 1, j, None], z1, z1,
+                rfe[:, j, None], I[:, j, j, None])
+    for r in range(D - 1 + LADDER_LAG):
+        if r < D - 1:
+            xs = tuple(x[:, r] for x in xs_all) + (r > 0,)
+            carry, (v0, mark, bnd) = _cl_step(flags, carry, xs)
+            out[:, r, :j], rf[:, r, :j], out[:, :j, D + r] = v0, mark, bnd
+        if r == D - 2:
+            out[:, D - 1, :j], out[:, D, :j], rf[:, D - 1, :j] = (
+                carry[0], carry[1], carry[4])
+        s = r - LADDER_LAG          # column 255's step
+        if s < 0:
+            continue
+        rf0 = torch.cat([rf[:, :, 0], tail], 1)            # rows 0..257
+        xs = (I[:, s + 2, j, None], rfe[:, (s + 1) * D + j, None],
+              rfe[:, (s + 2) * D + j, None], I[:, j, D + s, None],
+              out[:, s, D, None], out[:, s + 1, D, None],
+              out[:, s + 2, D, None], rf0[:, s + 1, None],
+              rf0[:, s + 2, None], rf0[:, s + 3, None], s > 0)
+        carry255, (v0, mark, bnd) = _cl_step(flags, carry255, xs)
+        out[:, s, j], rf[:, s, j], out[:, j, D + s] = (v0[:, 0], mark[:, 0],
                                                        bnd[:, 0])
-    out[:, D - 1, j], out[:, D, j], rf[:, D - 1, j] = (carry[0][:, 0],
-                                                       carry[1][:, 0],
-                                                       carry[4][:, 0])
+    out[:, D - 1, j], out[:, D, j], rf[:, D - 1, j] = (carry255[0][:, 0],
+                                                       carry255[1][:, 0],
+                                                       carry255[4][:, 0])
     return out.to(torch.int16), rf.reshape(b, SZ).to(torch.int16)
 
 
@@ -1412,22 +1522,27 @@ def column_ladder_device(plane, rf_ext, quality: int, res_setting: int):
     plane and rf_ext, (B, SZ + 1024) int16: res256 and the tail the C
     reads past it (the kernel head, [17, 2, 0, 0], resIII[:1016]).
     Returns (plane', rf' (B, SZ) int16), bit-exact vs the host copy's C
-    scan (kernel ``column_ladder``: one launch, a CTA an image, a thread a
-    column, column 255 again after a block barrier)."""
+    scan (kernel ``column_ladder``: one launch, 8 CTAs an image, each
+    walking a block of 32 columns, a lane each, from shared memory, and
+    CTA 0 column 255 LADDER_LAG steps behind column 0)."""
     _ladder_args(plane, rf_ext)
     ge_low1, low2, ge_high1, _ = _ladder_flags(quality, res_setting)
     if plane.device.type == "cpu":
         return column_ladder_ref(plane, rf_ext, quality, res_setting)
+    if not 0 <= res_setting <= LADDER_RES_MAX:
+        raise ValueError(f"column_ladder: res_setting {res_setting} outside "
+                         f"0..{LADDER_RES_MAX}")
     lib, stream = _cuda_args(plane, rf_ext)
     b = plane.shape[0]
     out = torch.empty_like(plane)
     rf = torch.empty((b, SZ), dtype=torch.int16, device=plane.device)
+    tab = torch.empty(LADDER_TAB, dtype=torch.int16, device=plane.device)
     if b:
         with torch.cuda.device(plane.device):
             build.check("nhw_column_ladder", lib.nhw_column_ladder(
                 plane.data_ptr(), rf_ext.data_ptr(), out.data_ptr(),
-                rf.data_ptr(), b, int(ge_low1), int(low2), int(ge_high1),
-                res_setting, stream))
+                rf.data_ptr(), tab.data_ptr(), b, int(ge_low1), int(low2),
+                int(ge_high1), res_setting, stream))
         build.count("column_ladder")
     return out, rf
 

@@ -816,6 +816,8 @@ def _scan_inputs(what, b):
 
     rng = np.random.default_rng(70 + b)
     return {"chain": cs.snap_chain_planes, "spill": cs.snap_spill_planes,
+            "tile edges": cs.snap_tile_edge_planes,
+            "spill left": cs.snap_spill_left_planes,
             "edge": cs.offset_y_edge_planes,
             "random": lambda r, n: r.integers(-400, 401, (n, 512, 512))
             .astype(np.int16),
@@ -823,8 +825,12 @@ def _scan_inputs(what, b):
 
 
 @pytest.mark.parametrize("b", [1, 3, 16])
-@pytest.mark.parametrize("kind", ["chain", "spill"])
+@pytest.mark.parametrize("kind", ["chain", "spill", "tile edges",
+                                  "spill left"])
 def test_snap_pass_kernel(cuda, kind, b):
+    """Each variant alone (one launch of ``snap_passes``, a list of one),
+    and the three variants of q20, q17 and q8 in one launch, equal to
+    their twins, which equal the variants one after another."""
     from nhwcodec_tpu_torch.models import device_encode_scans as des
     from nhwcodec_tpu_torch.models import device_scans as ds
 
@@ -835,6 +841,15 @@ def test_snap_pass_kernel(cuda, kind, b):
         assert build.LAUNCHES["snap_pass"] == before + 1
         torch.testing.assert_close(got, ds.snap_pass_ref(x, *a), rtol=0,
                                    atol=0)
+    for q in (20, 17, 8):
+        variants = des.snap_args(q)
+        before = build.LAUNCHES["snap_pass"]
+        got = ds.snap_passes_device(x, variants)
+        assert build.LAUNCHES["snap_pass"] == before + 1
+        want = x
+        for a in variants:
+            want = ds.snap_pass_ref(want, *a)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("b", [1, 3, 16])
@@ -896,6 +911,9 @@ def test_scan_kernels_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         ds.snap_pass_device(plane.transpose(1, 2), 1, 255, 257, 511, 6, 9, 9,
                             False, True, 510)
+    with pytest.raises(ValueError, match="snap_passes"):
+        ds.snap_passes_device(plane, [(1, 255, 257, 511, 6, 8, 4, 0, 1, 510),
+                                      (2, 300, 300, 400, 6, 8, 4, 0, 0, 510)])
     with pytest.raises(ValueError):
         ds.merge_crossing_device(torch.zeros((2, 1000), dtype=torch.uint8,
                                              device=cuda))
@@ -920,7 +938,7 @@ def test_pair_promotion_kernel(cuda, b):
 
 
 @pytest.mark.parametrize("b", [1, 3, 16])
-@pytest.mark.parametrize("q", [17, 18, 20, 21, "column 255"])
+@pytest.mark.parametrize("q", [17, 18, 20, 21, "column 255", "block edges"])
 def test_column_ladder_and_classify_kernels(cuda, q, b):
     import chip_smoke as cs
     from nhwcodec_tpu_torch.host.models import encoder as host_encoder
@@ -928,6 +946,8 @@ def test_column_ladder_and_classify_kernels(cuda, q, b):
 
     if q == "column 255":
         q, (p, rfe) = 20, cs.col255_edge_inputs(b)
+    elif q == "block edges":
+        q, (p, rfe) = 20, cs.ladder_block_edge_inputs(b)
     else:
         p, rfe = cs.delta_inputs(np.random.default_rng(90 + q + b), b)[:2]
     p, rfe = torch.from_numpy(p).to(cuda), torch.from_numpy(rfe).to(cuda)

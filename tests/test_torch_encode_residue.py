@@ -6,7 +6,11 @@
   the adversarial plane of tests/test_device_scans.py; the column ladder
   on delta planes at q17, q18, q20 and q21 and classify on its output,
   with the counts; the column ladder on planes where column 255's walk
-  after the others changes the result; the res1/res3/res5 positional
+  after the others changes the result (the twin walks it 4 steps behind
+  column 0, as the kernel does), and on planes whose cross-column pair
+  check reads the next column's inputs at the kernel's 32-column block
+  edges (31 -> 32, 63 -> 64), at a block's first columns (32, 64) and at
+  column 254 -> 255; the res1/res3/res5 positional
   streams at word_bits 1 and 2 on the C's classify output and on edge rfs
   (no codes, a code at every position, isolated markers).
 - The wrappers check their inputs.
@@ -205,3 +209,27 @@ def test_wrappers_check_their_inputs():
         tds.positional_stream_device(r, np.zeros(256), np.zeros(256), 3)
     with pytest.raises(ValueError):
         tds.positional_stream_device(r, np.zeros(255), np.zeros(256), 1)
+
+
+def test_column_ladder_block_edges():
+    """At columns 31, 32, 63, 64 and 254 the pair check fires on the next
+    column's input deltas while that column's own walk lowers them (the
+    C's order: column j walks before j + 1): the twin equals the JAX
+    function and the host copy's C, and the inputs do what they claim."""
+    p, rf_ext = cs.ladder_block_edge_inputs(2)
+    rs = henc._res_setting(20)
+    gp, grf = (x.numpy() for x in tds.column_ladder_device(_t(p), _t(rf_ext),
+                                                           20, rs))
+    z = np.zeros((2, 256, 256), np.int16)
+    hp, hr = _host_ladder(p, rf_ext[:, :SZ].reshape(2, 256, 256), z,
+                          np.zeros((2, 4), np.int16), 20)
+    assert np.array_equal(gp, hp)
+    assert np.array_equal(grf.reshape(2, 256, 256), hr)
+    jp, jr = jds.column_ladder_device(p, rf_ext, 20, rs)
+    assert np.array_equal(gp, np.asarray(jp))
+    assert np.array_equal(grf, np.asarray(jr))
+    for k in range(2):
+        for j, r in cs.LADDER_EDGE_COLS.items():
+            r += k
+            assert hr[k, r, j] == 12400 and hr[k, r - 1, j + 1] == 12400
+            assert hp[k, r, j + 1] == p[k, r, j + 1] - 2

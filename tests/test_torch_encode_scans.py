@@ -4,7 +4,13 @@
 - Each twin and torch-op module equals the JAX package's function and the
   host copy's C scan at batch 2: the snap pass in its three variants (and
   q17's second-pass window) on the adversarial chain plane of
-  tests/test_device_scans.py and on spill planes; ``offset_y`` (q20) on
+  tests/test_device_scans.py and on spill planes; the three variants as
+  one ``snap_passes_device`` call at q20, q17 and q8 against three JAX
+  calls in turn, there and on chains of both fixup classes across the
+  16-column lane tiles with a fully alive row, and on variant 3 counting
+  variant 2's spill column (each kind checked on the C's output to do what
+  it claims); the geometry rule refusing lists it does not cover and
+  taking the variants in reverse order; ``offset_y`` (q20) on
   random and edge planes (row 255's vertical fires, whole-row parity
   chains); ``offset_uv``; merge, select and cap on random and run-heavy
   streams (128-runs of 255 + 254 m + d, crossings at 4 SZ - 4); the
@@ -69,6 +75,91 @@ def test_snap_pass_twin(kind, variant):
     if kind == "spill":   # the spill column moves
         r0, r1, c1 = a[0], a[1], a[3]
         assert (got[:, r0:r1, c1] != x[:, r0:r1, c1]).any()
+
+
+SNAP_KINDS = {"chain": cs.snap_chain_planes, "spill": cs.snap_spill_planes,
+              "tile edges": cs.snap_tile_edge_planes,
+              "spill left": cs.snap_spill_left_planes}
+
+
+def _host_snaps(x, variants):
+    out = x
+    for a in variants:
+        out = _host_snap(out, a)
+    return out
+
+
+@pytest.mark.parametrize("kind", list(SNAP_KINDS))
+@pytest.mark.parametrize("q", [20, 17, 8])
+def test_snap_passes_fused(kind, q):
+    """The three variants in one call equal three JAX calls in turn and
+    the host copy's C."""
+    variants = des.snap_args(q)
+    x = SNAP_KINDS[kind](np.random.default_rng(q), 2)
+    got = tds.snap_passes_device(torch.from_numpy(x), variants).numpy()
+    want = x
+    for a in variants:
+        want = np.asarray(jds.snap_pass_device(want, *a))
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, _host_snaps(x, variants))
+
+
+def test_snap_tile_edge_planes_chain_across_tiles():
+    """The tile-edge runs do what they claim on the C's output: the class-1
+    run turns every 18 into 17 across four lane tiles in variant 1's rows
+    and variant 2's, the class-2 run of -16s alternates, the -17s turn
+    into -16 after the first, and the alive rows move."""
+    x = cs.snap_tile_edge_planes(np.random.default_rng(4), 2)
+    h = _host_snaps(x, des.snap_args(20))
+    assert (h[:, 2:255:2, 271:331] == 17).all()
+    assert (h[:, 256:510:2, 14:54] == 17).all()
+    run = h[:, 258, 60:97]
+    assert set(np.unique(run)) == {-16, -15}
+    assert (run[:, 1:] != run[:, :-1]).all()
+    assert (h[:, 2:255:2, 401:429] == -16).all()   # 429: right > 0 at times
+    assert (h[:, 301] != x[:, 301]).any() and (h[:, 303] != x[:, 303]).any()
+
+
+def test_snap_spill_left_planes_count_the_spill():
+    """Variant 2's spill moves column 256, and variant 3's column 257
+    keeps +-9 where column 256 counts and snaps to +-7 where it does
+    not."""
+    x = cs.snap_spill_left_planes(np.random.default_rng(5), 2)
+    h = _host_snaps(x, des.snap_args(20))
+    rows = slice(256, 511)
+    assert (h[:, rows, 256] != x[:, rows, 256]).any()
+    big = np.abs(x[:, rows, 256]) >= 6
+    assert set(np.unique(h[:, rows, 257][big])) == {-9, 9}
+    assert set(np.unique(h[:, rows, 257][~big])) == {-7, 7}
+
+
+def test_snap_passes_reverse_order():
+    """The rule covers the variants in reverse order too: one call equals
+    the three in turn."""
+    variants = des.snap_args(20)[::-1]
+    x = cs.snap_chain_planes(np.random.default_rng(8), 2)
+    got = tds.snap_passes_device(torch.from_numpy(x), variants).numpy()
+    assert np.array_equal(got, _host_snaps(x, variants))
+
+
+@pytest.mark.parametrize("variants", [
+    # variant 2's rows read the rows variant 1 writes
+    [(1, 255, 257, 511, 6, 8, 4, 0, 1, 510),
+     (2, 300, 300, 400, 6, 8, 4, 0, 0, 510)],
+    # the row above reads what the first region wrote
+    [(1, 255, 257, 511, 6, 8, 4, 0, 1, 510),
+     (255, 300, 300, 400, 6, 8, 4, 0, 0, 510)],
+    # a later region reads the spill column above and below
+    [(256, 511, 1, 256, 6, 8, 9, 1, 0, 254),
+     (257, 300, 256, 300, 7, 11, 11, 0, 0, 510)],
+    # too many regions
+    des.snap_args(20) + des.snap_args(20)[:1],
+    [],
+])
+def test_snap_passes_refuses(variants):
+    x = torch.zeros((1, 512, 512), dtype=torch.int16)
+    with pytest.raises(ValueError, match="snap_passes"):
+        tds.snap_passes_device(x, variants)
 
 
 def _host_offset_y(x, q=20):

@@ -1,0 +1,249 @@
+"""Device times of the port's S1 (snap passes) and S5 (column ladder) on
+the q20 batch, for one tree of the repo, and the split of a column-ladder
+kernel between its phases.
+
+Run from anywhere on a machine with a CUDA card:
+
+    python3 tools/torch_scan_probe.py [--tree DIR] [--ladder-src FILE]
+        [--runs N]
+
+``--tree`` is the root of the tree whose ``nhwcodec_tpu_torch`` and
+``chip_smoke`` are measured (default: this script's repo).  The inputs
+are the tree's own: ``chip_smoke``'s 16 encode images, their host
+encodes at q20 captured by ``chip_smoke.StreamCapture``; S1 runs on the
+captured Y planes before the snap passes, S5 on pair promotion's output
+of the captured E11 planes.  Times are CUDA events around replays of a
+CUDA graph of 20 calls (``chip_smoke.graph_ms``): the three snap
+variants as three ``snap_pass_device`` calls, and, where the tree has
+``snap_passes_device``, as one call; ``column_ladder_device``.
+
+``--ladder-src`` takes a ``residue.cu`` of either column-ladder design,
+patches ``%globaltimer`` stamps into a copy, builds it with ``nvcc`` for
+sm_90a into a temporary directory, checks its output against the tree's
+``column_ladder_device`` and reports per CTA, in µs from the CTA's start
+(medians over CTAs and runs):
+
+- one CTA an image (a thread a column, column 255 again after a block
+  barrier): the end of the walk of columns 0..254 (with the copy of what
+  the ladder leaves), of the barrier and its staging, of column 255's
+  walk;
+- 8 CTAs an image (``ladder_table`` first): the end of the staging, of
+  the walk of the CTA's block (CTA 0 and the others apart), the start
+  and end of column 255's walk in CTA 0, the write-back's start.
+
+Prints the card's name and power limit, then one JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import numpy as np
+
+REPO = Path(__file__).resolve().parent.parent
+STAMPS = 8
+
+STAMP_DEFS = r"""
+__device__ unsigned long long g_ladder_stamp[65536 * 8];
+__device__ __forceinline__ unsigned long long nhw_now() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define NHW_STAMP(k)                                                    \
+  (g_ladder_stamp[(blockIdx.y * gridDim.x + blockIdx.x) * 8 + (k)] = \
+       nhw_now())
+"""
+
+# (anchor, text inserted before it, text inserted after it)
+ONE_CTA_PATCHES = (
+    ("  // what the ladder leaves: rows 257..511, row 256's right half, "
+     "column 511\n",
+     "  if (threadIdx.x == 0) NHW_STAMP(0);\n", ""),
+    ("    InputSrc src{p, rf, j};\n    ladder_walk(j, p, src, o, ro, f);\n",
+     "", "    atomicMax(&g_ladder_stamp[blockIdx.x * 8 + 1], nhw_now());\n"),
+    ("    Col255Src src{s_v2, s_rf, s_bnd, s_c256, s_rf0};\n"
+     "    ladder_walk(c, p, src, o, ro, f);\n",
+     "    NHW_STAMP(2);\n", "    NHW_STAMP(3);\n"),
+)
+BLOCK_PATCHES = (
+    ("  volatile int* progress = reinterpret_cast<volatile int*>(lsm + "
+     "kLProgress);\n", "", "  if (t == 0) NHW_STAMP(0);\n"),
+    ("  if (w == 0) {\n    BlockSrc src{lsm, lane, blk == 0 ? progress : "
+     "nullptr};\n    ladder_walk(src, tab_s);\n",
+     "  if (t == 0) NHW_STAMP(1);\n", "    if (lane == 0) NHW_STAMP(2);\n"),
+    ("      Col255Src src{lsm, progress};\n      ladder_walk(src, tab_s);\n",
+     "      NHW_STAMP(3);\n", "      NHW_STAMP(4);\n"),
+    ("  for (int i = t; i < kLPfRows * kLBlock; i += kLThreads) {\n",
+     "  if (t == 0) NHW_STAMP(5);\n", ""),
+)
+
+STAMP_API = r"""
+extern "C" int nhw_ladder_stamps(void* dst, int n, int reset) {
+  if (reset) {
+    static unsigned long long zero[65536 * 8];
+    return cudaMemcpyToSymbol(g_ladder_stamp, zero, sizeof(zero));
+  }
+  return cudaMemcpyFromSymbol(dst, g_ladder_stamp,
+                              sizeof(unsigned long long) * 8 * n);
+}
+"""
+
+
+def blocks(src: str) -> bool:
+    """Whether a residue.cu is the 8-CTAs-an-image design."""
+    return "ladder_table" in src
+
+
+def patch_ladder(src: str) -> str:
+    """The stamped copy of a ``residue.cu``."""
+    at = src.index("namespace {")
+    src = src[:at] + STAMP_DEFS + src[at:]
+    for anchor, before, after in (BLOCK_PATCHES if blocks(src)
+                                  else ONE_CTA_PATCHES):
+        if src.count(anchor) != 1:
+            raise SystemExit(f"torch_scan_probe: anchor not found once in "
+                             f"the ladder source: {anchor!r}")
+        src = src.replace(anchor, before + anchor + after)
+    return src + STAMP_API
+
+
+def build_stamped(src_path: Path, out_dir: Path):
+    """(the stamped library, whether it is the 8-CTA design)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    text = src_path.read_text()
+    cu = out_dir / "residue_stamped.cu"
+    cu.write_text(patch_ladder(text))
+    lib = out_dir / "libladder_stamped.so"
+    nvcc = str(Path(CUDA_HOME) / "bin" / "nvcc") if CUDA_HOME else "nvcc"
+    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                    "-I", str(src_path.parent), str(cu), "-o", str(lib)],
+                   check=True)
+    dll = ctypes.CDLL(str(lib))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    dll.nhw_column_ladder.argtypes = ([p] * (5 if blocks(text) else 4)
+                                      + [i] * 5 + [p])
+    dll.nhw_column_ladder.restype = i
+    dll.nhw_ladder_stamps.argtypes = [p, i, i]
+    dll.nhw_ladder_stamps.restype = i
+    return dll, blocks(text)
+
+
+def ladder_split(dll, new: bool, pp, rf_ext, flags, rs, runs: int,
+                 cs) -> dict:
+    """Run the stamped kernel ``runs`` times on (pp, rf_ext): its output
+    against the tree's, and the per-CTA phase times."""
+    import torch
+
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    b = pp.shape[0]
+    ctas = 8 * b if new else b
+    out = torch.empty_like(pp)
+    rf = torch.empty((b, 65536), dtype=torch.int16, device=pp.device)
+    tab = torch.empty(17 * 15 * 12 * 16, dtype=torch.int16, device=pp.device)
+
+    def call():
+        stream = torch.cuda.current_stream().cuda_stream
+        ptrs = [pp.data_ptr(), rf_ext.data_ptr(), out.data_ptr(),
+                rf.data_ptr()] + ([tab.data_ptr()] if new else [])
+        rc = dll.nhw_column_ladder(*ptrs, b, *flags, rs, stream)
+        if rc:
+            raise SystemExit(f"torch_scan_probe: stamped launch failed {rc}")
+
+    call()
+    torch.cuda.synchronize()
+    want_p, want_rf = ds.column_ladder_device(pp, rf_ext, 20, rs)
+    cs.check(torch.equal(out, want_p) and torch.equal(rf, want_rf),
+             "the stamped ladder differs from the tree's column_ladder")
+    per_run = []
+    stamps = np.zeros((ctas, STAMPS), np.uint64)
+    for _ in range(runs):
+        dll.nhw_ladder_stamps(None, ctas, 1)
+        call()
+        torch.cuda.synchronize()
+        dll.nhw_ladder_stamps(stamps.ctypes.data, ctas, 0)
+        s = stamps.astype(np.int64)
+        per_run.append((s - s[:, :1]) / 1e3)          # µs from the start
+    t = np.stack(per_run)                               # (runs, ctas, 8)
+    med = lambda v: float(np.median(v))                 # noqa: E731
+    if not new:
+        return {"design": "one CTA an image", "walk_end_us": med(t[..., 1]),
+                "barrier_end_us": med(t[..., 2]),
+                "tail_end_us": med(t[..., 3]),
+                "tail_us": med(t[..., 3] - t[..., 2]), "ctas": ctas,
+                "runs": runs, "event_ms": cs.median_ms(call)}
+    cta0, rest = t[:, ::8], np.concatenate([t[:, k::8] for k in range(1, 8)],
+                                           1)
+    return {"design": "8 CTAs an image", "staged_us": med(t[..., 1]),
+            "walk_end_us": med(rest[..., 2]),
+            "cta0_walk_end_us": med(cta0[..., 2]),
+            "col255_start_us": med(cta0[..., 3]),
+            "col255_end_us": med(cta0[..., 4]),
+            "write_back_start_us": med(t[..., 5]),
+            "last_write_back_start_us": med(t[..., 5].max(-1)),
+            "ctas": ctas, "runs": runs, "event_ms": cs.median_ms(call)}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", default=str(REPO))
+    ap.add_argument("--ladder-src", default=None)
+    ap.add_argument("--runs", type=int, default=25)
+    args = ap.parse_args()
+    tree = Path(args.tree).resolve()
+    sys.path.insert(0, str(tree))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_scan_probe: needs a CUDA card", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+    from nhwcodec_tpu_torch.host.models import encoder as host_encoder
+    from nhwcodec_tpu_torch.models import device_encode_scans as des
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    dev = torch.device("cuda", 0)
+    images = cs.encode_images(np.random.default_rng(cs.SEED))
+    with cs.StreamCapture() as cap:
+        for img in images:
+            host_encoder.encode(img, 20)
+    st = cs.stack_records(cap.records)
+    y = torch.from_numpy(st["y"]).to(dev)
+    e11, res256, khead, resIII = cs.residue_inputs(st, dev)
+    pp = ds.pair_promotion_device(e11)
+    rf_ext = des._rf_ext(res256, khead, resIII)
+    rs = host_encoder._res_setting(20)
+    variants = des.snap_args(20)
+    out = {"tree": str(tree), "batch": len(images)}
+    out["snap_three_calls_graph_ms"] = cs.graph_ms(
+        lambda: [ds.snap_pass_device(y, *a) for a in variants])
+    if hasattr(ds, "snap_passes_device"):
+        out["snap_one_call_graph_ms"] = cs.graph_ms(
+            lambda: ds.snap_passes_device(y, variants))
+    out["column_ladder_graph_ms"] = cs.graph_ms(
+        lambda: ds.column_ladder_device(pp, rf_ext, 20, rs))
+    if args.ladder_src:
+        with tempfile.TemporaryDirectory() as d:
+            dll, new = build_stamped(Path(args.ladder_src).resolve(),
+                                     Path(d))
+            flags = [int(x) for x in ds._ladder_flags(20, rs)[:3]]
+            out["ladder_split"] = ladder_split(dll, new, pp, rf_ext, flags,
+                                               rs, args.runs, cs)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
