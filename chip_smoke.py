@@ -85,9 +85,11 @@
    Holds S1-S3 to their twins, timed on the q20 batch's planes and
    stream, and at batch 1, 3 and 16 on chain and spill planes (all three
    variants and q17's window), offset_y's edge planes (row 255's
-   vertical fires, whole-row parity chains) and edge streams (128-runs of
-   255 + 254 m + d, crossings at the walk's end), whose merge + select +
-   cap on the card also equal the host copy's.  The encode breakdown
+   vertical fires, whole-row parity chains), relay edge planes (a pend
+   carried through every band of passes 2-3) and the captured planes,
+   also against the host copy's C, and edge streams (128-runs of 255 +
+   254 m + d, crossings at the walk's end), whose merge + select + cap
+   on the card also equal the host copy's.  The encode breakdown
    splits the host's encode_from_planes into the tokenizer, the stream
    stage, the E16 LL2 coders, E17 (uv_highres_compression), the E11 tail
    and E12 (pair promotion, the mid-q cleanup, the column ladder,
@@ -107,9 +109,11 @@
    Holds S4-S6 to their twins, timed on the q20 batch's inputs, and at
    batch 1, 3 and 16 on the adversarial pair-promotion plane, delta
    planes at q17/18/20/21 and planes on which column 255's walk after
-   the others changes the ladder (also against the host copy's C), and
-   the positional streams on the card against the host copy's C on edge
-   rfs.
+   the others changes the ladder (also against the host copy's C),
+   classify also on the captured inputs and on class edge inputs (every
+   class boundary at the lane-tile edges) at q20/q21 and res_setting
+   3/4/6/8 against the host copy's C, and the positional streams on the
+   card against the host copy's C on edge rfs.
 9. Drives the device encode scans' LL2 stage
    (models/device_encode_scans._y_ll2_stage, _uv_ll2_stage,
    _uv_highres_stage, _ll2_sections and _uv_ll2_sections: the Y LL2 byte
@@ -2400,6 +2404,9 @@ def encode_phase(dev, images: np.ndarray, captured: dict) -> dict:
 # quantizers and the E15 stream fixups (models/device_encode_scans.py)
 
 SCAN_KERNELS = ("snap_pass", "offset_y", "merge_crossing")
+# wrapper calls of a stream stage (q > LOW4): one snap_passes launch, one
+# offset_y (three launches: offset_y_rows, offset_y_bands, offset_y_codes),
+# one merge_crossing (three)
 SCAN_LAUNCHES = {"snap_pass": 1, "offset_y": 1, "merge_crossing": 1}
 # q -> images of the encode batch whose host encodes are captured (the q20
 # batch of 16, and the batches of 4 of OTHER_QS at q21, q19 and q17)
@@ -2897,6 +2904,37 @@ def offset_y_edge_planes(rng, b):
     return x
 
 
+
+# S2's relay edges: the columns of a pair of 5s and of a pair of -5s down
+# the LL quadrant from row 1 (odd) into plane row 256, and, at each band
+# edge b (rows 16 b + 15 -> 16 b + 16, b = 0..14), the columns of a pair of
+# 5s on those two rows only
+RELAY_PAIRS = ((100, 5), (200, -5))
+RELAY_EDGE_COLS = tuple(8 + 6 * b for b in range(15))
+
+
+def offset_y_relay_edge_planes(rng, b):
+    """Planes in [-400, 400] on which passes 2-3's relay of ``pend``
+    (S2's bands of 16 rows) needs every sweep and every band edge: down
+    each pair of RELAY_PAIRS (columns c - 1, c) the rows fire vertically
+    and are pended in turn, the first fire at row 1, so the band of rows
+    16 k.. takes a pend from the band above and its exit flips with its
+    entry (the twin takes 16 sweeps), and row 255's fire writes 10100
+    into plane row 256; at the columns c - 1, c of RELAY_EDGE_COLS a band's
+    last row fires vertically into the next band's first row, which
+    without that pend would be a pass-3 pair (10300).  The columns c - 3..
+    c + 1 around each are 0 elsewhere."""
+    x = rng.integers(-400, 401, (b, 512, 512)).astype(np.int16)
+    for c, val in RELAY_PAIRS:
+        x[:, :257, c - 3: c + 2] = 0
+        x[:, 1:257, c - 1: c + 1] = val
+    for k, c in enumerate(RELAY_EDGE_COLS):
+        r = 16 * k + 15
+        x[:, :257, c - 3: c + 2] = 0
+        x[:, r: r + 2, c - 1: c + 1] = 5
+    return x
+
+
 # the cap's classes: a run of L 128s crosses its count at in-run offsets
 # 255 + 254 m; L = 257 + 254 m ends on a crossing's i + 2 (two demotes),
 # L = 258 + 254 m on its i + 3 (one), other lengths leave a residual
@@ -3003,19 +3041,53 @@ SNAP_EDGE_KINDS = {"chain": snap_chain_planes, "spill": snap_spill_planes,
 # batch (ms, CUDA events around a graph; PERF.md's row S1, NVIDIA H100
 # 80GB HBM3 at 700 W)
 S1_WAS_GRAPH_MS = 0.5176
+# S2's before its passes 2-3 took bands and a relay (one CTA an image, a
+# thread a column, rows in order), on the snapped q20 batch (the same
+# source)
+S2_WAS_GRAPH_MS = 0.2085
+
+
+def host_offset_y(x: np.ndarray, q: int = 20) -> np.ndarray:
+    """The host copy's C quantizer at quality q on each image."""
+    from nhwcodec_tpu_torch.host.ops import quantize
+
+    out = x.copy()
+    for p in out:
+        quantize.offset_y(p, q, 8)
+    return out
+
+
+def offset_y_split(x) -> None:
+    """Print S2's three launches' device times on ``x`` (the profiler's
+    means per record), passes 2-3's own bound and the sweeps each image
+    took (the twin's, which takes the kernel's bands and relay)."""
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    _, _, top = device_profile(lambda: ds.offset_y_device(x, 8), calls=10)
+    b = x.shape[0]
+    ll = work(2 * 2 * b * 257 * 256, OFFSET_Y_LL_OPS * b * 256 * 256)
+    sweeps = ds.offset_y_sweeps(x).cpu().tolist()
+    print(f"kernel offset_y ({b},512,512) q20 snapped planes: launches (ms "
+          "per call, profiler): " + "; ".join(f"{k[:40]} {v:.4f}"
+                                              for k, v in top)
+          + f"; passes 2-3's own bound {1e3 * ll['bound_ms']:.3f} us "
+          f"({ll['bound_by']}); sweeps per image {sweeps}", flush=True)
 
 
 def scan_kernel_phase(dev, captured: dict) -> dict:
     """S1-S3 against their twins (max_abs_err 0): timed on the q20
     batch's real planes and stream (snap_pass as the one launch of its
     three variants, also timed as three one-variant launches, the
-    parent's pattern; offset_y on the snapped plane, merge_crossing on
-    the serpentine stream); then at batch 1, 3 and 16 S1 on its edge
-    planes (``snap_edge_check``), offset_y's edge planes (row 255's
-    vertical fires checked to write row 256) and random planes, and edge
-    streams (128-runs of 255 + 254 m + d, crossings at the walk's end),
-    whose merge + select + cap on the card also equal the host copy's C
-    scans."""
+    parent's pattern; offset_y on the snapped plane, with its three
+    launches' split, passes 2-3's own bound and the relay's sweeps per
+    image, at batch 1, 3 and 16 too and against the host copy's C;
+    merge_crossing on the serpentine stream); then at batch 1, 3 and 16
+    S1 on its edge planes (``snap_edge_check``), offset_y on its edge
+    planes (row 255's vertical fires checked to write row 256), relay
+    edge planes (checked to take every sweep) and random planes, each
+    also against the host copy's C, and edge streams (128-runs of 255 +
+    254 m + d, crossings at the walk's end), whose merge + select + cap
+    on the card also equal the host copy's C scans."""
     import torch
 
     from nhwcodec_tpu_torch.models import device_encode_scans as des
@@ -3049,6 +3121,17 @@ def scan_kernel_phase(dev, captured: dict) -> dict:
         bound=work(4 * B * 512 * 512,
                    (OFFSET_Y_PASS1_OPS + OFFSET_Y_PASS4_OPS) * B * 512 * 512
                    + OFFSET_Y_LL_OPS * B * 256 * 256), graph=True)
+    print(f"kernel offset_y ({B},512,512) q20: "
+          f"{out['offset_y']['graph_ms']:.4f} ms (graph of {GRAPH_CALLS} "
+          f"calls, CUDA events); the design before: {S2_WAS_GRAPH_MS} ms "
+          "(PERF.md)", flush=True)
+    offset_y_split(snapped)
+    compare_batches("offset_y", "q20 snapped planes",
+                    lambda a: ds.offset_y_device(a, 8),
+                    lambda a: ds.offset_y_ref(a, 8), (snapped,))
+    check(np.array_equal(ds.offset_y_device(snapped, 8).cpu().numpy(),
+                         host_offset_y(snapped.cpu().numpy())),
+          "offset_y on the q20 snapped planes differs from the host C")
     stream = torch.zeros((B, 6 * SZ + 16), dtype=torch.uint8, device=dev)
     stream[:, : 4 * SZ] = ds.serpentine_y_device(
         ds.offset_y_device(snapped, 8))
@@ -3061,6 +3144,7 @@ def scan_kernel_phase(dev, captured: dict) -> dict:
     for b in (1, 3, B):
         snap_edge_check(dev, rng, b)
         for what, x in (("edge", offset_y_edge_planes(rng, b)),
+                        ("relay edge", offset_y_relay_edge_planes(rng, b)),
                         ("random [-400, 400]", rng.integers(
                             -400, 401, (b, 512, 512)).astype(np.int16))):
             xt = torch.from_numpy(x).to(dev)
@@ -3068,11 +3152,23 @@ def scan_kernel_phase(dev, captured: dict) -> dict:
                 "offset_y", f"({b},512,512) {what} planes",
                 lambda: ds.offset_y_device(xt, 8),
                 lambda: ds.offset_y_ref(xt, 8), timed=False)
+            got = ds.offset_y_device(xt, 8)
+            check(np.array_equal(got.cpu().numpy(), host_offset_y(x)),
+                  f"offset_y on the {what} planes differs from the host C "
+                  f"at batch {b}")
             if what == "edge":
-                got = ds.offset_y_device(xt, 8)
                 check(bool((got[:, 256, 1:256:4] == 128).all()),
                       "offset_y: row 255's vertical fires did not reach "
                       "row 256")
+            if what == "relay edge":
+                sweeps = ds.offset_y_sweeps(xt).tolist()
+                check(sweeps == [ds.OY_BANDS] * b,
+                      f"offset_y: the relay edge planes took {sweeps} "
+                      "sweeps, not every one")
+    print("encode scans: offset_y equals its twin and the host copy's C on "
+          f"the edge, relay edge ({ds.OY_BANDS} sweeps each) and random "
+          "planes at batch 1, 3 and 16", flush=True)
+    for b in (1, 3, B):
         s = stream_edge_streams(rng, b)
         st_t = torch.from_numpy(s).to(dev)
         compare_and_time("merge_crossing", f"({b},{6 * SZ + 16}) edge "
@@ -3099,6 +3195,9 @@ def scan_kernel_phase(dev, captured: dict) -> dict:
 # (models/device_encode_scans._y_residue_stage)
 
 RESIDUE_KERNELS = ("pair_promotion", "column_ladder", "classify")
+# wrapper calls of a residue stage (q > LOW4): one pair_promotion launch,
+# one column_ladder (two launches: ladder_table, column_ladder), one
+# classify (one launch of classify_bands, after the counts' zero fill)
 RESIDUE_LAUNCHES = {k: 1 for k in RESIDUE_KERNELS}
 # q -> images whose host encodes are captured: the StreamCapture records of
 # encode_phase, and q18 (LOW2, the ladder's low2 branch), captured from 4
@@ -3116,6 +3215,24 @@ CLASSIFY_OPS = 40
 # (ms, CUDA events around a graph; PERF.md's row S5, NVIDIA H100 80GB HBM3
 # at 700 W)
 S5_WAS_GRAPH_MS = 0.2898
+# S6's before its band rows took 6-class map scans (one CTA an image, a
+# thread a column), on the q20 ladder outputs (the same source)
+S6_WAS_GRAPH_MS = 0.2157
+
+
+def host_classify_equal(plane, res256, got, q: int, rs: int) -> bool:
+    """Whether ``got`` (classify's (plane', res256', n1, n3, n5) on the
+    card) equals the host copy's C on each image of (plane, res256)."""
+    from nhwcodec_tpu_torch.host.ops import residue
+
+    gp, gr, *gn = (t.cpu().numpy() for t in got)
+    for k, (hp, hr) in enumerate(zip(plane.cpu().numpy().copy(),
+                                     res256.cpu().numpy().copy())):
+        counts = residue.res256_classify(hp, hr, q, rs)
+        if not (np.array_equal(gp[k], hp) and np.array_equal(gr[k], hr)
+                and tuple(int(n[k]) for n in gn) == counts):
+            return False
+    return True
 
 
 # columns whose cross-column pair check reads the next column's inputs at
@@ -3193,6 +3310,103 @@ def col255_edge_inputs(b):
         p[i, r + 1: r + 4, 0] = 2
     z = np.zeros((b, 256, 256), np.int16)
     return p, rf_ext_np(z, np.zeros((b, 4), np.int16), z)
+
+
+
+# S6's class edges: each boundary between two classes of band values (lo,
+# hi), with a step (res, v) whose band rule tells the two classes apart
+# (res 3: below HIGH1 only; res 4: at res_setting 3 only); the first steps
+# of lane tiles (8 steps a lane) where the entry class crosses them; the
+# res of the other steps (every case: 0..1, 2, 3, 4, 5..6, 7, > 7, and <=
+# res_setting) and their band values around every boundary; the marks the
+# ladder writes (the only ones the C maps: others are 0 there, 149 in the
+# JAX package and the port)
+CLASS_EDGES = {(-8, -7): (0, -7), (-1, 0): (2, -6), (1, 2): (2, -8),
+               (2, 3): (3, -6), (7, 8): (4, 7)}
+CLASS_TILE_EDGES = (8, 128, 248)
+CLASS_RES = np.array([0, 1, 2, 3, 4, 5, 6, 7, 8, 9, -2], np.int16)
+CLASS_BAND = np.array([-12, -10, -9, -8, -7, -6, -5, -1, 0, 1, 2, 3, 7, 8,
+                       9, 10, 16, 24, -16], np.int16)
+CLASS_MARKS = np.array([14000, 14500, 12200, 12100, 12300, 12400, 14100,
+                        12500, 12600, 14900], np.int16)
+
+
+def classify_class_edge_inputs(rng, b) -> tuple:
+    """(plane, res256, design) for S6: band row j of image k writes at
+    steps e - 2 and e - 1 (e in CLASS_TILE_EDGES, a lane tile's first
+    step) two values across one boundary of CLASS_EDGES, in either order,
+    both kept (res -5), and its step e applies the rule that tells their
+    classes apart, so that step e's result depends on the class the tile
+    enters with (the boundaries, edges and orders taken in turn over the
+    rows); design[k, j] = (e, first, second, res, v).  The other steps draw
+    res from CLASS_RES, band values from CLASS_BAND, and one mark in 8
+    from CLASS_MARKS."""
+    shape = (b, 256, 256)
+    marks = rng.integers(-40, 41, shape).astype(np.int16)
+    res = rng.choice(CLASS_RES, shape)
+    band = rng.choice(CLASS_BAND, shape)                 # [j, step]
+    combos = [(edge, e, order) for edge in CLASS_EDGES
+              for e in CLASS_TILE_EDGES for order in (0, 1)]
+    design = np.zeros((b, 256, 5), np.int32)
+    for k in range(b):
+        for j in range(256):
+            edge, e, order = combos[(j + 7 * k) % len(combos)]
+            first, second = edge[::-1] if order else edge
+            r, v = CLASS_EDGES[edge]
+            band[k, j, e - 2: e + 1] = (first, second, v)
+            res[k, e - 2: e + 1, j] = (-5, -5, r)        # [step, j]
+            design[k, j] = (e, first, second, r, v)
+    plane = rng.integers(-400, 401, (b, 512, 512)).astype(np.int16)
+    plane[:, :256, :256] = marks + res
+    plane[:, :256, 256:] = band
+    high = rng.random(shape) < 1 / 8
+    high[np.arange(b)[:, None, None], design[:, None, :, 0]
+         + np.arange(-2, 1)[None, :, None], np.arange(256)] = False
+    marks[high] = rng.choice(CLASS_MARKS, int(high.sum()))
+    return plane, marks, design
+
+
+
+def classify_edge_splits(plane, res256, out, design, q: int,
+                         rs: int) -> set:
+    """Check classify's output ``out`` on ``classify_class_edge_inputs``
+    (``plane``, ``res256``, ``design``; numpy): each band row keeps its
+    two values at steps e - 2 and e - 1, and its step e writes what the
+    class of the value at e - 1 gives (``_classify_step`` with it).
+    Returns the (lo, hi, e) whose two classes gave step e different
+    results in some row."""
+    import torch
+
+    from nhwcodec_tpu_torch.host import tables as T
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    k, j = np.indices(design.shape[:2])
+    e, first, second = design[..., 0], design[..., 1], design[..., 2]
+    check(np.array_equal(out[k, j, 256 + e - 2], first)
+          and np.array_equal(out[k, j, 256 + e - 1], second),
+          "classify edge inputs: the values at steps e - 2, e - 1 moved")
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32))  # noqa: E731
+    step = [t(a) for a in (plane[k, e, j], res256[k, e, j],
+                           plane[k, j, 256 + e])]
+    got, alt = (ds._classify_step(q >= T.HIGH1, rs, t(bp), *step)[0]
+                .numpy() for bp in (second, first))
+    check(np.array_equal(out[k, j, 256 + e], got),
+          "classify edge inputs: step e does not follow the class written "
+          "before it")
+    split = got != alt
+    return {(int(min(a, c)), int(max(a, c)), int(x))
+            for a, c, x in zip(first[split], second[split], e[split])}
+
+
+def classify_expected_splits(q: int, rs: int) -> set:
+    """The (lo, hi, e) of CLASS_EDGES x CLASS_TILE_EDGES whose step tells
+    the classes apart at quality q and res_setting rs (res 3's rule
+    below HIGH1, res 4's at rs < 4)."""
+    from nhwcodec_tpu_torch.host import tables as T
+
+    return {(lo, hi, e) for (lo, hi), (r, _) in CLASS_EDGES.items()
+            for e in CLASS_TILE_EDGES
+            if (r != 3 or q < T.HIGH1) and (r != 4 or rs < 4)}
 
 
 # every code of the three positional streams
@@ -3402,7 +3616,11 @@ def residue_kernel_phase(dev, captured: dict) -> dict:
     then at batch 1, 3 and 16 (``compare_batches``) on the adversarial
     pair-promotion plane, delta planes at q17, q18, q20 and q21 (ladder,
     then classify), and the column-255 and block-edge planes, whose marks
-    on the card also equal the host copy's C; and the positional streams
+    on the card also equal the host copy's C; classify also at batch 1, 3
+    and 16 on the q20 ladder outputs and on the class edge inputs at q20
+    and q21 with res_setting 3, 4, 6 and 8 (checked to cross every class
+    boundary the rules tell apart at the lane-tile edges), both against
+    the host copy's C; and the positional streams
     (torch ops) on the card against the host copy's C on the edge rfs (no codes, a code at every
     position, isolated markers) at every stream."""
     import torch
@@ -3444,6 +3662,16 @@ def residue_kernel_phase(dev, captured: dict) -> dict:
         lambda: ds.classify_ref(lp, lrf, 20, rs), twin_calls=1, twin_runs=5,
         bound=work(B * (2 * plane_bytes + 4 * SZ + 12),
                    CLASSIFY_OPS * B * SZ), graph=True)
+    print(f"kernel classify ({B},512,512) q20: "
+          f"{out['classify']['graph_ms']:.4f} ms (graph of {GRAPH_CALLS} "
+          f"calls, CUDA events); the design before: {S6_WAS_GRAPH_MS} ms "
+          "(PERF.md)", flush=True)
+    compare_batches("classify", "q20 ladder outputs",
+                    lambda a, b: ds.classify_device(a, b, 20, rs),
+                    lambda a, b: ds.classify_ref(a, b, 20, rs), (lp, lrf))
+    check(host_classify_equal(lp, lrf, ds.classify_device(lp, lrf, 20, rs),
+                              20, rs),
+          "classify on the q20 ladder outputs differs from the host C")
     rng = np.random.default_rng(SEED + 40)
     x = torch.from_numpy(pp_adversarial_planes(rng, B)).to(dev)
     compare_batches("pair_promotion", "adversarial planes",
@@ -3463,6 +3691,30 @@ def residue_kernel_phase(dev, captured: dict) -> dict:
             lambda a, b, q=q, rs=rs: ds.classify_device(a, b, q, rs),
             lambda a, b, q=q, rs=rs: ds.classify_ref(a, b, q, rs),
             (lp, lrf.reshape(B, 256, 256)))
+    for q in (20, 21):
+        for rs in (3, 4, 6, 8):
+            p_np, r_np, design = classify_class_edge_inputs(rng, B)
+            p, rfc = torch.from_numpy(p_np).to(dev), torch.from_numpy(
+                r_np).to(dev)
+            compare_batches(
+                "classify", f"class edge inputs q{q} res_setting {rs}",
+                lambda a, b, q=q, rs=rs: ds.classify_device(a, b, q, rs),
+                lambda a, b, q=q, rs=rs: ds.classify_ref(a, b, q, rs),
+                (p, rfc))
+            got = ds.classify_device(p, rfc, q, rs)
+            check(host_classify_equal(p, rfc, got, q, rs),
+                  f"classify on the class edge inputs differs from the host "
+                  f"C at q{q} res_setting {rs}")
+            check(classify_edge_splits(p_np, r_np, got[0].cpu().numpy(),
+                                       design, q, rs)
+                  == classify_expected_splits(q, rs),
+                  f"classify edge inputs: a class edge not crossed at q{q} "
+                  f"res_setting {rs}")
+    print("encode scans: classify equals its twin at batch 1, 3 and 16 and "
+          "the host copy's C on the q20 ladder outputs and on the class "
+          "edge inputs (every boundary the rules tell apart crossed at "
+          "steps 7/8, 127/128, 247/248) at q20 and q21, res_setting 3, 4, "
+          "6 and 8", flush=True)
     rs = host_encoder._res_setting(20)
     for what, gen in (("column-255 edge", col255_edge_inputs),
                       ("block edge", ladder_block_edge_inputs)):
@@ -4496,12 +4748,7 @@ def lowq_edge_inputs(rng, b, kind: str) -> tuple:
 def host_offset_y_low4(x: np.ndarray) -> np.ndarray:
     """The host copy's C quantizer at q16 (the duty cycles) on each
     image."""
-    from nhwcodec_tpu_torch.host.ops import quantize
-
-    out = x.copy()
-    for p in out:
-        quantize.offset_y(p, 16, 8)
-    return out
+    return host_offset_y(x, 16)
 
 
 def host_lowest_q(x: np.ndarray, r3: np.ndarray, q: int,
@@ -5240,12 +5487,13 @@ def main() -> int:
           flush=True)
     print_ptxas(("y_stage2_cluster", "waves_band", "chain_tiles",
                  "chain_entries", "chain_emit", "y_runs_fixpoint",
-                 "snap_pass", "ladder_table", "offset_y_rows", "offset_y_ll",
-                 "offset_y_codes", "merge_tiles", "merge_entries",
-                 "merge_emit", "pair_promotion", "column_ladder",
-                 "classify", "ll2_code_y", "walk_visited", "uv_sentinel",
-                 "oy4_maps", "oy4_emit", "lq_a", "lq_maps", "lq_emit",
-                 "vlq_passes", "ll1_rows", "uv_smooth"))
+                 "snap_pass", "ladder_table", "offset_y_rows",
+                 "offset_y_bands", "offset_y_codes", "merge_tiles",
+                 "merge_entries", "merge_emit", "pair_promotion",
+                 "column_ladder", "classify_bands", "ll2_code_y",
+                 "walk_visited", "uv_sentinel", "oy4_maps", "oy4_emit",
+                 "lq_a", "lq_maps", "lq_emit", "vlq_passes", "ll1_rows",
+                 "uv_smooth"))
 
     def phase(fn, *args):
         t0 = time.perf_counter()

@@ -13,7 +13,7 @@
 //    step's table, then 8 CTAs an image.
 // S6 nhw_classify replaces nhwcodec_tpu/models/device_scans.py:1105
 //    classify_device (a 256-step lax.scan over rows): res256_classify and
-//    its counts n1, n3, n5.  One launch.
+//    its counts n1, n3, n5.  One launch (classify_bands).
 //
 // The bound of each is bytes: a plane (and res256) read once and written
 // once, some tens of operations a position.  Each is a chain of dependent
@@ -45,9 +45,19 @@
 //   of its effects by classes of res, a and b2 (ladder_table, a first
 //   launch; 96 KB, staged with the rest): a lookup, no branches to split
 //   the warp.  Two launches.
-// - S6: one CTA an image, a thread a column: the pf[scan] and rf[cnt] reads
-//   are inputs, and column j's only chain is its band row's st - 1 read of
-//   the value its previous row wrote.  The counts are summed in the CTA.
+// - S6: the pf[scan] and rf[cnt] reads are inputs, so the rf codes, the
+//   counts and each step's band rule are static; band row j's only chain
+//   is its st - 1 read of the value its previous step wrote, and a step
+//   reads that value only through 6 classes (<= -8, -7..-1, 0..1, 2,
+//   3..7, >= 8; every bp test of the C's rules), so the chain is a scan of
+//   6-class maps.  8 CTAs an image, 32 band rows each: the CTA reads its 32
+//   columns of rows 0..255 in 16-byte loads, writes their codes and stages
+//   their rules transposed (a band row's steps a row of bytes), copies its
+//   share of the rest of the plane, then a warp a band row: lane l loads
+//   its 8 band values in one 16-byte load, composes their maps, the warp
+//   scans the 32 maps with shuffles, and each lane walks its steps again
+//   from its entry class.  The counts are summed in the CTA, then one
+//   atomicAdd each a CTA.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -656,6 +666,18 @@ cudaError_t column_ladder_setup() {
 // S6: classify (encoder/nhw_encoder.c:1329-1420, the host copy's
 // nhw_classify).  Marks outside the ladder's set map to 149.
 
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kCRows = 32;               // band rows a CTA of S6
+constexpr int kCCtas = kD / kCRows;      // CTAs an image
+constexpr int kCThreads = 512;
+constexpr int kCSteps = kD / 32;         // steps a lane takes along its row
+constexpr int kCPitch = kD + 4;          // bytes a staged band row: 65 words
+
+// The band rule a step applies, from res = pf - mark (marks below 12000):
+// res 0..1, res 2, res 3 (below HIGH1), res 4 above res_setting, res above
+// 6 and res_setting (but res above 7 at HIGH1); every other step keeps v.
+enum ClassifyCase : int { kKeep, kRes01, kRes2, kRes3, kRes4, kResHi };
+
 __device__ __forceinline__ int mark_code(int mark) {
   switch (mark) {
     case 14000: return 140;
@@ -671,82 +693,181 @@ __device__ __forceinline__ int mark_code(int mark) {
   }
 }
 
-__global__ void __launch_bounds__(kD)
-    classify(const int16_t* __restrict__ pin, const int16_t* __restrict__ rfin,
-             int16_t* __restrict__ pout, int16_t* __restrict__ rfout,
-             int* __restrict__ counts, int hi1, int res_setting) {
+// The static part of the step at (r, j): its band rule, its rf code and
+// the counts it adds (none of them reads the band).
+__device__ __forceinline__ int classify_case(int pf, int mark, bool hi1,
+                                             int res_setting, int& code,
+                                             int& n1, int& n3, int& n5) {
+  if (mark >= 12000) {
+    code = mark_code(mark);
+    n1 += (code == 140) | (code == 141) | (code == 125) | (code == 126) |
+          (code == 149);
+    n3 += (code >= 121) & (code <= 126);
+    n5 += (code == 145) | (code == 149);
+    return kKeep;
+  }
+  const int res = pf - mark;
+  code = 0;
+  if (res == 0 || res == 1) return kRes01;
+  if (res == 2) return kRes2;
+  if (res == 3) {
+    if (!hi1) return kRes3;
+    code = 144;
+    ++n5;
+    return kKeep;
+  }
+  if (res <= res_setting) return kKeep;
+  code = 141;
+  ++n1;
+  if (res == 4) return kRes4;
+  if (res <= 6) return kKeep;
+  if (res > 7 && hi1) {
+    code = 148;
+    ++n5;
+    ++n1;
+    return kKeep;
+  }
+  return kResHi;
+}
+
+// The class of a band value that the next step's rules read: <= -8, -7..-1,
+// 0..1, 2, 3..7, >= 8 (every bp test of the C's rules is one of these).
+__device__ __forceinline__ int band_class(int v) {
+  return int(v >= -7) + int(v >= 0) + int(v >= 2) + int(v >= 3) +
+         int(v >= 8);
+}
+
+// A step's effect on its band value v: it writes w where the class of the
+// value written before it is in the mask m (bit c: class c), else keeps v.
+// Selects on ints, no branch: the rules' v tests are exclusive.
+__device__ __forceinline__ void classify_effect(int c, int v, int& w,
+                                                int& m) {
+  const bool m78 = (v == -7) | (v == -8), m6 = v == -6;
+  const bool dec = ((v > 15) & ((v & 7) == 0)) &
+                   ((c == kRes2) | (c == kRes3) | (c == kResHi));
+  const bool to10 = (c == kRes3) & (m78 | m6 | (v == -9));
+  const bool up2 = (c == kRes4) & ((v == 7) | (v == 8) | (v == 9));
+  int mm = ((c == kRes01) & m78) ? 0x06 : 0;                 // bp -7..1
+  mm |= ((c == kRes2) & m78) ? 0x07 : 0;                     // bp <= 1
+  mm |= (((c == kRes2) & m6) | ((c == kResHi) & (m78 | m6))) ? 0x02
+                                                              : 0;  // -7..-1
+  mm |= to10 ? 0x0F : 0;                                     // bp <= 2
+  mm |= up2 ? 0x1C : 0;                                      // bp 0..7
+  m = dec ? 0x3F : mm;
+  w = dec ? v - 1 : (to10 ? -10 : (up2 ? v + 2 : -9));
+}
+
+// Band row j, a warp: lane l takes steps 8 l..8 l + 7 (band columns 256 +
+// 8 l..), cs the row's staged cases.  Each lane composes its steps' 6-class
+// maps, the warp scans the 32 maps with shuffles, and each lane walks its
+// steps again from its entry class and stores its 8 values.
+__device__ __forceinline__ void classify_row(const int16_t* p, int16_t* o,
+                                             const uint8_t* cs, int j,
+                                             int lane) {
+  const int4 raw =
+      *reinterpret_cast<const int4*>(p + j * kN + kD + kCSteps * lane);
+  const uint32_t c4[2] = {
+      *reinterpret_cast<const uint32_t*>(cs + kCSteps * lane),
+      *reinterpret_cast<const uint32_t*>(cs + kCSteps * lane + 4)};
+  const int16_t* vs = reinterpret_cast<const int16_t*>(&raw);
+  int v[kCSteps], w[kCSteps], m[kCSteps];
+  int f[6] = {0, 1, 2, 3, 4, 5};        // the lane's exit from each class
+#pragma unroll
+  for (int k = 0; k < kCSteps; ++k) {
+    v[k] = vs[k];
+    classify_effect((c4[k >> 2] >> (8 * (k & 3))) & 0xFF, v[k], w[k], m[k]);
+    const int cv = band_class(v[k]), cw = band_class(w[k]);
+#pragma unroll
+    for (int s = 0; s < 6; ++s) f[s] = ((m[k] >> f[s]) & 1) ? cw : cv;
+  }
+  int map = f[0] | (f[1] << 3) | (f[2] << 6) | (f[3] << 9) | (f[4] << 12) |
+            (f[5] << 15);
+#pragma unroll
+  for (int d = 1; d < 32; d *= 2) {
+    const int prev = __shfl_up_sync(kFull, map, d);
+    // map after prev: class s -> map's exit from prev's exit from s
+    int h = 0;
+#pragma unroll
+    for (int s = 0; s < 6; ++s)
+      h |= ((map >> (3 * ((prev >> (3 * s)) & 7))) & 7) << (3 * s);
+    map = lane >= d ? h : map;
+  }
+  const int c0 = band_class(p[j * kN + kD - 1]);
+  const int before = __shfl_up_sync(kFull, map, 1);
+  int e = lane > 0 ? (before >> (3 * c0)) & 7 : c0;
+  int4 res;
+  int16_t* out = reinterpret_cast<int16_t*>(&res);
+#pragma unroll
+  for (int k = 0; k < kCSteps; ++k) {
+    const bool hit = (m[k] >> e) & 1;
+    out[k] = static_cast<int16_t>(hit ? w[k] : v[k]);
+    e = band_class(out[k]);
+  }
+  *reinterpret_cast<int4*>(o + j * kN + kD + kCSteps * lane) = res;
+}
+
+// kCCtas CTAs an image, kCRows band rows each.  The CTA reads rows 0..255
+// of its columns j0..j0 + 31 (pf and the marks, 16 bytes a thread), writes
+// their rf codes and stages their band rules transposed, a band row's 256
+// steps a row of bytes; it copies its share of what the walks leave
+// (columns 0..255 of its band rows, plane rows 256 + j0..); then each
+// warp walks band rows, and the counts are summed in the CTA.
+__global__ void __launch_bounds__(kCThreads)
+    classify_bands(const int16_t* __restrict__ pin,
+                   const int16_t* __restrict__ rfin,
+                   int16_t* __restrict__ pout, int16_t* __restrict__ rfout,
+                   int* __restrict__ counts, int hi1, int res_setting) {
+  __shared__ __align__(16) uint8_t cases[kCRows * kCPitch];
   __shared__ int s_n[3];
-  const int j = threadIdx.x;
-  const size_t b = blockIdx.x;
+  const int t = threadIdx.x, lane = t & 31;
+  const int j0 = blockIdx.x * kCRows;
+  const size_t b = blockIdx.y;
   const int16_t* p = pin + b * kPlane;
   const int16_t* rf = rfin + b * kSZ;
   int16_t* o = pout + b * kPlane;
   int16_t* ro = rfout + b * kSZ;
-  if (j < 3) s_n[j] = 0;
-  // what classify leaves: columns 0..255 of rows 0..255, rows 256..511
-  for (int r = 0; r < kD; ++r) o[r * kN + j] = p[r * kN + j];
-  for (int r = kD; r < kN; ++r) {
-    o[r * kN + j] = p[r * kN + j];
-    o[r * kN + kD + j] = p[r * kN + kD + j];
-  }
+  if (t < 3) s_n[t] = 0;
   int n1 = 0, n3 = 0, n5 = 0;
-  int bp = p[j * kN + kD - 1];
-  for (int r = 0; r < kD; ++r) {
-    const int mark = rf[r * kD + j];
-    int v = p[j * kN + kD + r];
-    int code;
-    if (mark < 12000) {
-      const int res = p[r * kN + j] - mark;
-      code = 0;
-      if (res == 0 || res == 1) {
-        if ((v == -7 || v == -8) && bp > -8 && bp < 2) v = -9;
-      } else if (res == 2) {
-        if (v > 15 && !(v & 7)) v -= 1;
-        else if (v == -7 || v == -8) { if (bp <= 1) v = -9; }
-        else if (v == -6 && bp > -8 && bp <= -1) v = -9;
-      } else if (res == 3) {
-        if (hi1) {
-          code = 144;
-          ++n5;
-        } else if (v > 15 && !(v & 7)) {
-          v -= 1;
-        } else if (v <= 0 && ((((-v) + 2) & 65532) == 8) && bp <= 2) {
-          v = -10;
-        }
-      } else if (res > res_setting) {
-        code = 141;
-        ++n1;
-        if (res == 4) {
-          if ((v == 7 || (v & 65534) == 8) && bp >= 0 && bp < 8) v += 2;
-        } else if (res > 6) {
-          if (res > 7 && hi1) {
-            code = 148;
-            ++n5;
-            ++n1;
-          } else if (v > 15 && !(v & 7)) {
-            v -= 1;
-          } else if ((v == -6 || v == -7 || v == -8) && bp > -8 && bp < 0) {
-            v = -9;
-          }
-        }
-      }
-    } else {
-      code = mark_code(mark);
-      n1 += code == 140 || code == 141 || code == 125 || code == 126 ||
-            code == 149;
-      n3 += code >= 121 && code <= 126;
-      n5 += code == 145 || code == 149;
+  constexpr int kVecs = kCRows / 8;      // 8-column vectors a row
+  for (int i = t; i < kD * kVecs; i += kCThreads) {
+    const int r = i / kVecs, q = i % kVecs;
+    const int at = r * kD + j0 + 8 * q;
+    const int4 pv = *reinterpret_cast<const int4*>(p + r * kN + j0 + 8 * q);
+    const int4 mv = *reinterpret_cast<const int4*>(rf + at);
+    const int16_t* pf = reinterpret_cast<const int16_t*>(&pv);
+    const int16_t* mk = reinterpret_cast<const int16_t*>(&mv);
+    int4 cv;
+    int16_t* code = reinterpret_cast<int16_t*>(&cv);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      int c;
+      cases[(8 * q + k) * kCPitch + r] = static_cast<uint8_t>(
+          classify_case(pf[k], mk[k], hi1 != 0, res_setting, c, n1, n3, n5));
+      code[k] = static_cast<int16_t>(c);
     }
-    ro[r * kD + j] = static_cast<int16_t>(code);
-    o[j * kN + kD + r] = static_cast<int16_t>(v);
-    bp = v;
+    *reinterpret_cast<int4*>(ro + at) = cv;
+  }
+  constexpr int kLeft = kCRows * (kD / 8), kRowVecs = kN / 8;
+  for (int i = t; i < kLeft + kCRows * kRowVecs; i += kCThreads) {
+    const int k = i - kLeft;
+    const size_t at = i < kLeft
+                          ? (j0 + i / (kD / 8)) * kN + (i % (kD / 8)) * 8
+                          : (kD + j0 + k / kRowVecs) * kN + (k % kRowVecs) * 8;
+    *reinterpret_cast<int4*>(o + at) = *reinterpret_cast<const int4*>(p + at);
   }
   __syncthreads();
-  atomicAdd(&s_n[0], n1);
-  atomicAdd(&s_n[1], n3);
-  atomicAdd(&s_n[2], n5);
+  for (int k = t >> 5; k < kCRows; k += kCThreads / 32)
+    classify_row(p, o, cases + k * kCPitch, j0 + k, lane);
+  n1 = __reduce_add_sync(kFull, n1);
+  n3 = __reduce_add_sync(kFull, n3);
+  n5 = __reduce_add_sync(kFull, n5);
+  if (lane == 0) {
+    atomicAdd(&s_n[0], n1);
+    atomicAdd(&s_n[1], n3);
+    atomicAdd(&s_n[2], n5);
+  }
   __syncthreads();
-  if (j < 3) counts[b * 3 + j] = s_n[j];
+  if (t < 3) atomicAdd(counts + b * 3 + t, s_n[t]);
 }
 
 }  // namespace
@@ -789,15 +910,17 @@ int nhw_column_ladder(const void* plane, const void* rf_ext, void* out,
 }
 
 // S6.  plane, out: (B, 512, 512) int16; res256, rf_out: (B, 256, 256)
-// int16; counts: (B, 3) int32 (n1, n3, n5).
+// int16; all 16-byte aligned; counts: (B, 3) int32 (n1, n3, n5), zeroed
+// by the caller (each CTA adds its share).
 int nhw_classify(const void* plane, const void* res256, void* out,
                  void* rf_out, void* counts, int batch, int hi1,
                  int res_setting, void* stream) {
   if (batch < 1 || batch > 65535) return cudaErrorInvalidValue;
-  if (misaligned(plane, 2) || misaligned(res256, 2) || misaligned(out, 2) ||
-      misaligned(rf_out, 2) || misaligned(counts, 4))
+  if (misaligned(plane, 16) || misaligned(res256, 16) ||
+      misaligned(out, 16) || misaligned(rf_out, 16) || misaligned(counts, 4))
     return cudaErrorMisalignedAddress;
-  classify<<<batch, kD, 0, static_cast<cudaStream_t>(stream)>>>(
+  classify_bands<<<dim3(kCCtas, batch), kCThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int16_t*>(plane), static_cast<const int16_t*>(res256),
       static_cast<int16_t*>(out), static_cast<int16_t*>(rf_out),
       static_cast<int*>(counts), hi1, res_setting);

@@ -47,11 +47,20 @@
 //   leaves column 510), 32 rows a CTA staged in shared memory with their
 //   flat neighbours (block_scan.cuh's stage_rows: whole rows a warp, 16
 //   bytes a lane, so the reads are coalesced and the walks read shared
-//   memory); passes 2-3 one CTA an image, a thread a column,
-//   rows in order, in place on pass 1's output (a vertical fire writes
-//   10100 into the next row through a register; row 255's land in plane
-//   row 256).  The greedy pair rule is the parity of a position in its run
-//   of candidates; the run starts are a block max-scan of warp ballots.
+//   memory); passes 2-3 (offset_y_bands) a cluster of 8 CTAs an image, a
+//   warp a band of 16 rows in order, lane l on 8 columns: each CTA stages
+//   its 32 input rows and the next (cp.async) and each value's four range
+//   tests (the rules read a value only through them), so a row's step is
+//   bit operations on the lanes' 8-bit masks, the greedy pair rule's run
+//   parity two warp ballots, and the row's writes codes merged into it
+//   from a 64-entry table.  The only carry between rows is pend, the 256
+//   bits of a row's vertical writes into the next (10100 onto j - 1 and
+//   j), so each band walks from a guessed entry (none), its exit is
+//   relayed to the band below (across CTAs through DSM), and a band walks
+//   again while its entry changes: two cluster barriers a sweep, bands
+//   0..s - 1 exact after s sweeps (16 at most, 1-2 on real planes; row
+//   255's exit lands in plane row 256).  One CTA an image (16 warps on
+//   one SM) was bound by instruction throughput, and slower.
 //   Pass 4 is elementwise, one thread a position.
 // - S3: 16 positions a thread.  Each thread builds its tile's map over
 //   the 5 entry states (positions still skipped), lanes 0-4 compose a
@@ -75,6 +84,7 @@
 //   and each thread walks its row again from its entry state and writes
 //   the codes in place, which the CTA writes back whole rows a warp.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -82,11 +92,12 @@
 #include <utility>
 
 #include "block_scan.cuh"
+#include "cluster.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
 using nhw::iabs;
-using nhw::run_parity_block;
 
 constexpr int kN = 512;
 constexpr int kD = 256;
@@ -340,60 +351,245 @@ __global__ void __launch_bounds__(kRows)
 }
 
 // Passes 2-3 (image_processing.c:241-309) on the LL quadrant of one image,
-// in place: rows in order, a thread a column.
-__global__ void __launch_bounds__(kD) offset_y_ll(int16_t* __restrict__ plane) {
-  __shared__ int row_s[kD + 2];      // the row's values, 0 at both ends
-  __shared__ int lval_s[kD + 1];     // value a fire at j writes at j - 1
-  __shared__ uint8_t flag_s[kD + 1]; // bit 0: fh | fv, bit 1: fv
-  __shared__ int warp_last[kD / 32];
-  const int j = threadIdx.x;
-  int16_t* img = plane + static_cast<size_t>(blockIdx.x) * kPlane;
-  if (j == 0) {
-    row_s[0] = row_s[kD + 1] = 0;
-    flag_s[kD] = 0;
+// in place: a warp a band of kOyBandRows rows in order, lane l on columns
+// 8 l..8 l + 7, a cluster of kOyCtas CTAs an image, kOyWarps bands each.
+// The only carry from row to row is pend, the 256 bits of the vertical
+// fires' writes into the next row, so each band walks from a guessed entry
+// (none), its exit is relayed to the band below (through DSM across CTAs),
+// and a band walks again while its entry changes: after s sweeps bands
+// 0..s - 1 are exact, so kOyBands sweeps at most.  A CTA stages its input
+// rows and the next CTA's first (a band's last row reads the next band's
+// first as input), beside each value's range tests (the rules test only
+// whether a value lies in 4..7, -7..-4, 5..7 or -7..-5, and a written
+// value is a sentinel, in none), so a row's step is bit operations on the
+// lanes' 8-bit masks; the outputs go straight to the plane.
+constexpr int kOyBands = 16;                     // bands an image
+constexpr int kOyBandRows = kD / kOyBands;
+constexpr int kOyCtas = 8;                       // a cluster an image
+constexpr int kOyWarps = kOyBands / kOyCtas;     // bands a CTA
+constexpr int kOyRows = kOyWarps * kOyBandRows;  // rows a CTA
+constexpr int kOyThreads = 128;                  // the walkers and helpers
+constexpr int kOyVecs = kD / 8;                  // 8-column vectors a row
+
+__device__ __forceinline__ void unpack8(int4 q, int* x) {
+  const int w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    x[2 * k] = static_cast<int16_t>(w[k] & 0xFFFF);
+    x[2 * k + 1] = w[k] >> 16;
   }
-  bool pend = false;
-  const bool ok = j >= 1 && j < kD - 1;
-  for (int r = 0; r < kD; ++r) {
-    const int i_r = img[r * kN + j];
-    const int i_r1 = img[(r + 1) * kN + j];
-    const int n1l = j > 0 ? img[(r + 1) * kN + j - 1] : 0;
-    const int v = pend ? 10100 : i_r;
-    row_s[j + 1] = v;
-    __syncthreads();
-    const int vl = row_s[j], vr = row_s[j + 2];
-    const bool fp = ok && v > 3 && v < 8 && vl > 3 && vl <= 7;
-    const bool fph = fp && vr > 3 && vr <= 7;
-    const bool fpv =
-        fp && !fph && n1l > 3 && n1l <= 7 && i_r1 > 3 && i_r1 <= 7;
-    const bool fn = ok && v > -8 && v < -3 && vl > -8 && vl <= -4;
-    const bool fnh = fn && vr > -8 && vr <= -4;
-    const bool fnv =
-        fn && !fnh && n1l > -8 && n1l <= -4 && i_r1 > -8 && i_r1 <= -4;
-    const bool fired = run_parity_block(fph || fpv || fnh || fnv, warp_last);
-    const bool fh = fired && (fph || fnh);
-    const bool fv = fired && (fpv || fnv);
-    int o = v;
-    if (fh) o = fph ? 12700 : 12900;
-    if (fv) o = 10100;
-    lval_s[j] = fh ? 10100 : (fpv ? 12100 : 12200);
-    flag_s[j] = uint8_t((fh || fv) | (fv << 1));
-    __syncthreads();
-    const uint8_t nxt = flag_s[j + 1];
-    if (nxt & 1) o = lval_s[j + 1];
-    const bool pend_next = fv || (nxt & 2);
-    // pass 3 on the finished row: own writes only
-    row_s[j + 1] = o;
-    __syncthreads();
-    const int orr = row_s[j + 2];
-    const bool f3p = j < kD - 1 && o >= 5 && o <= 7 && orr >= 5 && orr <= 7;
-    const bool f3n =
-        j < kD - 1 && o >= -7 && o <= -5 && orr >= -7 && orr <= -5;
-    const bool fired3 = run_parity_block(f3p || f3n, warp_last);
-    img[r * kN + j] = static_cast<int16_t>(fired3 ? (f3p ? 10300 : 10204) : o);
-    pend = pend_next;
+}
+
+// The range tests of 8 values (bit i: value i): byte 0 in 4..7, byte 1 in
+// -7..-4, byte 2 in 5..7, byte 3 in -7..-5.
+__device__ __forceinline__ uint32_t offset_y_flags(int4 q) {
+  int x[8];
+  unpack8(q, x);
+  uint32_t f = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    f |= (uint32_t(unsigned(x[i] - 4) <= 3u) << i) |
+         (uint32_t(unsigned(x[i] + 7) <= 3u) << (8 + i)) |
+         (uint32_t(unsigned(x[i] - 5) <= 2u) << (16 + i)) |
+         (uint32_t(unsigned(x[i] + 7) <= 2u) << (24 + i));
+  return f;
+}
+
+// What a row's step writes, as codes a position: 0 its input, 1 10100, 2
+// 12700, 3 12900, 4 12100, 5 12200, 6 10300, 7 10204; entry idx of the
+// table merges two columns' codes into a 32-bit word (mask, value), idx
+// bits 0-1 the two columns' code bit 0, bits 2-3 bit 1, bits 4-5 bit 2.
+__device__ __forceinline__ uint32_t offset_y_code_value(int code) {
+  switch (code) {
+    case 1: return 10100;
+    case 2: return 12700;
+    case 3: return 12900;
+    case 4: return 12100;
+    case 5: return 12200;
+    case 6: return 10300;
+    case 7: return 10204;
+    default: return 0;
   }
-  if (pend) img[kD * kN + j] = 10100;
+}
+__device__ __forceinline__ uint2 offset_y_code_pair(int idx) {
+  const int lo = (idx & 1) | ((idx >> 1) & 2) | ((idx >> 2) & 4);
+  const int hi = ((idx >> 1) & 1) | ((idx >> 2) & 2) | ((idx >> 3) & 4);
+  return make_uint2((lo ? 0xFFFFu : 0u) | (hi ? 0xFFFF0000u : 0u),
+                    offset_y_code_value(lo) | (offset_y_code_value(hi) << 16));
+}
+
+// fired = f and an even offset within f's run, over a warp's row of 256
+// positions, 8 a lane (bit i: position 8 lane + i).  Within the lane, a run
+// starting at an even bit fires its even bits and one starting at an odd
+// bit its odd bits (adding its start bit clears a run); the state before
+// the lane's bit 0 is the last bit fired by the nearest lane below that
+// holds a non-candidate (a lane of 8 candidates passes it through), and
+// where it fired, the lane's leading run flips.
+__device__ __forceinline__ unsigned run_parity_row(unsigned f, int lane) {
+  const unsigned starts = f & ~(f << 1);
+  const unsigned even = f & ~(f + (starts & 0x55u));
+  const unsigned fired = (even & 0x55u) | (f & ~even & 0xAAu);
+  const unsigned gaps = __ballot_sync(kFull, f != 0xFFu);
+  const unsigned last = __ballot_sync(kFull, (fired >> 7) & 1u);
+  const unsigned below = gaps & ((1u << lane) - 1u);
+  const unsigned e = below ? (last >> (31 - __clz(below))) & 1u : 0u;
+  return fired ^ (f & ~(f + 1u) & (0u - e));
+}
+
+// Row r of passes 2-3 on a warp: fr, fn the lane's range tests of rows r
+// and r + 1 (offset_y_flags), pend the lane's bits of row r - 1's vertical
+// writes, cur its 8 input values of row r.  Stores row r's output at dst
+// and returns row r + 1's pend.
+__device__ __forceinline__ unsigned offset_y_row(uint32_t fr, uint32_t fn,
+                                                 unsigned pend, int4 cur,
+                                                 const uint2* tab, int lane,
+                                                 int16_t* dst) {
+  // a pended value is 10100: in no range
+  const unsigned pv = fr & ~pend & 0xFFu, nv = (fr >> 8) & ~pend & 0xFFu;
+  const unsigned pn = fn & 0xFFu, nn = (fn >> 8) & 0xFFu;
+  // the bits across the lane's edges (columns -1 and 256 masked by ok)
+  const unsigned mine = pv | (nv << 8) | (pn << 16) | (nn << 24);
+  const unsigned lo = __shfl_up_sync(kFull, mine, 1);
+  const unsigned hi = __shfl_down_sync(kFull, mine, 1);
+  const unsigned ok = lane == 0 ? 0xFEu : (lane == 31 ? 0x7Fu : 0xFFu);
+  const unsigned fp = ok & pv & ((pv << 1) | ((lo >> 7) & 1u));
+  const unsigned fm = ok & nv & ((nv << 1) | ((lo >> 15) & 1u));
+  const unsigned fph = fp & ((pv >> 1) | ((hi & 1u) << 7));
+  const unsigned fmh = fm & ((nv >> 1) | (((hi >> 8) & 1u) << 7));
+  const unsigned fpv = fp & ~fph & pn & ((pn << 1) | ((lo >> 23) & 1u));
+  const unsigned fmv = fm & ~fmh & nn & ((nn << 1) | (lo >> 31));
+  const unsigned h = fph | fmh;
+  const unsigned fired = run_parity_row(h | fpv | fmv, lane);
+  const unsigned fh = fired & h, fvp = fired & fpv, fvm = fired & fmv;
+  // a fire at j writes onto j - 1: 10100 (horizontal), 12100, 12200
+  const unsigned up =
+      __shfl_down_sync(kFull, (fh & 1u) | ((fvp & 1u) << 1) | ((fvm & 1u) << 2),
+                       1) &
+      (lane < 31 ? 7u : 0u);
+  const unsigned w1 = (fh >> 1) | ((up & 1u) << 7);
+  const unsigned w4 = (fvp >> 1) | (((up >> 1) & 1u) << 7);
+  const unsigned w5 = (fvm >> 1) | ((up >> 2) << 7);
+  const unsigned fv = fvp | fvm, w = w1 | w4 | w5;
+  const unsigned pend_next = (fv | (fv >> 1) | ((w4 | w5) & 0x80u)) & 0xFFu;
+  const unsigned m1 = w1 | ((pend | fv) & ~w), m2 = fh & fph & ~w,
+                 m3 = fh & fmh & ~w;
+  // pass 3 on the finished row: own writes only, on values left as input
+  const unsigned keep = ~(pend | fired | w) & 0xFFu;
+  const unsigned p3 = (fr >> 16) & keep, n3 = (fr >> 24) & keep;
+  const unsigned r3 = __shfl_down_sync(kFull, p3 | (n3 << 8), 1);
+  const unsigned ok3 = lane == 31 ? 0x7Fu : 0xFFu;
+  const unsigned f3p = ok3 & p3 & ((p3 >> 1) | ((r3 & 1u) << 7));
+  const unsigned f3n = ok3 & n3 & ((n3 >> 1) | (((r3 >> 8) & 1u) << 7));
+  const unsigned fired3 = run_parity_row(f3p | f3n, lane);
+  const unsigned m6 = fired3 & f3p, m7 = fired3 & f3n;
+  const unsigned c0 = m1 | m3 | w5 | m7, c1 = m2 | m3 | m6 | m7,
+                 c2 = w4 | w5 | m6 | m7;
+  uint32_t word[4] = {uint32_t(cur.x), uint32_t(cur.y), uint32_t(cur.z),
+                      uint32_t(cur.w)};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint2 e = tab[((c0 >> 2 * k) & 3u) | (((c1 >> 2 * k) & 3u) << 2) |
+                        (((c2 >> 2 * k) & 3u) << 4)];
+    word[k] = (word[k] & ~e.x) | e.y;
+  }
+  *reinterpret_cast<int4*>(dst) =
+      make_int4(int(word[0]), int(word[1]), int(word[2]), int(word[3]));
+  return pend_next;
+}
+
+// A warp's band (local rows r0.. of the stage) from the entry pend;
+// returns its exit.  img: the band's first row in the plane.
+__device__ __forceinline__ unsigned offset_y_band(const int16_t* rows,
+                                                  const uint32_t* flags,
+                                                  const uint2* tab,
+                                                  int16_t* img, int r0,
+                                                  int lane, unsigned pend) {
+  uint32_t fn = flags[r0 * kOyVecs + lane];
+#pragma unroll 2
+  for (int r = r0; r < r0 + kOyBandRows; ++r) {
+    const uint32_t fr = fn;
+    fn = flags[(r + 1) * kOyVecs + lane];
+    const int4 cur = *reinterpret_cast<const int4*>(rows + r * kD + 8 * lane);
+    pend = offset_y_row(fr, fn, pend, cur, tab, lane,
+                        img + (r - r0) * kN + 8 * lane);
+  }
+  return pend;
+}
+
+// What a CTA of passes 2-3 holds: its kOyRows input rows and the next
+// CTA's first, their range tests, the code table, and the relay: its
+// bands' exits, the entry relayed from the CTA above (DSM) and each CTA's
+// "an entry moved" (DSM).
+struct OffsetYStage {
+  int16_t rows[(kOyRows + 1) * kD];
+  uint32_t flags[(kOyRows + 1) * kOyVecs];
+  uint2 tab[64];
+  uint8_t exits[kOyWarps][32];
+  uint8_t entry_in[32];
+  int moved[kOyCtas];
+};
+
+__global__ void __launch_bounds__(kOyThreads)
+    offset_y_bands(int16_t* __restrict__ plane) {
+  __shared__ __align__(16) OffsetYStage st;
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  const int r0 = rank * kOyRows;
+  int16_t* img = plane + static_cast<size_t>(blockIdx.y) * kPlane;
+  for (int i = t; i < (kOyRows + 1) * kOyVecs; i += kOyThreads)
+    __pipeline_memcpy_async(
+        st.rows + i * 8, img + (r0 + i / kOyVecs) * kN + (i % kOyVecs) * 8,
+        16);
+  __pipeline_commit();
+  if (t < 64) st.tab[t] = offset_y_code_pair(t);
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  for (int i = t; i < (kOyRows + 1) * kOyVecs; i += kOyThreads)
+    st.flags[i] =
+        offset_y_flags(*reinterpret_cast<const int4*>(st.rows + i * 8));
+  cluster.sync();        // staged, every peer started
+  const bool walks = w < kOyWarps;
+  const int br = w * kOyBandRows;          // the warp's band, local rows
+  int16_t* band_img = img + (r0 + br) * kN;
+  unsigned entry = 0, pend = 0;
+  if (walks)
+    pend = offset_y_band(st.rows, st.flags, st.tab, band_img, br, lane, 0);
+  for (int s = 1; s < kOyBands; ++s) {
+    if (walks) {
+      if (w < kOyWarps - 1)
+        st.exits[w][lane] = static_cast<uint8_t>(pend);
+      else if (rank < kOyCtas - 1)
+        *cluster.map_shared_rank(&st.entry_in[lane], rank + 1) =
+            static_cast<uint8_t>(pend);
+    }
+    cluster.sync();
+    const unsigned want = !walks ? 0u
+                          : w > 0 ? st.exits[w - 1][lane]
+                          : rank > 0 ? st.entry_in[lane] : 0u;
+    const bool moved = walks && __any_sync(kFull, want != entry);
+    const int any = __syncthreads_or(moved);
+    if (t < kOyCtas) *cluster.map_shared_rank(&st.moved[rank], t) = any;
+    cluster.sync();
+    int again = 0;
+#pragma unroll
+    for (int c = 0; c < kOyCtas; ++c) again |= st.moved[c];
+    if (!again) break;
+    if (moved) {
+      entry = want;
+      pend = offset_y_band(st.rows, st.flags, st.tab, band_img, br, lane,
+                           entry);
+    }
+  }
+  // row 255's vertical writes land in plane row 256
+  if (rank == kOyCtas - 1 && w == kOyWarps - 1 && pend) {
+    int4 row =
+        *reinterpret_cast<const int4*>(st.rows + kOyRows * kD + 8 * lane);
+    int16_t* x = reinterpret_cast<int16_t*>(&row);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x[i] = ((pend >> i) & 1u) ? 10100 : x[i];
+    *reinterpret_cast<int4*>(img + kD * kN + 8 * lane) = row;
+  }
 }
 
 __device__ __forceinline__ int sentinel_code(int a) {
@@ -799,7 +995,15 @@ int nhw_offset_y(const void* in, void* tmp, void* out, const void* esc,
   auto* t = static_cast<int16_t*>(tmp);
   offset_y_rows<<<dim3(kN / kRows, batch), kRows, 0, s>>>(
       static_cast<const int16_t*>(in), t);
-  offset_y_ll<<<batch, kD, 0, s>>>(t);
+  cudaLaunchAttribute dims = nhw::cluster_dims(kOyCtas);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kOyCtas, batch, 1);
+  cfg.blockDim = dim3(kOyThreads, 1, 1);
+  cfg.stream = s;
+  cfg.attrs = &dims;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, offset_y_bands, t);
+  if (e != cudaSuccess) return e;
   const int total = batch * kPlane;
   offset_y_codes<<<(total + kCodeThreads - 1) / kCodeThreads, kCodeThreads,
                    0, s>>>(t, static_cast<int16_t*>(out),

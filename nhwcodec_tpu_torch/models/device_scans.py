@@ -29,11 +29,14 @@ a torch twin (``*_ref``) of the same decomposition.  In
   one launch, a row's regions in order (``_snap_plan`` checks a list).
 - ``offset_y_device`` (kernel ``offset_y``, q > LOW4), three launches:
   pass 1's decrement chain one thread a row (a give never crosses a
-  row); passes 2-3 on the LL quadrant one CTA an image, a thread a
-  column, rows in order (a vertical fire writes into the next row; the
+  row); passes 2-3 on the LL quadrant a cluster of 8 CTAs an image, the
+  input rows staged, a warp a band of ``OY_BAND_ROWS`` rows in order (the
   greedy pair rule within a row is the parity of the position in its run
-  of candidates, the run starts a block-wide max-scan of ballots); pass
-  4, the code map, one thread a position.
+  of candidates, from warp ballots); the only carry between rows is the
+  vertical fires' writes into the next (``pend``), so each band walks
+  from no pend, takes the exit of the band above and walks again while
+  that entry changes (``_offset_y_ll_ref``); pass 4, the code map, one
+  thread a position.
 - ``offset_y_low4_device`` (kernel ``offset_y_low4``, q <= LOW4): S2's
   pass 1, then pass 4 with the duty-cycle counters, whose state crosses a
   row end in one of ``OY4_STATES``: every row walked from each (a
@@ -55,8 +58,11 @@ In ``csrc/residue.cu``:
   of 32 columns walking from shared memory (a step a lookup in a table
   of the step's effects, built by a first launch), column 255 on a
   second warp of CTA 0 ``LADDER_LAG`` steps behind column 0.
-- ``classify_device`` (kernel ``classify``): a walk over the rows a
-  column, carrying the band value the previous row wrote.
+- ``classify_device`` (kernel ``classify``): the band rules read the
+  value the previous step wrote only through its class (6 of them), so
+  a band row is a scan of 6-class maps: 8 CTAs an image, a warp a band
+  row, lane l composing the maps of steps 8 l..8 l + 7, a warp scan, and
+  each lane walking its steps again from its entry class.
 
 In ``csrc/ll2.cu``:
 
@@ -458,47 +464,87 @@ def _offset_y_rows_ref(If):
     return out.reshape(b, -1)
 
 
-def _offset_y_ll_ref(p):
-    """Passes 2-3 (image_processing.c:241-309) on the LL quadrant, rows in
-    order: the first pair promotion's fires, a vertical fire writing
-    10100 into the next row (row 255's into plane row 256), then the
-    second promotion on the finished row.  ``p``: (B, 512, 512) int32,
-    updated in place."""
-    colv = torch.arange(D, device=p.device)
+OY_BANDS = 16                  # bands of passes 2-3 (csrc/scans.cu kOyBands)
+OY_BAND_ROWS = D // OY_BANDS
+
+
+def _offset_y_row(I_r, I_r1, pend):
+    """Row r of passes 2-3 (image_processing.c:241-309), the columns on
+    the last axis: the first pair promotion's fires on the row as row
+    r - 1's vertical fires left it (``pend``: 10100 there), a vertical
+    fire writing 10100 into the next row at j - 1 and j, then the second
+    promotion on the finished row (its own writes only).  ``I_r``,
+    ``I_r1``: the input rows r and r + 1.  Returns (row r's output, row
+    r + 1's pend)."""
+    colv = torch.arange(D, device=I_r.device)
     ok = (colv >= 1) & (colv < D - 1)
     ok3 = colv < D - 1
-    pend = torch.zeros_like(p[:, 0, :D], dtype=torch.bool)
-    for r in range(D):
-        I_r, I_r1 = p[:, r, :D], p[:, r + 1, :D]
-        v = torch.where(pend, 10100, I_r)
-        vl = _flat_shift_r(v)
-        vr = _flat_shift_l(v)
-        n1l = _flat_shift_r(I_r1)
-        fp = ok & (v > 3) & (v < 8) & (vl > 3) & (vl <= 7)
-        fph = fp & (vr > 3) & (vr <= 7)
-        fpv = fp & ~fph & (n1l > 3) & (n1l <= 7) & (I_r1 > 3) & (I_r1 <= 7)
-        fn = ok & (v > -8) & (v < -3) & (vl > -8) & (vl <= -4)
-        fnh = fn & (vr > -8) & (vr <= -4)
-        fnv = (fn & ~fnh & (n1l > -8) & (n1l <= -4) & (I_r1 > -8)
-               & (I_r1 <= -4))
-        fired = _run_parity_fire(fph | fpv | fnh | fnv)
-        fh = fired & (fph | fnh)
-        fv = fired & (fpv | fnv)
-        out = torch.where(fh, torch.where(fph, 12700, 12900), v)
-        out = torch.where(fv, 10100, out)
-        left_val = torch.where(fh, 10100, torch.where(fpv, 12100, 12200))
-        wl = _flat_shift_l(fh | fv, 1, False)
-        out = torch.where(wl, _flat_shift_l(left_val), out)
-        pend = fv | _flat_shift_l(fv, 1, False)
-        # pass 3 on the finished row: own writes only
-        outr = _flat_shift_l(out)
-        f3p = ok3 & (out >= 5) & (out <= 7) & (outr >= 5) & (outr <= 7)
-        f3n = ok3 & (out >= -7) & (out <= -5) & (outr >= -7) & (outr <= -5)
-        fired3 = _run_parity_fire(f3p | f3n)
-        p[:, r, :D] = torch.where(fired3, torch.where(f3p, 10300, 10204),
-                                  out)
-    p[:, D, :D] = torch.where(pend, 10100, p[:, D, :D])
-    return p
+    v = torch.where(pend, 10100, I_r)
+    vl = _flat_shift_r(v)
+    vr = _flat_shift_l(v)
+    n1l = _flat_shift_r(I_r1)
+    fp = ok & (v > 3) & (v < 8) & (vl > 3) & (vl <= 7)
+    fph = fp & (vr > 3) & (vr <= 7)
+    fpv = fp & ~fph & (n1l > 3) & (n1l <= 7) & (I_r1 > 3) & (I_r1 <= 7)
+    fn = ok & (v > -8) & (v < -3) & (vl > -8) & (vl <= -4)
+    fnh = fn & (vr > -8) & (vr <= -4)
+    fnv = (fn & ~fnh & (n1l > -8) & (n1l <= -4) & (I_r1 > -8)
+           & (I_r1 <= -4))
+    fired = _run_parity_fire(fph | fpv | fnh | fnv)
+    fh = fired & (fph | fnh)
+    fv = fired & (fpv | fnv)
+    out = torch.where(fh, torch.where(fph, 12700, 12900), v)
+    out = torch.where(fv, 10100, out)
+    left_val = torch.where(fh, 10100, torch.where(fpv, 12100, 12200))
+    wl = _flat_shift_l(fh | fv, 1, False)
+    out = torch.where(wl, _flat_shift_l(left_val), out)
+    pend = fv | _flat_shift_l(fv, 1, False)
+    outr = _flat_shift_l(out)
+    f3p = ok3 & (out >= 5) & (out <= 7) & (outr >= 5) & (outr <= 7)
+    f3n = ok3 & (out >= -7) & (out <= -5) & (outr >= -7) & (outr <= -5)
+    fired3 = _run_parity_fire(f3p | f3n)
+    return torch.where(fired3, torch.where(f3p, 10300, 10204), out), pend
+
+
+def _offset_y_bands(I, entry):
+    """Every band of OY_BAND_ROWS rows walked in order from its entry
+    pend (``entry``: (B, OY_BANDS, 256) bool) on the input rows 0..256
+    ``I`` ((B, 257, 256) int32).  Returns (rows 0..255 out, each band's
+    exit pend)."""
+    b = I.shape[0]
+    cur = I[:, :D].reshape(b, OY_BANDS, OY_BAND_ROWS, D)
+    nxt = I[:, 1:].reshape(b, OY_BANDS, OY_BAND_ROWS, D)
+    out = torch.empty_like(cur)
+    pend = entry
+    for k in range(OY_BAND_ROWS):
+        out[:, :, k], pend = _offset_y_row(cur[:, :, k], nxt[:, :, k], pend)
+    return out.reshape(b, D, D), pend
+
+
+def _offset_y_ll_ref(p):
+    """Passes 2-3 on the LL quadrant as the kernel takes them: every band
+    walked from no pend, then each band's entry set to the exit of the
+    band above and the bands walked again while an entry changes (after s
+    sweeps bands 0..s - 1 are exact, so OY_BANDS sweeps at most); row
+    255's exit written into plane row 256.  ``p``: (B, 512, 512) int32,
+    updated in place.  Returns (p, the sweeps each image took, (B,)
+    int32)."""
+    b = p.shape[0]
+    I = p[:, :D + 1, :D].clone()
+    entry = torch.zeros((b, OY_BANDS, D), dtype=torch.bool, device=p.device)
+    out, exits = _offset_y_bands(I, entry)
+    sweeps = torch.ones(b, dtype=torch.int32, device=p.device)
+    for _ in range(OY_BANDS - 1):
+        want = torch.cat([torch.zeros_like(exits[:, :1]), exits[:, :-1]], 1)
+        moved = (want != entry).flatten(1).any(1)
+        if not bool(moved.any()):
+            break
+        entry = want
+        out, exits = _offset_y_bands(I, entry)
+        sweeps += moved.int()
+    p[:, :D, :D] = out
+    p[:, D, :D] = torch.where(exits[:, -1], 10100, I[:, D])
+    return p, sweeps
 
 
 def _offset_y_codes(If, m1: int):
@@ -533,11 +579,11 @@ def _offset_y_codes(If, m1: int):
 
 
 def offset_y_ref(plane, m1: int = 8):
-    """Torch twin of ``offset_y``: pass 1 row by row, passes 2-3 row by
-    row of the LL quadrant, pass 4 elementwise."""
+    """Torch twin of ``offset_y``: pass 1 row by row, passes 2-3 by bands
+    of the LL quadrant relayed, pass 4 elementwise."""
     b = plane.shape[0]
     If = _offset_y_rows_ref(_i32(plane).reshape(b, -1))
-    p = _offset_y_ll_ref(If.reshape(b, N, N))
+    p = _offset_y_ll_ref(If.reshape(b, N, N))[0]
     return _offset_y_codes(p.reshape(b, -1), m1).reshape(
         plane.shape).to(torch.int16)
 
@@ -560,6 +606,16 @@ def offset_y_device(plane, m1: int = 8):
                 stream))
         build.count("offset_y")
     return out
+
+
+def offset_y_sweeps(plane):
+    """The sweeps of ``offset_y``'s passes 2-3 over the bands of each
+    image of a (B, 512, 512) int16 plane (1..OY_BANDS; the twin's, which
+    takes the kernel's bands and relay), (B,) int32."""
+    _check_plane(plane, "offset_y plane", N)
+    b = plane.shape[0]
+    If = _offset_y_rows_ref(_i32(plane).reshape(b, -1))
+    return _offset_y_ll_ref(If.reshape(b, N, N))[1]
 
 
 # The q <= LOW4 quantizer's pass 4 carries the duty-cycle counters: quant
@@ -1551,7 +1607,8 @@ def column_ladder_device(plane, rf_ext, quality: int, res_setting: int):
 # E12 classify: residue codes 121..149 (host.ops.residue.res256_classify,
 # encoder/nhw_encoder.c:1329-1420).  The pf[scan] and rf[cnt] reads are
 # input values; the only chain is band row j's st - 1 read of the value
-# the previous row's visit of column j wrote: a walk over rows a column.
+# its previous step wrote, and the rules read that value only through
+# ``_band_class``: a band row is a scan of 6-class maps.
 
 _MARK_CODES = ((14000, 140), (14500, 145), (12200, 122), (12100, 121),
                (12300, 123), (12400, 124), (14100, 141), (12500, 125),
@@ -1616,31 +1673,66 @@ def _classify_args(plane, res256) -> None:
         raise ValueError("classify res256: must be contiguous")
 
 
+CLASSIFY_LANES = 32             # lanes a band row (csrc/residue.cu)
+CLASSIFY_STEPS = D // CLASSIFY_LANES
+_CLASS_VALUES = (-8, -1, 0, 2, 3, 8)    # a band value of each class
+
+
+def _band_class(v):
+    """The class of a band value as the next step's rules read it: <= -8,
+    -7..-1, 0..1, 2, 3..7, >= 8 -> 0..5 (csrc/residue.cu band_class)."""
+    return sum((v >= t).int() for t in (-7, 0, 2, 3, 8))
+
+
 def classify_ref(plane, res256, quality: int, res_setting: int):
-    """Torch twin of ``classify``: one walk over the 256 rows, the columns
-    as lanes, the band value written at the previous row carried."""
+    """Torch twin of ``classify``: lane l of band row j takes steps 8 l..
+    8 l + 7; each lane's steps are walked from a value of each of the 6
+    classes (its class map), the 32 lanes' maps chained from the class of
+    (j, 255), and each lane walks its steps again from its entry class,
+    ``_classify_step`` the step."""
     _classify_args(plane, res256)
     ge_high1 = quality >= T.HIGH1
     I, rf = _i32(plane), _i32(res256)
-    out, rf_out = I.clone(), rf.clone()
-    bnd = I[:, :D, D - 1]
-    counts = torch.zeros((I.shape[0], 3), dtype=torch.int32,
-                         device=plane.device)
-    for r in range(D):
-        bnd, rf_out[:, r], *ns = _classify_step(
-            ge_high1, res_setting, bnd, I[:, r, :D], rf[:, r], I[:, :D, D + r])
-        out[:, :D, D + r] = bnd
-        counts += torch.stack([n.sum(-1, dtype=torch.int32) for n in ns], -1)
-    return (out.to(torch.int16), rf_out.to(torch.int16), counts[:, 0],
-            counts[:, 1], counts[:, 2])
+    b = I.shape[0]
+    shape = (b, D, CLASSIFY_LANES, CLASSIFY_STEPS)   # band row, lane, step
+    pf = I[:, :D, :D].transpose(1, 2).reshape(shape)
+    mark = rf.transpose(1, 2).reshape(shape)
+    band = I[:, :D, D:].reshape(shape)
+    reps = torch.tensor(_CLASS_VALUES, dtype=torch.int32, device=I.device)
+    bnd = reps.expand(*shape[:3], len(_CLASS_VALUES))
+    for k in range(CLASSIFY_STEPS):
+        bnd = _classify_step(ge_high1, res_setting, bnd, pf[..., k, None],
+                             mark[..., k, None], band[..., k, None])[0]
+    maps = _band_class(bnd).long()                   # (B, D, lanes, 6)
+    entry = torch.empty(shape[:3], dtype=torch.long, device=I.device)
+    e = _band_class(I[:, :D, D - 1]).long()
+    for lane in range(CLASSIFY_LANES):
+        entry[..., lane] = e
+        e = maps[..., lane, :].gather(-1, e[..., None])[..., 0]
+    bnd = reps[entry]
+    band_out, codes = torch.empty_like(band), torch.empty_like(band)
+    counts = torch.zeros((b, 3), dtype=torch.int32, device=plane.device)
+    for k in range(CLASSIFY_STEPS):
+        bnd, codes[..., k], *ns = _classify_step(
+            ge_high1, res_setting, bnd, pf[..., k], mark[..., k],
+            band[..., k])
+        band_out[..., k] = bnd
+        counts += torch.stack([n.sum((1, 2), dtype=torch.int32)
+                               for n in ns], -1)
+    out = I.clone()
+    out[:, :D, D:] = band_out.reshape(b, D, D)
+    rf_out = codes.reshape(b, D, D).transpose(1, 2)
+    return (out.to(torch.int16), rf_out.to(torch.int16).contiguous(),
+            counts[:, 0], counts[:, 1], counts[:, 2])
 
 
 def classify_device(plane, res256, quality: int, res_setting: int):
     """``host.ops.residue.res256_classify`` on a (B, 512, 512) int16 plane
     and the ladder's (B, 256, 256) int16 res256.  Returns (plane',
     res256', n1, n3, n5), the counts (B,) int32 (kernel ``classify``: one
-    launch, a CTA an image, a thread a column, the counts summed in the
-    CTA)."""
+    launch of ``classify_bands``, 8 CTAs an image, a warp a band row, the
+    chain a warp scan of 6-class maps, the counts summed in each CTA and
+    added into the zeroed counts)."""
     _classify_args(plane, res256)
     if plane.device.type == "cpu":
         return classify_ref(plane, res256, quality, res_setting)

@@ -819,6 +819,7 @@ def _scan_inputs(what, b):
             "tile edges": cs.snap_tile_edge_planes,
             "spill left": cs.snap_spill_left_planes,
             "edge": cs.offset_y_edge_planes,
+            "relay": cs.offset_y_relay_edge_planes,
             "random": lambda r, n: r.integers(-400, 401, (n, 512, 512))
             .astype(np.int16),
             "streams": cs.stream_edge_streams}[what](rng, b)
@@ -853,17 +854,22 @@ def test_snap_pass_kernel(cuda, kind, b):
 
 
 @pytest.mark.parametrize("b", [1, 3, 16])
-@pytest.mark.parametrize("kind", ["edge", "random"])
+@pytest.mark.parametrize("kind", ["edge", "relay", "random"])
 def test_offset_y_kernel(cuda, kind, b):
+    import chip_smoke as cs
     from nhwcodec_tpu_torch.models import device_scans as ds
 
-    x = torch.from_numpy(_scan_inputs(kind, b)).to(cuda)
+    x_np = _scan_inputs(kind, b)
+    x = torch.from_numpy(x_np).to(cuda)
     before = build.LAUNCHES["offset_y"]
     got = ds.offset_y_device(x, 8)
     assert build.LAUNCHES["offset_y"] == before + 1
     torch.testing.assert_close(got, ds.offset_y_ref(x, 8), rtol=0, atol=0)
+    np.testing.assert_array_equal(got.cpu().numpy(), cs.host_offset_y(x_np))
     if kind == "edge":   # row 255's vertical fires reach row 256
         assert bool((got[:, 256, 1:256:4] == 128).all())
+    if kind == "relay":  # a pend through every band: every sweep
+        assert ds.offset_y_sweeps(x).tolist() == [ds.OY_BANDS] * b
 
 
 @pytest.mark.parametrize("b", [1, 3, 16])
@@ -962,6 +968,29 @@ def test_column_ladder_and_classify_kernels(cuda, q, b):
     assert build.LAUNCHES["classify"] == before["classify"] + 1
     for g, w in zip(got, ds.classify_ref(lp, lrf, q, rs)):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("b", [1, 3, 16])
+@pytest.mark.parametrize("rs", [3, 4, 6, 8])
+@pytest.mark.parametrize("q", [20, 21])
+def test_classify_kernel_on_class_edges(cuda, q, rs, b):
+    """One launch of ``classify_bands`` on band rows whose written value
+    crosses each class boundary at the lane-tile edges: equal to its twin
+    and the host copy's C."""
+    import chip_smoke as cs
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    p, r, design = cs.classify_class_edge_inputs(
+        np.random.default_rng(300 + b), b)
+    pt, rt = torch.from_numpy(p).to(cuda), torch.from_numpy(r).to(cuda)
+    before = build.LAUNCHES["classify"]
+    got = ds.classify_device(pt, rt, q, rs)
+    assert build.LAUNCHES["classify"] == before + 1
+    for g, w in zip(got, ds.classify_ref(pt, rt, q, rs)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert cs.host_classify_equal(pt, rt, got, q, rs)
+    assert cs.classify_edge_splits(p, r, got[0].cpu().numpy(), design, q,
+                                   rs) == cs.classify_expected_splits(q, rs)
 
 
 @pytest.mark.parametrize("q", [20, 18])

@@ -10,7 +10,12 @@
   column 0, as the kernel does), and on planes whose cross-column pair
   check reads the next column's inputs at the kernel's 32-column block
   edges (31 -> 32, 63 -> 64), at a block's first columns (32, 64) and at
-  column 254 -> 255; the res1/res3/res5 positional
+  column 254 -> 255; classify on band rows whose written value crosses
+  every class boundary at the kernel's lane-tile edges (steps 7 -> 8,
+  127 -> 128, 247 -> 248) in every res case, at q20 and q21 with
+  res_setting 3, 4, 6 and 8 (the inputs checked to cross them), and the
+  kernel's band-rule masks emulated against ``_classify_step``; the
+  res1/res3/res5 positional
   streams at word_bits 1 and 2 on the C's classify output and on edge rfs
   (no codes, a code at every position, isolated markers).
 - The wrappers check their inputs.
@@ -116,6 +121,94 @@ def test_column_ladder_then_classify(q):
     assert n1 > 0 and n3 > 0 and (n5 > 0) == (q >= T.HIGH1)
     if q == T.LOW2:     # the low2 branch's rf[cnt + D] / rf[cnt] marks
         assert ((grf == 14100) | (grf == 14000)).any()
+
+
+
+@pytest.mark.parametrize("rs", [3, 4, 6, 8])
+@pytest.mark.parametrize("q", [20, 21])
+def test_classify_class_edges(q, rs):
+    """On ``chip_smoke.classify_class_edge_inputs`` the twin (6-class maps
+    a lane, the lanes chained, the walk again) equals the JAX function
+    and the host copy's C, counts too, and every boundary the flags' rules
+    tell apart is crossed at every lane-tile edge."""
+    rng = np.random.default_rng(200 + q + rs)
+    plane, r256, design = cs.classify_class_edge_inputs(rng, 2)
+    got = tds.classify_device(_t(plane), _t(r256), q, rs)
+    want = jds.classify_device(plane, r256, q, rs)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), np.asarray(w))
+    for k in range(2):
+        cp, cr = plane[k].copy(), r256[k].copy()
+        counts = hres.res256_classify(cp, cr, q, rs)
+        assert np.array_equal(got[0][k].numpy(), cp)
+        assert np.array_equal(got[1][k].numpy(), cr)
+        assert tuple(int(n[k]) for n in got[2:]) == counts
+    assert cs.classify_edge_splits(plane, r256, got[0].numpy(), design, q,
+                                   rs) == cs.classify_expected_splits(q, rs)
+    codes = set(np.unique(got[1].numpy()).tolist())
+    assert {0, 141, 121, 149} <= codes
+    assert (144 in codes) == (148 in codes) == (q >= T.HIGH1)
+
+
+# csrc/residue.cu classify_effect: per band rule, the classes of the value
+# written before a step (bit c: class c) for which the step writes w
+_EFFECT_MASKS = {"res01 -7/-8": 0x06, "res2 -7/-8": 0x07, "res2 -6": 0x02,
+                 "hi -6/-7/-8": 0x02, "res3 -6..-9": 0x0F, "res4 7..9": 0x1C,
+                 "dec16": 0x3F}
+
+
+def _effect(res, v, hi1, rs):
+    """A numpy transcription of classify_case + classify_effect: (w, mask)
+    of a step with mark 0, pf = res, band value v."""
+    dec16 = v > 15 and v % 8 == 0
+    m78, m6 = v in (-7, -8), v == -6
+    if res in (0, 1):
+        return (-9, _EFFECT_MASKS["res01 -7/-8"]) if m78 else (v, 0)
+    if res == 2:
+        if dec16:
+            return v - 1, _EFFECT_MASKS["dec16"]
+        if m78:
+            return -9, _EFFECT_MASKS["res2 -7/-8"]
+        return (-9, _EFFECT_MASKS["res2 -6"]) if m6 else (v, 0)
+    if res == 3:
+        if hi1:
+            return v, 0
+        if dec16:
+            return v - 1, _EFFECT_MASKS["dec16"]
+        return ((-10, _EFFECT_MASKS["res3 -6..-9"]) if -9 <= v <= -6
+                else (v, 0))
+    if res <= rs:
+        return v, 0
+    if res == 4:
+        return (v + 2, _EFFECT_MASKS["res4 7..9"]) if 7 <= v <= 9 else (v, 0)
+    if res <= 6 or (res > 7 and hi1):
+        return v, 0
+    if dec16:
+        return v - 1, _EFFECT_MASKS["dec16"]
+    return (-9, _EFFECT_MASKS["hi -6/-7/-8"]) if m78 or m6 else (v, 0)
+
+
+@pytest.mark.parametrize("q", [20, 21])
+def test_classify_effect_masks(q):
+    """The kernel's step as (w, class mask) equals ``_classify_step`` from
+    a value of each class, for every rule and res_setting the path uses,
+    and the classes are those of ``_band_class``."""
+    vs = torch.arange(-40, 41, dtype=torch.int32)
+    assert tds._band_class(vs).tolist() == [
+        int(v >= -7) + int(v >= 0) + int(v >= 2) + int(v >= 3) + int(v >= 8)
+        for v in vs.tolist()]
+    reps = torch.tensor(tds._CLASS_VALUES, dtype=torch.int32)
+    assert tds._band_class(reps).tolist() == list(range(6))
+    hi1 = q >= T.HIGH1
+    for rs in (3, 4, 6, 8):
+        for res in (-2, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9):
+            z = torch.zeros((6, vs.numel()), dtype=torch.int32)
+            got = tds._classify_step(hi1, rs, reps[:, None].expand_as(z),
+                                     z + res, z, vs.expand_as(z))[0]
+            for i, v in enumerate(vs.tolist()):
+                w, m = _effect(res, v, hi1, rs)
+                want = [w if (m >> c) & 1 else v for c in range(6)]
+                assert got[:, i].tolist() == want, (rs, res, v)
 
 
 def test_column_255_walk_after_the_others_matters():

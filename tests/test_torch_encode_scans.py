@@ -12,7 +12,10 @@
   it claims); the geometry rule refusing lists it does not cover and
   taking the variants in reverse order; ``offset_y`` (q20) on
   random and edge planes (row 255's vertical fires, whole-row parity
-  chains); ``offset_uv``; merge, select and cap on random and run-heavy
+  chains) and on relay edge planes (a pend carried through every band,
+  so the twin's relay takes every sweep; fires from each band's last row
+  into the next band's first), the kernel's run parity of lane bits
+  emulated against the twin's; ``offset_uv``; merge, select and cap on random and run-heavy
   streams (128-runs of 255 + 254 m + d, crossings at 4 SZ - 4); the
   serpentines.
 - ``_y_stream_stage`` + ``_uv_stream_stage`` reproduce the host copy's
@@ -171,11 +174,16 @@ def _host_offset_y(x, q=20):
     return np.stack(out)
 
 
-@pytest.mark.parametrize("kind", ["random", "edge"])
+OFFSET_Y_KINDS = {
+    "random": lambda rng, b: rng.integers(-400, 401, (b, 512, 512)).astype(
+        np.int16),
+    "edge": cs.offset_y_edge_planes, "relay": cs.offset_y_relay_edge_planes}
+
+
+@pytest.mark.parametrize("kind", ["random", "edge", "relay"])
 def test_offset_y_twin(kind):
     rng = np.random.default_rng(11)
-    x = (rng.integers(-400, 401, (2, 512, 512)).astype(np.int16)
-         if kind == "random" else cs.offset_y_edge_planes(rng, 2))
+    x = OFFSET_Y_KINDS[kind](rng, 2)
     got = tds.offset_y_device(torch.from_numpy(x), 8).numpy()
     assert np.array_equal(got, _host_offset_y(x))
     assert np.array_equal(got, np.asarray(jds.offset_y_device(x, 8)))
@@ -188,11 +196,150 @@ def test_offset_y_edge_planes_fire_into_row_256():
     x = cs.offset_y_edge_planes(np.random.default_rng(3), 1)
     rows = tds._offset_y_rows_ref(torch.from_numpy(x).to(torch.int32)
                                   .reshape(1, -1))
-    p = tds._offset_y_ll_ref(rows.reshape(1, 512, 512))[0]
+    p = tds._offset_y_ll_ref(rows.reshape(1, 512, 512))[0][0]
     assert (p[256, 1:256:4] == 10100).all()
     assert (p[256, 2:256:4] == 10100).all()
     assert (p[10, 1:254:2] == 12700).all()
     assert (p[11, 1:254:2] == 12900).all()
+
+
+
+def test_offset_y_relay_edge_planes():
+    """The relay edge planes do what they claim: down each pair the rows
+    fire vertically and are pended in turn from row 1, into plane row 256,
+    so the relay takes every sweep; each band's last row fires into the
+    next band's first, which the pend keeps from a pass-3 pair; and the
+    twin's first sweep (no pend) differs from the result."""
+    x = cs.offset_y_relay_edge_planes(np.random.default_rng(5), 2)
+    xt = torch.from_numpy(x)
+    assert tds.offset_y_sweeps(xt).tolist() == [tds.OY_BANDS] * 2
+    rows = tds._offset_y_rows_ref(xt.to(torch.int32).reshape(2, -1))
+    p = tds._offset_y_ll_ref(rows.clone().reshape(2, 512, 512))[0]
+    for c, val in cs.RELAY_PAIRS:
+        fired = 12100 if val > 0 else 12200
+        assert (p[:, 1:256:2, c - 1] == fired).all()
+        assert (p[:, 1:256:2, c] == 10100).all()
+        assert (p[:, 2:257:2, c - 1: c + 1] == 10100).all()
+    for k, c in enumerate(cs.RELAY_EDGE_COLS):
+        r = 16 * k + 15
+        assert (p[:, r, c - 1] == 12100).all() and (p[:, r, c] == 10100).all()
+        assert (p[:, r + 1, c - 1: c + 1] == 10100).all()
+    I = rows.reshape(2, 512, 512)[:, :257, :256]
+    first, _ = tds._offset_y_bands(I, torch.zeros((2, tds.OY_BANDS, 256),
+                                                  dtype=torch.bool))
+    for k, c in enumerate(cs.RELAY_EDGE_COLS):
+        assert (first[:, 16 * k + 16, c - 1] == 10300).all()
+
+
+def _run_parity_lanes(f):
+    """A numpy transcription of csrc/scans.cu run_parity_row on rows of
+    256 candidates, (n, 256) bool: lane l's 8 bits, its runs' parity by
+    adding their start bits, and the state entering its bit 0 from two
+    ballots over the lanes."""
+    bits = f.reshape(len(f), 32, 8).astype(np.int64) << np.arange(8)
+    f8 = bits.sum(-1)
+    starts = f8 & ~(f8 << 1)
+    even = f8 & ~(f8 + (starts & 0x55))
+    fired = (even & 0x55) | (f8 & ~even & 0xAA)
+    gaps = f8 != 0xFF
+    out = np.zeros_like(f8)
+    for i in range(len(f)):
+        for lane in range(32):
+            below = np.nonzero(gaps[i, :lane])[0]
+            e = (fired[i, below[-1]] >> 7) & 1 if len(below) else 0
+            out[i, lane] = fired[i, lane] ^ (f8[i, lane] & ~(f8[i, lane] + 1)
+                                             & -e)
+    return ((out[..., None] >> np.arange(8)) & 1).astype(bool).reshape(
+        len(f), 256)
+
+
+def test_run_parity_of_lane_bits():
+    """The kernel's run parity (lane bits, two ballots) equals the twin's
+    ``_run_parity_fire`` on random rows, runs across many lanes, whole
+    rows of candidates and lanes of 8 candidates between others."""
+    rng = np.random.default_rng(17)
+    f = rng.random((64, 256)) < rng.random((64, 1))
+    f[0] = True
+    f[1] = False
+    f[2, 3:200] = True
+    f[3] = np.repeat(rng.random(32) < 0.5, 8)
+    f[4, 7::8] = False
+    want = tds._run_parity_fire(torch.from_numpy(f)).numpy()
+    assert np.array_equal(_run_parity_lanes(f), want)
+
+
+
+def _offset_y_row_lanes(cur, nxt, pend):
+    """A numpy transcription of csrc/scans.cu offset_y_row on rows of 256
+    ((n, 256) int inputs of rows r and r + 1, bool pend): the range tests
+    as each lane's 8-bit masks, the neighbours' bits across lane edges,
+    the writes as codes merged two columns a word from the code table.
+    Returns (row r's output, row r + 1's pend)."""
+    n = len(cur)
+
+    def lanes(b):                     # (n, 256) bool -> (n, 32) masks
+        return (b.reshape(n, 32, 8).astype(np.int64) << np.arange(8)).sum(-1)
+
+    def bits(m):
+        return ((m[..., None] >> np.arange(8)) & 1).astype(bool).reshape(n, 256)
+
+    def up(m):                        # the lane below's mask (lane 0: own)
+        return np.concatenate([m[:, :1], m[:, :-1]], 1)
+
+    def down(m):                      # the lane above's (lane 31: own)
+        return np.concatenate([m[:, 1:], m[:, -1:]], 1)
+
+    def rng_(x, lo, hi):
+        return lanes((x >= lo) & (x <= hi))
+
+    P = lanes(pend)
+    pv, nv = rng_(cur, 4, 7) & ~P, rng_(cur, -7, -4) & ~P
+    pn, nn = rng_(nxt, 4, 7), rng_(nxt, -7, -4)
+    ok = np.full(32, 0xFF)
+    ok[0], ok[31] = 0xFE, 0x7F
+    lo = lambda m: (m << 1 | (up(m) >> 7 & 1)) & 0x1FF      # noqa: E731
+    hi = lambda m: m >> 1 | (down(m) & 1) << 7               # noqa: E731
+    fp, fm = ok & pv & lo(pv), ok & nv & lo(nv)
+    fph, fmh = fp & hi(pv), fm & hi(nv)
+    fpv, fmv = fp & ~fph & pn & lo(pn), fm & ~fmh & nn & lo(nn)
+    fired = lanes(_run_parity_lanes(bits(fph | fmh | fpv | fmv)))
+    fh, fvp, fvm = fired & (fph | fmh), fired & fpv, fired & fmv
+    last = np.arange(32) < 31
+    w1, w4, w5 = (m >> 1 | (down(m) & 1 & last) << 7 for m in (fh, fvp, fvm))
+    fv, w = fvp | fvm, w1 | w4 | w5
+    pend_next = (fv | fv >> 1 | ((w4 | w5) & 0x80)) & 0xFF
+    m1, m2, m3 = w1 | ((P | fv) & ~w), fh & fph & ~w, fh & fmh & ~w
+    keep = ~(P | fired | w) & 0xFF
+    p3, n3 = rng_(cur, 5, 7) & keep, rng_(cur, -7, -5) & keep
+    ok3 = np.where(last, 0xFF, 0x7F)
+    f3p, f3n = ok3 & p3 & hi(p3), ok3 & n3 & hi(n3)
+    fired3 = lanes(_run_parity_lanes(bits(f3p | f3n)))
+    m6, m7 = fired3 & f3p, fired3 & f3n
+    code = (bits(m1 | m3 | w5 | m7).astype(int) + 2 * bits(m2 | m3 | m6 | m7)
+            + 4 * bits(w4 | w5 | m6 | m7))
+    vals = np.array([0, 10100, 12700, 12900, 12100, 12200, 10300, 10204])
+    return np.where(code > 0, vals[code], cur), bits(pend_next)
+
+
+def test_offset_y_row_lane_masks():
+    """The kernel's row step (range tests as lane masks, the writes as
+    codes) equals the twin's ``_offset_y_row`` on random rows of small
+    values, runs of candidates and pends, and on the relay edge planes'
+    rows."""
+    rng = np.random.default_rng(23)
+    vals = np.array([4, 5, 6, 7, -4, -5, -6, -7, 0, 3, 8, -8, 10100])
+    cur = rng.choice(vals, (96, 256))
+    nxt = rng.choice(vals, (96, 256))
+    cur[:32] = rng.integers(-9, 10, (32, 256))
+    pend = rng.random((96, 256)) < rng.random((96, 1)) / 2
+    x = cs.offset_y_relay_edge_planes(rng, 1)[0].astype(np.int64)
+    cur = np.concatenate([cur, x[:256, :256]])
+    nxt = np.concatenate([nxt, x[1:257, :256]])
+    pend = np.concatenate([pend, rng.random((256, 256)) < 0.05])
+    got = _offset_y_row_lanes(cur, nxt, pend)
+    want = tds._offset_y_row(*(torch.from_numpy(a) for a in (cur, nxt, pend)))
+    assert np.array_equal(got[0], want[0].numpy())
+    assert np.array_equal(got[1], want[1].numpy())
 
 
 def test_offset_uv_twin():

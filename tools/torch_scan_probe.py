@@ -1,21 +1,24 @@
-"""Device times of the port's S1 (snap passes) and S5 (column ladder) on
-the q20 batch, for one tree of the repo, and the split of a column-ladder
-kernel between its phases.
+"""Device times of the port's S1 (snap passes), S2 (offset_y), S5 (column
+ladder) and S6 (classify) on the q20 batch, for one tree of the repo, and
+the split of a column-ladder kernel between its phases.
 
 Run from anywhere on a machine with a CUDA card:
 
     python3 tools/torch_scan_probe.py [--tree DIR] [--ladder-src FILE]
-        [--runs N]
+        [--offset-y-src FILE] [--runs N]
 
 ``--tree`` is the root of the tree whose ``nhwcodec_tpu_torch`` and
 ``chip_smoke`` are measured (default: this script's repo).  The inputs
 are the tree's own: ``chip_smoke``'s 16 encode images, their host
 encodes at q20 captured by ``chip_smoke.StreamCapture``; S1 runs on the
-captured Y planes before the snap passes, S5 on pair promotion's output
-of the captured E11 planes.  Times are CUDA events around replays of a
-CUDA graph of 20 calls (``chip_smoke.graph_ms``): the three snap
-variants as three ``snap_pass_device`` calls, and, where the tree has
-``snap_passes_device``, as one call; ``column_ladder_device``.
+captured Y planes before the snap passes, S2 on their output (the three
+variants in turn), S5 on pair promotion's output of the captured E11
+planes, S6 on the column ladder's output.  Times are CUDA events around
+replays of a CUDA graph of 20 calls (``chip_smoke.graph_ms``): the three
+snap variants as three ``snap_pass_device`` calls, and, where the tree has
+``snap_passes_device``, as one call; ``offset_y_device`` (and, where the
+tree has ``offset_y_sweeps``, the sweeps of its passes 2-3 per image);
+``column_ladder_device``; ``classify_device``.
 
 ``--ladder-src`` takes a ``residue.cu`` of either column-ladder design,
 patches ``%globaltimer`` stamps into a copy, builds it with ``nvcc`` for
@@ -30,6 +33,15 @@ sm_90a into a temporary directory, checks its output against the tree's
 - 8 CTAs an image (``ladder_table`` first): the end of the staging, of
   the walk of the CTA's block (CTA 0 and the others apart), the start
   and end of column 255's walk in CTA 0, the write-back's start.
+
+``--offset-y-src`` takes a ``scans.cu`` of the banded passes 2-3 (a
+cluster of 8 CTAs an image, ``offset_y_bands``), patches stamps into a
+copy the same way, checks its output against the tree's
+``offset_y_device`` and reports, per CTA in µs from its start (medians
+over CTAs and runs), the end of the staging with the range tests, of the
+first sweep and of the kernel, on the snapped q20 planes and on
+``chip_smoke.offset_y_relay_edge_planes`` (16 sweeps), with each input's
+sweeps.
 
 Prints the card's name and power limit, then one JSON line.
 """
@@ -84,6 +96,19 @@ BLOCK_PATCHES = (
      "  if (t == 0) NHW_STAMP(5);\n", ""),
 )
 
+OFFSET_Y_PATCHES = (
+    ("  const int r0 = rank * kOyRows;\n",
+     "", "  if (threadIdx.x == 0) NHW_STAMP(0);\n"),
+    ("  cluster.sync();        // staged, every peer started\n",
+     "  __syncthreads();\n  if (t == 0) NHW_STAMP(1);\n", ""),
+    ("    pend = offset_y_band(st.rows, st.flags, st.tab, band_img, br, lane, "
+     "0);\n", "",
+     "  if (lane == 0)\n    atomicMax(&g_ladder_stamp[(blockIdx.y * gridDim.x "
+     "+ blockIdx.x) * 8 + 2], nhw_now());\n"),
+    ("  // row 255's vertical writes land in plane row 256\n",
+     "  __syncthreads();\n  if (t == 0) NHW_STAMP(3);\n", ""),
+)
+
 STAMP_API = r"""
 extern "C" int nhw_ladder_stamps(void* dst, int n, int reset) {
   if (reset) {
@@ -101,12 +126,12 @@ def blocks(src: str) -> bool:
     return "ladder_table" in src
 
 
-def patch_ladder(src: str) -> str:
-    """The stamped copy of a ``residue.cu``."""
+def patch_stamps(src: str, patches) -> str:
+    """A stamped copy of a kernel source: ``patches`` of (anchor, text
+    before it, text after it)."""
     at = src.index("namespace {")
     src = src[:at] + STAMP_DEFS + src[at:]
-    for anchor, before, after in (BLOCK_PATCHES if blocks(src)
-                                  else ONE_CTA_PATCHES):
+    for anchor, before, after in patches:
         if src.count(anchor) != 1:
             raise SystemExit(f"torch_scan_probe: anchor not found once in "
                              f"the ladder source: {anchor!r}")
@@ -114,27 +139,88 @@ def patch_ladder(src: str) -> str:
     return src + STAMP_API
 
 
-def build_stamped(src_path: Path, out_dir: Path):
-    """(the stamped library, whether it is the 8-CTA design)."""
+def build_stamped(src_path: Path, out_dir: Path, patches):
+    """The stamped library of a kernel source."""
     from torch.utils.cpp_extension import CUDA_HOME
 
-    text = src_path.read_text()
-    cu = out_dir / "residue_stamped.cu"
-    cu.write_text(patch_ladder(text))
-    lib = out_dir / "libladder_stamped.so"
+    cu = out_dir / f"{src_path.stem}_stamped.cu"
+    cu.write_text(patch_stamps(src_path.read_text(), patches))
+    lib = out_dir / f"lib{src_path.stem}_stamped.so"
     nvcc = str(Path(CUDA_HOME) / "bin" / "nvcc") if CUDA_HOME else "nvcc"
     subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
                     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                     "-I", str(src_path.parent), str(cu), "-o", str(lib)],
                    check=True)
     dll = ctypes.CDLL(str(lib))
+    dll.nhw_ladder_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                      ctypes.c_int]
+    dll.nhw_ladder_stamps.restype = ctypes.c_int
+    return dll
+
+
+def build_ladder(src_path: Path, out_dir: Path):
+    """(the stamped column-ladder library, whether it is the 8-CTA
+    design)."""
+    new = blocks(src_path.read_text())
+    dll = build_stamped(src_path, out_dir,
+                        BLOCK_PATCHES if new else ONE_CTA_PATCHES)
     p, i = ctypes.c_void_p, ctypes.c_int
-    dll.nhw_column_ladder.argtypes = ([p] * (5 if blocks(text) else 4)
-                                      + [i] * 5 + [p])
+    dll.nhw_column_ladder.argtypes = [p] * (5 if new else 4) + [i] * 5 + [p]
     dll.nhw_column_ladder.restype = i
-    dll.nhw_ladder_stamps.argtypes = [p, i, i]
-    dll.nhw_ladder_stamps.restype = i
-    return dll, blocks(text)
+    return dll, new
+
+
+def stamp_runs(dll, call, ctas: int, runs: int) -> np.ndarray:
+    """(runs, ctas, STAMPS) µs from each CTA's first stamp."""
+    import torch
+
+    per_run = []
+    stamps = np.zeros((ctas, STAMPS), np.uint64)
+    for _ in range(runs):
+        dll.nhw_ladder_stamps(None, ctas, 1)
+        call()
+        torch.cuda.synchronize()
+        dll.nhw_ladder_stamps(stamps.ctypes.data, ctas, 0)
+        s = stamps.astype(np.int64)
+        per_run.append((s - s[:, :1]) / 1e3)
+    return np.stack(per_run)
+
+
+def offset_y_split(dll, planes: dict, runs: int, cs) -> dict:
+    """The stamped passes 2-3 on each input: output against the tree's
+    offset_y_device, the sweeps, the stamps' medians."""
+    import torch
+
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    dll.nhw_offset_y.argtypes = [p, p, p, p, i, i, p]
+    dll.nhw_offset_y.restype = i
+    out = {}
+    for what, x in planes.items():
+        tmp, got = torch.empty_like(x), torch.empty_like(x)
+        esc = ds._escape_table(x.device)
+
+        def call():
+            rc = dll.nhw_offset_y(x.data_ptr(), tmp.data_ptr(),
+                                  got.data_ptr(), esc.data_ptr(), x.shape[0],
+                                  8, torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise SystemExit(f"torch_scan_probe: stamped launch failed "
+                                 f"{rc}")
+
+        call()
+        torch.cuda.synchronize()
+        cs.check(torch.equal(got, ds.offset_y_device(x, 8)),
+                 "the stamped offset_y differs from the tree's")
+        t = stamp_runs(dll, call, 8 * x.shape[0], runs)
+        med = lambda v: float(np.median(v))             # noqa: E731
+        out[what] = {"sweeps": ds.offset_y_sweeps(x).tolist(),
+                     "staged_us": med(t[..., 1]),
+                     "first_sweep_us": med(t[..., 2]),
+                     "end_us": med(t[..., 3]), "ctas": 8 * x.shape[0],
+                     "runs": runs}
+    return out
 
 
 def ladder_split(dll, new: bool, pp, rf_ext, flags, rs, runs: int,
@@ -164,16 +250,7 @@ def ladder_split(dll, new: bool, pp, rf_ext, flags, rs, runs: int,
     want_p, want_rf = ds.column_ladder_device(pp, rf_ext, 20, rs)
     cs.check(torch.equal(out, want_p) and torch.equal(rf, want_rf),
              "the stamped ladder differs from the tree's column_ladder")
-    per_run = []
-    stamps = np.zeros((ctas, STAMPS), np.uint64)
-    for _ in range(runs):
-        dll.nhw_ladder_stamps(None, ctas, 1)
-        call()
-        torch.cuda.synchronize()
-        dll.nhw_ladder_stamps(stamps.ctypes.data, ctas, 0)
-        s = stamps.astype(np.int64)
-        per_run.append((s - s[:, :1]) / 1e3)          # µs from the start
-    t = np.stack(per_run)                               # (runs, ctas, 8)
+    t = stamp_runs(dll, call, ctas, runs)               # (runs, ctas, 8)
     med = lambda v: float(np.median(v))                 # noqa: E731
     if not new:
         return {"design": "one CTA an image", "walk_end_us": med(t[..., 1]),
@@ -197,6 +274,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=str(REPO))
     ap.add_argument("--ladder-src", default=None)
+    ap.add_argument("--offset-y-src", default=None)
     ap.add_argument("--runs", type=int, default=25)
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
@@ -234,13 +312,34 @@ def main() -> int:
             lambda: ds.snap_passes_device(y, variants))
     out["column_ladder_graph_ms"] = cs.graph_ms(
         lambda: ds.column_ladder_device(pp, rf_ext, 20, rs))
+    lp, lrf = ds.column_ladder_device(pp, rf_ext, 20, rs)
+    lrf = lrf.reshape(-1, 256, 256)
+    out["classify_graph_ms"] = cs.graph_ms(
+        lambda: ds.classify_device(lp, lrf, 20, rs))
+    snapped = y
+    for a in variants:
+        snapped = ds.snap_pass_device(snapped, *a)
+    out["offset_y_graph_ms"] = cs.graph_ms(
+        lambda: ds.offset_y_device(snapped, 8))
+    if hasattr(ds, "offset_y_sweeps"):
+        out["offset_y_sweeps"] = ds.offset_y_sweeps(snapped).tolist()
     if args.ladder_src:
         with tempfile.TemporaryDirectory() as d:
-            dll, new = build_stamped(Path(args.ladder_src).resolve(),
-                                     Path(d))
+            dll, new = build_ladder(Path(args.ladder_src).resolve(),
+                                    Path(d))
             flags = [int(x) for x in ds._ladder_flags(20, rs)[:3]]
             out["ladder_split"] = ladder_split(dll, new, pp, rf_ext, flags,
                                                rs, args.runs, cs)
+    if args.offset_y_src:
+        rng = np.random.default_rng(cs.SEED + 30)
+        relay = torch.from_numpy(cs.offset_y_relay_edge_planes(
+            rng, len(images))).to(dev)
+        with tempfile.TemporaryDirectory() as d:
+            dll = build_stamped(Path(args.offset_y_src).resolve(), Path(d),
+                                OFFSET_Y_PATCHES)
+            out["offset_y_split"] = offset_y_split(
+                dll, {"q20 snapped planes": snapped, "relay edge planes":
+                      relay}, args.runs, cs)
     print(json.dumps(out), flush=True)
     return 0
 
