@@ -3780,6 +3780,9 @@ WALK_STEP_OPS = 4
 # the device time of the one-thread S8 kernel this design replaced, on
 # the q20 batch's walks (ms, profiler; NVIDIA H100 80GB HBM3 at 700 W), by n
 S8_WAS_MS = {24641: 0.2172, 65536: 0.2209, 8272: 0.1602}
+# S7's one-CTA-an-image kernel on the q20 LL2 planes, device [graph] / call
+# ms (run 3, PR 13, PERF.md)
+S7_WAS_MS = (0.1476, 0.1487, 0.2084)
 
 
 def stack_ll2(records: list, q: int) -> dict:
@@ -4017,6 +4020,8 @@ def ll2_edge_planes(rng, b, kind: str) -> np.ndarray:
     most marks and nudges)."""
     if kind == "all even":
         return (rng.integers(-200, 600, (b, 512, 512)) * 2).astype(np.int16)
+    if kind == "band edges":
+        return ll2_band_edge_planes(rng, b)
     if kind == "dense odd":
         return rng.choice(np.array([1, 3, 5, 7, 9, -1, -3], np.int16),
                           (b, 512, 512))
@@ -4034,6 +4039,43 @@ def ll2_edge_planes(rng, b, kind: str) -> np.ndarray:
             x[i, rows[c >= 0], c[c >= 0]] &= ~1
     x[:, 0, 0] = np.where(np.arange(b) % 2, 300, -7)
     x[:, 0, 1] = np.where(np.arange(b) % 2, -5, 256)
+    return x
+
+
+LL2_EDGE_KINDS = ("runs and marks", "all even", "dense odd", "band edges")
+# S7's relay chains: columns j..j + 2 of every LL2 row hold odd, odd, even
+# and column j - 1 even, so row r nudges (r + 1, j) exactly where its value
+# there is odd, and a nudge makes the next row's value even
+LL2_CHAIN_COLS = (3, 30, 62, 95)
+LL2_RUN_STARTS = (121, 122, 123, 124)
+
+
+def ll2_band_edge_planes(rng, b) -> np.ndarray:
+    """(B, 512, 512) int16 planes for S7's bands: odd-heavy values, and in
+    every LL2 row the relay chains of LL2_CHAIN_COLS (values 4, 3, 5, 6 at
+    j - 1..j + 2, row 0's 3 made 2): row r nudges column j exactly when r
+    is odd, so every band's exact entry (pend from row 8 b - 1, an odd
+    row) holds the chains' nudges while a band walked from no pend exits
+    with none, and each sweep of the relay makes one more band exact: as
+    many sweeps as bands.  Odd 4-runs start at LL2_RUN_STARTS (ending at
+    124..127, across the lanes' 4-column edges) in random rows, in the
+    halo rows each CTA marks below its own (rows 16 c + 16..16 c + 18) and
+    in rows 128-130, which stay unmarked."""
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    x = rng.integers(-40, 300, (b, 512, 512)).astype(np.int16)
+    x[:, :131, :131] |= rng.choice(np.array([1, 1, 1, 0], np.int16),
+                                   (b, 131, 131))
+    rows = ds.LL // ds.LL2_CTAS
+    halo = [r + k for r in range(rows, ds.LL + 1, rows) for k in range(3)]
+    run_rows = sorted(set(halo) | set(rng.choice(ds.LL, 24,
+                                                 replace=False).tolist()))
+    for r in run_rows:
+        c = int(rng.choice(LL2_RUN_STARTS))
+        x[:, r, c: c + 4] = (101, 7, 9, 13)
+    for j in LL2_CHAIN_COLS:
+        x[:, :ds.LL + 3, j - 1: j + 3] = (4, 3, 5, 6)
+        x[:, 0, j] = 2
     return x
 
 
@@ -4152,6 +4194,13 @@ def ll2_kernel_phase(dev, captured: dict) -> dict:
         lambda: ds.ll2_code_y_scan(P, True),
         lambda: ds.ll2_code_y_ref(P, True), twin_calls=1, twin_runs=5,
         bound=work(ll_bytes, LL2_OPS * B * ds.LL_N), graph=True)
+    was = S7_WAS_MS
+    print(f"kernel ll2_code_y ({B},512,512) q20 LL2 planes: "
+          f"{out['ll2_code_y']['graph_ms']:.4f} ms (graph of {GRAPH_CALLS} "
+          f"calls, CUDA events), call {out['ll2_code_y']['ms']:.4f} ms; the "
+          f"design before: {was[0]} [{was[1]}] / {was[2]} ms (PERF.md); "
+          f"sweeps a plane {ds.ll2_code_y_sweeps(P, True).tolist()}",
+          flush=True)
     compare_and_time("ll2_code_y", "gt_low3 off, q20 LL2 planes",
                      lambda: ds.ll2_code_y_scan(P, False),
                      lambda: ds.ll2_code_y_ref(P, False), timed=False)
@@ -4175,12 +4224,22 @@ def ll2_kernel_phase(dev, captured: dict) -> dict:
     out["walk_visited"] = shape_sums("walk_visited", shapes,
                                      f"({B},65536)")
     rng = np.random.default_rng(SEED + 50)
-    for kind in ("runs and marks", "all even", "dense odd"):
+    for kind in LL2_EDGE_KINDS:
         x = torch.from_numpy(ll2_edge_planes(rng, B, kind)).to(dev)
         for gt in (True, False):
             compare_batches("ll2_code_y", f"{kind} planes, gt_low3 {gt}",
                             lambda a, gt=gt: ds.ll2_code_y_scan(a, gt),
                             lambda a, gt=gt: ds.ll2_code_y_ref(a, gt), (x,))
+        sweeps = ds.ll2_code_y_sweeps(x, True).tolist()
+        print(f"kernel ll2_code_y {kind} planes: sweeps a plane {sweeps}",
+              flush=True)
+        if kind == "band edges":
+            check(sweeps == [ds.LL2_BANDS] * B, "ll2_code_y: the band edge "
+                  f"planes took {sweeps} sweeps, not one a band")
+            print(f"kernel ll2_code_y ({B},512,512) band edge planes "
+                  f"({ds.LL2_BANDS} sweeps): "
+                  f"{graph_ms(lambda: ds.ll2_code_y_scan(x, True)):.4f} ms "
+                  f"(graph of {GRAPH_CALLS} calls, CUDA events)", flush=True)
     for kind in ("jumps of 65", "jumps 255/256", "long jumps", "parks"):
         x = torch.from_numpy(walk_edge_rows(rng, B, kind)).to(dev)
         compare_batches("walk_visited", f"{kind} rows",
@@ -4197,8 +4256,9 @@ def ll2_kernel_phase(dev, captured: dict) -> dict:
                         lambda a, st=start: ds.walk_visited_ref(a, st),
                         (torch.from_numpy(nxt).to(dev),))
     print("encode scans: S7 and S8 equal their twins at batch 1, 3 and 16 on "
-          "the LL2 edge planes, the stage's three walks, the walk edge rows "
-          "and the segment edge rows", flush=True)
+          "the LL2 edge planes (the band edge planes included), the stage's "
+          "three walks, the walk edge rows and the segment edge rows",
+          flush=True)
     return out
 
 
@@ -4220,7 +4280,11 @@ SCANS_DEVICE_TURNS = 3
 # the sentinel marking's operations a lane, counted from csrc/uv.cu (the
 # two decisions' compares and selects, the run parity, the writes)
 UVSM_OPS = 40
-UVSM_KINDS = ("drift", "d0 -5", "bands taken", "pair runs")
+# S9's one-CTA-an-image kernel on the q20 U planes, device [graph] / call
+# ms (run 2, PR 14, PERF.md; its device time was not measured)
+S9_WAS_MS = (None, 0.0755, 0.0997)
+UVSM_KINDS = ("drift", "d0 -5", "bands taken", "pair runs", "cta edges",
+              "no drift")
 
 
 def scans_device_launches(q: int) -> dict:
@@ -4296,6 +4360,8 @@ def uv_sentinel_edge_inputs(rng, b, kind: str) -> tuple:
     proc = rng.integers(-12, 13, (b, 256, 256)).astype(np.int16)
     rf = np.zeros((b, UV_RF_EXT), np.int16)
     rf[:, 16384: 16388] = rng.integers(-20, 21, (b, 4))
+    if kind in ("cta edges", "no drift"):
+        return uv_sentinel_row_inputs(rng, proc, rf, kind == "cta edges")
     if kind == "drift":
         rf[:, :16384] = rng.integers(-20, 21, (b, 16384))
         for i in range(b):
@@ -4339,6 +4405,43 @@ def uv_sentinel_edge_inputs(rng, b, kind: str) -> tuple:
             for r0, c0 in ((0, 128), (128, 0), (128, 128))[: k + 1]:
                 blk = proc[:, r0: r0 + 128, c0: c0 + 128][:, k::3]
                 blk[:] = rng.choice(taken, blk.shape)
+    return proc, rf
+
+
+def uv_drift_rows(edges: bool) -> set:
+    """The rows that drift in uv_sentinel_row_inputs: with ``edges``, the
+    last row of each CTA of S9's cluster and the first of the next (15/16,
+    31/32, .., 111/112), else none."""
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    rows = ds.UVSM_CTA_ROWS
+    return ({r for c in range(1, ds.UVSM_CTAS) for r in (c * rows - 1,
+                                                          c * rows)}
+            if edges else set())
+
+
+def uv_sentinel_row_inputs(rng, proc, rf, edges: bool) -> tuple:
+    """S9's "cta edges" and "no drift" inputs on ``proc`` and ``rf``
+    (uv_sentinel_edge_inputs): res256 random, each row built against the
+    window it reads (count_start tracked), lanes 1..124 random; the rows of
+    ``uv_drift_rows(edges)`` place a pair at lane 127 (d0 5, d1 4, lanes 0,
+    125 and 126 neutral, lane 127's band 0 slot free), and every other row
+    has d0 = 0 at lane 127, so it never drifts."""
+    b = len(proc)
+    drifting = uv_drift_rows(edges)
+    rf[:, :16384] = rng.integers(-20, 21, (b, 16384))
+    for i in range(b):
+        p, f, cs = proc[i], rf[i], 0
+        for r in range(128):
+            d = rng.integers(-9, 10, 129)
+            if r in drifting:
+                d[0] = 0
+                d[125:129] = (0, 0, 5, 4)
+                p[r, 254:256] = 0
+            else:
+                d[127] = 0
+            p[r, :129] = f[cs: cs + 129] + d
+            cs += 128 + (r in drifting)
     return proc, rf
 
 
@@ -4561,7 +4664,8 @@ def uv_kernel_phase(dev, captured: dict) -> dict:
                   f"uv_sentinel q{q} {'UV'[c]}: differs from the host "
                   "copy's C")
             what = (f"({len(proc)},256,256) + ({len(proc)},{rf.shape[1]}) "
-                    f"q{q} {'UV'[c]} planes, res_uv {res_uv}")
+                    f"q{q} {'UV'[c]} planes, res_uv {res_uv}, rounds (sweeps)"
+                    f" a plane {ds.uv_sentinel_sweeps(P, R, res_uv).tolist()}")
             nbytes = P.numel() * 4 + R.numel() * 2
             res = compare_and_time(
                 "uv_sentinel", what,
@@ -4570,6 +4674,13 @@ def uv_kernel_phase(dev, captured: dict) -> dict:
                 timed=q == 20 and c == 0, twin_calls=1, twin_runs=5,
                 bound=work(nbytes, UVSM_OPS * len(proc) * 16384),
                 graph=True)
+            if res:
+                was = S9_WAS_MS
+                print(f"kernel uv_sentinel {what}: {res['graph_ms']:.4f} ms "
+                      f"(graph of {GRAPH_CALLS} calls, CUDA events), call "
+                      f"{res['ms']:.4f} ms; the design before: "
+                      f"{was[0] or 'n.m.'} [{was[1]}] / {was[2]} ms "
+                      "(PERF.md)", flush=True)
             out = out or res
         for c, (jpeg, proc, r256, oob0, strict, want) in enumerate(st["cl"]):
             got = ds.uv_compare_ladder_device(t(jpeg), t(proc), t(r256),
@@ -4607,11 +4718,27 @@ def uv_kernel_phase(dev, captured: dict) -> dict:
                                 a, b, res_uv),
                             lambda a, b: ds.uv_sentinel_marking_ref(
                                 a, b, res_uv), (P, R))
-            check(np.array_equal(
-                ds.uv_sentinel_marking_device(P, R, res_uv).cpu().numpy(),
-                host_uv_sentinel(proc, rf, res_uv)),
-                f"uv_sentinel {kind} planes, res_uv {res_uv}: differ from "
-                "the host copy's C")
+            got = ds.uv_sentinel_marking_device(P, R, res_uv).cpu().numpy()
+            check(np.array_equal(got, host_uv_sentinel(proc, rf, res_uv)),
+                  f"uv_sentinel {kind} planes, res_uv {res_uv}: differ from "
+                  "the host copy's C")
+        sweeps = ds.uv_sentinel_sweeps(P, R, 4).tolist()
+        print(f"kernel uv_sentinel {kind} planes: rounds (sweeps) a plane "
+              f"{sweeps}", flush=True)
+        if kind in ("cta edges", "no drift"):
+            drifts = uv_drift_rows(kind == "cta edges")
+            check(all(np.flatnonzero(np.isin(g[:128, 255], (12400, 12600)))
+                      .tolist() == sorted(drifts) for g in got),
+                  f"uv_sentinel {kind} planes: lane 127 placed elsewhere "
+                  f"than rows {sorted(drifts)}")
+            check(kind == "cta edges" or sweeps == [1] * B,
+                  f"uv_sentinel: the planes without drift took {sweeps} "
+                  "sweeps")
+        if kind in ("drift", "cta edges"):
+            ms = graph_ms(lambda: ds.uv_sentinel_marking_device(P, R, 4))
+            print(f"kernel uv_sentinel ({B},256,256) {kind} planes: "
+                  f"{ms:.4f} ms (graph of {GRAPH_CALLS} calls, CUDA events)",
+                  flush=True)
     print("encode scans: S9 equals its twin and the host copy's C on the "
           "captured q20/q21/q19/q18 planes and at batch 1, 3 and 16 on the "
           f"{', '.join(UVSM_KINDS)} planes; the compare ladder on the card "

@@ -1,6 +1,7 @@
-// Block-wide helpers shared by the encode scans' kernels (scans.cu, ll2.cu,
-// uv.cu, lowq.cu), whose CTAs walk a row's positions a thread each, or a
-// plane's rows a thread each.
+// Helpers shared by the encode scans' kernels (scans.cu, ll2.cu, uv.cu,
+// lowq.cu, vlq.cu): the run parity of a warp's row (ll2.cu, uv.cu), rows
+// staged for CTAs whose threads walk a row each, and the chain of row maps
+// a warp scans.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -11,25 +12,24 @@ namespace nhw {
 
 __device__ __forceinline__ int iabs(int x) { return x < 0 ? -x : x; }
 
-// fired = f and an even offset within f's run, over the CTA's threads in
-// order (thread j = position j, blockDim.x a multiple of 32): the greedy
-// rule that fires and skips the next position, over a static predicate.
-// The run starts are a block max-scan of warp ballots; warp_last:
-// blockDim.x / 32 ints of shared memory.  Every thread of the CTA calls it.
-__device__ __forceinline__ bool run_parity_block(bool f, int* warp_last) {
-  const int j = threadIdx.x, lane = j & 31, w = j >> 5;
-  const unsigned nf = __ballot_sync(0xFFFFFFFFu, !f);
-  if (lane == 0) warp_last[w] = nf ? w * 32 + 31 - __clz(nf) : -1;
-  __syncthreads();
-  const unsigned le = nf & (lane == 31 ? 0xFFFFFFFFu : ((2u << lane) - 1u));
-  int last = -1;
-  if (le) {
-    last = w * 32 + 31 - __clz(le);
-  } else {
-    for (int k = 0; k < w; ++k) last = max(last, warp_last[k]);
-  }
-  __syncthreads();
-  return f && ((j - (last + 1)) & 1) == 0;
+// fired = f and an even offset within f's run, over a warp's row of 128
+// positions, 4 a lane (bit i: position 4 lane + i): the greedy rule that
+// fires and skips the next position, over a static predicate.  Within the
+// lane, a run starting at an even bit fires its even bits and one starting
+// at an odd bit its odd bits (adding its start bit clears a run); the state
+// before the lane's bit 0 is the last bit fired by the nearest lane below
+// that holds a non-candidate (a lane of 4 candidates passes it through),
+// and where it fired, the lane's leading run flips.  Every lane of the warp
+// calls it.
+__device__ __forceinline__ unsigned run_parity_lanes4(unsigned f, int lane) {
+  const unsigned starts = f & ~(f << 1);
+  const unsigned even = f & ~(f + (starts & 0x5u));
+  const unsigned fired = (even & 0x5u) | (f & ~even & 0xAu);
+  const unsigned gaps = __ballot_sync(0xFFFFFFFFu, f != 0xFu);
+  const unsigned last = __ballot_sync(0xFFFFFFFFu, (fired >> 3) & 1u);
+  const unsigned below = gaps & ((1u << lane) - 1u);
+  const unsigned e = below ? (last >> (31 - __clz(below))) & 1u : 0u;
+  return fired ^ (f & ~(f + 1u) & (0u - e));
 }
 
 // Rows of a (512, 512) int16 plane staged in shared memory for kernels

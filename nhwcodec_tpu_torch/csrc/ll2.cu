@@ -18,18 +18,29 @@
 // The bound of each is bytes: the LL2 rows read once, vem and is24 written
 // once; the successors read once, the mask written once.  Both are chains
 // of dependent steps:
-// - S7: one CTA an image.  The marking is a skip walk within a row (the
-//   windows read the original parities: the marks are even), one thread a
-//   row, its marks kept as codes in shared memory.  The nudge scan is one
-//   thread a column over the 128 rows in order: a row's values after the
-//   nudges from the row above go through shared memory (the reads at
-//   j + 1, j + 2 reach plane columns 128-129, which the marking never
-//   touches and nothing nudges); the 2a fire's +1 on the next column makes
-//   it even, so the fires are the run parity of the static predicate (a
-//   block max-scan of warp ballots, as S2's pair rule); the cross-row
-//   tests read rows r + 1..r + 3 before their nudges (a row only nudges
-//   the next one, at its own column), and the nudge into row r + 1 stays
-//   in the thread's register.
+// - S7: a cluster of kYCtas CTAs an image, kYRows LL2 rows each.  A CTA
+//   stages its rows and the kYHalo rows below them that the cross-row
+//   tests read (rows up to 130), columns 0..135, with cp.async.  The
+//   marking is a skip walk within a row over static windows (they read the
+//   original parities: the marks are even), so a warp marks a staged row,
+//   the halo rows too (rows past 127 stay unmarked): lane l composes the
+//   4-state maps of the skip counter at its positions 4 l..4 l + 3, the
+//   warp scans the lanes' maps with shuffles, and each lane walks its
+//   positions again from its entry state (a fired window adds 24000, a
+//   skipped position 16000).  Each band row's cross-row tests (rows r +
+//   1..r + 3 before their nudges: a row only nudges the next one, at its
+//   own column) are then static bits a lane.  The nudge scan is a warp a
+//   band of kYBandRows rows in order, lane l on columns 4 l..4 l + 3: the
+//   2a fire's +1 on the next column makes it even, so the fires are the
+//   run parity of the static-in-row predicate (block_scan.cuh's
+//   run_parity_lanes4), and the only carry between rows is pend, the 128
+//   bits of the nudges into the next row, in registers.  Each band walks
+//   from no pend, its exit is relayed to the band below (through DSM
+//   across CTAs), and a band walks again while its entry changes, the
+//   vote a flag a band pushed to every CTA before one cluster.sync() a
+//   sweep (double-buffered by the sweep's parity): after s sweeps bands
+//   0..s - 1 are exact, so kYBands sweeps at most.  vem and is24 collect
+//   in shared memory and go out once, whole rows in 16-byte stores.
 // - S8: one CTA a row; the walk by segments, so that its serial depth no
 //   longer grows with the path.  The CTA stages the jumps nxt[i] - i as
 //   uint16 in shared memory (0 = the walk ends here: a successor >= n or
@@ -49,22 +60,37 @@
 //   offsets fit a byte.  Each segment sits at an odd word pitch, so that
 //   the lanes of a warp, at one offset of 32 segments, hit 32 banks.
 
+#include <cooperative_groups.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "block_scan.cuh"
+#include "cluster.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
 using nhw::iabs;
-using nhw::run_parity_block;
+using nhw::misaligned;
 
+constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kN = 512;
 constexpr int kPlane = kN * kN;
-constexpr int kLL = 128;            // the LL2 block's side; S7's threads
-constexpr int kMarkPitch = kLL + 4; // bytes a row of S7's mark codes
+constexpr int kLL = 128;            // the LL2 block's side
 constexpr int kLLN = kLL * kLL;
+constexpr int kYCtas = 8;                       // S7: a cluster an image
+constexpr int kYRows = kLL / kYCtas;            // LL2 rows a CTA
+constexpr int kYBandRows = 8;                   // rows a band, a warp each
+constexpr int kYBands = kLL / kYBandRows;       // bands an image
+constexpr int kYWalkers = kYRows / kYBandRows;  // bands a CTA
+constexpr int kYThreads = 256;                  // the walkers and helpers
+constexpr int kYHalo = 3;            // rows r + 1..r + 3 the tests read
+constexpr int kYStage = kYRows + kYHalo;
+constexpr int kYCols = 136;          // staged columns: the reads reach 129
+constexpr int kYVecs = kYCols / 8;
+constexpr int kYPitch = kLL + 4;     // marked values a row: columns 0..131
 
 constexpr int kWalkThreads = 1024;
 constexpr int kWalkAhead = 4;       // S8's loads in flight a thread
@@ -72,94 +98,224 @@ constexpr int kWalkMaxN = 1 << 16;  // jumps fit 16 bits
 constexpr int kWalkMaxSegLog2 = 8;  // in-segment offsets fit 8 bits
 constexpr int kWalkMaxSegs = 256;   // a thread a segment
 
-bool misaligned(const void* p, int bytes) {
-  return reinterpret_cast<uintptr_t>(p) % bytes != 0;
-}
-
 // ---------------------------------------------------------------------------
 // S7: the LL2 byte coding's marks and nudges (encoder/nhw_encoder.c:636-743,
 // the host copy's nhw_ll2_code_y)
 
-__device__ __forceinline__ bool odd(int x) { return x & 1; }
+__device__ __forceinline__ int odd(int x) { return x & 1; }
 
-// The value at (row, col) after the marking and before any nudge: mark
-// code 1 adds 24000, 2 adds 16000; rows and columns past 127 are unmarked.
-__device__ __forceinline__ int marked_value(const int16_t* p,
-                                            const uint8_t* marks, int row,
-                                            int col) {
-  const int v = p[row * kN + col];
-  if (row >= kLL || col >= kLL) return v;
-  const uint8_t m = marks[row * kMarkPitch + col];
-  return v + (m == 1 ? 24000 : m == 2 ? 16000 : 0);
+// The skip walk's state maps: the skip counter (0..3) before a position to
+// the counter after it, a byte a state (byte s: the image of s).  A match
+// at counter 0 fires and leaves 3, else the counter counts down.
+constexpr unsigned kSkipId = 0x03020100u;
+constexpr unsigned kSkipHit = 0x02010003u;
+constexpr unsigned kSkipMiss = 0x02010000u;
+
+// "a then b": byte s of the result is byte a[s] of b, one byte permute
+// with a's bytes packed as its nibble selector.
+__device__ __forceinline__ unsigned compose4(unsigned a, unsigned b) {
+  const unsigned x = (a | (a >> 4)) & 0x00FF00FFu;
+  return __byte_perm(b, 0u, (x | (x >> 8)) & 0xFFFFu);
 }
 
-__global__ void __launch_bounds__(kLL)
-    ll2_code_y(const int16_t* __restrict__ plane, int* __restrict__ vem,
-               uint8_t* __restrict__ is24, int gt_low3) {
-  __shared__ uint8_t marks[kLL * kMarkPitch];
-  __shared__ int row_s[kLL + 4];     // this row's values, columns 0..130
-  __shared__ uint8_t fire_s[kLL + 1]; // fire_s[j + 1]: column j fired 2a
-  __shared__ int warp_last[kLL / 32];
-  const int t = threadIdx.x;
-  const int16_t* p = plane + static_cast<size_t>(blockIdx.x) * kPlane;
-  int* vo = vem + static_cast<size_t>(blockIdx.x) * kLLN;
-  uint8_t* io = is24 + static_cast<size_t>(blockIdx.x) * kLLN;
+// What a CTA of S7 holds: its rows and the halo as staged (int16) and as
+// marked (int32), each band row's cross-row tests (a byte a lane: bits 0-3
+// the left rule's, 4-7 the other's), vem and is24 of its rows, and the
+// relay: band 0's exit for band 1, the entry from the CTA above (DSM) and
+// each band's "my exit changed" (DSM), by the sweep's parity.
+struct Ll2Stage {
+  int16_t raw[kYStage * kYCols];
+  int m[kYStage * kYPitch];
+  uint8_t tests[kYRows][32];
+  int vem[kYRows * kLL];
+  uint32_t is24[kYRows * 32];
+  uint8_t exits[2][32];
+  uint8_t entry_in[2][32];
+  alignas(16) uint8_t changed[2][kYBands];
+};
 
-  // the 4-run odd marking: thread t walks row t
-  uint8_t* m = marks + t * kMarkPitch;
-  for (int j = 0; j < kLL; ++j) m[j] = 0;
-  if (gt_low3) {
-    const int16_t* row = p + t * kN;
-    int j = 0;
-    while (j < 125) {
-      const int x0 = row[j], x3 = row[j + 3];
-      if (odd(x0) && odd(row[j + 1]) && odd(row[j + 2]) && odd(x3) &&
-          iabs(x0 - x3) > 1) {
-        m[j] = 1;
-        m[j + 1] = m[j + 2] = m[j + 3] = 2;
-        j += 4;
-      } else {
-        ++j;
-      }
+// Staged row k (plane row g) marked by a warp: a window of four odd values
+// with |v[j] - v[j + 3]| > 1 at j < 125 fires where the skip counter is 0,
+// adds 24000 at j and 16000 at j + 1..j + 3 (the skipped positions); rows
+// past 127 and columns past 127 stay as they are.
+__device__ __forceinline__ void mark_row(Ll2Stage& st, int k, int g,
+                                         int lane, bool gt_low3) {
+  const int16_t* x = st.raw + k * kYCols + 4 * lane;
+  int xv[7];
+#pragma unroll
+  for (int i = 0; i < 7; ++i) xv[i] = x[i];
+  int add[4] = {0, 0, 0, 0};
+  if (gt_low3 && g < kLL) {
+    unsigned match = 0, f = kSkipId;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int j = 4 * lane + i;
+      const int hit = (j < kLL - 3) & odd(xv[i]) & odd(xv[i + 1]) &
+                      odd(xv[i + 2]) & odd(xv[i + 3]) &
+                      (iabs(xv[i] - xv[i + 3]) > 1);
+      match |= unsigned(hit) << i;
+      f = compose4(f, hit ? kSkipHit : kSkipMiss);
+    }
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const unsigned g2 = __shfl_up_sync(kFull, f, d);
+      if (lane >= d) f = compose4(g2, f);
+    }
+    const unsigned e = __shfl_up_sync(kFull, f, 1);
+    int sk = lane ? static_cast<int>(e & 0xFFu) : 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const bool fire = sk == 0 && ((match >> i) & 1u);
+      add[i] = fire ? 24000 : sk ? 16000 : 0;
+      sk = fire ? 3 : max(sk - 1, 0);
     }
   }
-  if (t == 0) fire_s[0] = 0;
-  __syncthreads();
+  int* m = st.m + k * kYPitch + 4 * lane;
+  *reinterpret_cast<int4*>(m) =
+      make_int4(xv[0] + add[0], xv[1] + add[1], xv[2] + add[2],
+                xv[3] + add[3]);
+  if (lane == 31)
+    *reinterpret_cast<int4*>(m + 4) = make_int4(xv[4], xv[5], xv[6], x[7]);
+}
 
-  // the nudge scan: thread j owns column j
-  const int j = t;
-  int pend = 0;
-  for (int r = 0; r < kLL; ++r) {
-    const int cur = marked_value(p, marks, r, j) + pend;
-    row_s[j] = cur;
-    if (j < 3) row_s[kLL + j] = p[r * kN + kLL + j];
-    __syncthreads();
-    const int c1 = row_s[j + 1], c2 = row_s[j + 2];
-    const bool marked = gt_low3 && cur > 10000;
-    const bool f2a = gt_low3 && !marked && odd(cur) && j > 0 && odd(c1) &&
-                     j < 126 && odd(c2) && iabs(cur - c2) > 1;
-    const bool fire = run_parity_block(f2a, warp_last);
-    fire_s[j + 1] = fire;
-    __syncthreads();
-    const int v = cur + fire_s[j];
-    int next = 0;
-    if (gt_low3 && !marked && odd(v)) {
-      const bool left = j > 0 && odd(c1);
-      if (left ? !(j < 126 && odd(c2)) && r <= 126 : r >= 1 && r <= 124) {
-        const int n0 = marked_value(p, marks, r + 1, j);
-        const int n1 = marked_value(p, marks, r + 1, j + 1);
-        if (odd(n0) && odd(n1) && n0 < 10000) {
-          next = left ? !odd(marked_value(p, marks, r + 1, j + 2))
-                      : odd(marked_value(p, marks, r + 2, j)) &&
-                            !odd(marked_value(p, marks, r + 3, j));
-        }
-      }
+// Band row k's cross-row tests at lane l (plane row g): the nudge into row
+// g + 1 needs odd marked values at (g + 1, j) and (g + 1, j + 1), the first
+// under 10000, and then, for the left rule (g <= 126), an even (g + 1, j +
+// 2), for the other (1 <= g <= 124), an odd (g + 2, j) and an even (g + 3,
+// j).
+__device__ __forceinline__ uint8_t row_tests(const Ll2Stage& st, int k,
+                                             int g, int lane) {
+  const int* n1 = st.m + (k + 1) * kYPitch + 4 * lane;
+  const int* n2 = st.m + (k + 2) * kYPitch + 4 * lane;
+  const int* n3 = st.m + (k + 3) * kYPitch + 4 * lane;
+  const int ok2 = g <= kLL - 2, ok3 = (g >= 1) & (g <= kLL - 4);
+  unsigned bits = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int a = odd(n1[i]) & odd(n1[i + 1]) & (n1[i] < 10000);
+    bits |= unsigned(a & ok2 & !odd(n1[i + 2])) << i;
+    bits |= unsigned(a & ok3 & odd(n2[i]) & !odd(n3[i])) << (4 + i);
+  }
+  return static_cast<uint8_t>(bits);
+}
+
+// A warp's band (local rows k0.., plane rows from r0 + k0) from the entry
+// pend (bit i of the lane: a nudge into position 4 lane + i of row k0); the
+// rows' vem and is24 into the stage.  Returns the exit pend.
+__device__ __forceinline__ unsigned ll2_band(Ll2Stage& st, int k0, int lane,
+                                             int gt, unsigned pend) {
+#pragma unroll 2
+  for (int k = k0; k < k0 + kYBandRows; ++k) {
+    const int* row = st.m + k * kYPitch;
+    const int4 mv = *reinterpret_cast<const int4*>(row + 4 * lane);
+    int c[6] = {mv.x + int(pend & 1u), mv.y + int((pend >> 1) & 1u),
+                mv.z + int((pend >> 2) & 1u), mv.w + int((pend >> 3) & 1u),
+                0, 0};
+    const int up0 = __shfl_down_sync(kFull, c[0], 1);
+    const int up1 = __shfl_down_sync(kFull, c[1], 1);
+    // columns 128-129: never marked or nudged
+    c[4] = lane == 31 ? row[kLL] : up0;
+    c[5] = lane == 31 ? row[kLL + 1] : up1;
+    unsigned f2a = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int j = 4 * lane + i;
+      const int marked = gt & (c[i] > 10000);
+      f2a |= unsigned(gt & !marked & odd(c[i]) & (j > 0) & odd(c[i + 1]) &
+                      (j < kLL - 2) & odd(c[i + 2]) &
+                      (iabs(c[i] - c[i + 2]) > 1))
+             << i;
     }
+    const unsigned fired = nhw::run_parity_lanes4(f2a, lane);
+    const unsigned before = __shfl_up_sync(kFull, fired >> 3, 1) & 1u;
+    const unsigned prev = ((fired << 1) | (lane ? before : 0u)) & 0xFu;
+    const unsigned tests = st.tests[k][lane];
+    unsigned next = 0, hi = 0;
+    int o[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int j = 4 * lane + i;
+      const int v = c[i] + int((prev >> i) & 1u);
+      const int marked = gt & (c[i] > 10000);
+      const int left = (j > 0) & odd(c[i + 1]);
+      const int rule = left ? !((j < kLL - 2) & odd(c[i + 2])) &
+                                  int((tests >> i) & 1u)
+                            : int((tests >> (4 + i)) & 1u);
+      next |= unsigned(gt & !marked & odd(v) & rule) << i;
+      const int h = gt & (v > 20000);
+      hi |= unsigned(h) << (8 * i);
+      o[i] = h ? v - 24000 : (gt & (v > 10000)) ? v - 16000 : v;
+    }
+    *reinterpret_cast<int4*>(st.vem + k * kLL + 4 * lane) =
+        make_int4(o[0], o[1], o[2], o[3]);
+    st.is24[k * 32 + lane] = hi;
     pend = next;
-    const bool hi = gt_low3 && v > 20000;
-    vo[r * kLL + j] = hi ? v - 24000 : (gt_low3 && v > 10000 ? v - 16000 : v);
-    io[r * kLL + j] = hi;
   }
+  return pend;
+}
+
+__global__ void __launch_bounds__(kYThreads)
+    ll2_code_y_bands(const int16_t* __restrict__ plane, int* __restrict__ vem,
+                     uint8_t* __restrict__ is24, int gt_low3) {
+  __shared__ __align__(16) Ll2Stage st;
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  const int r0 = rank * kYRows;
+  const int16_t* img = plane + static_cast<size_t>(blockIdx.y) * kPlane;
+  for (int i = t; i < kYStage * kYVecs; i += kYThreads)
+    __pipeline_memcpy_async(st.raw + (i / kYVecs) * kYCols + (i % kYVecs) * 8,
+                            img + (r0 + i / kYVecs) * kN + (i % kYVecs) * 8,
+                            16);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  const int gt = gt_low3 != 0;
+  for (int k = w; k < kYStage; k += kYThreads / 32)
+    mark_row(st, k, r0 + k, lane, gt);
+  __syncthreads();
+  for (int i = t; i < kYRows * 32; i += kYThreads)
+    st.tests[i / 32][i % 32] = row_tests(st, i / 32, r0 + i / 32, i % 32);
+  cluster.sync();        // staged and marked, every peer started
+  const bool walks = w < kYWalkers;
+  // the last band's exit nudges row 128, which is not coded
+  const bool last = rank == kYCtas - 1 && w == kYWalkers - 1;
+  const int k0 = w * kYBandRows;
+  unsigned entry = 0, pend = 0, sent = 0;
+  if (walks) pend = ll2_band(st, k0, lane, gt, 0u);
+  for (int s = 0; s < kYBands; ++s) {
+    const int par = s & 1;
+    if (walks) {
+      if (w < kYWalkers - 1)
+        st.exits[par][lane] = static_cast<uint8_t>(pend);
+      else if (rank < kYCtas - 1)
+        *cluster.map_shared_rank(&st.entry_in[par][lane], rank + 1) =
+            static_cast<uint8_t>(pend);
+      // each band tells every CTA whether its exit changed
+      const bool changed = !last && __any_sync(kFull, pend != sent);
+      sent = pend;
+      if (lane < kYCtas)
+        *cluster.map_shared_rank(&st.changed[par][rank * kYWalkers + w],
+                                 lane) = changed;
+    }
+    cluster.sync();
+    const uint4 flags = *reinterpret_cast<const uint4*>(st.changed[par]);
+    if (!(flags.x | flags.y | flags.z | flags.w)) break;
+    const unsigned want = !walks ? 0u
+                          : w > 0 ? st.exits[par][lane]
+                          : rank > 0 ? st.entry_in[par][lane] : 0u;
+    if (walks && __any_sync(kFull, want != entry)) {
+      entry = want;
+      pend = ll2_band(st, k0, lane, gt, entry);
+    }
+  }
+  const size_t at = static_cast<size_t>(blockIdx.y) * kLLN + r0 * kLL;
+  int4* vo = reinterpret_cast<int4*>(vem + at);
+  const int4* vs = reinterpret_cast<const int4*>(st.vem);
+  for (int i = t; i < kYRows * kLL / 4; i += kYThreads) vo[i] = vs[i];
+  int4* io = reinterpret_cast<int4*>(is24 + at);
+  const int4* is = reinterpret_cast<const int4*>(st.is24);
+  for (int i = t; i < kYRows * kLL / 16; i += kYThreads) io[i] = is[i];
 }
 
 // ---------------------------------------------------------------------------
@@ -308,16 +464,23 @@ cudaError_t walk_visited_setup() {
 extern "C" {
 
 // S7.  plane: (B, 512, 512) int16; vem: (B, 16384) int32; is24: (B, 16384)
-// bytes (torch.bool).
+// bytes (torch.bool); all 16-byte aligned.
 int nhw_ll2_code_y(const void* plane, void* vem, void* is24, int batch,
                    int gt_low3, void* stream) {
   if (batch < 1 || batch > 65535) return cudaErrorInvalidValue;
-  if (misaligned(plane, 2) || misaligned(vem, 4))
+  if (misaligned(plane, 16) || misaligned(vem, 16) || misaligned(is24, 16))
     return cudaErrorMisalignedAddress;
-  ll2_code_y<<<batch, kLL, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int16_t*>(plane), static_cast<int*>(vem),
-      static_cast<uint8_t*>(is24), gt_low3);
-  return cudaGetLastError();
+  cudaLaunchAttribute dims = nhw::cluster_dims(kYCtas);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kYCtas, batch, 1);
+  cfg.blockDim = dim3(kYThreads, 1, 1);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = &dims;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, ll2_code_y_bands, static_cast<const int16_t*>(plane),
+      static_cast<int*>(vem), static_cast<uint8_t*>(is24), gt_low3);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 // S8.  nxt: (B, n) int32, 1 <= n <= 65536; visited: (B, n) bytes

@@ -67,9 +67,12 @@ In ``csrc/residue.cu``:
 In ``csrc/ll2.cu``:
 
 - ``ll2_code_y_scan`` (kernel ``ll2_code_y``), the serial part of
-  ``ll2_code_y_device``: the 4-run odd-marking pre-pass (a skip walk a
-  row) and the 128-step nudge scan over the rows, one CTA an image and a
-  thread a column; the within-row 2a fires are a run parity.
+  ``ll2_code_y_device``: a cluster of ``LL2_CTAS`` CTAs an image; the
+  4-run odd-marking pre-pass (a skip walk a row) a warp a row, a scan of
+  the skip counter's 4-state maps; the nudge scan a warp a band of
+  ``LL2_BAND_ROWS`` rows, the within-row 2a fires a run parity, the
+  rows' ``pend`` carry relayed band to band and a band walked again
+  while its entry changes (``_ll2y_sweeps``, S2's relay).
 - ``walk_visited_device`` (kernel ``walk_visited``): the visited mask of
   a forward walk over static successors, one CTA a row, the jumps staged
   in shared memory and walked by segments: each segment's last node from
@@ -80,8 +83,11 @@ In ``csrc/ll2.cu``:
 In ``csrc/uv.cu``:
 
 - ``uv_sentinel_marking_device`` (kernel ``uv_sentinel``): the chroma
-  band sentinels, one CTA an image, a thread a lane, the rows in order
-  (a pair at a row's last lane moves every later row's window).
+  band sentinels, a cluster of ``UVSM_CTAS`` CTAs an image, a warp a
+  row.  A pair at a row's last lane moves every later row's window, so
+  every row walks from a guessed window start, again within its CTA
+  while its start moves, and the CTAs swap their rows' drifts a round
+  until they stand (``_uvsm_sweeps``).
 
 In ``csrc/lowq.cu``:
 
@@ -1923,50 +1929,108 @@ def _uvsm_apply(visited, pos, placed, code, slot, bands):
             for s, band in enumerate(bands)]
 
 
-def uv_sentinel_marking_ref(process, rf_ext, res_uv: int):
-    """Torch twin of ``uv_sentinel``: the 128 rows in order with a row's
-    lanes as columns and each image's window start carried: the lanes
-    decide on their reads, the visited lanes are the run parity of the
-    placed pairs, lane 127 decides again against the value lane 0 left in
-    column 128, and its placed pair moves the next row's window by
-    one."""
-    _uvsm_args(process, rf_ext)
+UVSM_CTAS = 8                      # csrc/uv.cu kUvCtas: a cluster an image
+UVSM_CTA_ROWS = UVQ // UVSM_CTAS   # rows a CTA, a warp each (kUvRows)
+
+
+def _uvsm_rows(p, rf, drifts, res_uv: int):
+    """Every row of each image walked at once, row r from its window start
+    128 r + ``drifts[:, r]`` (the drifts of the rows above as guessed), a
+    row's lanes as columns: the lanes decide on their reads, the visited
+    lanes are the run parity of the placed pairs, lane 127 decides again
+    against the value lane 0 left in column 128.  ``p``: (B, 256, 256)
+    int32, ``rf``: (B, >= 16641) int32, ``drifts``: (B, 128) int64.
+    Returns (the rows' three band values, each (B, 128, 128), each row's
+    drift (B, 128) bool: lane 127 visited and placed)."""
+    b = p.shape[0]
+    reads = torch.arange(UVQ + 1, device=p.device)
+    start = torch.arange(UVQ, device=p.device) * UVQ + drifts
+    sl = rf.gather(1, (start[..., None] + reads).reshape(b, -1)).reshape(
+        b, UVQ, UVQ + 1)
+    x = p[:, :UVQ, :UVQ + 1]
+    bands = [p[:, :UVQ, UVQ:], p[:, UVQ:, :UVQ], p[:, UVQ:, UVQ:]]
+    d0 = x[..., :UVQ] - sl[..., :UVQ]
+    pos, placed, code, slot = _uvsm_decide(d0, x[..., 1:] - sl[..., 1:],
+                                           *bands, res_uv)
+    visited = ~_flat_shift_r(_run_parity_fire(placed), 1, False)
+    w = _uvsm_apply(visited, pos, placed, code, slot, bands)
+    # lane 127 against lane 0's band 0 value in column 128
+    last = [x[..., -1:] for x in bands]
+    pos, placed, code, slot = _uvsm_decide(
+        d0[..., -1:], w[0][..., :1] - sl[..., -1:], *last, res_uv)
+    w127 = _uvsm_apply(visited[..., -1:], pos, placed, code, slot, last)
+    for band, band127 in zip(w, w127):
+        band[..., -1:] = band127
+    return w, (visited[..., -1:] & placed)[..., 0]
+
+
+def _uvsm_sweeps(process, rf_ext, res_uv: int):
+    """The rows as ``uv_sentinel`` takes them, in two levels: every row
+    from no drift above; then, within each CTA's UVSM_CTA_ROWS rows, each
+    row's drift count set to the CTA's entry count (the drifts of the CTAs
+    above as known, 0 at first) plus the drifts of its rows above and the
+    rows walked again while a count moves; then the CTAs' entry counts
+    taken from the rows' drifts, a round, until the drifts stand (after s
+    rounds CTAs 0..s - 1 are exact, so UVSM_CTAS + 1 rounds at most).
+    Returns (the band values, the rounds each image took, (B,) int32)."""
     b = process.shape[0]
-    dev = process.device
     p = _i32(process)
     rf = _i32(rf_ext)
+    dev = p.device
+    drifts = torch.zeros((b, UVQ), dtype=torch.long, device=dev)
+    w, drift = _uvsm_rows(p, rf, drifts, res_uv)
+    entry = torch.zeros((b, UVSM_CTAS), dtype=torch.long, device=dev)
+    seen = torch.zeros_like(drift)
+    rounds = torch.zeros(b, dtype=torch.int32, device=dev)
+    active = torch.ones(b, dtype=torch.bool, device=dev)
+    for _ in range(UVSM_CTAS + 1):
+        for _ in range(UVSM_CTA_ROWS + 1):
+            d = drift.long().reshape(b, UVSM_CTAS, UVSM_CTA_ROWS)
+            want = (entry[..., None] + torch.cumsum(d, 2) - d).reshape(b, UVQ)
+            if bool((want == drifts).all()):
+                break
+            drifts = want
+            w, drift = _uvsm_rows(p, rf, drifts, res_uv)
+        rounds += active.int()
+        # row 127's drift moves no window
+        active &= (drift[:, :-1] != seen[:, :-1]).any(1)
+        if not bool(active.any()):
+            break
+        seen = drift
+        tot = drift.long().reshape(b, UVSM_CTAS, UVSM_CTA_ROWS).sum(2)
+        entry = torch.cumsum(tot, 1) - tot
+    return w, rounds
+
+
+def uv_sentinel_marking_ref(process, rf_ext, res_uv: int):
+    """Torch twin of ``uv_sentinel``: every row walked from a guessed
+    window start, the rows walked again while a start moves, within each
+    CTA and then over the cluster's rounds (``_uvsm_sweeps``); the rows'
+    band values written into a copy of the plane."""
+    _uvsm_args(process, rf_ext)
+    w = _uvsm_sweeps(process, rf_ext, res_uv)[0]
     out = process.clone()
-    lanes = torch.arange(UVQ + 1, device=dev)
-    count = torch.zeros((b, 1), dtype=torch.long, device=dev)
-    for r in range(UVQ):
-        sl = rf.gather(1, count + lanes)
-        bands = [p[:, r, UVQ:], p[:, UVQ + r, :UVQ],
-                 p[:, UVQ + r, UVQ:]]
-        d0 = p[:, r, :UVQ] - sl[:, :UVQ]
-        pos, placed, code, slot = _uvsm_decide(
-            d0, p[:, r, 1:UVQ + 1] - sl[:, 1:], *bands, res_uv)
-        visited = ~_flat_shift_r(_run_parity_fire(placed), 1, False)
-        w = _uvsm_apply(visited, pos, placed, code, slot, bands)
-        # lane 127 against lane 0's band 0 value in column 128
-        last = [x[:, -1:] for x in bands]
-        pos, placed, code, slot = _uvsm_decide(
-            d0[:, -1:], w[0][:, :1] - sl[:, -1:], *last, res_uv)
-        w127 = _uvsm_apply(visited[:, -1:], pos, placed, code, slot, last)
-        for x, x127 in zip(w, w127):
-            x[:, -1:] = x127
-        out[:, r, UVQ:] = w[0].to(torch.int16)
-        out[:, UVQ + r, :UVQ] = w[1].to(torch.int16)
-        out[:, UVQ + r, UVQ:] = w[2].to(torch.int16)
-        count = count + UVQ + (visited[:, -1:] & placed)
+    out[:, :UVQ, UVQ:] = w[0].to(torch.int16)
+    out[:, UVQ:, :UVQ] = w[1].to(torch.int16)
+    out[:, UVQ:, UVQ:] = w[2].to(torch.int16)
     return out
+
+
+def uv_sentinel_sweeps(process, rf_ext, res_uv: int):
+    """The sweeps (the cluster's rounds) of ``uv_sentinel`` over each
+    image's rows (1..UVSM_CTAS + 1; the twin's, which takes the kernel's
+    guesses, passes and rounds), (B,) int32."""
+    _uvsm_args(process, rf_ext)
+    return _uvsm_sweeps(process, rf_ext, res_uv)[1]
 
 
 def uv_sentinel_marking_device(process, rf_ext, res_uv: int):
     """The band sentinels 12400/12600/12900/13000 on (B, 256, 256) int16
     process planes against rf_ext (B, >= 16641) int16: res256 (16384),
     then the tail the reference reads past it (its oob values, then
-    zeros).  Returns a new plane (kernel ``uv_sentinel``: one launch, one
-    CTA an image, a thread a lane)."""
+    zeros).  Returns a new plane (kernel ``uv_sentinel``: one launch, a
+    cluster of UVSM_CTAS CTAs an image, a warp a row, the planes staged
+    in 16-byte copies: a CUDA plane off that grid raises)."""
     _uvsm_args(process, rf_ext)
     if process.device.type == "cpu":
         return uv_sentinel_marking_ref(process, rf_ext, res_uv)
@@ -2423,51 +2487,79 @@ LL_N = LL * LL
 UV_LL = 64               # the chroma LL2 block's side
 
 
+LL2_CTAS = 8                        # csrc/ll2.cu kYCtas: a cluster an image
+LL2_BAND_ROWS = 8                   # rows a band, a warp each (kYBandRows)
+LL2_BANDS = LL // LL2_BAND_ROWS     # bands an image (kYBands)
+LL2_LANE = 4                        # positions a lane (4 l..4 l + 3)
+_LL2_ID = 0xE4                      # the identity map of the skip counter
+
+
+def _skip_maps(match):
+    """The skip walk's map at each position, the counter (0..3) before it
+    to the counter after it, 2 bits a state: a match at counter 0 fires
+    and leaves 3, else the counter counts down."""
+    return torch.where(match, 0x93, 0x90)
+
+
+def _compose4(a, b):
+    """Maps "a then b", elementwise."""
+    c = torch.zeros_like(a)
+    for st in range(4):
+        c |= ((b >> (2 * ((a >> (2 * st)) & 3))) & 3) << (2 * st)
+    return c
+
+
 def _ll2y_marks(ll):
-    """The 4-run odd marking on the (B, 128, 128) int32 LL2 block, one
-    skip walk a row over j < 125, the rows as lanes: a window of four odd
-    values with |v[j] - v[j + 3]| > 1 fires, adds 24000 at j and 16000 at
-    j + 1..j + 3, and the walk resumes at j + 4."""
+    """The 4-run odd marking on the (B, R, 128) int32 LL2 rows as the
+    kernel takes it, a warp a row: a window of four odd values with |v[j]
+    - v[j + 3]| > 1 at j < 125 fires where the skip counter is 0, adds
+    24000 at j and 16000 at j + 1..j + 3 (the skipped positions).  Lane l
+    composes the counter's maps at positions 4 l..4 l + 3, the lanes'
+    composites are scanned, and each lane walks its positions again from
+    its entry state."""
     o = (ll & 1) == 1
     match = torch.zeros_like(o)
     match[..., :125] = (o[..., :125] & o[..., 1:126] & o[..., 2:127]
                         & o[..., 3:] & ((ll[..., :125] - ll[..., 3:]).abs()
                                         > 1))
-    fired = torch.zeros_like(o)
-    skip = torch.zeros_like(ll[..., 0])
-    for j in range(125):
-        f = match[..., j] & (skip == 0)
-        fired[..., j] = f
-        skip = torch.where(f, 3, (skip - 1).clamp(min=0))
-    f = fired.to(torch.int32)
-    add = 24000 * f
-    for k in (1, 2, 3):
-        add[..., k:] += 16000 * f[..., :-k]
-    return ll + add
+    lanes = match.reshape(*match.shape[:-1], LL // LL2_LANE, LL2_LANE)
+    maps = _skip_maps(lanes).to(torch.int32)
+    comp = maps[..., 0]
+    for i in range(1, LL2_LANE):
+        comp = _compose4(comp, maps[..., i])
+    # the lanes' exclusive scan: lane l's entry map is lanes 0..l - 1's
+    entry = torch.full_like(comp, _LL2_ID)
+    for lane in range(1, LL // LL2_LANE):
+        entry[..., lane] = _compose4(entry[..., lane - 1], comp[..., lane - 1])
+    state = entry & 3                    # the counter from 0 at position 0
+    add = torch.zeros_like(maps)
+    for i in range(LL2_LANE):
+        fire = lanes[..., i] & (state == 0)
+        add[..., i] = torch.where(fire, 24000, torch.where(state > 0, 16000,
+                                                           0))
+        state = torch.where(fire, 3, (state - 1).clamp(min=0))
+    return ll + add.reshape(ll.shape)
 
 
-def ll2_code_y_ref(plane, gt_low3: bool):
-    """Torch twin of ``ll2_code_y``: the marks (``_ll2y_marks``), then the
-    nudge scan over the 128 rows with a row's 131 columns as lanes,
-    ``pend`` (the nudges into the next row) carried.  Returns (vem (B,
-    16384) int32, each LL2 position's value after its nudges and unmark,
-    is24 (B, 16384) bool, its 24000 marks)."""
-    _check_plane(plane, "ll2_code_y plane", N)
-    b = plane.shape[0]
-    # rows 0..130: the cross-row reads of rows r + 1..r + 3 stay inside
-    w = _i32(plane)[:, :LL_ROW, :LL_ROW].clone()
-    if gt_low3:
-        w[:, :LL, :LL] = _ll2y_marks(w[:, :LL, :LL])
-    jc = torch.arange(LL_ROW, device=plane.device)
-    none = torch.zeros_like(w[:, 0], dtype=torch.bool)
-    pend = torch.zeros_like(w[:, 0])
-    vem = torch.empty((b, LL, LL), dtype=torch.int32, device=plane.device)
-    is24 = torch.empty((b, LL, LL), dtype=torch.bool, device=plane.device)
+def _ll2y_bands(w, gt_low3: bool, entry):
+    """Every band of LL2_BAND_ROWS rows walked in order from its entry
+    pend (``entry``: (B, LL2_BANDS, 131) int32) on the marked rows 0..130
+    ``w`` ((B, 131, 131) int32), a row's columns as lanes.  Returns (vem,
+    is24, each (B, 128, 128), each band's exit pend)."""
+    b = w.shape[0]
+    dev = w.device
+    jc = torch.arange(LL_ROW, device=dev)
+    none = torch.zeros((b, LL2_BANDS, LL_ROW), dtype=torch.bool, device=dev)
+    vem = torch.empty((b, LL2_BANDS, LL2_BAND_ROWS, LL), dtype=torch.int32,
+                      device=dev)
+    is24 = torch.empty_like(vem, dtype=torch.bool)
+    pend = entry
 
     def odd(x):
         return (x & 1) == 1
 
-    for r in range(LL):
+    for k in range(LL2_BAND_ROWS):
+        r = torch.arange(LL2_BANDS, device=dev) * LL2_BAND_ROWS + k
         cur = w[:, r] + pend
         marked = cur > 10000 if gt_low3 else none
         c2 = _flat_shift_l(cur, 2)
@@ -2477,28 +2569,75 @@ def ll2_code_y_ref(plane, gt_low3: bool):
                & ((cur - c2).abs() > 1))
         fire = _run_parity_fire(f2a) if gt_low3 else none
         v = cur + _flat_shift_r(fire, 1, False).to(torch.int32)
-        # the cross-row nudges: +1 on row r + 1, column j
-        n0, n1, n2 = (_flat_shift_l(w[:, r + 1], k) if k else w[:, r + 1]
-                      for k in (0, 1, 2))
+        # the cross-row nudges: +1 on row r + 1, column j, from the rows
+        # below as marked (a row only nudges the next one, at its column)
+        n0 = w[:, r + 1]
+        n1, n2 = _flat_shift_l(n0, 1), _flat_shift_l(n0, 2)
         live = ~marked & odd(v) & odd(n0) & odd(n1) & (n0 < 10000)
         left = (jc > 0) & o1
-        b2b = (live & left & ~((jc < 126) & o2) & ~odd(n2)
-               if gt_low3 and r <= 126 else none)
+        rr = r[:, None]
+        b2b = live & left & ~((jc < 126) & o2) & ~odd(n2) & (rr <= 126)
         b3 = (live & ~left & odd(w[:, r + 2]) & ~odd(w[:, r + 3])
-              if gt_low3 and 1 <= r <= 124 else none)
-        pend = ((b2b | b3) & (jc < LL)).to(torch.int32)
+              & (rr >= 1) & (rr <= 124))
+        pend = ((b2b | b3) & (jc < LL) & gt_low3).to(torch.int32)
         hi = v > 20000 if gt_low3 else none
         mid = v > 10000 if gt_low3 else none
         out = torch.where(hi, v - 24000, torch.where(mid, v - 16000, v))
-        vem[:, r] = out[:, :LL]
-        is24[:, r] = hi[:, :LL]
-    return vem.reshape(b, LL_N), is24.reshape(b, LL_N)
+        vem[:, :, k] = out[..., :LL]
+        is24[:, :, k] = hi[..., :LL]
+    return vem.reshape(b, LL, LL), is24.reshape(b, LL, LL), pend
+
+
+def _ll2y_sweeps(plane, gt_low3: bool):
+    """The marks (``_ll2y_marks``), then the nudge scan as the kernel takes
+    it: every band walked from no pend, then each band's entry set to the
+    exit of the band above and the bands walked again while an entry
+    changes (after s sweeps bands 0..s - 1 are exact, so LL2_BANDS sweeps
+    at most).  Returns (vem (B, 16384) int32, is24 (B, 16384) bool, the
+    sweeps each image took, (B,) int32)."""
+    b = plane.shape[0]
+    # rows 0..130: the cross-row reads of rows r + 1..r + 3 stay inside
+    w = _i32(plane)[:, :LL_ROW, :LL_ROW].clone()
+    if gt_low3:
+        w[:, :LL, :LL] = _ll2y_marks(w[:, :LL, :LL])
+    entry = torch.zeros((b, LL2_BANDS, LL_ROW), dtype=torch.int32,
+                        device=plane.device)
+    vem, is24, exits = _ll2y_bands(w, gt_low3, entry)
+    sweeps = torch.ones(b, dtype=torch.int32, device=plane.device)
+    for _ in range(LL2_BANDS - 1):
+        want = torch.cat([torch.zeros_like(exits[:, :1]), exits[:, :-1]], 1)
+        moved = (want != entry).flatten(1).any(1)
+        if not bool(moved.any()):
+            break
+        entry = want
+        vem, is24, exits = _ll2y_bands(w, gt_low3, entry)
+        sweeps += moved.int()
+    return vem.reshape(b, LL_N), is24.reshape(b, LL_N), sweeps
+
+
+def ll2_code_y_ref(plane, gt_low3: bool):
+    """Torch twin of ``ll2_code_y``: the marks by the skip counter's map
+    scan, then the nudge scan by bands relayed (``_ll2y_sweeps``).
+    Returns (vem (B, 16384) int32, each LL2 position's value after its
+    nudges and unmark, is24 (B, 16384) bool, its 24000 marks)."""
+    _check_plane(plane, "ll2_code_y plane", N)
+    return _ll2y_sweeps(plane, gt_low3)[:2]
+
+
+def ll2_code_y_sweeps(plane, gt_low3: bool):
+    """The sweeps of ``ll2_code_y``'s nudge scan over the bands of each
+    image of a (B, 512, 512) int16 plane (1..LL2_BANDS; the twin's, which
+    takes the kernel's bands and relay), (B,) int32."""
+    _check_plane(plane, "ll2_code_y plane", N)
+    return _ll2y_sweeps(plane, gt_low3)[2]
 
 
 def ll2_code_y_scan(plane, gt_low3: bool):
     """The serial part of ``ll2_code_y_device`` on a (B, 512, 512) int16
     plane: (vem, is24) as ``ll2_code_y_ref`` gives them (kernel
-    ``ll2_code_y``: one launch, one CTA an image, a thread a column)."""
+    ``ll2_code_y``: one launch, a cluster of LL2_CTAS CTAs an image, a warp
+    a band of LL2_BAND_ROWS rows, the rows staged in 16-byte copies: a
+    CUDA plane off that grid raises)."""
     _check_plane(plane, "ll2_code_y plane", N)
     if plane.device.type == "cpu":
         return ll2_code_y_ref(plane, gt_low3)

@@ -1036,7 +1036,8 @@ def test_residue_kernels_reject_bad_inputs(cuda):
 
 @pytest.mark.parametrize("b", [1, 3, 16])
 @pytest.mark.parametrize("gt_low3", [True, False])
-@pytest.mark.parametrize("kind", ["runs and marks", "all even", "dense odd"])
+@pytest.mark.parametrize("kind", ["runs and marks", "all even", "dense odd",
+                                  "band edges"])
 def test_ll2_code_y_kernel(cuda, kind, gt_low3, b):
     import chip_smoke as cs
     from nhwcodec_tpu_torch.models import device_scans as ds
@@ -1048,6 +1049,8 @@ def test_ll2_code_y_kernel(cuda, kind, gt_low3, b):
     assert build.LAUNCHES["ll2_code_y"] == before + 1
     for g, w in zip(got, ds.ll2_code_y_ref(x, gt_low3)):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+    if kind == "band edges" and gt_low3:   # a nudge through every band edge
+        assert ds.ll2_code_y_sweeps(x, True).tolist() == [ds.LL2_BANDS] * b
 
 
 @pytest.mark.parametrize("b", [1, 3, 16])
@@ -1120,6 +1123,10 @@ def test_ll2_kernels_reject_bad_inputs(cuda):
     plane = torch.zeros((2, 512, 512), dtype=torch.int16, device=cuda)
     with pytest.raises(ValueError):
         ds.ll2_code_y_scan(plane.transpose(1, 2), True)
+    # the cluster stages whole 16-byte vectors: a plane off that grid
+    odd = torch.zeros(2 * 512 * 512 + 1, dtype=torch.int16, device=cuda)
+    with pytest.raises(RuntimeError, match="nhw_ll2_code_y"):
+        ds.ll2_code_y_scan(odd[1:].view(2, 512, 512), True)
     with pytest.raises(ValueError):
         ds.walk_visited_device(torch.zeros((2, 1 << 17), dtype=torch.int32,
                                            device=cuda))
@@ -1135,7 +1142,7 @@ def test_ll2_kernels_reject_bad_inputs(cuda):
 @pytest.mark.parametrize("b", [1, 3, 16])
 @pytest.mark.parametrize("res_uv", [4, 5])
 @pytest.mark.parametrize("kind", ["drift", "d0 -5", "bands taken",
-                                  "pair runs"])
+                                  "pair runs", "cta edges", "no drift"])
 def test_uv_sentinel_kernel(cuda, kind, res_uv, b):
     import chip_smoke as cs
     from nhwcodec_tpu_torch.models import device_scans as ds
@@ -1150,6 +1157,8 @@ def test_uv_sentinel_kernel(cuda, kind, res_uv, b):
                                rtol=0, atol=0)
     np.testing.assert_array_equal(got.cpu().numpy(),
                                   cs.host_uv_sentinel(proc, rf, res_uv))
+    if kind == "no drift":
+        assert ds.uv_sentinel_sweeps(P, R, res_uv).tolist() == [1] * b
 
 
 @pytest.mark.parametrize("strict", [False, True])
@@ -1191,6 +1200,10 @@ def test_uv_sentinel_rejects_bad_inputs(cuda):
         ds.uv_sentinel_marking_device(p.transpose(1, 2), rf, 4)
     with pytest.raises(ValueError):
         ds.uv_sentinel_marking_device(p, rf.cpu(), 4)
+    # the cluster stages whole 16-byte vectors: a plane off that grid
+    odd = torch.zeros(2 * 256 * 256 + 1, dtype=torch.int16, device=cuda)
+    with pytest.raises(RuntimeError, match="nhw_uv_sentinel"):
+        ds.uv_sentinel_marking_device(odd[1:].view(2, 256, 256), rf, 4)
 
 
 # the low-q programs: S10 offset_y_low4 (csrc/scans.cu), S11

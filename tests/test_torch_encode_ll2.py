@@ -8,7 +8,10 @@
   copy's C (``host.ops.ll2``, ``nhw_ll2_code_uv``): the LL2 byte coding on
   ``chip_smoke.ll2_edge_planes`` (odd 4-runs ending at the row's end,
   values about 10000 and 20000, int16 extremes, escapes at positions 0
-  and 1, all-even and dense-odd planes) with gt_low3 both ways; the Y
+  and 1, all-even and dense-odd planes, and the band edge planes: relay
+  chains of nudges through every band edge, 4-runs across the lanes'
+  4-column edges, in the CTAs' halo rows and in rows 128-130) with
+  gt_low3 both ways; the Y
   run-delta coder in each of its three modes, forced by long pair runs,
   with q_gt_low5 both ways; the UV coder; the walk against JAX's
   ``_walk_visited`` on seeded random monotone successors with parks, on
@@ -17,6 +20,12 @@
   segment ends and over many segments, a park in the first segment, n
   off the segment grid, n = 1, a start in the last segment), and from
   every kind of start; the segment size against the kernel's limits.
+- S7's twin takes the kernel's decomposition (the marks by a scan of the
+  skip counter's 4-state maps over 4-position lane tiles, the nudge scan
+  by bands of ``LL2_BAND_ROWS`` rows relayed): its sweeps on the edge
+  planes (as many as bands on the band edge planes), and numpy
+  transcriptions of the kernel's map composition (a byte permute) and
+  lane scan against a plain skip walk; the layout against ``ll2.cu``.
 - The wrappers check their inputs.
 
 The stage as a whole: tests/test_torch_encode_ll2_stage.py.
@@ -53,7 +62,7 @@ def _eq(got, want):
 
 
 @pytest.mark.parametrize("gt_low3", [True, False])
-@pytest.mark.parametrize("kind", ["runs and marks", "all even", "dense odd"])
+@pytest.mark.parametrize("kind", cs.LL2_EDGE_KINDS)
 def test_ll2_code_y(kind, gt_low3):
     p = cs.ll2_edge_planes(np.random.default_rng(11), 2, kind)
     got = [x.numpy() for x in tds.ll2_code_y_device(_t(p), gt_low3)]
@@ -84,6 +93,96 @@ def test_ll2_code_y(kind, gt_low3):
         assert nudged > 0 and is24.any()
     if kind == "runs and marks":
         assert (n_exw > 0).all() and (exw[:, :, 0] == 0).any()
+
+
+def test_ll2_band_edges_reach_what_they_claim():
+    """On the band edge planes every band's exact entry holds the chains'
+    nudges (row 8 b's values at the chain columns come out one up) while
+    a band walked from no pend exits with none, so the relay takes as many
+    sweeps as bands; the 4-runs across the lanes' edges and in the CTAs'
+    halo rows are marked, those in rows 128-130 are not read."""
+    p = cs.ll2_edge_planes(np.random.default_rng(14), 2, "band edges")
+    x = _t(p)
+    assert tds.ll2_code_y_sweeps(x, True).tolist() == [tds.LL2_BANDS] * 2
+    assert tds.ll2_code_y_sweeps(x, False).tolist() == [1, 1]
+    vem, is24 = (v.reshape(2, 128, 128).numpy()
+                 for v in tds.ll2_code_y_ref(x, True))
+    cols = list(cs.LL2_CHAIN_COLS)
+    nudged = vem[:, :, cols] - p[:, :128, cols]
+    edges = np.arange(tds.LL2_BAND_ROWS, tds.LL, tds.LL2_BAND_ROWS)
+    assert (nudged[:, edges] == 1).all()
+    assert (nudged[:, 1::2] == 0).all() and (nudged[:, 2::2] == 1).all()
+    # the runs: a mark in a CTA's first rows (another CTA's halo) and at
+    # the row's end, across a lane edge
+    rows = tds.LL // tds.LL2_CTAS
+    for r in range(rows, tds.LL, rows):
+        assert is24[:, r: r + 3].any()
+    assert is24[:, :, min(cs.LL2_RUN_STARTS):].any()
+    ll = p[:, 128:131, :128].astype(np.int64)
+    odd4 = ((ll[..., :-3] & 1) & (ll[..., 1:-2] & 1) & (ll[..., 2:-1] & 1)
+            & (ll[..., 3:] & 1)).astype(bool)
+    assert (odd4 & (np.abs(ll[..., :-3] - ll[..., 3:]) > 1)).any(-1).all()
+
+
+def _compose4(a, b):
+    """numpy transcription of ll2.cu ``compose4``: "a then b" as a byte
+    permute of b by a's bytes packed as nibbles."""
+    x = (a | (a >> 4)) & 0x00FF00FF
+    sel = (x | (x >> 8)) & 0xFFFF
+    out = np.zeros_like(b)
+    for n in range(4):
+        k = (sel >> (4 * n)) & 7
+        out |= ((b >> (8 * k)) & 0xFF) << (8 * n)
+    return out
+
+
+def test_skip_walk_scan_transcription():
+    """ll2.cu's marking (each lane's 4 maps composed, a warp's inclusive
+    scan by shuffles, each lane's walk from its entry) against a plain
+    skip walk, on rows of every match density."""
+    rng = np.random.default_rng(15)
+    match = rng.random((300, 128)) < rng.random((300, 1))
+    match[:, 125:] = False
+    want = np.zeros((300, 128), np.int64)
+    for r in range(300):
+        j = 0
+        while j < 125:
+            if match[r, j]:
+                want[r, j] = 24000
+                want[r, j + 1: j + 4] = 16000
+                j += 4
+            else:
+                j += 1
+    hit, miss = 0x02010003, 0x02010000
+    lanes = match.reshape(300, 32, 4)
+    f = np.full((300, 32), 0x03020100, np.int64)
+    for i in range(4):
+        f = _compose4(f, np.where(lanes[..., i], hit, miss))
+    for d in (1, 2, 4, 8, 16):
+        g = np.concatenate([f[:, :d], f[:, :-d]], 1)
+        f = np.where(np.arange(32) >= d, _compose4(g, f), f)
+    e = np.concatenate([np.zeros((300, 1), np.int64), f[:, :-1] & 0xFF], 1)
+    got = np.zeros((300, 32, 4), np.int64)
+    sk = e
+    for i in range(4):
+        fire = (sk == 0) & lanes[..., i]
+        got[..., i] = np.where(fire, 24000, np.where(sk > 0, 16000, 0))
+        sk = np.where(fire, 3, np.maximum(sk - 1, 0))
+    assert np.array_equal(got.reshape(300, 128), want)
+
+
+def test_ll2_layout_is_the_kernels():
+    """The twin's cluster and band constants are ll2.cu's."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tds.__file__).resolve().parent.parent / "csrc" /
+           "ll2.cu").read_text()
+    for name, want in (("kYCtas", tds.LL2_CTAS),
+                       ("kYBandRows", tds.LL2_BAND_ROWS)):
+        assert int(re.search(rf"{name} = (\d+);", src).group(1)) == want
+    assert "kYBands = kLL / kYBandRows;" in src
+    assert tds.LL2_BANDS * tds.LL2_BAND_ROWS == tds.LL
 
 
 def test_ll2_code_y_scan_is_its_twin_on_cpu():

@@ -11,8 +11,17 @@ on the CPU, tolerance 0.
   sentinel marking on ``chip_smoke.uv_sentinel_edge_inputs`` (pairs at
   lane 127 drifting the window into the oob tail, lane 0 writing the slot
   lane 127 reads, d0 = -5 with d1 on both sides of 0, band slots taken,
-  runs of 128 and 127 pairs and runs across the warps' edges) with res_uv
-  4 and 5.
+  runs of 128 and 127 pairs and runs across the warps' edges, drifts at
+  the rows on both sides of every CTA edge of the kernel's cluster, no
+  drift at all) with res_uv 4 and 5.
+- The twin takes the kernel's decomposition (every row from a guessed
+  window start, the rows again while a start moves, within each CTA and
+  then over the cluster's rounds): its rounds on the edge inputs (one
+  without drift, all ``UVSM_CTAS + 1`` where drifts cross every CTA
+  edge), and numpy transcriptions of the kernel's warp run parity
+  (``block_scan.cuh`` ``run_parity_lanes4``, which S7 shares) and of its
+  drift counts (the bytes gathered into a CTA's mask, the masks below)
+  against the twin's prefix.
 - Both equal the host copy's own encode on the planes
   ``chip_smoke.StreamCapture`` captures from it, U and V.
 - The wrappers check their inputs.
@@ -112,6 +121,16 @@ def test_uv_sentinel_marking(kind, res_uv):
         assert (got[:, 1:128:4, 255] == 12400).all()
     elif kind == "d0 -5":
         assert (got == 13000).sum() > 1000 if res_uv == 4 else True
+    elif kind == "cta edges":
+        # a drift on both sides of every CTA edge, and nowhere else
+        want = sorted(cs.uv_drift_rows(True))
+        assert len(want) == 2 * (tds.UVSM_CTAS - 1)
+        for k in range(2):
+            assert np.flatnonzero(got[k, :128, 255] == 12400).tolist() \
+                == want
+    elif kind == "no drift":
+        assert not np.isin(got[:, :128, 255], (12400, 12600)).any()
+        assert (got != proc).sum() > 1000
     elif kind == "bands taken":
         # rows 2 mod 3 have no free slot: nothing is written
         rows = np.arange(2, 128, 3)
@@ -119,6 +138,101 @@ def test_uv_sentinel_marking(kind, res_uv):
             assert np.array_equal(got[:, r0 + rows, c0: c0 + 128],
                                   proc[:, r0 + rows, c0: c0 + 128])
         assert (got[:, 128 + np.arange(0, 128, 3), :128] >= 12400).any()
+
+
+@pytest.mark.parametrize("kind", ["no drift", "cta edges", "drift",
+                                  "pair runs"])
+def test_uv_sentinel_sweeps(kind):
+    """The rounds of the kernel's decomposition reach what each input
+    claims: one without drift; where drifts cross every CTA edge, CTA c
+    takes its exact entry from round c and the last round finds nothing
+    moved."""
+    proc, rf = cs.uv_sentinel_edge_inputs(np.random.default_rng(24), 2,
+                                          kind)
+    sweeps = tds.uv_sentinel_sweeps(_t(proc), _t(rf), 4).tolist()
+    if kind == "no drift":
+        assert sweeps == [1, 1]
+    elif kind in ("cta edges", "drift"):
+        assert sweeps == [tds.UVSM_CTAS + 1] * 2
+    else:
+        # drifts, but res256 is constant: the guessed starts read the same
+        # values, so the second round moves nothing
+        assert sweeps == [2, 2]
+
+
+def _run_parity_lanes4(f):
+    """numpy transcription of block_scan.cuh ``run_parity_lanes4`` on
+    (..., 32) lane nibbles (bit i: position 4 lane + i)."""
+    f = f.astype(np.uint32)
+    starts = f & ~(f << 1)
+    even = f & ~(f + (starts & 5))
+    fired = (even & 5) | (f & ~even & 0xA)
+    gaps = f != 0xF
+    last = (fired >> 3) & 1
+    e = np.zeros_like(f)
+    for lane in range(1, 32):
+        below = gaps[..., :lane]
+        idx = lane - 1 - np.argmax(below[..., ::-1], -1)
+        got = np.take_along_axis(last, idx[..., None], -1)[..., 0]
+        e[..., lane] = np.where(below.any(-1), got, 0)
+    return (fired ^ (f & ~(f + 1) & (0 - e).astype(np.uint32))) & 0xF
+
+
+@pytest.mark.parametrize("density", [0.2, 0.5, 0.8, 0.97])
+def test_warp_run_parity_transcription(density):
+    """The kernels' run parity of lane nibbles (S7's 2a fires, S9's
+    placed pairs) equals the twins' ``_run_parity_fire`` on rows of 128
+    candidates, runs across every lane edge and whole rows included."""
+    rng = np.random.default_rng(int(density * 100))
+    bits = rng.random((400, 128)) < density
+    bits[0] = True
+    bits[1, 3:] = True
+    bits[2, 1::2] = True
+    want = tds._run_parity_fire(torch.from_numpy(bits)).numpy()
+    nib = (bits.reshape(400, 32, 4) * (1 << np.arange(4))).sum(-1)
+    got = _run_parity_lanes4(nib)
+    got_bits = ((got[..., None] >> np.arange(4)) & 1).astype(bool)
+    assert np.array_equal(got_bits.reshape(400, 128), want)
+
+
+def test_drift_count_transcription():
+    """uv.cu's drift counts: a CTA's drift bytes gathered into a 16-bit
+    mask (a multiply a word), row k's count the bits below k plus the
+    masks of the CTAs above; against the twin's exclusive cumsum, on
+    random drift vectors."""
+    rng = np.random.default_rng(25)
+    drift = rng.random((50, tds.UVQ)) < 0.3
+    want = (torch.cumsum(torch.from_numpy(drift).long(), 1)
+            - torch.from_numpy(drift).long()).numpy()
+    rows = tds.UVSM_CTA_ROWS
+    masks = []
+    for c in range(tds.UVSM_CTAS):
+        words = (drift[:, c * rows:(c + 1) * rows].reshape(50, 4, 4)
+                 .astype(np.uint64) << (8 * np.arange(4, dtype=np.uint64))
+                 ).sum(-1)
+        nib = ((words * 0x01020408) >> 24) & 0xFF
+        masks.append((nib << (4 * np.arange(4, dtype=np.uint64))).sum(-1))
+    pop = np.vectorize(lambda x: bin(int(x)).count("1"))
+    for c in range(tds.UVSM_CTAS):
+        assert np.array_equal(masks[c], (drift[:, c * rows:(c + 1) * rows]
+                                         * (1 << np.arange(rows))).sum(-1))
+        entry = sum(pop(masks[d]) for d in range(c)) if c else 0
+        for k in range(rows):
+            n = entry + pop(masks[c] & ((1 << k) - 1))
+            assert np.array_equal(n, want[:, c * rows + k])
+
+
+def test_uv_sentinel_layout_is_the_kernels():
+    """The twin's cluster and row constants are uv.cu's."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tds.__file__).resolve().parent.parent / "csrc" /
+           "uv.cu").read_text()
+    assert int(re.search(r"kUvCtas = (\d+);", src).group(1)) == \
+        tds.UVSM_CTAS
+    assert "kUvRows = kLanes / kUvCtas;" in src
+    assert tds.UVSM_CTA_ROWS * tds.UVSM_CTAS == tds.UVQ
 
 
 def test_uv_ladders_equal_the_host_encode():

@@ -1,11 +1,12 @@
 """Device times of the port's S1 (snap passes), S2 (offset_y), S5 (column
-ladder) and S6 (classify) on the q20 batch, for one tree of the repo, and
-the split of a column-ladder kernel between its phases.
+ladder), S6 (classify), S7 (ll2_code_y) and S9 (uv_sentinel) on the q20
+batch, for one tree of the repo, and the split of a kernel of S2, S5, S7
+or S9 between its phases.
 
 Run from anywhere on a machine with a CUDA card:
 
     python3 tools/torch_scan_probe.py [--tree DIR] [--ladder-src FILE]
-        [--offset-y-src FILE] [--runs N]
+        [--offset-y-src FILE] [--uv-src FILE] [--ll2-src FILE] [--runs N]
 
 ``--tree`` is the root of the tree whose ``nhwcodec_tpu_torch`` and
 ``chip_smoke`` are measured (default: this script's repo).  The inputs
@@ -42,6 +43,29 @@ over CTAs and runs), the end of the staging with the range tests, of the
 first sweep and of the kernel, on the snapped q20 planes and on
 ``chip_smoke.offset_y_relay_edge_planes`` (16 sweeps), with each input's
 sweeps.
+
+``--uv-src`` takes a ``uv.cu`` of either S9 design and ``--ll2-src`` an
+``ll2.cu`` of either S7 design; each is stamped the same way, checked
+against the tree's ``uv_sentinel_marking_device`` / ``ll2_code_y_scan``
+and reported per CTA in µs from its start (medians over CTAs and runs):
+
+- S9, one CTA an image (the rows in order): the end of the LL quadrant's
+  copy, of row 0 and of the kernel;
+- S9, a cluster of 8 CTAs an image (``uv_sentinel_rows``): the end of the
+  staging, of the first round (its drifts exchanged) and of the kernel,
+  and the mean cycles of a row's walk again (its SM's clock) and the walks
+  again a CTA;
+- S7, one CTA an image: the end of the marking and of the nudge scan;
+- S7, a cluster of 8 CTAs an image (``ll2_code_y_bands``): the end of the
+  staging, of the marking (with the cross-row tests), of the first sweep
+  and of the kernel;
+
+on the captured q20 planes (U and V for S9) and on the edge inputs that
+take the most sweeps (``chip_smoke.uv_sentinel_edge_inputs`` "drift" and
+"cta edges", ``chip_smoke.ll2_edge_planes`` "band edges"), with each
+input's sweeps where the tree has ``uv_sentinel_sweeps`` /
+``ll2_code_y_sweeps``.  Without the options, the JSON line also holds the
+tree's S9 (U, V) and S7 (gt_low3 on) graph times on the q20 planes.
 
 Prints the card's name and power limit, then one JSON line.
 """
@@ -107,6 +131,57 @@ OFFSET_Y_PATCHES = (
      "+ blockIdx.x) * 8 + 2], nhw_now());\n"),
     ("  // row 255's vertical writes land in plane row 256\n",
      "  __syncthreads();\n  if (t == 0) NHW_STAMP(3);\n", ""),
+)
+
+# S9: a cluster of 8 CTAs an image; stamps 4 and 5 sum the cycles and the
+# count of the rows' walks after the first
+UV_ROWS_PATCHES = (
+    ("  const size_t img = static_cast<size_t>(blockIdx.y) * kPlane;\n",
+     "", "  if (threadIdx.x == 0) NHW_STAMP(0);\n"),
+    ("  cluster.sync();        // staged, every peer started\n",
+     "", "  if (t == 0) NHW_STAMP(1);\n"),
+    ("    cluster.sync();\n    uint32_t bits[4];\n",
+     "", "    if (s == 0 && t == 0) NHW_STAMP(2);\n"),
+    ("        drift = uv_row(st.rf, k * kLanes + drifts, lane, res_uv, v);"
+     "\n", "        const long long c0 = clock64();\n",
+     "        if (lane == 0) {\n          unsigned long long* base = "
+     "g_ladder_stamp + (blockIdx.y * gridDim.x + blockIdx.x) * 8;\n"
+     "          atomicAdd(base + 4, "
+     "static_cast<unsigned long long>(clock64() - c0));\n"
+     "          atomicAdd(base + 5, 1ull);\n"
+     "        }\n"),
+    ("  int16_t* o = out + img;\n", "  if (t == 0) NHW_STAMP(3);\n", ""),
+)
+# S9: one CTA an image, the rows in order
+UV_ONE_CTA_PATCHES = (
+    ("  int16_t* o = out + static_cast<size_t>(blockIdx.x) * kPlane;\n",
+     "", "  if (threadIdx.x == 0) NHW_STAMP(0);\n"),
+    ("  if (j == 0) fire_s[0] = 0;\n",
+     "", "  __syncthreads();\n  if (j == 0) NHW_STAMP(1);\n"),
+    ("    count_start += kLanes + drift;\n  }\n",
+     "    if (r == 0 && j == 0) NHW_STAMP(2);\n",
+     "  if (j == 0) NHW_STAMP(3);\n"),
+)
+# S7: a cluster of 8 CTAs an image (stamp 4: the marking's end)
+LL2_BANDS_PATCHES = (
+    ("  const int r0 = rank * kYRows;\n",
+     "", "  if (threadIdx.x == 0) NHW_STAMP(0);\n"),
+    ("  const int gt = gt_low3 != 0;\n", "  if (t == 0) NHW_STAMP(1);\n", ""),
+    ("  cluster.sync();        // staged and marked, every peer started\n",
+     "", "  if (t == 0) NHW_STAMP(4);\n"),
+    ("    const uint4 flags = ",
+     "    if (s == 0 && t == 0) NHW_STAMP(2);\n", ""),
+    ("  const size_t at = static_cast<size_t>(blockIdx.y) * kLLN + r0 * kLL;"
+     "\n", "  if (t == 0) NHW_STAMP(3);\n", ""),
+)
+# S7: one CTA an image, the rows in order
+LL2_ONE_CTA_PATCHES = (
+    ("  uint8_t* io = is24 + static_cast<size_t>(blockIdx.x) * kLLN;\n",
+     "", "  if (threadIdx.x == 0) NHW_STAMP(0);\n"),
+    ("  if (t == 0) fire_s[0] = 0;\n  __syncthreads();\n",
+     "", "  if (t == 0) NHW_STAMP(4);\n"),
+    ("    io[r * kLL + j] = hi;\n  }\n",
+     "", "  __syncthreads();\n  if (j == 0) NHW_STAMP(3);\n"),
 )
 
 STAMP_API = r"""
@@ -184,6 +259,125 @@ def stamp_runs(dll, call, ctas: int, runs: int) -> np.ndarray:
         s = stamps.astype(np.int64)
         per_run.append((s - s[:, :1]) / 1e3)
     return np.stack(per_run)
+
+
+def raw_stamps(dll, call, ctas: int, runs: int) -> np.ndarray:
+    """(runs, ctas, STAMPS) as the kernel left them (accumulators too)."""
+    import torch
+
+    out = []
+    stamps = np.zeros((ctas, STAMPS), np.uint64)
+    for _ in range(runs):
+        dll.nhw_ladder_stamps(None, ctas, 1)
+        call()
+        torch.cuda.synchronize()
+        dll.nhw_ladder_stamps(stamps.ctypes.data, ctas, 0)
+        out.append(stamps.astype(np.int64))
+    return np.stack(out)
+
+
+def since_start(t: np.ndarray, k: int) -> float:
+    """The median over runs and CTAs of stamp k in µs from stamp 0, over
+    the CTAs that set it."""
+    d = (t[..., k] - t[..., 0]) / 1e3
+    d = d[t[..., k] > 0]
+    return float(np.median(d)) if d.size else None
+
+
+def uv_split(dll, rows: bool, inputs: dict, runs: int, cs) -> dict:
+    """The stamped S9 on each input (process, rf_ext, res_uv): its output
+    against the tree's uv_sentinel_marking_device, the sweeps, the stamps'
+    medians."""
+    import torch
+
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    dll.nhw_uv_sentinel.argtypes = [p, p, p, i, i, i, p]
+    dll.nhw_uv_sentinel.restype = i
+    out = {}
+    for what, (x, rf, res_uv) in inputs.items():
+        got = torch.empty_like(x)
+        b = x.shape[0]
+
+        def call():
+            rc = dll.nhw_uv_sentinel(x.data_ptr(), rf.data_ptr(),
+                                     got.data_ptr(), b, rf.shape[1], res_uv,
+                                     torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise SystemExit(f"torch_scan_probe: stamped launch failed "
+                                 f"{rc}")
+
+        call()
+        torch.cuda.synchronize()
+        cs.check(torch.equal(got, ds.uv_sentinel_marking_device(x, rf,
+                                                                res_uv)),
+                 "the stamped uv_sentinel differs from the tree's")
+        t = raw_stamps(dll, call, 8 * b if rows else b, runs)
+        res = {"staged_us": since_start(t, 1),
+               "first_us": since_start(t, 2), "end_us": since_start(t, 3),
+               "ctas": int(t.shape[1]), "runs": runs,
+               "event_ms": cs.median_ms(call)}
+        if rows:
+            walks = t[..., 5].sum()
+            res["walk_again_cycles"] = (float(t[..., 4].sum() / walks)
+                                        if walks else None)
+            res["walks_again_per_cta"] = float(walks / t[..., 5].size)
+        if hasattr(ds, "uv_sentinel_sweeps"):
+            res["sweeps"] = ds.uv_sentinel_sweeps(x, rf, res_uv).tolist()
+        out[what] = res
+    return out
+
+
+def ll2_split(dll, bands: bool, planes: dict, runs: int, cs) -> dict:
+    """The stamped S7 on each plane (gt_low3 on): its output against the
+    tree's ll2_code_y_scan, the sweeps, the stamps' medians."""
+    import torch
+
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    dll.nhw_ll2_code_y.argtypes = [p, p, p, i, i, p]
+    dll.nhw_ll2_code_y.restype = i
+    out = {}
+    for what, x in planes.items():
+        b = x.shape[0]
+        vem = torch.empty((b, 16384), dtype=torch.int32, device=x.device)
+        is24 = torch.empty((b, 16384), dtype=torch.bool, device=x.device)
+
+        def call():
+            rc = dll.nhw_ll2_code_y(x.data_ptr(), vem.data_ptr(),
+                                    is24.data_ptr(), b, 1,
+                                    torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise SystemExit(f"torch_scan_probe: stamped launch failed "
+                                 f"{rc}")
+
+        call()
+        torch.cuda.synchronize()
+        want = ds.ll2_code_y_scan(x, True)
+        cs.check(torch.equal(vem, want[0]) and torch.equal(is24, want[1]),
+                 "the stamped ll2_code_y differs from the tree's")
+        t = raw_stamps(dll, call, 8 * b if bands else b, runs)
+        res = {"marked_us": since_start(t, 4), "end_us": since_start(t, 3),
+               "ctas": int(t.shape[1]), "runs": runs,
+               "event_ms": cs.median_ms(call)}
+        if bands:
+            res["staged_us"] = since_start(t, 1)
+            res["first_sweep_us"] = since_start(t, 2)
+        if hasattr(ds, "ll2_code_y_sweeps"):
+            res["sweeps"] = ds.ll2_code_y_sweeps(x, True).tolist()
+        out[what] = res
+    return out
+
+
+def build_design(src_path: Path, out_dir: Path, marker: str, new_patches,
+                 old_patches):
+    """(the stamped library of either design of a kernel source, whether
+    it is the cluster design: ``marker`` in it)."""
+    new = marker in src_path.read_text()
+    return build_stamped(src_path, out_dir, new_patches if new
+                         else old_patches), new
 
 
 def offset_y_split(dll, planes: dict, runs: int, cs) -> dict:
@@ -275,6 +469,8 @@ def main() -> int:
     ap.add_argument("--tree", default=str(REPO))
     ap.add_argument("--ladder-src", default=None)
     ap.add_argument("--offset-y-src", default=None)
+    ap.add_argument("--uv-src", default=None)
+    ap.add_argument("--ll2-src", default=None)
     ap.add_argument("--runs", type=int, default=25)
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
@@ -323,6 +519,41 @@ def main() -> int:
         lambda: ds.offset_y_device(snapped, 8))
     if hasattr(ds, "offset_y_sweeps"):
         out["offset_y_sweeps"] = ds.offset_y_sweeps(snapped).tolist()
+    sm = cs.stack_uv(cap.records)["sm"]
+    uv = {f"q20 {'UV'[c]} planes": tuple(
+        torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in x[:2])
+        + (x[2],) for c, x in enumerate(sm)}
+    for what, (x, rf, res_uv) in uv.items():
+        out[f"uv_sentinel_graph_ms {what}"] = cs.graph_ms(
+            lambda: ds.uv_sentinel_marking_device(x, rf, res_uv))
+        if hasattr(ds, "uv_sentinel_sweeps"):
+            out[f"uv_sentinel_sweeps {what}"] = ds.uv_sentinel_sweeps(
+                x, rf, res_uv).tolist()
+    ll2 = torch.from_numpy(cs.stack_ll2(cap.records, 20)["P"]).to(dev)
+    out["ll2_code_y_graph_ms"] = cs.graph_ms(
+        lambda: ds.ll2_code_y_scan(ll2, True))
+    if hasattr(ds, "ll2_code_y_sweeps"):
+        out["ll2_code_y_sweeps"] = ds.ll2_code_y_sweeps(ll2, True).tolist()
+    if args.uv_src:
+        rng = np.random.default_rng(cs.SEED + 60)
+        for kind in ("drift", "cta edges"):
+            x, rf = cs.uv_sentinel_edge_inputs(rng, len(images), kind)
+            uv[f"{kind} planes"] = (torch.from_numpy(x).to(dev),
+                                    torch.from_numpy(rf).to(dev), 4)
+        with tempfile.TemporaryDirectory() as d:
+            dll, rows = build_design(Path(args.uv_src).resolve(), Path(d),
+                                     "uv_sentinel_rows", UV_ROWS_PATCHES,
+                                     UV_ONE_CTA_PATCHES)
+            out["uv_split"] = uv_split(dll, rows, uv, args.runs, cs)
+    if args.ll2_src:
+        rng = np.random.default_rng(cs.SEED + 50)
+        planes = {"q20 LL2 planes": ll2, "band edge planes": torch.from_numpy(
+            cs.ll2_edge_planes(rng, len(images), "band edges")).to(dev)}
+        with tempfile.TemporaryDirectory() as d:
+            dll, bands = build_design(Path(args.ll2_src).resolve(), Path(d),
+                                      "ll2_code_y_bands", LL2_BANDS_PATCHES,
+                                      LL2_ONE_CTA_PATCHES)
+            out["ll2_split"] = ll2_split(dll, bands, planes, args.runs, cs)
     if args.ladder_src:
         with tempfile.TemporaryDirectory() as d:
             dll, new = build_ladder(Path(args.ladder_src).resolve(),
