@@ -1548,11 +1548,20 @@ ENTROPY_KERNELS = ("chain_starts", "y_runs_fixpoint")
 # the work each function needs, in operations: a codeword start's peek,
 # 5-step segment search, length, symbol and step to the next start; one
 # step of the run automaton.  (E1's design does more: it builds each
-# word's transfer function at all 32 offsets, some 960 operations a word,
-# so that the chain's words can be walked in parallel.)
+# word's transfer function at all 32 offsets, so that the chain's words
+# can be walked in parallel; CHAIN_OPS_OFFSET operations an offset, the
+# floor of any design that walks every offset, beside the bound of
+# record.)
 CHAIN_OPS_START = 30
+CHAIN_OPS_OFFSET = 30
 RUN_OPS = 60
-E1_KERNELS = {"chain_tiles", "chain_entries", "chain_emit"}
+E1_KERNELS = {"chain_scan"}
+# the graph time of the three-launch E1 this design replaced, on the q20
+# chunk's Y words (ms, NVIDIA H100 80GB HBM3 at 700 W; PERF.md)
+E1_WAS_GRAPH_MS = 0.1296
+# E1's edge streams: words a stream around a 256-word tile and past the
+# look-back's 32-tile window
+E1_EDGE_WORDS = (1, 255, 256, 257, 300 * 256 + 17)
 E2_KS = (64, 128, 256, 512, 1024)
 E2_TWIN_DEPTH = 2048    # the runs of each stream the k = 1 twin walks
 # the device time of the one-CTA E2 kernel this design replaced, on the
@@ -1616,6 +1625,31 @@ def chain_cases(dev, parsed) -> dict:
             w, torch.from_numpy(nbits.astype(np.int32)).to(dev),
             torch.from_numpy((np.arange(b) % 2).astype(np.int32)).to(dev),
             edd._s_max(int(nbits.max()), edd.Y_P1))
+    return cases
+
+
+def chain_edge_cases(dev, rng) -> dict:
+    """E1's edge streams, label -> (words, nbits, zone, s_max): random
+    words at each count of E1_EDGE_WORDS (a 256-word tile and one word
+    either side, and 300 tiles), both zone modes, bit counts off the word
+    grid, the last word of every third stream zero, at batch 1, 3 and
+    16."""
+    import torch
+
+    from nhwcodec_tpu_torch.ops import entropy_decode_device as edd
+
+    cases = {}
+    for nw in E1_EDGE_WORDS:
+        for b in (1, 3, B):
+            words = rng.integers(0, 1 << 32, (b, nw), dtype=np.uint64).astype(
+                np.uint32)
+            words[2::3, -1] = 0
+            nbits = np.maximum(1, 32 * nw - 5 - 7 * np.arange(b))
+            cases[f"{nw} words, batch {b}, both zones"] = (
+                torch.from_numpy(words.view(np.int32)).to(dev),
+                torch.from_numpy(nbits.astype(np.int32)).to(dev),
+                torch.from_numpy((np.arange(b) % 2).astype(np.int32)).to(dev),
+                edd._s_max(32 * nw, 1 << 20))
     return cases
 
 
@@ -1714,8 +1748,10 @@ def e2_check(what: str, kern, twin, b: int) -> tuple:
 
 
 def entropy_kernel_phase(dev, chunks) -> dict:
-    """E1 against its twin at batch 1, 3 and 16 (chain_cases), timed on
-    the q20 chunk's Y words; E2 against its twin at batch 1, 3 and 16
+    """E1 against its twin at batch 1, 3 and 16 on the q20 chunk's Y and
+    UV words (chain_cases) and on the edge streams (chain_edge_cases),
+    timed on the chunk's Y words and, alone, its UV words, each checked
+    to be one launch and one fill; E2 against its twin at batch 1, 3 and 16
     (``e2_batches``) on the per-run tuples of the q20 and q23 chunks at
     the default k (``edd.K_CHUNKS``), at k = 1 to E2_TWIN_DEPTH runs of
     each stream, and at full depth (the one CTA reading most rows from
@@ -1727,8 +1763,10 @@ def entropy_kernel_phase(dev, chunks) -> dict:
     from nhwcodec_tpu_torch.ops import entropy_decode_device as edd
 
     out = {}
-    for label, args in chain_cases(dev, chunks[20][1]).items():
-        timed = label == f"Y words, batch {B}"
+    cases = chain_cases(dev, chunks[20][1])
+    cases.update(chain_edge_cases(dev, np.random.default_rng(SEED + 21)))
+    for label, args in cases.items():
+        timed = label in (f"Y words, batch {B}", f"UV words, batch {B}")
         words, nbits, _, s_max = args
         b, w = words.shape
         bound = None
@@ -1740,27 +1778,45 @@ def entropy_kernel_phase(dev, chunks) -> dict:
                                      max=s_max).sum())
             bound = work(int(nbits.to(torch.int64).sum()) // 8 + 8 * b
                          + 4 * starts + 4 * b, CHAIN_OPS_START * starts)
+            # any design that walks every offset of every word
+            floor = work(0, CHAIN_OPS_OFFSET * 32 * int(
+                (nbits.to(torch.int64) + 31).div(32, rounding_mode="floor")
+                .sum()))
         res = compare_and_time(
             "chain_starts", f"{label}: ({b},{w}) words, s_max {s_max}",
             lambda: edd.chain_starts_batch(*args),
             lambda: edd.chain_starts_ref(*args), timed=timed, bound=bound,
             graph=True)
-        if timed:
-            host, records, names = launches_per_call(
-                lambda: edd.chain_starts_batch(*args))
-            print(f"kernel chain_starts {label}: {host:g} kernel launch "
-                  f"calls per call, kernels {sorted(set(names))}",
-                  flush=True)
-            # three launches of E1's own, and the two fills that zero its
-            # outputs (symbols and counts)
-            own = {k for k in E1_KERNELS if any(k + "(" in n for n in names)}
-            others = [n for n in names if not any(k + "(" in n
-                                                  for k in E1_KERNELS)]
-            check(host == 5 and own == E1_KERNELS
-                  and all("FillFunctor" in n for n in others),
-                  f"chain_starts {label} is not three launches of "
-                  f"{sorted(E1_KERNELS)} and two fills")
-            out["chain_starts"] = res
+        if not timed:
+            continue
+        print(f"kernel chain_starts {label}: {res['graph_ms']:.4f} ms "
+              f"(graph of {GRAPH_CALLS} calls, CUDA events); bound "
+              f"{1e3 * bound['bound_ms']:.3f} us ({bound['bound_by']}), "
+              f"{bound['bound_ms'] / res['graph_ms']:.2%} of it; the floor "
+              f"of a design that walks every offset "
+              f"{1e3 * floor['bound_ms']:.3f} us, "
+              f"{floor['bound_ms'] / res['graph_ms']:.2%}"
+              + (f"; the design before: {E1_WAS_GRAPH_MS} ms (PERF.md)"
+                 if label.startswith("Y") else ""), flush=True)
+        host, records, names = launches_per_call(
+            lambda: edd.chain_starts_batch(*args))
+        print(f"kernel chain_starts {label}: {host:g} kernel launch "
+              f"calls per call, kernels {sorted(set(names))}", flush=True)
+        # one launch of E1's own, and the fill that zeroes its look-back
+        # state (the ticket and the tiles' status words)
+        own = {k for k in E1_KERNELS if any(k + "(" in n for n in names)}
+        others = [n for n in names if not any(k + "(" in n
+                                              for k in E1_KERNELS)]
+        check(host == 2 and own == E1_KERNELS
+              and all("FillFunctor" in n for n in others),
+              f"chain_starts {label} is not one launch of "
+              f"{sorted(E1_KERNELS)} and one fill")
+        if label.startswith("Y"):
+            out["chain_starts"] = {**res, "floor_us": 1e3 * floor["bound_ms"]}
+        else:
+            out["chain_starts"].update(
+                uv_ms=res["ms"], uv_graph_ms=res["graph_ms"],
+                uv_device_ms=res["device_ms"], uv_bound_us=res["bound_us"])
 
     p1 = edd.Y_P1
     k_def = edd.K_CHUNKS
@@ -3214,6 +3270,7 @@ CLASSIFY_OPS = 40
 # S5's device time before this design, one CTA an image, on the q20 batch
 # (ms, CUDA events around a graph; PERF.md's row S5, NVIDIA H100 80GB HBM3
 # at 700 W)
+S4_WAS_GRAPH_MS = 0.1277
 S5_WAS_GRAPH_MS = 0.2898
 # S6's before its band rows took 6-class map scans (one CTA an image, a
 # thread a column), on the q20 ladder outputs (the same source)
@@ -3275,6 +3332,56 @@ def pp_adversarial_planes(rng, b):
     triples, +-8 pairs and +-6/7 neighbours everywhere."""
     vals = np.array([5, 6, 7, 8, -5, -6, -7, -8, 0, 9, -9, 12], np.int16)
     return rng.choice(vals, size=(b, 512, 512))
+
+
+# motifs S4's tile-edge planes place at columns c - 2 .. c + 1 around each
+# lane tile's last visit c, and the carry state each leaves across the
+# edge: a tri at c - 1 (1), at c (5; -: 6), 8 beside a 6/7 and -8 beside a
+# -6/-7 (4, 3), the band rows' 8/8 and -8/-8 pairs at c (7, 8) and at c - 1
+# (2, 3)
+PP_EDGE_MOTIFS = ((5, 6, 5, 0), (-5, -7, -4, 0), (0, 4, 7, 7),
+                  (0, -4, -6, -7), (0, 6, 8, 0), (0, 0, 8, 7),
+                  (0, -7, -8, 0), (0, 0, -8, -6), (0, 0, 8, 8),
+                  (0, 0, -8, -8), (0, 8, 8, 0), (0, -8, -8, 0))
+PP_EDGE_KINDS = ("tile edges", "runs of 8", "region starts")
+
+
+def pp_tile_edge_planes(rng, b, kind: str):
+    """(B, 512, 512) int16 planes for S4's lane tiles (8 columns a lane,
+    ``device_scans.PP_TILE``; lane l's last visit is column c0 + 8 l + 7 of
+    a region starting at visit c0): "tile edges" (a motif of
+    PP_EDGE_MOTIFS at every tile's last visit of every region row, so that
+    each of the nine carry states enters some lane), "runs of 8" (runs of
+    8 or -8, 2 to 40 long, from every phase of a tile, so the band rows'
+    9/9 and -9/-9 pairs chain across several tiles), "region starts" (a
+    tri on each region's first visit, whose 10100 lands in column 256 or
+    0, and motifs on its last visits).  Rows 0, 255, 256 and 511, outside
+    both regions, hold motifs too; the rest is 0..3 and +-12."""
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    bg = np.array([0, 1, 2, 3, 12, -12], np.int16)
+    p = rng.choice(bg, size=(b, 512, 512))
+    for k in range(b):
+        for row in range(512):
+            c0 = 257 if row < 256 else 1
+            if kind == "tile edges":
+                for lane in range(ds.PP_LANES - 1):
+                    c = c0 + ds.PP_TILE * lane + ds.PP_TILE - 1
+                    m = PP_EDGE_MOTIFS[rng.integers(len(PP_EDGE_MOTIFS))]
+                    p[k, row, c - 2: c + 2] = m
+            elif kind == "runs of 8":
+                c = c0 - 1 + int(rng.integers(0, 8))
+                while c < c0 + 250:
+                    n = int(rng.integers(2, 41))
+                    p[k, row, c: min(c + n, c0 + 255)] = (
+                        8 if rng.random() < 0.5 else -8)
+                    c += n + int(rng.integers(1, 4))
+            else:
+                p[k, row, c0 - 1: c0 + 2] = ((5, 6, 7) if row % 2
+                                             else (-4, -7, -5))
+                m = PP_EDGE_MOTIFS[row % len(PP_EDGE_MOTIFS)]
+                p[k, row, c0 + 250: c0 + 254] = m
+    return p
 
 
 def delta_inputs(rng, b):
@@ -3609,13 +3716,56 @@ def compare_batches(name: str, what: str, kern, twin, args: tuple) -> None:
               f"at batch {b}")
 
 
+def host_pair_promotion(x: np.ndarray, q: int = 20) -> np.ndarray:
+    """The host copy's C ``_pair_promotion`` on each (512, 512) plane."""
+    from nhwcodec_tpu_torch.host.models import encoder
+
+    out = x.copy()
+    for k in range(len(out)):
+        flat = out[k].reshape(-1)
+        encoder._pair_promotion(flat, q)
+    return out
+
+
+def pp_edge_check(dev, e11, rng) -> None:
+    """S4 at batch 1, 3 and 16 against its twin on the captured q20 E11
+    planes and on each kind of ``pp_tile_edge_planes``, whose lane-tile
+    entry states (the twin's) must reach what each kind claims; on all of
+    them at batch 16 against the host copy's C."""
+    import torch
+
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    planes = {"q20 E11 planes": e11}
+    for kind in PP_EDGE_KINDS:
+        planes[f"{kind} planes"] = torch.from_numpy(
+            pp_tile_edge_planes(rng, B, kind)).to(dev)
+    for what, x in planes.items():
+        compare_batches("pair_promotion", what, ds.pair_promotion_device,
+                        ds.pair_promotion_ref, (x,))
+        got = ds.pair_promotion_device(x).cpu().numpy()
+        check(np.array_equal(got, host_pair_promotion(x.cpu().numpy())),
+              f"pair_promotion on the {what} differs from the host C")
+        entries = ds.pair_promotion_entries(x).cpu().numpy()
+        seen = [sorted(int(v) for v in np.unique(entries[:, r]) if v)
+                for r in range(2)]
+        print(f"kernel pair_promotion {what}: equal to the host C; carry "
+              f"states entering a lane tile (band rows, lower rows) {seen}",
+              flush=True)
+        if what.startswith("tile edges"):
+            check(seen[0] == list(range(1, 9)),
+                  f"the tile edge planes carry {seen[0]} into the band "
+                  "rows' tiles, not every state")
+
+
 def residue_kernel_phase(dev, captured: dict) -> dict:
     """S4-S6 against their twins (max_abs_err 0): timed on the q20
     batch's captured inputs (pair_promotion on the E11 plane,
     column_ladder on pair promotion's output, classify on the ladder's);
     then at batch 1, 3 and 16 (``compare_batches``) on the adversarial
-    pair-promotion plane, delta planes at q17, q18, q20 and q21 (ladder,
-    then classify), and the column-255 and block-edge planes, whose marks
+    pair-promotion plane, pair promotion on the q20 E11 planes and the
+    tile-edge planes, also against the host copy's C (``pp_edge_check``),
+    delta planes at q17, q18, q20 and q21 (ladder, then classify), and the column-255 and block-edge planes, whose marks
     on the card also equal the host copy's C; classify also at batch 1, 3
     and 16 on the q20 ladder outputs and on the class edge inputs at q20
     and q21 with res_setting 3, 4, 6 and 8 (checked to cross every class
@@ -3640,6 +3790,10 @@ def residue_kernel_phase(dev, captured: dict) -> dict:
         lambda: ds.pair_promotion_device(e11),
         lambda: ds.pair_promotion_ref(e11), twin_calls=2, twin_runs=5,
         bound=work(2 * B * plane_bytes, PP_OPS * B * region), graph=True)
+    print(f"kernel pair_promotion ({B},512,512) q20: "
+          f"{out['pair_promotion']['graph_ms']:.4f} ms (graph of "
+          f"{GRAPH_CALLS} calls, CUDA events); the design before: "
+          f"{S4_WAS_GRAPH_MS} ms (PERF.md)", flush=True)
     pp = ds.pair_promotion_device(e11)
     rf_ext = des._rf_ext(res256, khead, resIII)
     rs = host_encoder._res_setting(20)
@@ -3676,6 +3830,7 @@ def residue_kernel_phase(dev, captured: dict) -> dict:
     x = torch.from_numpy(pp_adversarial_planes(rng, B)).to(dev)
     compare_batches("pair_promotion", "adversarial planes",
                     ds.pair_promotion_device, ds.pair_promotion_ref, (x,))
+    pp_edge_check(dev, e11, rng)
     for q in (17, 18, 20, 21):
         rs = host_encoder._res_setting(q)
         p, rfe = (torch.from_numpy(a).to(dev)
@@ -5612,8 +5767,8 @@ def main() -> int:
     print(f"kernel build (nvcc, sm_90a) + load: "
           f"{time.perf_counter() - t0:.1f} s -> {build.lib_path()}",
           flush=True)
-    print_ptxas(("y_stage2_cluster", "waves_band", "chain_tiles",
-                 "chain_entries", "chain_emit", "y_runs_fixpoint",
+    print_ptxas(("y_stage2_cluster", "waves_band", "chain_scan",
+                 "y_runs_fixpoint",
                  "snap_pass", "ladder_table", "offset_y_rows",
                  "offset_y_bands", "offset_y_codes", "merge_tiles",
                  "merge_entries", "merge_emit", "pair_promotion",

@@ -8,7 +8,8 @@
 //    pointer doubling, entropy_decode_device.py:179): every codeword start
 //    of each stream's bit chain from bit 0, and its symbol.  (B, W) u32
 //    words, (B,) nbits and zone -> (B, s_max) int32 symbols by rank and the
-//    (B,) count of starts below nbits.  Three launches.
+//    (B,) count of starts below nbits.  One launch (chain_scan) after the
+//    caller zeroes its look-back state.
 // E2 nhw_y_runs_fixpoint replaces nhwcodec_tpu/ops/entropy_decode_device.py
 //    :923 _runs_fixpoint (an XLA while_loop around a lax.scan, step
 //    _runs_step :634): the Y run automaton as a chunk-relay fixpoint over
@@ -16,25 +17,38 @@
 //    each stream's sweep count.  One cluster launch.
 //
 // E1's bound.  The function reads 4 bytes a word, writes 4 bytes a
-// codeword start and needs some 30 operations a start (a 20-bit peek, a
-// 5-step binary search over the code's affine segments, the length, the
-// symbol, the step to the next start): microseconds at a q20 chunk of 16.
-// But the starts form one dependent walk along each stream.  To walk the
-// words in parallel, the design below does that step at all 32 offsets of
-// every word (some 960 operations a word), with the segments (at most 28
-// thresholds) in shared memory, not an 8 MiB peek table.  Design: the
-// chain's state at a word boundary is the overhang of the current codeword
-// into the word, one of 20 values, so a word is a transfer function over
-// 20 states.  One thread a word builds
-// it right to left (exit and start count from every offset, 32 steps; the
-// first 20 rows are the function), a warp lane per state composes a warp's
-// 32 functions, and threads 0-19 a tile's 8 warps (chain_tiles).  One warp
-// a stream then walks the tiles' composites, the 20 states in the lanes and
-// the walker's state picked by a shuffle, with the loads running ahead of
-// the walk (chain_entries).  chain_emit rebuilds the tile's functions,
-// walks warps and words from the tile's entry state and rank, and writes
-// each word's symbols at their ranks.  256 words a CTA, so a q20 chunk of
-// 16 runs some 2,600 CTAs on the 132 SMs.
+// codeword start and needs some 30 operations a start (a 20-bit peek, the
+// code's segment, the length, the symbol, the step to the next start):
+// microseconds at a q20 chunk of 16.  But the starts form one dependent
+// walk along each stream.  To walk the words in parallel, the design below
+// does that step at all 32 offsets of every word, so that a word is a
+// transfer function over the chain's state at its boundary, the overhang
+// of the current codeword into the word (one of 20 values).  Design: a
+// single-pass chained scan over tiles of 256 words, one CTA a tile, with
+// decoupled look-back.  Each CTA takes a ticket (tile-major over the
+// streams), so it only ever waits on tiles that have started.  It builds
+// its words' functions once: one thread a word, right to left (exit and
+// start count from every offset, 32 steps, in shared memory), each
+// offset's code length one lookup in a table on the peek's top 10 bits
+// (a binary search over the code's segments only in the buckets that span
+// several); lanes 0-19 of each warp then walk its 32 words from every
+// state (recording the trajectory), and threads 0-19 the 8 warps.  Warp 0
+// publishes the tile's composite (20 entries of exit | starts) and looks
+// back: a lane a predecessor, 32 at a time, it loads their status words
+// and composites at once (each word is written once, so what it reads is
+// 0 or final), stages the composites up to the nearest predecessor whose
+// inclusive (state, rank) is out in shared memory, and folds them, a lane
+// a state; then it publishes its own inclusive (state, rank) (a 64-bit
+// status word a tile).  Meanwhile the warps whose
+// entry state is the same from every tile entry state (the chains from
+// all 20 have met, as they do within a few codewords) emit: each thread
+// walks its word's starts from its entry state (two lookups in the
+// trajectories) and writes the symbols at their local ranks into the
+// warp's run in shared memory.  The other warps emit once the entry is
+// out, and the CTA copies the runs to the tile's ranks, coalesced.  The
+// word holding bit nbits writes the count; the stream's last tile writes
+// the zeros past the chain's last start.  256 words a CTA, so a q20 chunk
+// of 16 runs some 2,600 CTAs on the 132 SMs.
 //
 // E2's bound.  It reads the per-run tuples once and writes e_in and the
 // flags once (13 bytes a run) - microseconds - but it is a chain of
@@ -76,6 +90,13 @@ constexpr int kWarps = kTile / 32;
 constexpr int kStates = 20;         // overhang states (longest code 20)
 constexpr int kSeg = 32;            // padded segment table (>= 28 used)
 constexpr int kPitch = kTile + 1;   // row pitch of the per-offset table
+constexpr int kLutBits = 10;        // the length table's peek bits
+constexpr int kLut = 1 << kLutBits;
+constexpr int kAggBits = 16;        // starts in a tile composite entry
+constexpr int kRun = 512;           // a warp's symbols at most (f rows 0-15)
+constexpr int kRunRows = 16;        // f rows holding the warps' runs
+constexpr int kScanCtas = 5;        // E1: resident CTAs an SM (smem, regs)
+constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kMaxChunks = 1024;
 constexpr int kFixCluster = 8;            // E2: CTAs a stream, at most
 constexpr int kFixThreads = 128;          // E2: threads a CTA, >= its chunks
@@ -83,6 +104,7 @@ constexpr int kFixWarps = kFixThreads / 32;
 constexpr int kFixSmemMax = 220 * 1024;   // E2: staged tuples a CTA, bytes
 static_assert(kMaxChunks <= kFixCluster * kFixThreads,
               "a chunk a thread over the cluster");
+static_assert(kLut * 4 == kTile * 16, "one 16-byte load a thread");
 
 // The segment table of one zone mode in shared memory: thresholds (padded
 // with 2^20), lengths and bases, from the (2, 3, 32) int32 table.
@@ -112,35 +134,234 @@ __device__ __forceinline__ int segment(const Segs& s, int peek) {
   return i;
 }
 
-// The 20 bits from offset p (0..31) of word w, then nxt.
-__device__ __forceinline__ int peek_at(uint32_t w, uint32_t nxt, int p) {
-  const uint32_t win = p ? (w << p) | (nxt >> (32 - p)) : w;
-  return static_cast<int>(win >> 12);
+// The 32 bits from offset p (0..31) of word w, then nxt.
+__device__ __forceinline__ uint32_t window_at(uint32_t w, uint32_t nxt,
+                                              int p) {
+  return __funnelshift_l(nxt, w, p);
 }
 
-struct TileShared {
+// A code's (len, base) at a 32-bit window (its top 20 bits the peek): the
+// length table's entry on the top 10 bits, len | base << 5 (the symbol is
+// base + (peek >> (20 - len))), or 0 where the bucket spans segments and
+// the binary search decides.
+__device__ __noinline__ int code_searched(const Segs& s, uint32_t win) {
+  const int seg = segment(s, static_cast<int>(win >> 12));
+  return s.len[seg] | (s.base[seg] << 5);
+}
+
+__device__ __forceinline__ int code_at(const Segs& s, const int* lut,
+                                       uint32_t win) {
+  const int e = lut[win >> (32 - kLutBits)];
+  return e != 0 ? e : code_searched(s, win);
+}
+
+// The look-back's words are each written once, from 0 to their final
+// value, so a reader needs no ordering: what it reads is 0 (not out yet)
+// or final.  Its loads bypass L1 (this SM may have cached the line before
+// the word was written) and are issued anew on every read.
+__device__ __forceinline__ unsigned long long ld_relaxed(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ uint4 ld_volatile4(const uint32_t* p) {
+  uint4 v;
+  asm volatile("ld.volatile.global.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_relaxed(unsigned long long* p,
+                                           unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ void st_relaxed32(uint32_t* p, uint32_t v) {
+  asm volatile("st.relaxed.gpu.global.u32 [%0], %1;"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+// A tile's composite entries carry kOut (the composite is out once all 20
+// of them do); its status word is 0 until its inclusive prefix is out,
+// then kInclusive | exit state << 8 | the starts through it << 32.
+constexpr uint32_t kOut = 1u << 31;
+constexpr unsigned long long kInclusive = 2;
+
+struct ChainShared {
   Segs segs;
-  // f[p * kPitch + t]: word t's walk from offset p: exit overhang in bits
-  // 0-7, starts in the word from 8; rows 0-19 are the transfer function
+  alignas(16) int lut[kLut];
+  // f[p * kPitch + t]: word t's walk from offset p, exit overhang in bits
+  // 0-7, starts in the word from 8; rows 0-19 are its transfer function.
+  // Once the functions are built, rows 20-29 of column t hold word t's
+  // trajectory: the state after it and the starts since its warp's entry,
+  // state | starts << 5 as 16 bits, for each warp entry state (two a row).
   uint32_t f[32 * kPitch];
   uint32_t warp_fn[kWarps][kStates];   // exit | starts << 8, per warp
+  uint32_t warp_in[kWarps][kStates];   // warp w's entry | starts before it,
+                                       // per tile entry state
+  uint32_t tile_fn[kStates];           // exit | starts << 16
+  int warp_off[kWarps];                // warp w's first start in the tile
+  int job, entry_state, entry_rank, last_rank;
 };
+static_assert(kWarps * kRun <= kRunRows * kPitch, "the runs fit f rows 0-15");
+static_assert(32 * kStates <= (kStates - kRunRows) * kPitch,
+              "the look-back's stage fits f rows 16-19");
 
-// Builds the tile's per-word walks (f) and per-warp composites (warp_fn).
-// Words at or past n_words are the identity with no start.
-__device__ void tile_functions(TileShared& sh, const uint32_t* words,
-                               const int* seg_tab, int zone, int n_words,
-                               int b, int tile) {
-  const int t = threadIdx.x;
-  const int j = tile * kTile + t;
-  load_segs(sh.segs, seg_tab, zone);
+// Word t's trajectory entry for warp entry state s: the halves of f row
+// 20 + s / 2, column t.
+__device__ __forceinline__ uint16_t& traj_half(ChainShared& sh, int t, int s) {
+  return reinterpret_cast<uint16_t*>(
+      sh.f + (kStates + (s >> 1)) * kPitch + t)[s & 1];
+}
+
+// Word j's starts from its warp's entry state ws, each symbol at its local
+// rank in the warp's run (f rows 0-15, free once the functions are
+// composed): lr the word's first, n its starts, nbelow those below bit
+// lim.  Every lane of the warp calls it.
+__device__ __forceinline__ void emit_local(ChainShared& sh, uint32_t w,
+                                           uint32_t nxt, int j, int n_words,
+                                           long long lim, int warp, int lane,
+                                           int ws, int& lr, int& n,
+                                           int& nbelow) {
+  int p = ws;
+  lr = 0;
+  if (lane) {
+    const uint32_t tv = traj_half(sh, warp * 32 + lane - 1, ws);
+    p = tv & 31u;
+    lr = static_cast<int>(tv >> 5);
+  }
+  n = nbelow = 0;
+  if (j >= n_words) return;
+  uint32_t* run = sh.f + warp * kRun;
+  const long long bit0 = 32LL * j;
+  while (p < 32) {
+    const uint32_t win = window_at(w, nxt, p);
+    const int c = code_at(sh.segs, sh.lut, win);
+    const int len = c & 31;
+    run[lr + n] = static_cast<uint32_t>(
+        (c >> 5) + static_cast<int>((win >> 12) >> (20 - len)));
+    nbelow += bit0 + p < lim;
+    ++n;
+    p += len;
+  }
+}
+
+// Warp 0: publishes the tile's composite, looks back to its entry (state,
+// rank) and publishes its inclusive prefix; the entry goes to sh.  A lane
+// a predecessor, 32 at a time, loads its status word and its composite at
+// once; the composites of the run of predecessors whose composite is out,
+// up to the nearest one whose inclusive prefix is out, are staged in f
+// rows 16-19, and lanes 0-19, a state each, fold them earliest first.
+__device__ void look_back(ChainShared& sh, uint32_t* __restrict__ agg,
+                          unsigned long long* __restrict__ state, int b,
+                          int tiles, int tile, int lane) {
+  const size_t at = static_cast<size_t>(b) * tiles + tile;
+  unsigned long long* status = state + 1 + static_cast<size_t>(b) * tiles;
+  const uint32_t mine = lane < kStates ? sh.tile_fn[lane] : 0u;
+  uint32_t* stage = sh.f + kRunRows * kPitch;
+  int e_state = 0, e_rank = 0;
+  if (tile > 0) {
+    if (lane < kStates) st_relaxed32(agg + at * kStates + lane, mine | kOut);
+    // g: from the state at boundary `base` to this tile's entry
+    int g_state = lane, g_rank = 0, base = tile;
+    while (true) {
+      const int pj = base - 1 - lane;
+      unsigned long long st = kInclusive;
+      bool out = true;
+      if (pj >= 0) {
+        const uint32_t* row = agg + (static_cast<size_t>(b) * tiles + pj) *
+                                        kStates;
+        st = ld_relaxed(status + pj);
+#pragma unroll
+        for (int k = 0; k < kStates / 4; ++k) {
+          const uint4 v = ld_volatile4(row + 4 * k);
+          out &= (v.x & v.y & v.z & v.w & kOut) != 0;
+          reinterpret_cast<uint4*>(stage + lane * kStates)[k] = v;
+        }
+      }
+      const bool inc = (st & 3u) == kInclusive;
+      const unsigned ready = __ballot_sync(kFull, out || inc);
+      const unsigned incl = __ballot_sync(kFull, inc);
+      const int run = ready == kFull ? 32 : __ffs(~ready) - 1;
+      const int first = incl ? __ffs(incl) - 1 : 32;
+      const int n = first < run ? first : run;
+      __syncwarp();
+      int s = lane, r = 0;
+      if (lane < kStates) {
+        for (int i = n - 1; i >= 0; --i) {
+          const uint32_t v = stage[i * kStates + s] & ~kOut;
+          s = static_cast<int>(v & 0xFFFFu);
+          r += static_cast<int>(v >> kAggBits);
+        }
+      }
+      __syncwarp();
+      const int gs = __shfl_sync(kFull, g_state, s);
+      const int gr = __shfl_sync(kFull, g_rank, s);
+      g_state = gs;
+      g_rank = r + gr;
+      base -= n;
+      if (first < run) {
+        const int is = pj >= 0 ? static_cast<int>((st >> 8) & 0xFFu) : 0;
+        const int ir = pj >= 0 ? static_cast<int>(st >> 32) : 0;
+        const int in_s = __shfl_sync(kFull, is, first);
+        const int in_r = __shfl_sync(kFull, ir, first);
+        e_state = __shfl_sync(kFull, g_state, in_s);
+        e_rank = in_r + __shfl_sync(kFull, g_rank, in_s);
+        break;
+      }
+    }
+  }
+  const uint32_t out = __shfl_sync(kFull, mine, e_state);
+  if (lane == 0) {
+    const unsigned long long exit_rank =
+        static_cast<unsigned long long>(e_rank + (out >> kAggBits));
+    st_relaxed(status + tile,
+               kInclusive | ((out & 0xFFu) << 8) | (exit_rank << 32));
+    sh.entry_state = e_state;
+    sh.entry_rank = e_rank;
+  }
+}
+
+// E1: one CTA a tile of 256 words of one stream.  state: a ticket counter,
+// then the (B, tiles) status words; agg: (B, tiles, 20) u32, each tile's
+// composite (exit | starts << 16 | kOut); both zeroed by the caller.
+__global__ void __launch_bounds__(kTile, kScanCtas)
+    chain_scan(const uint32_t* __restrict__ words, const int* __restrict__ nbits,
+               const int* __restrict__ zone, const int* __restrict__ seg_tab,
+               const int* __restrict__ lut_tab, int n_words, int tiles,
+               int batch, int s_max, unsigned long long* __restrict__ state,
+               uint32_t* __restrict__ agg, int* __restrict__ syms,
+               int* __restrict__ counts) {
+  __shared__ ChainShared sh;
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  if (t == 0) sh.job = static_cast<int>(atomicAdd(state, 1ull));
   __syncthreads();
+  const int tile = sh.job / batch, b = sh.job % batch;
+  const int z = zone[b] != 0;
+  load_segs(sh.segs, seg_tab, z);
+  reinterpret_cast<int4*>(sh.lut)[t] =
+      reinterpret_cast<const int4*>(lut_tab + z * kLut)[t];
+  const uint32_t* row = words + static_cast<size_t>(b) * n_words;
+  const int j = tile * kTile + t;
+  const uint32_t w = j < n_words ? row[j] : 0u;
+  const uint32_t nxt = j + 1 < n_words ? row[j + 1] : 0u;
+  __syncthreads();
+
+  // each word's walk from every offset, right to left; the lengths first,
+  // independent lookups
   if (j < n_words) {
-    const uint32_t* row = words + static_cast<size_t>(b) * n_words;
-    const uint32_t w = row[j];
-    const uint32_t nxt = j + 1 < n_words ? row[j + 1] : 0u;
+    int len[32];
+#pragma unroll
+    for (int p = 0; p < 32; ++p)
+      len[p] = code_at(sh.segs, sh.lut, window_at(w, nxt, p)) & 31;
+#pragma unroll
     for (int p = 31; p >= 0; --p) {
-      const int q = p + sh.segs.len[segment(sh.segs, peek_at(w, nxt, p))];
+      const int q = p + len[p];
       sh.f[p * kPitch + t] =
           q >= 32 ? static_cast<uint32_t>(q - 32) | (1u << 8)
                   : sh.f[q * kPitch + t] + (1u << 8);
@@ -148,142 +369,93 @@ __device__ void tile_functions(TileShared& sh, const uint32_t* words,
   } else {
     for (int p = 0; p < kStates; ++p) sh.f[p * kPitch + t] = p;
   }
-  __syncthreads();
-  const int warp = t >> 5, lane = t & 31;
+  __syncwarp();
+  // lanes 0-19 walk the warp's words from every entry state, keeping the
+  // trajectory (rows 20-29 are free once the warp's rows 0-19 are read
+  // only)
   if (lane < kStates) {
     uint32_t s = lane, starts = 0;
     for (int i = 0; i < 32; ++i) {
-      const uint32_t v = sh.f[s * kPitch + warp * 32 + i];
+      const int c = warp * 32 + i;
+      const uint32_t v = sh.f[s * kPitch + c];
       starts += v >> 8;
       s = v & 0xFFu;
+      traj_half(sh, c, lane) = static_cast<uint16_t>(s | (starts << 5));
     }
     sh.warp_fn[warp][lane] = s | (starts << 8);
   }
   __syncthreads();
-}
-
-// E1 phase 1: each tile's composite transfer function, exit | starts << 16
-// per entry state, into comp (B, tiles, 20).
-__global__ void __launch_bounds__(kTile)
-    chain_tiles(const uint32_t* __restrict__ words, const int* __restrict__ zone,
-                const int* __restrict__ seg_tab, int n_words,
-                uint32_t* __restrict__ comp) {
-  __shared__ TileShared sh;
-  const int b = blockIdx.y, tile = blockIdx.x, t = threadIdx.x;
-  tile_functions(sh, words, seg_tab, zone[b] != 0, n_words, b, tile);
   if (t < kStates) {
     uint32_t s = t, starts = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      const uint32_t v = sh.warp_fn[w][s];
-      starts += v >> 8;
-      s = v & 0xFFu;
+    for (int v = 0; v < kWarps; ++v) {
+      sh.warp_in[v][t] = s | (starts << 8);
+      const uint32_t x = sh.warp_fn[v][s];
+      starts += x >> 8;
+      s = x & 0xFFu;
     }
-    comp[(static_cast<size_t>(b) * gridDim.x + tile) * kStates + t] =
-        s | (starts << 16);
-  }
-}
-
-// E1 phase 2: one warp a stream walks its tiles' composites from state 0,
-// rank 0, and writes each tile's entry (state, rank) into entry (B, tiles,
-// 2).  Lane d < 20 holds the composite's value for state d; the walker's
-// next state is a shuffle.  The loads do not depend on the walk, so eight
-// tiles' loads are issued before their shuffles.
-__global__ void __launch_bounds__(32)
-    chain_entries(const uint32_t* __restrict__ comp, int tiles,
-                  int* __restrict__ entry) {
-  const int b = blockIdx.x, lane = threadIdx.x;
-  const uint32_t* c = comp + static_cast<size_t>(b) * tiles * kStates;
-  int* e = entry + static_cast<size_t>(b) * tiles * 2;
-  int s = 0, rank = 0;
-  constexpr int kAhead = 8;
-  for (int t0 = 0; t0 < tiles; t0 += kAhead) {
-    uint32_t v[kAhead];
-#pragma unroll
-    for (int i = 0; i < kAhead; ++i)
-      v[i] = (lane < kStates && t0 + i < tiles)
-                 ? c[static_cast<size_t>(t0 + i) * kStates + lane]
-                 : 0u;
-#pragma unroll
-    for (int i = 0; i < kAhead; ++i) {
-      if (t0 + i < tiles) {
-        if (lane == 0) {
-          e[2 * (t0 + i)] = s;
-          e[2 * (t0 + i) + 1] = rank;
-        }
-        const uint32_t got = __shfl_sync(0xFFFFFFFFu, v[i], s);
-        s = static_cast<int>(got & 0xFFFFu);
-        rank += static_cast<int>(got >> 16);
-      }
-    }
-  }
-}
-
-// E1 phase 3: every word's entry overhang and rank from its tile's, and its
-// starts' symbols written at their ranks below s_max; counts[b] gains the
-// starts below nbits[b].
-__global__ void __launch_bounds__(kTile)
-    chain_emit(const uint32_t* __restrict__ words, const int* __restrict__ nbits,
-               const int* __restrict__ zone, const int* __restrict__ seg_tab,
-               const int* __restrict__ entry, int n_words, int s_max,
-               int* __restrict__ syms, int* __restrict__ counts) {
-  __shared__ TileShared sh;
-  __shared__ int warp_state[kWarps], warp_rank[kWarps];
-  __shared__ uint8_t word_state[kTile];
-  const int b = blockIdx.y, tile = blockIdx.x, t = threadIdx.x;
-  const int warp = t >> 5, lane = t & 31;
-  tile_functions(sh, words, seg_tab, zone[b] != 0, n_words, b, tile);
-  if (t == 0) {
-    const int* e = entry + (static_cast<size_t>(b) * gridDim.x + tile) * 2;
-    uint32_t s = e[0];
-    int rank = e[1];
-    for (int w = 0; w < kWarps; ++w) {
-      warp_state[w] = s;
-      warp_rank[w] = rank;
-      const uint32_t v = sh.warp_fn[w][s];
-      rank += static_cast<int>(v >> 8);
-      s = v & 0xFFu;
-    }
+    sh.tile_fn[t] = s | (starts << kAggBits);
   }
   __syncthreads();
-  if (lane == 0) {
-    uint32_t s = warp_state[warp];
-    for (int i = 0; i < 32; ++i) {
-      word_state[warp * 32 + i] = static_cast<uint8_t>(s);
-      s = sh.f[s * kPitch + warp * 32 + i] & 0xFFu;
+
+  // Warps 1-7 whose entry state is the same from every tile entry state
+  // (the chains have met, as they do within a few codewords) emit now,
+  // into their shared-memory run at local ranks, while warp 0 publishes
+  // the composite and looks back; warp 0 and the others emit once the
+  // tile's entry is out.  The runs are then copied to the tile's ranks.
+  bool early = false;
+  if (warp > 0) {
+    const uint32_t w0 = sh.warp_in[warp][0] & 0xFFu;
+    early = __all_sync(kFull, lane >= kStates ||
+                                  (sh.warp_in[warp][lane] & 0xFFu) == w0);
+  }
+  int lr = 0, n = 0, nbelow = 0;
+  const long long lim = nbits[b];
+  if (warp == 0) {
+    look_back(sh, agg, state, b, tiles, tile, lane);
+  } else if (early) {
+    emit_local(sh, w, nxt, j, n_words, lim, warp, lane,
+               sh.warp_in[warp][0] & 0xFFu, lr, n, nbelow);
+  }
+  __syncthreads();
+  const int e = sh.entry_state, base_rank = sh.entry_rank;
+  if (!early)
+    emit_local(sh, w, nxt, j, n_words, lim, warp, lane,
+               sh.warp_in[warp][e] & 0xFFu, lr, n, nbelow);
+  const int word_rank =
+      base_rank + static_cast<int>(sh.warp_in[warp][e] >> 8) + lr;
+  const int limit_word = lim <= 0 ? 0
+      : static_cast<int>(min(lim >> 5, static_cast<long long>(n_words - 1)));
+  if (j == limit_word) counts[b] = word_rank + nbelow;
+  if (j == n_words - 1) sh.last_rank = word_rank + n;
+  if (t < kWarps) sh.warp_off[t] = static_cast<int>(sh.warp_in[t][e] >> 8);
+  __syncthreads();
+  // the tile's symbols at ranks base_rank + g, g < its starts
+  int* out = syms + static_cast<size_t>(b) * s_max;
+  const int total = static_cast<int>(sh.tile_fn[e] >> kAggBits);
+  for (int g = t; g < total && base_rank + g < s_max; g += kTile) {
+    int v = 0;
+#pragma unroll
+    for (int k = 1; k < kWarps; ++k) v += g >= sh.warp_off[k];
+    out[base_rank + g] =
+        static_cast<int>(sh.f[v * kRun + g - sh.warp_off[v]]);
+  }
+  // the zeros past the chain's last start: 16-byte stores between a
+  // scalar head and tail
+  if (tile == tiles - 1) {
+    __syncthreads();
+    const int from = sh.last_rank;
+    if (from < s_max) {
+      const int lead = min(static_cast<int>(
+          ((16u - (reinterpret_cast<uintptr_t>(out + from) & 15u)) & 15u) / 4),
+          s_max - from);
+      if (t < lead) out[from + t] = 0;
+      const int start = from + lead, nvec = (s_max - start) / 4;
+      int4* v = reinterpret_cast<int4*>(out + start);
+      for (int i = t; i < nvec; i += kTile) v[i] = make_int4(0, 0, 0, 0);
+      const int tail = start + 4 * nvec + t;
+      if (tail < s_max) out[tail] = 0;
     }
   }
-  __syncwarp();
-  const int j = tile * kTile + t;
-  const int p0 = word_state[t];
-  const int n = j < n_words ? static_cast<int>(sh.f[p0 * kPitch + t] >> 8) : 0;
-  int before = n;   // inclusive warp scan of the words' starts
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int o = __shfl_up_sync(0xFFFFFFFFu, before, d);
-    if (lane >= d) before += o;
-  }
-  int below = 0;
-  if (n) {
-    const uint32_t* row = words + static_cast<size_t>(b) * n_words;
-    const uint32_t w = row[j];
-    const uint32_t nxt = j + 1 < n_words ? row[j + 1] : 0u;
-    const long long bit0 = 32LL * j;
-    const int limit = nbits[b];
-    int* out = syms + static_cast<size_t>(b) * s_max;
-    int rank = warp_rank[warp] + before - n;
-    for (int p = p0; p < 32; ++rank) {
-      const int peek = peek_at(w, nxt, p);
-      const int s = segment(sh.segs, peek);
-      const int len = sh.segs.len[s];
-      if (rank < s_max) out[rank] = sh.segs.base[s] + (peek >> (20 - len));
-      below += bit0 + p < limit;
-      p += len;
-    }
-  }
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1)
-    below += __shfl_xor_sync(0xFFFFFFFFu, below, d);
-  if (lane == 0 && below) atomicAdd(counts + b, below);
 }
 
 // One run of the Y automaton (decoder/compress_pixel.c:296-341 at a run
@@ -534,30 +706,32 @@ bool misaligned4(std::initializer_list<const void*> ptrs) {
 extern "C" {
 
 // E1.  words: (B, W) u32; nbits: (B,) int32; zone: (B,) int32, non-zero
-// for the zone mode; seg_tab: (2, 3, 32) int32; comp: (B, tiles, 20) int32
-// and entry: (B, tiles, 2) int32 scratch (tiles = ceil(W / 256)); syms:
-// (B, s_max) int32 and counts: (B,) int32, both zeroed by the caller.
+// for the zone mode; seg_tab: (2, 3, 32) int32; lut: (2, 1024) int32, the
+// length table (16-byte aligned); state: (1 + B tiles) u64, the ticket and
+// the tiles' status words, and agg: (B, tiles, 20) u32 (16-byte aligned),
+// the tiles' composites, both zeroed by the caller (tiles = ceil(W /
+// 256)); syms: (B, s_max) int32 and counts: (B,) int32, both written
+// whole.
 int nhw_chain_starts(const void* words, const void* nbits, const void* zone,
-                     const void* seg_tab, void* comp, void* entry, void* syms,
-                     void* counts, int batch, int n_words, int s_max,
-                     void* stream) {
+                     const void* seg_tab, const void* lut, void* state,
+                     void* agg, void* syms, void* counts, int batch,
+                     int n_words, int s_max, void* stream) {
   if (batch < 1 || batch > 65535 || n_words < 1 || s_max < 1)
     return cudaErrorInvalidValue;
-  if (misaligned4({words, nbits, zone, seg_tab, comp, entry, syms, counts}))
+  if (misaligned4({words, nbits, zone, seg_tab, syms, counts}) ||
+      reinterpret_cast<uintptr_t>(lut) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(agg) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(state) % 8 != 0)
     return cudaErrorMisalignedAddress;
   const int tiles = (n_words + kTile - 1) / kTile;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* w = static_cast<const uint32_t*>(words);
-  const auto* z = static_cast<const int*>(zone);
-  const auto* tab = static_cast<const int*>(seg_tab);
-  chain_tiles<<<dim3(tiles, batch), kTile, 0, s>>>(
-      w, z, tab, n_words, static_cast<uint32_t*>(comp));
-  chain_entries<<<batch, 32, 0, s>>>(static_cast<const uint32_t*>(comp),
-                                     tiles, static_cast<int*>(entry));
-  chain_emit<<<dim3(tiles, batch), kTile, 0, s>>>(
-      w, static_cast<const int*>(nbits), z, tab,
-      static_cast<const int*>(entry), n_words, s_max, static_cast<int*>(syms),
-      static_cast<int*>(counts));
+  if (static_cast<long long>(tiles) * batch > (1LL << 31) - 1)
+    return cudaErrorInvalidValue;
+  chain_scan<<<tiles * batch, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(words), static_cast<const int*>(nbits),
+      static_cast<const int*>(zone), static_cast<const int*>(seg_tab),
+      static_cast<const int*>(lut), n_words, tiles, batch, s_max,
+      static_cast<unsigned long long*>(state), static_cast<uint32_t*>(agg),
+      static_cast<int*>(syms), static_cast<int*>(counts));
   return cudaGetLastError();
 }
 

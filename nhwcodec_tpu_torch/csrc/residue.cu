@@ -6,7 +6,8 @@
 //
 // S4 nhw_pair_promotion replaces nhwcodec_tpu/models/device_scans.py:2070
 //    pair_promotion_device (a Jacobi while_loop over the decision plane):
-//    _pair_promotion on a (B, 512, 512) int16 plane.  One launch.
+//    _pair_promotion on a (B, 512, 512) int16 plane.  One launch
+//    (pair_promotion_rows).
 // S5 nhw_column_ladder replaces nhwcodec_tpu/models/device_scans.py:952
 //    column_ladder_device (a 255-step lax.scan with the columns as lanes,
 //    then column 255's scan twice): res256_column_ladder.  Two launches: the
@@ -21,11 +22,14 @@
 // - S4: the C's chain never leaves a row (its 7/-7 promotions and the lower
 //   block's vertical cases are dead: 4 < v < 8 and -8 < v < -4 take v = 7,
 //   -6 and -7 first), and the two regions, rows 1..254 x columns 257..510
-//   and rows 257..510 x columns 1..254, share no row.  One thread a row
-//   walks left to right with the left neighbour and the visited value in
-//   registers and reads the right neighbour from the input; a value is
-//   final, and stored, once the walk is one column past it (a visit
-//   writes a - 1, a and a + 1: columns 256 and 0 take the first a - 1).
+//   and rows 257..510 x columns 1..254, share no row.  The walk's carry
+//   between visits is one of nine states, read by a visit through three
+//   classes, so a visit is a table of the next state from the inputs and
+//   a row is a scan of small maps: one warp a row (every row of the batch,
+//   all SMs busy), a lane a tile of 8 columns loaded and stored in 16
+//   bytes, the tile's map of three exit states, a warp scan, and each
+//   lane's walk again from its entry state (pair_promotion_rows).  One
+//   launch.
 // - S5: columns 0..254 walk independently (their j + 1 reads are input
 //   values: the C walks column j + 1 after column j), so 8 CTAs an image
 //   each take a block of 32 columns (the last 31), a lane a column, one
@@ -72,73 +76,167 @@ constexpr int kSZ = 65536;
 constexpr int kPlane = kN * kN;
 constexpr int kRfExt = kSZ + 1024;   // res256 and the tail the C reads
 
-constexpr int kPPThreads = 128;      // rows a CTA of S4
-
 bool misaligned(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes != 0;
 }
 
 // ---------------------------------------------------------------------------
 // S4: pair promotion
+//
+// The walk's carry from visit c to visit c + 1 is the pair (left, cur) as
+// visit c left it: left the value to write at c, cur the value at c + 1.
+// Each is the input or a constant one of the rules wrote, so the carry is
+// one of nine states:
+//   0 (in, in)     1 (10100, in)  2 (9, in)      3 (-9, in)    4 (10, in)
+//   5 (12700, 10100)  6 (12900, 10100)  7 (9, 9)  8 (-9, -9)
+// No constant fires a rule, and a visit reads left only through its class
+// (4..5, 6..7, -5..-4, -7..-6, other), every constant's "other".  So what
+// visit c does is fixed by the inputs at c - 1 .. c + 1 and three classes
+// of the state: A (0: the full rules), B (1-4: left "other"), C (5-8: cur
+// a constant, nothing fires).  A visit is then a table of the next state:
+// A's and B's from the rule that fires (none 0, 12700 triple 5, 12900
+// triple 6, 8 -> 10 4, -8 -> -9 3, 8/8 -> 9/9 7, -8/-8 -> -9/-9 8), C's
+// fixed (5, 6 -> 1, 7 -> 2, 8 -> 3); a walk of two or more visits from any
+// state of a class ends in one state, so a lane's tile of 8 visits is a
+// map of three exit states (4 bits each), composed along the warp by a
+// scan.
 
-// One visit (encoder/nhw_encoder.c:970-1074, the live branches): l, v, r
-// are a - 1, a, a + 1 as the walk left them.
-__device__ __forceinline__ void pp_visit(int& l, int& v, int& r, bool band) {
-  if (v > 4 && v < 8) {
-    if (l > 3 && l <= 7 && r > 3 && r <= 7) {
-      v = 12700;
-      l = r = 10100;
-    }
-  } else if (v < -4 && v > -8) {
-    if (l < -3 && l >= -7 && r < -3 && r >= -7) {
-      v = 12900;
-      l = r = 10100;
-    }
-  } else if (v == 8) {
-    if ((l & 65534) == 6 || (r & 65534) == 6) {
-      v = 10;
-    } else if (band && r == 8) {
-      v = r = 9;
-    }
-  } else if (v == -8) {
-    if (((-l) & 65534) == 6 || ((-r) & 65534) == 6) {
-      v = -9;
-    } else if (band && r == -8) {
-      v = r = -9;
-    }
-  }
+constexpr int kPPWarps = 4;          // rows a CTA of S4, a warp each
+constexpr int kPPTile = 8;           // visits (columns) a lane
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+__device__ __forceinline__ int pp_class(int s) {
+  return s == 0 ? 0 : (s <= 4 ? 1 : 2);
 }
 
-__global__ void __launch_bounds__(kPPThreads)
-    pair_promotion(const int16_t* __restrict__ in, int16_t* __restrict__ out,
-                   int batch) {
-  const int g = blockIdx.x * kPPThreads + threadIdx.x;
+// The state a visit leaves from class A (l the input) or B (l = 0, of the
+// class "other"): v the input at c, r the input at c + 1.
+__device__ __forceinline__ int pp_fire(int l, int v, int r, bool band) {
+  const bool tri1 = static_cast<unsigned>(v - 5) <= 2u &&
+                    static_cast<unsigned>(l - 4) <= 3u &&
+                    static_cast<unsigned>(r - 4) <= 3u;
+  const bool tri2 = static_cast<unsigned>(v + 7) <= 2u &&
+                    static_cast<unsigned>(l + 7) <= 3u &&
+                    static_cast<unsigned>(r + 7) <= 3u;
+  const bool c6 = ((l & 65534) == 6) | ((r & 65534) == 6);
+  const bool c7 = (((-l) & 65534) == 6) | (((-r) & 65534) == 6);
+  return tri1 ? 5
+         : tri2 ? 6
+         : v == 8 ? (c6 ? 4 : (band && r == 8) ? 7 : 0)
+         : v == -8 ? (c7 ? 3 : (band && r == -8) ? 8 : 0)
+                   : 0;
+}
+
+// The next state from state s at a visit whose A and B states are in
+// bits 0-3 and 4-7 of t.
+__device__ __forceinline__ int pp_next(int s, int t) {
+  return s == 0 ? t & 15 : s <= 4 ? t >> 4 : (0x3211 >> (4 * (s - 5))) & 15;
+}
+
+// The values of state s: left where the input there is xl, cur where it
+// is xv.
+__device__ __forceinline__ int pp_left(int s, int xl) {
+  return s == 0 ? xl
+         : s == 1 ? 10100
+         : (s == 2 || s == 7) ? 9
+         : (s == 3 || s == 8) ? -9
+         : s == 4 ? 10
+         : s == 5 ? 12700 : 12900;
+}
+
+__device__ __forceinline__ int pp_cur(int s, int xv) {
+  return s <= 4 ? xv : s <= 6 ? 10100 : s == 7 ? 9 : -9;
+}
+
+// Composes two tile maps (3 exit states, 4 bits each, by entry class):
+// first f, then g.
+__device__ __forceinline__ int pp_compose(int f, int g) {
+  int r = 0;
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    r |= ((g >> (4 * pp_class((f >> (4 * k)) & 15))) & 15) << (4 * k);
+  return r;
+}
+
+// A warp a row.  A region row's 256 columns (columns 256..511 of band rows
+// 1..254, columns 0..255 of rows 257..510) are 8 a lane, loaded in one
+// 16-byte load: lane l walks visits c = base + 1 + 8 l .. base + 8 l + 8
+// (lane 31 the region's last 6) and writes columns c - 1, its own 8; the
+// next lane's first two inputs come by shuffle.  Each lane builds its
+// visits' tables and its tile's map from the three classes, the warp scans
+// the maps, and each lane walks again from its entry state, writing each
+// column's value.  A row whose visits hold no value of 5..8 or -8..-5
+// fires nothing and is copied; so are the other half row and rows 0, 255,
+// 256 and 511.
+__global__ void __launch_bounds__(kPPWarps * 32)
+    pair_promotion_rows(const int16_t* __restrict__ in,
+                        int16_t* __restrict__ out, int batch) {
+  const int lane = threadIdx.x & 31;
+  const int g = blockIdx.x * kPPWarps + (threadIdx.x >> 5);
   if (g >= batch * kN) return;
   const int row = g % kN;
-  const int16_t* p = in + static_cast<size_t>(g) * kN;
-  int16_t* o = out + static_cast<size_t>(g) * kN;
-  int c0 = 0, c1 = 0;
-  bool band = false;
-  if (row >= 1 && row < kD - 1) {
-    c0 = kD + 1, c1 = kN - 1, band = true;
-  } else if (row >= kD + 1 && row < kN - 1) {
-    c0 = 1, c1 = kD - 1;
-  } else {
-    for (int c = 0; c < kN; ++c) o[c] = p[c];
+  const uint4* src =
+      reinterpret_cast<const uint4*>(in) + static_cast<size_t>(g) * (kN / 8);
+  uint4* dst = reinterpret_cast<uint4*>(out) + static_cast<size_t>(g) * (kN / 8);
+  const uint4 lo = src[lane], hi = src[32 + lane];
+  const bool band = row >= 1 && row < kD - 1;
+  const bool region = band || (row >= kD + 1 && row < kN - 1);
+  dst[band ? lane : 32 + lane] = band ? lo : hi;
+  const uint4 q = band ? hi : lo;
+  int x[kPPTile + 2];
+  const uint32_t words[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    x[2 * k] = static_cast<int16_t>(words[k] & 0xFFFFu);
+    x[2 * k + 1] = static_cast<int16_t>(words[k] >> 16);
+  }
+  x[8] = __shfl_down_sync(kFull, x[0], 1);
+  x[9] = __shfl_down_sync(kFull, x[1], 1);
+  const int nv = lane == 31 ? kPPTile - 2 : kPPTile;
+  bool hot = false;
+#pragma unroll
+  for (int j = 1; j <= kPPTile; ++j)
+    hot |= static_cast<unsigned>((x[j] < 0 ? -x[j] : x[j]) - 5) <= 3u;
+  if (!__any_sync(kFull, hot && region)) {
+    dst[band ? 32 + lane : lane] = q;
     return;
   }
-  for (int c = 0; c < c0 - 1; ++c) o[c] = p[c];
-  for (int c = c1 + 1; c < kN; ++c) o[c] = p[c];
-  int left = p[c0 - 1], cur = p[c0];
-  for (int c = c0; c < c1; ++c) {
-    int right = p[c + 1];
-    pp_visit(left, cur, right, band);
-    o[c - 1] = static_cast<int16_t>(left);
-    left = cur;
-    cur = right;
+  int tab[kPPTile];
+#pragma unroll
+  for (int j = 0; j < kPPTile; ++j)
+    tab[j] = pp_fire(x[j], x[j + 1], x[j + 2], band) |
+             pp_fire(0, x[j + 1], x[j + 2], band) << 4;
+  int map = 0;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    int s = k == 0 ? 0 : k == 1 ? 1 : 5;
+#pragma unroll
+    for (int j = 0; j < kPPTile; ++j)
+      if (j < nv) s = pp_next(s, tab[j]);
+    map |= s << (4 * k);
   }
-  o[c1 - 1] = static_cast<int16_t>(left);
-  o[c1] = static_cast<int16_t>(cur);
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int before = __shfl_up_sync(kFull, map, d);
+    if (lane >= d) map = pp_compose(before, map);
+  }
+  const int before = __shfl_up_sync(kFull, map, 1);
+  int s = lane ? before & 15 : 0;
+  uint32_t packed[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int j = 0; j < kPPTile; ++j) {
+    int w;
+    if (j < nv) {
+      const int t = tab[j] & 15;
+      w = s == 0 && (t == 5 || t == 6) ? 10100 : pp_left(s, x[j]);
+      s = pp_next(s, tab[j]);
+    } else {
+      w = j == nv ? pp_left(s, x[j]) : pp_cur(s, x[j]);
+    }
+    packed[j >> 1] |= (static_cast<uint32_t>(w) & 0xFFFFu) << (16 * (j & 1));
+  }
+  dst[band ? 32 + lane : lane] =
+      make_uint4(packed[0], packed[1], packed[2], packed[3]);
 }
 
 // ---------------------------------------------------------------------------
@@ -666,7 +764,6 @@ cudaError_t column_ladder_setup() {
 // S6: classify (encoder/nhw_encoder.c:1329-1420, the host copy's
 // nhw_classify).  Marks outside the ladder's set map to 149.
 
-constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kCRows = 32;               // band rows a CTA of S6
 constexpr int kCCtas = kD / kCRows;      // CTAs an image
 constexpr int kCThreads = 512;
@@ -874,14 +971,14 @@ __global__ void __launch_bounds__(kCThreads)
 
 extern "C" {
 
-// S4.  in, out: (B, 512, 512) int16.
+// S4.  in, out: (B, 512, 512) int16, 16-byte aligned.
 int nhw_pair_promotion(const void* in, void* out, int batch, void* stream) {
   if (batch < 1 || batch > (1 << 21)) return cudaErrorInvalidValue;
-  if (misaligned(in, 2) || misaligned(out, 2))
+  if (misaligned(in, 16) || misaligned(out, 16))
     return cudaErrorMisalignedAddress;
   const int rows = batch * kN;
-  pair_promotion<<<(rows + kPPThreads - 1) / kPPThreads, kPPThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
+  pair_promotion_rows<<<(rows + kPPWarps - 1) / kPPWarps, kPPWarps * 32, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int16_t*>(in), static_cast<int16_t*>(out), batch);
   return cudaGetLastError();
 }

@@ -67,9 +67,9 @@ SIGNATURES = {
     "nhw_synth_norm_rows_clip": [_P, _P, _I, _I, _P],
     # (x, recs, valid, k, batch, stream)
     "nhw_smooth_marks_seq": [_P, _P, _P, _I, _I, _P],
-    # (words, nbits, zone, seg_tab, comp, entry, syms, counts, batch,
+    # (words, nbits, zone, seg_tab, lut, state, agg, syms, counts, batch,
     #  n_words, s_max, stream)
-    "nhw_chain_starts": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "nhw_chain_starts": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # (ebase, fields, e_in, flags, sweeps, length, batch, k, p1, stream)
     "nhw_y_runs_fixpoint": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (in, out, batch, n, args: int32[10 n], stream)

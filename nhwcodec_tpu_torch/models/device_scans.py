@@ -51,7 +51,10 @@ a torch twin (``*_ref``) of the same decomposition.  In
 In ``csrc/residue.cu``:
 
 - ``pair_promotion_device`` (kernel ``pair_promotion``): the C's chain
-  never leaves a row; one thread a row walks each region left to right.
+  never leaves a row, and its carry between visits is one of nine
+  states read through three classes; one warp a row, each lane the map
+  of its 8-column tile's exit states, a warp scan of the maps, each lane
+  walking its tile again from its entry state.
 - ``column_ladder_device`` (kernel ``column_ladder``): the columns are
   independent walks over the rows but for column 255, whose flat j + 1
   reads see the other columns' results; 8 CTAs an image, a warp a block
@@ -1264,56 +1267,146 @@ def lowest_q_band_cleanup_device(plane, r3_ext, quality: int, xs):
 # only reads of another row never happen.
 PP_REGIONS = ((1, D - 1, D + 1, 2 * D - 1, True),
               (D + 1, 2 * D - 1, 1, D - 1, False))
+# The kernel's decomposition of a region row (csrc/residue.cu
+# pair_promotion_rows): its 256 columns c0 - 1 .. c0 + 254, 8 a lane; lane
+# l walks visits c0 + 8 l .. c0 + 8 l + 7 (lane 31 the last 6) and writes
+# columns c - 1, its own.
+PP_TILE = 8
+PP_LANES = 32
+# The walk's carry between visits, (left, cur) as the last visit left
+# them, is one of nine states: 0 (in, in), 1 (10100, in), 2 (9, in),
+# 3 (-9, in), 4 (10, in), 5 (12700, 10100), 6 (12900, 10100), 7 (9, 9),
+# 8 (-9, -9) ("in": the input value).  A visit reads them through three
+# classes: A (0), B (1-4: left a constant, of the class "other"), C (5-8:
+# cur a constant, which fires nothing).  So a visit is a table of the next
+# state, fixed by its inputs: A's and B's the state the rule that fires
+# leaves (none 0, the 12700 triple 5, the 12900 triple 6, 8 -> 10 4,
+# -8 -> -9 3, 8/8 -> 9/9 7, -8/-8 -> -9/-9 8), C's PP_C_NEXT; each class's
+# walks of two or more visits end in one state.
+PP_LEFT = (0, 10100, 9, -9, 10, 12700, 12900, 9, -9)
+PP_CUR = (0, 0, 0, 0, 0, 10100, 10100, 9, -9)
+PP_C_NEXT = (0, 0, 0, 0, 0, 1, 1, 2, 3)
+PP_CLASS = (0, 1, 1, 1, 1, 2, 2, 2, 2)
+PP_CLASS_STATE = (0, 1, 5)       # the state each class's walk starts from
 
 
-def _pp_visit(left, cur, right, band: bool):
-    """One visit of pair promotion's walk: (left, cur, right) as the walk
-    left them -> the three after the visit's writes.  The 12700/12900
-    triples write 10100 on both sides; +-8 becomes 10 / -9 beside a +-6/7
-    neighbour; in the band block a 8/8 or -8/-8 pair becomes 9/9 or
-    -9/-9."""
+def _pp_fire(left, cur, right, band: bool):
+    """The state a visit leaves when cur is the input: left the input
+    (class A) or 0 (class B, "other"); 0 where no rule fires."""
     tri1 = ((cur > 4) & (cur < 8) & (left > 3) & (left <= 7) & (right > 3)
             & (right <= 7))
     tri2 = ((cur > -8) & (cur < -4) & (left > -8) & (left <= -4)
             & (right > -8) & (right <= -4))
-    e8, m8 = cur == 8, cur == -8
     c6 = ((left & 65534) == 6) | ((right & 65534) == 6)
     c7 = (((-left) & 65534) == 6) | (((-right) & 65534) == 6)
-    p9 = e8 & ~c6 & (right == 8) if band else torch.zeros_like(e8)
-    pm9 = m8 & ~c7 & (right == -8) if band else torch.zeros_like(m8)
-    tri = tri1 | tri2
-    cur2 = torch.where(tri1, 12700, torch.where(tri2, 12900, cur))
-    cur2 = torch.where(e8 & c6, 10, torch.where(m8 & c7, -9, cur2))
-    cur2 = torch.where(p9, 9, torch.where(pm9, -9, cur2))
-    right2 = torch.where(tri, 10100, torch.where(
-        p9, 9, torch.where(pm9, -9, right)))
-    return torch.where(tri, 10100, left), cur2, right2
+    p9 = ~c6 & (right == 8) if band else torch.zeros_like(c6)
+    pm9 = ~c7 & (right == -8) if band else torch.zeros_like(c7)
+    e8 = torch.where(c6, 4, torch.where(p9, 7, 0))
+    m8 = torch.where(c7, 3, torch.where(pm9, 8, 0))
+    return torch.where(tri1, 5, torch.where(tri2, 6, torch.where(
+        cur == 8, e8, torch.where(cur == -8, m8, 0))))
+
+
+def _pp_tables(x, band: bool):
+    """Each visit's next-state table of a lane's tile, (A's, B's) each
+    (B, R, 32, 8), from x (B, R, 32, 10), the inputs at columns c - 1 ..
+    c + 8 of the lane's first visit c."""
+    v, r = x[..., 1:9], x[..., 2:10]
+    return _pp_fire(x[..., :8], v, r, band), _pp_fire(
+        torch.zeros_like(v), v, r, band)
+
+
+def _pp_next(state, na, nb):
+    c_next = torch.tensor(PP_C_NEXT, device=state.device)[state]
+    return torch.where(state == 0, na, torch.where(state <= 4, nb, c_next))
+
+
+def _pp_walk(x, tabs, state, nv, out: bool = False):
+    """Each lane's tile walked from ``state`` (B, R, 32) by the visits'
+    tables; nv (32,) the lane's visits.  Returns the exit state, and with
+    ``out`` the tile's 8 columns: each visit's c - 1 (10100 where a triple
+    fires from state 0, else the state's left value), then the carry's
+    two values after the last."""
+    na, nb = tabs
+    dev = x.device
+    left_c = torch.tensor(PP_LEFT, dtype=x.dtype, device=dev)
+    cur_c = torch.tensor(PP_CUR, dtype=x.dtype, device=dev)
+    cols = []
+    for j in range(PP_TILE):
+        on = j < nv
+        if out:
+            left = torch.where(state == 0, x[..., j], left_c[state])
+            tri = (state == 0) & ((na[..., j] == 5) | (na[..., j] == 6))
+            cur = torch.where(state <= 4, x[..., j], cur_c[state])
+            cols.append(torch.where(on, torch.where(tri, 10100, left),
+                                    torch.where(j == nv, left, cur)))
+        state = torch.where(on, _pp_next(state, na[..., j], nb[..., j]),
+                            state)
+    return state, (torch.stack(cols, -1) if out else None)
+
+
+def _pp_region_tiles(I, c0: int, band: bool):
+    """A region's rows (I already cut to them) as lane tiles: (x (B, R,
+    32, 10), each lane's inputs at columns c - 1 .. c + 8 of its first
+    visit c; the visits' tables; the lanes' entry states (B, R, 32); nv
+    (32,) their visits).  Each tile's map of exit states from the three
+    entry classes (its walks from states 0, 1 and 5); an inclusive scan of
+    the maps across the lanes by doubling steps, as the warp's shuffles
+    compose them; a lane's entry the exclusive prefix applied to state
+    0."""
+    dev = I.device
+    lane = torch.arange(PP_LANES, device=dev)
+    nv = torch.where(lane == PP_LANES - 1, PP_TILE - 2, PP_TILE)
+    cls = torch.tensor(PP_CLASS, device=dev)
+    rows = I[..., c0 - 1:c0 - 1 + PP_LANES * PP_TILE]
+    t = rows.reshape(*rows.shape[:2], PP_LANES, PP_TILE)
+    nxt = torch.nn.functional.pad(t[..., 1:, :2], (0, 0, 0, 1))
+    x = torch.cat([t, nxt], -1)
+    tabs = _pp_tables(x, band)
+    maps = torch.stack([_pp_walk(x, tabs, torch.full(
+        x.shape[:3], s, dtype=torch.int64, device=dev), nv)[0]
+        for s in PP_CLASS_STATE], -1)                     # (B, R, 32, 3)
+    d = 1
+    while d < PP_LANES:
+        before = torch.cat([maps[:, :, :d], maps[:, :, :-d]], 2)
+        comp = torch.gather(maps, -1, cls[before])
+        maps = torch.where((lane >= d)[:, None], comp, maps)
+        d <<= 1
+    return (x, tabs, torch.nn.functional.pad(maps[:, :, :-1, 0], (1, 0)),
+            nv)
+
+
+def pair_promotion_entries(plane):
+    """(B, 2, 254, 32) int64: each lane tile's entry state in the band
+    rows (1..254) and the lower rows (257..510), as the kernel's scan
+    finds them (0 where no chain crosses the tile's first column)."""
+    I = _i32(plane)
+    return torch.stack([_pp_region_tiles(I[:, r0:r1], c0, band)[2]
+                        for r0, r1, c0, _, band in PP_REGIONS], 1)
 
 
 def pair_promotion_ref(plane):
-    """Torch twin of ``pair_promotion``: one left-to-right walk a row of
-    each region, the rows as a batch, the left neighbour's and the
-    visited value in registers, the right neighbour read from the input
-    (a visit writes a - 1, a and a + 1, so a value is final once the walk
-    is one column past it)."""
+    """Torch twin of ``pair_promotion`` in the kernel's decomposition: a
+    region row's 256 columns as 32 lane tiles of 8, each visit a table of
+    the next state, the tiles' state maps scanned across the lanes
+    (``_pp_region_tiles``), each tile walked again from its entry state.
+    (The kernel copies a row whose visits hold no value of 5..8 or
+    -8..-5: no rule fires there, and the walk leaves it as it is.)"""
     I = _i32(plane)
     out = I.clone()
-    for r0, r1, c0, c1, band in PP_REGIONS:
-        rows, o = I[:, r0:r1], out[:, r0:r1]
-        left, cur = rows[..., c0 - 1], rows[..., c0]
-        for c in range(c0, c1):
-            left, cur, right = _pp_visit(left, cur, rows[..., c + 1], band)
-            o[..., c - 1] = left
-            left, cur = cur, right
-        o[..., c1 - 1] = left
-        o[..., c1] = cur
+    for r0, r1, c0, _, band in PP_REGIONS:
+        x, tabs, entry, nv = _pp_region_tiles(I[:, r0:r1], c0, band)
+        _, cols = _pp_walk(x, tabs, entry, nv, out=True)
+        out[:, r0:r1, c0 - 1:c0 - 1 + PP_LANES * PP_TILE] = cols.reshape(
+            *cols.shape[:2], -1)
     return out.to(torch.int16)
 
 
 def pair_promotion_device(plane):
     """``_pair_promotion`` on a (B, 512, 512) int16 plane (q > LOW4),
     bit-exact vs the host copy's C scan.  Returns a new plane (kernel
-    ``pair_promotion``: one launch, one thread a row)."""
+    ``pair_promotion``: one launch, a warp a row, the row a scan of the
+    lane tiles' state maps)."""
     _check_plane(plane, "pair_promotion plane", N)
     if plane.device.type == "cpu":
         return pair_promotion_ref(plane)

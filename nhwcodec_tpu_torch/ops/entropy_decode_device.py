@@ -9,12 +9,16 @@ results equal to the host copy's ``entropy.decode_y`` / ``decode_uv``
    in ``csrc/entropy.cu``).  The static code's 2^20 peek space is 26 (zone
    mode: 28) segments on which the length is constant and the symbol
    affine in the peek (``_segments``), so the (length, symbol) at a bit
-   is a binary search over at most 32 thresholds.  The state of the chain
-   at a 32-bit word boundary is the overhang of the current codeword into
-   the word, one of 20 values; each word's transfer function over those
-   20 states composes associatively along the stream, which gives every
-   word's entry overhang; a walk of each word from it emits the codeword
-   starts, and their ranks place the symbols.
+   is one lookup on the peek's top 10 bits (``_length_table``), or a
+   binary search over at most 32 thresholds in the buckets that span
+   several segments.  The state of the chain at a 32-bit word boundary is
+   the overhang of the current codeword into the word, one of 20 values;
+   each word's transfer function over those 20 states composes
+   associatively along the stream.  The kernel is one pass over tiles of
+   256 words with decoupled look-back: each tile builds its words'
+   functions once, publishes its composite, composes its predecessors'
+   composites up to the nearest published prefix, and walks each word
+   from its entry overhang, emitting the codeword starts at their ranks.
 2. **Y automaton**, only at the run symbols: a literal's effect on the
    automaton is static (it resets the run counters and shifts known
    non-zero values into the 5-output window), so torch ops compute the
@@ -58,6 +62,8 @@ MAXST = 20          # overhang states at a word boundary
 WSTEPS = 16         # most codeword starts in a 32-bit word (shortest code 2)
 NSEG = 32           # segment table size the binary search walks
 CHAIN_TILE = 256    # words per CTA of E1 (csrc/entropy.cu kTile)
+CHAIN_WARP = 32     # words a warp of E1's tile
+LUT_BITS = 10       # the peek's bits E1's length table is indexed by
 MAX_CHUNKS = 1024   # E2 runs one thread a chunk, a cluster a stream
 K_CHUNKS = 512      # decode_y_planes' default chunks a stream: the fastest
                     # k of 64-1024 for E2 on a q20 chunk of 16 (H100)
@@ -207,6 +213,29 @@ def _seg_device(dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(_seg_search_table()).to(dev)
 
 
+@functools.lru_cache(maxsize=1)
+def _length_table() -> np.ndarray:
+    """(2, 2^LUT_BITS) int32: per zone, the code at each bucket of the
+    peek's top LUT_BITS bits as len | base << 5 (the symbol is base +
+    (peek >> (20 - len))), or 0 where the bucket spans several segments
+    and the binary search decides (two buckets of 1024 a zone)."""
+    tab = _seg_search_table().astype(np.int64)
+    lo = np.arange(1 << LUT_BITS, dtype=np.int64) << (PEEK - LUT_BITS)
+    hi = lo + (1 << (PEEK - LUT_BITS)) - 1
+    out = np.zeros((2, 1 << LUT_BITS), np.int32)
+    for z in range(2):
+        thr, ln, base = tab[z]
+        s_lo = np.searchsorted(thr, lo, side="right") - 1
+        s_hi = np.searchsorted(thr, hi, side="right") - 1
+        out[z] = np.where(s_lo == s_hi, ln[s_lo] | (base[s_lo] << 5), 0)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _lut_device(dev: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_length_table()).to(dev)
+
+
 def _lens_syms(peek: torch.Tensor, zone: torch.Tensor):
     """(len, sym) int32 at each peek (int64 in [0, 2^20)) by the segment
     search; ``zone`` broadcasts against ``peek`` (non-zero: zone mode)."""
@@ -219,6 +248,18 @@ def _lens_syms(peek: torch.Tensor, zone: torch.Tensor):
                              .contiguous(), right=True) - 1
     ln = tab[:, 1].reshape(-1)[seg]
     sym = tab[:, 2].reshape(-1)[seg] + (peek >> (PEEK - ln)).to(torch.int32)
+    return ln, sym
+
+
+def _codes(peek: torch.Tensor, zone: torch.Tensor):
+    """(len, sym) int64 at each peek as E1 finds them: the length table's
+    entry on the peek's top bits, the segment search where it is 0."""
+    e = _lut_device(peek.device).to(torch.int64)[
+        (zone != 0).to(torch.int64), peek >> (PEEK - LUT_BITS)]
+    ln_s, sym_s = _lens_syms(peek, zone)
+    ln = torch.where(e == 0, ln_s.to(torch.int64), e & 31)
+    sym = torch.where(e == 0, sym_s.to(torch.int64),
+                      (e >> 5) + (peek >> (PEEK - ln)))
     return ln, sym
 
 
@@ -253,62 +294,121 @@ def _word_peeks(words: torch.Tensor) -> torch.Tensor:
     return win >> (32 - PEEK)
 
 
-def chain_starts_ref(words: torch.Tensor, nbits: torch.Tensor,
-                     zone: torch.Tensor, s_max: int):
-    """Torch twin of E1, phase by phase: per-offset (len, sym) by the
-    segment search; each word's transfer function over the 20 overhang
-    states; their composition along the stream (32 words a group in
-    turn, the groups by doubling steps, then each group's words from the
-    group's entry); each word walked from its entry overhang, the starts
-    ranked by an exclusive cumsum and scattered.  Returns (syms
-    (B, s_max) int32, counts (B,) int32)."""
+def _chain_tiles(words: torch.Tensor, zone: torch.Tensor):
+    """E1's per-tile work: each offset's code, each word's walk from
+    every offset, the warps' trajectories, the tiles' warp entries and
+    composites.  Returns (ln, sym (B, W, 32), traj (B, tiles, 8, 32, 20),
+    warp_in (B, tiles, 8, 20), agg (B, tiles, 20)), int64."""
     b, w = words.shape
     dev = words.device
-    ln, sym = _lens_syms(_word_peeks(words), zone[:, None, None])
-    # the in-word step over 52 positions: offset p < 32 goes to
-    # p + len[p]; 32 + d (left the word with overhang d) stays
+    i64 = torch.int64
+    ln, sym = _codes(_word_peeks(words), zone[:, None, None])
+    f = torch.zeros((b, w, 32), dtype=i64, device=dev)
+    for p in range(31, -1, -1):
+        q = p + ln[..., p]
+        inner = torch.gather(f, -1, q.clamp(max=31)[..., None])[..., 0]
+        f[..., p] = torch.where(q >= 32, (q - 32) | 256, inner + 256)
+    tiles = -(-w // CHAIN_TILE)
+    warps = CHAIN_TILE // CHAIN_WARP
+    states = torch.arange(MAXST, dtype=i64, device=dev)
+    fn = torch.cat([f[..., :MAXST],
+                    states.expand(b, tiles * CHAIN_TILE - w, MAXST)], 1)
+    fn = fn.reshape(b, tiles, warps, CHAIN_WARP, MAXST)
+    s = states.expand(b, tiles, warps, MAXST)
+    starts = torch.zeros_like(s)
+    traj = []
+    for i in range(CHAIN_WARP):
+        v = torch.gather(fn[:, :, :, i], -1, s)
+        starts = starts + (v >> 8)
+        s = v & 0xFF
+        traj.append(s | starts << 5)
+    traj = torch.stack(traj, 3)                  # (B, tiles, 8, 32, 20)
+    warp_fn = s | starts << 8
+    s = states.expand(b, tiles, MAXST)
+    starts = torch.zeros_like(s)
+    warp_in = []
+    for v in range(warps):
+        warp_in.append(s | starts << 8)
+        x = torch.gather(warp_fn[:, :, v], -1, s)
+        starts = starts + (x >> 8)
+        s = x & 0xFF
+    warp_in = torch.stack(warp_in, 2)            # (B, tiles, 8, 20)
+    agg = s | starts << 16                       # (B, tiles, 20)
+    return ln, sym, traj, warp_in, agg
+
+
+def chain_tile_composites(words: torch.Tensor, zone: torch.Tensor):
+    """(B, tiles, 20) int64: each tile's composite as E1 publishes it,
+    exit state | starts << 16 from each entry state."""
+    return _chain_tiles(words, zone)[4]
+
+
+def chain_starts_ref(words: torch.Tensor, nbits: torch.Tensor,
+                     zone: torch.Tensor, s_max: int):
+    """Torch twin of E1 in the kernel's decomposition: each offset's code
+    (``_codes``); each word's walk from every offset, right to left (exit
+    overhang | starts << 8; offsets 0-19 are its transfer function); tiles
+    of CHAIN_TILE words, 8 warps of 32: each warp's words walked from every
+    entry state (the trajectory: state after each word | starts since the
+    warp's entry << 5), each tile's warps from every tile entry state, the
+    tile's composite (exit | starts << 16); each tile's entry (state, rank)
+    the inclusive prefix of the tile before it, which the kernel's
+    look-back reaches by composing the published composites back to the
+    nearest inclusive one; every word's entry state and rank two lookups
+    in the trajectories (its rank the tile's, its warp's offset in the
+    tile and its own in the warp: the kernel writes a warp's symbols at
+    the last into a run it copies to the tile's ranks); each word walked
+    from it, its starts' symbols scattered at their ranks below s_max
+    (zeros after the last start); the count from the word holding bit
+    nbits.  Returns (syms (B, s_max) int32,
+    counts (B,) int32)."""
+    b, w = words.shape
+    dev = words.device
+    i64 = torch.int64
+    tiles = -(-w // CHAIN_TILE)
+    warps = CHAIN_TILE // CHAIN_WARP
+    ln, sym, traj, warp_in, agg = _chain_tiles(words, zone)
+    e_state = torch.zeros(b, dtype=i64, device=dev)
+    e_rank = torch.zeros(b, dtype=i64, device=dev)
+    ent_s, ent_r = [], []
+    for t in range(tiles):
+        ent_s.append(e_state)
+        ent_r.append(e_rank)
+        out = torch.gather(agg[:, t], -1, e_state[:, None])[:, 0]
+        e_rank = e_rank + (out >> 16)
+        e_state = out & 0xFFFF
+    ent_s, ent_r = torch.stack(ent_s, 1), torch.stack(ent_r, 1)
+    wi = torch.gather(warp_in, -1, ent_s[:, :, None, None].expand(
+        b, tiles, warps, 1))[..., 0]             # (B, tiles, 8)
+    ws = wi & 0xFF
+    tv = torch.gather(traj, -1, ws[..., None, None].expand(
+        b, tiles, warps, CHAIN_WARP, 1))[..., 0]   # (B, tiles, 8, 32)
+    word_state = torch.cat([ws[..., None], tv[..., :-1] & 31], -1)
+    word_rank = (ent_r[..., None, None] + (wi >> 8)[..., None]
+                 + torch.nn.functional.pad(tv[..., :-1] >> 5, (1, 0)))
+    word_state = word_state.reshape(b, -1)[:, :w]
+    word_rank = word_rank.reshape(b, -1)[:, :w]
+    # each word walked from its entry: up to WSTEPS starts
     offs = torch.arange(32 + MAXST, device=dev)
     step = torch.cat([offs[:32] + ln, offs[32:].expand(b, w, MAXST)], -1)
-    walk = step
-    for _ in range(WSTEPS.bit_length() - 1):     # WSTEPS steps
-        walk = torch.gather(walk, -1, walk)
-    fn = walk[..., :MAXST] - 32                  # state d -> exit overhang
-    # groups of 32 words (identity past the end): each group's composite
-    g = 32
-    ng = -(-w // g)
-    ident = offs[:MAXST].expand(b, ng * g - w, MAXST)
-    fg = torch.cat([fn, ident], 1).reshape(b, ng, g, MAXST)
-    comp = fg[:, :, 0]
-    for i in range(1, g):
-        comp = torch.gather(fg[:, :, i], -1, comp)
-    # inclusive prefix of the groups: pref[j] = comp_j o ... o comp_0
-    pref, shift = comp, 1
-    while shift < ng:
-        earlier = torch.cat([offs[:MAXST].expand(b, shift, MAXST),
-                             pref[:, :-shift]], 1)
-        pref = torch.gather(pref, 2, earlier)
-        shift <<= 1
-    state = torch.nn.functional.pad(pref[:, :-1, 0], (1, 0))   # (B, ng)
-    entry = []
-    for i in range(g):
-        entry.append(state)
-        state = torch.gather(fg[:, :, i], -1, state[..., None])[..., 0]
-    entry = torch.stack(entry, -1).reshape(b, ng * g)[:, :w]
-    pos, positions = entry[..., None], []
+    pos, positions = word_state[..., None], []
     for _ in range(WSTEPS):
         positions.append(pos)
         pos = torch.gather(step, -1, pos)
-    pos_s = torch.cat(positions, -1)               # (B, W, 16)
+    pos_s = torch.cat(positions, -1)             # (B, W, 16)
     valid = pos_s < 32
-    gpos = torch.arange(w, device=dev)[None, :, None] * 32 + pos_s
-    counts = (valid & (gpos < nbits[:, None, None])).sum((1, 2))
     sym_s = torch.gather(sym, -1, pos_s.clamp(max=31))
-    cnt_w = valid.sum(-1)
-    prefix = torch.cumsum(cnt_w, 1) - cnt_w
-    rank = prefix[..., None] + torch.arange(WSTEPS, device=dev)
+    rank = word_rank[..., None] + torch.arange(WSTEPS, device=dev)
     idx = torch.where(valid & (rank < s_max), rank, s_max)
     out = torch.zeros((b, s_max + 1), dtype=torch.int32, device=dev)
-    out.scatter_(1, idx.reshape(b, -1), sym_s.reshape(b, -1))
+    out.scatter_(1, idx.reshape(b, -1), sym_s.to(torch.int32).reshape(b, -1))
+    lim = nbits.to(i64)
+    jw = torch.clamp(lim >> 5, 0, w - 1)[:, None]
+    gpos = jw[..., None] * 32 + torch.gather(pos_s, 1, jw[..., None].expand(
+        b, 1, WSTEPS))
+    below = (torch.gather(valid, 1, jw[..., None].expand(b, 1, WSTEPS))
+             & (gpos < lim[:, None, None])).sum((1, 2))
+    counts = torch.gather(word_rank, 1, jw)[:, 0] + below
     return out[:, :s_max].contiguous(), counts.to(torch.int32)
 
 
@@ -322,7 +422,8 @@ def chain_starts_batch(words: torch.Tensor, nbits: torch.Tensor,
     zone mode.
     Returns (syms (B, s_max) int32: the s-th codeword's symbol at s,
     zeros past the chain's last start in W words; counts (B,) int32: the
-    starts below nbits)."""
+    starts below nbits).  On the card: a fill of the look-back state and
+    one launch of ``chain_scan``."""
     _check(words, "chain_starts words", torch.int32, (None, None))
     _check(nbits, "chain_starts nbits", torch.int32, (words.shape[0],))
     _check(zone, "chain_starts zone", torch.int32, (words.shape[0],))
@@ -335,19 +436,25 @@ def chain_starts_batch(words: torch.Tensor, nbits: torch.Tensor,
     lib, stream = _cuda_args(words, nbits, zone)
     b, w = words.shape
     dev = words.device
-    syms = torch.zeros((b, s_max), dtype=torch.int32, device=dev)
-    counts = torch.zeros(b, dtype=torch.int32, device=dev)
-    if b and w:
-        tiles = -(-w // CHAIN_TILE)
-        comp = torch.empty((b, tiles, MAXST), dtype=torch.int32, device=dev)
-        entry = torch.empty((b, tiles, 2), dtype=torch.int32, device=dev)
-        with torch.cuda.device(dev):
-            build.check("nhw_chain_starts", lib.nhw_chain_starts(
-                words.data_ptr(), nbits.data_ptr(), zone.data_ptr(),
-                _seg_device(dev).data_ptr(), comp.data_ptr(),
-                entry.data_ptr(), syms.data_ptr(), counts.data_ptr(), b, w,
-                s_max, stream))
-        build.count("chain_starts")
+    if not (b and w):
+        return (torch.zeros((b, s_max), dtype=torch.int32, device=dev),
+                torch.zeros(b, dtype=torch.int32, device=dev))
+    syms = torch.empty((b, s_max), dtype=torch.int32, device=dev)
+    counts = torch.empty(b, dtype=torch.int32, device=dev)
+    tiles = -(-w // CHAIN_TILE)
+    # one fill zeroes the look-back's words: the ticket and the status
+    # words (u64), then the composites at a 16-byte boundary
+    head = -(-(1 + b * tiles) // 2) * 2
+    scratch = torch.zeros(head + b * tiles * MAXST // 2, dtype=torch.int64,
+                          device=dev)
+    state, agg = scratch[:head], scratch[head:]
+    with torch.cuda.device(dev):
+        build.check("nhw_chain_starts", lib.nhw_chain_starts(
+            words.data_ptr(), nbits.data_ptr(), zone.data_ptr(),
+            _seg_device(dev).data_ptr(), _lut_device(dev).data_ptr(),
+            state.data_ptr(), agg.data_ptr(), syms.data_ptr(),
+            counts.data_ptr(), b, w, s_max, stream))
+    build.count("chain_starts")
     return syms, counts
 
 

@@ -682,6 +682,19 @@ def q20_chunk():
 
 
 @pytest.mark.parametrize("b", [1, 3, 16])
+@pytest.mark.parametrize("nw", [1, 255, 256, 257, 300 * 256 + 17])
+def test_chain_starts_kernel_edge_streams(cuda, nw, b):
+    from chip_smoke import chain_edge_cases
+    from nhwcodec_tpu_torch.ops import entropy_decode_device as edd
+
+    args = chain_edge_cases(cuda, np.random.default_rng(nw))[
+        f"{nw} words, batch {b}, both zones"]
+    for g, w in zip(edd.chain_starts_batch(*args),
+                    edd.chain_starts_ref(*args)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("b", [1, 3, 16])
 @pytest.mark.parametrize("kind", ["Y", "UV", "random"])
 def test_chain_starts_kernel(cuda, q20_chunk, kind, b):
     from chip_smoke import chain_cases
@@ -941,6 +954,18 @@ def test_pair_promotion_kernel(cuda, b):
     got = ds.pair_promotion_device(x)
     assert build.LAUNCHES["pair_promotion"] == before + 1
     torch.testing.assert_close(got, ds.pair_promotion_ref(x), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("b", [1, 3, 16])
+@pytest.mark.parametrize("kind", ["tile edges", "runs of 8",
+                                  "region starts"])
+def test_pair_promotion_tile_edges_kernel(cuda, kind, b):
+    import chip_smoke as cs
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    x_np = cs.pp_tile_edge_planes(np.random.default_rng(85 + b), b, kind)
+    got = ds.pair_promotion_device(torch.from_numpy(x_np).to(cuda))
+    assert np.array_equal(got.cpu().numpy(), cs.host_pair_promotion(x_np))
 
 
 @pytest.mark.parametrize("b", [1, 3, 16])

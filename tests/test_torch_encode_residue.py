@@ -3,7 +3,12 @@
 
 - Each twin and torch-op module equals the JAX package's function and the
   host copy's C scan at batch 2: the mid-q band cleanup; pair promotion on
-  the adversarial plane of tests/test_device_scans.py; the column ladder
+  the adversarial plane of tests/test_device_scans.py and on planes whose
+  chains cross the kernel's 8-column lane tiles in every carry state
+  (``chip_smoke.pp_tile_edge_planes``: motifs at every tile edge, runs of
+  8 through several tiles, tris on each region's first visit), each kind
+  checked to reach what it claims through the twin's tile entry states;
+  the column ladder
   on delta planes at q17, q18, q20 and q21 and classify on its output,
   with the counts; the column ladder on planes where column 255's walk
   after the others changes the result (the twin walks it 4 steps behind
@@ -80,6 +85,46 @@ def test_pair_promotion_twin():
     # rows outside both regions are untouched
     for r in (0, 255, 256, 511):
         assert np.array_equal(got[:, r], pp[:, r])
+
+
+# the carry states the tile-edge planes must carry across a lane tile's
+# first column, in the band rows and in the lower rows (no 8/8 rules there)
+PP_EDGE_STATES = {"tile edges": (set(range(1, 9)), {1, 3, 4, 5, 6}),
+                  "runs of 8": ({2, 3, 7, 8}, set()),
+                  "region starts": (set(), set())}
+
+
+@pytest.mark.parametrize("kind", cs.PP_EDGE_KINDS)
+def test_pair_promotion_tile_edges(kind):
+    """S4's lane tiles (8 columns a lane, a scan of the tiles' state maps):
+    chains crossing the tiles' edges in every carry state, runs of 8 and
+    -8 chaining 9/9 pairs across several tiles in the band rows, tris on
+    each region's first visit (the 10100 in columns 256 and 0) and motifs
+    in the rows outside both regions.  The twin equals the JAX function
+    and the host copy's C, and the inputs reach what they claim."""
+    x = cs.pp_tile_edge_planes(np.random.default_rng(11), 2, kind)
+    got = tds.pair_promotion_device(_t(x)).numpy()
+    assert np.array_equal(got, np.asarray(jds.pair_promotion_device(x)))
+    for k in range(2):
+        ref = x[k].reshape(-1).copy()
+        henc._pair_promotion(ref, 20)
+        assert np.array_equal(got[k].reshape(-1), ref)
+    entries = tds.pair_promotion_entries(_t(x)).numpy()
+    assert not entries[..., 0].any()
+    for region, want in enumerate(PP_EDGE_STATES[kind]):
+        seen = set(np.unique(entries[:, region])) - {0}
+        assert seen == want, (region, seen)
+    if kind == "runs of 8":
+        # some band row carries a chain through three tiles in a row
+        crossing = entries[:, 0, :, 1:] != 0
+        assert (crossing[..., :-2] & crossing[..., 1:-1]
+                & crossing[..., 2:]).any()
+    if kind == "region starts":
+        assert (got[:, 1:255, 256] == 10100).all()
+        assert (got[:, 257:511, 0] == 10100).all()
+    for r in (0, 255, 256, 511):
+        assert np.array_equal(got[:, r], x[:, r])
+        assert np.isin(x[:, r], (5, 6, 7, 8, -8)).any()
 
 
 def _host_ladder(p, r256, resIII, khead, q):

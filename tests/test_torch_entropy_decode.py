@@ -1,5 +1,8 @@
 """The device entropy decode's pieces equal the JAX package's: the static
-tables, E1's twin (the codeword chain) against both JAX chain forms, the
+tables, E1's twin (the codeword chain) against both JAX chain forms (on
+random words, on streams of 255 words padded to one 256-word tile, on
+real words; the tile edges and the look-back:
+tests/test_torch_entropy_chain.py), the
 five-pass literal window against the segmented scan, the per-run tuples
 and E2's twin (the chunk-relay fixpoint) with its sweep count.
 Tolerance 0.
@@ -111,6 +114,31 @@ def test_chain_twin_matches_both_jax_forms(trial):
         np.testing.assert_array_equal(got_c.numpy(), want_c)
         for i in range(2):
             n = min(int(want_c[i]) + 1, s_max)
+            np.testing.assert_array_equal(got_s[i, :n].numpy(),
+                                          want_s[i, :n])
+
+
+@pytest.mark.parametrize("zone", [0, 1])
+def test_chain_twin_on_255_words_matches_both_jax_forms(zone):
+    """Streams of 255 words and the zero word after them (one 256-word
+    tile of the kernel, as ``_pack_words`` lays them out), bit counts off
+    the word grid, against the pointer-doubling and the segment-cascade
+    chains (the latter at the shape the test above compiled)."""
+    rng = np.random.default_rng(40 + zone)
+    words = np.zeros((2, 256), np.uint32)
+    words[:, :255] = rng.integers(0, 1 << 32, (2, 255), dtype=np.uint64)
+    nbits = np.array([255 * 32 - 3, 255 * 32], np.int32)
+    zones = np.array([zone, 1 - zone], np.int32)
+    got_s, got_c = edd.chain_starts_batch(
+        torch.from_numpy(words.view(np.int32)), torch.from_numpy(nbits),
+        torch.from_numpy(zones), 4096)
+    for fn in (jedd._codeword_chain_batch, ecs.chain_starts_batch):
+        want_s, want_c = (np.asarray(a) for a in fn(
+            jnp.asarray(words), jnp.asarray(nbits), jnp.asarray(zones),
+            4096))
+        np.testing.assert_array_equal(got_c.numpy(), want_c)
+        for i in range(2):
+            n = min(int(want_c[i]) + 1, 4096)
             np.testing.assert_array_equal(got_s[i, :n].numpy(),
                                           want_s[i, :n])
 

@@ -1,12 +1,14 @@
-"""Device times of the port's S1 (snap passes), S2 (offset_y), S5 (column
-ladder), S6 (classify), S7 (ll2_code_y) and S9 (uv_sentinel) on the q20
-batch, for one tree of the repo, and the split of a kernel of S2, S5, S7
-or S9 between its phases.
+"""Device times of the port's S1 (snap passes), S2 (offset_y), S4 (pair
+promotion), S5 (column ladder), S6 (classify), S7 (ll2_code_y), S9
+(uv_sentinel) and E1 (chain_starts, the Y and the UV words) on the q20
+batch, for one tree of the repo, and the split of a kernel of S2, S4, S5,
+S7, S9 or E1 between its phases.
 
 Run from anywhere on a machine with a CUDA card:
 
     python3 tools/torch_scan_probe.py [--tree DIR] [--ladder-src FILE]
-        [--offset-y-src FILE] [--uv-src FILE] [--ll2-src FILE] [--runs N]
+        [--offset-y-src FILE] [--uv-src FILE] [--ll2-src FILE]
+        [--pp-src FILE] [--entropy-src FILE] [--sass] [--runs N]
 
 ``--tree`` is the root of the tree whose ``nhwcodec_tpu_torch`` and
 ``chip_smoke`` are measured (default: this script's repo).  The inputs
@@ -67,6 +69,34 @@ input's sweeps where the tree has ``uv_sentinel_sweeps`` /
 ``ll2_code_y_sweeps``.  Without the options, the JSON line also holds the
 tree's S9 (U, V) and S7 (gt_low3 on) graph times on the q20 planes.
 
+``--pp-src`` takes a ``residue.cu`` of either S4 design and
+``--entropy-src`` an ``entropy.cu`` of either E1 design; each is stamped
+the same way, checked against the tree's ``pair_promotion_device`` /
+``chain_starts_batch`` and reported per CTA in µs from its start (medians
+over CTAs and runs):
+
+- S4, one thread a row (``pair_promotion``): the end of the copies of the
+  columns outside the walk, and of the walk (the CTA's slowest thread);
+- S4, a warp a row (``pair_promotion_rows``): the end of the row's
+  staging (16-byte loads, unpacked), of the lane maps, of the warp scan,
+  of the walk again, and of the store (the CTA's slowest warp);
+- E1, three launches (``chain_tiles``, ``chain_entries``,
+  ``chain_emit``): in chain_tiles the end of the per-word build and of
+  the warp composites; in chain_emit the same, then the end of the
+  words' entry walk and of the emission (``chain_entries`` is not
+  stamped);
+- E1, one launch (``chain_scan``): the end of the staging, of the
+  per-word build (slowest warp), of the composites, of the look-back (the
+  inclusive prefix out), of the emission (both phases: the warps whose
+  chains have met before the look-back ends, the rest after it) and of
+  the copy to the tile's ranks (slowest warp); the look-back's windows a
+  CTA; and the share of warps 1-7 that emit early (from the twin);
+
+on the q20 E11 planes (S4) and the q20 chunk's Y and UV words (E1; the
+16 images' own host encodes).  ``--sass`` disassembles the tree's kernel
+library with ``cuobjdump -sass`` and counts, for each S4 and E1 kernel,
+its instructions by class (shared, global, shuffle, branch, barrier).
+
 Prints the card's name and power limit, then one JSON line.
 """
 
@@ -75,6 +105,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -95,6 +126,9 @@ __device__ __forceinline__ unsigned long long nhw_now() {
 #define NHW_STAMP(k)                                                    \
   (g_ladder_stamp[(blockIdx.y * gridDim.x + blockIdx.x) * 8 + (k)] = \
        nhw_now())
+#define NHW_STAMP_MAX(k)                                                \
+  atomicMax(&g_ladder_stamp[(blockIdx.y * gridDim.x + blockIdx.x) * 8 + \
+                            (k)], nhw_now())
 """
 
 # (anchor, text inserted before it, text inserted after it)
@@ -182,6 +216,73 @@ LL2_ONE_CTA_PATCHES = (
      "", "  if (t == 0) NHW_STAMP(4);\n"),
     ("    io[r * kLL + j] = hi;\n  }\n",
      "", "  __syncthreads();\n  if (j == 0) NHW_STAMP(3);\n"),
+)
+
+# S4: one thread a row (stamp 1: the copies' end, 2: the walk's end)
+PP_ONE_THREAD_PATCHES = (
+    ("  const int g = blockIdx.x * kPPThreads + threadIdx.x;\n",
+     "", "  if (threadIdx.x == 0) NHW_STAMP(0);\n"),
+    ("    for (int c = 0; c < kN; ++c) o[c] = p[c];\n",
+     "", "    NHW_STAMP_MAX(2);\n"),
+    ("  int left = p[c0 - 1], cur = p[c0];\n", "  NHW_STAMP_MAX(1);\n", ""),
+    ("  o[c1] = static_cast<int16_t>(cur);\n", "", "  NHW_STAMP_MAX(2);\n"),
+)
+# S4: a warp a row (1 staged, 2 maps, 3 scan, 4 walked again, 5 stored;
+# rows without a value of 5..8 or -8..-5 stop at 1)
+PP_ROWS_PATCHES = (
+    ("  if (g >= batch * kN) return;\n",
+     "", "  if (threadIdx.x == 0) NHW_STAMP(0);\n"),
+    ("  x[9] = __shfl_down_sync(kFull, x[1], 1);\n",
+     "", "  if (lane == 0) NHW_STAMP_MAX(1);\n"),
+    ("    map |= s << (4 * k);\n  }\n",
+     "", "  if (lane == 0) NHW_STAMP_MAX(2);\n"),
+    ("  const int before = __shfl_up_sync(kFull, map, 1);\n"
+     "  int s = lane ? before & 15 : 0;\n",
+     "  if (lane == 0) NHW_STAMP_MAX(3);\n", ""),
+    ("  dst[band ? 32 + lane : lane] =\n      make_uint4(packed[0], packed[1], "
+     "packed[2], packed[3]);\n", "  if (lane == 0) NHW_STAMP_MAX(4);\n",
+     "  if (lane == 0) NHW_STAMP_MAX(5);\n"),
+)
+# E1, three launches: chain_tiles 0 start, 1 build, 2 composites;
+# chain_emit 3 start, 4 build, 5 composites, 6 entries, 7 end
+E1_THREE_PATCHES = (
+    ("  uint32_t warp_fn[kWarps][kStates];   // exit | starts << 8, per warp\n",
+     "", "  int stamp_base;\n"),
+    ("  } else {\n    for (int p = 0; p < kStates; ++p) sh.f[p * kPitch + t] = "
+     "p;\n  }\n  __syncthreads();\n",
+     "", "  if (t == 0) NHW_STAMP(sh.stamp_base + 1);\n"),
+    ("    sh.warp_fn[warp][lane] = s | (starts << 8);\n  }\n  __syncthreads();\n",
+     "", "  if (t == 0) NHW_STAMP(sh.stamp_base + 2);\n"),
+    ("  tile_functions(sh, words, seg_tab, zone[b] != 0, n_words, b, tile);\n"
+     "  if (t < kStates) {\n",
+     "  if (t == 0) {\n    sh.stamp_base = 0;\n    NHW_STAMP(0);\n  }\n", ""),
+    ("  tile_functions(sh, words, seg_tab, zone[b] != 0, n_words, b, tile);\n"
+     "  if (t == 0) {\n",
+     "  if (t == 0) {\n    sh.stamp_base = 3;\n    NHW_STAMP(3);\n  }\n", ""),
+    ("  const int p0 = word_state[t];\n",
+     "", "  if (lane == 0) NHW_STAMP_MAX(6);\n"),
+    ("  if (lane == 0 && below) atomicAdd(counts + b, below);\n",
+     "", "  if (lane == 0) NHW_STAMP_MAX(7);\n"),
+)
+# E1, one launch: 0 ticket, 1 staged, 2 build, 3 composites, 4 look-back,
+# 5 emitted (both phases), 6 copied, 7 look-back windows
+E1_SCAN_PATCHES = (
+    ("  if (t == 0) sh.job = static_cast<int>(atomicAdd(state, 1ull));\n",
+     "", "  if (t == 0) NHW_STAMP(0);\n"),
+    ("  const uint32_t nxt = j + 1 < n_words ? row[j + 1] : 0u;\n"
+     "  __syncthreads();\n", "", "  if (t == 0) NHW_STAMP(1);\n"),
+    ("  __syncwarp();\n  // lanes 0-19 walk the warp's words",
+     "  if (lane == 0) NHW_STAMP_MAX(2);\n", ""),
+    ("  // Warps 1-7 whose entry state is the same from every tile entry "
+     "state\n", "  if (t == 0) NHW_STAMP(3);\n", ""),
+    ("    sh.entry_state = e_state;\n", "    NHW_STAMP(4);\n", ""),
+    ("  if (t < kWarps) sh.warp_off[t] = static_cast<int>(sh.warp_in[t][e] >> "
+     "8);\n  __syncthreads();\n", "", "  if (t == 0) NHW_STAMP(5);\n"),
+    ("  // the zeros past the chain's last start",
+     "  if (lane == 0) NHW_STAMP_MAX(6);\n", ""),
+    ("      const int pj = base - 1 - lane;\n",
+     "      if (lane == 0)\n        atomicAdd(&g_ladder_stamp[(blockIdx.y * "
+     "gridDim.x + blockIdx.x) * 8 + 7], 1ull);\n", ""),
 )
 
 STAMP_API = r"""
@@ -464,6 +565,171 @@ def ladder_split(dll, new: bool, pp, rf_ext, flags, rs, runs: int,
             "ctas": ctas, "runs": runs, "event_ms": cs.median_ms(call)}
 
 
+def since(t: np.ndarray, k: int, k0: int) -> float:
+    """The median over runs and CTAs of stamp k in µs from stamp k0, over
+    the CTAs that set both."""
+    ok = (t[..., k] > 0) & (t[..., k0] > 0)
+    d = (t[..., k] - t[..., k0])[ok] / 1e3
+    return float(np.median(d)) if d.size else None
+
+
+def pp_split(dll, rows: bool, planes: dict, runs: int, cs) -> dict:
+    """The stamped S4 on each plane: its output against the tree's
+    pair_promotion_device, the stamps' medians."""
+    import torch
+
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    dll.nhw_pair_promotion.argtypes = [p, p, i, p]
+    dll.nhw_pair_promotion.restype = i
+    out = {}
+    for what, x in planes.items():
+        got = torch.empty_like(x)
+        b = x.shape[0]
+
+        def call():
+            rc = dll.nhw_pair_promotion(
+                x.data_ptr(), got.data_ptr(), b,
+                torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise SystemExit(f"torch_scan_probe: stamped launch failed "
+                                 f"{rc}")
+
+        call()
+        torch.cuda.synchronize()
+        cs.check(torch.equal(got, ds.pair_promotion_device(x)),
+                 "the stamped pair_promotion differs from the tree's")
+        ctas = b * 512 // 8 if rows else -(-b * 512 // 128)
+        t = raw_stamps(dll, call, ctas, runs)
+        res = {"ctas": ctas, "runs": runs, "event_ms": cs.median_ms(call)}
+        if rows:
+            res.update(staged_us=since_start(t, 1), maps_us=since_start(t, 2),
+                       scan_us=since_start(t, 3),
+                       walked_us=since_start(t, 4),
+                       stored_us=since_start(t, 5))
+        else:
+            res.update(copies_us=since_start(t, 1),
+                       walk_end_us=since_start(t, 2))
+        out[what] = res
+    return out
+
+
+def e1_split(dll, scan: bool, cases: dict, runs: int, cs) -> dict:
+    """The stamped E1 on each (words, nbits, zone, s_max): its output
+    against the tree's chain_starts_batch, the stamps' medians."""
+    import torch
+
+    from nhwcodec_tpu_torch.ops import entropy_decode_device as edd
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    dll.nhw_chain_starts.argtypes = [p] * (9 if scan else 8) + [i] * 3 + [p]
+    dll.nhw_chain_starts.restype = i
+    out = {}
+    for what, (words, nbits, zone, s_max) in cases.items():
+        b, w = words.shape
+        dev = words.device
+        tiles = -(-w // 256)
+        syms = torch.zeros((b, s_max), dtype=torch.int32, device=dev)
+        counts = torch.zeros(b, dtype=torch.int32, device=dev)
+        seg = edd._seg_device(dev)
+        if scan:
+            state = torch.zeros(1 + b * tiles, dtype=torch.int64, device=dev)
+            agg = torch.zeros((b, tiles, 20), dtype=torch.int32, device=dev)
+            lut = torch.from_numpy(edd._length_table()).to(dev)
+            ptrs = [seg.data_ptr(), lut.data_ptr(), state.data_ptr(),
+                    agg.data_ptr()]
+        else:
+            comp = torch.empty((b, tiles, 20), dtype=torch.int32, device=dev)
+            entry = torch.empty((b, tiles, 2), dtype=torch.int32, device=dev)
+            ptrs = [seg.data_ptr(), comp.data_ptr(), entry.data_ptr()]
+
+        def call():
+            if scan:
+                state.zero_()
+                agg.zero_()
+            else:
+                syms.zero_()
+                counts.zero_()
+            rc = dll.nhw_chain_starts(
+                words.data_ptr(), nbits.data_ptr(), zone.data_ptr(), *ptrs,
+                syms.data_ptr(), counts.data_ptr(), b, w, s_max,
+                torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise SystemExit(f"torch_scan_probe: stamped launch failed "
+                                 f"{rc}")
+
+        call()
+        torch.cuda.synchronize()
+        want = edd.chain_starts_batch(words, nbits, zone, s_max)
+        cs.check(torch.equal(syms, want[0]) and torch.equal(counts, want[1]),
+                 f"the stamped chain_starts differs from the tree's: {what}")
+        t = raw_stamps(dll, call, tiles * b, runs)
+        res = {"ctas": tiles * b, "runs": runs,
+               "event_ms": cs.median_ms(call)}
+        if scan:
+            warp_in = edd._chain_tiles(words, zone)[3] & 0xFF
+            early = (warp_in[:, :, 1:] == warp_in[:, :, 1:, :1]).all(-1)
+            res.update(staged_us=since(t, 1, 0), build_us=since(t, 2, 0),
+                       composites_us=since(t, 3, 0),
+                       lookback_us=since(t, 4, 0), emitted_us=since(t, 5, 0),
+                       copied_us=since(t, 6, 0),
+                       lookback_windows=float(np.median(t[..., 7])),
+                       lookback_windows_max=int(t[..., 7].max()),
+                       early_warps=float(early.double().mean()))
+        else:
+            res.update(tiles_build_us=since(t, 1, 0),
+                       tiles_composites_us=since(t, 2, 0),
+                       emit_build_us=since(t, 4, 3),
+                       emit_composites_us=since(t, 5, 3),
+                       emit_entries_us=since(t, 6, 3),
+                       emit_end_us=since(t, 7, 3))
+        out[what] = res
+    return out
+
+
+SASS_KERNELS = ("pair_promotion", "chain_tiles", "chain_entries",
+                "chain_emit", "chain_scan")
+SASS_CLASSES = {"shared": ("LDS", "STS", "ATOMS"),
+                "global": ("LDG", "STG", "ATOMG", "RED", "LD.", "ST."),
+                "shuffle": ("SHFL",), "vote": ("VOTE",),
+                "branch": ("BRA", "BRX", "CALL", "RET"),
+                "barrier": ("BAR", "WARPSYNC", "BSYNC", "BSSY")}
+
+
+def sass_summary(lib: Path) -> dict:
+    """Per S4/E1 kernel of the library: instruction counts by class, from
+    ``cuobjdump -sass``."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = (str(Path(CUDA_HOME) / "bin" / "cuobjdump") if CUDA_HOME
+            else "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        line = line.strip()
+        if line.startswith("Function :"):
+            fn = line.split(":", 1)[1].strip()
+            name = next((k for k in SASS_KERNELS
+                         if k in fn and "_" + k + "_" not in fn), None)
+            if name is not None:
+                out[name] = {"instructions": 0, **{c: 0 for c in
+                                                     SASS_CLASSES}}
+            continue
+        if name is None or not line.startswith("/*") or "*/" not in line:
+            continue
+        ins = line.split("*/", 1)[1].strip()
+        if not ins or ins.startswith("/*"):
+            continue
+        op = re.match(r"(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)", ins).group(1)
+        out[name]["instructions"] += 1
+        for c, ops in SASS_CLASSES.items():
+            if op.startswith(ops):
+                out[name][c] += 1
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=str(REPO))
@@ -471,6 +737,9 @@ def main() -> int:
     ap.add_argument("--offset-y-src", default=None)
     ap.add_argument("--uv-src", default=None)
     ap.add_argument("--ll2-src", default=None)
+    ap.add_argument("--pp-src", default=None)
+    ap.add_argument("--entropy-src", default=None)
+    ap.add_argument("--sass", action="store_true")
     ap.add_argument("--runs", type=int, default=25)
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
@@ -489,10 +758,11 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     dev = torch.device("cuda", 0)
+    from nhwcodec_tpu_torch.host.utils.container import parse_nhw
+
     images = cs.encode_images(np.random.default_rng(cs.SEED))
     with cs.StreamCapture() as cap:
-        for img in images:
-            host_encoder.encode(img, 20)
+        datas = [host_encoder.encode(img, 20) for img in images]
     st = cs.stack_records(cap.records)
     y = torch.from_numpy(st["y"]).to(dev)
     e11, res256, khead, resIII = cs.residue_inputs(st, dev)
@@ -534,6 +804,35 @@ def main() -> int:
         lambda: ds.ll2_code_y_scan(ll2, True))
     if hasattr(ds, "ll2_code_y_sweeps"):
         out["ll2_code_y_sweeps"] = ds.ll2_code_y_sweeps(ll2, True).tolist()
+    out["pair_promotion_graph_ms"] = cs.graph_ms(
+        lambda: ds.pair_promotion_device(e11))
+    from nhwcodec_tpu_torch.ops import entropy_decode_device as edd
+
+    cases = {k: v for k, v in cs.chain_cases(
+        dev, [parse_nhw(d) for d in datas]).items()
+        if k in (f"Y words, batch {len(images)}",
+                 f"UV words, batch {len(images)}")}
+    for what, a in cases.items():
+        out[f"chain_starts_graph_ms {what}"] = cs.graph_ms(
+            lambda: edd.chain_starts_batch(*a))
+        out[f"chain_starts_shape {what}"] = [*a[0].shape, a[3]]
+    if args.sass:
+        from nhwcodec_tpu_torch.kernels import build
+
+        out["sass"] = sass_summary(build.lib_path())
+    if args.pp_src:
+        with tempfile.TemporaryDirectory() as d:
+            dll, rows = build_design(Path(args.pp_src).resolve(), Path(d),
+                                     "pair_promotion_rows", PP_ROWS_PATCHES,
+                                     PP_ONE_THREAD_PATCHES)
+            out["pp_split"] = pp_split(dll, rows, {"q20 E11 planes": e11},
+                                       args.runs, cs)
+    if args.entropy_src:
+        with tempfile.TemporaryDirectory() as d:
+            dll, scan = build_design(Path(args.entropy_src).resolve(),
+                                     Path(d), "    chain_scan(const uint32_t*", E1_SCAN_PATCHES,
+                                     E1_THREE_PATCHES)
+            out["e1_split"] = e1_split(dll, scan, cases, args.runs, cs)
     if args.uv_src:
         rng = np.random.default_rng(cs.SEED + 60)
         for kind in ("drift", "cta edges"):
