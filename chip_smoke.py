@@ -89,7 +89,11 @@
    carried through every band of passes 2-3) and the captured planes,
    also against the host copy's C, and edge streams (128-runs of 255 +
    254 m + d, crossings at the walk's end), whose merge + select + cap
-   on the card also equal the host copy's.  The encode breakdown
+   on the card also equal the host copy's, and S3's span edge streams
+   (crossings before every thread, warp and CTA span edge; each cursor
+   state carried across them), against the host copy's merge; S3 one
+   launch of merge_crossing a call, its graph time beside the old
+   design's.  The encode breakdown
    splits the host's encode_from_planes into the tokenizer, the stream
    stage, the E16 LL2 coders, E17 (uv_highres_compression), the E11 tail
    and E12 (pair promotion, the mid-q cleanup, the column ladder,
@@ -168,8 +172,12 @@
    q13 planes (timed as a batch of 16 and of 4) and at batch 1, 3 and 16
    on edge planes (pairR at 510 chained into the next row, pairL at
    column 0, loop A's writes into columns 255 and 0 and row 256, reads in
-   the tail past resIII, random) at q13 and q10; the low56 cleanup on the
-   captured q15 and q14 planes.
+   the tail past resIII, random; a lane tile's edges: pairL on its first
+   column, pairR on its last, each carry state entering it, the +-7
+   snap; a chain through all 256 rows of B + C) at q13 and q10, timed on
+   each kind too; one launch of lowest_q_rows a call, its graph time
+   beside the old design's; the low56 cleanup on the captured q15 and
+   q14 planes.
 12. Holds S12 (its passes and fire masks), S13 and S14 to their twins and
    the whole programs to the host copy's C on the planes captured from
    the host encodes at q12, q11, q8 and q1 (S12 timed at q12, S13 and S14
@@ -2462,7 +2470,7 @@ def encode_phase(dev, images: np.ndarray, captured: dict) -> dict:
 SCAN_KERNELS = ("snap_pass", "offset_y", "merge_crossing")
 # wrapper calls of a stream stage (q > LOW4): one snap_passes launch, one
 # offset_y (three launches: offset_y_rows, offset_y_bands, offset_y_codes),
-# one merge_crossing (three)
+# one merge_crossing (one cluster launch)
 SCAN_LAUNCHES = {"snap_pass": 1, "offset_y": 1, "merge_crossing": 1}
 # q -> images of the encode batch whose host encodes are captured (the q20
 # batch of 16, and the batches of 4 of OTHER_QS at q21, q19 and q17)
@@ -3027,6 +3035,62 @@ def stream_edge_streams(rng, b):
     return s
 
 
+# S3's new design's edges (csrc/scans.cu merge_crossing): a thread's span
+# of 64 positions, a warp's of 2,048, a CTA's of 32,768 (8 a stream)
+MERGE_EDGE_KINDS = ("span edges", "state carries")
+
+
+def merge_edge_streams(rng, b, kind: str):
+    """(B, 6 SZ + 16) uint8 Y streams, the UV half zero, for S3's spans.
+    "span edges": 5s (a skip of 1) but for a crossing pattern (136/120,
+    three 128s, 136/120) starting 1..8 positions before every thread span
+    edge (every 64th position; at CTA edges each distance in turn), so
+    fires at a span's last 4 positions put their 201 in the next span
+    (the next thread's, warp's or CTA's); and crossings 8..1 positions
+    before the walk's end 4 SZ - 4.  "state carries": 5s but for a 128-run
+    pattern at position e - 1 of every span edge e that leaves the cursor
+    in state s (skips left) at e: s = 0 none, 1 (5, 128, 5), 2 (5, 128,
+    128, 5), 3 (5, 128, 128, 128, 5), 4 a fire (136, 128, 128, 128, 120);
+    s cycles with the edge and the image, so every state crosses thread,
+    warp and CTA edges."""
+    s = np.zeros((b, 6 * SZ + 16), np.uint8)
+    s[:, : 4 * SZ] = 5
+    ends = np.array([136, 120], np.uint8)
+    edges = np.arange(64, 4 * SZ, 64)
+    cyc = edges // 64 + edges // 2048 + edges // 32768
+    for i in range(b):
+        if kind == "span edges":
+            at = edges - 1 - (cyc + i) % 8
+            s[i, at] = rng.choice(ends, at.size)
+            for k in (1, 2, 3):
+                s[i, at + k] = 128
+            s[i, at + 4] = rng.choice(ends, at.size)
+            at = 4 * SZ - 12 + i % 8
+            s[i, at - 1] = 5
+            s[i, at] = rng.choice(ends)
+            s[i, at + 1: at + 4] = 128
+            s[i, at + 4] = rng.choice(ends)
+        else:
+            state = (cyc + i) % 5
+            for st, pat in ((1, (5, 128, 5)), (2, (5, 128, 128, 5)),
+                            (3, (5, 128, 128, 128, 5)),
+                            (4, (136, 128, 128, 128, 120))):
+                at = edges[state == st] - 1
+                for k, val in enumerate(pat):
+                    s[i, at + k] = val
+    return s
+
+
+def host_merge(s: np.ndarray) -> np.ndarray:
+    """The host copy's C crossing merge on each stream."""
+    from nhwcodec_tpu_torch.host.ops import quantize
+
+    out = s.copy()
+    for k in range(len(out)):
+        quantize.merge_crossing_codes(out[k])
+    return out
+
+
 def host_stream_fixups(s: np.ndarray) -> tuple:
     """The host copy's merge, select and cap (its C scans) on each
     stream: (streams, sel1, sel2)."""
@@ -3097,6 +3161,13 @@ SNAP_EDGE_KINDS = {"chain": snap_chain_planes, "spill": snap_spill_planes,
 # batch (ms, CUDA events around a graph; PERF.md's row S1, NVIDIA H100
 # 80GB HBM3 at 700 W)
 S1_WAS_GRAPH_MS = 0.5176
+# S3's device time before its one cluster launch (three launches, 16
+# positions a thread, the maps built twice), and S11's before one cluster
+# launch of a warp a row (three launches of a thread a row): ms, CUDA
+# events around a graph, PERF.md's rows S3 and S11, NVIDIA H100 80GB HBM3
+# at 700 W
+S3_WAS_GRAPH_MS = 0.0524
+S11_WAS_GRAPH_MS = 0.4391
 # S2's before its passes 2-3 took bands and a relay (one CTA an image, a
 # thread a column, rows in order), on the snapped q20 batch (the same
 # source)
@@ -3196,6 +3267,13 @@ def scan_kernel_phase(dev, captured: dict) -> dict:
         lambda: ds.merge_crossing_device(stream),
         lambda: ds.merge_crossing_ref(stream),
         bound=work(2 * stream.numel(), MERGE_OPS * B * 4 * SZ), graph=True)
+    print(f"kernel merge_crossing ({B},{6 * SZ + 16}) q20: "
+          f"{out['merge_crossing']['graph_ms']:.4f} ms (graph of "
+          f"{GRAPH_CALLS} calls, CUDA events); the design before: "
+          f"{S3_WAS_GRAPH_MS} ms (PERF.md)", flush=True)
+    check_one_launch("merge_crossing", f"({B},{6 * SZ + 16}) q20 streams",
+                     lambda: ds.merge_crossing_device(stream),
+                     "merge_crossing")
     rng = np.random.default_rng(SEED + 30)
     for b in (1, 3, B):
         snap_edge_check(dev, rng, b)
@@ -3242,6 +3320,23 @@ def scan_kernel_phase(dev, captured: dict) -> dict:
     print("encode scans: merge + select + cap on the card equal the host "
           "copy's C scans on the edge streams at batch 1, 3 and 16",
           flush=True)
+    for kind in MERGE_EDGE_KINDS:
+        s = merge_edge_streams(rng, B, kind)
+        st_t = torch.from_numpy(s).to(dev)
+        compare_batches("merge_crossing", f"{kind} streams",
+                        ds.merge_crossing_device, ds.merge_crossing_ref,
+                        (st_t,))
+        check(np.array_equal(ds.merge_crossing_device(st_t).cpu().numpy(),
+                             host_merge(s)),
+              f"merge_crossing on the {kind} streams differs from the host "
+              "copy's C")
+        ms = graph_ms(lambda: ds.merge_crossing_device(st_t))
+        print(f"kernel merge_crossing ({B},{6 * SZ + 16}) {kind} streams: "
+              f"{ms:.4f} ms (graph of {GRAPH_CALLS} calls, CUDA events)",
+              flush=True)
+    print("encode scans: merge_crossing equals its twin and the host copy's "
+          f"C on the {', '.join(MERGE_EDGE_KINDS)} streams at batch 1, 3 "
+          "and 16", flush=True)
     return out
 
 
@@ -4929,7 +5024,7 @@ OY4_VALUES = np.array([0, 7, -7, 8, -8, 9, -9, 12, -12, 13, -13, 14, -14,
                        46, 47, 6, -6, 200, -300, 10100, 12900, 14000],
                       np.int16)
 LQ_KINDS = ("random", "pairR chain", "pairL column 0", "A into row 256",
-            "r3 tail")
+            "r3 tail", "lane edges", "row chain")
 
 
 def lowq_r3_ext(resIII, ktail, tree1) -> np.ndarray:
@@ -4996,7 +5091,8 @@ def lowq_edge_inputs(rng, b, kind: str) -> tuple:
     -11, 11, 0 at columns 255..257 (pairL at 256 zeroes column 255); "r3
     tail": row 511's columns 256..510 alternate 27 and 100, and the tail
     past resIII, which only that row reads, alternates 0 and 500: only
-    the r3 test zeroes a 27 there, where the tail is 0."""
+    the r3 test zeroes a 27 there, where the tail is 0.  "lane edges" and
+    "row chain": ``lq_lane_edges``, ``lq_row_chain``."""
     from nhwcodec_tpu_torch.models import device_scans as ds
 
     n = ds.LQ_R3_EXT
@@ -5020,11 +5116,67 @@ def lowq_edge_inputs(rng, b, kind: str) -> tuple:
             x[:, r + 1, 0] = -12
         x[:, 256, 1] = 100
         x[:, 0:256:2, 255:258] = (-11, 11, 0)
-    else:
+    elif kind == "r3 tail":
         x[:, 511, 256:511:2] = 27
         x[:, 511, 257:511:2] = 100
         r3[:, SZ: SZ + 128] = np.where(np.arange(128) % 2 == 0, 0, 500)
+    elif kind == "lane edges":
+        lq_lane_edges(x, r3)
+    else:
+        lq_row_chain(x, r3)
     return x, r3
+
+
+def lq_lane_edges(x, r3) -> None:
+    """S11's lane tiles (16 columns of B + C a lane, 8 of loop A): at
+    columns e - 2..e + 1 of every tile edge e of every row, pattern (e / 16
+    + r) % 5 (loop A: (e / 8 + r) % 3), with V = 15 in B (columns up to
+    256), 23 in C, 11 in loop A: 0 (5, -V, V, 0): pairL on the tile's
+    first column zeroes the previous tile's last; 1 (0, V, -V, 0): pairR
+    on the previous tile's last column, the tile enters pending; 2 (0, 9,
+    V, -V): the previous tile's last visit writes 0 (B + C: the phase-2
+    zeroing; loop A: its r3 test, set true there), so the tile enters with
+    left 0 and its first visit's pairR fires; 3 (0, 17, V, -V, 5): in C above
+    LOW10 the snap leaves +7 as the tile's entry, which keeps the first
+    visit from pairR (at or below LOW10 the 17 goes to 0 and pairR fires);
+    4 (0, -17, 8, 0): the snap leaves -7, which the first visit's pairL
+    zeroes.  In place on (B, 512, 512) x and r3_ext."""
+    for r in range(512):
+        if r < 256:
+            for e in range(264, 512, 8):
+                p = (e // 8 + r) % 3
+                x[:, r, e - 2: e + 2] = ((5, -11, 11, 0), (0, 11, -11, 0),
+                                         (0, 9, 11, -11))[p]
+                if p == 2:
+                    r3[:, 128 + 128 * r + (e - 257) // 2] = 0
+            continue
+        for e in range(16, 512, 16):
+            v = 15 if e <= 256 else 23
+            pat = ((5, -v, v, 0), (0, v, -v, 0), (0, 9, v, -v),
+                   (0, 17, v, -v, 5), (0, -17, 8, 0))[(e // 16 + r) % 5]
+            x[:, r, e - 2: e - 2 + len(pat)] = pat
+
+
+def lq_row_chain(x, r3) -> None:
+    """A chain through all 256 rows of B + C: B's columns alternate 15,
+    -15 and C's 23, -23 from column 0, so a row whose column-0 visit finds
+    left 0 fires pairR at every even column through 510 (and zeroes column
+    511: the next row enters with left 0 too), and one that finds column
+    511's -23 fires nothing; each row's exit is its entry.  Rows 256 + 41
+    k (k >= 1) reset it: odd k starts with 5 (nothing fires), even k with
+    0, 0, so pairR fires from column 2 on whatever the entry.  Row 256
+    enters from loop A's row 255, which ends 0, 11: in even images its r3
+    test zeroes the 11 (row 256 enters with left 0), in odd ones the 11
+    stays.  In place on (B, 512, 512) x and r3_ext."""
+    cols = np.arange(512)
+    x[:, 256:, :] = np.where(cols < 256, 15, 23) * np.where(cols % 2, -1, 1)
+    for r in range(256 + 41, 512, 41):
+        if (r - 256) // 41 % 2:
+            x[:, r, 0] = 5
+        else:
+            x[:, r, :2] = 0
+    x[:, 255, 510:512] = (0, 11)
+    r3[0::2, 128 + 128 * 255 + 127] = 0
 
 
 def host_offset_y_low4(x: np.ndarray) -> np.ndarray:
@@ -5121,6 +5273,14 @@ def low4_kernel_phase(dev, captured: dict) -> dict:
                 twin_calls=1, twin_runs=1, twin_warm=0,
                 bound=work(B * (2 * plane + 2 * ds.LQ_R3_EXT),
                            LQ_OPS * B * LQ_VISITS), graph=True)
+            print(f"kernel lowest_q_band_cleanup ({B},512,512) q13 planes: "
+                  f"{out['lowest_q_band_cleanup']['graph_ms']:.4f} ms (graph "
+                  f"of {GRAPH_CALLS} calls, CUDA events); the design before: "
+                  f"{S11_WAS_GRAPH_MS} ms (PERF.md)", flush=True)
+            check_one_launch("lowest_q_band_cleanup",
+                             f"({B},512,512) q13 planes",
+                             lambda: ds.lowest_q_band_cleanup_device(
+                                 P, R, 13, X), "lowest_q_rows")
             P4, R4, X4 = P[:want_b], R[:want_b], X[:want_b]
             ms = median_ms(lambda: ds.lowest_q_band_cleanup_device(
                 P4, R4, 13, X4))
@@ -5145,7 +5305,12 @@ def low4_kernel_phase(dev, captured: dict) -> dict:
     xs = np.tile(np.array(des.LOW7_XS, np.int32), (B, 1))
     for kind in LQ_KINDS:
         x, r3 = lowq_edge_inputs(rng, B, kind)
-        for q in (13, 10) if kind == "random" else (13,):
+        X, R, S = t(x), t(r3), t(xs)
+        ms = graph_ms(lambda: ds.lowest_q_band_cleanup_device(X, R, 13, S))
+        print(f"kernel lowest_q_band_cleanup ({B},512,512) {kind} planes, "
+              f"q13: {ms:.4f} ms (graph of {GRAPH_CALLS} calls, CUDA events)",
+              flush=True)
+        for q in (13, 10):
             compare_batches(
                 "lowest_q_band_cleanup", f"{kind} planes, q{q}",
                 lambda a, r, s: ds.lowest_q_band_cleanup_device(a, r, q, s),
@@ -5159,8 +5324,8 @@ def low4_kernel_phase(dev, captured: dict) -> dict:
     print("encode scans: S10 equals its twin and the host copy's C on the "
           "captured q16/q15/q14/q13 planes and at batch 1, 3 and 16 on the "
           f"{', '.join(OY4_KINDS)} planes; S11 on the captured q13 planes and "
-          f"on the {', '.join(LQ_KINDS)} planes at q13 (the random ones at "
-          "q10 too); low56 on the captured q15/q14 planes", flush=True)
+          f"on the {', '.join(LQ_KINDS)} planes at q13 and q10; low56 on the "
+          "captured q15/q14 planes", flush=True)
     return out
 
 
@@ -5653,7 +5818,22 @@ def analysis_edge_phase(dev) -> None:
 def cluster_info_phase(dev, timings: dict) -> None:
     """Print what the card allows for each cluster kernel and add it to
     the kernel's entry (K4 and K10 under "clusters", by n)."""
+    from nhwcodec_tpu_torch.kernels import build
     from nhwcodec_tpu_torch.ops import dwt
+
+    lib = build.load()
+    for name, fn in (("merge_crossing", lib.nhw_merge_crossing_info),
+                     ("lowest_q_band_cleanup",
+                      lib.nhw_lowest_q_band_cleanup_info)):
+        a = np.zeros(3, np.int32)
+        build.check(fn.__name__, fn(a.ctypes.data))
+        info = {"registers": int(a[0]), "shared_bytes": int(a[1]),
+                "max_active_clusters": int(a[2])}
+        print(f"kernel {name}: one cluster launch; {info['registers']} "
+              f"registers per thread, {info['shared_bytes']} bytes of "
+              f"shared memory per CTA, at most "
+              f"{info['max_active_clusters']} clusters resident", flush=True)
+        timings[name].update(info)
 
     for name in dwt.CLUSTER_KERNELS:
         info = dwt.cluster_info(name, dev)
@@ -5770,11 +5950,10 @@ def main() -> int:
     print_ptxas(("y_stage2_cluster", "waves_band", "chain_scan",
                  "y_runs_fixpoint",
                  "snap_pass", "ladder_table", "offset_y_rows",
-                 "offset_y_bands", "offset_y_codes", "merge_tiles",
-                 "merge_entries", "merge_emit", "pair_promotion",
-                 "column_ladder", "classify_bands", "ll2_code_y",
-                 "walk_visited", "uv_sentinel", "oy4_maps", "oy4_emit",
-                 "lq_a", "lq_maps", "lq_emit", "vlq_passes", "ll1_rows",
+                 "offset_y_bands", "offset_y_codes", "merge_crossing",
+                 "pair_promotion", "column_ladder", "classify_bands",
+                 "ll2_code_y", "walk_visited", "uv_sentinel", "oy4_maps",
+                 "oy4_emit", "lowest_q_rows", "vlq_passes", "ll1_rows",
                  "uv_smooth"))
 
     def phase(fn, *args):

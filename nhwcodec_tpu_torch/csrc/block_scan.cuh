@@ -1,7 +1,7 @@
 // Helpers shared by the encode scans' kernels (scans.cu, ll2.cu, uv.cu,
 // lowq.cu, vlq.cu): the run parity of a warp's row (ll2.cu, uv.cu), rows
-// staged for CTAs whose threads walk a row each, and the chain of row maps
-// a warp scans.
+// staged for CTAs whose threads walk a row each, maps of 5 states and their
+// warp scan (scans.cu, lowq.cu), and the chain of row maps a warp scans.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -85,6 +85,36 @@ __device__ __forceinline__ void unstage_rows(const int16_t* s, int rows,
       *reinterpret_cast<int4*>(dst + c) = v;
     }
   }
+}
+
+// Maps of 5 states, 3 bits a state in 15 bits (state s goes to bits 3 s..3 s
+// + 2), for walks whose carry is one of 5 states (scans.cu: S3's skips
+// left; lowq.cu: S11's carry between visits).
+constexpr uint32_t kMap5Ident = 0x4688u;
+
+__device__ __forceinline__ int map5_at(uint32_t f, int s) {
+  return (f >> (3 * s)) & 7;
+}
+
+// The map of f, then g.
+__device__ __forceinline__ uint32_t map5_then(uint32_t f, uint32_t g) {
+  uint32_t r = 0;
+#pragma unroll
+  for (int s = 0; s < 5; ++s)
+    r |= uint32_t(map5_at(g, map5_at(f, s))) << (3 * s);
+  return r;
+}
+
+// The inclusive scan of a warp's maps in lane order, in place, and the
+// lane's exclusive prefix (the identity at lane 0).  Every lane calls it.
+__device__ __forceinline__ uint32_t map5_warp_scan(uint32_t& m, int lane) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const uint32_t b = __shfl_up_sync(0xFFFFFFFFu, m, d);
+    if (lane >= d) m = map5_then(b, m);
+  }
+  const uint32_t e = __shfl_up_sync(0xFFFFFFFFu, m, 1);
+  return lane == 0 ? kMap5Ident : e;
 }
 
 // The entry state of each of n rows (n a multiple of 32) whose walks chain:

@@ -1,7 +1,8 @@
 // Helpers shared by the thread-block cluster kernels (dwt.cu: K2, K3;
-// analysis.cu: K4, K10): staging rows with cp.async, a row pass stored
-// transposed into the peers' shared memory (distributed shared memory,
-// DSM), and the cluster launch with what the card allows for it.
+// analysis.cu: K4, K10; scans.cu: S3; lowq.cu: S11): staging rows with
+// cp.async, a row pass stored transposed into the peers' shared memory
+// (distributed shared memory, DSM), the cluster barrier in halves, and the
+// cluster launch with what the card allows for it.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -90,6 +91,23 @@ __device__ __forceinline__ void stage_rows_async(int16_t* dst,
                             src + (i / kVecs) * src_pitch + (i % kVecs) * 8,
                             16);
   __pipeline_commit();
+}
+
+// A cluster barrier in two halves, for every thread of the cluster: an
+// arrive with no ordering (e.g. at a kernel's start, so that the wait
+// before the first DSM access finds every CTA started), an arrive that
+// releases this thread's writes (shared memory and DSM), and the wait that
+// acquires the others'.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 inline cudaLaunchAttribute cluster_dims(int cluster) {

@@ -14,7 +14,8 @@
 //    plane -> int16 code plane.  Three launches.
 // S3 nhw_merge_crossing replaces nhwcodec_tpu/models/device_scans.py:527
 //    merge_crossing_device (an associative scan of a 5-state skip machine):
-//    the crossing merge of a (B, n >= 4 SZ) uint8 stream.  Three launches.
+//    the crossing merge of a (B, n >= 4 SZ) uint8 stream.  One launch
+//    (merge_crossing, a cluster of 8 CTAs a stream).
 // S10 nhw_offset_y_low4 replaces nhwcodec_tpu/models/device_scans.py:2750
 //    offset_y_low4_device (a Jacobi while_loop for pass 1, then one flat
 //    262,144-step lax.scan, _oy4_step :2655): the q <= LOW4 quantizer with
@@ -22,8 +23,8 @@
 //    Three launches.
 //
 // The bound of S1 is its operations (some 30 a region position; the
-// plane read and written once for the three regions), S3's bytes: the
-// stream read once and written once, some tens of operations a position;
+// plane read and written once for the three regions), S3's operations:
+// the stream read once and written once, some 25 operations a position;
 // S2's and S10's is their operations, 45-105 a position.  Each is a chain
 // of dependent steps along a row or a stream:
 // - S1: one warp a row: the row and the rows above and below staged in
@@ -62,15 +63,20 @@
 //   255's exit lands in plane row 256).  One CTA an image (16 warps on
 //   one SM) was bound by instruction throughput, and slower.
 //   Pass 4 is elementwise, one thread a position.
-// - S3: 16 positions a thread.  Each thread builds its tile's map over
-//   the 5 entry states (positions still skipped), lanes 0-4 compose a
-//   warp's 32 tiles and threads 0-4 the CTA's 8 warps (merge_tiles); one
-//   warp a stream walks the 64 CTAs' composites from state 0, the state
-//   picked by a shuffle (merge_entries); merge_emit rebuilds the maps,
-//   hands the entry down to warps and tiles, and each thread walks its 16
-//   positions and the next tile's first 4.  A fire at i writes i and
-//   201 at i + 4, so thread t writes positions [16 t + 4, 16 t + 20) (and
-//   tile 0 also [0, 4)): every byte has one writer.
+// - S3: a cluster of 8 CTAs a stream, 512 threads a CTA, 64 positions a
+//   thread, loaded and stored in 16-byte accesses.  A position's skip and
+//   fire test are bit masks of its bytes (four bit operations a mask for
+//   32 positions), so each thread builds its map over the 5 entry states
+//   (skips left) once, 15 bits advanced a position at a time; the warp
+//   scans its lanes' maps with shuffles and warp 0 the 16 warp
+//   composites.  Each CTA pushes its composite, its map up to its last 4
+//   positions and their fires from each state to every CTA of the cluster
+//   (DSM) before one cluster barrier; each CTA then has its entry state
+//   and the fires whose 201 lands in its first 4 bytes.  Each thread walks
+//   again from its entry state for its fire bits and writes its 64 bytes
+//   from them a word at a time: out[i] = fire[i - 4] ? 201 : fire[i] ?
+//   code[i] : v[i].  Every byte has one writer; the stream past 4 SZ is
+//   copied in 16-byte chunks.
 // - S10: pass 1 is S2's launch (offset_y_rows); passes 2-3 do not run at
 //   these qualities.  Pass 4's counters: quant and quant6 reset at each row
 //   start, quant4 runs on, and a step may leave a write pending on the next
@@ -98,6 +104,10 @@ namespace {
 
 namespace cg = cooperative_groups;
 using nhw::iabs;
+using nhw::kMap5Ident;
+using nhw::map5_at;
+using nhw::map5_then;
+using nhw::map5_warp_scan;
 
 constexpr int kN = 512;
 constexpr int kD = 256;
@@ -110,15 +120,16 @@ constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kRows = 32;           // rows a CTA of S2's pass 1 and S10
 constexpr int kCodeThreads = 256;   // positions a CTA of S2's pass 4
 
-constexpr int kMT = 16;                      // positions a thread of S3
-constexpr int kMThreads = 256;               // threads a CTA of S3
+constexpr int kMT = 64;                      // positions a thread of S3
+constexpr int kMThreads = 512;               // threads a CTA of S3
 constexpr int kMWarps = kMThreads / 32;
+constexpr int kMWords = kMT / 4;             // 32-bit words a thread
 constexpr int kMSpan = kMT * kMThreads;      // positions a CTA
 constexpr int kMLen = 4 * kSZ;               // positions walked and written
 constexpr int kMEnd = kMLen - 4;             // the cursor walk's end
-constexpr int kMCtas = kMLen / kMSpan;       // CTAs a stream
-constexpr int kMStage = kMSpan + 32;         // staged bytes a CTA
-constexpr int kMStates = 5;
+constexpr int kMCtas = kMLen / kMSpan;       // CTAs a stream: one cluster
+constexpr uint32_t kMOnes = 0x1249u;         // bit 0 of each state's field
+static_assert(kMCtas == 8, "a stream is one cluster of 8 CTAs");
 
 constexpr int kOy4States = 5;                // S10's entry states a row
 
@@ -795,152 +806,264 @@ __global__ void __launch_bounds__(kRows)
 
 // ---------------------------------------------------------------------------
 // S3: merge_crossing
+//
+// A position's step is fixed by its bytes: the cursor's skip k (1..5; 1 at
+// or past the walk's end) and whether a fire pattern stands there.  In
+// bit masks over 32 positions (bit i: position i), with E the bytes equal
+// to 128 and A those equal to 136 or 120: c1 = ~E & E >> 1, c2 = c1 & E >>
+// 2, c3 = c2 & E >> 3, fire = c3 & A & A >> 4, and k - 1 is the sum of
+// the four bits.  The cursor's state before a position is its skips left
+// (0..4), so a run of positions is a map of 5 states, 3 bits each in 15
+// bits (merge_step advances all five at once), and maps compose.
 
-struct MergeShared {
-  uint8_t v[kMStage];             // the CTA's bytes and 32 past them
-  uint32_t map[kMThreads];        // tile maps, 3 bits an entry state
-  uint8_t warp_fn[kMWarps][kMStates];
-  uint8_t entry[kMThreads];
-  uint8_t warp_entry[kMWarps];
+// 4 bits, bit i set where byte i of m is 0xFF (m from __vcmpeq4), and back.
+__device__ __forceinline__ uint32_t byte_bits(uint32_t m) {
+  return ((m & 0x08040201u) * 0x01010101u) >> 24;
+}
+
+__device__ __forceinline__ uint32_t bits_bytes(uint32_t b) {
+  return ((b * 0x00204081u) & 0x01010101u) * 0xFFu;
+}
+
+// The steps of 32 positions from their 36 bytes (w[0..8]), as bit planes
+// of k - 1 (0..4: b0, b1, b2 = the fire pattern f); live: the positions
+// before the walk's end.
+struct MergeBits {
+  uint32_t b0, b1, f;
 };
 
-// The cursor's skip at local position i (1..5, 1 at or past the end) and
-// whether a fire pattern stands there (before the end only).
-__device__ __forceinline__ int merge_k(const uint8_t* v, int i, int gi,
-                                       bool& fire_p) {
-  const int v0 = v[i], v1 = v[i + 1], v2 = v[i + 2], v3 = v[i + 3],
-            v4 = v[i + 4];
-  const bool c1 = v0 != 128 && v1 == 128;
-  const bool fp = c1 && v2 == 128 && v3 == 128 && (v0 == 136 || v0 == 120) &&
-                  (v4 == 136 || v4 == 120);
-  fire_p = fp && gi < kMEnd;
-  if (gi >= kMEnd || !c1) return 1;
-  if (v2 != 128) return 2;
-  if (v3 != 128) return 3;
-  return fp ? 5 : 4;
+__device__ __forceinline__ MergeBits merge_bits(const uint32_t* w,
+                                                uint32_t live) {
+  uint64_t e = 0, a = 0;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    e |= uint64_t(byte_bits(__vcmpeq4(w[k], 0x80808080u))) << (4 * k);
+    a |= uint64_t(byte_bits(__vcmpeq4(w[k], 0x88888888u) |
+                            __vcmpeq4(w[k], 0x78787878u)))
+         << (4 * k);
+  }
+  const uint32_t c1 = ~uint32_t(e) & uint32_t(e >> 1) & live;
+  const uint32_t c2 = c1 & uint32_t(e >> 2);
+  const uint32_t c3 = c2 & uint32_t(e >> 3);
+  const uint32_t f = c3 & uint32_t(a) & uint32_t(a >> 4);
+  // k - 1 = 1 on c1 & ~c2, 2 on c2 & ~c3, 3 on c3 & ~f, 4 on f
+  return MergeBits{(c1 & ~c2) | (c3 & ~f), c2 & ~f, f};
 }
 
-__device__ __forceinline__ int map_at(uint32_t f, int m) {
-  return (f >> (3 * m)) & 7;
+__device__ __forceinline__ int merge_km1(const MergeBits& m, int i) {
+  return ((m.b0 >> i) & 1) | (((m.b1 >> i) & 1) << 1) |
+         (((m.f >> i) & 1) << 2);
 }
 
-// Stage the CTA's bytes, build every thread's tile map and every warp's
-// composite.
-__device__ void merge_build(MergeShared& sh, const uint8_t* __restrict__ s,
-                            int n, int b, int cta) {
+// One position for all 5 entry states: a state above 0 counts down, 0
+// takes the position's k - 1.
+__device__ __forceinline__ uint32_t merge_step(uint32_t p, int km1) {
+  const uint32_t t = (p | (p >> 1) | (p >> 2)) & kMOnes;
+  return p - t + (~t & kMOnes) * static_cast<uint32_t>(km1);
+}
+
+// A thread's two plane sets (positions 0..31 and 32..63) advance their
+// maps together, each from the identity: two independent chains for the
+// scheduler.  The loop is unrolled 4 at a time, not 32: unrolled whole, the
+// compiler takes every position's step out of the walk ahead of it and
+// spills.  Also returns the second set's map over its first 28 positions.
+__device__ __forceinline__ void merge_maps(const MergeBits* mb,
+                                           uint32_t& p0, uint32_t& p1,
+                                           uint32_t& p28) {
+  p0 = p1 = p28 = kMap5Ident;
+#pragma unroll 4
+  for (int i = 0; i < 32; ++i) {
+    if (i == 28) p28 = p1;
+    p0 = merge_step(p0, merge_km1(mb[0], i));
+    p1 = merge_step(p1, merge_km1(mb[1], i));
+  }
+}
+
+// The walks again of both plane sets, from their entry states s0 and s1:
+// their fire bits; s1 ends as the thread's exit state.
+__device__ __forceinline__ void merge_walk(const MergeBits* mb, int s0,
+                                           int s1, uint32_t* fires) {
+  fires[0] = fires[1] = 0;
+#pragma unroll 4
+  for (int i = 0; i < 32; ++i) {
+    const bool z0 = s0 == 0, z1 = s1 == 0;
+    fires[0] |= uint32_t(z0 & ((mb[0].f >> i) & 1u)) << i;
+    fires[1] |= uint32_t(z1 & ((mb[1].f >> i) & 1u)) << i;
+    s0 = z0 ? merge_km1(mb[0], i) : s0 - 1;
+    s1 = z1 ? merge_km1(mb[1], i) : s1 - 1;
+  }
+}
+
+struct MergeShared {
+  uint32_t warp_map[kMWarps];       // each warp's composite
+  uint32_t warp_pre[kMWarps];       // the composite of the warps before it
+  uint32_t last[3];                 // the CTA's last thread, see below
+  uint32_t last_fires[kMWarps];     // lane 31's fires at its last 4
+  unsigned long long pub[kMCtas];   // each CTA's composite, partial, fires
+};
+
+// A cluster of 8 CTAs a stream, 512 threads of 64 positions each: thread t
+// of CTA r owns positions g0 = 32768 r + 64 t .. g0 + 63, loads them and
+// the next 4 bytes in 16-byte (and one 4-byte) loads, builds their step
+// masks and their map once (its two halves as two chains), and the warp
+// scans its 32 maps with shuffles.
+// Warp 0 scans the 16 warp composites and pushes the CTA's word to every
+// CTA of the cluster (DSM) before one cluster barrier: the CTA's composite,
+// its partial map (positions up to its last 4) and the fires of those 4
+// from each state, so that each CTA finds its entry state and the fires
+// whose 201 lands in its first 4 bytes.  Each thread walks its positions
+// again from its entry state for its fire bits; lane 31's last 4 go to the
+// next thread by shuffle (across warps through shared memory), and the
+// thread writes its 64 bytes in 16-byte stores: out[i] = fire[i - 4] ? 201
+// : fire[i] ? code[i] : v[i], a word at a time.  Every byte has one writer.
+// The CTAs copy the stream past 4 SZ in 16-byte chunks.  A row that is not
+// 16-byte aligned (in or out) is read and written a byte at a time.
+__global__ void __launch_bounds__(kMThreads, 2)
+    merge_crossing(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
+                   int n) {
+  __shared__ MergeShared sh;
+  nhw::cluster_arrive_relaxed();
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
   const int t = threadIdx.x, lane = t & 31, w = t >> 5;
-  const size_t base = static_cast<size_t>(b) * n;
-  const int start = cta * kMSpan;
-  for (int i = t; i < kMStage; i += kMThreads)
-    sh.v[i] = start + i < n ? s[base + start + i] : 0;
-  __syncthreads();
-  int st[kMStates] = {0, 1, 2, 3, 4};
-  for (int q = 0; q < kMT; ++q) {
-    bool fp;
-    const int km1 = merge_k(sh.v, t * kMT + q, start + t * kMT + q, fp) - 1;
+  const size_t base = static_cast<size_t>(blockIdx.y) * n;
+  const uint8_t* src = in + base;
+  uint8_t* dst = out + base;
+  const bool vec = ((reinterpret_cast<uintptr_t>(src) |
+                     reinterpret_cast<uintptr_t>(dst)) & 15) == 0;
+  const int g0 = rank * kMSpan + t * kMT;
+  uint32_t v[kMWords + 1];
+  if (vec) {
+    const uint4* s4 = reinterpret_cast<const uint4*>(src + g0);
 #pragma unroll
-    for (int m = 0; m < kMStates; ++m) st[m] = st[m] > 0 ? st[m] - 1 : km1;
-  }
-  uint32_t f = 0;
+    for (int k = 0; k < kMWords / 4; ++k) {
+      const uint4 q = s4[k];
+      v[4 * k] = q.x;
+      v[4 * k + 1] = q.y;
+      v[4 * k + 2] = q.z;
+      v[4 * k + 3] = q.w;
+    }
+    v[kMWords] = g0 + kMT < kMLen
+                     ? *reinterpret_cast<const uint32_t*>(src + g0 + kMT)
+                     : 0u;
+  } else {
 #pragma unroll
-  for (int m = 0; m < kMStates; ++m) f |= uint32_t(st[m]) << (3 * m);
-  sh.map[t] = f;
-  __syncthreads();
-  if (lane < kMStates) {
-    int x = lane;
-    for (int l = 0; l < 32; ++l) x = map_at(sh.map[w * 32 + l], x);
-    sh.warp_fn[w][lane] = uint8_t(x);
-  }
-  __syncthreads();
-}
-
-// Phase 1: each CTA's composite over the 5 entry states, comp (B, ctas, 5).
-__global__ void __launch_bounds__(kMThreads)
-    merge_tiles(const uint8_t* __restrict__ s, int n, int* __restrict__ comp) {
-  __shared__ MergeShared sh;
-  const int b = blockIdx.y, cta = blockIdx.x, t = threadIdx.x;
-  merge_build(sh, s, n, b, cta);
-  if (t < kMStates) {
-    int x = t;
-    for (int w = 0; w < kMWarps; ++w) x = sh.warp_fn[w][x];
-    comp[(static_cast<size_t>(b) * kMCtas + cta) * kMStates + t] = x;
-  }
-}
-
-// Phase 2: one warp a stream walks its CTAs' composites from state 0; lane
-// m < 5 holds the composite's value for state m, the walker's next state
-// is a shuffle.  entry (B, ctas).
-__global__ void __launch_bounds__(32)
-    merge_entries(const int* __restrict__ comp, int* __restrict__ entry) {
-  const int b = blockIdx.x, lane = threadIdx.x;
-  const int* c = comp + static_cast<size_t>(b) * kMCtas * kMStates;
-  int st = 0;
-  for (int k = 0; k < kMCtas; ++k) {
-    const int val = lane < kMStates ? c[k * kMStates + lane] : 0;
-    if (lane == 0) entry[b * kMCtas + k] = st;
-    st = __shfl_sync(0xFFFFFFFFu, val, st);
-  }
-}
-
-// Phase 3: the entries handed down to warps and tiles; each thread walks
-// its 16 positions and the next tile's first 4 and writes positions
-// [16 t + 4, 16 t + 20) of the stream (tile 0 also [0, 4)); the CTAs also
-// copy the stream past 4 SZ.
-__global__ void __launch_bounds__(kMThreads)
-    merge_emit(const uint8_t* __restrict__ s, int n,
-               const int* __restrict__ entry, uint8_t* __restrict__ out) {
-  __shared__ MergeShared sh;
-  const int b = blockIdx.y, cta = blockIdx.x, t = threadIdx.x;
-  const int lane = t & 31, w = t >> 5;
-  merge_build(sh, s, n, b, cta);
-  if (t == 0) {
-    int x = entry[b * kMCtas + cta];
-    for (int k = 0; k < kMWarps; ++k) {
-      sh.warp_entry[k] = uint8_t(x);
-      x = sh.warp_fn[k][x];
+    for (int k = 0; k <= kMWords; ++k) {
+      uint32_t x = 0;
+      if (g0 + 4 * k < kMLen)
+        for (int i = 0; i < 4; ++i)
+          x |= uint32_t(src[g0 + 4 * k + i]) << (8 * i);
+      v[k] = x;
     }
   }
-  __syncthreads();
-  if (lane == 0) {
-    int x = sh.warp_entry[w];
-    for (int l = 0; l < 32; ++l) {
-      sh.entry[w * 32 + l] = uint8_t(x);
-      x = map_at(sh.map[w * 32 + l], x);
+  MergeBits mb[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int lim = kMEnd - (g0 + 32 * h);
+    mb[h] = merge_bits(v + 8 * h, lim >= 32  ? ~0u
+                                  : lim <= 0 ? 0u
+                                             : (1u << lim) - 1u);
+  }
+  // the thread's map, and (for the CTA's last thread) its map over its
+  // first 60 positions and the fires of its last 4 from each state
+  uint32_t p0, p1, p28;
+  merge_maps(mb, p0, p1, p28);
+  const uint32_t p60 = map5_then(p0, p28);
+  uint32_t inc = map5_then(p0, p1);
+  const uint32_t excl = map5_warp_scan(inc, lane);
+  if (lane == 31) sh.warp_map[w] = inc;
+  if (t == kMThreads - 1) {
+    uint32_t tab = 0;
+    for (int s = 0; s < 5; ++s) {
+      int st = s;
+      for (int i = 28; i < 32; ++i) {
+        const bool z = st == 0;
+        tab |= uint32_t(z && ((mb[1].f >> i) & 1)) << (4 * s + i - 28);
+        st = z ? merge_km1(mb[1], i) : st - 1;
+      }
     }
+    sh.last[0] = p60;
+    sh.last[1] = excl;
+    sh.last[2] = tab;
   }
   __syncthreads();
-  const size_t base = static_cast<size_t>(b) * n;
-  const int start = cta * kMSpan + t * kMT;
-  const uint8_t* v = sh.v + t * kMT;
-  uint32_t fires = 0;
-  int st = sh.entry[t];
-  for (int q = 0; q < kMT + 4; ++q) {
-    bool fp;
-    const int k = merge_k(sh.v, t * kMT + q, start + q, fp);
-    if (st == 0) {
-      fires |= uint32_t(fp) << q;
-      st = k - 1;
-    } else {
-      --st;
-    }
+  nhw::cluster_wait();         // every CTA of the cluster has started
+  if (w == 0) {
+    uint32_t c = lane < kMWarps ? sh.warp_map[lane] : kMap5Ident;
+    const uint32_t pre = map5_warp_scan(c, lane);
+    if (lane < kMWarps) sh.warp_pre[lane] = pre;
+    const uint32_t comp = __shfl_sync(kFull, c, 31);
+    const uint32_t last_pre =
+        map5_then(__shfl_sync(kFull, pre, kMWarps - 1), sh.last[1]);
+    const unsigned long long word =
+        comp | (uint64_t(map5_then(last_pre, sh.last[0])) << 15) |
+        (uint64_t(sh.last[2]) << 30);
+    if (lane < kMCtas) *cluster.map_shared_rank(&sh.pub[rank], lane) = word;
   }
-  auto value = [&](int q) -> uint8_t {
-    if (q >= 4 && ((fires >> (q - 4)) & 1)) return 201;
-    if ((fires >> q) & 1)
-      return v[q] == 136 ? (v[q + 4] == 136 ? 132 : 133)
-                         : (v[q + 4] == 136 ? 134 : 135);
-    return v[q];
-  };
-  for (int q = 4; q < kMT + 4; ++q)
-    if (start + q < kMLen) out[base + start + q] = value(q);
-  if (cta == 0 && t == 0)
-    for (int q = 0; q < 4; ++q) out[base + q] = value(q);
-  const int tail = n - kMLen;
-  const int chunk = (tail + kMCtas - 1) / kMCtas;
-  for (int i = t; i < chunk; i += kMThreads) {
-    const int gi = kMLen + cta * chunk + i;
-    if (gi < n) out[base + gi] = s[base + gi];
+  nhw::cluster_arrive_release();
+  nhw::cluster_wait();
+  // the CTA's entry state, and the previous CTA's fires at its last 4
+  int e = 0, e_prev = 0;
+  for (int r = 0; r < rank; ++r) {
+    e_prev = e;
+    e = map5_at(static_cast<uint32_t>(sh.pub[r]) & 0x7FFFu, e);
   }
+  uint32_t prev4 = 0;
+  if (rank > 0) {
+    const unsigned long long pw = sh.pub[rank - 1];
+    const int s = map5_at(static_cast<uint32_t>(pw >> 15) & 0x7FFFu, e_prev);
+    prev4 = static_cast<uint32_t>(pw >> (30 + 4 * s)) & 15u;
+  }
+  const int st = map5_at(excl, map5_at(sh.warp_pre[w], e));
+  uint32_t fires[2];
+  merge_walk(mb, st, map5_at(p0, st), fires);
+  const uint32_t up = __shfl_up_sync(kFull, fires[1] >> 28, 1);
+  if (lane == 31) sh.last_fires[w] = fires[1] >> 28;
+  __syncthreads();
+  uint32_t pf = bits_bytes(lane > 0 ? up : w > 0 ? sh.last_fires[w - 1]
+                                                 : prev4);
+  uint32_t m136 = __vcmpeq4(v[0], 0x88888888u);
+#pragma unroll
+  for (int k = 0; k < kMWords; ++k) {
+    const uint32_t next136 = __vcmpeq4(v[k + 1], 0x88888888u);
+    const uint32_t fm = bits_bytes((fires[k >> 3] >> (4 * (k & 7))) & 15u);
+    // 132..135: 135 - 2 (this byte 136) - 1 (the byte 4 on 136)
+    const uint32_t code =
+        0x87878787u - (m136 & 0x02020202u) - (next136 & 0x01010101u);
+    v[k] = (pf & 0xC9C9C9C9u) | (~pf & ((fm & code) | (~fm & v[k])));
+    pf = fm;
+    m136 = next136;
+  }
+  if (vec) {
+    uint4* d4 = reinterpret_cast<uint4*>(dst + g0);
+#pragma unroll
+    for (int k = 0; k < kMWords / 4; ++k)
+      d4[k] = make_uint4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kMWords; ++k)
+      for (int i = 0; i < 4; ++i)
+        dst[g0 + 4 * k + i] = static_cast<uint8_t>(v[k] >> (8 * i));
+  }
+  // the stream past 4 SZ
+  const int tail = n - kMLen, gt = rank * kMThreads + t;
+  if (vec) {
+    const int chunks = tail >> 4;
+    const uint4* s4 = reinterpret_cast<const uint4*>(src + kMLen);
+    uint4* d4 = reinterpret_cast<uint4*>(dst + kMLen);
+    for (int i = gt; i < chunks; i += kMCtas * kMThreads) d4[i] = s4[i];
+    if (gt < tail - 16 * chunks)
+      dst[kMLen + 16 * chunks + gt] = src[kMLen + 16 * chunks + gt];
+  } else {
+    for (int i = gt; i < tail; i += kMCtas * kMThreads)
+      dst[kMLen + i] = src[kMLen + i];
+  }
+}
+
+const nhw::ClusterKernel& merge_kernel() {
+  static const nhw::ClusterKernel k =
+      nhw::cluster_setup(merge_crossing, kMCtas, kMThreads, 0);
+  return k;
 }
 
 bool misaligned(std::initializer_list<std::pair<const void*, int>> ptrs) {
@@ -1029,21 +1152,21 @@ int nhw_offset_y_low4(const void* in, void* tmp, void* maps, void* out,
   return cudaGetLastError();
 }
 
-// S3.  in, out: (B, n) uint8, n >= 4 SZ; comp: (B, 64, 5) int32 and entry:
-// (B, 64) int32 scratch.
-int nhw_merge_crossing(const void* in, void* out, void* comp, void* entry,
-                       int batch, int n, void* stream) {
+// S3.  in, out: (B, n) uint8, n >= 4 SZ.  One cluster launch.
+int nhw_merge_crossing(const void* in, void* out, int batch, int n,
+                       void* stream) {
   if (batch < 1 || batch > 65535 || n < kMLen) return cudaErrorInvalidValue;
-  if (misaligned({{comp, 4}, {entry, 4}})) return cudaErrorMisalignedAddress;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* src = static_cast<const uint8_t*>(in);
-  merge_tiles<<<dim3(kMCtas, batch), kMThreads, 0, s>>>(
-      src, n, static_cast<int*>(comp));
-  merge_entries<<<batch, 32, 0, s>>>(static_cast<const int*>(comp),
-                                     static_cast<int*>(entry));
-  merge_emit<<<dim3(kMCtas, batch), kMThreads, 0, s>>>(
-      src, n, static_cast<const int*>(entry), static_cast<uint8_t*>(out));
-  return cudaGetLastError();
+  return nhw::launch_cluster(merge_kernel(), merge_crossing, batch,
+                             static_cast<cudaStream_t>(stream),
+                             static_cast<const uint8_t*>(in),
+                             static_cast<uint8_t*>(out), n);
+}
+
+// What the card allows for S3's cluster kernel: info[0] registers per
+// thread, info[1] shared memory per CTA, info[2] the most clusters
+// resident at once.
+int nhw_merge_crossing_info(void* info) {
+  return nhw::cluster_info(merge_kernel(), info);
 }
 
 }  // extern "C"

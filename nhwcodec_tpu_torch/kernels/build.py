@@ -76,8 +76,10 @@ SIGNATURES = {
     "nhw_snap_passes": [_P, _P, _I, _I, _P, _P],
     # (in, tmp, out, esc, batch, m1, stream)
     "nhw_offset_y": [_P, _P, _P, _P, _I, _I, _P],
-    # (in, out, comp, entry, batch, n, stream)
-    "nhw_merge_crossing": [_P, _P, _P, _P, _I, _I, _P],
+    # (in, out, batch, n, stream)
+    "nhw_merge_crossing": [_P, _P, _I, _I, _P],
+    # (int32[3] out: registers, shared bytes per CTA, most resident clusters)
+    "nhw_merge_crossing_info": [_P],
     # (in, out, batch, stream)
     "nhw_pair_promotion": [_P, _P, _I, _P],
     # (plane, rf_ext, out, rf_out, tab, batch, low1, low2, hi1, res_setting,
@@ -93,8 +95,10 @@ SIGNATURES = {
     "nhw_uv_sentinel": [_P, _P, _P, _I, _I, _I, _P],
     # (in, tmp, maps, out, esc, batch, m1, stream)
     "nhw_offset_y_low4": [_P, _P, _P, _P, _P, _I, _I, _P],
-    # (in, r3_ext, xs, out, scratch, batch, r3_len, gt_low10, stream)
-    "nhw_lowest_q_band_cleanup": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # (in, r3_ext, xs, out, batch, r3_len, gt_low10, stream)
+    "nhw_lowest_q_band_cleanup": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # (int32[3] out: registers, shared bytes per CTA, most resident clusters)
+    "nhw_lowest_q_band_cleanup_info": [_P],
     # (plane, masks, batch, low9, x1, x2, x3, x4, stream)
     "nhw_very_low_q_cleanup": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     # (in, out, batch, x1, stream)

@@ -42,11 +42,16 @@ a torch twin (``*_ref``) of the same decomposition.  In
   row end in one of ``OY4_STATES``: every row walked from each (a
   thread a walk), the rows' maps chained by a warp scan, every row walked
   again from its entry.
-- ``merge_crossing_device`` (kernel ``merge_crossing``): the cursor walk
-  is a 5-state skip machine whose per-position map depends only on the
-  input bytes.  Each thread builds its 16-position tile's map from the 5
-  entry states, a CTA composes its tiles, one warp a stream walks the
-  CTAs' composites, and each tile walks again from its entry state.
+- ``merge_crossing_device`` (kernel ``merge_crossing``, one launch): the
+  cursor walk is a 5-state skip machine whose per-position map depends
+  only on the input bytes.  A cluster of ``MERGE_CTAS`` CTAs a stream, 64
+  positions a thread loaded in 16-byte loads: each thread builds its
+  map of 5 states once (15 bits, from bit masks of its bytes), the warps
+  and then the CTA scan the maps, each CTA pushes its composite (and its
+  map up to its last 4 positions with their fires from each state) to
+  the cluster before one barrier, and each thread walks again from its
+  entry state and writes its bytes from the fire bits in 16-byte stores
+  (``merge_crossing_plan``).
 
 In ``csrc/residue.cu``:
 
@@ -95,8 +100,14 @@ In ``csrc/uv.cu``:
 In ``csrc/lowq.cu``:
 
 - ``lowest_q_band_cleanup_device`` (kernel ``lowest_q_band_cleanup``, q <
-  LOW6): loop A a thread a row; B + C's rows walked from their two entry
-  states, the 256 exits chained, the rows walked again.
+  LOW6, one launch): the carry between visits is one of 5 states (left
+  the input, 0, 0 with the value zeroed by pairR, +7, -7), so each visit
+  is a table of the next state fixed by its inputs.  A cluster of
+  ``LQ_CTAS`` CTAs an image, a warp a row, a lane a tile of visits: the
+  warp scans its lanes' maps; loop A's rows walk again at once; B + C's
+  row maps (entry state to the next row's) are composed per CTA, then
+  chained over the cluster from row 256's entry, and each row walks again
+  from its entry (``lowest_q_band_cleanup_plan``).
 
 In ``csrc/vlq.cu``:
 
@@ -112,8 +123,8 @@ In ``csrc/vlq.cu``:
 - ``uv_ll_smooth_device`` (kernel ``uv_smooth``, q <= LOW9): one CTA a
   chroma plane, both passes as S12's wavefront.
 
-The rows of S2's pass 1, S10, S11 and S13 are staged in shared memory, 32
-a CTA, a thread a row.
+The rows of S2's pass 1, S10 and S13 are staged in shared memory, 32 a
+CTA, a thread a row.
 
 The rest are torch ops: the count-adaptive lowest-q thresholds (a count
 and a ``torch.where`` ladder, in ``device_encode_scans``), the
@@ -151,11 +162,12 @@ D = 256
 N = 512
 SZ = 65536
 
-MERGE_TILE = 16                    # positions a thread of merge_crossing
-MERGE_THREADS = 256                # threads a CTA (csrc/scans.cu kMThreads)
+MERGE_TILE = 64                    # positions a thread of merge_crossing
+MERGE_THREADS = 512                # threads a CTA (csrc/scans.cu kMThreads)
 MERGE_SPAN = MERGE_TILE * MERGE_THREADS
 MERGE_LEN = 4 * SZ                 # stream positions walked and written
 MERGE_END = 4 * SZ - 4             # the cursor walk's end
+MERGE_CTAS = MERGE_LEN // MERGE_SPAN   # CTAs a stream: one cluster of 8
 
 
 # ---------------------------------------------------------------------------
@@ -870,82 +882,126 @@ def _merge_steps(v: torch.Tensor):
     return k, fire_p, code
 
 
-def _walk_maps(km1: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
+def _walk_maps(km1: torch.Tensor, state: torch.Tensor,
+               fire: torch.Tensor | None = None):
     """Walk the skip machine over the last axis of ``km1`` (k - 1 per
-    position) from each of ``state``'s entries (a trailing axis);
-    returns the states after the walk."""
+    position) from each of ``state``'s entries (a trailing axis); returns
+    the states after the walk and, with ``fire`` (the fire patterns, the
+    shape of ``km1``), the fires of each walk (..., positions, entries)."""
+    fires = []
     for t in range(km1.shape[-1]):
         k = km1[..., t, None]
+        if fire is not None:
+            fires.append((state == 0) & fire[..., t, None])
         state = torch.where(state > 0, state - 1, k)
-    return state
+    return state, (torch.stack(fires, -2) if fire is not None else None)
 
 
-def _compose_walk(maps: torch.Tensor, entry: torch.Tensor):
-    """Entry states of consecutive maps along axis -2 of ``maps`` (...,
-    M, 5), walked from ``entry`` (...): (entries (..., M), exit)."""
-    entries = []
-    s = entry
-    for m in range(maps.shape[-2]):
-        entries.append(s)
-        s = torch.gather(maps[..., m, :], -1, s[..., None])[..., 0]
-    return torch.stack(entries, -1), s
+def _then(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The map of f, then g (5-state maps along the last axis)."""
+    return torch.gather(g, -1, f)
 
 
-def _compose_maps(maps: torch.Tensor) -> torch.Tensor:
-    """The composite of consecutive maps along axis -2 (..., M, 5)."""
-    ident = torch.arange(5, device=maps.device).expand(
-        maps.shape[:-2] + (5,))
-    s = ident
-    for m in range(maps.shape[-2]):
-        s = torch.gather(maps[..., m, :], -1, s)
-    return s
+def _scan_maps(maps: torch.Tensor, dim: int) -> tuple:
+    """Inclusive and exclusive scans of 5-state maps (..., M, 5) along
+    ``dim`` (the axis of M) by doubling steps, as a warp's shuffles
+    compose them: (inclusive, exclusive)."""
+    n = maps.shape[dim]
+    ident = torch.arange(5, device=maps.device).expand_as(maps)
+    idx = torch.arange(n, device=maps.device)
+    shape = [1] * maps.dim()
+    shape[dim] = n
+    lane = idx.reshape(shape)
+    inc = maps
+    d = 1
+    while d < n:
+        before = torch.cat([ident.narrow(dim, 0, d),
+                            inc.narrow(dim, 0, n - d)], dim)
+        inc = torch.where(lane >= d, _then(before, inc), inc)
+        d <<= 1
+    exc = torch.cat([ident.narrow(dim, 0, 1), inc.narrow(dim, 0, n - 1)],
+                    dim)
+    return inc, exc
+
+
+def merge_crossing_plan(s: torch.Tensor) -> dict:
+    """The kernel's decomposition of ``merge_crossing`` on a (B, >= 4 SZ)
+    uint8 stream: each thread's map over its 64 positions from the 5 entry
+    states (skips left), the warps' inclusive scans of their 32 maps, the
+    CTAs' scans of their 16 warp composites, each CTA's word (composite,
+    its map up to its last 4 positions, their fires from each state), the
+    cluster's chain of the 8 words from state 0, each thread's entry state
+    and the fires of the previous CTA's last 4 positions a CTA starts from.
+    Returns the step tensors (v, km1, fire_p, code) and "entry" (B,
+    4096), "prev4" (B, 8, 4), "cta_entry" (B, 8)."""
+    b, n = s.shape
+    dev = s.device
+    v = _i32(s)
+    if n < MERGE_LEN + 8:
+        v = torch.cat([v, v.new_zeros((b, MERGE_LEN + 8 - n))], 1)
+    k, fire_p, code = _merge_steps(v)
+    km1 = (k - 1)[:, :MERGE_LEN]
+    fire_p = fire_p[:, :MERGE_LEN]
+    warps = MERGE_THREADS // 32
+    tk = km1.reshape(b, MERGE_CTAS, warps, 32, MERGE_TILE)
+    tf = fire_p.reshape(tk.shape)
+    ident = torch.arange(5, device=dev).expand(tk.shape[:-1] + (5,))
+    maps, _ = _walk_maps(tk, ident)                # (B, 8, 16, 32, 5)
+    inc, exc = _scan_maps(maps, 3)
+    wmaps = inc[:, :, :, -1]                       # (B, 8, 16, 5)
+    cinc, wpre = _scan_maps(wmaps, 2)
+    comp = cinc[:, :, -1]                          # (B, 8, 5)
+    # the CTA's last thread: its map over its first 60 positions after its
+    # prefix, and the fires of its last 4 from each state
+    last = (slice(None), slice(None), -1, -1)
+    p60, _ = _walk_maps(tk[last][..., :MERGE_TILE - 4], ident[last])
+    partial = _then(_then(wpre[:, :, -1], exc[last]), p60)
+    _, tab = _walk_maps(tk[last][..., MERGE_TILE - 4:], ident[last],
+                        tf[last][..., MERGE_TILE - 4:])   # (B, 8, 4, 5)
+    e = torch.zeros((b, 1), dtype=torch.long, device=dev)
+    entries, prev4 = [], [torch.zeros((b, 4), dtype=torch.bool, device=dev)]
+    for c in range(MERGE_CTAS):
+        entries.append(e[:, 0])
+        if c + 1 < MERGE_CTAS:
+            st = partial[:, c].gather(1, e)
+            prev4.append(tab[:, c].gather(2, st[:, None].expand(b, 4, 1))
+                         [..., 0])
+        e = comp[:, c].gather(1, e)
+    cta_entry = torch.stack(entries, 1)            # (B, 8)
+    we = wpre.gather(3, cta_entry[:, :, None, None].expand(
+        b, MERGE_CTAS, warps, 1))                  # (B, 8, 16, 1)
+    entry = exc.gather(4, we[:, :, :, None].expand(
+        b, MERGE_CTAS, warps, 32, 1))[..., 0]      # (B, 8, 16, 32)
+    return {"v": v, "km1": km1, "fire_p": fire_p, "code": code,
+            "entry": entry.reshape(b, -1), "prev4": torch.stack(prev4, 1),
+            "cta_entry": cta_entry}
 
 
 def merge_crossing_ref(s: torch.Tensor) -> torch.Tensor:
-    """Torch twin of ``merge_crossing``: tile maps of 16 positions from
-    the 5 entry states, composed 32 tiles a warp and 8 warps a CTA, the
-    CTAs walked in order from state 0, the entries handed down to warps
-    and tiles, and each tile walked again (16 + 4 positions) to write
-    positions [start + 4, start + 20) (tile 0 also [0, 4))."""
-    b, n = s.shape
-    v = _i32(s)
-    if n < MERGE_LEN + 32:
-        v = torch.cat([v, v.new_zeros((b, MERGE_LEN + 32 - n))], 1)
-    k, fire_p, code = _merge_steps(v)
-    km1 = (k - 1)[:, :MERGE_LEN + MERGE_TILE]
-    tiles = MERGE_LEN // MERGE_TILE
-    ctas = MERGE_LEN // MERGE_SPAN
-    tk = km1[:, :MERGE_LEN].reshape(b, tiles, MERGE_TILE)
-    ident = torch.arange(5, device=s.device).expand(b, tiles, 5)
-    maps = _walk_maps(tk, ident)                           # (B, tiles, 5)
-    wmaps = maps.reshape(b, ctas, 8, 32, 5)
-    warp_fn = _compose_maps(wmaps)                         # (B, ctas, 8, 5)
-    cta_fn = _compose_maps(warp_fn)                        # (B, ctas, 5)
-    cta_entry, _ = _compose_walk(cta_fn, torch.zeros(
-        b, dtype=torch.long, device=s.device))             # (B, ctas)
-    warp_entry, _ = _compose_walk(warp_fn, cta_entry)      # (B, ctas, 8)
-    tile_entry, _ = _compose_walk(wmaps, warp_entry)       # (B, ctas, 8, 32)
-    state = tile_entry.reshape(b, tiles)
-    # each tile walks its 16 positions and the next tile's first 4
-    span = MERGE_TILE + 4
-    pos = (torch.arange(tiles, device=s.device)[:, None] * MERGE_TILE
-           + torch.arange(span, device=s.device))          # (tiles, 20)
-    wk = km1[:, pos]
-    wf = fire_p[:, pos]
-    fires = []
-    for t in range(span):
-        fires.append(wf[..., t] & (state == 0))
-        state = torch.where(state > 0, state - 1, wk[..., t])
-    fire = torch.stack(fires, -1)                          # (B, tiles, 20)
-    own = pos[:, 4:]                                       # written
-    val = torch.where(fire[..., :-4], 201, torch.where(
-        fire[..., 4:], code[:, own], v[:, own]))
+    """Torch twin of ``merge_crossing`` in its decomposition
+    (``merge_crossing_plan``): each thread walks its 64 positions again
+    from its entry state for its fire bits; a thread's first 4 bytes take
+    the previous thread's last 4 fires, a CTA's first thread the previous
+    CTA's from the cluster's chain; out[i] = fire[i - 4] ? 201 : fire[i] ?
+    code[i] : v[i] over [0, 4 SZ), the rest copied."""
+    b = s.shape[0]
+    plan = merge_crossing_plan(s)
+    threads = MERGE_LEN // MERGE_TILE
+    tk = plan["km1"].reshape(b, threads, MERGE_TILE)
+    tf = plan["fire_p"].reshape(tk.shape)
+    _, fire = _walk_maps(tk, plan["entry"][..., None], tf)
+    fire = fire[..., 0]                             # (B, threads, 64)
+    prev = torch.cat([torch.zeros_like(fire[:, :1, -4:]), fire[:, :-1, -4:]],
+                     1)
+    starts = torch.arange(MERGE_CTAS, device=s.device) * MERGE_THREADS
+    prev[:, starts] = plan["prev4"]
+    before = torch.cat([prev, fire[..., :-4]], -1).reshape(b, -1)
+    fire = fire.reshape(b, -1)
+    n = MERGE_LEN
+    val = torch.where(before, 201, torch.where(
+        fire, plan["code"][:, :n], plan["v"][:, :n]))
     out = s.clone()
-    flat = own.reshape(-1)
-    keep = flat < MERGE_LEN
-    out[:, flat[keep]] = val.reshape(b, -1)[:, keep].to(torch.uint8)
-    head = torch.where(fire[:, 0, :4], code[:, :4], v[:, :4])
-    out[:, :4] = head.to(torch.uint8)
+    out[:, :n] = val.to(torch.uint8)
     return out
 
 
@@ -954,7 +1010,7 @@ def merge_crossing_device(s):
     uint8 stream: 136/120 codes across 3-gap 128 runs merge into
     132-135 + 201.  The cursor walk's decisions depend only on the input
     bytes, so the result is a new stream (kernel ``merge_crossing``:
-    three launches)."""
+    one cluster launch of 8 CTAs a stream)."""
     _check(s, "merge_crossing stream", torch.uint8, (None, None))
     if not s.is_contiguous() or s.shape[1] < MERGE_LEN:
         raise ValueError("merge_crossing: stream must be contiguous and "
@@ -964,14 +1020,10 @@ def merge_crossing_device(s):
     lib, stream = _cuda_args(s)
     b, n = s.shape
     out = torch.empty_like(s)
-    ctas = MERGE_LEN // MERGE_SPAN
-    comp = torch.empty((b, ctas, 5), dtype=torch.int32, device=s.device)
-    entry = torch.empty((b, ctas), dtype=torch.int32, device=s.device)
     if b:
         with torch.cuda.device(s.device):
             build.check("nhw_merge_crossing", lib.nhw_merge_crossing(
-                s.data_ptr(), out.data_ptr(), comp.data_ptr(),
-                entry.data_ptr(), b, n, stream))
+                s.data_ptr(), out.data_ptr(), b, n, stream))
         build.count("merge_crossing")
     return out
 
@@ -1101,27 +1153,85 @@ LQ_R3_EXT = SZ + 256            # resIII and the heap-alias tail
 LQ_R3_MIN = ((SZ - 2) >> 1) + (SZ >> 1) + 128 + 1   # the last row's reads
 
 
-def _lq_visit(vin, left, right, r3ok, thi, tlo, lo2, x5, snap):
-    """One visit (phase 1, then the re-read of phase 2) -> (value, pairL,
-    pairR).  Where phase 1 writes, the value is 0 and phase 2 has nothing
-    to do, so both phases read the left and right values as the visit
-    found them.  lo2: |v| below it zeroes (0: never); snap: +-16 and
-    beyond become +-7 instead of 0."""
-    av = vin.abs()
-    cand1 = (av >= 8) & (av < thi)
-    z_r3 = cand1 & r3ok
-    pair_l = (cand1 & ~z_r3 & ((vin + left).abs() < x5)
-              & (right.abs() < x5))
-    pair_r = (cand1 & ~z_r3 & ~pair_l & ((vin + right).abs() < x5)
-              & (left.abs() < x5))
-    v1 = torch.where(z_r3 | pair_l | pair_r, 0, vin)
-    av2 = v1.abs()
-    cand2 = (av2 >= 8) & (av2 < tlo)
-    iso = (left.abs() < 8) & (right.abs() < 8)
-    hit = cand2 & (iso | (av2 < lo2))
-    to = torch.where(v1 >= 16, 7, torch.where(v1 <= -16, -7, 0))
-    to = torch.where(snap, to, 0)
-    return torch.where(hit, to, v1), pair_l, pair_r
+# The kernel's decomposition (csrc/lowq.cu lowest_q_rows): a cluster of
+# LQ_CTAS CTAs an image, CTA k on rows 32 k.. of loop A and 256 + 32 k.. of
+# B + C; a warp a row, a lane a tile of LQ_A_TILE visits of loop A (columns
+# 256 + 8 l..) or LQ_BC_TILE of B + C (columns 16 l..; lane 31 the last 15).
+LQ_CTAS = 8
+LQ_ROWS = D // LQ_CTAS
+LQ_A_TILE = 8
+LQ_BC_TILE = 16
+# The carry into a visit: 0 (left the input at the column before), 1 (left
+# 0), 2 (left 0, the visit's value zeroed by the last visit's pairR), 3
+# (left +7), 4 (left -7).  A visit's table gives the next state from each:
+# 2 after pairR, 1 where it wrote 0, 3 or 4 where it snapped to +-7, 0
+# where it kept its input; state 2's is 1.
+LQ_STATE_LEFT = (None, 0, 0, 7, -7)
+
+
+def _lq_tables(x, xl, right, r3ok, thi, tlo, lo2, x5, snap):
+    """Each visit's table over the 5 carry states, (next (..., 5) int64,
+    pairL (..., 5) bool), from its input x, xl the input before it (state
+    0's left), right the input after it and its r3 test.  Phase 1 writes 0
+    where it fires, so phase 2 reads the neighbours as the visit found
+    them.  lo2: |v| below it zeroes (0: never); snap: +-16 and beyond
+    become +-7 instead of 0."""
+    av = x.abs()
+    c1 = (av >= 8) & (av < thi)
+    z = c1 & r3ok
+    c1n = c1 & ~r3ok
+    rok = right.abs() < x5
+    prv = (x + right).abs() < x5
+    c2 = (av >= 8) & (av < tlo)
+    lo = av < lo2
+    r8 = right.abs() < 8
+    hit_next = torch.where(snap & (x >= 16), 3, torch.where(
+        snap & (x <= -16), 4, 1))
+    nexts, pls = [], []
+    for s, left in enumerate(LQ_STATE_LEFT):
+        if s == 2:
+            nexts.append(torch.ones_like(hit_next))
+            pls.append(torch.zeros_like(c1))
+            continue
+        if left is None:
+            left = xl
+        else:
+            left = torch.full_like(x, left)
+        pl = c1n & ((x + left).abs() < x5) & rok
+        pr = c1n & ~pl & prv & (left.abs() < x5)
+        f1 = z | pl | pr
+        hit = ~f1 & c2 & (((left.abs() < 8) & r8) | lo)
+        nexts.append(torch.where(pr, 2, torch.where(f1, 1, torch.where(
+            hit, hit_next, 0))))
+        pls.append(pl)
+    return torch.stack(nexts, -1).long(), torch.stack(pls, -1)
+
+
+def _lq_value(state, x):
+    """The value a visit leaves at input x when it moves to ``state``."""
+    return torch.where(state == 0, x, torch.where(state == 3, 7, torch.where(
+        state == 4, -7, 0)))
+
+
+def _lq_lane_maps(nxt):
+    """Each lane's map of its tile, composed in order from the visits'
+    tables (..., tile, 5) -> (..., 5)."""
+    m = torch.arange(5, device=nxt.device).expand(nxt.shape[:-2] + (5,))
+    for k in range(nxt.shape[-2]):
+        m = _then(m, nxt[..., k, :])
+    return m
+
+
+def _lq_walk(nxt, pl, state, x):
+    """Each lane's tile walked from ``state`` (...) by its tables: (the
+    exit state, the values (..., tile), pairL (..., tile))."""
+    vals, pls = [], []
+    for k in range(nxt.shape[-2]):
+        s = state[..., None]
+        pls.append(pl[..., k, :].gather(-1, s)[..., 0])
+        state = nxt[..., k, :].gather(-1, s)[..., 0]
+        vals.append(_lq_value(state, x[..., k]))
+    return state, torch.stack(vals, -1), torch.stack(pls, -1)
 
 
 def _lq_args(plane, r3_ext, xs) -> None:
@@ -1145,90 +1255,126 @@ def _lq_r3ok(r3, idx, thr):
     return v.abs() < thr.reshape(b, 1, 1)
 
 
-def lowest_q_band_cleanup_ref(plane, r3_ext, quality: int, xs):
-    """Torch twin of ``lowest_q_band_cleanup``, with its decomposition:
-    loop A's rows walked as a batch; B + C's rows walked as a batch from
-    both entry states (the previous row's column 511 as it was, or 0) for
-    their exit (pairR at 510), the 256 exits chained in order from row
-    256 (which enters from loop A's last value), and each row walked again
-    from its entry to write."""
+def lowest_q_band_cleanup_plan(plane, r3_ext, quality: int, xs) -> dict:
+    """The kernel's decomposition of ``lowest_q_band_cleanup``: each
+    visit's table over the 5 carry states, each lane tile's map composed
+    from them, the warps' scans of their 32 lane maps; loop A's rows walked
+    from their state 0; B + C's rows' maps from their entry state to the
+    next row's (pairR at 510 or not), composed over each CTA's 32 rows,
+    then chained over the cluster's 8 CTAs from row 256's entry (loop A's
+    row 255's exit).  Returns the inputs and tables ("x", "nxt", "pl", for
+    loop A (B, 256, 32, 8) and B + C (B, 256, 32, 16)), loop A's lane
+    entries and walk ("a_entry", "a_state", "a_vals", "a_pl") and B + C's
+    entries: "e256" (B,),
+    "cta_entry" (B, 8), "row_entry" (B, 256), "lane_entry" (B, 256, 32)."""
     _lq_args(plane, r3_ext, xs)
     dev = plane.device
     b = plane.shape[0]
     I = _i32(plane)
     r3 = _i32(r3_ext)
-    x1, x2, x3, x4, x5 = (xs[:, k].to(torch.int32).reshape(b, 1)
+    x1, x2, x3, x4, x5 = (xs[:, k].to(torch.int32).reshape(b, 1, 1, 1)
                           for k in range(5))
     gt10 = torch.tensor(quality > T.LOW10, device=dev)
     no = torch.tensor(False, device=dev)
-    out = I.clone()
     row = torch.arange(D, device=dev).reshape(D, 1)
     col = torch.arange(D, device=dev).reshape(1, D)
     half = (row * D + col) >> 1
+    lanes = torch.arange(32, device=dev)
 
-    # loop A: rows 0..255, columns 256..511
+    def tiles(a, t):
+        return a.reshape(b, D, 32, t)
+
+    # loop A: rows 0..255, columns 256..511 (a column's r3 value at its
+    # half index)
     okA = _lq_r3ok(r3, half + 128, x4)
-    left = I[:, :D, D - 1]
-    zcur = torch.zeros_like(left, dtype=torch.bool)
-    for c in range(D):
-        j = D + c
-        right = I[:, :D, j + 1] if j + 1 < N else I[:, 1:D + 1, 0]
-        vin = torch.where(zcur, 0, I[:, :D, j])
-        v, pl, pr = _lq_visit(vin, left, right, okA[..., c], x3 + 2, x3, 0,
-                              x5, no)
-        out[:, :D, j] = v
-        if c == 0:
-            out[:, :D, D - 1] = torch.where(pl, 0, out[:, :D, D - 1])
-        else:
-            out[:, :D, j - 1] = torch.where(pl, 0, out[:, :D, j - 1])
-        left, zcur = v, pr
-    # pairR at column 511 zeroes the next row's column 0 (rows 1..256)
-    out[:, 1:D + 1, 0] = torch.where(zcur, 0, out[:, 1:D + 1, 0])
-
-    # loops B + C: rows 256..511, columns 0..510
-    H = out[:, D:].clone()
+    xa = I[:, :D, D:]
+    xla = I[:, :D, D - 1:N - 1]
+    ra = torch.cat([I[:, :D, D + 1:], I[:, 1:D + 1, :1]], 2)
+    ta = LQ_A_TILE
+    na, pa = _lq_tables(tiles(xa, ta), tiles(xla, ta), tiles(ra, ta),
+                        tiles(okA, ta), x3 + 2, x3, 0, x5, no)
+    _, exc = _scan_maps(_lq_lane_maps(na), 2)
+    a_entry = exc[..., 0]
+    a_state, a_vals, a_pl = _lq_walk(na, pa, a_entry, tiles(xa, ta))
+    e256 = a_state[:, D - 1, 31]
+    # B + C: rows 256..511, columns 0..510 (column 511 not visited)
+    H = I[:, D:]
     okH = torch.cat([_lq_r3ok(r3, half + (SZ >> 1), x4),
                      _lq_r3ok(r3, half + (SZ >> 1) + 128, x4 + 1)], 2)
-    seg = [(x1 + 2, x1, x1 - 4, no), (x2 + 1, x2, x2 - 5, gt10)]
-    prev511 = torch.cat([out[:, D - 1: D, N - 1], H[:, :-1, N - 1]], 1)
+    xlh = torch.cat([I[:, D - 1:N - 1, N - 1:], H[..., :-1]], 2)
+    rh = torch.cat([H[..., 1:], H[..., -1:]], 2)
+    tb = LQ_BC_TILE
+    segc = (lanes >= 16).reshape(1, 1, 32, 1)
+    nb, pb = _lq_tables(
+        tiles(H, tb), tiles(xlh, tb), tiles(rh, tb), tiles(okH, tb),
+        torch.where(segc, x2 + 1, x1 + 2), torch.where(segc, x2, x1),
+        torch.where(segc, x2 - 5, x1 - 4), x5, segc & gt10)
+    last = (slice(None), slice(None), 31, tb - 1)
+    nb[last] = torch.arange(5, device=dev)
+    pb[last] = False
+    inc, lane_pre = _scan_maps(_lq_lane_maps(nb), 2)
+    row_map = (inc[:, :, 31] == 2).long()       # the next row's entry
+    cinc, row_pre = _scan_maps(row_map.reshape(b, LQ_CTAS, LQ_ROWS, 5), 2)
+    comp = cinc[:, :, -1]
+    e = e256[:, None]
+    cta_entry = []
+    for c in range(LQ_CTAS):
+        cta_entry.append(e[:, 0])
+        e = comp[:, c].gather(1, e)
+    cta_entry = torch.stack(cta_entry, 1)
+    row_entry = row_pre.gather(3, cta_entry[:, :, None, None].expand(
+        b, LQ_CTAS, LQ_ROWS, 1)).reshape(b, D)
+    lane_entry = lane_pre.gather(3, row_entry[:, :, None, None].expand(
+        b, D, 32, 1))[..., 0]
+    return {"xa": tiles(xa, ta), "na": na, "pa": pa, "a_entry": a_entry,
+            "a_state": a_state,
+            "a_vals": a_vals, "a_pl": a_pl, "e256": e256,
+            "xb": tiles(H, tb), "nb": nb, "pb": pb, "cta_entry": cta_entry,
+            "row_entry": row_entry, "lane_entry": lane_entry}
 
-    def walk(left, write):
-        """Walk every row from ``left`` (its column-0 left value, with
-        trailing entry dims) -> (pairR at 510, pairL at 0)."""
-        ext = left.dim() - 2
-        zcur = torch.zeros_like(left, dtype=torch.bool)
 
-        def at(x):
-            return x.reshape(x.shape + (1,) * ext)
+def lowest_q_band_cleanup_ref(plane, r3_ext, quality: int, xs):
+    """Torch twin of ``lowest_q_band_cleanup`` in its decomposition
+    (``lowest_q_band_cleanup_plan``): each lane walks its tile again from
+    its entry state; pairL on a lane's first visit zeroes the previous
+    lane's last column; loop A's pairL at 256 zeroes column 255, its pairR
+    at 511 the next row's column 0; B + C's column 511 is zeroed by the
+    row's pairR at 510 or by the next row's pairL at column 0 from state 0
+    (its entry where there was no pairR), row 255's by row 256's from row
+    256's entry."""
+    plan = lowest_q_band_cleanup_plan(plane, r3_ext, quality, xs)
+    b = plane.shape[0]
+    out = _i32(plane).clone()
 
-        pl0 = None
-        for j in range(N - 1):
-            thi, tlo, lo2, snap = (at(p) for p in seg[j >= D])
-            vin = torch.where(zcur, 0, at(H[..., j]))
-            v, pl, pr = _lq_visit(vin, left, at(H[..., j + 1]),
-                                  at(okH[..., j]), thi, tlo, lo2,
-                                  at(x5), snap)
-            if write:
-                H[..., j] = v
-                if j:
-                    H[..., j - 1] = torch.where(pl, 0, H[..., j - 1])
-            if j == 0:
-                pl0 = pl
-            left, zcur = v, pr
-        return zcur, pl0
+    def zero_before(vals, pl):
+        """Each value zeroed by the next visit's pairL (the next lane's
+        first for a lane's last)."""
+        nxt = torch.cat([pl[..., 1:], torch.cat(
+            [pl[:, :, 1:, :1], torch.zeros_like(pl[:, :, :1, :1])], 2)], -1)
+        return torch.where(nxt, 0, vals)
 
-    exits, _ = walk(torch.stack([prev511, torch.zeros_like(prev511)], -1),
-                    False)
-    ent = torch.zeros((b, D), dtype=torch.long, device=dev)
-    e = torch.zeros((b, 1), dtype=torch.long, device=dev)
-    for r in range(D):
-        ent[:, r: r + 1] = e
-        e = exits[:, r].gather(1, e).long()
-    pr510, pl0 = walk(torch.where(ent == 0, prev511, 0), True)
-    H[..., N - 1] = torch.where(pr510, 0, H[..., N - 1])
-    H[:, :-1, N - 1] = torch.where(pl0[:, 1:], 0, H[:, :-1, N - 1])
-    out[:, D - 1, N - 1] = torch.where(pl0[:, 0], 0, out[:, D - 1, N - 1])
-    out[:, D:] = H
+    # loop A
+    a_vals = zero_before(plan["a_vals"], plan["a_pl"])
+    pl256 = plan["a_pl"][:, :, 0, 0]
+    flag = plan["a_state"][:, :, 31] == 2
+    # row 255's column 511: row 256's first visit from its entry
+    e256 = plan["e256"]
+    t256 = plan["pb"][:, 0, 0, 0].gather(1, e256[:, None])[:, 0]
+    a_vals[:, D - 1, 31, -1] = torch.where(t256, 0,
+                                           a_vals[:, D - 1, 31, -1])
+    out[:, :D, D:] = a_vals.reshape(b, D, D)
+    out[:, :D, D - 1] = torch.where(pl256, 0, out[:, :D, D - 1])
+    out[:, 1:D, 0] = torch.where(flag[:, :-1], 0, out[:, 1:D, 0])
+    # B + C
+    st, vals, pl = _lq_walk(plan["nb"], plan["pb"], plan["lane_entry"],
+                            plan["xb"])
+    vals = zero_before(vals, pl)
+    x511 = plan["xb"][:, :, 31, -1]
+    pr510 = st[:, :, 31] == 2
+    pl0 = torch.cat([plan["pb"][:, 1:, 0, 0, 0],
+                     torch.zeros_like(pr510[:, :1])], 1)
+    vals[:, :, 31, -1] = torch.where(pr510 | pl0, 0, x511)
+    out[:, D:] = vals.reshape(b, D, N)
     return out.to(torch.int16)
 
 
@@ -1239,23 +1385,21 @@ def lowest_q_band_cleanup_device(plane, r3_ext, quality: int, xs):
     free-time kernel's [131080:131084], 24593, tree1's first 496 bytes as
     int16 pairs), xs (B, 5) int32 each image's (x1, x2, x3, x4, x5), and
     quality > LOW10 turns on C's +-7 snap.  Returns a new plane (kernel
-    ``lowest_q_band_cleanup``: three launches of 32 staged rows a CTA, a
-    thread a row: loop A, B + C's maps, B + C's chained walks)."""
+    ``lowest_q_band_cleanup``: one launch, a cluster of 8 CTAs an image, a
+    warp a row, each visit a table of the next carry state)."""
     _lq_args(plane, r3_ext, xs)
     if plane.device.type == "cpu":
         return lowest_q_band_cleanup_ref(plane, r3_ext, quality, xs)
     lib, stream = _cuda_args(plane, r3_ext, xs)
     b = plane.shape[0]
     out = torch.empty_like(plane)
-    scratch = torch.empty((b, 3 * D), dtype=torch.uint8, device=plane.device)
     if b:
         with torch.cuda.device(plane.device):
             build.check("nhw_lowest_q_band_cleanup",
                         lib.nhw_lowest_q_band_cleanup(
                             plane.data_ptr(), r3_ext.data_ptr(),
-                            xs.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                            b, r3_ext.shape[1], int(quality > T.LOW10),
-                            stream))
+                            xs.data_ptr(), out.data_ptr(), b,
+                            r3_ext.shape[1], int(quality > T.LOW10), stream))
         build.count("lowest_q_band_cleanup")
     return out
 

@@ -903,6 +903,36 @@ def test_merge_crossing_kernel(cuda, b):
     assert sel1.tolist() == w1.tolist() and sel2.tolist() == w2.tolist()
 
 
+@pytest.mark.parametrize("b", [1, 3, 16])
+@pytest.mark.parametrize("kind", ["span edges", "state carries"])
+def test_merge_crossing_span_edges_kernel(cuda, kind, b):
+    """The cluster kernel's spans: crossings before every thread, warp and
+    CTA span edge, each cursor state carried across them; one launch,
+    equal to its twin and to the host copy's C."""
+    import chip_smoke as cs
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    s = cs.merge_edge_streams(np.random.default_rng(80 + b), b, kind)
+    x = torch.from_numpy(s).to(cuda)
+    before = build.LAUNCHES["merge_crossing"]
+    got = ds.merge_crossing_device(x)
+    assert build.LAUNCHES["merge_crossing"] == before + 1
+    torch.testing.assert_close(got, ds.merge_crossing_ref(x), rtol=0, atol=0)
+    np.testing.assert_array_equal(got.cpu().numpy(), cs.host_merge(s))
+
+
+@pytest.mark.parametrize("n", [4 * 65536, 4 * 65536 + 8, 4 * 65536 + 37])
+def test_merge_crossing_any_length_kernel(cuda, n):
+    """Rows that are not 16-byte aligned go a byte at a time."""
+    import chip_smoke as cs
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    s = np.random.default_rng(n).choice(
+        np.array([128, 136, 120, 5, 128], np.uint8), (3, n))
+    got = ds.merge_crossing_device(torch.from_numpy(s).to(cuda))
+    np.testing.assert_array_equal(got.cpu().numpy(), cs.host_merge(s))
+
+
 @pytest.mark.parametrize("q", [20, 17])
 def test_stream_stage_on_the_card(cuda, q):
     import chip_smoke as cs
@@ -1255,7 +1285,8 @@ def test_offset_y_low4_kernel(cuda, kind, b):
 @pytest.mark.parametrize("b", [1, 3, 16])
 @pytest.mark.parametrize("q", [13, 10])
 @pytest.mark.parametrize("kind", ["random", "pairR chain", "pairL column 0",
-                                  "A into row 256", "r3 tail"])
+                                  "A into row 256", "r3 tail", "lane edges",
+                                  "row chain"])
 def test_lowest_q_band_cleanup_kernel(cuda, kind, q, b):
     import chip_smoke as cs
     from nhwcodec_tpu_torch.models import device_encode_scans as des
@@ -1271,6 +1302,23 @@ def test_lowest_q_band_cleanup_kernel(cuda, kind, q, b):
                                rtol=0, atol=0)
     np.testing.assert_array_equal(got.cpu().numpy(),
                                   cs.host_lowest_q(x, r3, q, xs))
+
+
+def test_lowest_q_band_cleanup_odd_r3_rows(cuda):
+    """r3_ext rows that are not 16-byte multiples are read a value at a
+    time."""
+    import chip_smoke as cs
+    from nhwcodec_tpu_torch.models import device_encode_scans as des
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    x, r3 = cs.lowq_edge_inputs(np.random.default_rng(160), 3, "random")
+    r3o = np.concatenate([r3, np.zeros((3, 1), np.int16)], 1)
+    xs = np.tile(np.array(des.LOW7_XS, np.int32), (3, 1))
+    got = ds.lowest_q_band_cleanup_device(
+        *(torch.from_numpy(a).to(cuda) for a in (x, r3o)), 13,
+        torch.from_numpy(xs).to(cuda))
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  cs.host_lowest_q(x, r3, 13, xs))
 
 
 def test_lowest_q_band_cleanup_rejects_bad_inputs(cuda):

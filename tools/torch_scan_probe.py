@@ -1,14 +1,17 @@
-"""Device times of the port's S1 (snap passes), S2 (offset_y), S4 (pair
-promotion), S5 (column ladder), S6 (classify), S7 (ll2_code_y), S9
-(uv_sentinel) and E1 (chain_starts, the Y and the UV words) on the q20
-batch, for one tree of the repo, and the split of a kernel of S2, S4, S5,
-S7, S9 or E1 between its phases.
+"""Device times of the port's S1 (snap passes), S2 (offset_y), S3
+(merge_crossing), S4 (pair promotion), S5 (column ladder), S6
+(classify), S7 (ll2_code_y), S9 (uv_sentinel), S11 (the lowest-q
+cleanup) and E1 (chain_starts, the Y and the UV words) on the q20 batch
+(S11 on q13 planes), for one tree of the repo, and the split of a kernel
+of S2-S5, S7, S9, S11 or E1 between its phases.
 
 Run from anywhere on a machine with a CUDA card:
 
     python3 tools/torch_scan_probe.py [--tree DIR] [--ladder-src FILE]
         [--offset-y-src FILE] [--uv-src FILE] [--ll2-src FILE]
-        [--pp-src FILE] [--entropy-src FILE] [--sass] [--runs N]
+        [--pp-src FILE] [--entropy-src FILE] [--merge-src FILE]
+        [--lq-src FILE] [--merge-lq-only] [--batches] [--placement]
+        [--sass] [--runs N]
 
 ``--tree`` is the root of the tree whose ``nhwcodec_tpu_torch`` and
 ``chip_smoke`` are measured (default: this script's repo).  The inputs
@@ -94,8 +97,41 @@ over CTAs and runs):
 
 on the q20 E11 planes (S4) and the q20 chunk's Y and UV words (E1; the
 16 images' own host encodes).  ``--sass`` disassembles the tree's kernel
-library with ``cuobjdump -sass`` and counts, for each S4 and E1 kernel,
-its instructions by class (shared, global, shuffle, branch, barrier).
+library with ``cuobjdump -sass`` and counts, for each S3, S4, S11 and E1
+kernel, its instructions by class (shared, global, shuffle, branch,
+barrier).
+
+The JSON line also holds S3's graph times on the q20 streams (the
+serpentine of offset_y's codes), ``chip_smoke.stream_edge_streams`` and,
+where the tree has them, ``chip_smoke.merge_edge_streams``, and S11's on
+the 4 planes captured from the tree's host encodes of
+``chip_smoke.quality_batch(images, 13)``, 4 times (a batch of 16), and on
+each ``chip_smoke.LQ_KINDS`` kind at batch 16.  ``--merge-src`` takes a
+``scans.cu`` and ``--lq-src`` a ``lowq.cu`` of either design; each is
+stamped (16 stamps a CTA), checked against the tree's wrapper on those
+inputs and reported in µs:
+
+- S3, three launches (``merge_tiles``, ``merge_entries``,
+  ``merge_emit``): from a CTA's start, merge_tiles' staging, maps and
+  warp composites; merge_entries' walk; merge_emit's staging, rebuilt
+  maps and composites, the entries handed down, the walk and the stores;
+  and on a timeline from the first CTA's start, each launch's start and
+  end;
+- S3, one cluster launch (``merge_crossing``): from a CTA's start, the
+  step masks, the maps, the warp scans, the cluster barrier passed, the
+  walk again, the stores and the tail copy;
+- S11, three launches (``lq_a``, ``lq_maps``, ``lq_emit``): each one's
+  staging and walk, and the timeline across them;
+- S11, one cluster launch (``lowest_q_rows``): from a CTA's start, loop
+  A's rows, B + C's tables and maps, the CTA barrier, the cluster
+  barrier and the end;
+
+with the new designs' spread of CTA starts and their last CTA's end.
+``--merge-lq-only`` skips every kernel but S3 and S11.  ``--batches``
+adds their graph times on the first 1, 8, 14, 15 and 16 streams / planes,
+and ``--placement`` where 16 clusters of 8 CTAs of 512 threads land
+(each CTA's ``%smid``) with the most clusters resident, without dynamic
+shared memory, with S11's and with enough for one CTA an SM.
 
 Prints the card's name and power limit, then one JSON line.
 """
@@ -117,18 +153,19 @@ REPO = Path(__file__).resolve().parent.parent
 STAMPS = 8
 
 STAMP_DEFS = r"""
-__device__ unsigned long long g_ladder_stamp[65536 * 8];
+#define NHW_PER 8
+__device__ unsigned long long g_ladder_stamp[65536 * NHW_PER];
 __device__ __forceinline__ unsigned long long nhw_now() {
   unsigned long long t;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
   return t;
 }
 #define NHW_STAMP(k)                                                    \
-  (g_ladder_stamp[(blockIdx.y * gridDim.x + blockIdx.x) * 8 + (k)] = \
+  (g_ladder_stamp[(blockIdx.y * gridDim.x + blockIdx.x) * NHW_PER + (k)] = \
        nhw_now())
 #define NHW_STAMP_MAX(k)                                                \
-  atomicMax(&g_ladder_stamp[(blockIdx.y * gridDim.x + blockIdx.x) * 8 + \
-                            (k)], nhw_now())
+  atomicMax(&g_ladder_stamp[(blockIdx.y * gridDim.x + blockIdx.x) *     \
+                            NHW_PER + (k)], nhw_now())
 """
 
 # (anchor, text inserted before it, text inserted after it)
@@ -288,13 +325,110 @@ E1_SCAN_PATCHES = (
 STAMP_API = r"""
 extern "C" int nhw_ladder_stamps(void* dst, int n, int reset) {
   if (reset) {
-    static unsigned long long zero[65536 * 8];
+    static unsigned long long zero[65536 * NHW_PER];
     return cudaMemcpyToSymbol(g_ladder_stamp, zero, sizeof(zero));
   }
   return cudaMemcpyFromSymbol(dst, g_ladder_stamp,
-                              sizeof(unsigned long long) * 8 * n);
+                              sizeof(unsigned long long) * NHW_PER * n);
 }
 """
+
+# S3, three launches (merge_tiles 0 start, 1 staged, 2 maps, 3 warp
+# composites, 4 end; merge_emit 5 start, 6 staged, 7 maps, 8 composites, 9
+# entries handed down, 10 walked, 11 stored, 12 end; merge_entries 14 start
+# and 15 end, on CTA (0, b)'s stamps)
+MERGE_THREE_PATCHES = (
+    ("  uint8_t warp_entry[kMWarps];\n", "", "  int stamp_base;\n"),
+    ("    sh.v[i] = start + i < n ? s[base + start + i] : 0;\n"
+     "  __syncthreads();\n", "",
+     "  if (threadIdx.x == 0) NHW_STAMP(sh.stamp_base + 1);\n"),
+    ("  sh.map[t] = f;\n  __syncthreads();\n", "",
+     "  if (threadIdx.x == 0) NHW_STAMP(sh.stamp_base + 2);\n"),
+    ("    sh.warp_fn[w][lane] = uint8_t(x);\n  }\n  __syncthreads();\n", "",
+     "  if (threadIdx.x == 0) NHW_STAMP(sh.stamp_base + 3);\n"),
+    ("  merge_build(sh, s, n, b, cta);\n  if (t < kMStates) {\n",
+     "  if (t == 0) {\n    sh.stamp_base = 0;\n    NHW_STAMP(0);\n  }\n", ""),
+    ("    comp[(static_cast<size_t>(b) * kMCtas + cta) * kMStates + t] = x;"
+     "\n  }\n", "", "  NHW_STAMP_MAX(4);\n"),
+    ("  const int* c = comp + static_cast<size_t>(b) * kMCtas * kMStates;\n",
+     "", "  if (lane == 0)\n    g_ladder_stamp[b * kMCtas * NHW_PER + 14] = "
+     "nhw_now();\n"),
+    ("    st = __shfl_sync(0xFFFFFFFFu, val, st);\n  }\n", "",
+     "  if (lane == 0)\n    g_ladder_stamp[b * kMCtas * NHW_PER + 15] = "
+     "nhw_now();\n"),
+    ("  merge_build(sh, s, n, b, cta);\n  if (t == 0) {\n",
+     "  if (t == 0) {\n    sh.stamp_base = 5;\n    NHW_STAMP(5);\n  }\n", ""),
+    ("      x = map_at(sh.map[w * 32 + l], x);\n    }\n  }\n"
+     "  __syncthreads();\n", "", "  if (t == 0) NHW_STAMP(9);\n"),
+    ("  auto value = [&](int q) -> uint8_t {\n", "  NHW_STAMP_MAX(10);\n", ""),
+    ("  const int tail = n - kMLen;\n", "  NHW_STAMP_MAX(11);\n", ""),
+    ("    if (gi < n) out[base + gi] = s[base + gi];\n  }\n", "",
+     "  NHW_STAMP_MAX(12);\n"),
+)
+# S3, one cluster launch: 0 start, 1 step masks built (slowest warp), 2
+# maps built, 3 warp scanned, 4 past the cluster barrier, 5 walked again,
+# 6 stores issued, 7 the tail copied
+MERGE_CLUSTER_PATCHES = (
+    ("  const int g0 = rank * kMSpan + t * kMT;\n", "",
+     "  if (t == 0) NHW_STAMP(0);\n"),
+    ("  // the thread's map, and (for the CTA's last thread) its map over its"
+     "\n", "  if (lane == 0) NHW_STAMP_MAX(1);\n", ""),
+    ("  uint32_t inc = map5_then(p0, p1);\n", "",
+     "  if (lane == 0) NHW_STAMP_MAX(2);\n"),
+    ("  __syncthreads();\n  nhw::cluster_wait();         // every CTA of the "
+     "cluster has started\n", "  if (lane == 0) NHW_STAMP_MAX(3);\n", ""),
+    ("  // the CTA's entry state, and the previous CTA's fires at its last "
+     "4\n", "  if (t == 0) NHW_STAMP(4);\n", ""),
+    ("  const uint32_t up = __shfl_up_sync(kFull, fires[1] >> 28, 1);\n",
+     "  if (lane == 0) NHW_STAMP_MAX(5);\n", ""),
+    ("        dst[g0 + 4 * k + i] = static_cast<uint8_t>(v[k] >> (8 * i));\n"
+     "  }\n", "", "  if (lane == 0) NHW_STAMP_MAX(6);\n"),
+    ("      dst[kMLen + i] = src[kMLen + i];\n  }\n", "",
+     "  if (lane == 0) NHW_STAMP_MAX(7);\n"),
+)
+# S11, three launches of a thread a row: lq_a 0 start, 1 staged, 2 walked,
+# 3 end; lq_maps 4 start, 5 staged, 6 walked from both entries; lq_emit 7
+# start, 8 staged and chained, 9 walked, 10 end
+LQ_THREE_PATCHES = (
+    ("  stage_r3ok(r3_ext + b * r3_len, r0 * kR3A + 128, kR3A, x.x4, x.x4, "
+     "ok_s);\n  __syncthreads();\n", "  if (t == 0) NHW_STAMP(0);\n",
+     "  if (t == 0) NHW_STAMP(1);\n"),
+    ("  flags[b * kD + r0 + t] = z;\n", "", "  NHW_STAMP_MAX(2);\n"),
+    ("  nhw::unstage_rows(s, kRows, out + b * kPlane, r0);\n", "",
+     "  NHW_STAMP_MAX(3);\n"),
+    ("  stage_bc(in + b * kPlane, r3_ext + b * r3_len, out + b * kPlane,\n",
+     "  if (t == 0) NHW_STAMP(4);\n", ""),
+    ("  const Seg sb = seg_b(x), sc = seg_c(x, gt_low10);\n"
+     "  int16_t* row = s + t * kStagePitch + 1;\n"
+     "  const uint32_t* ok = ok_s + t * kOkPitch;\n",
+     "  if (t == 0) NHW_STAMP(5);\n", ""),
+    ("  e[1] = bc_walk<false>(row, 0, ok, sb, sc, x.x5, pl0);\n", "",
+     "  NHW_STAMP_MAX(6);\n"),
+    ("  for (int i = t; i < kD * 2; i += kRows) exit_s[i] = exits[b * kD * 2 "
+     "+ i];\n", "  if (t == 0) NHW_STAMP(7);\n", ""),
+    ("  nhw::chain_entries<2>(exit_s, entry_s, kD);\n  __syncthreads();\n",
+     "", "  if (t == 0) NHW_STAMP(8);\n"),
+    ("  if (rt > 0 && flags[b * kD + rt - 1]) O[rt * kN] = 0;\n",
+     "  NHW_STAMP_MAX(9);\n", ""),
+    ("  nhw::unstage_rows(s, kRows, O, kD + r0);\n", "",
+     "  NHW_STAMP_MAX(10);\n"),
+)
+# S11, one cluster launch: 0 start, 1 loop A's rows done (slowest warp), 2
+# B + C's tables and maps, 3 the CTA synchronised, 4 past the cluster
+# barrier, 5 B + C walked again and stored
+LQ_CLUSTER_PATCHES = (
+    ("  const int r0 = rank * kLqRows;\n", "",
+     "  if (t == 0) NHW_STAMP(0);\n"),
+    ("  // B + C, rows 256 + r0 + w and + 16: each visit's table, the lanes' "
+     "maps\n", "  if (lane == 0) NHW_STAMP_MAX(1);\n", ""),
+    ("  __syncthreads();\n  nhw::cluster_wait();         // every CTA of the "
+     "cluster has started\n", "  if (lane == 0) NHW_STAMP_MAX(2);\n",
+     "  if (t == 0) NHW_STAMP(3);\n"),
+    ("  int e = (sh.pub[kLqCtas - 1] >> 15) & 7;   // row 256's entry\n",
+     "  if (t == 0) NHW_STAMP(4);\n", ""),
+    ("    dst[1] = make_uint4(o[4], o[5], o[6], o[7]);\n  }\n", "",
+     "  if (lane == 0) NHW_STAMP_MAX(5);\n"),
+)
 
 
 def blocks(src: str) -> bool:
@@ -302,11 +436,13 @@ def blocks(src: str) -> bool:
     return "ladder_table" in src
 
 
-def patch_stamps(src: str, patches) -> str:
+def patch_stamps(src: str, patches, per: int = STAMPS) -> str:
     """A stamped copy of a kernel source: ``patches`` of (anchor, text
-    before it, text after it)."""
+    before it, text after it); ``per`` stamps a CTA."""
     at = src.index("namespace {")
-    src = src[:at] + STAMP_DEFS + src[at:]
+    src = (src[:at] + STAMP_DEFS.replace("#define NHW_PER 8",
+                                         f"#define NHW_PER {per}")
+           + src[at:])
     for anchor, before, after in patches:
         if src.count(anchor) != 1:
             raise SystemExit(f"torch_scan_probe: anchor not found once in "
@@ -315,12 +451,13 @@ def patch_stamps(src: str, patches) -> str:
     return src + STAMP_API
 
 
-def build_stamped(src_path: Path, out_dir: Path, patches):
+def build_stamped(src_path: Path, out_dir: Path, patches,
+                  per: int = STAMPS):
     """The stamped library of a kernel source."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     cu = out_dir / f"{src_path.stem}_stamped.cu"
-    cu.write_text(patch_stamps(src_path.read_text(), patches))
+    cu.write_text(patch_stamps(src_path.read_text(), patches, per))
     lib = out_dir / f"lib{src_path.stem}_stamped.so"
     nvcc = str(Path(CUDA_HOME) / "bin" / "nvcc") if CUDA_HOME else "nvcc"
     subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
@@ -362,12 +499,13 @@ def stamp_runs(dll, call, ctas: int, runs: int) -> np.ndarray:
     return np.stack(per_run)
 
 
-def raw_stamps(dll, call, ctas: int, runs: int) -> np.ndarray:
-    """(runs, ctas, STAMPS) as the kernel left them (accumulators too)."""
+def raw_stamps(dll, call, ctas: int, runs: int,
+               per: int = STAMPS) -> np.ndarray:
+    """(runs, ctas, per) as the kernel left them (accumulators too)."""
     import torch
 
     out = []
-    stamps = np.zeros((ctas, STAMPS), np.uint64)
+    stamps = np.zeros((ctas, per), np.uint64)
     for _ in range(runs):
         dll.nhw_ladder_stamps(None, ctas, 1)
         call()
@@ -473,12 +611,41 @@ def ll2_split(dll, bands: bool, planes: dict, runs: int, cs) -> dict:
 
 
 def build_design(src_path: Path, out_dir: Path, marker: str, new_patches,
-                 old_patches):
+                 old_patches, per: int = STAMPS):
     """(the stamped library of either design of a kernel source, whether
     it is the cluster design: ``marker`` in it)."""
     new = marker in src_path.read_text()
     return build_stamped(src_path, out_dir, new_patches if new
-                         else old_patches), new
+                         else old_patches, per), new
+
+
+def lq_inputs(cs, host_encoder, images, dev) -> dict:
+    """S11's inputs, (plane, r3_ext, xs, q) each at batch 16: the 4 q13
+    planes captured from the host copy's encodes of
+    ``chip_smoke.quality_batch(images, 13)``, 4 times; and each
+    ``chip_smoke.LQ_KINDS`` kind at the LOW7 thresholds."""
+    import torch
+
+    from nhwcodec_tpu_torch.models import device_encode_scans as des
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    with cs.StreamCapture() as cap:
+        for img in cs.quality_batch(images, 13):
+            host_encoder.encode(img, 13)
+    recs = [r for r in cap.records if "lq" in r]
+    k = 16 // len(recs)
+    out = {"q13 planes": (
+        t(np.stack([r["e11"] for r in recs] * k)),
+        t(np.stack([r["lq"]["r3"] for r in recs] * k)),
+        t(np.array([r["lq"]["xs"] for r in recs] * k, np.int32)), 13)}
+    rng = np.random.default_rng(cs.SEED + 70)
+    xs = t(np.tile(np.array(des.LOW7_XS, np.int32), (16, 1)))
+    for kind in cs.LQ_KINDS:
+        x, r3 = cs.lowq_edge_inputs(rng, 16, kind)
+        out[f"{kind} planes"] = (t(x), t(r3), xs, 13)
+    return out
 
 
 def offset_y_split(dll, planes: dict, runs: int, cs) -> dict:
@@ -688,8 +855,260 @@ def e1_split(dll, scan: bool, cases: dict, runs: int, cs) -> dict:
     return out
 
 
+def since_launch(t: np.ndarray, k: int) -> float:
+    """The median over runs and CTAs of stamp k in µs from the run's first
+    stamp 0 (the launch's first CTA; for the designs of several launches,
+    a timeline across them), over the CTAs that set it."""
+    s0 = np.where(t[..., 0] > 0, t[..., 0], np.iinfo(np.int64).max)
+    d = (t[..., k] - s0.min(axis=1, keepdims=True)) / 1e3
+    d = d[t[..., k] > 0]
+    return float(np.median(d)) if d.size else None
+
+
+def skew(t: np.ndarray, k: int) -> dict:
+    """Medians over runs of the spread of the CTAs' starts and of the
+    last CTA's stamp k, µs from the run's first stamp 0."""
+    s0 = np.where(t[..., 0] > 0, t[..., 0], np.iinfo(np.int64).max)
+    first = s0.min(axis=1)
+    return {"start_skew_us": float(np.median(
+        (np.where(t[..., 0] > 0, t[..., 0], first[:, None]).max(1) - first)
+        / 1e3)), "last_end_from_launch_us": float(np.median(
+            (t[..., k].max(1) - first) / 1e3))}
+
+
+PLACEMENT_SRC = r"""
+#include <cuda_runtime.h>
+// Each CTA records the SM it ran on, then waits ns nanoseconds so that
+// the whole grid is resident at once.
+__global__ void placed(int* smid, unsigned long long ns, int smem) {
+  extern __shared__ unsigned char pad[];
+  unsigned s;
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(s));
+  unsigned long long t0, t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
+  do {
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  } while (t - t0 < ns);
+  if (threadIdx.x == 0) {
+    smid[blockIdx.y * gridDim.x + blockIdx.x] = s;
+    if (smem) pad[0] = 1;
+  }
+}
+// A launch of gx x gy CTAs of `threads` in clusters of `cluster` with
+// `smem` bytes of dynamic shared memory: each CTA's SM into smid_host and
+// cudaOccupancyMaxActiveClusters into max_clusters.
+extern "C" int place(int threads, int smem, int cluster, int gx, int gy,
+                     int* smid_host, int* max_clusters) {
+  cudaFuncSetAttribute((const void*)placed,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaLaunchAttribute a;
+  a.id = cudaLaunchAttributeClusterDimension;
+  a.val.clusterDim.x = cluster;
+  a.val.clusterDim.y = 1;
+  a.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = &a;
+  cfg.numAttrs = 1;
+  int e = cudaOccupancyMaxActiveClusters(max_clusters, (const void*)placed,
+                                         &cfg);
+  if (e) return e;
+  int* d;
+  e = cudaMalloc(&d, sizeof(int) * gx * gy);
+  if (e) return e;
+  cfg.gridDim = dim3(gx, gy, 1);
+  e = cudaLaunchKernelEx(&cfg, placed, d, 20000ull, smem);
+  if (!e) e = cudaDeviceSynchronize();
+  if (!e) e = cudaMemcpy(smid_host, d, sizeof(int) * gx * gy,
+                         cudaMemcpyDeviceToHost);
+  cudaFree(d);
+  return e;
+}
+"""
+
+
+def placement(out_dir: Path) -> dict:
+    """Where a batch of 16 clusters of 8 CTAs lands: for S3's and S11's
+    CTA shapes (512 threads; no dynamic shared memory, and S11's 70,052
+    bytes) and for one CTA an SM (120,000 bytes), the most clusters
+    resident and, from each CTA's %smid, the SMs used and how many CTAs
+    each took."""
+    import collections
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cu = out_dir / "placement.cu"
+    cu.write_text(PLACEMENT_SRC)
+    lib = out_dir / "libplacement.so"
+    nvcc = str(Path(CUDA_HOME) / "bin" / "nvcc") if CUDA_HOME else "nvcc"
+    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+                    "-shared", "-Xcompiler", "-fPIC", str(cu), "-o",
+                    str(lib)], check=True)
+    dll = ctypes.CDLL(str(lib))
+    out = {}
+    for smem in (0, 70052, 120000):
+        smid = np.zeros(8 * 16, np.int32)
+        most = ctypes.c_int(0)
+        rc = dll.place(512, smem, 8, 8, 16, smid.ctypes.data_as(
+            ctypes.c_void_p), ctypes.byref(most))
+        if rc:
+            raise SystemExit(f"torch_scan_probe: placement launch failed {rc}")
+        per_sm = collections.Counter(smid.tolist())
+        out[f"512 threads, {smem} bytes"] = {
+            "max_active_clusters": most.value, "sms_used": len(per_sm),
+            "ctas_per_sm": dict(collections.Counter(per_sm.values()))}
+    return out
+
+
+def batch_times(streams: dict, lq: dict, cs) -> dict:
+    """S3's and S11's graph times on the first b streams / planes of the
+    q20 streams and the q13 planes, b = 1, 8, 14, 15, 16: 16 clusters of
+    8 do not fit at one CTA an SM."""
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    s = streams["q20 streams"]
+    x, r3, xs, q = lq["q13 planes"]
+    out = {}
+    for b in (1, 8, 14, 15, 16):
+        out[str(b)] = {
+            "merge_crossing_graph_ms": cs.graph_ms(
+                lambda: ds.merge_crossing_device(s[:b])),
+            "lowest_q_graph_ms": cs.graph_ms(
+                lambda: ds.lowest_q_band_cleanup_device(x[:b], r3[:b], q,
+                                                        xs[:b]))}
+    return out
+
+
+def merge_split(dll, new: bool, streams: dict, runs: int, cs) -> dict:
+    """The stamped S3 on each (B, n) stream: its output against the tree's
+    merge_crossing_device, the stamps' medians."""
+    import torch
+
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    dll.nhw_merge_crossing.argtypes = ([p, p, i, i, p] if new
+                                       else [p, p, p, p, i, i, p])
+    dll.nhw_merge_crossing.restype = i
+    out = {}
+    for what, x in streams.items():
+        b, n = x.shape
+        got = torch.empty_like(x)
+        comp = torch.empty((b, 64, 5), dtype=torch.int32, device=x.device)
+        entry = torch.empty((b, 64), dtype=torch.int32, device=x.device)
+
+        def call():
+            scratch = [] if new else [comp.data_ptr(), entry.data_ptr()]
+            rc = dll.nhw_merge_crossing(
+                x.data_ptr(), got.data_ptr(), *scratch, b, n,
+                torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise SystemExit(f"torch_scan_probe: stamped launch failed "
+                                 f"{rc}")
+
+        call()
+        torch.cuda.synchronize()
+        cs.check(torch.equal(got, ds.merge_crossing_device(x)),
+                 f"the stamped merge_crossing differs from the tree's: {what}")
+        ctas = (8 if new else 64) * b
+        t = raw_stamps(dll, call, ctas, runs, 16)
+        res = {"ctas": ctas, "runs": runs, "event_ms": cs.median_ms(call)}
+        if new:
+            res.update(design="one cluster launch",
+                       masks_us=since_start(t, 1), maps_us=since_start(t, 2),
+                       scanned_us=since_start(t, 3),
+                       barrier_us=since_start(t, 4),
+                       walked_us=since_start(t, 5),
+                       stored_us=since_start(t, 6),
+                       tail_us=since_start(t, 7),
+                       end_from_launch_us=since_launch(t, 7), **skew(t, 7))
+        else:
+            first = t[:, ::64]            # CTA (0, b): merge_entries' stamps
+            res.update(
+                design="three launches",
+                tiles_staged_us=since(t, 1, 0), tiles_maps_us=since(t, 2, 0),
+                tiles_composites_us=since(t, 3, 0),
+                tiles_end_us=since(t, 4, 0),
+                tiles_end_from_launch_us=since_launch(t, 4),
+                entries_us=float(np.median(
+                    (first[..., 15] - first[..., 14]) / 1e3)),
+                emit_start_from_launch_us=since_launch(t, 5),
+                emit_staged_us=since(t, 6, 5), emit_maps_us=since(t, 7, 5),
+                emit_composites_us=since(t, 8, 5),
+                emit_handed_down_us=since(t, 9, 5),
+                emit_walked_us=since(t, 10, 5),
+                emit_stored_us=since(t, 11, 5), emit_end_us=since(t, 12, 5),
+                end_from_launch_us=since_launch(t, 12))
+        out[what] = res
+    return out
+
+
+def lq_split(dll, new: bool, inputs: dict, runs: int, cs) -> dict:
+    """The stamped S11 on each (plane, r3_ext, xs, q): its output against
+    the tree's lowest_q_band_cleanup_device, the stamps' medians."""
+    import torch
+
+    from nhwcodec_tpu_torch.host import tables as T
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    dll.nhw_lowest_q_band_cleanup.argtypes = (
+        [p, p, p, p, i, i, i, p] if new else [p, p, p, p, p, i, i, i, p])
+    dll.nhw_lowest_q_band_cleanup.restype = i
+    out = {}
+    for what, (x, r3, xs, q) in inputs.items():
+        b = x.shape[0]
+        got = torch.empty_like(x)
+        scratch = torch.empty((b, 768), dtype=torch.uint8, device=x.device)
+
+        def call():
+            extra = [] if new else [scratch.data_ptr()]
+            rc = dll.nhw_lowest_q_band_cleanup(
+                x.data_ptr(), r3.data_ptr(), xs.data_ptr(), got.data_ptr(),
+                *extra, b, r3.shape[1], int(q > T.LOW10),
+                torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise SystemExit(f"torch_scan_probe: stamped launch failed "
+                                 f"{rc}")
+
+        call()
+        torch.cuda.synchronize()
+        cs.check(torch.equal(got, ds.lowest_q_band_cleanup_device(x, r3, q,
+                                                                  xs)),
+                 f"the stamped lowest_q_band_cleanup differs from the "
+                 f"tree's: {what}")
+        t = raw_stamps(dll, call, 8 * b, runs, 16)
+        res = {"ctas": 8 * b, "runs": runs, "event_ms": cs.median_ms(call)}
+        if new:
+            res.update(design="one cluster launch",
+                       loop_a_us=since_start(t, 1),
+                       bc_maps_us=since_start(t, 2),
+                       synced_us=since_start(t, 3),
+                       barrier_us=since_start(t, 4),
+                       end_us=since_start(t, 5),
+                       end_from_launch_us=since_launch(t, 5), **skew(t, 5))
+        else:
+            res.update(
+                design="three launches",
+                a_staged_us=since(t, 1, 0), a_walk_us=since(t, 2, 1),
+                a_end_from_launch_us=since_launch(t, 3),
+                maps_start_from_launch_us=since_launch(t, 4),
+                maps_staged_us=since(t, 5, 4), maps_walk_us=since(t, 6, 5),
+                maps_end_from_launch_us=since_launch(t, 6),
+                emit_start_from_launch_us=since_launch(t, 7),
+                emit_chained_us=since(t, 8, 7), emit_walk_us=since(t, 9, 8),
+                emit_end_us=since(t, 10, 7),
+                end_from_launch_us=since_launch(t, 10))
+        out[what] = res
+    return out
+
+
 SASS_KERNELS = ("pair_promotion", "chain_tiles", "chain_entries",
-                "chain_emit", "chain_scan")
+                "chain_emit", "chain_scan", "merge_tiles", "merge_entries",
+                "merge_emit", "merge_crossing", "lq_a", "lq_maps", "lq_emit",
+                "lowest_q_rows")
 SASS_CLASSES = {"shared": ("LDS", "STS", "ATOMS"),
                 "global": ("LDG", "STG", "ATOMG", "RED", "LD.", "ST."),
                 "shuffle": ("SHFL",), "vote": ("VOTE",),
@@ -698,8 +1117,8 @@ SASS_CLASSES = {"shared": ("LDS", "STS", "ATOMS"),
 
 
 def sass_summary(lib: Path) -> dict:
-    """Per S4/E1 kernel of the library: instruction counts by class, from
-    ``cuobjdump -sass``."""
+    """Per S4/E1/S3/S11 kernel of the library: instruction counts by
+    class, from ``cuobjdump -sass``."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     tool = (str(Path(CUDA_HOME) / "bin" / "cuobjdump") if CUDA_HOME
@@ -739,6 +1158,11 @@ def main() -> int:
     ap.add_argument("--ll2-src", default=None)
     ap.add_argument("--pp-src", default=None)
     ap.add_argument("--entropy-src", default=None)
+    ap.add_argument("--merge-src", default=None)
+    ap.add_argument("--lq-src", default=None)
+    ap.add_argument("--merge-lq-only", action="store_true")
+    ap.add_argument("--batches", action="store_true")
+    ap.add_argument("--placement", action="store_true")
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--runs", type=int, default=25)
     args = ap.parse_args()
@@ -771,6 +1195,52 @@ def main() -> int:
     rs = host_encoder._res_setting(20)
     variants = des.snap_args(20)
     out = {"tree": str(tree), "batch": len(images)}
+    snapped = y
+    for a in variants:
+        snapped = ds.snap_pass_device(snapped, *a)
+    stream = torch.zeros((len(images), 6 * cs.SZ + 16), dtype=torch.uint8,
+                         device=dev)
+    stream[:, : 4 * cs.SZ] = ds.serpentine_y_device(
+        ds.offset_y_device(snapped, 8))
+    rng = np.random.default_rng(cs.SEED + 30)
+    streams = {"q20 streams": stream, "edge streams": torch.from_numpy(
+        cs.stream_edge_streams(rng, len(images))).to(dev)}
+    for kind in getattr(cs, "MERGE_EDGE_KINDS", ()):
+        streams[f"{kind} streams"] = torch.from_numpy(
+            cs.merge_edge_streams(rng, len(images), kind)).to(dev)
+    for what, x in streams.items():
+        out[f"merge_crossing_graph_ms {what}"] = cs.graph_ms(
+            lambda: ds.merge_crossing_device(x))
+    lq = lq_inputs(cs, host_encoder, images, dev)
+    for what, (x, r3, xs, q) in lq.items():
+        out[f"lowest_q_graph_ms {what}"] = cs.graph_ms(
+            lambda: ds.lowest_q_band_cleanup_device(x, r3, q, xs))
+    if args.batches:
+        out["by_batch"] = batch_times(streams, lq, cs)
+    if args.placement:
+        with tempfile.TemporaryDirectory() as d:
+            out["placement"] = placement(Path(d))
+    if args.merge_src:
+        with tempfile.TemporaryDirectory() as d:
+            dll, new = build_design(Path(args.merge_src).resolve(), Path(d),
+                                    "    merge_crossing(const uint8_t*",
+                                    MERGE_CLUSTER_PATCHES,
+                                    MERGE_THREE_PATCHES, per=16)
+            out["merge_split"] = merge_split(dll, new, streams, args.runs,
+                                             cs)
+    if args.lq_src:
+        with tempfile.TemporaryDirectory() as d:
+            dll, new = build_design(Path(args.lq_src).resolve(), Path(d),
+                                    "lowest_q_rows", LQ_CLUSTER_PATCHES,
+                                    LQ_THREE_PATCHES, per=16)
+            out["lq_split"] = lq_split(dll, new, lq, args.runs, cs)
+    if args.sass:
+        from nhwcodec_tpu_torch.kernels import build
+
+        out["sass"] = sass_summary(build.lib_path())
+    if args.merge_lq_only:
+        print(json.dumps(out), flush=True)
+        return 0
     out["snap_three_calls_graph_ms"] = cs.graph_ms(
         lambda: [ds.snap_pass_device(y, *a) for a in variants])
     if hasattr(ds, "snap_passes_device"):
