@@ -166,9 +166,13 @@
    compare ladder (torch ops) on the card to the host copy's C, strict
    both ways.
 11. Holds S10 to its twin and the host copy's C on the planes its host
-   encodes captured at q16 (16, timed), q15, q14 and q13 (4 each) and at
-   batch 1, 3 and 16 on edge planes (quant4 pair writes across row ends,
-   counters at row starts, random trigger values); S11 on the captured
+   encodes captured at q16 (16, timed, its launches S2's pass 1 and
+   oy4_rows, its graph time beside the old design's), q15, q14 and q13
+   (4 each) and at batch 1, 3 and 16 on edge planes (quant4 pair writes
+   across row ends, counters at row starts, random trigger values, writes
+   pending across lane tiles, ticks counted across tiles, rows entering
+   pending that fire at column 511 again), timed on each kind; S11 on the
+   captured
    q13 planes (timed as a batch of 16 and of 4) and at batch 1, 3 and 16
    on edge planes (pairR at 510 chained into the next row, pairL at
    column 0, loop A's writes into columns 255 and 0 and row 256, reads in
@@ -178,12 +182,14 @@
    each kind too; one launch of lowest_q_rows a call, its graph time
    beside the old design's; the low56 cleanup on the captured q15 and
    q14 planes.
-12. Holds S12 (its passes and fire masks), S13 and S14 to their twins and
-   the whole programs to the host copy's C on the planes captured from
-   the host encodes at q12, q11, q8 and q1 (S12 timed at q12, S13 and S14
+12. Holds S12, S13 and S14 to their twins and the whole programs to the
+   host copy's C on the planes captured from the host encodes at q12,
+   q11, q8 and q1 (S12 timed at q12, its launches vlq_rows and vlq_far,
+   its graph time beside the old design's passes and wrapper; S13 and S14
    at q8, each as a batch of 16) and at batch 1, 3 and 16 on edge planes
    (a pass-1 write chained into the next window, a wavefront step reading
-   its left neighbour's write, pass 3's stale carry 4 and 0, level-2
+   its left neighbour's write, fires at the relay's warp edges, pass 3's
+   stale carry 4 and 0, level-2
    zeroings in the LL1 cleanup's region, a zeroed left neighbour, the
    row ends, random), and the count-adaptive lowest-q thresholds on the
    card to the host's at each count band's edge.
@@ -3168,6 +3174,15 @@ S1_WAS_GRAPH_MS = 0.5176
 # at 700 W
 S3_WAS_GRAPH_MS = 0.0524
 S11_WAS_GRAPH_MS = 0.4391
+# S10's before a warp a row and a look-back (S2's pass 1, then the rows
+# walked from every entry state and again, a thread a walk), on the q16
+# planes; S12's passes 1-3 before the warp relay (one launch, a CTA
+# barrier a wavefront step) on the q12 planes, and its whole wrapper then
+# (pass 4 and the far zeroings as torch ops), a call's CUDA events: ms,
+# PERF.md's rows S10 and S12, NVIDIA H100 80GB HBM3 at 700 W
+S10_WAS_GRAPH_MS = 0.3496
+S12_WAS_GRAPH_MS = 0.2158
+S12_WAS_CALL_MS = 1.0215
 # S2's before its passes 2-3 took bands and a relay (one CTA an image, a
 # thread a column, rows in order), on the snapped q20 batch (the same
 # source)
@@ -5018,7 +5033,8 @@ LOW4_QS = {16: B, 15: 4, 14: 4, 13: 4}
 OY4_OPS = 49
 LQ_OPS = 30
 LQ_VISITS = 256 * 256 + 256 * 511
-OY4_KINDS = ("random", "row ends", "row starts")
+OY4_KINDS = ("random", "row ends", "row starts", "tile edges", "tick runs",
+             "row chains")
 OY4_VALUES = np.array([0, 7, -7, 8, -8, 9, -9, 12, -12, 13, -13, 14, -14,
                        15, -15, 22, -22, 23, -23, 30, -30, 31, -31, 38, 39,
                        46, 47, 6, -6, 200, -300, 10100, 12900, 14000],
@@ -5057,9 +5073,43 @@ def oy4_edge_planes(rng, b, kind: str) -> np.ndarray:
     starts": rows of values in [-6, 0] whose columns 0 and 1 hold -15 and
     -23, with 1 + r % 6 -15s and 1 + r % 4 -23s in all, so quant and
     quant6 end most rows nonzero: only the reset at each row start masks
-    columns 0 and 1 (codes 120 and 112; unmasked, 112 and 104)."""
+    columns 0 and 1 (codes 120 and 112; unmasked, 112 and 104).  The
+    kinds of S10's lane tiles (16 columns a lane): "tile edges": rows of
+    |v| <= 6 whose columns e - 1, e, e + 1 at every tile edge e hold, by
+    (e / 16 + r) % 6, a fixup pending across the edge (-14, -7: -9; 8, -7:
+    -8; 14, 7: 9), a pair for the quant4 rule (23, 30: up; 31, 22, 0:
+    down, r2 false) or nothing, so lanes enter in every state; "tick
+    runs": rows of 0 with runs of -15 or -23 (ticks of quant, quant6)
+    across every other tile edge, of 6, 4, 13, 9, 1 and 24 in turn;
+    "row chains": row 0 fires the pair rule at column 511 (quant4 0
+    there), and every later row enters with a quant4 write pending at
+    column 0 (state 3 or 4 of the row maps), advances quant4 twice (30, 31
+    at columns 300 and 400) and fires the pair rule at column 511 into the
+    next row again (31 | 22: down, 23 | 30: up, alternating)."""
     if kind == "random":
         return rng.choice(OY4_VALUES, (b, 512, 512))
+    if kind == "tile edges":
+        x = rng.integers(-6, 7, (b, 512, 512)).astype(np.int16)
+        pats = ((-14, -7, 0), (8, -7, 0), (14, 7, 0), (23, 30, 0),
+                (31, 22, 0), (0, 0, 0))
+        for r in range(512):
+            for e in range(16, 512, 16):
+                x[:, r, e - 1: e + 2] = pats[(e // 16 + r) % 6]
+        return x
+    if kind == "tick runs":
+        x = np.zeros((b, 512, 512), np.int16)
+        for r in range(512):
+            for k, e in enumerate(range(32, 512, 32)):
+                n = (6, 4, 13, 9, 1, 24)[(k + r) % 6]
+                x[:, r, e - n // 2: e - n // 2 + n] = (-15, -23)[(k + r) % 2]
+        return x
+    if kind == "row chains":
+        x = rng.integers(-6, 7, (b, 512, 512)).astype(np.int16)
+        x[:, :, 1] = 0
+        x[:, 1:, 300: 302] = x[:, 1:, 400: 402] = (30, 31)
+        for r in range(511):
+            x[:, r, 511], x[:, r + 1, 0] = ((31, 22), (23, 30))[r % 2]
+        return x
     if kind == "row ends":
         x = rng.integers(-6, 7, (b, 512, 512)).astype(np.int16)
         for r in range(511):
@@ -5208,9 +5258,11 @@ def low4_kernel_phase(dev, captured: dict) -> dict:
     all four against its twin and the host copy's C (timed at q16),
     low56 at q15 and q14 and S11 at q13 against the host copy's C, S11
     also against its twin (timed on the 4 q13 planes 4 times, a batch of
-    16, and at batch 4); then at batch 1, 3 and 16 (``compare_batches``)
-    S10 on OY4_KINDS and S11 on LQ_KINDS at q13 (the random ones at q10
-    too: gt_low10 both ways), each against the host copy's C too."""
+    16, and at batch 4); S10 timed and its launches checked (S2's pass 1
+    and ``oy4_rows``, after a fill) on the q16 planes; then at batch 1, 3
+    and 16 (``compare_batches``) S10 on OY4_KINDS (each timed at 16) and
+    S11 on LQ_KINDS at q13 (the random ones at q10 too: gt_low10 both
+    ways), each against the host copy's C too."""
     import torch
 
     from nhwcodec_tpu_torch.models import device_encode_scans as des
@@ -5241,6 +5293,13 @@ def low4_kernel_phase(dev, captured: dict) -> dict:
                 bound=work(2 * want_b * plane,
                            (OFFSET_Y_PASS1_OPS + OY4_OPS)
                            * want_b * 512 * 512), graph=True)
+            print(f"kernel offset_y_low4 ({want_b},512,512) q{q} planes: "
+                  f"{out['offset_y_low4']['graph_ms']:.4f} ms (graph of "
+                  f"{GRAPH_CALLS} calls, CUDA events); the design before: "
+                  f"{S10_WAS_GRAPH_MS} ms (PERF.md)", flush=True)
+            check_launches("offset_y_low4", f"({want_b},512,512) q{q} planes",
+                           lambda: ds.offset_y_low4_device(x, 8),
+                           ("offset_y_rows", "oy4_rows"))
         e11 = np.stack([r["e11"] for r in recs]) if q < 16 else None
         if q in (15, 14):
             got = ds.low56_band_cleanup_device(t(e11), 19 if q == 15 else 20)
@@ -5296,6 +5355,10 @@ def low4_kernel_phase(dev, captured: dict) -> dict:
     rng = np.random.default_rng(SEED + 70)
     for kind in OY4_KINDS:
         x = oy4_edge_planes(rng, B, kind)
+        X = t(x)
+        ms = graph_ms(lambda: ds.offset_y_low4_device(X, 8))
+        print(f"kernel offset_y_low4 ({B},512,512) {kind} planes: {ms:.4f} "
+              f"ms (graph of {GRAPH_CALLS} calls, CUDA events)", flush=True)
         compare_batches("offset_y_low4", f"{kind} planes",
                         lambda a: ds.offset_y_low4_device(a, 8),
                         lambda a: ds.offset_y_low4_ref(a, 8), (t(x),))
@@ -5331,9 +5394,10 @@ def low4_kernel_phase(dev, captured: dict) -> dict:
 
 # ---------------------------------------------------------------------------
 # the device encode scans' programs below LOW7 (q1..q12): S12
-# very_low_q_cleanup's passes (vlq_passes), S13 low_q_ll1_cleanup (ll1_rows)
-# and S14 uv_ll_smooth (uv_smooth) in csrc/vlq.cu, the far zeroings, pass 4
-# and the count-adaptive lowest-q thresholds as torch ops
+# very_low_q_cleanup (vlq_rows: passes 1-4 and the far zeroings' masks;
+# vlq_far: the far zeroings), S13 low_q_ll1_cleanup (ll1_rows) and S14
+# uv_ll_smooth (uv_smooth) in csrc/vlq.cu, and the count-adaptive lowest-q
+# thresholds as torch ops
 
 VLQ_KERNELS = ("very_low_q_cleanup", "low_q_ll1_cleanup", "uv_ll_smooth")
 # q -> images of the encode batch whose host encodes encode_scans_device_phase
@@ -5349,16 +5413,22 @@ VLQ_QS = {12: 4, 11: 4, 8: 4, 1: 4}
 VLQ_P1_OPS = 45
 WAVE_OPS = 35
 LL1_OPS = 12
+# pass 4's fire test a position (3 differences, absolutes and compares:
+# 10), the far zeroings a plane position (the absolute, the band's
+# thresholds, the mask bits, the select: 6)
+VLQ_P4_OPS = 10
+VLQ_FAR_OPS = 6
 VLQ_VISITS = (128 * 124, 2 * 126 * 126)   # pass 1; passes 2 and 3
 UVS_VISITS = 2 * 62 * 62
 VLQ_KINDS = ("random", "p1 chain", "wave left", "stale use4", "stale use0",
-             "l2 in ll1")
+             "l2 in ll1", "warp edges")
 # the qualities of each kind: q12 (LOW8: no pass 4, no level-2 zeroing),
 # q11 and q8 (LOW9, LOW12: both, x1..x4 as at q12), q1 (LOW19: the widest
 # thresholds); the stale carry acts at q <= LOW9 only
 VLQ_EDGE_QS = {"random": (12, 11, 1), "p1 chain": (12, 1),
                "wave left": (12, 1), "stale use4": (11, 8),
-               "stale use0": (11, 8), "l2 in ll1": (11, 1)}
+               "stale use0": (11, 8), "l2 in ll1": (11, 1),
+               "warp edges": (12, 11, 1)}
 # the level-2 targets of the stale carry 4 and 0 (count - 1..count + 1
 # plus 128, SZ and SZ + 128), flat in a (512, 512) plane
 STALE_TARGETS = {c: [k + o for k in (c - 1, c, c + 1)
@@ -5401,7 +5471,11 @@ def vlq_edge_planes(rng, b, kind: str) -> np.ndarray:
     around (1, 126) (rows 1-2 set so that pass 4 does not).  "l2 in ll1":
     a smooth quadrant, rows 128..255 and the level-2 band beside the
     quadrant in [-14, 14]: the level-2 zeroings (q <= LOW9) land in the
-    LL1 cleanup's region."""
+    LL1 cleanup's region.  "warp edges": a quadrant of +-300 and noise
+    (nothing fires) but for smooth rows 29..36, 61..68 and 93..100, where
+    the passes fire at visit rows 31/32, 63/64 and 95/96: the rows that
+    lane 31 of one warp of S12's relay writes and lane 0 of the next
+    reads."""
     x = rng.integers(-40, 41, (b, 512, 512)).astype(np.int16)
     off = rng.integers(-200, 201, (b, 1, 1))
     q_ = x[:, :128, :128]
@@ -5410,6 +5484,12 @@ def vlq_edge_planes(rng, b, kind: str) -> np.ndarray:
         if kind == "l2 in ll1":
             x[:, :256, 128:256] = rng.integers(-14, 15, (b, 256, 128))
             x[:, 128:256, :128] = rng.integers(-14, 15, (b, 128, 128))
+        return x
+    if kind == "warp edges":
+        sign = np.where((np.arange(128)[:, None] + np.arange(128)) % 2, 1, -1)
+        q_[:] = 300 * sign + rng.integers(-20, 21, (b, 128, 128))
+        for r0 in (29, 61, 93):
+            q_[:, r0: r0 + 8] = _smooth(rng, b, 128, 3, 2)[:, :8] + off
         return x
     if kind == "p1 chain":
         q_[:] = rng.integers(-3, 4, (b, 128, 128))
@@ -5534,13 +5614,14 @@ def host_uvs(x: np.ndarray) -> np.ndarray:
 def vlq_kernel_phase(dev, captured: dict) -> dict:
     """S12-S14 against their twins (max_abs_err 0) and the host copy's C:
     on the planes captured from the host copy's encodes at VLQ_QS (4
-    each): S12 at q12, q11, q8 and q1 (its passes and masks timed on the
-    4 q12 planes 4 times, a batch of 16, and the whole wrapper with its
-    far zeroings beside), S13 and S14 at q11, q8 and q1 (timed on the 4
-    q8 planes 4 times and on the q8 U and V planes twice: a batch of 16
-    each); then at batch 1, 3 and 16 (``compare_batches``) S12's passes
-    on VLQ_KINDS at their VLQ_EDGE_QS, S13 on LL1_KINDS with x1 10 and
-    11, S14 on UVS_KINDS, each also against the host copy's C; and the
+    each): S12 at q12, q11, q8 and q1 (the whole function, timed on the 4
+    q12 planes 4 times, a batch of 16, beside the old design's passes and
+    wrapper, and its launches checked: ``vlq_rows`` and ``vlq_far``), S13
+    and S14 at q11, q8 and q1 (timed on the 4 q8 planes 4 times and on
+    the q8 U and V planes twice: a batch of 16 each); then at batch 1, 3
+    and 16 (``compare_batches``) S12 on VLQ_KINDS at their VLQ_EDGE_QS,
+    S13 on LL1_KINDS with x1 10 and 11, S14 on UVS_KINDS, each also
+    against the host copy's C; and the
     lowest-q thresholds on the card against the host's on
     xs_count_planes at q12, q11 and q10.  The twins' profiler windows of
     some 4,000-30,000 launches a call are not taken (their summaries cost
@@ -5575,22 +5656,30 @@ def vlq_kernel_phase(dev, captured: dict) -> dict:
             X = x.repeat(k, 1, 1)
             out["very_low_q_cleanup"] = compare_and_time(
                 "very_low_q_cleanup", f"({B},512,512) the {want_b} q{q} "
-                f"planes {k} times: passes 1-3 and the masks",
-                lambda: ds.very_low_q_passes_device(X, q, xs7),
-                lambda: ds.very_low_q_passes_ref(X, q, xs7), twin_runs=1,
+                f"planes {k} times: the whole function",
+                lambda: ds.very_low_q_cleanup_device(X, q, xs7),
+                lambda: ds.very_low_q_cleanup_ref(X, q, xs7), twin_runs=1,
                 twin_warm=0, twin_profile=False,
-                bound=work(B * (2 * plane + masks), B * (
-                    VLQ_P1_OPS * VLQ_VISITS[0] + WAVE_OPS * VLQ_VISITS[1])),
+                bound=work(B * 2 * plane, B * (
+                    VLQ_P1_OPS * VLQ_VISITS[0] + WAVE_OPS * VLQ_VISITS[1]
+                    + VLQ_P4_OPS * 128 * 126
+                    + VLQ_FAR_OPS * 512 * 512)),
                 graph=True)
-            ms = median_ms(lambda: ds.very_low_q_cleanup_device(X, q, xs7))
-            print(f"very_low_q_cleanup_device ({B},512,512) q{q}: wrapper "
-                  f"call with pass 4 and the far zeroings {ms:.4f} ms (CUDA "
-                  f"events, median of {RUNS})", flush=True)
+            print(f"kernel very_low_q_cleanup ({B},512,512) q{q} planes: "
+                  f"{out['very_low_q_cleanup']['graph_ms']:.4f} ms (graph "
+                  f"of {GRAPH_CALLS} calls, CUDA events), the whole "
+                  f"function; the design before: passes 1-3 "
+                  f"{S12_WAS_GRAPH_MS} ms (graph), the wrapper with pass 4 "
+                  f"and the far zeroings {S12_WAS_CALL_MS} ms a call "
+                  "(PERF.md)", flush=True)
+            check_launches("very_low_q_cleanup", f"({B},512,512) q{q} "
+                           "planes", lambda: ds.very_low_q_cleanup_device(
+                               X, q, xs7), ("vlq_rows", "vlq_far"))
         else:
             compare_and_time(
                 "very_low_q_cleanup", f"({want_b},512,512) q{q} planes",
-                lambda: ds.very_low_q_passes_device(x, q, xs7),
-                lambda: ds.very_low_q_passes_ref(x, q, xs7), timed=False)
+                lambda: ds.very_low_q_cleanup_device(x, q, xs7),
+                lambda: ds.very_low_q_cleanup_ref(x, q, xs7), timed=False)
         if q > T.LOW9:
             continue
         x1 = 10 if q > T.LOW14 else 11
@@ -5627,8 +5716,8 @@ def vlq_kernel_phase(dev, captured: dict) -> dict:
             xs7 = encoder._VLQ_THRX(q, None)
             compare_batches(
                 "very_low_q_cleanup", f"{kind} planes, q{q}",
-                lambda a: ds.very_low_q_passes_device(a, q, xs7),
-                lambda a: ds.very_low_q_passes_ref(a, q, xs7), (t(x),))
+                lambda a: ds.very_low_q_cleanup_device(a, q, xs7),
+                lambda a: ds.very_low_q_cleanup_ref(a, q, xs7), (t(x),))
             same(ds.very_low_q_cleanup_device(t(x), q, xs7),
                  host_vlq(x, q), f"very_low_q_cleanup {kind} planes, q{q}")
     for kind in LL1_KINDS:
@@ -5746,6 +5835,22 @@ def check_one_launch(name: str, shape: str, fn,
     check(host == 1 and len(set(names)) == 1
           and kernel in names[0] and 0 < records <= 1,
           f"{name} {shape} is not one launch of {kernel}")
+
+
+def check_launches(name: str, shape: str, fn, kernels: tuple) -> None:
+    """Check under torch.profiler that a call of ``fn`` is one launch of
+    each of ``kernels``, in that count on the host, and at most a fill
+    (a memset) beside them on the card."""
+    host, records, names = launches_per_call(fn)
+    own = {k for k in kernels if any(k + "(" in n for n in names)}
+    others = {n[:60] for n in names
+              if not any(k + "(" in n for k in kernels)}
+    print(f"kernel {name} {shape}: {host:g} kernel launch calls per call "
+          f"on the host, {records:g} device records per call (profiler), "
+          f"kernels {sorted(set(n[:60] for n in names))}", flush=True)
+    check(host == len(kernels) and own == set(kernels)
+          and all("emset" in n for n in others),
+          f"{name} {shape} is not one launch each of {list(kernels)}")
 
 
 def shape_sums(name: str, shapes: dict, main: str) -> dict:
@@ -5952,8 +6057,8 @@ def main() -> int:
                  "snap_pass", "ladder_table", "offset_y_rows",
                  "offset_y_bands", "offset_y_codes", "merge_crossing",
                  "pair_promotion", "column_ladder", "classify_bands",
-                 "ll2_code_y", "walk_visited", "uv_sentinel", "oy4_maps",
-                 "oy4_emit", "lowest_q_rows", "vlq_passes", "ll1_rows",
+                 "ll2_code_y", "walk_visited", "uv_sentinel", "oy4_rows",
+                 "lowest_q_rows", "vlq_rows", "vlq_far", "ll1_rows",
                  "uv_smooth"))
 
     def phase(fn, *args):

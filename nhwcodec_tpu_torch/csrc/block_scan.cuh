@@ -1,7 +1,7 @@
 // Helpers shared by the encode scans' kernels (scans.cu, ll2.cu, uv.cu,
 // lowq.cu, vlq.cu): the run parity of a warp's row (ll2.cu, uv.cu), rows
-// staged for CTAs whose threads walk a row each, maps of 5 states and their
-// warp scan (scans.cu, lowq.cu), and the chain of row maps a warp scans.
+// staged for CTAs whose threads walk a row each, and maps of 5 states and
+// their warp scan (scans.cu, lowq.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -115,44 +115,6 @@ __device__ __forceinline__ uint32_t map5_warp_scan(uint32_t& m, int lane) {
   }
   const uint32_t e = __shfl_up_sync(0xFFFFFFFFu, m, 1);
   return lane == 0 ? kMap5Ident : e;
-}
-
-// The entry state of each of n rows (n a multiple of 32) whose walks chain:
-// maps[r * S + s] is row r's exit state from entry state s (S states), and
-// row 0 enters from state 0.  One whole warp runs it: each lane composes
-// n / 32 consecutive maps, the lanes' composites are scanned with shuffles
-// (a composite is S small ints), and each lane walks its rows again from its
-// own entry.  maps and entry (n bytes) may be in shared memory.
-template <int S>
-__device__ void chain_entries(const uint8_t* maps, uint8_t* entry, int n) {
-  const int lane = threadIdx.x & 31, k = n / 32;
-  int f[S];
-#pragma unroll
-  for (int s = 0; s < S; ++s) f[s] = s;
-  for (int r = lane * k; r < (lane + 1) * k; ++r) {
-#pragma unroll
-    for (int s = 0; s < S; ++s) f[s] = maps[r * S + f[s]];
-  }
-  // inclusive scan: lane l's composite after lane l - d's
-  for (int d = 1; d < 32; d <<= 1) {
-    int h[S];
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const int g = __shfl_up_sync(0xFFFFFFFFu, f[s], d);
-      int v = f[0];
-#pragma unroll
-      for (int u = 1; u < S; ++u) v = g == u ? f[u] : v;
-      h[s] = lane >= d ? v : f[s];
-    }
-#pragma unroll
-    for (int s = 0; s < S; ++s) f[s] = h[s];
-  }
-  int e = __shfl_up_sync(0xFFFFFFFFu, f[0], 1);
-  if (lane == 0) e = 0;
-  for (int r = lane * k; r < (lane + 1) * k; ++r) {
-    entry[r] = static_cast<uint8_t>(e);
-    e = maps[r * S + e];
-  }
 }
 
 }  // namespace nhw

@@ -20,7 +20,7 @@
 //    offset_y_low4_device (a Jacobi while_loop for pass 1, then one flat
 //    262,144-step lax.scan, _oy4_step :2655): the q <= LOW4 quantizer with
 //    the duty-cycle counters, (B, 512, 512) int16 plane -> int16 code plane.
-//    Three launches.
+//    A fill and two launches (S2's pass 1, oy4_rows).
 //
 // The bound of S1 is its operations (some 30 a region position; the
 // plane read and written once for the three regions), S3's operations:
@@ -79,16 +79,30 @@
 //   copied in 16-byte chunks.
 // - S10: pass 1 is S2's launch (offset_y_rows); passes 2-3 do not run at
 //   these qualities.  Pass 4's counters: quant and quant6 reset at each row
-//   start, quant4 runs on, and a step may leave a write pending on the next
-//   position; at column 511 only the quant4 pair rule can, into the next
-//   row's column 0, and only where it fires (quant4 is 1 after).  So a row
-//   enters from one of 5 states (quant4 0, 1, 2; or 1 with column 0 pending
-//   at its value - 2 or + 2) and leaves in one.  Both walks take 32 staged
-//   rows a CTA (as pass 1).  oy4_maps walks every row from every entry
-//   state, a thread each, and stores the exit; oy4_emit stages an image's
-//   512 maps too, its warp chains them (block_scan.cuh's chain_entries),
-//   and each thread walks its row again from its entry state and writes
-//   the codes in place, which the CTA writes back whole rows a warp.
+//   start and only choose whether a negative value is masked, which no rule
+//   reads, so each is a count of the row's earlier ticks (a prefix
+//   popcount); quant4 runs on, and a step may leave a write pending on the
+//   next position.  What steers the walk is one of 8 states: quant4 0..2
+//   with nothing pending, with a fixup pending (-9, -8 or 9: none fires a
+//   rule, -9 and -8 take one code, and the next input, 7 or -7, tells
+//   which), or quant4 1 with the next input - 2 (up) or + 2 (down)
+//   pending.  A position's next state from each is fixed by its inputs:
+//   one evaluation of the rules (a fixup's value fires none, and neither
+//   does an input -+ 2 that the pair rule took), so it is a table of 8
+//   states, 3 bits each.  At column 511 only the pair rule
+//   writes on (into the next row's column 0), so a row enters and leaves in
+//   one of 5 states.  oy4_rows: a warp a row, 16 rows a CTA, lane l on
+//   columns 16 l..16 l + 15 loaded in 16-byte loads; each lane builds its
+//   16 tables once and composes them, the warp scans the 32 lane maps with
+//   shuffles, and lane 31's composite is the row's 5-state map.  Each CTA
+//   takes a ticket (tile-major over the images), composes its 16 row maps,
+//   publishes the composite and looks back (a lane a predecessor tile, the
+//   nearest whose exit is out) to its entry; then each lane walks its
+//   columns again from its entry state, the warp counts the ticks before
+//   each lane, and each lane stores its 16 codes in 16-byte stores.  At
+//   batch 16, 512 CTAs of 512 threads on every SM, one CTA an SM: the row
+//   and its 16 tables stay in registers (some 100 a thread), and no CTA
+//   waits behind another's table phase.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -131,7 +145,11 @@ constexpr int kMCtas = kMLen / kMSpan;       // CTAs a stream: one cluster
 constexpr uint32_t kMOnes = 0x1249u;         // bit 0 of each state's field
 static_assert(kMCtas == 8, "a stream is one cluster of 8 CTAs");
 
-constexpr int kOy4States = 5;                // S10's entry states a row
+constexpr int kOy4Tile = 16;                 // columns a lane of S10
+constexpr int kOy4Warps = 16;                // rows a CTA of S10, a warp each
+constexpr int kOy4Tiles = kN / kOy4Warps;    // CTAs an image: look-back tiles
+static_assert(kOy4Tile * 32 == kN && kOy4Tiles <= 32,
+              "a warp a row; one look-back window of 32 tiles");
 
 // ---------------------------------------------------------------------------
 // S1: snap pass
@@ -604,16 +622,15 @@ __global__ void __launch_bounds__(kOyThreads)
 }
 
 __device__ __forceinline__ int sentinel_code(int a) {
-  switch (a) {
-    case 10100: return 128;
-    case 12700: return 127;
-    case 12900: return 129;
-    case 10204: return 125;
-    case 10300: return 126;
-    case 12100: return 121;
-    case 12200: return 122;
-    default: return a;
-  }
+  int c = a;
+  c = a == 10100 ? 128 : c;
+  c = a == 12700 ? 127 : c;
+  c = a == 12900 ? 129 : c;
+  c = a == 10204 ? 125 : c;
+  c = a == 10300 ? 126 : c;
+  c = a == 12100 ? 121 : c;
+  c = a == 12200 ? 122 : c;
+  return c;
 }
 
 // |a| > 127 escape words; esc: (2, 19) int32, EXTRA_WORDS1 then
@@ -663,145 +680,264 @@ __global__ void __launch_bounds__(kCodeThreads)
 
 // ---------------------------------------------------------------------------
 // S10: offset_y_low4, q <= LOW4
+//
+// States (the header's): 0..2 quant4 with nothing pending, 3..5 quant4
+// with a fixup pending, 6 quant4 1 with the input - 2 pending (up), 7 the
+// input + 2 (down).  A table holds the next state of each, 3 bits a state.
+// States 3..5 go to 0..2 (no rule fires on a fixup's value) and 6, 7 to 1:
+// the pending value is the input -+ 2 of an input the pair rule took (>=
+// 14, & 6 == 6), so its & 7 is 4, 5, 0 or 1, which neither the pair rule
+// nor a fixup takes.
 
-struct Oy4State {
-  int quant, quant6, quant4, pend_val;
-  bool pend, up;    // a write pending on the next position; by the up rule
+constexpr uint32_t kOy4Fixed = 0u << 9 | 1u << 12 | 2u << 15 | 1u << 18 |
+                               1u << 21;                          // 3..7
+constexpr uint32_t kOy4Ident = 0xFAC688u;                         // 0..7
+constexpr int kOy4Neg = 1 << 20;   // a walked value: a plain negative's an
+
+// A position's table from its input i0 and the next two, i1 and i2: the
+// rules at i0 for states 0..2 (a fixup writes the next position; the
+// quant4 pair rule fires where quant4 is 0, else advances it), compares
+// combined with & and |.
+__device__ __forceinline__ uint32_t oy4_table(int i0, int i1, int i2,
+                                              bool incol, bool reg4,
+                                              bool r2ok) {
+  const bool plain = (unsigned(i0 + 127) <= 254u) & (i0 != 0);
+  const bool fix = plain & incol &
+                   (((i1 == -7) & (((i0 < -12) & (((-i0) & 7) == 6)) |
+                                   (i0 == 8))) |
+                    ((i1 == 7) & (i0 > 12) & ((i0 & 7) >= 6)));
+  const bool pair = plain & reg4 & (i0 >= 14) & (i1 >= 14) &
+                    ((i0 & 6) == 6) & ((i1 & 6) == 6) & (((i0 | i1) & 1) != 0);
+  const bool same = (i0 & 504) == (i1 & 504);
+  const bool up = same ? i0 >= i1 : i0 <= i1;
+  const bool r2 = r2ok & (((i2 > -8) & (i2 < -2)) |
+                          ((i2 < -7) & (((-i2) & 7) >= 6)));
+  const uint32_t n0 = fix ? 3u : !pair ? 0u : up ? 6u : r2 ? 1u : 7u;
+  const uint32_t n1 = 1u + uint32_t(pair) + 3u * uint32_t(fix);
+  const uint32_t n2 = 2u + 3u * uint32_t(fix) - 2u * uint32_t(pair);
+  return n0 | n1 << 3 | n2 << 6 | kOy4Fixed;
+}
+
+__device__ __forceinline__ int oy4_at(uint32_t f, int s) {
+  return (f >> (3 * s)) & 7;
+}
+
+// The map of f, then g (8 states).
+__device__ __forceinline__ uint32_t oy4_then(uint32_t f, uint32_t g) {
+  uint32_t r = 0;
+#pragma unroll
+  for (int s = 0; s < 8; ++s) r |= uint32_t(oy4_at(g, oy4_at(f, s))) << (3 * s);
+  return r;
+}
+
+// The 5-state map of a row (entry state 0, 1, 2, 6, 7 -> exit state, as
+// 0..4) from its 8-state composite.
+__device__ __forceinline__ uint32_t oy4_row_map(uint32_t m) {
+  uint32_t r = 0;
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    const int s = oy4_at(m, k < 3 ? k : k + 3);
+    r |= uint32_t(s < 3 ? s : s - 3) << (3 * k);
+  }
+  return r;
+}
+
+__device__ __forceinline__ uint32_t ld_relaxed32(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_relaxed32(uint32_t* p, uint32_t v) {
+  asm volatile("st.relaxed.gpu.global.u32 [%0], %1;"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+// A tile's look-back word: 0, then kOy4Agg | its composite (15 bits),
+// then also kOy4Incl | its exit state << 16.  A 32-bit word written
+// whole, so a reader sees 0, the composite or both.
+constexpr uint32_t kOy4Agg = 1u << 31;
+constexpr uint32_t kOy4Incl = 1u << 30;
+
+// Lane l's 16 values of row r of one image's pass-1 output, and the two
+// after them (the next lane's first, or the next row's columns 0 and 1; 0
+// past the plane), loaded in 16-byte loads.
+__device__ __forceinline__ void oy4_load(const int16_t* I, int r, int lane,
+                                         int* x) {
+  const uint4* p = reinterpret_cast<const uint4*>(I + r * kN + kOy4Tile * lane);
+  const uint4 q0 = p[0], q1 = p[1];
+  const uint32_t wd[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    x[2 * k] = static_cast<int16_t>(wd[k] & 0xFFFFu);
+    x[2 * k + 1] = static_cast<int16_t>(wd[k] >> 16);
+  }
+  const uint32_t nx = lane == 31 && r + 1 < kN
+                          ? *reinterpret_cast<const uint32_t*>(I + (r + 1) * kN)
+                          : 0u;
+  x[kOy4Tile] = __shfl_down_sync(kFull, x[0], 1);
+  x[kOy4Tile + 1] = __shfl_down_sync(kFull, x[1], 1);
+  if (lane == 31) {
+    x[kOy4Tile] = static_cast<int16_t>(nx & 0xFFFFu);
+    x[kOy4Tile + 1] = static_cast<int16_t>(nx >> 16);
+  }
+}
+
+struct Oy4Shared {
+  int esc[38];
+  uint32_t row_map[kOy4Warps];
+  uint32_t row_pre[kOy4Warps];
+  int job, entry;
 };
 
-__device__ __forceinline__ Oy4State oy4_entry(int s, int i0) {
-  Oy4State st;
-  st.quant = st.quant6 = 0;
-  st.quant4 = s == 0 ? 0 : (s == 2 ? 2 : 1);
-  st.pend = s >= 3;
-  st.pend_val = i0 + (s == 3 ? -2 : 2);
-  st.up = false;
-  return st;
-}
-
-// One step of pass 4 (image_processing.c:312-520 with the duty cycles) at
-// column c of row r: i0 the position's input value, i1 and i2 the next two
-// positions' (a step writes only the next position, where the next step
-// starts); the previous position is a code by then, so the pair rule's r1
-// is 0.  Returns the code.
-__device__ __forceinline__ int oy4_step(Oy4State& st, int i0, int i1, int i2,
-                                        int r, int c, int m1,
-                                        const int* __restrict__ esc) {
-  const int a0 = st.pend ? st.pend_val : i0;
-  st.pend = st.up = false;
-  if (a0 == 0) return 128;
-  if (a0 > 10000) return sentinel_code(a0);
-  if (a0 > 127 || a0 < -127) return escape_code(a0, esc);
-  const bool incol = c < 2 * kD - 1;
-  int a = a0, fix = 0;
-  if (a0 < 0) {
-    if (a0 < -12 && ((-a0) & 7) == 6 && incol && i1 == -7) fix = -9;
-    int an = (a0 == -7 && i1 == 8 && incol) ? 8 : -a0;
-    if (an > 14 && (an & 7) == 7 && i1 > 0 && i1 < 8) an -= 2;
-    if (an == 15) {
-      if (st.quant == 0) {
-        an &= 504;
-        st.quant = 1;
-      } else {
-        st.quant = (st.quant + 1) % 6;
+// One warp a row of pass 1's output (tmp), kOy4Warps rows a CTA (a tile
+// of the look-back), each CTA an image's tile by its ticket (tile-major:
+// it waits only on tiles that started before it).  Lane l takes columns
+// 16 l..16 l + 15: their tables once, composed into the lane's map of 8
+// states; the warp scans the 32 maps, and lane 31's composite gives the
+// row's map from its 5 entry states.  Warp 0 composes the CTA's rows,
+// publishes the composite, looks back to its entry and publishes its
+// exit; then each lane walks its columns again from its entry state (a
+// table lookup a step, the value of its state's class), the warp counts
+// the ticks before each lane (a shuffle scan of popcounts), and each
+// lane writes its 16 codes in two 16-byte stores.
+__global__ void __launch_bounds__(kOy4Warps * 32, 1)
+    oy4_rows(const int16_t* __restrict__ in, int16_t* __restrict__ out,
+             const int* __restrict__ esc, uint32_t* __restrict__ look,
+             int batch, int m1) {
+  __shared__ Oy4Shared sh;
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  if (t == 0) sh.job = static_cast<int>(atomicAdd(look, 1u));
+  if (t < 38) sh.esc[t] = esc[t];
+  __syncthreads();
+  const int tile = sh.job / batch, b = sh.job % batch;
+  const int r = tile * kOy4Warps + w;
+  const int16_t* I = in + static_cast<size_t>(b) * kPlane;
+  int x[kOy4Tile + 2];
+  oy4_load(I, r, lane, x);
+  const int c0 = kOy4Tile * lane;
+  uint32_t tab[kOy4Tile];
+  int s[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q) s[q] = q;
+#pragma unroll
+  for (int k = 0; k < kOy4Tile; ++k) {
+    const int c = c0 + k;
+    tab[k] = oy4_table(x[k], x[k + 1], x[k + 2], c < kN - 1,
+                       (r >= kD) | (c >= kD), (c > 0) & (c < kN - 2));
+#pragma unroll
+    for (int q = 0; q < 8; ++q) s[q] = oy4_at(tab[k], s[q]);
+  }
+  uint32_t m = 0;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) m |= uint32_t(s[q]) << (3 * q);
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const uint32_t f = __shfl_up_sync(kFull, m, d);
+    if (lane >= d) m = oy4_then(f, m);
+  }
+  uint32_t pre = __shfl_up_sync(kFull, m, 1);
+  if (lane == 0) pre = kOy4Ident;
+  if (lane == 31) sh.row_map[w] = oy4_row_map(m);
+  __syncthreads();
+  if (w == 0) {
+    uint32_t rm = lane < kOy4Warps ? sh.row_map[lane] : kMap5Ident;
+    const uint32_t rp = map5_warp_scan(rm, lane);
+    if (lane < kOy4Warps) sh.row_pre[lane] = rp;
+    const uint32_t agg = __shfl_sync(kFull, rm, kOy4Warps - 1);
+    uint32_t* st = look + 1 + static_cast<size_t>(b) * kOy4Tiles;
+    int e = 0;
+    if (tile > 0) {
+      if (lane == 0) st_relaxed32(st + tile, kOy4Agg | agg);
+      const int pj = tile - 1 - lane;
+      uint32_t v = 0;
+      if (pj >= 0) {
+        do {
+          v = ld_relaxed32(st + pj);
+        } while (v == 0);
       }
-    } else if (an > 22 && (an & 7) == 7) {
-      if (st.quant6 == 0) {
-        an &= 504;
-        st.quant6 = 1;
-      } else {
-        st.quant6 = (st.quant6 + 1) % 4;
-      }
-    } else {
-      an &= 504;
+      // the nearest tile whose exit is out (tile 0's always comes), then
+      // the composites after it
+      const unsigned inc = __ballot_sync(kFull, (v & kOy4Incl) != 0);
+      const int first = __ffs(inc) - 1;
+      e = __shfl_sync(kFull, static_cast<int>((v >> 16) & 7u), first);
+      for (int i = first - 1; i >= 0; --i)
+        e = map5_at(__shfl_sync(kFull, v & 0x7FFFu, i), e);
     }
-    a = -an;
-  } else if (a0 == 8 && i1 == -7 && incol) {
-    fix = -8;
-  } else if (a0 > 12 && (a0 & 7) >= 6 && incol && i1 == 7) {
-    fix = 9;
-  }
-  if (fix) {
-    st.pend = true;
-    st.pend_val = fix;
-  } else if (a >= 14 && i1 >= 14 && (r >= kD || c >= kD) &&
-             ((a & 510) & 7) == 6 && ((i1 & 510) & 7) == 6 &&
-             ((a & 1) || (i1 & 1))) {
-    if (st.quant4 == 0) {
-      const bool same = (a & 504) == (i1 & 504);
-      const bool r2 = c > 0 && c < 2 * kD - 2 &&
-                      ((i2 > -8 && i2 < -2) || (i2 < -7 && ((-i2) & 7) >= 6));
-      if (same ? a >= i1 : a <= i1) {
-        a += 2;
-        st.pend = st.up = true;
-        st.pend_val = i1 - 2;
-      } else if (!r2) {
-        st.pend = true;
-        st.pend_val = i1 + 2;
-      }
-      st.quant4 = 1;
-    } else {
-      st.quant4 = (st.quant4 + 1) % 3;
+    if (lane == 0) {
+      st_relaxed32(st + tile, kOy4Agg | kOy4Incl | agg |
+                                  uint32_t(map5_at(agg, e)) << 16);
+      sh.entry = e;
     }
   }
-  return (a > -m1 && a < m1) ? 128 : ((a + 128) & 248);
-}
-
-// Row r of one image from entry state s, staged at row (kStageAfter
-// values past its end); writes the codes in place when kWrite.  Returns
-// the exit state.
-template <bool kWrite>
-__device__ __forceinline__ int oy4_walk(int16_t* row, int r, int s, int m1,
-                                        const int* __restrict__ esc) {
-  int i0 = row[0], i1 = row[1], i2 = row[2];
-  Oy4State st = oy4_entry(s, i0);
-  for (int c = 0; c < kN; ++c) {
-    const int i3 = row[c + 3];
-    const int code = oy4_step(st, i0, i1, i2, r, c, m1, esc);
-    if (kWrite) row[c] = static_cast<int16_t>(code);
-    i0 = i1;
-    i1 = i2;
-    i2 = i3;
+  __syncthreads();
+  const int e5 = map5_at(sh.row_pre[w], sh.entry);
+  int st = oy4_at(pre, e5 < 3 ? e5 : e5 + 3);
+  // the walk again: each position's value from its state's class, the
+  // plain negatives as kOy4Neg | an (coded once the ticks are counted)
+  uint32_t t15 = 0, t22 = 0;
+#pragma unroll
+  for (int k = 0; k < kOy4Tile; ++k) {
+    const int i0 = x[k], i1 = x[k + 1];
+    const bool incol = c0 + k < kN - 1;
+    const int a0 = st < 3   ? i0
+                   : st < 6 ? (i0 == 7 ? 9 : -8)
+                   : st == 6 ? i0 - 2
+                             : i0 + 2;
+    st = oy4_at(tab[k], st);
+    const bool neg = unsigned(a0 + 127) < 127u;      // -127..-1
+    const int a1 = ((a0 == -7) & (i1 == 8) & incol) ? -8 : a0;
+    int an = -a1;
+    an -= ((an > 14) & ((an & 7) == 7) & (i1 > 0) & (i1 < 8)) ? 2 : 0;
+    const bool is15 = neg & (an == 15);
+    const bool is22 = neg & (an != 15) & (an > 22) & ((an & 7) == 7);
+    t15 |= uint32_t(is15) << k;
+    t22 |= uint32_t(is22) << k;
+    const int a = a0 + (st == 6 ? 2 : 0);
+    const int dz = (a > -m1) & (a < m1) ? 128 : ((a + 128) & 248);
+    const int ek = a0 > 127 ? ((a0 & 0xfff8) - 128) >> 3
+                            : 19 + ((((-a0) & 0xfff8) - 128) >> 3);
+    const int ec = sh.esc[a0 > 127 ? min(max(ek, 0), 18)
+                                   : min(max(ek, 19), 37)];
+    int v = a0 == 0                       ? 128
+            : a0 > 10000                  ? sentinel_code(a0)
+            : (a0 > 127) | (a0 < -127)    ? ec
+            : neg                         ? kOy4Neg | an
+                                          : dz;
+    x[k] = v;
   }
-  return st.pend ? (st.up ? 3 : 4) : st.quant4;
-}
-
-// kRows staged rows from every entry state, a thread each: maps (B, 512,
-// 5) uint8.
-__global__ void __launch_bounds__(kRows * kOy4States)
-    oy4_maps(const int16_t* __restrict__ in, uint8_t* __restrict__ maps,
-             int m1, const int* __restrict__ esc) {
-  __shared__ int16_t s[kRows * nhw::kStagePitch];
-  const size_t b = blockIdx.y;
-  const int r0 = blockIdx.x * kRows;
-  nhw::stage_rows(in + b * kPlane, r0, kRows, s);
-  __syncthreads();
-  const int k = threadIdx.x / kOy4States, e = threadIdx.x % kOy4States;
-  maps[(b * kN + r0 + k) * kOy4States + e] = static_cast<uint8_t>(
-      oy4_walk<false>(s + k * nhw::kStagePitch + 1, r0 + k, e, m1, esc));
-}
-
-// kN / kRows CTAs an image: each chains the image's maps, then each thread
-// walks its staged row from its entry state and writes the codes.
-__global__ void __launch_bounds__(kRows)
-    oy4_emit(const int16_t* __restrict__ in,
-             const uint8_t* __restrict__ maps, int16_t* __restrict__ out,
-             int m1, const int* __restrict__ esc) {
-  __shared__ int16_t s[kRows * nhw::kStagePitch];
-  __shared__ uint8_t map_s[kN * kOy4States];
-  __shared__ uint8_t entry_s[kN];
-  const size_t b = blockIdx.y;
-  const int r0 = blockIdx.x * kRows, k = threadIdx.x;
-  nhw::stage_rows(in + b * kPlane, r0, kRows, s);
-  const uint8_t* m = maps + b * kN * kOy4States;
-  for (int i = k; i < kN * kOy4States; i += kRows) map_s[i] = m[i];
-  __syncthreads();
-  nhw::chain_entries<kOy4States>(map_s, entry_s, kN);
-  __syncthreads();
-  oy4_walk<true>(s + k * nhw::kStagePitch + 1, r0 + k, entry_s[r0 + k], m1,
-                 esc);
-  __syncthreads();
-  nhw::unstage_rows(s, kRows, out + b * kPlane, r0);
+  // the ticks before the lane: quant and quant6 from the row's start
+  const uint32_t cnt = __popc(t15) | __popc(t22) << 16;
+  uint32_t incl = cnt;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const uint32_t y = __shfl_up_sync(kFull, incl, d);
+    if (lane >= d) incl += y;
+  }
+  const uint32_t ex = incl - cnt;
+  int q15 = static_cast<int>(ex & 0xFFFFu) % 6, q22 = (ex >> 16) & 3;
+  uint32_t o[8];
+#pragma unroll
+  for (int k = 0; k < kOy4Tile; ++k) {
+    const int v = x[k];
+    const bool is15 = (t15 >> k) & 1u, is22 = (t22 >> k) & 1u;
+    const bool keep = (is15 & (q15 != 0)) | (is22 & (q22 != 0));
+    q15 = is15 ? (q15 == 5 ? 0 : q15 + 1) : q15;
+    q22 = is22 ? (q22 + 1) & 3 : q22;
+    const int an = v & 0xFFFF;
+    const int a = -(keep ? an : an & 504);
+    const int code =
+        (v & kOy4Neg) ? ((a > -m1) & (a < m1) ? 128 : ((a + 128) & 248)) : v;
+    if (k & 1)
+      o[k >> 1] |= (static_cast<uint32_t>(code) & 0xFFFFu) << 16;
+    else
+      o[k >> 1] = static_cast<uint32_t>(code) & 0xFFFFu;
+  }
+  uint4* dst = reinterpret_cast<uint4*>(out + static_cast<size_t>(b) * kPlane +
+                                        r * kN + c0);
+  dst[0] = make_uint4(o[0], o[1], o[2], o[3]);
+  dst[1] = make_uint4(o[4], o[5], o[6], o[7]);
 }
 
 // ---------------------------------------------------------------------------
@@ -1135,20 +1271,25 @@ int nhw_offset_y(const void* in, void* tmp, void* out, const void* esc,
 }
 
 // S10.  in, tmp, out: (B, 512, 512) int16, 16-byte aligned (tmp holds pass
-// 1); maps: (B, 512, 5) uint8 scratch; esc: (2, 19) int32 escape words.
-int nhw_offset_y_low4(const void* in, void* tmp, void* maps, void* out,
+// 1); look: (1 + B * 32) u32, the look-back's ticket and words (zeroed
+// here); esc: (2, 19) int32 escape words.  A fill and two launches.
+int nhw_offset_y_low4(const void* in, void* tmp, void* look, void* out,
                       const void* esc, int batch, int m1, void* stream) {
   if (batch < 1 || batch > 65535) return cudaErrorInvalidValue;
-  if (misaligned({{in, 16}, {tmp, 16}, {out, 16}, {esc, 4}}))
+  if (misaligned({{in, 16}, {tmp, 16}, {look, 4}, {out, 16}, {esc, 4}}))
     return cudaErrorMisalignedAddress;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* t = static_cast<int16_t*>(tmp);
-  auto* m = static_cast<uint8_t*>(maps);
-  const auto* e = static_cast<const int*>(esc);
-  const dim3 grid(kN / kRows, batch);
-  offset_y_rows<<<grid, kRows, 0, s>>>(static_cast<const int16_t*>(in), t);
-  oy4_maps<<<grid, kRows * kOy4States, 0, s>>>(t, m, m1, e);
-  oy4_emit<<<grid, kRows, 0, s>>>(t, m, static_cast<int16_t*>(out), m1, e);
+  auto* lb = static_cast<uint32_t*>(look);
+  cudaError_t e = cudaMemsetAsync(
+      lb, 0, sizeof(uint32_t) * (1 + static_cast<size_t>(batch) * kOy4Tiles),
+      s);
+  if (e != cudaSuccess) return e;
+  offset_y_rows<<<dim3(kN / kRows, batch), kRows, 0, s>>>(
+      static_cast<const int16_t*>(in), t);
+  oy4_rows<<<batch * kOy4Tiles, kOy4Warps * 32, 0, s>>>(
+      t, static_cast<int16_t*>(out), static_cast<const int*>(esc), lb, batch,
+      m1);
   return cudaGetLastError();
 }
 

@@ -7,10 +7,11 @@
 // S12 nhw_very_low_q_cleanup replaces
 //    nhwcodec_tpu/models/device_scans.py:2479 very_low_q_cleanup_device
 //    (pass 1 as 128 row scans of 124 steps, passes 2 and 3 as 126-row
-//    scans of 126-step column scans): passes 1-3 of the q < LOW7 LL2
-//    window smoothing, in place on the LL2 quadrant of a (B, 512, 512)
-//    int16 plane, and the fire masks the far zeroings take (torch ops
-//    in the wrapper, with pass 4).  One launch, one CTA an image.
+//    scans of 126-step column scans, pass 4 and the far zeroings
+//    elementwise): the q < LOW7 LL2 window smoothing of a (B, 512, 512)
+//    int16 plane and the zeroings its fires cause in the other bands.  Two
+//    launches: vlq_rows (one CTA an image: passes 1-4 on the LL2 quadrant,
+//    the count masks out as bits) and vlq_far (the masked zeroings).
 // S13 nhw_low_q_ll1_cleanup replaces
 //    nhwcodec_tpu/models/device_scans.py:2101 low_q_ll1_cleanup_device
 //    (a Jacobi while_loop over rows 128..255): the q <= LOW9
@@ -28,32 +29,45 @@
 // a CTA, block_scan.cuh's stage_rows) and written back whole.
 //
 // S12's pass 1 writes only within its row (a window's write at j + 2 is
-// read by the next two windows): a thread a row, 124 steps.  Passes 2 and
-// 3 and S14's two passes share one recurrence: visit (r, j) reads rows r,
-// r + 1 and r + 2 at columns j..j + 2 and writes (r + 1, j + 1), so it
-// needs visits (r, j - 1) and (r - 1, j + 1) done and nothing later.  Row
-// r's visit j runs at step 2r + j (wave_pass): 376 steps for S12's 126 x
-// 126 visits, 184 for S14's 62 x 62, a barrier a step, and within a step
-// no visit reads what another writes.  The quadrant sits in shared memory
-// at kVlqPitch int16 a row (66 words: a step's visits, two columns apart a
-// row, read 32 banks; pass 1's row-per-thread reads hit two threads a
-// bank), S14's block at kUvsPitch (34 words).
+// read by the next two windows): a thread a row, 124 steps, the window in
+// registers, one value read a step.  Passes 2 and 3 and S14's two passes
+// share one recurrence: visit (r, j) reads rows r, r + 1 and r + 2 at
+// columns j..j + 2 and writes (r + 1, j + 1), so it needs visits (r, j - 1)
+// and (r - 1, j + 1) done and nothing later.  S14 (wave_pass) runs row r's
+// visit j at step 2r + j with a CTA barrier a step.  S12 (vlq_wave) keeps
+// the order with a barrier every 4 steps: a lane a row, 32 rows a warp,
+// each lane holding windows of its row r (columns j..j + 2) and of row r +
+// 1; what it writes at (r + 1, j + 1) is what lane r + 1 reads next as
+// its row's newest value, passed one lane on with a shuffle; row r + 2 at
+// j + 1 is still an input (lane r + 1 writes it two steps later).  Lane 31
+// of a warp writes the row that lane 0 of the next warp reads from shared
+// memory, so each warp runs 69 steps behind the one before: the 65 the
+// dependence needs and the barrier's 4.  Each step loads what the next
+// needs and has no branch.
 //
-// S12's far zeroings land in the level-1 bands, which no pass reads, and
-// zero only: they apply once after the passes.  The kernel emits, per image,
-// (4, 128, 128) bool masks in the visit frame: pass 1's fires (c1 or c2),
-// pass 2's and pass 3's fires (the inner test, whether or not the value is
-// written), pass 3's hits (the outer test).  The one far target a pass
-// reads is (0, 127): pass 3's hits before its first fire zero the level-2
-// bands around the carry passes 1-2 left, which is 0 when neither fired,
-// and 0 + 128 - 1 is (0, 127) (at q <= LOW9, |v| < 11).  Pass 3's visit
-// (0, 125) and pass 4 read it; row 0's visits come first in raster order,
-// so the thread of row 0 zeroes it at its first stale hit, as the C does.
+// The far zeroings land outside the quadrant, which no pass reads, and
+// zero only, so they apply once after the passes from masks: vlq_rows
+// writes, per image, the count masks (128 x 128 bits each, count position
+// (r, c) = plane position r * 512 + c) that the far zeroings read: cnt1
+// (pass 1's fires at c + 1..c + 3), d23 (passes 2-3's at (r + 1, c + 1)),
+// fe34 (pass 4's at c + 1) and l2 (the level-2 zeroings': cnt1, d23 and
+// its row neighbours, fe34), and the stale carry's mode.  The one far
+// target a pass reads is (0, 127): pass 3's hits before its first fire
+// zero the level-2 bands around the carry passes 1-2 left, 0 when neither
+// fired, and 0 + 128 - 1 is (0, 127) (at q <= LOW9, |v| < 11).  Pass 3's
+// visit (0, 125) and pass 4 read it; row 0's visits come first in raster
+// order, so row 0's lane zeroes it at its first stale hit, as the C does,
+// and vlq_rows again after pass 3 where the first hit came later.  vlq_far
+// (a CTA every 16 plane rows, 16-byte accesses) zeroes each position
+// outside the quadrant that a mask reaches below its threshold; vlq_rows
+// writes the quadrant.
 //
-// The bound is bytes (S12: the quadrant read and written, the masks
-// written; S13: rows 128..255; S14: the 64 x 64 block); each visit is some
-// 20-40 operations.  What limits them is their dependent steps: S12 124 +
-// 2 x 376, S13 256, S14 2 x 184, each a barrier or a shared-memory read.
+// The bound is bytes (S12: the plane read and written; S13: rows
+// 128..255; S14: the 64 x 64 block); each visit is some 20-40 operations.
+// What limits S12 and S14 is their dependent steps: S12 124 + 2 x 400
+// (the warps 69 steps apart), S13 256, S14 2 x 184, S14's each a
+// barrier; S12's step is bound by its instructions, one warp on each of
+// the SM's four schedulers.
 
 #include <cuda_runtime.h>
 
@@ -74,8 +88,27 @@ constexpr int kVlq = 128;              // the LL2 quadrant's side
 constexpr int kVlqP1 = kVlq - 4;       // pass 1's visits a row
 constexpr int kVlqWave = kVlq - 2;     // passes 2-3: rows and visits a row
 constexpr int kVlqPitch = 132;         // int16 a staged row
-constexpr int kMasks = 4;
+constexpr int kVlqWarps = kVlq / 32;   // a lane a row
 constexpr int kMaskWords = kVlq / 32;  // bit words a mask row
+constexpr int kVlqMasks = 4;           // cnt1, d23, fe34, l2
+constexpr int kVlqOut = kVlqMasks * kVlq * kMaskWords + 4;  // u32 an image
+constexpr int kFarRows = 16;           // plane rows a CTA of vlq_far
+// S12's relay: a CTA barrier every kVlqSync steps, each warp kVlqLag steps
+// behind the one before, kVlqSteps in all (vlq_wave)
+constexpr int kVlqSync = 4;
+constexpr int kVlqLag = 65 + kVlqSync;
+constexpr int kVlqSteps =
+    ((kVlqWarps - 1) * kVlqLag + 2 * 31 + kVlqWave + 3 + kVlqSync - 1) /
+    kVlqSync * kVlqSync;
+// A step reads row r + 2 at j + 2 and rows r, r + 1 at j + 4 whatever its
+// lane's j, so that it needs no clamp: from the quadrant's first row the
+// reads stay inside it (each row's j starts at -3 - 2 r or lower, and its
+// row lies 132 r on), and past its last row they reach kVlqTail further
+// (the values there are read by idle steps only).
+constexpr int kVlqTail =
+    (kVlqSteps - 3 + 4 - kVlqPitch + 7) / 8 * 8;
+constexpr int kFarThreads = 256;
+constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kUvs = 64;               // the chroma LL2 block's side
 constexpr int kUvsPitch = 68;
 constexpr int kLl1Rows = 32;           // S13: rows a CTA, a thread each
@@ -86,13 +119,10 @@ bool misaligned(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes != 0;
 }
 
-// A wave pass's rule: variant 2 tests row r at j + 1 only, variant 3 at j,
-// j + 1 and j + 2; x3, x4 its thresholds, rnd the rounding of the mean;
-// always: an inner fire writes (S14), else only where the mean lies within
-// 5 of a row neighbour (S12).
+// S14's wave pass rule: variant 2 tests row r at j + 1 only, variant 3 at
+// j, j + 1 and j + 2; x3, x4 its thresholds, rnd the rounding of the mean.
 struct Wave {
   int variant, x3, x4, rnd;
-  bool always;
 };
 
 // Stage the top-left side x side corner of a row-major plane (row stride
@@ -119,33 +149,12 @@ __device__ __forceinline__ void unstage_corner(const int16_t* s, int side,
   }
 }
 
-// Collect a row's visit bits a word at a time: bit j of word j / 32.
-struct BitRow {
-  uint32_t* row;   // kMaskWords words in shared memory, or null
-  uint32_t w = 0;
-  __device__ __forceinline__ void put(int j, bool b, int last) {
-    if (!row) return;
-    w |= static_cast<uint32_t>(b) << (j & 31);
-    if ((j & 31) == 31 || j == last) {
-      row[j >> 5] = w;
-      w = 0;
-    }
-  }
-};
-
 // One wave pass over the m x m visits of the corner staged at s (pitch
 // int16 a row), every thread of the CTA taking part (row r = threadIdx.x,
-// r < m).  fire, hit: the rows' bit words of the inner and outer tests
-// (kMaskWords a row), or null.  stale0: pass 3's stale carry is 0 (S12 at
-// q <= LOW9 with no pass-1 or pass-2 fire): row 0's hits before its first
-// fire zero (0, 127) below 11.
+// r < m): an inner fire writes the rounded mean.
 template <int kPitch>
-__device__ void wave_pass(int16_t* s, int m, const Wave& w, uint32_t* fire,
-                          uint32_t* hit, bool stale0) {
+__device__ void wave_pass(int16_t* s, int m, const Wave& w) {
   const int r = threadIdx.x;
-  BitRow fr{fire ? fire + r * kMaskWords : nullptr};
-  BitRow hr{hit ? hit + r * kMaskWords : nullptr};
-  bool fired0 = false;
   for (int step = 0; step < 3 * m - 2; ++step) {
     const int j = step - 2 * r;
     if (r < m && j >= 0 && j < m) {
@@ -154,97 +163,414 @@ __device__ void wave_pass(int16_t* s, int m, const Wave& w, uint32_t* fire,
       const int r0 = p0[0], r0s = p0[1], r0s2 = p0[2];
       const int a0 = p1[0], r1i1 = p1[1], r1i2 = p1[2];
       const int r2s = p0[2 * kPitch + 1];
-      bool outer, inner;
+      bool inner;
       if (w.variant == 2) {
-        outer = iabs(r0s - r2s) < w.x3 && iabs(a0 - r1i2) < w.x3;
-        inner = outer && iabs(r1i1 - a0) < w.x4 - 1 &&
-                iabs(r0s - r1i1) < w.x4;
+        inner = iabs(r0s - r2s) < w.x3 && iabs(a0 - r1i2) < w.x3 &&
+                iabs(r1i1 - a0) < w.x4 - 1 && iabs(r0s - r1i1) < w.x4;
       } else {
-        outer = iabs(r0s2 - r0s) < w.x3 && iabs(r0s - r0) < w.x3 &&
-                iabs(r0 - a0) < w.x3 && iabs(r0s2 - r1i2) < w.x3;
-        inner = outer && iabs(r2s - a0) < w.x3 && iabs(a0 - r1i1) < w.x4;
+        inner = iabs(r0s2 - r0s) < w.x3 && iabs(r0s - r0) < w.x3 &&
+                iabs(r0 - a0) < w.x3 && iabs(r0s2 - r1i2) < w.x3 &&
+                iabs(r2s - a0) < w.x3 && iabs(a0 - r1i1) < w.x4;
       }
-      const int e = (r0s + r2s + a0 + r1i2 + w.rnd) >> 2;
-      if (inner && (w.always || iabs(e - a0) < 5 || iabs(e - r1i2) < 5))
-        p1[1] = static_cast<int16_t>(e);
-      if (stale0 && r == 0 && outer && !inner && !fired0 &&
-          iabs(s[kVlq - 1]) < 11)
-        s[kVlq - 1] = 0;
-      fired0 |= inner;
-      fr.put(j, inner, m - 1);
-      hr.put(j, outer, m - 1);
+      if (inner)
+        p1[1] = static_cast<int16_t>((r0s + r2s + a0 + r1i2 + w.rnd) >> 2);
     }
     __syncthreads();
   }
 }
 
-// S12's pass 1 on staged row `row`: 124 windows of 5, a write at j + 2;
-// returns whether any window fired, its fires into bits.
+// ---------------------------------------------------------------------------
+// S12
+
+struct VlqShared {
+  int16_t q[kVlq * kVlqPitch + kVlqTail];   // the quadrant, then slack
+  uint32_t p1[kVlq][kMaskWords];        // pass 1's fires, visit frame
+  uint32_t f23[kVlq][kMaskWords];       // passes 2-3's fires, visit frame
+  int first_hit, first_fire;            // pass 3's, raster order
+};
+
+// Pass 1 on staged row `row`: 124 windows of 5, a write at j + 2, the
+// window in registers; its fires into bits.  Returns whether any fired.
 __device__ __forceinline__ bool vlq_pass1(int16_t* row, int x1, int x2,
-                                          BitRow bits) {
+                                          uint32_t* bits) {
+  int p0 = row[0], p1 = row[1], p2 = row[2], p3 = row[3];
   bool any = false;
-  for (int j = 0; j < kVlqP1; ++j) {
-    const int p0 = row[j], p1 = row[j + 1], p2 = row[j + 2];
-    const int p3 = row[j + 3], p4 = row[j + 4];
-    bool fire = false;
-    if (iabs(p4 - p0) < x1 && iabs(p4 - p3) < x1 && iabs(p1 - p0) < x1 &&
-        iabs(p3 - p1) < x1 && iabs(p3 - p2) < x2 - 2) {
-      fire = true;
-      int v = (p3 + p1) >> 1;
-      if (p3 - p1 > 5 && p2 - p3 >= 0) v = p3;
-      else if (p1 - p3 > 5 && p2 - p3 <= 0) v = p3;
-      else if (p1 - p3 > 5 && p2 - p1 >= 0) v = p1;
-      else if (p3 - p1 > 5 && p2 - p1 <= 0) v = p1;
-      else if ((p3 - p2 > 0 && p2 - p1 > 0) || (p1 - p2 > 0 && p2 - p3 > 0))
-        v = p2;
-      row[j + 2] = static_cast<int16_t>(v);
-    } else if (iabs(p4 - p0) < x2 + 1 && iabs(p4 - p3) < x2 + 1 &&
-               iabs(p1 - p0) < x2 + 1 && iabs(p3 - p1) < x2 + 6 &&
-               iabs(p3 - p2) < x2 + 6 &&
-               ((p3 - p2 >= 0 && p2 - p1 >= 0) ||
-                (p3 - p2 <= 0 && p2 - p1 <= 0))) {
-      fire = true;
+#pragma unroll 1
+  for (int jc = 0; jc < kMaskWords; ++jc) {
+    uint32_t w = 0;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int j = 32 * jc + i;
+      if (j < kVlqP1) {
+        const int p4 = row[j + 4];
+        const bool c1 = (iabs(p4 - p0) < x1) & (iabs(p4 - p3) < x1) &
+                        (iabs(p1 - p0) < x1) & (iabs(p3 - p1) < x1) &
+                        (iabs(p3 - p2) < x2 - 2);
+        const bool to3 = ((p3 - p1 > 5) & (p2 - p3 >= 0)) |
+                         ((p1 - p3 > 5) & (p2 - p3 <= 0));
+        const bool to1 = ((p1 - p3 > 5) & (p2 - p1 >= 0)) |
+                         ((p3 - p1 > 5) & (p2 - p1 <= 0));
+        const bool keep = ((p3 - p2 > 0) & (p2 - p1 > 0)) |
+                          ((p1 - p2 > 0) & (p2 - p3 > 0));
+        const int v = to3 ? p3 : to1 ? p1 : keep ? p2 : (p3 + p1) >> 1;
+        const bool c2 = (iabs(p4 - p0) < x2 + 1) & (iabs(p4 - p3) < x2 + 1) &
+                        (iabs(p1 - p0) < x2 + 1) & (iabs(p3 - p1) < x2 + 6) &
+                        (iabs(p3 - p2) < x2 + 6) &
+                        (((p3 - p2 >= 0) & (p2 - p1 >= 0)) |
+                         ((p3 - p2 <= 0) & (p2 - p1 <= 0)));
+        w |= uint32_t(c1 | c2) << i;
+        p2 = c1 ? v : p2;
+        row[j + 2] = static_cast<int16_t>(p2);
+        p0 = p1;
+        p1 = p2;
+        p2 = p3;
+        p3 = p4;
+      }
     }
-    any |= fire;
-    bits.put(j, fire, kVlqP1 - 1);
+    bits[jc] = w;
+    any |= w != 0;
   }
   return any;
 }
 
-// S12: one CTA an image, a thread a quadrant row.  plane (B, 512, 512) in
-// place; masks (B, 4, 128, 128) bytes, 0 or 1.
+// One lane's walk of a pass: its windows of row r (t: columns j..j + 2)
+// and of row r + 1 (m), this step's loads (b2: row r + 2 at j + 1; mn, tn:
+// rows r + 1 and r at j + 3), its fires as a 128-bit shift register; pass
+// 3 at q <= LOW9 also the row's first hit and fire (columns, kVlq for
+// none) and (0, 127) as the stale carry leaves it.
+struct WaveLane {
+  int j, t0, t1, t2, m0, m1, m2, b2, mn, tn;
+  uint32_t f0, f1, f2, f3;
+  int fh, ff, q127;
+  bool any, fired0;
+};
+
+// One step.  kTrack: pass 3 at q <= LOW9 (first hit and fire); kStale:
+// with the stale carry 0, which zeroes (0, 127) on row 0 (z_row).
+template <int kVariant, bool kTrack, bool kStale>
+__device__ __forceinline__ void wave_step(WaveLane& a, const int16_t* row_t,
+                                          int16_t* row_m,
+                                          const int16_t* row_b, bool row_ok,
+                                          int lane, int x3, int x4,
+                                          bool z_row) {
+  constexpr int kRnd = kVariant == 2 ? 2 : 1;
+  const int j = a.j;
+  const bool act = row_ok & (j >= 0) & (j < kVlqWave);
+  const int b2n = row_b[j + 2];
+  const int mnn = row_m[j + 4];
+  const int tnn = row_t[j + 4];
+  bool outer, inner;
+  if (kVariant == 2) {
+    outer = (iabs(a.t1 - a.b2) < x3) & (iabs(a.m0 - a.m2) < x3);
+    inner = outer & (iabs(a.m1 - a.m0) < x4 - 1) & (iabs(a.t1 - a.m1) < x4);
+  } else {
+    outer = (iabs(a.t2 - a.t1) < x3) & (iabs(a.t1 - a.t0) < x3) &
+            (iabs(a.t0 - a.m0) < x3) & (iabs(a.t2 - a.m2) < x3);
+    inner = outer & (iabs(a.b2 - a.m0) < x3) & (iabs(a.m0 - a.m1) < x4);
+  }
+  const int e = (a.t1 + a.b2 + a.m0 + a.m2 + kRnd) >> 2;
+  const bool wr = inner & ((iabs(e - a.m0) < 5) | (iabs(e - a.m2) < 5));
+  const int val = wr ? e : a.m1;
+  if (act) row_m[j + 1] = static_cast<int16_t>(val);
+  a.f0 = act ? __funnelshift_r(a.f0, a.f1, 1) : a.f0;
+  a.f1 = act ? __funnelshift_r(a.f1, a.f2, 1) : a.f1;
+  a.f2 = act ? __funnelshift_r(a.f2, a.f3, 1) : a.f2;
+  a.f3 = act ? (a.f3 >> 1) | (uint32_t(inner) << 31) : a.f3;
+  a.any |= act & inner;
+  if (kTrack) {
+    a.fh = act & outer & (a.fh == kVlq) ? j : a.fh;
+    a.ff = act & inner & (a.ff == kVlq) ? j : a.ff;
+  }
+  if (kStale) {
+    a.q127 = act & z_row & outer & !inner & !a.fired0 & (iabs(a.q127) < 11)
+                 ? 0
+                 : a.q127;
+    a.fired0 |= act & inner;
+  }
+  const int recv = __shfl_up_sync(kFull, val, 1);
+  const int cin = j + 3;
+  const bool sh = (cin >= 0) & (cin < kVlq);
+  const bool mid = (lane > 0) & (cin >= 1) & (cin <= kVlqWave);
+  const int nv = mid ? recv : (kStale & z_row & (cin == kVlq - 1)) ? a.q127
+                                                                   : a.tn;
+  a.t0 = sh ? a.t1 : a.t0;
+  a.t1 = sh ? a.t2 : a.t1;
+  a.t2 = sh ? nv : a.t2;
+  a.m0 = act ? val : a.m0;
+  a.m1 = act ? a.m2 : a.m1;
+  a.m2 = act ? a.mn : a.m2;
+  a.b2 = b2n;
+  a.mn = mnn;
+  a.tn = tnn;
+  a.j = j + 1;
+}
+
+// Pass 2 (kVariant 2) or 3 in place on the staged quadrant, a lane a row r
+// < kVlqWave (the header's relay).  Lane l of warp w does visit j at its
+// warp's step t = 2 l + j, and warp w runs kVlqLag steps behind warp w -
+// 1; the CTA synchronises every kVlqSync steps.  After each step a lane
+// shifts its row's next value (column j + 3) into its window: what lane l
+// - 1 wrote in that step, passed a lane on, or (lane 0, and columns 0 and
+// 127) the staged row.  Lane 0 of warp w reads row 32 w there, which lane
+// 31 of warp w - 1 wrote at least kVlqSync steps and a barrier before: the
+// lag is the 65 steps the dependence needs (62 from lane 31's offset, 3
+// for the read a step ahead) plus kVlqSync.  Every load a step needs is
+// issued a step ahead (rows r + 1 and r + 2 are inputs until lane l and
+// lane l + 1 write them, later), and the step has no branch.  The lane's
+// fires OR into f23.  kStale: pass 3 at q <= LOW9 with no pass-1 or pass-2
+// fire.
+template <int kVariant, bool kTrack, bool kStale>
+__device__ __forceinline__ void vlq_wave(VlqShared& sh, int x3, int x4,
+                                         WaveLane& a) {
+  const int r = threadIdx.x, lane = r & 31, w = r >> 5;
+  const bool z_row = kStale & (r == 0);
+  const bool row_ok = r < kVlqWave;
+  const int16_t* row_t = sh.q + r * kVlqPitch;
+  int16_t* row_m = sh.q + min(r + 1, kVlq - 1) * kVlqPitch;
+  const int16_t* row_b = sh.q + min(r + 2, kVlq - 1) * kVlqPitch;
+  const int j = -3 - kVlqLag * w - 2 * lane;
+  a.j = j;
+  a.t0 = a.t1 = a.t2 = 0;
+  a.m0 = row_m[0];
+  a.m1 = row_m[1];
+  a.m2 = row_m[2];
+  a.b2 = row_b[j + 1];
+  a.mn = row_m[j + 3];
+  a.tn = row_t[j + 3];
+  a.f0 = a.f1 = a.f2 = a.f3 = 0;
+  a.fh = a.ff = kVlq;
+  a.q127 = sh.q[kVlq - 1];
+  a.any = a.fired0 = false;
+#pragma unroll 1
+  for (int s0 = 0; s0 < kVlqSteps; s0 += kVlqSync) {
+#pragma unroll
+    for (int k = 0; k < kVlqSync; ++k)
+      wave_step<kVariant, kTrack, kStale>(a, row_t, row_m, row_b, row_ok,
+                                          lane, x3, x4, z_row);
+    __syncthreads();
+  }
+  // bit j of the visits sits at 2 + j after 126 shifts
+  uint32_t* fr = sh.f23[r];
+  fr[0] |= __funnelshift_r(a.f0, a.f1, 2);
+  fr[1] |= __funnelshift_r(a.f1, a.f2, 2);
+  fr[2] |= __funnelshift_r(a.f2, a.f3, 2);
+  fr[3] |= a.f3 >> 2;
+  if (z_row) sh.q[kVlq - 1] = static_cast<int16_t>(a.q127);
+}
+
+// 128-bit rows of 4 words, bit c of word c / 32: shifted to higher
+// columns by n (1..3), and to lower ones by 1.
+__device__ __forceinline__ void shl128(const uint32_t* a, int n, uint32_t* o) {
+#pragma unroll
+  for (int k = kMaskWords - 1; k > 0; --k)
+    o[k] = (a[k] << n) | (a[k - 1] >> (32 - n));
+  o[0] = a[0] << n;
+}
+
+__device__ __forceinline__ void shr128(const uint32_t* a, uint32_t* o) {
+#pragma unroll
+  for (int k = 0; k + 1 < kMaskWords; ++k)
+    o[k] = (a[k] >> 1) | (a[k + 1] << 31);
+  o[kMaskWords - 1] = a[kMaskWords - 1] >> 1;
+}
+
+// S12, the passes: one CTA an image, a thread a quadrant row.  Writes the
+// quadrant of out and the image's masks (kVlqMasks x 128 rows x 4 words:
+// cnt1, d23, fe34, l2) and, after them, the stale carry's mode (0 none,
+// 1 carry 4, 2 carry 0).
 __global__ void __launch_bounds__(kVlq)
-    vlq_passes(int16_t* __restrict__ plane, uint8_t* __restrict__ masks,
-               int low9, int x1, int x2, int x3, int x4) {
-  __shared__ __align__(16) int16_t s[kVlq * kVlqPitch];
-  __shared__ uint32_t bits[kMasks * kVlq * kMaskWords];
-  int16_t* P = plane + static_cast<size_t>(blockIdx.x) * kPlane;
+    vlq_rows(const int16_t* __restrict__ in, int16_t* __restrict__ out,
+             uint32_t* __restrict__ masks, int low9, int x1, int x2, int x3,
+             int x4, int x7) {
+  __shared__ __align__(16) VlqShared sh;
   const int r = threadIdx.x;
-  for (int i = r; i < kMasks * kVlq * kMaskWords; i += kVlq) bits[i] = 0;
-  stage_corner(P, kN, kVlq, kVlqPitch, s);
+  const size_t img = static_cast<size_t>(blockIdx.x) * kPlane;
+  for (int i = r; i < kVlq * kVlq / 8; i += kVlq) {
+    const int row = i >> 4, c = (i & 15) * 8;
+    const uint4 v = *reinterpret_cast<const uint4*>(in + img + row * kN + c);
+    uint2* d = reinterpret_cast<uint2*>(sh.q + row * kVlqPitch + c);
+    d[0] = make_uint2(v.x, v.y);
+    d[1] = make_uint2(v.z, v.w);
+  }
+  if (r == 0) sh.first_hit = sh.first_fire = kVlq * kVlq;
+#pragma unroll
+  for (int k = 0; k < kMaskWords; ++k) sh.f23[r][k] = 0;
   __syncthreads();
-  const bool p1 = vlq_pass1(s + r * kVlqPitch, x1, x2,
-                            BitRow{bits + r * kMaskWords});
-  const bool any1 = __syncthreads_or(p1);
-  uint32_t* f2 = bits + kVlq * kMaskWords;
-  wave_pass<kVlqPitch>(s, kVlqWave, Wave{2, x3, x4, 2, false}, f2, nullptr,
-                       false);
-  bool p2 = false;
-  for (int k = 0; k < kMaskWords; ++k) p2 |= f2[r * kMaskWords + k] != 0;
-  const bool any2 = __syncthreads_or(p2);
-  wave_pass<kVlqPitch>(s, kVlqWave, Wave{3, x3, x4, 1, false},
-                       bits + 2 * kVlq * kMaskWords,
-                       bits + 3 * kVlq * kMaskWords,
-                       low9 && !any1 && !any2);
-  unstage_corner(s, kVlq, kVlqPitch, P, kN);
-  // each word of masks: four positions of one mask row
-  uint32_t* M = reinterpret_cast<uint32_t*>(
-      masks + static_cast<size_t>(blockIdx.x) * kMasks * kVlq * kVlq);
-  for (int w = r; w < kMasks * kVlq * kVlq / 4; w += kVlq) {
-    const int row = w >> 5, col = (w & 31) * 4;   // row: mask * 128 + r
-    const uint32_t b = bits[row * kMaskWords + (col >> 5)] >> (col & 31);
-    M[w] = (b & 1u) | ((b >> 1) & 1u) << 8 | ((b >> 2) & 1u) << 16 |
-           ((b >> 3) & 1u) << 24;
+  const bool any1 =
+      __syncthreads_or(vlq_pass1(sh.q + r * kVlqPitch, x1, x2, sh.p1[r]));
+  WaveLane a, c;
+  vlq_wave<2, false, false>(sh, x3, x4, a);
+  const bool any2 = __syncthreads_or(a.any);
+  if (!low9)
+    vlq_wave<3, false, false>(sh, x3, x4, c);
+  else if (!any1 && !any2)
+    vlq_wave<3, true, true>(sh, x3, x4, c);
+  else
+    vlq_wave<3, true, false>(sh, x3, x4, c);
+  const int fh = c.fh, ff = c.ff;
+  // pass 3's first hit and first fire in raster order
+  const int hp = __reduce_min_sync(kFull, fh < kVlq ? r * kVlq + fh
+                                                    : kVlq * kVlq);
+  const int fp = __reduce_min_sync(kFull, ff < kVlq ? r * kVlq + ff
+                                                    : kVlq * kVlq);
+  if ((r & 31) == 0) {
+    atomicMin(&sh.first_hit, hp);
+    atomicMin(&sh.first_fire, fp);
+  }
+  __syncthreads();
+  const int stale = low9 && !any2 && sh.first_hit < sh.first_fire
+                        ? (any1 ? 1 : 2)
+                        : 0;
+  if (r == 0 && stale == 2 && iabs(sh.q[kVlq - 1]) < 11) sh.q[kVlq - 1] = 0;
+  __syncthreads();
+  // pass 4's fires on the finished quadrant (q <= LOW9), columns 0..125
+  uint32_t f4[kMaskWords] = {0u, 0u, 0u, 0u};
+  if (low9) {
+    const int16_t* row = sh.q + r * kVlqPitch;
+    int a = row[0], b = row[1];
+#pragma unroll 1
+    for (int jc = 0; jc < kMaskWords; ++jc) {
+      uint32_t w = 0;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int c = 32 * jc + i;
+        if (c < kVlqWave) {
+          const int d = row[c + 2];
+          w |= uint32_t((iabs(d - b) < x7) & (iabs(d - a) < x7) &
+                        (iabs(b - a) < x7)) << i;
+          a = b;
+          b = d;
+        }
+      }
+      f4[jc] = w;
+    }
+  }
+  // the count masks of row r
+  uint32_t p[kMaskWords], c1[kMaskWords], c2[kMaskWords], c3[kMaskWords];
+#pragma unroll
+  for (int k = 0; k < kMaskWords; ++k) p[k] = sh.p1[r][k];
+  shl128(p, 1, c1);
+  shl128(p, 2, c2);
+  shl128(p, 3, c3);
+  uint32_t cnt1[kMaskWords], d23[kMaskWords], fe34[kMaskWords];
+  uint32_t l2[kMaskWords], dl[kMaskWords], dr[kMaskWords];
+#pragma unroll
+  for (int k = 0; k < kMaskWords; ++k) {
+    cnt1[k] = c1[k] | c2[k] | c3[k];
+    p[k] = r > 0 ? sh.f23[r - 1][k] : 0u;
+  }
+  shl128(p, 1, d23);
+  shl128(f4, 1, fe34);
+  shl128(d23, 1, dl);
+  shr128(d23, dr);
+#pragma unroll
+  for (int k = 0; k < kMaskWords; ++k)
+    l2[k] = low9 ? cnt1[k] | d23[k] | dl[k] | dr[k] | fe34[k] : 0u;
+  uint32_t* M = masks + static_cast<size_t>(blockIdx.x) * kVlqOut;
+  uint4* mr = reinterpret_cast<uint4*>(M + r * kMaskWords);
+  constexpr int kStride = kVlq;   // uint4s between masks
+  mr[0] = make_uint4(cnt1[0], cnt1[1], cnt1[2], cnt1[3]);
+  mr[kStride] = make_uint4(d23[0], d23[1], d23[2], d23[3]);
+  mr[2 * kStride] = make_uint4(fe34[0], fe34[1], fe34[2], fe34[3]);
+  mr[3 * kStride] = make_uint4(l2[0], l2[1], l2[2], l2[3]);
+  if (r == 0) M[kVlqMasks * kVlq * kMaskWords] = static_cast<uint32_t>(stale);
+  // the quadrant out
+  for (int i = r; i < kVlq * kVlq / 8; i += kVlq) {
+    const int row = i >> 4, c = (i & 15) * 8;
+    const uint2* d = reinterpret_cast<const uint2*>(sh.q + row * kVlqPitch + c);
+    const uint2 lo = d[0], hi = d[1];
+    *reinterpret_cast<uint4*>(out + img + row * kN + c) =
+        make_uint4(lo.x, lo.y, hi.x, hi.y);
+  }
+}
+
+// The bits of mask k at count row cr from count column c (n of them, n a
+// power of two dividing 32, c a multiple of n).
+__device__ __forceinline__ uint32_t mask_bits(const uint32_t* M, int k, int cr,
+                                              int c, int n) {
+  return (__ldg(M + (k * kVlq + cr) * kMaskWords + (c >> 5)) >> (c & 31)) &
+         ((1u << n) - 1u);
+}
+
+// S12, the far zeroings: a CTA every kFarRows rows of an image, 8 values
+// a thread in 16-byte accesses, outside the quadrant (vlq_rows writes it):
+// a value is zeroed where a mask reaches it and |v| lies below the
+// threshold of its band (level 2 beside the quadrant: l2 at 11, 12, 13;
+// level 1 over each count position's 2 x 2 block: cnt1 | d23 | fe34 at x6
+// and x6 + 6, and in the last band cnt1 at x5, d23 at 32, fe34 at 34), and
+// at the stale carry's targets.
+constexpr int kFarVecs = kFarRows * kN / 8 / kFarThreads;   // a thread's
+
+__global__ void __launch_bounds__(kFarThreads)
+    vlq_far(const int16_t* __restrict__ in, int16_t* __restrict__ out,
+            const uint32_t* __restrict__ masks, int x5, int x6) {
+  const size_t img = static_cast<size_t>(blockIdx.y) * kPlane;
+  uint4 q[kFarVecs];
+#pragma unroll
+  for (int k = 0; k < kFarVecs; ++k) {
+    const int i = threadIdx.x + k * kFarThreads;
+    const int y = blockIdx.x * kFarRows + (i >> 6), x0 = (i & 63) * 8;
+    q[k] = *reinterpret_cast<const uint4*>(in + img + y * kN + x0);
+  }
+  const uint32_t* M = masks + static_cast<size_t>(blockIdx.y) * kVlqOut;
+  const int stale = static_cast<int>(M[kVlqMasks * kVlq * kMaskWords]);
+  const int base = stale == 1 ? 3 : -1;
+#pragma unroll
+  for (int k = 0; k < kFarVecs; ++k) {
+    const int i = threadIdx.x + k * kFarThreads;
+    const int y = blockIdx.x * kFarRows + (i >> 6), x0 = (i & 63) * 8;
+    if ((y < kVlq) & (x0 < kVlq)) continue;
+    const uint32_t wd[4] = {q[k].x, q[k].y, q[k].z, q[k].w};
+    int v[8];
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      v[2 * h] = iabs(static_cast<int16_t>(wd[h] & 0xFFFFu));
+      v[2 * h + 1] = iabs(static_cast<int16_t>(wd[h] >> 16));
+    }
+    uint32_t z = 0;
+    if ((y >= kD) | (x0 >= kD)) {
+      // level 1: count position ((y & 255) / 2, (x & 255) / 2)
+      const int cr = (y & (kD - 1)) >> 1, cc = (x0 & (kD - 1)) >> 1;
+      const uint32_t b1 = mask_bits(M, 0, cr, cc, 4);
+      const uint32_t b2 = mask_bits(M, 1, cr, cc, 4);
+      const uint32_t b3 = mask_bits(M, 2, cr, cc, 4);
+      const bool last = (y >= kD) & (x0 >= kD);
+      const int thr = y < kD ? x6 : x6 + 6;
+#pragma unroll
+      for (int h = 0; h < 8; ++h) {
+        const int c = h >> 1;
+        const bool one = (((b1 | b2 | b3) >> c) & 1u) & (v[h] < thr);
+        const bool two = ((((b1 >> c) & 1u) != 0) & (v[h] < x5)) |
+                         ((((b2 >> c) & 1u) != 0) & (v[h] < 32)) |
+                         ((((b3 >> c) & 1u) != 0) & (v[h] < 34));
+        z |= uint32_t(last ? two : one) << h;
+      }
+    } else {
+      // level 2 beside the quadrant: count position (y & 127, x & 127)
+      const uint32_t b4 = mask_bits(M, 3, y & (kVlq - 1), x0 & (kVlq - 1), 8);
+      const int thr = y < kVlq ? 11 : x0 < kVlq ? 12 : 13;
+#pragma unroll
+      for (int h = 0; h < 8; ++h)
+        z |= uint32_t(((b4 >> h) & 1u) & (v[h] < thr)) << h;
+    }
+    if (stale) {
+      const int p0 = y * kN + x0 - base;
+      const int off[3] = {128, 65536, 65536 + 128}, thr[3] = {11, 12, 13};
+#pragma unroll
+      for (int h = 0; h < 8; ++h)
+#pragma unroll
+        for (int o = 0; o < 3; ++o)
+          z |= uint32_t((unsigned(p0 + h - off[o]) < 3u) & (v[h] < thr[o]))
+               << h;
+    }
+    uint32_t keep[4];
+#pragma unroll
+    for (int h = 0; h < 4; ++h)
+      keep[h] = ((z >> (2 * h)) & 1u ? 0u : 0xFFFFu) |
+                ((z >> (2 * h + 1)) & 1u ? 0u : 0xFFFF0000u);
+    *reinterpret_cast<uint4*>(out + img + y * kN + x0) =
+        make_uint4(wd[0] & keep[0], wd[1] & keep[1], wd[2] & keep[2],
+                   wd[3] & keep[3]);
   }
 }
 
@@ -280,10 +606,8 @@ __global__ void __launch_bounds__(kUvs) uv_smooth(int16_t* __restrict__ uv) {
   int16_t* P = uv + static_cast<size_t>(blockIdx.x) * kUvPlane;
   stage_corner(P, kD, kUvs, kUvsPitch, s);
   __syncthreads();
-  wave_pass<kUvsPitch>(s, kUvs - 2, Wave{2, 5, 8, 2, true}, nullptr, nullptr,
-                       false);
-  wave_pass<kUvsPitch>(s, kUvs - 2, Wave{3, 5, 8, 1, true}, nullptr, nullptr,
-                       false);
+  wave_pass<kUvsPitch>(s, kUvs - 2, Wave{2, 5, 8, 2});
+  wave_pass<kUvsPitch>(s, kUvs - 2, Wave{3, 5, 8, 1});
   unstage_corner(s, kUvs, kUvsPitch, P, kD);
 }
 
@@ -291,18 +615,22 @@ __global__ void __launch_bounds__(kUvs) uv_smooth(int16_t* __restrict__ uv) {
 
 extern "C" {
 
-// S12.  plane: (B, 512, 512) int16, 4-byte aligned, its LL2 quadrant
-// rewritten in place by passes 1-3; masks: (B, 4, 128, 128) bytes (pass 1's
-// fires, pass 2's, pass 3's, pass 3's hits), 4-byte aligned; low9: q <=
-// LOW9; x1..x4: the first four of _VLQ_THRX.
-int nhw_very_low_q_cleanup(void* plane, void* masks, int batch, int low9,
-                           int x1, int x2, int x3, int x4, void* stream) {
-  if (batch < 1) return cudaErrorInvalidValue;
-  if (misaligned(plane, 4) || misaligned(masks, 4))
+// S12.  in, out: (B, 512, 512) int16, 16-byte aligned; masks: (B,
+// kVlqOut) u32 scratch, 16-byte aligned; low9: q <= LOW9; x1..x7:
+// _VLQ_THRX.  Two launches.
+int nhw_very_low_q_cleanup(const void* in, void* out, void* masks, int batch,
+                           int low9, int x1, int x2, int x3, int x4, int x5,
+                           int x6, int x7, void* stream) {
+  if (batch < 1 || batch > 65535) return cudaErrorInvalidValue;
+  if (misaligned(in, 16) || misaligned(out, 16) || misaligned(masks, 16))
     return cudaErrorMisalignedAddress;
-  vlq_passes<<<batch, kVlq, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int16_t*>(plane), static_cast<uint8_t*>(masks), low9, x1,
-      x2, x3, x4);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* m = static_cast<uint32_t*>(masks);
+  vlq_rows<<<batch, kVlq, 0, s>>>(static_cast<const int16_t*>(in),
+                                   static_cast<int16_t*>(out), m, low9, x1, x2,
+                                   x3, x4, x7);
+  vlq_far<<<dim3(kN / kFarRows, batch), kFarThreads, 0, s>>>(
+      static_cast<const int16_t*>(in), static_cast<int16_t*>(out), m, x5, x6);
   return cudaGetLastError();
 }
 

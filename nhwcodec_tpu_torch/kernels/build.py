@@ -93,14 +93,14 @@ SIGNATURES = {
     "nhw_walk_visited": [_P, _P, _I, _I, _I, _I, _P],
     # (process, rf_ext, out, batch, rf_len, res_uv, stream)
     "nhw_uv_sentinel": [_P, _P, _P, _I, _I, _I, _P],
-    # (in, tmp, maps, out, esc, batch, m1, stream)
+    # (in, tmp, look, out, esc, batch, m1, stream)
     "nhw_offset_y_low4": [_P, _P, _P, _P, _P, _I, _I, _P],
     # (in, r3_ext, xs, out, batch, r3_len, gt_low10, stream)
     "nhw_lowest_q_band_cleanup": [_P, _P, _P, _P, _I, _I, _I, _P],
     # (int32[3] out: registers, shared bytes per CTA, most resident clusters)
     "nhw_lowest_q_band_cleanup_info": [_P],
-    # (plane, masks, batch, low9, x1, x2, x3, x4, stream)
-    "nhw_very_low_q_cleanup": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # (in, out, masks, batch, low9, x1, .., x7, stream)
+    "nhw_very_low_q_cleanup": [_P, _P, _P, _I, _I] + [_I] * 7 + [_P],
     # (in, out, batch, x1, stream)
     "nhw_low_q_ll1_cleanup": [_P, _P, _I, _I, _P],
     # (uv, batch, stream)

@@ -38,10 +38,13 @@ a torch twin (``*_ref``) of the same decomposition.  In
   that entry changes (``_offset_y_ll_ref``); pass 4, the code map, one
   thread a position.
 - ``offset_y_low4_device`` (kernel ``offset_y_low4``, q <= LOW4): S2's
-  pass 1, then pass 4 with the duty-cycle counters, whose state crosses a
-  row end in one of ``OY4_STATES``: every row walked from each (a
-  thread a walk), the rows' maps chained by a warp scan, every row walked
-  again from its entry.
+  pass 1, then pass 4 with the duty-cycle counters.  quant and quant6 are
+  prefix counts of a row's ticks; what steers the walk is one of
+  ``OY4_STATES`` (quant4 and the write pending), so each position is a
+  table of the next state: a warp a row, each lane composing its tile's
+  tables into a map, a warp scan of the lane maps, the rows' maps
+  chained over CTAs of ``OY4_ROWS`` rows by a look-back, each tile walked
+  again from its entry (``offset_y_low4_plan``).
 - ``merge_crossing_device`` (kernel ``merge_crossing``, one launch): the
   cursor walk is a 5-state skip machine whose per-position map depends
   only on the input bytes.  A cluster of ``MERGE_CTAS`` CTAs a stream, 64
@@ -111,20 +114,22 @@ In ``csrc/lowq.cu``:
 
 In ``csrc/vlq.cu``:
 
-- ``very_low_q_passes_device`` (kernel ``vlq_passes``, q < LOW7): passes
-  1-3 of the very-low-q cleanup, one CTA an image, the LL2 quadrant in
-  shared memory: pass 1 a thread a row; passes 2 and 3 as wavefronts
-  (row r's visit j at step 2r + j), out with their fire masks.
-  ``very_low_q_cleanup_device`` then applies pass 4 and the far zeroings
-  (band and level-2 zeroings, pass 3's stale carry) as torch ops: masked
-  fills of the masks mapped onto their target bands.
+- ``very_low_q_cleanup_device`` (kernel ``very_low_q_cleanup``, q <
+  LOW7), two launches: ``vlq_rows``, one CTA an image, the LL2 quadrant
+  in shared memory: pass 1 a thread a row; passes 2 and 3 as wavefronts
+  (row r's visit j at step 2r + j) relayed lane to lane by shuffles and
+  warp to warp through shared memory, the warps 69 steps apart and a
+  barrier every 4 steps (``_vlq_relay_pass``); pass 4; the
+  count masks of the far zeroings out as bits (``very_low_q_plan``);
+  then ``vlq_far`` zeroes what the masks reach outside the quadrant
+  (``_vlq_far_ref``).
 - ``low_q_ll1_cleanup_device`` (kernel ``ll1_rows``, q <= LOW9): a thread
   a row of 128..255.
 - ``uv_ll_smooth_device`` (kernel ``uv_smooth``, q <= LOW9): one CTA a
   chroma plane, both passes as S12's wavefront.
 
-The rows of S2's pass 1, S10 and S13 are staged in shared memory, 32 a
-CTA, a thread a row.
+The rows of S2's pass 1 and S13 are staged in shared memory, 32 a CTA,
+a thread a row.
 
 The rest are torch ops: the count-adaptive lowest-q thresholds (a count
 and a ``torch.where`` ladder, in ``device_encode_scans``), the
@@ -639,133 +644,201 @@ def offset_y_sweeps(plane):
     return _offset_y_ll_ref(If.reshape(b, N, N))[1]
 
 
-# The q <= LOW4 quantizer's pass 4 carries the duty-cycle counters: quant
-# (mod 6) and quant6 (mod 4) reset at every row start, quant4 (mod 3) runs
-# on, and a step may write the next position.  At column 511 only the quant4
-# pair rule writes on (the -9/-8/9 fixups stop at 510), into the next row's
-# column 0 as its value -+ 2, and only where it fires, which leaves quant4 at
-# 1.  So a row's walk starts from one of OY4_STATES entry states: quant4 0,
-# 1 or 2 with nothing pending, or quant4 1 with the next row's column 0
-# pending at its value - 2 (state 3) or + 2 (state 4); its exit is one of
-# them too, and the rows chain through these maps.
-OY4_STATES = 5
-_OY4_Q4 = (0, 1, 2, 1, 1)
+# The q <= LOW4 quantizer's pass 4 carries the duty-cycle counters quant
+# (mod 6) and quant6 (mod 4), which reset at every row start, quant4 (mod
+# 3), which runs on, and a write a step may leave pending on the next
+# position.  quant and quant6 only choose whether a negative value is
+# masked (an & 504), and no rule reads a masked value (the pair rule wants
+# a >= 14, the fixups test a0 and the next input), so they do not steer
+# the walk: each counts the row's earlier ticks (an == 15; an > 22 with an
+# & 7 == 7), and a tick is masked where that count is 0 mod 6 (mod 4).
+# What steers it is one of OY4_STATES: quant4 0..2 with nothing pending
+# (0..2), or with a fixup pending (3..5: -9, -8 or 9; none of them fires a
+# rule, and -9 and -8 take one code, so the next input, 7 or -7, tells
+# which), or quant4 1 with the next value pending at its input - 2 (6, the
+# up rule) or + 2 (7).  A position's next state from each is fixed by its
+# inputs, from one evaluation of the rules (``_oy4_tables``), so it is a
+# table of 8 states, 3 bits each.  At column 511 only the pair
+# rule writes on, into the next row's column 0, so a row enters and
+# leaves in one of OY4_ROW_STATES.
+OY4_STATES = 8
+OY4_ROW_STATES = (0, 1, 2, 6, 7)
+OY4_TILE = 16                 # columns a lane (csrc/scans.cu kOy4Tile)
+OY4_LANES = N // OY4_TILE     # lanes a row: one warp
+OY4_ROWS = 16                 # rows a CTA, a warp each (kOy4Warps)
+# the fixed entries: 3..5 -> 0..2, 6 and 7 -> 1
+_OY4_FIXED = sum(n << (3 * s) for s, n in ((3, 0), (4, 1), (5, 2), (6, 1),
+                                           (7, 1)))
 
 
-def _oy4_walk(I, state, m1: int, codes: bool):
-    """Walk every row of ``I`` ((B, 512, 512) int32, pass 1's output) from
-    the entry states ``state`` ((B, 512, S) int64) as the C's pass 4 does
-    (image_processing.c:312-520 with the duty cycles) -> (the exit states
-    (B, 512, S), the code plane (B, 512, 512) int32 where ``codes`` and S
-    is 1).  Every read of the next two positions is of their input values
-    (only a step's pending write changes them, and it lands where the next
-    step starts); the previous position is read as a code, so the pair
-    rule's r1 is 0."""
+def _oy4_pos(I):
+    """Each position's inputs and fixed tests from pass 1's output ``I``
+    ((B, 512, 512) int32): (i0, i1, i2, incol, reg4, r2ok), the next two
+    inputs in flat order (0 past the plane)."""
     b = I.shape[0]
-    dev = I.device
     flat = I.reshape(b, -1)
-    nxt1 = _flat_shift_l(flat).reshape(b, N, N, 1)
-    nxt2 = _flat_shift_l(flat, 2).reshape(b, N, N, 1)
-    I = I.reshape(b, N, N, 1)
-    row = torch.arange(N, device=dev).reshape(N, 1)
-    quant = torch.zeros_like(state, dtype=torch.int32)
-    quant6 = torch.zeros_like(quant)
-    quant4 = torch.tensor(_OY4_Q4, dtype=torch.int32, device=dev)[state]
-    pend = state >= 3
-    pend_v = I[:, :, 0] + torch.where(state == 3, -2, 2)
-    out = torch.empty((b, N, N), dtype=torch.int32, device=dev) if codes \
-        else None
-    for c in range(N):
-        i0, i1, i2 = I[:, :, c], nxt1[:, :, c], nxt2[:, :, c]
-        a0 = torch.where(pend, pend_v, i0)
-        sent = a0 > 10000
-        esc = ~sent & ((a0 > 127) | (a0 < -127))
-        plain = (a0 != 0) & ~sent & ~esc
-        incol = c < N - 1
-        neg = a0 < 0
-        w_m9 = plain & (a0 < -12) & (((-a0) & 7) == 6) & (i1 == -7) & incol
-        a1 = torch.where(plain & (a0 == -7) & (i1 == 8) & incol, -8, a0)
-        an = -a1
-        an = torch.where((an > 14) & ((an & 7) == 7) & (i1 > 0) & (i1 < 8),
-                         an - 2, an)
-        is15 = an == 15
-        is22 = ~is15 & (an > 22) & ((an & 7) == 7)
-        keep = (is15 & (quant != 0)) | (is22 & (quant6 != 0))
-        a2 = torch.where(plain & neg, -torch.where(keep, an, an & 504), a0)
-        adv = plain & neg
-        quant = torch.where(adv & is15, torch.where(
-            quant == 0, 1, (quant + 1) % 6), quant)
-        quant6 = torch.where(adv & is22, torch.where(
-            quant6 == 0, 1, (quant6 + 1) % 4), quant6)
-        w_m8 = plain & ~neg & (a0 == 8) & (i1 == -7) & incol
-        w_9 = (plain & ~neg & (a0 != 8) & (a0 > 12) & ((a0 & 7) >= 6)
-               & (i1 == 7) & incol)
-        fixed = w_m9 | w_m8 | w_9
-        reg4 = (row >= D) | (c >= D)
-        pairok = (plain & ~fixed & (a2 >= 14) & (i1 >= 14) & reg4
-                  & (((a2 & 510) & 7) == 6) & (((i1 & 510) & 7) == 6)
-                  & (((a2 & 1) == 1) | ((i1 & 1) == 1)))
-        if 0 < c < N - 2:
-            r2 = ((i2 > -8) & (i2 < -2)) | ((i2 < -7) & (((-i2) & 7) >= 6))
-        else:
-            r2 = torch.zeros_like(pairok)
-        fire4 = pairok & (quant4 == 0)
-        same = (a2 & 504) == (i1 & 504)
-        up_a = fire4 & ((same & (a2 >= i1)) | (~same & (a2 <= i1)))
-        up_b = fire4 & ~up_a & ~r2
-        quant4 = torch.where(pairok, torch.where(
-            quant4 == 0, 1, (quant4 + 1) % 3), quant4)
-        if codes:
-            a3 = torch.where(up_a, a2 + 2, a2)
-            code = torch.where((a3 > -m1) & (a3 < m1), 128, (a3 + 128) & 248)
-            code = torch.where(esc, _escape_code(a0), code)
-            code = torch.where(sent, _sentinel_code(a0), code)
-            out[:, :, c] = torch.where(a0 == 0, 128, code)[..., 0]
-        pend_v = torch.where(w_m9, -9, torch.where(
-            w_m8, -8, torch.where(w_9, 9, torch.where(up_a, i1 - 2,
-                                                      i1 + 2))))
-        pend = fixed | up_a | up_b
-    # at column 511 only the pair rule leaves a write pending
-    return torch.where(pend, torch.where(up_a, 3, 4), quant4.long()), out
+    i1 = _flat_shift_l(flat).reshape(I.shape)
+    i2 = _flat_shift_l(flat, 2).reshape(I.shape)
+    col = torch.arange(N, device=I.device)
+    row = torch.arange(N, device=I.device)[:, None]
+    return (I, i1, i2, col < N - 1, (row >= D) | (col >= D),
+            (col > 0) & (col < N - 2))
+
+
+def _oy4_tables(pos):
+    """Each position's table (int64): bits 3 s..3 s + 2 the next state from
+    state s.  From 0..2 the rules at the input: a fixup writes the next
+    position, the quant4 pair rule fires at quant4 0 and advances it
+    else.  3..5 go to 0..2 (a fixup's value fires no rule) and 6, 7 to 1:
+    the pending value is the input -+ 2 of an input the pair rule took (>=
+    14, & 6 == 6), whose & 7 (4, 5, 0 or 1) no rule takes."""
+    i0, i1, i2, incol, reg4, r2ok = pos
+    plain = (i0 != 0) & (i0 <= 127) & (i0 >= -127)
+    fix = plain & incol & (
+        ((i1 == -7) & (((i0 < -12) & (((-i0) & 7) == 6)) | (i0 == 8)))
+        | ((i1 == 7) & (i0 > 12) & ((i0 & 7) >= 6)))
+    pair = (plain & reg4 & (i0 >= 14) & (i1 >= 14) & ((i0 & 6) == 6)
+            & ((i1 & 6) == 6) & (((i0 | i1) & 1) == 1))
+    same = (i0 & 504) == (i1 & 504)
+    up_a = pair & torch.where(same, i0 >= i1, i0 <= i1)
+    r2 = r2ok & (((i2 > -8) & (i2 < -2)) | ((i2 < -7) & (((-i2) & 7) >= 6)))
+    fixl, pairl = fix.long(), pair.long()
+    n0 = torch.where(fix, 3, torch.where(pair, torch.where(
+        up_a, 6, torch.where(r2, 1, 7)), 0))
+    return (n0.long() | (1 + pairl + 3 * fixl) << 3
+            | (2 + 3 * fixl - 2 * pairl) << 6 | _OY4_FIXED)
+
+
+def _oy4_at(tab, s):
+    return (tab >> (3 * s)) & 7
+
+
+def _oy4_map(m):
+    """(..., 8) next states -> one int64 map, 3 bits a state."""
+    return sum(m[..., s] << (3 * s) for s in range(OY4_STATES))
+
+
+def _oy4_then(f, g):
+    """The map of f, then g (int64 maps)."""
+    return sum(_oy4_at(g, _oy4_at(f, s)) << (3 * s)
+               for s in range(OY4_STATES))
+
+
+def offset_y_low4_plan(plane):
+    """The kernel's decomposition of pass 4 on S2's pass-1 output, up to
+    the walk again: {"I": pass 1's output (B, 512, 512) int32, "tab": each
+    position's table, "lane_pre": each lane's exclusive prefix map over
+    its row's tiles (B, 512, OY4_LANES), "row_map": each row's map over
+    OY4_ROW_STATES (B, 512, 5), "entry": each row's entry state (B, 512),
+    "lane_entry": each lane's (B, 512, OY4_LANES)}.  Each lane composes
+    the tables of its OY4_TILE columns into its tile's map of 8 states,
+    the warp scans the 32 maps, and the rows' maps chain from state 0:
+    by CTAs of OY4_ROWS rows whose composites a look-back chains, then
+    within each CTA."""
+    b = plane.shape[0]
+    dev = plane.device
+    I = _offset_y_rows_ref(_i32(plane).reshape(b, -1)).reshape(b, N, N)
+    tab = _oy4_tables(_oy4_pos(I))
+    tiles = tab.reshape(b, N, OY4_LANES, OY4_TILE)
+    s = torch.arange(OY4_STATES, device=dev).expand(
+        b, N, OY4_LANES, OY4_STATES).clone()
+    for k in range(OY4_TILE):
+        s = _oy4_at(tiles[..., k, None], s)
+    maps = _oy4_map(s)
+    ident = int(_oy4_map(torch.arange(OY4_STATES)))
+    pre = torch.empty_like(maps)
+    acc = torch.full_like(maps[..., 0], ident)
+    for lane in range(OY4_LANES):
+        pre[..., lane] = acc
+        acc = _oy4_then(acc, maps[..., lane])
+    rs = torch.tensor(OY4_ROW_STATES, device=dev)
+    row_map = _oy4_at(acc[..., None], rs)               # (B, 512, 5)
+    to5 = torch.tensor([0, 1, 2, 0, 0, 0, 3, 4], device=dev)
+    row_map = to5[row_map]
+    # each CTA's composite of its rows' maps, chained from state 0
+    cta = row_map.reshape(b, N // OY4_ROWS, OY4_ROWS, 5)
+    comp = torch.arange(5, device=dev).expand(b, N // OY4_ROWS, 5)
+    for k in range(OY4_ROWS):
+        comp = cta[:, :, k].gather(2, comp)
+    e = torch.zeros((b, 1), dtype=torch.long, device=dev)
+    cta_entry = torch.empty((b, N // OY4_ROWS), dtype=torch.long, device=dev)
+    for k in range(N // OY4_ROWS):
+        cta_entry[:, k] = e[:, 0]
+        e = comp[:, k].gather(1, e)
+    entry = torch.empty((b, N // OY4_ROWS, OY4_ROWS), dtype=torch.long,
+                        device=dev)
+    e = cta_entry
+    for k in range(OY4_ROWS):
+        entry[:, :, k] = e
+        e = cta[:, :, k].gather(2, e[..., None])[..., 0]
+    entry = rs[entry.reshape(b, N)]
+    lane_entry = _oy4_at(pre, entry[..., None])
+    return {"I": I, "tab": tab, "lane_pre": pre, "row_map": row_map,
+            "entry": entry, "lane_entry": lane_entry}
 
 
 def offset_y_low4_ref(plane, m1: int = 8):
-    """Torch twin of ``offset_y_low4``: pass 1 row by row (as S2's), then
-    pass 4 in the kernel's decomposition: every row walked as a batch from
-    each of the OY4_STATES entry states for its exit, the 512 maps of an
-    image chained in order from state 0, and each row walked again from
-    its entry to write the codes."""
+    """Torch twin of ``offset_y_low4``: pass 1 row by row (as S2's), the
+    tables and maps of ``offset_y_low4_plan``, then each lane's tile
+    walked again from its entry state for the values and the ticks, and
+    the codes, with quant and quant6 from the ticks' prefix counts along
+    the row."""
     b = plane.shape[0]
-    dev = plane.device
-    If = _offset_y_rows_ref(_i32(plane).reshape(b, -1)).reshape(b, N, N)
-    every = torch.arange(OY4_STATES, device=dev).expand(b, N, OY4_STATES)
-    maps, _ = _oy4_walk(If, every, m1, False)
-    ent = torch.zeros((b, N, 1), dtype=torch.long, device=dev)
-    for r in range(1, N):
-        ent[:, r] = maps[:, r - 1].gather(1, ent[:, r - 1])
-    _, codes = _oy4_walk(If, ent, m1, True)
-    return codes.to(torch.int16)
+    p = offset_y_low4_plan(plane)
+    I = p["I"]
+    i0, i1, _, incol, _, _ = _oy4_pos(I)
+    tiles = p["tab"].reshape(b, N, OY4_LANES, OY4_TILE)
+    i0t = i0.reshape(b, N, OY4_LANES, OY4_TILE)
+    s = p["lane_entry"]
+    a0 = torch.empty_like(i0t)
+    up = torch.empty(i0t.shape, dtype=torch.bool, device=I.device)
+    for k in range(OY4_TILE):
+        v = i0t[..., k]
+        a0[..., k] = torch.where(s < 3, v, torch.where(
+            s < 6, torch.where(v == 7, 9, -8), torch.where(s == 6, v - 2,
+                                                           v + 2)))
+        s = _oy4_at(tiles[..., k], s)
+        up[..., k] = s == 6
+    a0, up = a0.reshape(I.shape), up.reshape(I.shape)
+    sent = a0 > 10000
+    esc = ~sent & ((a0 > 127) | (a0 < -127))
+    neg = (a0 < 0) & ~esc
+    a1 = torch.where((a0 == -7) & (i1 == 8) & incol, -8, a0)
+    an = -a1
+    an = torch.where((an > 14) & ((an & 7) == 7) & (i1 > 0) & (i1 < 8),
+                     an - 2, an)
+    t15 = neg & (an == 15)
+    t22 = neg & ~t15 & (an > 22) & ((an & 7) == 7)
+    c15 = torch.cumsum(t15.int(), -1) - t15.int()
+    c22 = torch.cumsum(t22.int(), -1) - t22.int()
+    keep = (t15 & (c15 % 6 != 0)) | (t22 & (c22 % 4 != 0))
+    a = torch.where(neg, -torch.where(keep, an, an & 504), a0 + 2 * up)
+    code = torch.where((a > -m1) & (a < m1), 128, (a + 128) & 248)
+    code = torch.where(esc, _escape_code(a0), code)
+    code = torch.where(sent, _sentinel_code(a0), code)
+    return torch.where(a0 == 0, 128, code).to(torch.int16)
 
 
 def offset_y_low4_device(plane, m1: int = 8):
     """``host.ops.quantize.offset_y`` on a (B, 512, 512) int16 plane for q
     <= LOW4: pass 1 (no passes 2-3 at these qualities) and the quantizer
     with the duty-cycle counters.  Returns the code plane, int16 (kernel
-    ``offset_y_low4``: S2's pass-1 launch, then the row maps, then the
-    chained walks that write; 32 staged rows a CTA)."""
+    ``offset_y_low4``: S2's pass-1 launch, then one launch of a warp a
+    row, OY4_ROWS rows a CTA chained by a look-back, after a fill of the
+    look-back's words)."""
     _check_plane(plane, "offset_y_low4 plane", N)
     if plane.device.type == "cpu":
         return offset_y_low4_ref(plane, m1)
     lib, stream = _cuda_args(plane)
     b = plane.shape[0]
     tmp = torch.empty_like(plane)
-    maps = torch.empty((b, N, OY4_STATES), dtype=torch.uint8,
+    look = torch.empty(1 + b * (N // OY4_ROWS), dtype=torch.int32,
                        device=plane.device)
     out = torch.empty_like(plane)
     if b:
         with torch.cuda.device(plane.device):
             build.check("nhw_offset_y_low4", lib.nhw_offset_y_low4(
-                plane.data_ptr(), tmp.data_ptr(), maps.data_ptr(),
+                plane.data_ptr(), tmp.data_ptr(), look.data_ptr(),
                 out.data_ptr(), _escape_table(plane.device).data_ptr(), b,
                 m1, stream))
         build.count("offset_y_low4")
@@ -2305,8 +2378,8 @@ VLQ_WAVE = VLQ - 2         # the rows and the visits a row of passes 2-3
 VLQ_MASKS = 4              # pass 1's fires, pass 2's, pass 3's, pass 3's hits
 UVS = 64                   # the chroma LL2 block the smoothing walks
 # a wave pass: (variant: 2 reads row r at j + 1, 3 at j..j + 2; x3, x4,
-# the rounding, whether an inner fire always writes)
-UVS_PASSES = ((2, 5, 8, 2, True), (3, 5, 8, 1, True))
+# the rounding)
+UVS_PASSES = ((2, 5, 8, 2), (3, 5, 8, 1))
 
 
 def _ll1_args(plane, x1: int) -> None:
@@ -2353,21 +2426,13 @@ def low_q_ll1_cleanup_device(plane, x1: int):
     return out
 
 
-def _wave_ref(P, m: int, variant: int, x3: int, x4: int, rnd: int,
-              always: bool, stale0=None):
-    """One wave pass on the (B, >= m + 2, >= m + 2) int32 corner P, in
-    place: step s visits (r, s - 2r) for every row r < m whose column lies
-    in [0, m).  A visit fires (inner) where its window is flat and writes
-    the rounded mean of its four neighbours into (r + 1, j + 1) (always,
-    or only near one of its row neighbours).  stale0 (B,) bool: images
-    where pass 3's hits before its first fire zero (0, 127) below 11 (the
-    very-low-q cleanup's stale carry 0; row 0's visits are the first of
-    raster order, so row 0 alone reads the zero in time).  Returns (inner,
-    outer) (B, m, m) bool in the visit frame."""
-    b, dev = P.shape[0], P.device
-    inner_m = torch.zeros((b, m, m), dtype=torch.bool, device=dev)
-    outer_m = torch.zeros_like(inner_m)
-    fired0 = torch.zeros(b, dtype=torch.bool, device=dev)
+def _wave_ref(P, m: int, variant: int, x3: int, x4: int, rnd: int):
+    """One wave pass of the chroma LL smoothing on the (B, >= m + 2, >= m +
+    2) int32 corner P, in place: step s visits (r, s - 2r) for every row r
+    < m whose column lies in [0, m).  A visit fires where its window is
+    flat and writes the rounded mean of its four neighbours into (r + 1, j
+    + 1)."""
+    dev = P.device
     for s in range(3 * m - 2):
         rr = torch.arange(max(0, (s - m + 2) // 2), min(m - 1, s // 2) + 1,
                           device=dev)
@@ -2376,26 +2441,15 @@ def _wave_ref(P, m: int, variant: int, x3: int, x4: int, rnd: int,
         a0, r1i1, r1i2 = (P[:, rr + 1, jj + k] for k in range(3))
         r2s = P[:, rr + 2, jj + 1]
         if variant == 2:
-            outer = ((r0s - r2s).abs() < x3) & ((a0 - r1i2).abs() < x3)
-            inner = (outer & ((r1i1 - a0).abs() < x4 - 1)
+            inner = (((r0s - r2s).abs() < x3) & ((a0 - r1i2).abs() < x3)
+                     & ((r1i1 - a0).abs() < x4 - 1)
                      & ((r0s - r1i1).abs() < x4))
         else:
-            outer = (((r0s2 - r0s).abs() < x3) & ((r0s - r0).abs() < x3)
-                     & ((r0 - a0).abs() < x3) & ((r0s2 - r1i2).abs() < x3))
-            inner = (outer & ((r2s - a0).abs() < x3)
-                     & ((a0 - r1i1).abs() < x4))
+            inner = (((r0s2 - r0s).abs() < x3) & ((r0s - r0).abs() < x3)
+                     & ((r0 - a0).abs() < x3) & ((r0s2 - r1i2).abs() < x3)
+                     & ((r2s - a0).abs() < x3) & ((a0 - r1i1).abs() < x4))
         e = (r0s + r2s + a0 + r1i2 + rnd) >> 2
-        w = inner if always else inner & (((e - a0).abs() < 5)
-                                          | ((e - r1i2).abs() < 5))
-        P[:, rr + 1, jj + 1] = torch.where(w, e, r1i1)
-        inner_m[:, rr, jj] = inner
-        outer_m[:, rr, jj] = outer
-        if stale0 is not None and s < m:     # row 0 in this step
-            z = (stale0 & outer[:, 0] & ~inner[:, 0] & ~fired0
-                 & (P[:, 0, VLQ - 1].abs() < 11))
-            P[:, 0, VLQ - 1] = torch.where(z, 0, P[:, 0, VLQ - 1])
-            fired0 |= inner[:, 0]
-    return inner_m, outer_m
+        P[:, rr + 1, jj + 1] = torch.where(inner, e, r1i1)
 
 
 def _vlq_p1_ref(P, x1: int, x2: int):
@@ -2434,10 +2488,86 @@ def _vlq_args(plane, quality: int, xs7) -> None:
                          f"runs at 1 <= q < {T.LOW7} with 7 thresholds")
 
 
+VLQ_WARP = 32                      # rows a warp of vlq_rows, a lane each
+VLQ_FAR_ROWS = 16                  # plane rows a CTA of vlq_far
+VLQ_MASK_WORDS = 4 * VLQ * 4 + 4   # an image's masks and flags (u32)
+# the level-2 targets of pass 3's stale carry (``_vlq_far``): offset and
+# threshold, each at carry - 1..carry + 1 (carry 4 after a pass-1 fire,
+# else 0)
+VLQ_STALE = ((128, 11), (SZ, 12), (SZ + 128, 13))
+
+
+def _vlq_relay_pass(P, variant: int, x3: int, x4: int, rnd: int,
+                    stale0=None):
+    """One wave pass of the very-low-q cleanup (variant 2 or 3) on the
+    (B, 128, 128) int32 quadrant P, in place, as ``vlq_rows`` walks it: a
+    lane a row r < VLQ_WAVE, its visit j at step 2 r + j of its warp
+    (the warps run 69 steps apart, lane 0 of each reading from shared
+    memory the row the warp above wrote; the twin takes the steps of the
+    rows together, the order the relay keeps).  Each row keeps its
+    windows: row r at columns j..j + 2 (T, each new value the one row r -
+    1 wrote a step before, passed a lane on; columns 0 and 127 and row 0
+    are inputs) and row r + 1 (M: its own writes, then inputs); row r + 2
+    at j + 1 is an input.  stale0 (B,) bool: images whose pass-3 hits in
+    row 0 before its first fire zero (0, 127) below 11.  Returns (inner,
+    outer) (B, 126, 126) bool in the visit frame."""
+    b, dev = P.shape[0], P.device
+    m = VLQ_WAVE
+    r = torch.arange(VLQ, device=dev)
+    r1, r2 = (r + 1).clamp(max=VLQ - 1), (r + 2).clamp(max=VLQ - 1)
+    T0 = T1 = T2 = torch.zeros((b, VLQ), dtype=P.dtype, device=dev)
+    M0, M1, M2 = (P[:, r1, k] for k in range(3))
+    # (B, 128, 128): each row's visits, rows 126 and 127 idle
+    inner_m = torch.zeros((b, VLQ, VLQ), dtype=torch.bool, device=dev)
+    outer_m = torch.zeros_like(inner_m)
+    fired0 = torch.zeros(b, dtype=torch.bool, device=dev)
+    for s in range(-3, 3 * m - 2):
+        # every row takes part in every step (the idle ones write back
+        # what they read: a row writes only the row below it)
+        j = s - 2 * r
+        act = (r < m) & (j >= 0) & (j < m)
+        jj = j.clamp(0, m - 1)
+        B2 = P[:, r2, jj + 1]
+        if variant == 2:
+            outer = ((T1 - B2).abs() < x3) & ((M0 - M2).abs() < x3)
+            inner = (outer & ((M1 - M0).abs() < x4 - 1)
+                     & ((T1 - M1).abs() < x4))
+        else:
+            outer = (((T2 - T1).abs() < x3) & ((T1 - T0).abs() < x3)
+                     & ((T0 - M0).abs() < x3) & ((T2 - M2).abs() < x3))
+            inner = outer & ((B2 - M0).abs() < x3) & ((M0 - M1).abs() < x4)
+        e = (T1 + B2 + M0 + M2 + rnd) >> 2
+        w = inner & (((e - M0).abs() < 5) | ((e - M2).abs() < 5))
+        val = torch.where(w, e, M1)
+        P[:, r1, jj + 1] = torch.where(act, val, P[:, r1, jj + 1])
+        inner_m[:, r, jj] = torch.where(act, inner, inner_m[:, r, jj])
+        outer_m[:, r, jj] = torch.where(act, outer, outer_m[:, r, jj])
+        if stale0 is not None and 0 <= s < m:     # row 0 in this step
+            z = (stale0 & outer[:, 0] & ~inner[:, 0] & ~fired0
+                 & (P[:, 0, VLQ - 1].abs() < 11))
+            P[:, 0, VLQ - 1] = torch.where(z, 0, P[:, 0, VLQ - 1])
+            fired0 |= inner[:, 0]
+        # the relay: row r's next value at column j + 3, the write of row
+        # r - 1 in this step (or an input)
+        cin = j + 3
+        relay = (r >= 1) & (cin >= 1) & (cin <= m)
+        got = torch.where(relay, _flat_shift_r(val, 1),
+                          P[:, r, cin.clamp(0, VLQ - 1)])
+        sh = (cin >= 0) & (cin < VLQ)
+        T0, T1, T2 = (torch.where(sh, T1, T0), torch.where(sh, T2, T1),
+                      torch.where(sh, got, T2))
+        nxt = P[:, r1, (j + 3).clamp(0, VLQ - 1)]
+        M0, M1, M2 = (torch.where(act, val, M0), torch.where(act, M2, M1),
+                      torch.where(act, nxt, M2))
+    inner_m, outer_m = inner_m[:, :m, :m], outer_m[:, :m, :m]
+    return inner_m, outer_m
+
+
 def very_low_q_passes_ref(plane, quality: int, xs7):
-    """Torch twin of ``vlq_passes``: passes 1-3 on the LL2 quadrant of a
-    copy of ``plane`` -> (the copy, masks (B, 4, 128, 128) bool in the
-    visit frame: pass 1's fires, pass 2's, pass 3's, pass 3's hits)."""
+    """Passes 1-3 of the very-low-q cleanup as ``vlq_rows`` walks them, on
+    the LL2 quadrant of a copy of ``plane`` -> (the copy, masks (B, 4, 128,
+    128) bool in the visit frame: pass 1's fires, pass 2's, pass 3's, pass
+    3's hits)."""
     _vlq_args(plane, quality, xs7)
     x1, x2, x3, x4 = xs7[:4]
     out = plane.clone()
@@ -2446,36 +2576,14 @@ def very_low_q_passes_ref(plane, quality: int, xs7):
     masks = torch.zeros((b, VLQ_MASKS, VLQ, VLQ), dtype=torch.bool,
                         device=plane.device)
     masks[:, 0, :, :VLQ_P1] = _vlq_p1_ref(P, x1, x2)
-    f2, _ = _wave_ref(P, VLQ_WAVE, 2, x3, x4, 2, False)
+    f2, _ = _vlq_relay_pass(P, 2, x3, x4, 2)
     stale0 = ~masks[:, 0].flatten(1).any(1) & ~f2.flatten(1).any(1)
     stale0 &= quality <= T.LOW9
-    f3, h3 = _wave_ref(P, VLQ_WAVE, 3, x3, x4, 1, False, stale0)
+    f3, h3 = _vlq_relay_pass(P, 3, x3, x4, 1, stale0)
     masks[:, 1, :VLQ_WAVE, :VLQ_WAVE] = f2
     masks[:, 2, :VLQ_WAVE, :VLQ_WAVE] = f3
     masks[:, 3, :VLQ_WAVE, :VLQ_WAVE] = h3
     out[:, :VLQ, :VLQ] = P.to(torch.int16)
-    return out, masks
-
-
-def very_low_q_passes_device(plane, quality: int, xs7):
-    """Passes 1-3 of ``_very_low_q_cleanup`` -> (a new plane, the fire
-    masks), as ``very_low_q_passes_ref`` (kernel ``vlq_passes``: one
-    launch, one CTA an image, pass 1 a thread a row, passes 2 and 3 as
-    wavefronts over the quadrant in shared memory)."""
-    _vlq_args(plane, quality, xs7)
-    if plane.device.type == "cpu":
-        return very_low_q_passes_ref(plane, quality, xs7)
-    lib, stream = _cuda_args(plane)
-    b = plane.shape[0]
-    out = plane.clone()
-    masks = torch.empty((b, VLQ_MASKS, VLQ, VLQ), dtype=torch.bool,
-                        device=plane.device)
-    if b:
-        with torch.cuda.device(plane.device):
-            build.check("nhw_very_low_q_cleanup", lib.nhw_very_low_q_cleanup(
-                out.data_ptr(), masks.data_ptr(), b,
-                int(quality <= T.LOW9), *map(int, xs7[:4]), stream))
-        build.count("very_low_q_cleanup")
     return out, masks
 
 
@@ -2487,89 +2595,121 @@ def _first_pos(m):
     return torch.where(has, f.to(torch.int8).argmax(1), f.shape[1]), has
 
 
+def very_low_q_plan(plane, quality: int, xs7):
+    """What ``vlq_rows`` hands ``vlq_far``: {"quad": the LL2 quadrant
+    after passes 1-3 and the stale carry's (0, 127) (B, 128, 128) int16,
+    "masks": (B, 4, 128, 128) bool in the count frame (a count position
+    (r, c) is plane position r * 512 + c): cnt1 (pass 1's fires, each at
+    c + 1..c + 3), d23 (passes 2-3's fires at (r + 1, c + 1)), fe34 (pass
+    4's fires at c + 1, q <= LOW9) and l2 (the level-2 zeroings': cnt1, d23
+    and its row neighbours, fe34; q <= LOW9), "stale": (B,) int32, the
+    stale carry's zeroing (0 none, 1 carry 4, 2 carry 0; q <= LOW9)}.
+    Pass 4 reads the quadrant once passes 1-3 and the stale carry's
+    zeroing of (0, 127) are done."""
+    out, vm = very_low_q_passes_ref(plane, quality, xs7)
+    x7 = xs7[6]
+    low9 = quality <= T.LOW9
+    p1, f2, f3, h3 = vm.unbind(1)
+    b, dev = plane.shape[0], plane.device
+    quad = _i32(out[:, :VLQ, :VLQ])
+    stale = torch.zeros(b, dtype=torch.int32, device=dev)
+    fe34 = torch.zeros_like(p1)
+    if low9:
+        hpos, has = _first_pos(h3)
+        fpos, _ = _first_pos(f3)
+        on = has & (hpos < fpos) & ~f2.flatten(1).any(1)
+        any1 = p1.flatten(1).any(1)
+        stale = torch.where(on, torch.where(any1, 1, 2), 0).int()
+        z = (stale == 2) & (quad[:, 0, VLQ - 1].abs() < 11)
+        quad[:, 0, VLQ - 1] = torch.where(z, 0, quad[:, 0, VLQ - 1])
+        d = [(_flat_shift_l(quad, 2) - _flat_shift_l(quad, 1)).abs(),
+             (_flat_shift_l(quad, 2) - quad).abs(),
+             (_flat_shift_l(quad, 1) - quad).abs()]
+        fire4 = (d[0] < x7) & (d[1] < x7) & (d[2] < x7)
+        fire4[..., VLQ_WAVE:] = False
+        fe34 = _flat_shift_r(fire4, 1, False)
+    cnt1 = (_flat_shift_r(p1, 1, False) | _flat_shift_r(p1, 2, False)
+            | _flat_shift_r(p1, 3, False))
+    d23 = torch.zeros_like(f2)
+    d23[:, 1:, 1:] = (f2 | f3)[:, :-1, :-1]
+    l2 = torch.zeros_like(p1)
+    if low9:
+        l2 = (cnt1 | d23 | _flat_shift_r(d23, 1, False)
+              | _flat_shift_l(d23, 1, False) | fe34)
+    return {"quad": quad.to(torch.int16),
+            "masks": torch.stack([cnt1, d23, fe34, l2], 1), "stale": stale}
+
+
 def _up2(m):
     """(B, 128, 128) -> (B, 256, 256): each position over its 2 x 2 block
     (a count position's band targets c2 + 0/1 and c2 + row + 0/1)."""
     return m.repeat_interleave(2, 1).repeat_interleave(2, 2)
 
 
-def _zero_below(x, mask, thr) -> None:
-    """x = 0 where mask and |x| < thr (in int32, as the C), in place."""
-    x.masked_fill_(mask & (_i32(x).abs() < thr), 0)
-
-
-def _vlq_far(out, masks, quality: int, xs7):
-    """The very-low-q cleanup after its passes 1-3, in place on ``out``
-    (B, 512, 512) int16: at q <= LOW9 pass 3's stale carry (its hits
-    before its first fire zero around the carry passes 1-2 left: 4 after
-    a pass-1 fire, else 0, the latter's (0, 127) only where the kernel did
-    not already) and pass 4's fires, then the far zeroings that the fire
-    masks (count positions r * 512 + c, c < 128) map to: the band
-    zeroings (``_vlq_zero_bands``) of pass 1 (thresholds x6, x6 + 6, x5),
-    passes 2-3 (x6, x6 + 6, 32) and pass 4 (x6, x6 + 6, 34) as one masked
-    fill a band, and at q <= LOW9 the level-2 zeroings (``_vlq_zero_l2``,
-    thresholds 11, 12, 13)."""
-    x5, x6, x7 = xs7[4:]
-    low9 = quality <= T.LOW9
-    b = out.shape[0]
-    p1, f2, f3, h3 = masks.unbind(1)
-    cnt1 = (_flat_shift_r(p1, 1, False) | _flat_shift_r(p1, 2, False)
-            | _flat_shift_r(p1, 3, False))
-    # pass 2-3 fires at visit (r, j) count position (r + 1, j + 1)
-    d23 = torch.zeros_like(f2)
-    d23[:, 1:, 1:] = (f2 | f3)[:, :-1, :-1]
-    fe34 = torch.zeros_like(p1)
-    flat = out.view(b, -1)
-    if low9:
-        hpos, has = _first_pos(h3)
-        fpos, _ = _first_pos(f3)
-        stale = has & (hpos < fpos) & ~f2.flatten(1).any(1)
-        any1 = p1.flatten(1).any(1)
-        for cnts, cond in (((3, 4, 5), stale & any1),
-                           ((-1, 0, 1), stale & ~any1)):
-            for cnt in cnts:
-                for o, thr in ((128, 11), (SZ, 12), (SZ + 128, 13)):
-                    v = flat[:, cnt + o]
-                    flat[:, cnt + o] = torch.where(
-                        cond & (_i32(v).abs() < thr), 0, v)
-        r4 = _i32(out[:, :VLQ, :VLQ])
-        d = [(_flat_shift_l(r4, 2) - _flat_shift_l(r4, 1)).abs(),
-             (_flat_shift_l(r4, 2) - r4).abs(),
-             (_flat_shift_l(r4, 1) - r4).abs()]
-        fire4 = (d[0] < x7) & (d[1] < x7) & (d[2] < x7)
-        fire4[..., VLQ_WAVE:] = False
-        fe34 = _flat_shift_r(fire4, 1, False)
+def _vlq_far_ref(plane, plan, xs7):
+    """``vlq_far`` on a (B, 512, 512) int16 plane: outside the LL2
+    quadrant each position is zeroed where a mask of ``plan`` reaches it
+    and |v| lies below its threshold: the level-2 bands beside the
+    quadrant by l2 (11, 12, 13), the level-1 bands by cnt (cnt1 | d23 |
+    fe34) over each 2 x 2 block (x6, x6 + 6) and, in the last, by cnt1
+    (x5), d23 (32) and fe34 (34); and the stale carry's targets (carry -
+    1..carry + 1 at VLQ_STALE).  The quadrant is ``plan``'s.  Returns the
+    new plane."""
+    x5, x6 = xs7[4:6]
+    cnt1, d23, fe34, l2 = plan["masks"].unbind(1)
     cnt = cnt1 | d23 | fe34
-    _zero_below(out[:, :D, D:], _up2(cnt), x6)
-    _zero_below(out[:, D:, :D], _up2(cnt), x6 + 6)
-    e = _i32(out[:, D:, D:]).abs()
-    out[:, D:, D:].masked_fill_((_up2(cnt1) & (e < x5))
-                                | (_up2(d23) & (e < 32))
-                                | (_up2(fe34) & (e < 34)), 0)
-    if low9:
-        l2 = (cnt1 | d23 | _flat_shift_r(d23, 1, False)
-              | _flat_shift_l(d23, 1, False) | fe34)
-        _zero_below(out[:, :VLQ, VLQ:D], l2, 11)
-        _zero_below(out[:, VLQ:D, :VLQ], l2, 12)
-        _zero_below(out[:, VLQ:D, VLQ:D], l2, 13)
+    v = _i32(plane).abs()
+    z = torch.zeros(plane.shape, dtype=torch.bool, device=plane.device)
+    z[:, :D, D:] = _up2(cnt) & (v[:, :D, D:] < x6)
+    z[:, D:, :D] = _up2(cnt) & (v[:, D:, :D] < x6 + 6)
+    e = v[:, D:, D:]
+    z[:, D:, D:] = ((_up2(cnt1) & (e < x5)) | (_up2(d23) & (e < 32))
+                    | (_up2(fe34) & (e < 34)))
+    z[:, :VLQ, VLQ:D] = l2 & (v[:, :VLQ, VLQ:D] < 11)
+    z[:, VLQ:D, :VLQ] = l2 & (v[:, VLQ:D, :VLQ] < 12)
+    z[:, VLQ:D, VLQ:D] = l2 & (v[:, VLQ:D, VLQ:D] < 13)
+    zf, vf = z.view(len(z), -1), v.view(len(v), -1)
+    for mode, base in ((1, 3), (2, -1)):
+        on = plan["stale"] == mode
+        for o, thr in VLQ_STALE:
+            for k in range(base, base + 3):
+                zf[:, k + o] |= on & (vf[:, k + o] < thr)
+    out = plane.masked_fill(z, 0)
+    out[:, :VLQ, :VLQ] = plan["quad"]
     return out
 
 
 def very_low_q_cleanup_ref(plane, quality: int, xs7):
-    """Torch twin of ``very_low_q_cleanup_device``: the passes' twin,
-    then the same far zeroings."""
-    return _vlq_far(*very_low_q_passes_ref(plane, quality, xs7), quality,
-                    xs7)
+    """Torch twin of ``very_low_q_cleanup_device``: ``very_low_q_plan``
+    (passes 1-3 by the warp relay, the stale carry, pass 4, the count
+    masks), then ``_vlq_far_ref``."""
+    return _vlq_far_ref(plane, very_low_q_plan(plane, quality, xs7), xs7)
 
 
 def very_low_q_cleanup_device(plane, quality: int, xs7):
     """``_very_low_q_cleanup`` (q < LOW7) on a (B, 512, 512) int16 plane,
     bit-exact vs the host copy's C; xs7 = (x1, .., x7), the host copy's
-    ``encoder._VLQ_THRX(quality, None)``.  Returns a new plane: passes 1-3
-    and the fire masks by ``very_low_q_passes_device`` (kernel
-    ``vlq_passes``), then pass 4 and the far zeroings as torch ops."""
-    return _vlq_far(*very_low_q_passes_device(plane, quality, xs7),
-                    quality, xs7)
+    ``encoder._VLQ_THRX(quality, None)``.  Returns a new plane (kernel
+    ``very_low_q_cleanup``: ``vlq_rows``, one CTA an image, passes 1-4 on
+    the quadrant in shared memory, passes 2-3 relayed lane to lane and
+    warp to warp, the count masks out as bits; then ``vlq_far``, a CTA
+    every VLQ_FAR_ROWS plane rows, the far zeroings in 16-byte
+    accesses)."""
+    _vlq_args(plane, quality, xs7)
+    if plane.device.type == "cpu":
+        return very_low_q_cleanup_ref(plane, quality, xs7)
+    lib, stream = _cuda_args(plane)
+    b = plane.shape[0]
+    out = torch.empty_like(plane)
+    masks = torch.empty((b, VLQ_MASK_WORDS), dtype=torch.int32,
+                        device=plane.device)
+    if b:
+        with torch.cuda.device(plane.device):
+            build.check("nhw_very_low_q_cleanup", lib.nhw_very_low_q_cleanup(
+                plane.data_ptr(), out.data_ptr(), masks.data_ptr(), b,
+                int(quality <= T.LOW9), *map(int, xs7), stream))
+        build.count("very_low_q_cleanup")
+    return out
 
 
 def uv_ll_smooth_ref(process):

@@ -1266,7 +1266,8 @@ def test_uv_sentinel_rejects_bad_inputs(cuda):
 
 
 @pytest.mark.parametrize("b", [1, 3, 16])
-@pytest.mark.parametrize("kind", ["random", "row ends", "row starts"])
+@pytest.mark.parametrize("kind", ["random", "row ends", "row starts",
+                                  "tile edges", "tick runs", "row chains"])
 def test_offset_y_low4_kernel(cuda, kind, b):
     import chip_smoke as cs
     from nhwcodec_tpu_torch.models import device_scans as ds
@@ -1342,7 +1343,8 @@ def test_lowest_q_band_cleanup_rejects_bad_inputs(cuda):
 @pytest.mark.parametrize("b", [1, 3, 16])
 @pytest.mark.parametrize("kind, q", [
     ("random", 12), ("random", 1), ("p1 chain", 12), ("wave left", 1),
-    ("stale use4", 11), ("stale use0", 8), ("l2 in ll1", 11)])
+    ("stale use4", 11), ("stale use0", 8), ("l2 in ll1", 11),
+    ("warp edges", 12), ("warp edges", 1)])
 def test_very_low_q_cleanup_kernel(cuda, kind, q, b):
     import chip_smoke as cs
     from nhwcodec_tpu_torch.host.models import encoder as host_encoder
@@ -1352,13 +1354,11 @@ def test_very_low_q_cleanup_kernel(cuda, kind, q, b):
     x = cs.vlq_edge_planes(np.random.default_rng(160 + b), b, kind)
     X = torch.from_numpy(x).to(cuda)
     before = build.LAUNCHES["very_low_q_cleanup"]
-    got = ds.very_low_q_passes_device(X, q, xs7)
+    got = ds.very_low_q_cleanup_device(X, q, xs7)
     assert build.LAUNCHES["very_low_q_cleanup"] == before + 1
-    for g, w in zip(got, ds.very_low_q_passes_ref(X, q, xs7)):
-        torch.testing.assert_close(g, w, rtol=0, atol=0)
-    np.testing.assert_array_equal(
-        ds.very_low_q_cleanup_device(X, q, xs7).cpu().numpy(),
-        cs.host_vlq(x, q))
+    torch.testing.assert_close(got, ds.very_low_q_cleanup_ref(X, q, xs7),
+                               rtol=0, atol=0)
+    np.testing.assert_array_equal(got.cpu().numpy(), cs.host_vlq(x, q))
 
 
 @pytest.mark.parametrize("b", [1, 3, 16])
@@ -1399,8 +1399,15 @@ def test_very_low_q_kernels_reject_bad_inputs(cuda):
 
     p = torch.zeros((2, 512, 512), dtype=torch.int16, device=cuda)
     with pytest.raises(ValueError):
-        ds.very_low_q_passes_device(p.transpose(1, 2), 12,
-                                    (8, 13, 6, 11, 34, 14, 15))
+        ds.very_low_q_cleanup_device(p.transpose(1, 2), 12,
+                                     (8, 13, 6, 11, 34, 14, 15))
+    # both kernels load and store 16-byte vectors: planes off that grid
+    odd = torch.zeros(2 * 512 * 512 + 1, dtype=torch.int16, device=cuda)
+    with pytest.raises(RuntimeError, match="nhw_very_low_q_cleanup"):
+        ds.very_low_q_cleanup_device(odd[1:].view(2, 512, 512), 12,
+                                     (8, 13, 6, 11, 34, 14, 15))
+    with pytest.raises(RuntimeError, match="nhw_offset_y_low4"):
+        ds.offset_y_low4_device(odd[1:].view(2, 512, 512), 8)
     with pytest.raises(ValueError):
         ds.low_q_ll1_cleanup_device(p, 9)
     with pytest.raises(TypeError):

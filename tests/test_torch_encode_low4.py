@@ -1,8 +1,10 @@
 """The device encode scans' low-q programs at q13..q16
 (``models/device_scans.py``) on the CPU, tolerance 0.
 
-- ``offset_y_low4_ref`` (S10's twin: the duty-cycle quantizer, its rows
-  walked from every entry state, chained, walked again),
+- ``offset_y_low4_ref`` (S10's twin: the duty-cycle quantizer, each
+  lane's tile of 16 columns a map of 8 states, the lane maps scanned, the
+  row maps chained, each tile walked again, quant and quant6 as prefix
+  counts of the row's ticks),
   ``lowest_q_band_cleanup_ref`` (S11's twin: loop A a row at a time, B +
   C's rows from both entry states, chained, walked again) and
   ``low56_band_cleanup_device`` (torch ops) equal the JAX package's
@@ -11,7 +13,8 @@
   ``_low56_band_cleanup``) on the edge planes of ``chip_smoke``
   (``oy4_edge_planes``, ``lowq_edge_inputs``), each checked to reach
   what it claims: a quant4 write across a row end, the counters' reset
-  at a row start, pairR at column 510 chained into the next row's column
+  at a row start, writes pending across lane tiles, ticks counted across
+  tiles, rows that enter pending and fire at column 511 again, pairR at column 510 chained into the next row's column
   0, pairL at column 0, loop A's writes into column 255 and row 256, r3
   reads in the tail past resIII; gt_low10 both ways; the LOW7 thresholds
   and two count-adaptive tuples (q11, q10), one per image too.
@@ -56,6 +59,49 @@ def test_offset_y_low4_twin_matches_jax_and_host(kinds):
     got = tds.offset_y_low4_device(torch.from_numpy(x), 8).numpy()
     assert np.array_equal(got, np.asarray(jds.offset_y_low4_device(x, 8)))
     assert np.array_equal(got, cs.host_offset_y_low4(x))
+
+
+@pytest.mark.parametrize("kind", ["tile edges", "tick runs", "row chains"])
+def test_offset_y_low4_lane_tiles_match_jax_and_host(kind):
+    """The twin's decomposition (lane tiles of 8-state maps, the row maps
+    chained, the counters as prefix counts) on the lane-tile edge kinds."""
+    x = cs.oy4_edge_planes(np.random.default_rng(45), 1, kind)
+    got = tds.offset_y_low4_device(torch.from_numpy(x), 8).numpy()
+    assert np.array_equal(got, np.asarray(jds.offset_y_low4_device(x, 8)))
+    assert np.array_equal(got, cs.host_offset_y_low4(x))
+
+
+def test_oy4_tile_edges_enter_lanes_in_every_state():
+    """A fixup or a quant4 write pending at a tile's last column: lanes
+    enter their tiles in each of the 8 states."""
+    x = cs.oy4_edge_planes(np.random.default_rng(46), 1, "tile edges")
+    plan = tds.offset_y_low4_plan(torch.from_numpy(x))
+    seen = torch.bincount(plan["lane_entry"].flatten(), minlength=8)
+    assert (seen[:6] > 1000).all() and (seen[6:] > 300).all()
+
+
+def test_oy4_tick_runs_count_across_tiles():
+    """In the host C's output the k-th tick of a row is masked where k is
+    0 mod 6 (-15: code 120, else 112) or 0 mod 4 (-23: 112, else 104),
+    though the runs cross the lanes' tiles."""
+    x = cs.oy4_edge_planes(np.random.default_rng(47), 1, "tick runs")[0]
+    out = cs.host_offset_y_low4(x[None])[0]
+    for v, mod, masked, plain in ((-15, 6, 120, 112), (-23, 4, 112, 104)):
+        t = x == v
+        k = np.cumsum(t, 1) - 1
+        assert (out[t] == np.where(k[t] % mod == 0, masked, plain)).all()
+    runs = (x != 0) & (np.roll(x, 1, 1) != 0) & (np.arange(512) % 16 == 0)
+    assert runs.sum() > 2000       # ticks on both sides of a tile edge
+
+
+def test_oy4_row_chains_enter_pending_and_fire_at_511():
+    """Every row after the first enters with a quant4 write pending at
+    column 0 (up or down) and fires the pair rule at column 511 again."""
+    x = cs.oy4_edge_planes(np.random.default_rng(48), 1, "row chains")
+    plan = tds.offset_y_low4_plan(torch.from_numpy(x))
+    ent = plan["entry"][0]
+    assert ent[0] == 0 and set(ent[1:].tolist()) == {6, 7}
+    assert (ent[1::2] == 7).all() and (ent[2::2] == 6).all()
 
 
 def test_oy4_row_ends_cross_the_row_end():

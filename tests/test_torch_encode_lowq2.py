@@ -3,8 +3,10 @@
 0.
 
 - ``very_low_q_cleanup_ref`` (S12's twin: pass 1 as 124 column steps of
-  the rows, passes 2 and 3 as anti-diagonal steps, then pass 4 and the
-  far zeroings as the wrapper applies them), ``low_q_ll1_cleanup_ref``
+  the rows, passes 2 and 3 as the kernel's relay of row windows, each
+  row's newest value the one the row above wrote a step before, then
+  pass 4, the count masks and the far zeroings as ``vlq_far`` applies
+  them), ``low_q_ll1_cleanup_ref``
   (S13's twin: 256 column steps of rows 128..255) and
   ``uv_ll_smooth_ref`` (S14's twin: both passes as anti-diagonal steps)
   equal the JAX package's functions at batch 2 on seeded planes (q12,
@@ -13,8 +15,8 @@
   the edge planes of ``chip_smoke`` (``vlq_edge_planes``,
   ``ll1_edge_planes``, ``uvs_edge_planes``), each checked on the C's own
   output to reach what it claims: a pass-1 write chained into the next
-  window, a wave step whose left read is the same pass's write, pass 3's
-  stale carry 4 and 0, a level-2 zeroing inside the LL1 cleanup's region,
+  window, a wave step whose left read is the same pass's write, fires at
+  the relay's warp edges, pass 3's stale carry 4 and 0, a level-2 zeroing inside the LL1 cleanup's region,
   a zeroed left neighbour isolating the next value, the row ends.  On the
   stale-carry-0 planes the JAX function, which applies that zeroing after
   the passes, differs from the C; the port follows the C.
@@ -75,6 +77,22 @@ def test_very_low_q_twin_matches_jax_and_host(q):
 def test_very_low_q_edges_match_host(kind, q):
     x = cs.vlq_edge_planes(np.random.default_rng(32), 2, kind)
     assert np.array_equal(_vlq(x, q), cs.host_vlq(x, q))
+
+
+def test_vlq_warp_edges_match_jax_and_host():
+    """Passes 2-3 fire at visit rows 31/32, 63/64 and 95/96, where lane 31
+    of one warp of the relay writes the row that lane 0 of the next
+    reads."""
+    q = T.LOW9
+    x = cs.vlq_edge_planes(np.random.default_rng(49), 2, "warp edges")
+    got = _vlq(x, q)
+    assert np.array_equal(got, np.asarray(jds.very_low_q_cleanup_device(
+        x, q, henc._VLQ_THRX(q, None))))
+    assert np.array_equal(got, cs.host_vlq(x, q))
+    m = _masks(x, q)
+    rows = (m[:, 1] | m[:, 2]).any(-1)
+    assert rows[:, [31, 32, 63, 64, 95, 96]].all()
+    assert not rows[:, 40:56].any()
 
 
 def _masks(x, q):

@@ -1,17 +1,19 @@
 """Device times of the port's S1 (snap passes), S2 (offset_y), S3
 (merge_crossing), S4 (pair promotion), S5 (column ladder), S6
-(classify), S7 (ll2_code_y), S9 (uv_sentinel), S11 (the lowest-q
-cleanup) and E1 (chain_starts, the Y and the UV words) on the q20 batch
-(S11 on q13 planes), for one tree of the repo, and the split of a kernel
-of S2-S5, S7, S9, S11 or E1 between its phases.
+(classify), S7 (ll2_code_y), S9 (uv_sentinel), S10 (offset_y_low4), S11
+(the lowest-q cleanup), S12 (the very-low-q cleanup) and E1
+(chain_starts, the Y and the UV words) on the q20 batch (S10 on q16,
+S11 on q13, S12 on q12 planes), for one tree of the repo, and the split
+of a kernel of S2-S5, S7, S9-S12 or E1 between its phases.
 
 Run from anywhere on a machine with a CUDA card:
 
     python3 tools/torch_scan_probe.py [--tree DIR] [--ladder-src FILE]
         [--offset-y-src FILE] [--uv-src FILE] [--ll2-src FILE]
         [--pp-src FILE] [--entropy-src FILE] [--merge-src FILE]
-        [--lq-src FILE] [--merge-lq-only] [--batches] [--placement]
-        [--sass] [--runs N]
+        [--lq-src FILE] [--merge-lq-only] [--oy4-src FILE]
+        [--vlq-src FILE] [--oy4-vlq-only] [--dump DIR] [--batches]
+        [--placement] [--sass] [--runs N]
 
 ``--tree`` is the root of the tree whose ``nhwcodec_tpu_torch`` and
 ``chip_smoke`` are measured (default: this script's repo).  The inputs
@@ -133,6 +135,33 @@ and ``--placement`` where 16 clusters of 8 CTAs of 512 threads land
 (each CTA's ``%smid``) with the most clusters resident, without dynamic
 shared memory, with S11's and with enough for one CTA an SM.
 
+``--oy4-src`` takes a ``scans.cu`` and ``--vlq-src`` a ``vlq.cu`` of
+either design; with either, or ``--oy4-vlq-only``, the JSON line holds
+S10's graph times on the 16 planes ``offset_y`` got in the tree's host
+encodes at q16 and on each ``chip_smoke.OY4_KINDS`` kind, and S12's (the
+whole ``very_low_q_cleanup_device``) on the 4 planes captured at q12 from
+``chip_smoke.quality_batch(images, 12)``, 4 times, and on each
+``chip_smoke.VLQ_KINDS`` kind at its first quality.  Each source is
+stamped (16 stamps a CTA), checked against the tree's wrapper on those
+inputs and reported in µs:
+
+- S10, three launches (S2's pass 1, ``oy4_maps``, ``oy4_emit``): the
+  maps' staging and walk from every entry state, then the emit's start on
+  a timeline, its chain of the row maps and its walk again;
+- S10, ``oy4_rows``: from a CTA's start, the row loaded, the tables and
+  lane maps, the warp scan, the look-back's start and its entry, the
+  walk again, the codes and the stores (the slowest warp), with the
+  spread of the CTAs' starts and the last CTA's end;
+- S12, one launch of passes 1-3 (``vlq_passes``): the staging, pass 1,
+  each wave pass (and its ns a step), the quadrant back, the masks;
+- S12, ``vlq_rows`` + ``vlq_far``: the staging, pass 1, passes 2 and 3
+  (and their ns a step), the stale carry, pass 4 and the masks, the
+  quadrant out and the end of ``vlq_far``.
+
+``--oy4-vlq-only`` skips every other kernel, ``--dump`` saves the raw
+stamps of S10 and S12 (runs x CTAs x 16, ns) as ``.npy`` files, and
+``--sass`` covers both designs of both.
+
 Prints the card's name and power limit, then one JSON line.
 """
 
@@ -151,6 +180,7 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parent.parent
 STAMPS = 8
+DUMP = None      # --dump: a directory for S10's and S12's raw stamps
 
 STAMP_DEFS = r"""
 #define NHW_PER 8
@@ -430,6 +460,88 @@ LQ_CLUSTER_PATCHES = (
      "  if (lane == 0) NHW_STAMP_MAX(5);\n"),
 )
 
+# S10, three launches (S2's pass 1 unstamped): oy4_maps 0 start, 1 staged,
+# 2 walked from every entry state (slowest thread); oy4_emit 3 start, 4
+# staged and chained, 5 walked again (slowest thread)
+OY4_THREE_PATCHES = (
+    ("  const int r0 = blockIdx.x * kRows;\n", "",
+     "  if (threadIdx.x == 0) NHW_STAMP(0);\n"),
+    ("  const int k = threadIdx.x / kOy4States, e = threadIdx.x % kOy4States;"
+     "\n", "  if (threadIdx.x == 0) NHW_STAMP(1);\n", ""),
+    ("      oy4_walk<false>(s + k * nhw::kStagePitch + 1, r0 + k, e, m1, esc));"
+     "\n", "", "  NHW_STAMP_MAX(2);\n"),
+    ("  const int r0 = blockIdx.x * kRows, k = threadIdx.x;\n", "",
+     "  if (k == 0) NHW_STAMP(3);\n"),
+    ("  nhw::chain_entries<kOy4States>(map_s, entry_s, kN);\n"
+     "  __syncthreads();\n", "", "  if (k == 0) NHW_STAMP(4);\n"),
+    ("                 esc);\n  __syncthreads();\n", "",
+     "  NHW_STAMP_MAX(5);\n"),
+)
+# S10, a warp a row (oy4_rows): 0 ticket, 1 loaded, 2 tables and lane maps,
+# 3 warp scan, 8 look-back started, 4 its entry out, 5 walked again, 6
+# codes, 7 stored (1-3, 5-7 the slowest warp)
+OY4_ROWS_PATCHES = (
+    ("  const int tile = sh.job / batch, b = sh.job % batch;\n", "",
+     "  if (t == 0) NHW_STAMP(0);\n"),
+    ("  const int c0 = kOy4Tile * lane;\n",
+     "  if (lane == 0) NHW_STAMP_MAX(1);\n", ""),
+    ("  for (int q = 0; q < 8; ++q) m |= uint32_t(s[q]) << (3 * q);\n", "",
+     "  if (lane == 0) NHW_STAMP_MAX(2);\n"),
+    ("  if (lane == 31) sh.row_map[w] = oy4_row_map(m);\n",
+     "  if (lane == 0) NHW_STAMP_MAX(3);\n", ""),
+    ("      const int pj = tile - 1 - lane;\n",
+     "      if (lane == 0) NHW_STAMP(8);\n", ""),
+    ("      sh.entry = e;\n", "", "      NHW_STAMP(4);\n"),
+    ("  // the ticks before the lane: quant and quant6 from the row's start\n",
+     "  if (lane == 0) NHW_STAMP_MAX(5);\n", ""),
+    ("  uint4* dst = reinterpret_cast<uint4*>(out + static_cast<size_t>(b) * "
+     "kPlane +\n", "  if (lane == 0) NHW_STAMP_MAX(6);\n", ""),
+    ("  dst[1] = make_uint4(o[4], o[5], o[6], o[7]);\n", "",
+     "  if (lane == 0) NHW_STAMP_MAX(7);\n"),
+)
+# S12, one launch of passes 1-3 (vlq_passes): 0 start, 1 staged, 2 pass 1,
+# 3 pass 2, 4 pass 3, 5 the quadrant back, 6 the masks written
+VLQ_ONE_PATCHES = (
+    ("  for (int i = r; i < kMasks * kVlq * kMaskWords; i += kVlq) bits[i] = "
+     "0;\n", "  if (r == 0) NHW_STAMP(0);\n", ""),
+    ("  stage_corner(P, kN, kVlq, kVlqPitch, s);\n  __syncthreads();\n", "",
+     "  if (r == 0) NHW_STAMP(1);\n"),
+    ("  const bool any1 = __syncthreads_or(p1);\n", "",
+     "  if (r == 0) NHW_STAMP(2);\n"),
+    ("  const bool any2 = __syncthreads_or(p2);\n", "",
+     "  if (r == 0) NHW_STAMP(3);\n"),
+    ("  unstage_corner(s, kVlq, kVlqPitch, P, kN);\n",
+     "  if (r == 0) NHW_STAMP(4);\n",
+     "  __syncthreads();\n  if (r == 0) NHW_STAMP(5);\n"),
+    ("           ((b >> 3) & 1u) << 24;\n  }\n", "",
+     "  __syncthreads();\n  if (r == 0) NHW_STAMP(6);\n"),
+)
+# S12, vlq_rows + vlq_far: 0 start, 1 staged, 2 pass 1, 8 pass 2, 3 pass
+# 3, 4 the stale carry, 5 pass 4 and the masks, 6 the quadrant out; 7
+# vlq_far's last CTA's end
+VLQ_RELAY_PATCHES = (
+    ("  const size_t img = static_cast<size_t>(blockIdx.x) * kPlane;\n", "",
+     "  if (r == 0) NHW_STAMP(0);\n"),
+    ("  const bool any1 =\n", "  if (r == 0) NHW_STAMP(1);\n", ""),
+    ("  WaveLane a, c;\n", "  if (r == 0) NHW_STAMP(2);\n", ""),
+    ("  const bool any2 = __syncthreads_or(a.any);\n", "",
+     "  if (r == 0) NHW_STAMP(8);\n"),
+    ("  const int fh = c.fh, ff = c.ff;\n", "  if (r == 0) NHW_STAMP(3);\n",
+     ""),
+    ("  // pass 4's fires on the finished quadrant (q <= LOW9), columns "
+     "0..125\n", "  if (r == 0) NHW_STAMP(4);\n", ""),
+    ("  // the quadrant out\n", "  if (r == 0) NHW_STAMP(5);\n", ""),
+    ("        make_uint4(lo.x, lo.y, hi.x, hi.y);\n  }\n", "",
+     "  __syncthreads();\n  if (r == 0) NHW_STAMP(6);\n"),
+    ("        make_uint4(wd[0] & keep[0], wd[1] & keep[1], wd[2] & keep[2],\n"
+     "                   wd[3] & keep[3]);\n  }\n", "",
+     "  atomicMax(&g_ladder_stamp[blockIdx.y * NHW_PER + 7], nhw_now());\n"),
+)
+# the steps of a wave pass: a CTA barrier a step (one launch of passes
+# 1-3); the relay's (csrc/vlq.cu kVlqSteps: 3 warps 69 steps apart, 191
+# steps a warp, rounded up to 4)
+VLQ_ONE_STEPS = 3 * 126 - 2
+VLQ_RELAY_STEPS = 400
 
 def blocks(src: str) -> bool:
     """Whether a residue.cu is the 8-CTAs-an-image design."""
@@ -1105,10 +1217,179 @@ def lq_split(dll, new: bool, inputs: dict, runs: int, cs) -> dict:
     return out
 
 
+def oy4_vlq_inputs(cs, host_encoder, images, dev) -> tuple:
+    """S10's inputs (plane at batch 16: the 16 planes offset_y got in the
+    host copy's encodes at q16, and each ``chip_smoke.OY4_KINDS`` kind)
+    and S12's ((plane, q) at batch 16: the 4 planes captured at q12 from
+    ``chip_smoke.quality_batch(images, 12)``, 4 times, and each
+    ``chip_smoke.VLQ_KINDS`` kind at its first quality)."""
+    import torch
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    with cs.StreamCapture() as cap:
+        for img in images:
+            host_encoder.encode(img, 16)
+        for img in cs.quality_batch(images, 12):
+            host_encoder.encode(img, 12)
+    oy = {"q16 planes": t(np.stack([r["oy"]["in"] for r in cap.records
+                                    if "oy" in r and r["oy"]["q"] == 16]))}
+    rng = np.random.default_rng(cs.SEED + 70)
+    for kind in cs.OY4_KINDS:
+        oy[f"{kind} planes"] = t(cs.oy4_edge_planes(rng, 16, kind))
+    recs = [r for r in cap.records if "vlq" in r]
+    vlq = {"q12 planes": (t(np.stack([r["vlq"]["in"] for r in recs]
+                                     * (16 // len(recs)))), 12)}
+    rng = np.random.default_rng(cs.SEED + 80)
+    for kind in cs.VLQ_KINDS:
+        vlq[f"{kind} planes"] = (t(cs.vlq_edge_planes(rng, 16, kind)),
+                                 cs.VLQ_EDGE_QS[kind][0])
+    return oy, vlq
+
+
+def oy4_split(dll, new: bool, planes: dict, runs: int, cs) -> dict:
+    """The stamped S10 on each plane: its output against the tree's
+    offset_y_low4_device, the stamps' medians."""
+    import torch
+
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    dll.nhw_offset_y_low4.argtypes = [p, p, p, p, p, i, i, p]
+    dll.nhw_offset_y_low4.restype = i
+    out = {}
+    for what, x in planes.items():
+        b = x.shape[0]
+        tmp, got = torch.empty_like(x), torch.empty_like(x)
+        scratch = (torch.empty(1 + 32 * b, dtype=torch.int32, device=x.device)
+                   if new else torch.empty((b, 512, 5), dtype=torch.uint8,
+                                           device=x.device))
+        esc = ds._escape_table(x.device)
+
+        def call():
+            rc = dll.nhw_offset_y_low4(
+                x.data_ptr(), tmp.data_ptr(), scratch.data_ptr(),
+                got.data_ptr(), esc.data_ptr(), b, 8,
+                torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise SystemExit(f"torch_scan_probe: stamped launch failed "
+                                 f"{rc}")
+
+        call()
+        torch.cuda.synchronize()
+        cs.check(torch.equal(got, ds.offset_y_low4_device(x, 8)),
+                 f"the stamped offset_y_low4 differs from the tree's: {what}")
+        ctas = 32 * b if new else 16 * b
+        t = raw_stamps(dll, call, ctas, runs, 16)
+        if DUMP:
+            np.save(Path(DUMP) / f"oy4_{'new' if new else 'old'}_"
+                    f"{what.replace(' ', '_')}.npy", t)
+        res = {"ctas": ctas, "runs": runs, "event_ms": cs.median_ms(call)}
+        if new:
+            res.update(design="a warp a row, a look-back",
+                       loaded_us=since_start(t, 1),
+                       tables_us=since_start(t, 2),
+                       warp_scan_us=since_start(t, 3),
+                       look_back_start_us=since_start(t, 8),
+                       entry_us=since_start(t, 4),
+                       walked_us=since_start(t, 5),
+                       codes_us=since_start(t, 6),
+                       stored_us=since_start(t, 7),
+                       end_from_launch_us=since_launch(t, 7), **skew(t, 7))
+        else:
+            res.update(design="three launches",
+                       maps_staged_us=since(t, 1, 0),
+                       maps_walked_us=since(t, 2, 0),
+                       emit_start_from_launch_us=since_launch(t, 3),
+                       emit_chained_us=since(t, 4, 3),
+                       emit_walked_us=since(t, 5, 3),
+                       end_from_launch_us=since_launch(t, 5))
+        out[what] = res
+    return out
+
+
+def vlq_split(dll, new: bool, inputs: dict, runs: int, cs) -> dict:
+    """The stamped S12 on each (plane, q): its output against the tree's
+    (the passes' plane for the one-launch design), the stamps' medians
+    and each wave pass's time a step."""
+    import torch
+
+    from nhwcodec_tpu_torch.host.models import encoder as host_encoder
+    from nhwcodec_tpu_torch.host import tables as T
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    dll.nhw_very_low_q_cleanup.argtypes = (
+        [p, p, p, i, i] + [i] * 7 + [p] if new else [p, p, i, i] + [i] * 4
+        + [p])
+    dll.nhw_very_low_q_cleanup.restype = i
+    steps = VLQ_RELAY_STEPS if new else VLQ_ONE_STEPS
+    out = {}
+    for what, (x, q) in inputs.items():
+        b = x.shape[0]
+        xs7 = host_encoder._VLQ_THRX(q, None)
+        low9 = int(q <= T.LOW9)
+        got = torch.empty_like(x)
+        masks = (torch.empty((b, ds.VLQ_MASK_WORDS), dtype=torch.int32,
+                             device=x.device) if new else
+                 torch.empty((b, 4, 128, 128), dtype=torch.uint8,
+                             device=x.device))
+
+        def call():
+            st = torch.cuda.current_stream().cuda_stream
+            if new:
+                rc = dll.nhw_very_low_q_cleanup(
+                    x.data_ptr(), got.data_ptr(), masks.data_ptr(), b, low9,
+                    *map(int, xs7), st)
+            else:
+                got.copy_(x)
+                rc = dll.nhw_very_low_q_cleanup(
+                    got.data_ptr(), masks.data_ptr(), b, low9,
+                    *map(int, xs7[:4]), st)
+            if rc:
+                raise SystemExit(f"torch_scan_probe: stamped launch failed "
+                                 f"{rc}")
+
+        call()
+        torch.cuda.synchronize()
+        want = (ds.very_low_q_cleanup_device(x, q, xs7) if new
+                else ds.very_low_q_passes_device(x, q, xs7)[0])
+        cs.check(torch.equal(got, want),
+                 f"the stamped very_low_q_cleanup differs from the tree's: "
+                 f"{what}")
+        t = raw_stamps(dll, call, b, runs, 16)
+        if DUMP:
+            np.save(Path(DUMP) / f"vlq_{'new' if new else 'old'}_"
+                    f"{what.replace(' ', '_')}.npy", t)
+        res = {"ctas": b, "runs": runs, "q": q,
+               "event_ms": cs.median_ms(call),
+               "staged_us": since_start(t, 1), "pass1_us": since(t, 2, 1)}
+        if new:
+            res.update(
+                design="a warp relay, then vlq_far",
+                pass2_us=since(t, 8, 2), pass3_us=since(t, 3, 8),
+                stale_us=since(t, 4, 3),
+                pass4_masks_us=since(t, 5, 4),
+                quadrant_out_us=since(t, 6, 5),
+                far_end_from_rows_end_us=since(t, 7, 6),
+                end_from_launch_us=since_launch(t, 7), **skew(t, 7))
+        else:
+            res.update(design="one launch, CTA barriers",
+                       pass2_us=since(t, 3, 2), pass3_us=since(t, 4, 3),
+                       unstage_us=since(t, 5, 4), masks_us=since(t, 6, 5),
+                       end_from_launch_us=since_launch(t, 6))
+        for k in ("pass2", "pass3"):
+            res[f"{k}_ns_a_step"] = 1e3 * res[f"{k}_us"] / steps
+        out[what] = res
+    return out
+
+
 SASS_KERNELS = ("pair_promotion", "chain_tiles", "chain_entries",
                 "chain_emit", "chain_scan", "merge_tiles", "merge_entries",
                 "merge_emit", "merge_crossing", "lq_a", "lq_maps", "lq_emit",
-                "lowest_q_rows")
+                "lowest_q_rows", "oy4_maps", "oy4_emit", "oy4_rows",
+                "vlq_passes", "vlq_rows", "vlq_far")
 SASS_CLASSES = {"shared": ("LDS", "STS", "ATOMS"),
                 "global": ("LDG", "STG", "ATOMG", "RED", "LD.", "ST."),
                 "shuffle": ("SHFL",), "vote": ("VOTE",),
@@ -1161,11 +1442,17 @@ def main() -> int:
     ap.add_argument("--merge-src", default=None)
     ap.add_argument("--lq-src", default=None)
     ap.add_argument("--merge-lq-only", action="store_true")
+    ap.add_argument("--oy4-src", default=None)
+    ap.add_argument("--vlq-src", default=None)
+    ap.add_argument("--oy4-vlq-only", action="store_true")
+    ap.add_argument("--dump", default=None)
     ap.add_argument("--batches", action="store_true")
     ap.add_argument("--placement", action="store_true")
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--runs", type=int, default=25)
     args = ap.parse_args()
+    global DUMP
+    DUMP = args.dump
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
     import torch
@@ -1195,6 +1482,36 @@ def main() -> int:
     rs = host_encoder._res_setting(20)
     variants = des.snap_args(20)
     out = {"tree": str(tree), "batch": len(images)}
+    if args.oy4_src or args.vlq_src or args.oy4_vlq_only:
+        oy, vlq = oy4_vlq_inputs(cs, host_encoder, images, dev)
+        for what, x in oy.items():
+            out[f"offset_y_low4_graph_ms {what}"] = cs.graph_ms(
+                lambda: ds.offset_y_low4_device(x, 8))
+        for what, (x, q) in vlq.items():
+            xs7 = host_encoder._VLQ_THRX(q, None)
+            out[f"very_low_q_cleanup_graph_ms {what}"] = cs.graph_ms(
+                lambda: ds.very_low_q_cleanup_device(x, q, xs7))
+        if args.oy4_src:
+            with tempfile.TemporaryDirectory() as d:
+                dll, new = build_design(Path(args.oy4_src).resolve(),
+                                        Path(d), "oy4_rows",
+                                        OY4_ROWS_PATCHES, OY4_THREE_PATCHES,
+                                        per=16)
+                out["oy4_split"] = oy4_split(dll, new, oy, args.runs, cs)
+        if args.vlq_src:
+            with tempfile.TemporaryDirectory() as d:
+                dll, new = build_design(Path(args.vlq_src).resolve(),
+                                        Path(d), "vlq_rows",
+                                        VLQ_RELAY_PATCHES, VLQ_ONE_PATCHES,
+                                        per=16)
+                out["vlq_split"] = vlq_split(dll, new, vlq, args.runs, cs)
+        if args.sass:
+            from nhwcodec_tpu_torch.kernels import build
+
+            out["sass"] = sass_summary(build.lib_path())
+        if args.oy4_vlq_only:
+            print(json.dumps(out), flush=True)
+            return 0
     snapped = y
     for a in variants:
         snapped = ds.snap_pass_device(snapped, *a)
