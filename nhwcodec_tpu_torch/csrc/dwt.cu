@@ -117,10 +117,29 @@
 // cudaOccupancyMaxActiveClusters once; if no cluster fits it returns
 // cudaErrorLaunchOutOfResources, and nothing falls back to other launches.
 //
-// The mark scan is a chain of dependent reads and writes in emission
-// order, so one thread walks one image's list, in place, reading each
-// neighbour back from memory after the previous mark's write (bound by
-// L2 latency, one round trip per mark).
+// The mark scan (mark_rows).  A record at LL (row, col) writes plane cell
+// (2 row, col) and reads plane rows 2 row - 1 .. 2 row + 1 at columns col
+// - 1 .. col + 1, flat: column 0's left cells are column 511 of the rows
+// above, column 255's right cells column 256.  Records write only even
+// rows at columns 0..255, so the odd rows, column 511 and column 256 are
+// never written, and a record depends only on the earlier records of its
+// own LL row (at col - 1, col and col + 1): rows are independent, and
+// only each row's own order matters.  A CTA owns a band of kMsRows LL
+// rows of one image (grid (256 / kMsRows, B): 128 CTAs at batch 16) and
+// stages the 65 plane rows its records read, columns 0..256 and the left
+// wraps, in shared memory.  It reads the image's records in chunks of
+// kMsChunk, four rounds of a record a thread (coalesced, the next chunk's
+// loads in flight during this one), and buckets the live records of its
+// band by row in list order: a warp's ranks in a round by
+// __match_any_sync, the counts by a prefix over the rounds' warps, the
+// rows' offsets by a warp scan, four barriers a chunk and no other global
+// load.  Then warp 0 walks: lane l takes LL row r0 + l, its chunk's
+// records in order, each a dozen shared-memory reads issued a step ahead
+// and a dozen operations; a record's cells take the step's write where it
+// lands on them.  The band's touched rows go back in 16-byte stores.  The
+// work per record is a few operations on 20 bytes, so what bounds the
+// kernel is its latencies: the staging, a chunk's record loads and
+// barriers, and the longest row's chain.
 
 #include <cooperative_groups.h>
 #include <cuda_pipeline.h>
@@ -466,35 +485,185 @@ cudaError_t waves_band_setup() {
   return e;
 }
 
-// The sequential mark scan: thread b walks image b's records in order,
-// in place on the transposed plane x (B, 512, 512).  A record is
-// row << 8 | col of the 256x256 LL block, at x[2 row][col]; its
-// neighbours are read flat (x[.][col - 1] at col 0 is the previous row's
-// last cell), as the C pass reads them.  Records with valid 0 write
-// nothing; so do rows outside 1..255, whose stencil would leave the
-// plane.  grid ceil(B / 32), block 32.
-__global__ void smooth_marks_seq(int16_t* x, const int32_t* __restrict__ recs,
-                                 const uint8_t* __restrict__ valid, int k_max,
-                                 int batch) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= batch) return;
-  int16_t* p = x + static_cast<size_t>(b) * kY * kY;
-  const int32_t* rec = recs + static_cast<size_t>(b) * k_max;
-  const uint8_t* ok = valid + static_cast<size_t>(b) * k_max;
-  for (int k = 0; k < k_max; ++k) {
-    const int r = rec[k];
-    if (!ok[k] || r < 256 || r >= 65536) continue;
-    const int scan = ((r >> 8) << 10) + (r & 255);
-    const int c = p[scan];
-    const int le = p[scan - 1];
-    const int ri = p[scan + 1];
-    const int up = p[scan - kY];
-    const int dn = p[scan + kY];
-    const int res = c * 8 - le - ri - up - dn - p[scan - kY - 1] -
-                    p[scan + kY - 1] - p[scan - kY + 1] - p[scan + kY + 1];
-    if ((res < 0 ? -res : res) < 116)
-      p[scan] = static_cast<int16_t>(
-          nhw::wrap16(nhw::asr(c * 4 + le + ri + up + dn + 4, 3)));
+// The mark scan (see the header): a band of kMsRows LL rows a CTA.  Its
+// plane rows 2 r0 - 1 .. 2 r0 + 2 kMsRows - 1 are staged at kMsPitch int16
+// a row: kMsCol0 + c holds column c (0..256), kMsCol0 - 1 the flat left
+// wrap (the row above's column 511); an odd word pitch, so that the walk's
+// lanes, a row each, spread over the banks.
+constexpr int kMsRows = 32;
+constexpr int kMsThreads = 256;
+constexpr int kMsWarps = kMsThreads / 32;
+constexpr int kMsPer = 4;                       // records a thread a chunk
+constexpr int kMsChunk = kMsThreads * kMsPer;   // records a chunk
+constexpr int kMsPitch = 274;
+constexpr int kMsCol0 = 2;
+constexpr int kMsStaged = 2 * kMsRows + 1;   // plane rows a CTA stages
+constexpr int kMsStage = (kMsStaged * 32 + kMsThreads - 1) / kMsThreads;
+
+struct MarkShared {
+  int16_t even[kMsRows * kMsPitch];        // plane rows 2 (r0 + i)
+  int16_t odd[(kMsRows + 1) * kMsPitch];   // plane rows 2 (r0 + i) - 1
+  uint8_t col[kMsChunk + 4];     // a chunk's kept records' columns by row
+                                 // (+4: a row with none reads its first)
+  int cnt[kMsPer * kMsWarps][kMsRows];   // a (round, warp)'s kept records
+                                         // a row, then the earlier ones'
+  int off[kMsRows], n[kMsRows];  // a row's first entry and its count
+  unsigned touched;              // rows with records
+};
+
+// grid (256 / kMsRows, B), kMsThreads threads.  x (B, 512, 512) int16,
+// 16-byte aligned, in place; recs, valid (B, k).  Records with valid 0 or
+// a row outside 1..255 write nothing.
+__global__ void __launch_bounds__(kMsThreads)
+    mark_rows(int16_t* __restrict__ x, const int32_t* __restrict__ recs,
+              const uint8_t* __restrict__ valid, int k) {
+  __shared__ __align__(16) MarkShared sh;
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  const int r0 = blockIdx.x * kMsRows;
+  int16_t* p = x + static_cast<size_t>(blockIdx.y) * kY * kY;
+  const int32_t* rec = recs + static_cast<size_t>(blockIdx.y) * k;
+  const uint8_t* ok = valid + static_cast<size_t>(blockIdx.y) * k;
+  // round u of a chunk takes its records u kMsThreads + t
+  int nr[kMsPer];
+  bool nok[kMsPer];
+#pragma unroll
+  for (int u = 0; u < kMsPer; ++u) {
+    const int i = u * kMsThreads + t;
+    nr[u] = i < k ? __ldg(rec + i) : 0;
+    nok[u] = i < k && __ldg(ok + i) != 0;
+  }
+  // staged row s is plane row 2 r0 - 1 + s (the one before plane row 0
+  // is never read: LL row 0 is never walked)
+  auto staged = [&](int s) {
+    return (s & 1 ? sh.even : sh.odd) + (s >> 1) * kMsPitch + kMsCol0;
+  };
+  // every load in flight before the first store
+  uint4 q[kMsStage];
+#pragma unroll
+  for (int u = 0; u < kMsStage; ++u) {
+    const int i = t + u * kMsThreads, pr = 2 * r0 - 1 + (i >> 5);
+    q[u] = i < kMsStaged * 32 && pr >= 0
+               ? *reinterpret_cast<const uint4*>(p + pr * kY + 8 * (i & 31))
+               : make_uint4(0, 0, 0, 0);
+  }
+#pragma unroll
+  for (int u = 0; u < kMsStage; ++u) {
+    const int i = t + u * kMsThreads;
+    if (i < kMsStaged * 32) {
+      uint32_t* d = reinterpret_cast<uint32_t*>(staged(i >> 5) + 8 * (i & 31));
+      d[0] = q[u].x;
+      d[1] = q[u].y;
+      d[2] = q[u].z;
+      d[3] = q[u].w;
+    }
+  }
+  if (t < kMsStaged && 2 * r0 - 1 + t >= 0) {
+    const int pr = 2 * r0 - 1 + t;
+    staged(t)[-1] = pr > 0 ? p[pr * kY - 1] : 0;
+    staged(t)[256] = p[pr * kY + 256];
+  }
+  bool touched = false;
+  for (int base = 0; base < k; base += kMsChunk) {
+    int r[kMsPer], lr[kMsPer], rank[kMsPer];
+    bool keep[kMsPer];
+#pragma unroll
+    for (int u = 0; u < kMsPer; ++u) {
+      r[u] = nr[u];
+      lr[u] = (r[u] >> 8) - r0;
+      keep[u] = nok[u] & (r[u] >= 256) & (r[u] < 65536) & (lr[u] >= 0) &
+                (lr[u] < kMsRows);
+      const int i = base + kMsChunk + u * kMsThreads + t;
+      nr[u] = i < k ? __ldg(rec + i) : 0;
+      nok[u] = i < k && __ldg(ok + i) != 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kMsPer; ++u) {
+      const unsigned peers =
+          __match_any_sync(0xFFFFFFFFu, keep[u] ? lr[u] : -1);
+      rank[u] = __popc(peers & ((1u << lane) - 1u));
+      int* cnt = sh.cnt[u * kMsWarps + w];
+      cnt[lane] = 0;
+      __syncwarp();
+      if (keep[u] & (rank[u] == 0)) cnt[lr[u]] = __popc(peers);
+    }
+    __syncthreads();
+    if (w == 0) {
+      int run = 0;
+#pragma unroll
+      for (int v = 0; v < kMsPer * kMsWarps; ++v) {
+        const int c = sh.cnt[v][lane];
+        sh.cnt[v][lane] = run;
+        run += c;
+      }
+      int incl = run;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(0xFFFFFFFFu, incl, d);
+        incl += lane >= d ? y : 0;
+      }
+      sh.off[lane] = incl - run;
+      sh.n[lane] = run;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < kMsPer; ++u)
+      if (keep[u])
+        sh.col[sh.off[lr[u]] + sh.cnt[u * kMsWarps + w][lr[u]] + rank[u]] =
+            static_cast<uint8_t>(r[u] & 255);
+    __syncthreads();
+    if (w == 0) {
+      // lane = the band's row; its records in list order.  The next
+      // record's cells are read before this one's store and take its
+      // value where they are its cell, so a step's chain is its
+      // arithmetic, not a load after a store.
+      const int n = sh.n[lane];
+      const uint8_t* e = sh.col + sh.off[lane];
+      int16_t* row = sh.even + lane * kMsPitch + kMsCol0;
+      const int16_t* up = sh.odd + lane * kMsPitch + kMsCol0;
+      const int16_t* dn = up + kMsPitch;
+      const int most = __reduce_max_sync(0xFFFFFFFFu, n);
+      int cur = e[0], nxt = e[n > 1 ? 1 : 0];
+      // the six odd-row cells of a record's stencil and their middle two
+      auto six = [&](int c) {
+        return up[c - 1] + up[c] + up[c + 1] + dn[c - 1] + dn[c] + dn[c + 1];
+      };
+      int le = row[cur - 1], c = row[cur], ri = row[cur + 1];
+      int s6 = six(cur), ud = up[cur] + dn[cur];
+      for (int m = 0; m < most; ++m) {
+        const int after = e[max(0, min(m + 2, n - 1))];   // in the row
+        const int le2 = row[nxt - 1], c2 = row[nxt], ri2 = row[nxt + 1];
+        const int s62 = six(nxt), ud2 = up[nxt] + dn[nxt];
+        const int res = 8 * c - le - ri - s6;
+        const int v = (res < 0 ? -res : res) < 116
+                          ? (4 * c + le + ri + ud + 4) >> 3
+                          : c;
+        if (m < n) row[cur] = static_cast<int16_t>(v);
+        const int d = nxt - cur;
+        le = d == 1 ? v : le2;
+        c = d == 0 ? v : c2;
+        ri = d == -1 ? v : ri2;
+        s6 = s62;
+        ud = ud2;
+        cur = nxt;
+        nxt = after;
+      }
+      touched |= n > 0;
+    }
+    __syncthreads();   // the counts and the bucket are the next chunk's
+  }
+  if (w == 0) {
+    const unsigned m = __ballot_sync(0xFFFFFFFFu, touched);
+    if (lane == 0) sh.touched = m;
+  }
+  __syncthreads();
+  const unsigned m = sh.touched;
+  for (int i = t; i < kMsRows * 32; i += kMsThreads) {
+    const int row = i >> 5, v = i & 31;
+    if (!((m >> row) & 1u)) continue;
+    const uint32_t* d = reinterpret_cast<const uint32_t*>(
+        sh.even + row * kMsPitch + kMsCol0 + 8 * v);
+    *reinterpret_cast<uint4*>(p + 2 * (r0 + row) * kY + 8 * v) =
+        make_uint4(d[0], d[1], d[2], d[3]);
   }
 }
 
@@ -965,16 +1134,17 @@ int nhw_synth_norm_rows_clip(const void* t, void* out, int batch, int n,
   return cudaGetLastError();
 }
 
-// The mark scan.  x: (B, 512, 512) int16, updated in place; recs: (B, K)
-// int32 records; valid: (B, K) uint8 (0 = padding).
+// The mark scan.  x: (B, 512, 512) int16, 16-byte aligned, updated in
+// place; recs: (B, K) int32 records; valid: (B, K) uint8 (0 = padding).
 int nhw_smooth_marks_seq(void* x, const void* recs, const void* valid, int k,
                          int batch, void* stream) {
-  if (batch < 1 || k < 0) return cudaErrorInvalidValue;
+  if (batch < 1 || batch > 65535 || k < 0) return cudaErrorInvalidValue;
+  if (misaligned(x, 16)) return cudaErrorMisalignedAddress;
   if (k == 0) return cudaSuccess;
-  smooth_marks_seq<<<(batch + 31) / 32, 32, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
+  mark_rows<<<dim3(kY / 2 / kMsRows, batch), kMsThreads, 0,
+              static_cast<cudaStream_t>(stream)>>>(
       static_cast<int16_t*>(x), static_cast<const int32_t*>(recs),
-      static_cast<const uint8_t*>(valid), k, batch);
+      static_cast<const uint8_t*>(valid), k);
   return cudaGetLastError();
 }
 

@@ -20,7 +20,7 @@
 //    nhwcodec_tpu/models/device_scans.py:2353 uv_ll_smooth_device (two
 //    62-row scans of 62-step column scans): the q <= LOW9 smoothing of
 //    the chroma LL2 block, in place on (B, 256, 256) int16 planes.  One
-//    launch, one CTA a plane.
+//    launch (uvs_relay), one CTA a plane, the two passes walked together.
 //
 // S13's rows are independent: a visit reads its left neighbour as the walk
 // left it (column 0 the previous row's column 511, which no visit writes)
@@ -33,17 +33,28 @@
 // registers, one value read a step.  Passes 2 and 3 and S14's two passes
 // share one recurrence: visit (r, j) reads rows r, r + 1 and r + 2 at
 // columns j..j + 2 and writes (r + 1, j + 1), so it needs visits (r, j - 1)
-// and (r - 1, j + 1) done and nothing later.  S14 (wave_pass) runs row r's
-// visit j at step 2r + j with a CTA barrier a step.  S12 (vlq_wave) keeps
-// the order with a barrier every 4 steps: a lane a row, 32 rows a warp,
+// and (r - 1, j + 1) done and nothing later.  Both keep the order with a
+// barrier every few steps (S12 4, S14 3): a lane a row, 32 rows a warp,
 // each lane holding windows of its row r (columns j..j + 2) and of row r +
 // 1; what it writes at (r + 1, j + 1) is what lane r + 1 reads next as
 // its row's newest value, passed one lane on with a shuffle; row r + 2 at
 // j + 1 is still an input (lane r + 1 writes it two steps later).  Lane 31
 // of a warp writes the row that lane 0 of the next warp reads from shared
-// memory, so each warp runs 69 steps behind the one before: the 65 the
-// dependence needs and the barrier's 4.  Each step loads what the next
-// needs and has no branch.
+// memory, so each warp runs behind the one before by the 65 steps the
+// dependence needs and the barrier interval (S12: 69).  Each step loads
+// what the next needs and has no branch.  S14's passes have no write test
+// and no tracking (uvs_step), and run on four warps together: pass 2 on
+// warps 0 and 1, pass 3 on warps 2 and 3 over the same rows, kUvsDelay
+// steps behind (uvs_relay).  Pass 3's visit (r, j) needs pass 2's visits up to
+// (r + 1, j) and (r, j + 1); the loads a step ahead make its step read
+// pass 2's writes of (r + 1, j + 4) and (r + 2, j + 2) (pass 2's rows r
+// and r + 1, at visits j + 3 and j + 1), and with row r + 1 in the next
+// pass-2 warp, that visit comes kUvsLag - 62 = kUvsSync + 3 steps after
+// the same-lane step; so kUvsDelay = 2 kUvsSync + 4, which also keeps
+// every pass-2 read of a cell before pass 3 overwrites it (pass 2's lane 0
+// reads the row above 2 kUvsSync steps before pass 3 writes it).  A
+// launch is kUvsSteps = 204 steps, 68 barriers (each pass was 184 steps
+// with a barrier each).
 //
 // The far zeroings land outside the quadrant, which no pass reads, and
 // zero only, so they apply once after the passes from masks: vlq_rows
@@ -65,9 +76,9 @@
 // The bound is bytes (S12: the plane read and written; S13: rows
 // 128..255; S14: the 64 x 64 block); each visit is some 20-40 operations.
 // What limits S12 and S14 is their dependent steps: S12 124 + 2 x 400
-// (the warps 69 steps apart), S13 256, S14 2 x 184, S14's each a
-// barrier; S12's step is bound by its instructions, one warp on each of
-// the SM's four schedulers.
+// (the warps 69 steps apart), S13 256, S14 204 (the passes together);
+// S12's step is bound by its instructions, one warp on each of the SM's
+// four schedulers, and so is S14's.
 
 #include <cuda_runtime.h>
 
@@ -110,73 +121,34 @@ constexpr int kVlqTail =
 constexpr int kFarThreads = 256;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kUvs = 64;               // the chroma LL2 block's side
-constexpr int kUvsPitch = 68;
+constexpr int kUvsPitch = 68;          // int16 a staged row
+constexpr int kUvsWave = kUvs - 2;     // rows and visits a row of a pass
+// S14's relay (uvs_relay): a barrier every kUvsSync steps (3: the windows'
+// period, so an unrolled group needs no register moves), warp 1 of a
+// pass kUvsLag steps behind warp 0 (as S12's kVlqLag), pass 3 kUvsDelay
+// steps behind pass 2, kUvsLead idle steps that fill a lane's windows
+// before its visit 0 (the first loads of row r + 1 read column 0 four
+// steps ahead); kUvsSteps: pass 3's row 61 visits its column 61 in the
+// last step, rounded up to a barrier
+constexpr int kUvsSync = 3;
+constexpr int kUvsLag = 65 + kUvsSync;
+constexpr int kUvsDelay = 2 * kUvsSync + 4;
+constexpr int kUvsLead = 4;
+constexpr int kUvsSteps =
+    (kUvsLead + kUvsLag + 2 * (kUvsWave - 1 - 32) + kUvsDelay + kUvsWave +
+     kUvsSync - 1) / kUvsSync * kUvsSync;
+// the reads run kUvsDelay before the block's first row (pass 3's row 0,
+// its first step) and up to kUvsSteps past its last row's start
+constexpr int kUvsFront = 16;
+constexpr int kUvsSmem = kUvsFront + kUvs * kUvsPitch + kUvsSteps;
+static_assert(kUvsFront >= kUvsDelay && kUvsFront % 8 == 0,
+              "the slack before row 0 keeps rows 8-byte aligned");
 constexpr int kLl1Rows = 32;           // S13: rows a CTA, a thread each
 constexpr int kLl1First = 128;         // S13's rows 128..255
 constexpr int kLl1Cols = 256;
 
 bool misaligned(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes != 0;
-}
-
-// S14's wave pass rule: variant 2 tests row r at j + 1 only, variant 3 at
-// j, j + 1 and j + 2; x3, x4 its thresholds, rnd the rounding of the mean.
-struct Wave {
-  int variant, x3, x4, rnd;
-};
-
-// Stage the top-left side x side corner of a row-major plane (row stride
-// `stride` int16, 4-byte aligned) at s (pitch int16 a row, even), a word a
-// thread a step: the warp reads consecutive words of a row.
-__device__ __forceinline__ void stage_corner(const int16_t* plane, int stride,
-                                             int side, int pitch, int16_t* s) {
-  const int words = side / 2;
-  for (int w = threadIdx.x; w < side * words; w += blockDim.x) {
-    const int r = w / words, c = w % words;
-    reinterpret_cast<uint32_t*>(s + r * pitch)[c] =
-        reinterpret_cast<const uint32_t*>(plane + r * stride)[c];
-  }
-}
-
-__device__ __forceinline__ void unstage_corner(const int16_t* s, int side,
-                                               int pitch, int16_t* plane,
-                                               int stride) {
-  const int words = side / 2;
-  for (int w = threadIdx.x; w < side * words; w += blockDim.x) {
-    const int r = w / words, c = w % words;
-    reinterpret_cast<uint32_t*>(plane + r * stride)[c] =
-        reinterpret_cast<const uint32_t*>(s + r * pitch)[c];
-  }
-}
-
-// One wave pass over the m x m visits of the corner staged at s (pitch
-// int16 a row), every thread of the CTA taking part (row r = threadIdx.x,
-// r < m): an inner fire writes the rounded mean.
-template <int kPitch>
-__device__ void wave_pass(int16_t* s, int m, const Wave& w) {
-  const int r = threadIdx.x;
-  for (int step = 0; step < 3 * m - 2; ++step) {
-    const int j = step - 2 * r;
-    if (r < m && j >= 0 && j < m) {
-      const int16_t* p0 = s + r * kPitch + j;
-      int16_t* p1 = s + (r + 1) * kPitch + j;
-      const int r0 = p0[0], r0s = p0[1], r0s2 = p0[2];
-      const int a0 = p1[0], r1i1 = p1[1], r1i2 = p1[2];
-      const int r2s = p0[2 * kPitch + 1];
-      bool inner;
-      if (w.variant == 2) {
-        inner = iabs(r0s - r2s) < w.x3 && iabs(a0 - r1i2) < w.x3 &&
-                iabs(r1i1 - a0) < w.x4 - 1 && iabs(r0s - r1i1) < w.x4;
-      } else {
-        inner = iabs(r0s2 - r0s) < w.x3 && iabs(r0s - r0) < w.x3 &&
-                iabs(r0 - a0) < w.x3 && iabs(r0s2 - r1i2) < w.x3 &&
-                iabs(r2s - a0) < w.x3 && iabs(a0 - r1i1) < w.x4;
-      }
-      if (inner)
-        p1[1] = static_cast<int16_t>((r0s + r2s + a0 + r1i2 + w.rnd) >> 2);
-    }
-    __syncthreads();
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -600,15 +572,116 @@ __global__ void __launch_bounds__(kLl1Rows)
   nhw::unstage_rows(s, kLl1Rows, out + b * kPlane, r0);
 }
 
-// S14: one CTA a plane, a thread a block row; both passes in place.
-__global__ void __launch_bounds__(kUvs) uv_smooth(int16_t* __restrict__ uv) {
-  __shared__ __align__(16) int16_t s[kUvs * kUvsPitch];
+// ---------------------------------------------------------------------------
+// S14
+
+// One lane's windows (as S12's WaveLane): row r at columns j..j + 2 (t),
+// row r + 1 (m), this step's loads (b2: row r + 2 at j + 1; mn, tn: rows r
+// + 1 and r at j + 3).
+struct UvsLane {
+  int j, t0, t1, t2, m0, m1, m2, b2, mn, tn;
+};
+
+// |a - b| < n as one add and one unsigned compare
+__device__ __forceinline__ bool near(int a, int b, int n) {
+  return static_cast<unsigned>(a - b + (n - 1)) <
+         static_cast<unsigned>(2 * n - 1);
+}
+
+// One step of pass 2 (kVariant 2) or 3: the visit's test and write, the
+// loads for the next step, the relay.  The windows shift every step, idle
+// or not, so a lane's first steps fill them from what it loads.  lane0:
+// a warp's first lane (its row's new values come from memory).
+template <int kVariant>
+__device__ __forceinline__ void uvs_step(UvsLane& a, const int16_t* row_t,
+                                         int16_t* row_m,
+                                         const int16_t* row_b, bool row_ok,
+                                         bool lane0) {
+  constexpr int kRnd = kVariant == 2 ? 2 : 1;
+  constexpr int x3 = 5, x4 = 8;
+  const int j = a.j;
+  const bool act = row_ok & (static_cast<unsigned>(j) < kUvsWave);
+  const int b2n = row_b[j + 2];
+  const int mnn = row_m[j + 4];
+  const int tnn = row_t[j + 4];
+  bool inner;
+  if (kVariant == 2)
+    inner = near(a.t1, a.b2, x3) & near(a.m0, a.m2, x3) &
+            near(a.m1, a.m0, x4 - 1) & near(a.t1, a.m1, x4);
+  else
+    inner = near(a.t2, a.t1, x3) & near(a.t1, a.t0, x3) &
+            near(a.t0, a.m0, x3) & near(a.t2, a.m2, x3) &
+            near(a.b2, a.m0, x3) & near(a.m0, a.m1, x4);
+  const int e = (a.t1 + a.b2 + a.m0 + a.m2 + kRnd) >> 2;
+  const int val = act & inner ? e : a.m1;
+  if (act) row_m[j + 1] = static_cast<int16_t>(val);
+  const int recv = __shfl_up_sync(kFull, val, 1);
+  // the row's next value, column j + 3: for columns 1..kUvsWave what the
+  // lane above wrote in this step
+  const bool mid = !lane0 & (static_cast<unsigned>(j + 2) < kUvsWave);
+  a.t0 = a.t1;
+  a.t1 = a.t2;
+  a.t2 = mid ? recv : a.tn;
+  a.m0 = val;
+  a.m1 = a.m2;
+  a.m2 = a.mn;
+  a.b2 = b2n;
+  a.mn = mnn;
+  a.tn = tnn;
+  a.j = j + 1;
+}
+
+// A lane's walk of its pass over row r (< kUvs; rows 62 and 63 idle),
+// from column j0 (negative: its lead, its warp's lag and its pass's
+// delay), every lane kUvsSteps steps with a CTA barrier every kUvsSync.
+template <int kVariant>
+__device__ __forceinline__ void uvs_walk(int16_t* q, int r, int lane,
+                                         int j0) {
+  const int16_t* row_t = q + r * kUvsPitch;
+  int16_t* row_m = q + min(r + 1, kUvs - 1) * kUvsPitch;
+  const int16_t* row_b = q + min(r + 2, kUvs - 1) * kUvsPitch;
+  const bool row_ok = r < kUvsWave;
+  UvsLane a{j0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
+#pragma unroll 1
+  for (int s0 = 0; s0 < kUvsSteps; s0 += kUvsSync) {
+#pragma unroll
+    for (int k = 0; k < kUvsSync; ++k)
+      uvs_step<kVariant>(a, row_t, row_m, row_b, row_ok, lane == 0);
+    __syncthreads();
+  }
+}
+
+// S14: one CTA a plane, 4 warps: warp w & 1 of pass 2 + (w >> 1), lane l
+// on row 32 (w & 1) + l; both passes in place on the staged block.
+__global__ void __launch_bounds__(128) uvs_relay(int16_t* __restrict__ uv) {
+  __shared__ __align__(16) int16_t sm[kUvsSmem];
+  int16_t* q = sm + kUvsFront;
   int16_t* P = uv + static_cast<size_t>(blockIdx.x) * kUvPlane;
-  stage_corner(P, kD, kUvs, kUvsPitch, s);
+  const int t = threadIdx.x;
+  for (int i = t; i < kUvs * kUvs / 8; i += 128) {
+    const int row = i >> 3, c = (i & 7) * 8;
+    const uint4 v = *reinterpret_cast<const uint4*>(P + row * kD + c);
+    uint2* d = reinterpret_cast<uint2*>(q + row * kUvsPitch + c);
+    d[0] = make_uint2(v.x, v.y);
+    d[1] = make_uint2(v.z, v.w);
+  }
   __syncthreads();
-  wave_pass<kUvsPitch>(s, kUvs - 2, Wave{2, 5, 8, 2});
-  wave_pass<kUvsPitch>(s, kUvs - 2, Wave{3, 5, 8, 1});
-  unstage_corner(s, kUvs, kUvsPitch, P, kD);
+  const int w = t >> 5, lane = t & 31;
+  const int r = (w & 1) * 32 + lane;
+  const int j0 =
+      -kUvsLead - kUvsLag * (w & 1) - 2 * lane - kUvsDelay * (w >> 1);
+  if (w < 2)
+    uvs_walk<2>(q, r, lane, j0);
+  else
+    uvs_walk<3>(q, r, lane, j0);
+  // the walks end on a barrier: every write is in
+  for (int i = t; i < kUvs * kUvs / 8; i += 128) {
+    const int row = i >> 3, c = (i & 7) * 8;
+    const uint2* d = reinterpret_cast<const uint2*>(q + row * kUvsPitch + c);
+    const uint2 lo = d[0], hi = d[1];
+    *reinterpret_cast<uint4*>(P + row * kD + c) =
+        make_uint4(lo.x, lo.y, hi.x, hi.y);
+  }
 }
 
 }  // namespace
@@ -647,11 +720,11 @@ int nhw_low_q_ll1_cleanup(const void* in, void* out, int batch, int x1,
   return cudaGetLastError();
 }
 
-// S14.  uv: (B, 256, 256) int16, 4-byte aligned, smoothed in place.
+// S14.  uv: (B, 256, 256) int16, 16-byte aligned, smoothed in place.
 int nhw_uv_ll_smooth(void* uv, int batch, void* stream) {
   if (batch < 1) return cudaErrorInvalidValue;
-  if (misaligned(uv, 4)) return cudaErrorMisalignedAddress;
-  uv_smooth<<<batch, kUvs, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (misaligned(uv, 16)) return cudaErrorMisalignedAddress;
+  uvs_relay<<<batch, 128, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<int16_t*>(uv));
   return cudaGetLastError();
 }

@@ -125,8 +125,9 @@ In ``csrc/vlq.cu``:
   (``_vlq_far_ref``).
 - ``low_q_ll1_cleanup_device`` (kernel ``ll1_rows``, q <= LOW9): a thread
   a row of 128..255.
-- ``uv_ll_smooth_device`` (kernel ``uv_smooth``, q <= LOW9): one CTA a
-  chroma plane, both passes as S12's wavefront.
+- ``uv_ll_smooth_device`` (kernel ``uvs_relay``, q <= LOW9): one CTA a
+  chroma plane, both passes as S12's relay on four warps, pass 3 a fixed
+  number of steps behind pass 2 (``_uvs_relay_ref``).
 
 The rows of S2's pass 1 and S13 are staged in shared memory, 32 a CTA,
 a thread a row.
@@ -2377,9 +2378,6 @@ VLQ_P1 = VLQ - 4           # pass 1's visits a row
 VLQ_WAVE = VLQ - 2         # the rows and the visits a row of passes 2-3
 VLQ_MASKS = 4              # pass 1's fires, pass 2's, pass 3's, pass 3's hits
 UVS = 64                   # the chroma LL2 block the smoothing walks
-# a wave pass: (variant: 2 reads row r at j + 1, 3 at j..j + 2; x3, x4,
-# the rounding)
-UVS_PASSES = ((2, 5, 8, 2), (3, 5, 8, 1))
 
 
 def _ll1_args(plane, x1: int) -> None:
@@ -2424,32 +2422,6 @@ def low_q_ll1_cleanup_device(plane, x1: int):
                 stream))
         build.count("low_q_ll1_cleanup")
     return out
-
-
-def _wave_ref(P, m: int, variant: int, x3: int, x4: int, rnd: int):
-    """One wave pass of the chroma LL smoothing on the (B, >= m + 2, >= m +
-    2) int32 corner P, in place: step s visits (r, s - 2r) for every row r
-    < m whose column lies in [0, m).  A visit fires where its window is
-    flat and writes the rounded mean of its four neighbours into (r + 1, j
-    + 1)."""
-    dev = P.device
-    for s in range(3 * m - 2):
-        rr = torch.arange(max(0, (s - m + 2) // 2), min(m - 1, s // 2) + 1,
-                          device=dev)
-        jj = s - 2 * rr
-        r0, r0s, r0s2 = (P[:, rr, jj + k] for k in range(3))
-        a0, r1i1, r1i2 = (P[:, rr + 1, jj + k] for k in range(3))
-        r2s = P[:, rr + 2, jj + 1]
-        if variant == 2:
-            inner = (((r0s - r2s).abs() < x3) & ((a0 - r1i2).abs() < x3)
-                     & ((r1i1 - a0).abs() < x4 - 1)
-                     & ((r0s - r1i1).abs() < x4))
-        else:
-            inner = (((r0s2 - r0s).abs() < x3) & ((r0s - r0).abs() < x3)
-                     & ((r0 - a0).abs() < x3) & ((r0s2 - r1i2).abs() < x3)
-                     & ((r2s - a0).abs() < x3) & ((a0 - r1i1).abs() < x4))
-        e = (r0s + r2s + a0 + r1i2 + rnd) >> 2
-        P[:, rr + 1, jj + 1] = torch.where(inner, e, r1i1)
 
 
 def _vlq_p1_ref(P, x1: int, x2: int):
@@ -2712,14 +2684,91 @@ def very_low_q_cleanup_device(plane, quality: int, xs7):
     return out
 
 
+# S14's relay (csrc/vlq.cu uvs_relay): the rows and visits a row of a
+# pass, the staged row's pitch and the slack before row 0 (int16), a
+# barrier every UVS_SYNC steps, warp 1 of a pass UVS_LAG steps behind
+# warp 0, pass 3 UVS_DELAY steps behind pass 2, UVS_LEAD idle steps
+# before a lane's visit 0
+UVS_WAVE = UVS - 2
+UVS_PITCH = 68
+UVS_FRONT = 16
+UVS_SYNC = 3
+UVS_LAG = 65 + UVS_SYNC
+UVS_DELAY = 2 * UVS_SYNC + 4
+UVS_LEAD = 4
+
+
+def uvs_steps() -> int:
+    """The relay's steps: pass 3's row 61 visits column 61 in the last,
+    rounded up to a barrier."""
+    last = UVS_LEAD + UVS_LAG + 2 * (UVS_WAVE - 1 - 32) + UVS_DELAY + UVS_WAVE
+    return -(-last // UVS_SYNC) * UVS_SYNC
+
+
+def _uvs_relay_ref(P) -> None:
+    """Both passes of the chroma LL smoothing on the (B, 64, 64) int32
+    block P, in place, as ``uvs_relay`` walks them: 128 lanes, warp w & 1
+    of pass 2 + (w >> 1), lane l on row r = 32 (w & 1) + l, its visit j at
+    step s = j + UVS_LEAD + UVS_LAG (w & 1) + 2 l + UVS_DELAY (w >> 1).
+    Each lane keeps its windows (row r at columns j..j + 2, each new value
+    the one lane l - 1 wrote in the step before, else loaded; row r + 1;
+    row r + 2 at j + 1), every load a step ahead; a load sees the block as
+    it stood at the last barrier (every UVS_SYNC steps), so a lag or delay
+    too short for the dependences reads a stale value here as it may on
+    the card."""
+    b, dev = P.shape[0], P.device
+    lanes = torch.arange(128, device=dev)
+    lane, w = lanes % 32, lanes // 32
+    r = (w % 2) * 32 + lane
+    pass3 = w >= 2
+    j = -UVS_LEAD - UVS_LAG * (w % 2) - 2 * lane - UVS_DELAY * pass3
+    # flat offsets of rows r, r + 1 and r + 2 (clamped to the block) in
+    # the staged layout: pitch UVS_PITCH after UVS_FRONT of slack
+    base = UVS_FRONT + UVS_PITCH * torch.stack(
+        [r, (r + 1).clamp(max=UVS - 1), (r + 2).clamp(max=UVS - 1)])
+    size = UVS_FRONT + UVS * UVS_PITCH + uvs_steps()
+    live = torch.zeros((b, size), dtype=P.dtype, device=dev)
+    cells = (UVS_FRONT + UVS_PITCH * torch.arange(UVS, device=dev)[:, None]
+             + torch.arange(UVS, device=dev)).reshape(-1)
+    live[:, cells] = P.reshape(b, -1)
+    seen = live.clone()
+    rnd = torch.where(pass3, 1, 2).to(P.dtype)
+    zero = torch.zeros((b, 128), dtype=P.dtype, device=dev)
+    t0 = t1 = t2 = m0 = m1 = m2 = b2 = mn = tn = zero
+    for s in range(uvs_steps()):
+        act = (r < UVS_WAVE) & (j >= 0) & (j < UVS_WAVE)
+        b2n = seen[:, base[2] + j + 2]
+        mnn = seen[:, base[1] + j + 4]
+        tnn = seen[:, base[0] + j + 4]
+        inner2 = (((t1 - b2).abs() < 5) & ((m0 - m2).abs() < 5)
+                  & ((m1 - m0).abs() < 7) & ((t1 - m1).abs() < 8))
+        inner3 = (((t2 - t1).abs() < 5) & ((t1 - t0).abs() < 5)
+                  & ((t0 - m0).abs() < 5) & ((t2 - m2).abs() < 5)
+                  & ((b2 - m0).abs() < 5) & ((m0 - m1).abs() < 8))
+        inner = torch.where(pass3, inner3, inner2)
+        e = (t1 + b2 + m0 + m2 + rnd) >> 2
+        val = torch.where(act & inner, e, m1)
+        live[:, (base[1] + j + 1)[act]] = val[:, act]
+        # lane l - 1's value, within each warp (lane 0 keeps its own)
+        recv = torch.where(lane > 0, val.roll(1, 1), val)
+        cin = j + 3
+        mid = (lane > 0) & (cin >= 1) & (cin <= UVS_WAVE)
+        t0, t1, t2 = t1, t2, torch.where(mid, recv, tn)
+        m0, m1, m2 = val, m2, mn
+        b2, mn, tn = b2n, mnn, tnn
+        j = j + 1
+        if (s + 1) % UVS_SYNC == 0:
+            seen = live.clone()
+    P.copy_(live[:, cells].reshape(b, UVS, UVS))
+
+
 def uv_ll_smooth_ref(process):
-    """Torch twin of ``uv_smooth``: the two wave passes on the 64 x 64
-    corner, as anti-diagonal steps over its rows."""
+    """Torch twin of ``uvs_relay``: both passes on the 64 x 64 corner as
+    the relay walks them (``_uvs_relay_ref``)."""
     _check(process, "uv_ll_smooth process", torch.int16, (None, D, D))
     out = process.clone()
     P = _i32(process[:, :UVS, :UVS])
-    for args in UVS_PASSES:
-        _wave_ref(P, UVS - 2, *args)
+    _uvs_relay_ref(P)
     out[:, :UVS, :UVS] = P.to(torch.int16)
     return out
 
@@ -2727,8 +2776,9 @@ def uv_ll_smooth_ref(process):
 def uv_ll_smooth_device(process):
     """``_uv_ll_smooth`` (q <= LOW9) on (B, 256, 256) int16 chroma
     planes, bit-exact vs the host copy's C: two smoothing passes over the
-    LL2 block.  Returns a new plane (kernel ``uv_smooth``: one launch, one
-    CTA a plane, both passes as wavefronts in shared memory)."""
+    LL2 block.  Returns a new plane (kernel ``uvs_relay``: one launch, one
+    CTA a plane, the two passes walked together in shared memory, a lane a
+    row)."""
     _check(process, "uv_ll_smooth process", torch.int16, (None, D, D))
     if not process.is_contiguous():
         raise ValueError("uv_ll_smooth process: plane must be contiguous")

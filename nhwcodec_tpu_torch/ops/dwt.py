@@ -9,7 +9,7 @@ Port of ``nhwcodec_tpu.ops.pallas_dwt``: ``synth_level`` (K1,
 ``synth_norm_rows_clip_waves_pallas``), ``synth_norm_rows_clip`` (K9,
 ``synth_norm_rows_clip_pallas``) and ``analysis_level`` (K10,
 ``analysis_level_pallas``); and ``smooth_marks_seq``, the
-sequential dering mark scan of the decode's fallback (a ``lax.scan`` in
+dering mark scan of the decode's fallback (a ``lax.scan`` in
 ``models.device_decode.y_stage2_device``).  Each wrapper launches its CUDA kernel
 (``csrc/*.cu``) for a CUDA tensor and raises if that fails; it takes its
 plain torch twin (``*_ref``) only for a tensor on the CPU.  The twins
@@ -97,28 +97,52 @@ def y_stage2_full_ref(jp: torch.Tensor, depth: torch.Tensor,
 _STENCIL = (0, -1, 1, -512, 512, -513, 511, -511, 513)
 
 
+def smooth_marks_ranks(recs: torch.Tensor, valid: torch.Tensor):
+    """The live records of (B, K) ``recs`` / ``valid`` (valid, row in
+    1..255), in (image, list) order: (image, list index, rank), the rank
+    being the count of the image's earlier live records in the same LL
+    row."""
+    rec = recs.to(torch.int64)
+    img, k = (valid & (rec >= 256) & (rec < 65536)).nonzero(as_tuple=True)
+    key = img * 256 + (rec[img, k] >> 8)
+    order = torch.sort(key, stable=True)
+    idx = torch.arange(key.numel(), device=recs.device)
+    first = torch.ones_like(key, dtype=torch.bool)
+    first[1:] = order.values[1:] != order.values[:-1]
+    start = torch.cummax(torch.where(first, idx, 0), 0).values
+    rank = torch.empty_like(idx)
+    rank[order.indices] = idx - start
+    return img, k, rank
+
+
 def smooth_marks_seq_ref(x: torch.Tensor, recs: torch.Tensor,
                          valid: torch.Tensor) -> torch.Tensor:
-    """The sequential mark scan (device_decode.py y_stage2_device,
-    :126-148), in place on the contiguous (B, 512, 512) int16 transposed
-    plane ``x``: record k of image b (row << 8 | col of the LL block)
-    smooths x[b][2 row][col] with live, flat reads.  One step per record
-    index, over all images at once; records with ``valid`` False or a
-    row outside 1..255 write nothing.  Returns ``x``."""
+    """The mark scan (device_decode.py y_stage2_device, :126-148), in
+    place on the contiguous (B, 512, 512) int16 transposed plane ``x``:
+    record k of image b (row << 8 | col of the LL block) smooths
+    x[b][2 row][col] with live, flat reads; records with ``valid`` False
+    or a row outside 1..255 write nothing.  As ``mark_rows`` takes it:
+    a record reads only its own row's earlier writes, so the LL rows are
+    independent; step t applies every live record of rank t in its (image,
+    row) (``smooth_marks_ranks``) at once, as many steps as the longest
+    row has records.  Returns ``x``."""
     b = x.shape[0]
     flat = x.view(b, -1)
-    img = torch.arange(b, device=x.device)
-    offs = torch.tensor(_STENCIL, device=x.device)
-    rec = recs.to(torch.int64)
+    img, k, rank = smooth_marks_ranks(recs, valid)
+    rec = recs.to(torch.int64)[img, k]
     scan = ((rec >> 8) << 10) + (rec & 255)
-    live = valid & (rec >= 256) & (rec < 65536)
-    scan = torch.where(live, scan, 1024)
-    for k in range(recs.shape[1]):
-        g = flat[img[:, None], scan[:, k, None] + offs].to(torch.int32)
+    order = torch.argsort(rank, stable=True)
+    offs = torch.tensor(_STENCIL, device=x.device)
+    start = 0
+    for n in torch.bincount(rank).tolist():
+        sel = order[start:start + n]
+        start += n
+        i, s = img[sel], scan[sel]
+        g = flat[i[:, None], s[:, None] + offs].to(torch.int32)
         res = g[:, 0] * 8 - g[:, 1:].sum(1)
         new = (g[:, 0] * 4 + g[:, 1:5].sum(1) + 4) >> 3
-        take = live[:, k] & (res.abs() < 116)
-        flat[img, scan[:, k]] = torch.where(take, new, g[:, 0]).to(torch.int16)
+        flat[i, s] = torch.where(res.abs() < 116, new, g[:, 0]).to(
+            torch.int16)
     return x
 
 
@@ -535,10 +559,13 @@ def synth_norm_rows_clip(t: torch.Tensor) -> torch.Tensor:
 
 def smooth_marks_seq(x: torch.Tensor, recs: torch.Tensor,
                      valid: torch.Tensor) -> torch.Tensor:
-    """The sequential dering mark scan, in place on the contiguous
-    (B, 512, 512) int16 transposed plane ``x`` (see
-    ``smooth_marks_seq_ref``); recs: (B, K) int32, valid: (B, K) bool, as
-    ``models.device_decode.pad_marks`` makes them.  Returns ``x``."""
+    """The dering mark scan of the decode's fallback, in place on the
+    contiguous, 16-byte aligned (B, 512, 512) int16 transposed plane
+    ``x`` (see ``smooth_marks_seq_ref``); recs: (B, K) int32, valid: (B,
+    K) bool, as ``models.device_decode.pad_marks`` makes them.  Kernel
+    ``mark_rows``: one launch, a CTA a band of 32 LL rows of an image,
+    each row's records walked in order in shared memory.  Returns
+    ``x``."""
     _check(x, "smooth_marks_seq x", torch.int16, (None, 512, 512))
     _check(recs, "smooth_marks_seq recs", torch.int32, (x.shape[0], None))
     _check(valid, "smooth_marks_seq valid", torch.bool, tuple(recs.shape))
@@ -546,6 +573,8 @@ def smooth_marks_seq(x: torch.Tensor, recs: torch.Tensor,
         raise ValueError("smooth_marks_seq: inputs must be contiguous")
     if all(a.device.type == "cpu" for a in (x, recs, valid)):
         return smooth_marks_seq_ref(x, recs, valid)
+    if x.data_ptr() % 16:
+        raise ValueError("smooth_marks_seq: x must be 16-byte aligned")
     lib, stream = _cuda_args(x, recs, valid)
     b, k = recs.shape
     if b and k:

@@ -588,6 +588,34 @@ def test_smooth_marks_seq_kernel(cuda):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("b", [1, 3, 16])
+@pytest.mark.parametrize("kind", ["out of order", "edges", "dense",
+                                  "duplicates", "padding between",
+                                  "mixed K"])
+def test_mark_scan_kernel_kinds(cuda, kind, b):
+    import chip_smoke as cs
+
+    x, recs, valid = cs.mark_scan_inputs(np.random.default_rng(90 + b), b,
+                                         kind)
+    X, R, V = (torch.from_numpy(a).to(cuda) for a in (x, recs, valid))
+    before = build.LAUNCHES["smooth_marks_seq"]
+    got = dwt.smooth_marks_seq(X.clone(), R, V)
+    assert build.LAUNCHES["smooth_marks_seq"] == before + 1
+    torch.testing.assert_close(got, dwt.smooth_marks_seq_ref(X.clone(), R, V),
+                               rtol=0, atol=0)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  cs.host_marks(x, recs, valid))
+
+
+def test_mark_scan_rejects_a_misaligned_plane(cuda):
+    # the kernel stages and stores 16-byte vectors
+    odd = torch.zeros(512 * 512 + 1, dtype=torch.int16, device=cuda)
+    recs, valid = (torch.from_numpy(a).to(cuda)
+                   for a in tdd.pad_marks([[(3 << 8) | 4]]))
+    with pytest.raises(ValueError, match="16-byte"):
+        dwt.smooth_marks_seq(odd[1:].view(1, 512, 512), recs, valid)
+
+
 def _hq_streams():
     gens = list(fixtures.GENERATORS.values())
     return [encoder.encode(gens[i % len(gens)](), q)
@@ -1380,7 +1408,7 @@ def test_low_q_ll1_cleanup_kernel(cuda, kind, x1, b):
 
 
 @pytest.mark.parametrize("b", [1, 3, 16])
-@pytest.mark.parametrize("kind", ["random", "wave left"])
+@pytest.mark.parametrize("kind", ["random", "wave left", "pass 3 on pass 2"])
 def test_uv_ll_smooth_kernel(cuda, kind, b):
     import chip_smoke as cs
     from nhwcodec_tpu_torch.models import device_scans as ds

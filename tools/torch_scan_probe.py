@@ -1,10 +1,11 @@
 """Device times of the port's S1 (snap passes), S2 (offset_y), S3
 (merge_crossing), S4 (pair promotion), S5 (column ladder), S6
 (classify), S7 (ll2_code_y), S9 (uv_sentinel), S10 (offset_y_low4), S11
-(the lowest-q cleanup), S12 (the very-low-q cleanup) and E1
-(chain_starts, the Y and the UV words) on the q20 batch (S10 on q16,
-S11 on q13, S12 on q12 planes), for one tree of the repo, and the split
-of a kernel of S2-S5, S7, S9-S12 or E1 between its phases.
+(the lowest-q cleanup), S12 (the very-low-q cleanup), S14 (the chroma LL
+smoothing), the decode's mark scan and E1 (chain_starts, the Y and the
+UV words) on the q20 batch (S10 on q16, S11 on q13, S12 on q12, S14 on
+q8 planes), for one tree of the repo, and the split of a kernel of S2-S5,
+S7, S9-S12, S14, the mark scan or E1 between its phases.
 
 Run from anywhere on a machine with a CUDA card:
 
@@ -12,7 +13,8 @@ Run from anywhere on a machine with a CUDA card:
         [--offset-y-src FILE] [--uv-src FILE] [--ll2-src FILE]
         [--pp-src FILE] [--entropy-src FILE] [--merge-src FILE]
         [--lq-src FILE] [--merge-lq-only] [--oy4-src FILE]
-        [--vlq-src FILE] [--oy4-vlq-only] [--dump DIR] [--batches]
+        [--vlq-src FILE] [--oy4-vlq-only] [--marks-src FILE]
+        [--uvs-src FILE] [--marks-uvs-only] [--dump DIR] [--batches]
         [--placement] [--sass] [--runs N]
 
 ``--tree`` is the root of the tree whose ``nhwcodec_tpu_torch`` and
@@ -161,6 +163,38 @@ inputs and reported in µs:
 ``--oy4-vlq-only`` skips every other kernel, ``--dump`` saves the raw
 stamps of S10 and S12 (runs x CTAs x 16, ns) as ``.npy`` files, and
 ``--sass`` covers both designs of both.
+
+``--marks-src`` takes a ``dwt.cu`` and ``--uvs-src`` a ``vlq.cu`` of
+either design of the mark scan and S14; with either, or
+``--marks-uvs-only``, the JSON line holds the mark scan's graph times
+(clone + scan, and the clone alone) at batch 16 on the first three
+``chip_smoke.MARK_KINDS`` inputs, as ``chip_smoke.mark_scan_phase``
+draws them, and on the q20 chunk of the forced fallback's decode
+(``chip_smoke.fallback_phase``), and S14's on the 8 U and V planes
+captured at q8 from ``chip_smoke.quality_batch(images, 8)``, twice, and
+on each
+``chip_smoke.UVS_KINDS`` kind.  Each source is stamped (16 stamps a
+CTA), checked against the tree's wrapper on those inputs and reported in
+µs:
+
+- the mark scan, a thread an image (``smooth_marks_seq``): the walk of
+  the longest list from the CTA's start, and its ns a record;
+- the mark scan, a band of 32 LL rows a CTA (``mark_rows``): from a CTA's
+  start, the band staged; summed over the chunks, the loads and the
+  bucketing, and the walk (with the longest row's records, the chain, and
+  its ns a record); the stores; the spread of the CTAs' starts and the
+  last CTA's end;
+- either design of either kernel: the graph time of the stamped library's
+  call (the plane's copy and the launch; for the mark scan the copy's
+  alone beside it), the two designs' times within one call;
+- S14, a barrier a step (``uv_smooth``): the staging, each pass (and its
+  ns a step), the store;
+- S14, the relay (``uvs_relay``): the staging, the walk (and its ns a
+  step), each warp's share of the walk spent waiting at the barriers
+  (its SM's clock), the store.
+
+``--marks-uvs-only`` skips every other kernel; ``--sass`` covers both
+designs of both (the given sources' counts are of their stamped builds).
 
 Prints the card's name and power limit, then one JSON line.
 """
@@ -537,6 +571,79 @@ VLQ_RELAY_PATCHES = (
      "                   wd[3] & keep[3]);\n  }\n", "",
      "  atomicMax(&g_ladder_stamp[blockIdx.y * NHW_PER + 7], nhw_now());\n"),
 )
+# the mark scan, a thread an image (smooth_marks_seq): 0 start, 5 the
+# last walk's end
+MARKS_SEQ_PATCHES = (
+    ("  const int b = blockIdx.x * blockDim.x + threadIdx.x;\n"
+     "  if (b >= batch) return;\n", "",
+     "  if (threadIdx.x == 0) NHW_STAMP(0);\n"),
+    ("          nhw::wrap16(nhw::asr(c * 4 + le + ri + up + dn + 4, 3)));\n"
+     "  }\n", "", "  NHW_STAMP_MAX(5);\n"),
+)
+# the mark scan, a band a CTA (mark_rows): 0 start, 1 staged, 5 stored;
+# summed over the chunks (ns): 2 the loads and the bucketing, 3 the walk;
+# 4 the longest row's records summed over the chunks, 6 the chunks
+MARKS_ROWS_PATCHES = (
+    ("  // round u of a chunk takes its records u kMsThreads + t\n",
+     "  if (t == 0) NHW_STAMP(0);\n"
+     "  unsigned long long ps_t = 0, ps_c = 0, ps_w = 0, ps_n = 0, ps_k = 0;"
+     "\n", ""),
+    ("  bool touched = false;\n", "  NHW_STAMP_MAX(1);\n", ""),
+    ("    int r[kMsPer], lr[kMsPer], rank[kMsPer];\n",
+     "    ps_t = nhw_now();\n    ++ps_k;\n", ""),
+    ("    if (w == 0) {\n      // lane = the band's row; its records in list "
+     "order",
+     "    if (t == 0) {\n      const unsigned long long n_ = nhw_now();\n"
+     "      ps_c += n_ - ps_t;\n      ps_t = n_;\n    }\n", ""),
+    ("      touched |= n > 0;\n", "", "      ps_n += most;\n"),
+    ("    __syncthreads();   // the counts and the bucket are the next "
+     "chunk's\n", "", "    if (t == 0) ps_w += nhw_now() - ps_t;\n"),
+    ("        make_uint4(d[0], d[1], d[2], d[3]);\n  }\n", "",
+     "  NHW_STAMP_MAX(5);\n  if (t == 0) {\n    unsigned long long* nhw_b = "
+     "g_ladder_stamp + (blockIdx.y * gridDim.x + blockIdx.x) * NHW_PER;\n"
+     "    nhw_b[2] = ps_c;\n    nhw_b[3] = ps_w;\n    nhw_b[4] = ps_n;\n"
+     "    nhw_b[6] = ps_k;\n  }\n"),
+)
+# S14, a barrier a step (uv_smooth): 0 start, 1 staged, 2 pass 2, 3 pass
+# 3, 4 stored
+UVS_ONE_PATCHES = (
+    ("  stage_corner(P, kD, kUvs, kUvsPitch, s);\n",
+     "  if (threadIdx.x == 0) NHW_STAMP(0);\n", ""),
+    ("  wave_pass<kUvsPitch>(s, kUvs - 2, Wave{2, 5, 8, 2});\n",
+     "  if (threadIdx.x == 0) NHW_STAMP(1);\n",
+     "  if (threadIdx.x == 0) NHW_STAMP(2);\n"),
+    ("  wave_pass<kUvsPitch>(s, kUvs - 2, Wave{3, 5, 8, 1});\n", "",
+     "  if (threadIdx.x == 0) NHW_STAMP(3);\n"),
+    ("  unstage_corner(s, kUvs, kUvsPitch, P, kD);\n", "",
+     "  __syncthreads();\n  if (threadIdx.x == 0) NHW_STAMP(4);\n"),
+)
+# S14, the relay (uvs_relay): 0 start, 1 staged, 2 walked, 4 stored; SM
+# cycles of warp w's walk at 12 + w, of its waits at the barriers at 8 + w
+UVS_RELAY_PATCHES = (
+    ("  UvsLane a{j0, 0, 0, 0, 0, 0, 0, 0, 0, 0};\n", "",
+     "  long long nhw_wait = 0;\n  const long long nhw_w0 = clock64();\n"),
+    ("      uvs_step<kVariant>(a, row_t, row_m, row_b, row_ok, lane == 0);\n",
+     "",
+     "    const long long nhw_c0 = clock64();\n"),
+    ("    const long long nhw_c0 = clock64();\n    __syncthreads();\n", "",
+     "    nhw_wait += clock64() - nhw_c0;\n"),
+    ("    nhw_wait += clock64() - nhw_c0;\n  }\n", "",
+     "  if (lane == 0) {\n    unsigned long long* nhw_b = g_ladder_stamp + "
+     "blockIdx.x * NHW_PER + (threadIdx.x >> 5);\n"
+     "    atomicAdd(nhw_b + 8, static_cast<unsigned long long>(nhw_wait));\n"
+     "    atomicAdd(nhw_b + 12, static_cast<unsigned long long>(clock64() - "
+     "nhw_w0));\n  }\n"),
+    ("  const int w = t >> 5, lane = t & 31;\n",
+     "  if (t == 0) NHW_STAMP(1);\n", ""),
+    ("  int16_t* P = uv + static_cast<size_t>(blockIdx.x) * kUvPlane;\n"
+     "  const int t = threadIdx.x;\n", "", "  if (t == 0) NHW_STAMP(0);\n"),
+    ("  // the walks end on a barrier: every write is in\n",
+     "  if (t == 0) NHW_STAMP(2);\n", ""),
+    ("    *reinterpret_cast<uint4*>(P + row * kD + c) =\n"
+     "        make_uint4(lo.x, lo.y, hi.x, hi.y);\n  }\n", "",
+     "  __syncthreads();\n  if (t == 0) NHW_STAMP(4);\n"),
+)
+
 # the steps of a wave pass: a CTA barrier a step (one launch of passes
 # 1-3); the relay's (csrc/vlq.cu kVlqSteps: 3 warps 69 steps apart, 191
 # steps a warp, rounded up to 4)
@@ -564,8 +671,9 @@ def patch_stamps(src: str, patches, per: int = STAMPS) -> str:
 
 
 def build_stamped(src_path: Path, out_dir: Path, patches,
-                  per: int = STAMPS):
-    """The stamped library of a kernel source."""
+                  per: int = STAMPS, extra: tuple = ()):
+    """The stamped library of a kernel source (with the sources ``extra``
+    of its directory, whose symbols it calls, as they are)."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     cu = out_dir / f"{src_path.stem}_stamped.cu"
@@ -574,7 +682,9 @@ def build_stamped(src_path: Path, out_dir: Path, patches,
     nvcc = str(Path(CUDA_HOME) / "bin" / "nvcc") if CUDA_HOME else "nvcc"
     subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
                     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                    "-I", str(src_path.parent), str(cu), "-o", str(lib)],
+                    "-I", str(src_path.parent), str(cu),
+                    *(str(src_path.parent / e) for e in extra), "-o",
+                    str(lib)],
                    check=True)
     dll = ctypes.CDLL(str(lib))
     dll.nhw_ladder_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int,
@@ -723,12 +833,12 @@ def ll2_split(dll, bands: bool, planes: dict, runs: int, cs) -> dict:
 
 
 def build_design(src_path: Path, out_dir: Path, marker: str, new_patches,
-                 old_patches, per: int = STAMPS):
+                 old_patches, per: int = STAMPS, extra: tuple = ()):
     """(the stamped library of either design of a kernel source, whether
-    it is the cluster design: ``marker`` in it)."""
+    it is the new design: ``marker`` in it)."""
     new = marker in src_path.read_text()
     return build_stamped(src_path, out_dir, new_patches if new
-                         else old_patches, per), new
+                         else old_patches, per, extra), new
 
 
 def lq_inputs(cs, host_encoder, images, dev) -> dict:
@@ -1385,11 +1495,155 @@ def vlq_split(dll, new: bool, inputs: dict, runs: int, cs) -> dict:
     return out
 
 
+def marks_uvs_inputs(cs, host_encoder, images, dev) -> tuple:
+    """The mark scan's inputs ((x, recs, valid): the first three
+    ``chip_smoke.MARK_KINDS`` inputs at batch 16 as ``mark_scan_phase``
+    draws them, and the scan's own inputs in the forced fallback's decode
+    of ``chip_smoke.fallback_streams``' 4 q20 streams) and S14's (planes
+    at batch 16: the 8 U and V planes captured at q8 from
+    ``chip_smoke.quality_batch(images, 8)``, twice, and each
+    ``chip_smoke.UVS_KINDS`` kind as ``vlq_kernel_phase`` draws them)."""
+    import torch
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    from nhwcodec_tpu_torch.models import device_decode as tdd
+
+    rng = np.random.default_rng(cs.SEED + 90)
+    marks = {f"{kind} marks": tuple(map(t, cs.mark_scan_inputs(rng, 16,
+                                                                kind)))
+             for kind in cs.MARK_KINDS[:3]}
+    with cs.ScanCapture() as cap:
+        tdd.decode_batch_device(cs.fallback_streams()[:4], device=dev)
+    marks["q20 fallback chunk's marks"] = cap.calls[0]
+    with cs.StreamCapture() as cap:
+        for img in cs.quality_batch(images, 8):
+            host_encoder.encode(img, 8)
+    u = np.stack([p["in"] for r in cap.records if "uvs" in r
+                  for p in r["uvs"]])
+    uvs = {"q8 U and V planes": t(np.concatenate([u] * (16 // len(u))))}
+    rng = np.random.default_rng(cs.SEED + 80)
+    for kind in cs.VLQ_KINDS:
+        cs.vlq_edge_planes(rng, 16, kind)
+    for kind in cs.LL1_KINDS:
+        cs.ll1_edge_planes(rng, 16, kind)
+    for kind in cs.UVS_KINDS:
+        uvs[f"{kind} planes"] = t(cs.uvs_edge_planes(rng, 16, kind))
+    return marks, uvs
+
+
+def marks_split(dll, rows: bool, inputs: dict, runs: int, cs) -> dict:
+    """The stamped mark scan on each (x, recs, valid): its output against
+    the tree's smooth_marks_seq, the stamps' medians."""
+    import torch
+
+    from nhwcodec_tpu_torch.ops import dwt
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    dll.nhw_smooth_marks_seq.argtypes = [p, p, p, i, i, p]
+    dll.nhw_smooth_marks_seq.restype = i
+    out = {}
+    for what, (x, recs, valid) in inputs.items():
+        b, k = recs.shape
+        got = x.clone()
+
+        def call():
+            got.copy_(x)
+            rc = dll.nhw_smooth_marks_seq(
+                got.data_ptr(), recs.data_ptr(), valid.data_ptr(), k, b,
+                torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise SystemExit(f"torch_scan_probe: stamped launch failed "
+                                 f"{rc}")
+
+        call()
+        torch.cuda.synchronize()
+        cs.check(torch.equal(got, dwt.smooth_marks_seq(x.clone(), recs,
+                                                       valid)),
+                 f"the stamped smooth_marks_seq differs from the tree's: "
+                 f"{what}")
+        ctas = 8 * b if rows else (b + 31) // 32
+        t = raw_stamps(dll, call, ctas, runs, 16)
+        res = {"ctas": ctas, "runs": runs, "k": k,
+               "event_ms": cs.median_ms(call),
+               "copy_and_scan_graph_ms": cs.graph_ms(call),
+               "copy_graph_ms": cs.graph_ms(lambda: got.copy_(x))}
+        if rows:
+            chain = t[..., 4] > 0
+            res.update(design="a band of 32 rows a CTA",
+                       staged_us=since(t, 1, 0),
+                       loads_and_buckets_us=float(np.median(t[..., 2])) / 1e3,
+                       walk_us=float(np.median(t[..., 3])) / 1e3,
+                       chunks=float(np.median(t[..., 6])),
+                       longest_row_records=int(t[..., 4].max()),
+                       walk_ns_a_record=float(np.median(
+                           t[..., 3][chain] / t[..., 4][chain])),
+                       stored_us=since(t, 5, 0), **skew(t, 5))
+        else:
+            res.update(design="a thread an image", walk_us=since(t, 5, 0),
+                       walk_ns_a_record=1e3 * since(t, 5, 0) / k)
+        out[what] = res
+    return out
+
+
+def uvs_split(dll, relay: bool, planes: dict, runs: int, cs) -> dict:
+    """The stamped S14 on each plane batch: its output against the tree's
+    uv_ll_smooth_device, the stamps' medians."""
+    import torch
+
+    from nhwcodec_tpu_torch.models import device_scans as ds
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    dll.nhw_uv_ll_smooth.argtypes = [p, i, p]
+    dll.nhw_uv_ll_smooth.restype = i
+    steps = ds.uvs_steps() if relay else 3 * 62 - 2
+    out = {}
+    for what, x in planes.items():
+        b = x.shape[0]
+        got = x.clone()
+
+        def call():
+            got.copy_(x)
+            rc = dll.nhw_uv_ll_smooth(got.data_ptr(), b,
+                                      torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise SystemExit(f"torch_scan_probe: stamped launch failed "
+                                 f"{rc}")
+
+        call()
+        torch.cuda.synchronize()
+        cs.check(torch.equal(got, ds.uv_ll_smooth_device(x)),
+                 f"the stamped uv_ll_smooth differs from the tree's: {what}")
+        t = raw_stamps(dll, call, b, runs, 16)
+        res = {"ctas": b, "runs": runs, "event_ms": cs.median_ms(call),
+               "copy_and_smooth_graph_ms": cs.graph_ms(call),
+               "staged_us": since(t, 1, 0)}
+        if relay:
+            walk = since(t, 2, 1)
+            res.update(design="the relay, four warps", walk_us=walk,
+                       steps=steps, ns_a_step=1e3 * walk / steps,
+                       barrier_wait_share=[float(np.median(
+                           t[..., 8 + w] / np.maximum(t[..., 12 + w], 1)))
+                           for w in range(4)],
+                       stored_us=since(t, 4, 2),
+                       end_from_launch_us=since_launch(t, 4))
+        else:
+            res.update(design="a barrier a step", pass2_us=since(t, 2, 1),
+                       pass3_us=since(t, 3, 2), stored_us=since(t, 4, 3),
+                       end_from_launch_us=since_launch(t, 4))
+            for k in ("pass2", "pass3"):
+                res[f"{k}_ns_a_step"] = 1e3 * res[f"{k}_us"] / steps
+        out[what] = res
+    return out
+
+
 SASS_KERNELS = ("pair_promotion", "chain_tiles", "chain_entries",
                 "chain_emit", "chain_scan", "merge_tiles", "merge_entries",
                 "merge_emit", "merge_crossing", "lq_a", "lq_maps", "lq_emit",
                 "lowest_q_rows", "oy4_maps", "oy4_emit", "oy4_rows",
-                "vlq_passes", "vlq_rows", "vlq_far")
+                "vlq_passes", "vlq_rows", "vlq_far", "smooth_marks_seq",
+                "mark_rows", "uv_smooth", "uvs_relay")
 SASS_CLASSES = {"shared": ("LDS", "STS", "ATOMS"),
                 "global": ("LDG", "STG", "ATOMG", "RED", "LD.", "ST."),
                 "shuffle": ("SHFL",), "vote": ("VOTE",),
@@ -1445,6 +1699,9 @@ def main() -> int:
     ap.add_argument("--oy4-src", default=None)
     ap.add_argument("--vlq-src", default=None)
     ap.add_argument("--oy4-vlq-only", action="store_true")
+    ap.add_argument("--marks-src", default=None)
+    ap.add_argument("--uvs-src", default=None)
+    ap.add_argument("--marks-uvs-only", action="store_true")
     ap.add_argument("--dump", default=None)
     ap.add_argument("--batches", action="store_true")
     ap.add_argument("--placement", action="store_true")
@@ -1482,6 +1739,46 @@ def main() -> int:
     rs = host_encoder._res_setting(20)
     variants = des.snap_args(20)
     out = {"tree": str(tree), "batch": len(images)}
+    if args.marks_src or args.uvs_src or args.marks_uvs_only:
+        from nhwcodec_tpu_torch.ops import dwt
+
+        marks, uvs = marks_uvs_inputs(cs, host_encoder, images, dev)
+        for what, (x, r, v) in marks.items():
+            out[f"smooth_marks_seq_graph_ms {what}"] = cs.graph_ms(
+                lambda: dwt.smooth_marks_seq(x.clone(), r, v))
+            out[f"clone_graph_ms {what}"] = cs.graph_ms(lambda: x.clone())
+        for what, x in uvs.items():
+            out[f"uv_ll_smooth_graph_ms {what}"] = cs.graph_ms(
+                lambda: ds.uv_ll_smooth_device(x))
+        if args.marks_src:
+            with tempfile.TemporaryDirectory() as d:
+                dll, rows = build_design(Path(args.marks_src).resolve(),
+                                         Path(d), "mark_rows",
+                                         MARKS_ROWS_PATCHES,
+                                         MARKS_SEQ_PATCHES, per=16,
+                                         extra=("analysis.cu",))
+                out["marks_split"] = marks_split(dll, rows, marks, args.runs,
+                                                 cs)
+                if args.sass:
+                    out["marks_sass_stamped"] = sass_summary(
+                        Path(d) / f"lib{Path(args.marks_src).stem}_stamped.so")
+        if args.uvs_src:
+            with tempfile.TemporaryDirectory() as d:
+                dll, relay = build_design(Path(args.uvs_src).resolve(),
+                                          Path(d), "uvs_relay",
+                                          UVS_RELAY_PATCHES, UVS_ONE_PATCHES,
+                                          per=16)
+                out["uvs_split"] = uvs_split(dll, relay, uvs, args.runs, cs)
+                if args.sass:
+                    out["uvs_sass_stamped"] = sass_summary(
+                        Path(d) / f"lib{Path(args.uvs_src).stem}_stamped.so")
+        if args.sass:
+            from nhwcodec_tpu_torch.kernels import build
+
+            out["sass"] = sass_summary(build.lib_path())
+        if args.marks_uvs_only:
+            print(json.dumps(out), flush=True)
+            return 0
     if args.oy4_src or args.vlq_src or args.oy4_vlq_only:
         oy, vlq = oy4_vlq_inputs(cs, host_encoder, images, dev)
         for what, x in oy.items():
