@@ -1,0 +1,2 @@
+# Frozen copy of nhwcodec_tpu_torch/host/models/__init__.py at commit a4a43cf (the benchmark's
+# reference); package paths rewritten to benchmark.reference.
